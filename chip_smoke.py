@@ -3,26 +3,35 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs three phases and prints one JSON line for each:
+checkout, then runs four phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
    the odd shapes, bit-31 words, a 64-leaf mixed tree and a 1000-child
-   Union; kernel and plain times from CUDA events, with the inputs
-   rotated so that the 50 MB L2 is exceeded as the serving path meets it.
+   Union, and the op count at the benchmark's shape [16, 2^25] for every
+   op, at one long row, 1-D, W = 4k+1..3, W below one CTA's chunk,
+   all-ones and bit-31 words and views at odd word offsets; kernel and
+   plain times from CUDA events, with the inputs rotated so that the
+   50 MB L2 is exceeded as the serving path meets it.
 2. ``count``: Count queries through ``Executor.execute`` over an index of
    256 slices (268,435,456 columns), cold and then resident.
 3. ``topn``: exact TopN through ``Executor.execute`` over 10 slices, the
    resident form (200 candidates) and the streaming form (1,000
    candidates).
+4. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+   this process at its default width and rows (16 pairs of 2^30-bit
+   rows), with fewer chained dispatches (BENCH_ITERS); its line is the
+   phase's line.
 
 Every answer of phases 2 and 3 is held to the host roaring answer
-computed from the port's own fragments. The kernels' launch counters are
-set to 0 before phase 2 and read after phase 3: every kernel must have
-launched on that main path. Then it prints the card's name and power
-limit, the kernel table as one JSON object, and as its last line
-``{"ok": true, "device": {...}}``. Any mismatch or error exits non-zero
-before that line. Without a card it exits 1 and prints no result.
+computed from the port's own fragments, and every count of phase 4 to
+the host ``popcnt_and``. The kernels' launch counters are set to 0
+before phase 2 and read after phase 4: every kernel must have launched
+on that main path, and the op count in phase 4. Then it prints the
+card's name and power limit, the kernel table as one JSON object, and
+as its last line ``{"ok": true, "device": {...}}``. Any mismatch or
+error exits non-zero before that line. Without a card it exits 1 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -30,12 +39,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
+BENCH_WORDS = 1 << 25      # words of a benchmark row (2^30 bits)
+BENCH_ITERS = 64           # chained dispatches a trial in the bench phase
 
 
 def _fail(msg: str) -> None:
@@ -87,6 +97,61 @@ def _rand_words(gen, shape, device):
                       dtype=torch.int64).to(torch.int32)
     w.view(-1)[0] = -1
     return w.to(device)
+
+
+def _dev_words(gen, shape, device):
+    """Random int32-viewed u32 words made on the card (the 4 GiB
+    benchmark operands would take long on the host)."""
+    import torch
+    w = torch.randint(-2**31, 2**31, shape, generator=gen,
+                      dtype=torch.int64, device=device).to(torch.int32)
+    w.view(-1)[0] = -1
+    return w
+
+
+def _op_count_checks(device, seed: int) -> tuple[int, int]:
+    """op_count_rows against its plain version, exact, at the shapes of
+    the benchmark and the odd ones; returns (checks, max abs error)."""
+    import torch
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    W = BENCH_WORDS
+    cases = [(op, (16, W)) for op in ("and", "or", "xor", "andnot")]
+    cases += [("and", (1, W)), ("xor", (W + 3,)), ("or", (3, 4 * 8193 + 1)),
+              ("andnot", (3, 4 * 8193 + 2)), ("xor", (3, 4 * 8193 + 3)),
+              ("and", (5, 37)), ("andnot", (4, 3))]
+    checks = err = 0
+    for op, shape in cases:
+        a, b = _dev_words(gen, shape, device), _dev_words(gen, shape, device)
+        err = max(err, _check_equal(f"op_count_rows[{op} {list(shape)}]",
+                                    ck.op_count_rows(op, a, b),
+                                    ck.op_count_rows_torch(op, a, b)))
+        checks += 1
+        del a, b
+    for word in (-1, -2**31):  # all-ones words, bit-31 words
+        a = torch.full((4, 4099), word, dtype=torch.int32, device=device)
+        for op in ("and", "andnot"):
+            err = max(err, _check_equal(f"op_count_rows[{op} {word:#x}]",
+                                        ck.op_count_rows(op, a, a),
+                                        ck.op_count_rows_torch(op, a, a)))
+            checks += 1
+    base = _dev_words(gen, (2, 8 * 1001 + 4), device)  # rows on the grid
+    for off in (1, 2, 3):  # views at 4, 8 and 12 bytes past the grid
+        a = base[0, off:off + 8 * 1001].view(8, 1001)
+        b = base[1, off:off + 8 * 1001].view(8, 1001)
+        err = max(err, _check_equal(f"op_count_rows[offset {off}]",
+                                    ck.op_count_rows("xor", a, b),
+                                    ck.op_count_rows_torch("xor", a, b)))
+        checks += 1
+    try:
+        ck.op_count_rows("and", base[0, 1:9], base[0, 2:10])
+    except ValueError:
+        checks += 1
+    else:
+        _fail("op_count_rows: operands at different 16-byte offsets "
+              "neither counted nor refused")
+    return checks, err
 
 
 def _fold(op, n):
@@ -178,6 +243,9 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             ck.densify_torch(lane, val, w)))
         checks += 1
 
+    n, err["op_count_rows"] = _op_count_checks(device, seed)
+    checks += n
+
     # Times at the shapes of the main path.
     copies = 4
     inter = [(exprs["intersect"], _rand_words(gen, (2, 256, W), device))
@@ -191,6 +259,12 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
              torch.from_numpy(vals.view(np.int32)).to(device), W)
             for _ in range(copies)]
     de_bytes = lanes.size * 8 + 256 * W * 4
+    gen_dev = torch.Generator(device=device).manual_seed(seed + 3)
+    bench_ops = [("and", _dev_words(gen_dev, (16, BENCH_WORDS), device),
+                  _dev_words(gen_dev, (16, BENCH_WORDS), device))]
+    oc_bytes = 2 * 16 * BENCH_WORDS * 4 + 16 * 4
+    long_row = [("and", _dev_words(gen_dev, (1, BENCH_WORDS), device),
+                 _dev_words(gen_dev, (1, BENCH_WORDS), device))]
     table = []
     for name, src, rep, kern, plain, args, nbytes, iters, shape in (
             ("expr_count_rows", "pilosa_tpu_torch/ops/csrc/expr_count.cu",
@@ -205,7 +279,11 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             ("densify", "pilosa_tpu_torch/ops/csrc/densify.cu",
              "pilosa_tpu/ops/pallas_kernels.py:323", ck.densify,
              ck.densify_torch, dens, de_bytes, 200,
-             f"leaf slab upload: slots {list(lanes.shape)}")):
+             f"leaf slab upload: slots {list(lanes.shape)}"),
+            ("op_count_rows", "pilosa_tpu_torch/ops/csrc/op_count.cu",
+             "pilosa_tpu/ops/pallas_kernels.py:86", ck.op_count_rows,
+             ck.op_count_rows_torch, bench_ops, oc_bytes, 20,
+             f"bench of record: a, b [16, {BENCH_WORDS}]")):
         ms = _events_ms(kern, args, iters)
         plain_ms = _events_ms(plain, args, max(3, iters // 20), warmup=1)
         table.append({
@@ -214,12 +292,21 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None, "shape": shape,
             "bytes": nbytes})
+    timings = [{k: e[k] for k in ("name", "shape", "ms", "plain_ms",
+                                  "bound_ms", "library_ms")}
+               for e in table]
+    lr_bytes = 2 * BENCH_WORDS * 4 + 4
+    timings.append({
+        "name": "op_count_rows",
+        "shape": f"one long row: a, b [1, {BENCH_WORDS}]",
+        "ms": _events_ms(ck.op_count_rows, long_row, 50),
+        "plain_ms": _events_ms(ck.op_count_rows_torch, long_row, 3,
+                               warmup=1),
+        "bound_ms": lr_bytes / HBM_BYTES_PER_S * 1e3, "library_ms": None})
     _emit({"phase": "kernels", "checks": checks, "exact": True,
            "library_ms": "null: no single PyTorch call computes any of "
-                         "these functions",
-           "timings": [{k: e[k] for k in ("name", "shape", "ms",
-                                          "plain_ms", "bound_ms")}
-                       for e in table]})
+                         "these functions (torch has no popcount op)",
+           "timings": timings})
     return {e["name"]: e for e in table}
 
 
@@ -402,6 +489,34 @@ def phase_topn(holder_dir, device, seed: int, n_slices: int = 10,
     return out
 
 
+def phase_bench(device) -> dict:
+    """The benchmark of record in this process, at its default width and
+    rows; ``bench.run`` raises when a device count differs from the
+    host's."""
+    from pilosa_tpu_torch import bench
+    knobs = {"PILOSA_BENCH_BITS": str(BENCH_WORDS * 32),
+             "PILOSA_BENCH_ROWS": "16",
+             "PILOSA_BENCH_ITERS": str(BENCH_ITERS),
+             "PILOSA_BENCH_TRIALS": "3"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        line = bench.run(device)
+    except RuntimeError as e:
+        _fail(f"bench: {e}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if (line["metric"] != "intersect_count_1024Mbit_rows"
+            or line["rows"] != 16 or line["platform"] != "gpu"):
+        _fail(f"bench: unexpected line {line}")
+    _emit({"phase": "bench", **line})
+    return line
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -412,6 +527,7 @@ def main() -> None:
         _fail("no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from pilosa_tpu_torch import bench
         from pilosa_tpu_torch.device import resolve_device
         from pilosa_tpu_torch.ops import build
         from pilosa_tpu_torch.ops import cuda_kernels as ck
@@ -430,17 +546,17 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as holder_dir:
         phase_count(holder_dir, device, args.seed)
         phase_topn(holder_dir, device, args.seed)
+    before_bench = ck.LAUNCHES["op_count_rows"]
+    phase_bench(device)
+    if ck.LAUNCHES["op_count_rows"] <= before_bench:
+        _fail("op_count_rows: no launch in the bench phase")
     launches = dict(ck.LAUNCHES)
     for name, n in launches.items():
         if n <= 0:
             _fail(f"{name}: no launch on the main path")
         table[name]["launches"] = n
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    print(f"nvidia-smi: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    print(f"nvidia-smi: {bench.card_info()}", flush=True)
     _emit({"kernels": list(table.values())})
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,11 @@ calls in order. What this slice of the port serves:
   are materialized by host roaring algebra over the fragments.
 - ``SetBit``/``ClearBit`` on the standard view.
 
+Before a read query runs, empty operands (``Union()``) fold away from
+its bitmap trees by set algebra (``_fold_empty``), as the JAX package's
+planner proves them empty: a Count or TopN over a source that folds to
+∅ answers 0 or no pair and launches nothing.
+
 Every other call or form raises PilosaError and names the slice that
 will port it. A device error surfaces to the caller: there is no host
 fallback. Single node, one device: the cluster fan-out, pod, planner,
@@ -71,6 +76,47 @@ def _needs_slices(calls: list[Call]) -> bool:
     return any(c.name not in _WRITE_CALLS for c in calls)
 
 
+def _is_empty(c: Call) -> bool:
+    """``Union()`` with no operand is the empty set."""
+    return c.name == "Union" and not c.children
+
+
+def _fold_empty(c: Call) -> Call:
+    """``c`` with its syntactically empty operands folded away by set
+    algebra: x ∪ ∅ = x, x ∩ ∅ = ∅, x − ∅ = x, ∅ − x = ∅, and ∅ is
+    ``Union()``. An operand that folds into ∅ is not evaluated, so its
+    errors do not surface — the JAX package's planner proves these
+    branches empty and skips them the same way (plan/planner.py
+    short_circuit). ``Intersect()``/``Difference()`` with no operand
+    stay as they are: the host path raises for them. Returns ``c``
+    itself when nothing folds; never mutates the parsed tree."""
+    if c.name not in ("Intersect", "Union", "Difference") or not c.children:
+        return c
+    kids = [_fold_empty(ch) for ch in c.children]
+    empty = [_is_empty(k) for k in kids]
+    if (c.name == "Intersect" and any(empty)) or \
+            (c.name == "Difference" and empty[0]):
+        return Call("Union")
+    if c.name != "Intersect":
+        kids = [k for i, k in enumerate(kids)
+                if not empty[i] or (i == 0 and c.name == "Difference")]
+    if kids == c.children:
+        return c
+    return Call(c.name, c.args, kids)
+
+
+def _fold_query(calls: list[Call]) -> list[Call]:
+    """Fold the bitmap trees of a read query (``_fold_empty``): the
+    top-level bitmap calls and the source of each Count and TopN."""
+    out = []
+    for c in calls:
+        if c.name in ("Count", "TopN"):
+            kids = [_fold_empty(ch) for ch in c.children]
+            c = c if kids == c.children else Call(c.name, c.args, kids)
+        out.append(_fold_empty(c))
+    return out
+
+
 def _parse_timestamp(c: Call, key: str = "timestamp"
                      ) -> Optional[dt.datetime]:
     v = c.args.get(key)
@@ -121,7 +167,12 @@ class Executor:
                 raise IndexNotFoundError(index)
             slices = list(range(idx.max_slice() + 1))
         slices = slices or []
-        return [self._execute_call(index, c, slices) for c in query.calls]
+        calls = query.calls
+        if slices and _needs_slices(calls) and not query.write_calls():
+            # As the JAX package plans a read query (executor.py
+            # _maybe_plan): empty operands fold away before execution.
+            calls = _fold_query(calls)
+        return [self._execute_call(index, c, slices) for c in calls]
 
     def _execute_call(self, index: str, c: Call, slices: list[int]):
         # executor.go:146-170
@@ -317,24 +368,35 @@ class Executor:
         if not c.children:
             raise _later("TopN() without a source bitmap",
                          "the sourceless-TopN slice (rank-cache phase)")
+        if tanimoto > 100:
+            raise PilosaError("Tanimoto Threshold is from 1 to 100 only")
+        src = c.children[0]
+        leaves: list[tuple] = []
+        expr = self._compile_device_expr(index, src, leaves)
+        if expr is None and not _is_empty(src):
+            # Malformed, a call of a later slice, or (in a query that
+            # also writes, which execute does not fold) a tree holding
+            # empty operands: the host path raises the JAX package's
+            # error for the first two, and the third folds away.
+            self._execute_bitmap_call(index, src, slices)
+            src = _fold_empty(src)
+            leaves = []
+            expr = self._compile_device_expr(index, src, leaves)
+        if _is_empty(src):
+            # No candidate intersects ∅: every form of TopN answers no
+            # pair (the JAX package's fragment.top pushes no count 0).
+            return []
+        if expr is None:
+            raise _later(f"TopN() over {src}", "a later slice")
         if not row_ids:
             raise _later("TopN() without ids (the rank-cache candidate"
                          " phase)", "the sourceless-TopN slice")
-        if tanimoto > 100:
-            raise PilosaError("Tanimoto Threshold is from 1 to 100 only")
         if min_threshold > 1 or tanimoto > 0:
             raise _later("TopN() threshold/tanimotoThreshold",
                          "the threshold/Tanimoto slice")
         if field and filters:
             raise _later("TopN() attribute filters",
                          "the HTTP-front slice (attribute stores)")
-        leaves: list[tuple] = []
-        expr = self._compile_device_expr(index, c.children[0], leaves)
-        if expr is None:
-            # Surface the host path's error for a malformed source.
-            self._execute_bitmap_call(index, c.children[0], slices)
-            raise _later("TopN() over this source (an empty Union)",
-                         "the sourceless-TopN slice")
         if not slices:
             return []
         ids = list(row_ids)

@@ -25,7 +25,7 @@ import threading
 from ..utils import build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("expr_count", "topn_block_count", "densify")
+SOURCES = ("expr_count", "topn_block_count", "densify", "op_count")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -97,6 +97,9 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     fn.restype = i
     fn = libs["densify"].pilosa_densify
     fn.argtypes = [vp, vp, ll, ll, ll, vp, vp]
+    fn.restype = i
+    fn = libs["op_count"].pilosa_op_count
+    fn.argtypes = [vp, vp, ll, ll, i, vp, vp]
     fn.restype = i
 
 

@@ -1,8 +1,8 @@
-"""The hand-written CUDA kernels of the Count/TopN path, their plain
-PyTorch versions and their launch counters.
+"""The hand-written CUDA kernels of the port, their plain PyTorch
+versions and their launch counters.
 
-Each TPU kernel of ``pilosa_tpu/ops/pallas_kernels.py`` on this path has
-a counterpart here:
+Each TPU kernel of ``pilosa_tpu/ops/pallas_kernels.py`` has a
+counterpart here:
 
 ====================  ======================================  =========================
 wrapper               replaces (pilosa_tpu/ops/pallas_kernels)  CUDA source (ops/csrc)
@@ -10,6 +10,7 @@ wrapper               replaces (pilosa_tpu/ops/pallas_kernels)  CUDA source (ops
 expr_count_rows       expr_count_rows_pallas (:129-153)         expr_count.cu
 topn_block_count      topn_block_count_pallas (:180-223)        topn_block_count.cu
 densify               densify_pallas (:294-339)                 densify.cu
+op_count_rows         op_count_rows_pallas (:226-254)           op_count.cu
 ====================  ======================================  =========================
 
 Words are int32 views of the u32 words (see ops.kernels). A wrapper given
@@ -33,9 +34,11 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .kernels import _BITWISE, popcount_rows
+from .kernels import _BITWISE, op_count_rows as op_count_rows_torch
+from .kernels import popcount_rows
 
-LAUNCHES = {"expr_count_rows": 0, "topn_block_count": 0, "densify": 0}
+LAUNCHES = {"expr_count_rows": 0, "topn_block_count": 0, "densify": 0,
+            "op_count_rows": 0}
 
 # Opcodes of csrc/expr_program.cuh.
 OP_LOAD = 0
@@ -47,6 +50,8 @@ _OP_RPOP = {"and": 7, "or": 8, "xor": 9, "andnot": 11}   # acc = acc OP top
 MAX_STACK = 32  # csrc/expr_program.cuh MAX_STACK
 
 DENSIFY_LANES = 128  # words per bucket group (ops.packed._DENSIFY_LANES)
+
+_OP_CODE = {"and": 0, "or": 1, "xor": 2, "andnot": 3}  # csrc/op_count.cu
 
 
 def reset_launches() -> None:
@@ -328,3 +333,40 @@ def densify(lane: torch.Tensor, val: torch.Tensor,
         lane.data_ptr(), val.data_ptr(), t_rows, subs, g_slots,
         out.data_ptr(), _stream(device)))
     return out
+
+
+def op_count_rows(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum(popcount(a OP b), -1)``: int32 ``[R]`` for ``[R, W]``
+    operands, a 0-d int32 tensor for ``[W]`` (as the JAX wrapper
+    op_count_rows_pallas returns). The plain version on the CPU is
+    ``op_count_rows_torch`` (ops.kernels.op_count_rows)."""
+    if op not in _OP_CODE:
+        raise ValueError(f"unknown bitmap op: {op!r}")
+    device = a.device
+    ndim = 1 if a.dim() == 1 else 2
+    _check_words("a", a, ndim, device)
+    _check_words("b", b, ndim, device)
+    if a.shape != b.shape:
+        raise ValueError(f"op_count_rows: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} differ")
+    n_words = a.shape[-1]
+    if n_words * 32 >= 2**31:
+        raise ValueError(f"op_count_rows: a row of {n_words} words may "
+                         "hold 2^31 bits or more; counts are int32")
+    if device.type == "cpu":
+        return op_count_rows_torch(op, a, b)
+    if device.type != "cuda":
+        raise ValueError(f"op_count_rows: unsupported device {device}")
+    if a.data_ptr() % 16 != b.data_ptr() % 16:
+        raise ValueError("op_count_rows: a and b must share their address "
+                         "modulo 16 bytes (the kernel reads both in the "
+                         "same 16-byte word groups); got offsets "
+                         f"{a.data_ptr() % 16} and {b.data_ptr() % 16}")
+    from .build import libraries
+    n_rows = a.shape[0] if ndim == 2 else 1
+    out = torch.empty(n_rows, dtype=torch.int32, device=device)
+    LAUNCHES["op_count_rows"] += 1
+    _raise_on("op_count_rows", libraries()["op_count"].pilosa_op_count(
+        a.data_ptr(), b.data_ptr(), n_rows, n_words, _OP_CODE[op],
+        out.data_ptr(), _stream(device)))
+    return out if ndim == 2 else out[0]

@@ -64,6 +64,18 @@ def op_count_total(op: str, a: torch.Tensor, b: torch.Tensor) -> int:
     return int(rows.sum(dtype=torch.int64))
 
 
+def op_count(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fused ``sum(popcount(a ⊕ b), -1)`` over ``[n_words]`` or
+    ``[n_rows, n_words]``: on a CUDA tensor the hand kernel
+    (ops.cuda_kernels.op_count_rows, which launches or raises), on a CPU
+    tensor the plain ``op_count_rows``. The device of the operands
+    chooses; nothing else does."""
+    if a.device.type == "cpu":
+        return op_count_rows(op, a, b)
+    from . import cuda_kernels  # imports this module: no top-level cycle
+    return cuda_kernels.op_count_rows(op, a, b)
+
+
 def row_block_op_count(op: str, rows: torch.Tensor,
                        other: torch.Tensor) -> torch.Tensor:
     """``popcount(rows[i] ⊕ other)`` for every row of a ``[n_rows,

@@ -133,3 +133,68 @@ def test_executor_card_matches_cpu(cuda_device, tmp_path):
     assert ck.LAUNCHES["topn_block_count"] > before["topn_block_count"]
     assert ck.LAUNCHES["densify"] > before["densify"]
     holder.close()
+
+
+# op_count_rows: every op at the odd shapes — W = 4k+1..3 (rows start
+# off the 16-byte grid), W below one CTA's chunk, W < 4, one long row and
+# a 1-D row.
+OP_SHAPES = [(16, 1 << 20), (1, 1 << 22), (100003,), (3, 4 * 8193 + 1),
+             (3, 4 * 8193 + 2), (3, 4 * 8193 + 3), (5, 37), (4, 1), (4, 2),
+             (4, 3), (70000, 4)]
+
+
+@pytest.mark.parametrize("shape", OP_SHAPES)
+@pytest.mark.parametrize("op", ["and", "or", "xor", "andnot"])
+def test_op_count_rows(cuda_device, op, shape):
+    rng = np.random.default_rng(5)
+    a, b = _words(rng, shape, cuda_device), _words(rng, shape, cuda_device)
+    before = ck.LAUNCHES["op_count_rows"]
+    got = ck.op_count_rows(op, a, b)
+    assert ck.LAUNCHES["op_count_rows"] == before + 1
+    assert torch.equal(got, ck.op_count_rows_torch(op, a, b))
+    assert got.shape == torch.Size(shape[:-1])
+
+
+@pytest.mark.parametrize("word", [-1, -2**31])
+def test_op_count_rows_all_ones_and_bit31(cuda_device, word):
+    a = torch.full((3, 4099), word, dtype=torch.int32, device=cuda_device)
+    bits = 32 if word == -1 else 1
+    assert ck.op_count_rows("and", a, a).tolist() == [4099 * bits] * 3
+    assert ck.op_count_rows("xor", a, a).tolist() == [0] * 3
+
+
+def test_op_count_rows_at_word_offsets(cuda_device):
+    rng = np.random.default_rng(6)
+    base_a = _words(rng, (8 * 1001 + 3,), cuda_device)
+    base_b = _words(rng, (8 * 1001 + 3,), cuda_device)
+    for off in (1, 2, 3):
+        a = base_a[off:off + 8 * 1001].view(8, 1001)
+        b = base_b[off:off + 8 * 1001].view(8, 1001)
+        assert torch.equal(ck.op_count_rows("andnot", a, b),
+                           ck.op_count_rows_torch("andnot", a, b))
+    with pytest.raises(ValueError, match="modulo 16"):
+        ck.op_count_rows("and", base_a[1:1 + 8 * 1001],
+                         base_b[2:2 + 8 * 1001])
+
+
+def test_ops_op_count_launches_the_kernel(cuda_device):
+    from pilosa_tpu_torch.ops import kernels
+    a = _words(np.random.default_rng(7), (2, 4096), cuda_device)
+    before = ck.LAUNCHES["op_count_rows"]
+    got = kernels.op_count("or", a, a.flip(0).contiguous())
+    assert ck.LAUNCHES["op_count_rows"] == before + 1
+    assert torch.equal(got, kernels.op_count_rows("or", a,
+                                                  a.flip(0).contiguous()))
+
+
+def test_bench_on_the_card(cuda_device, monkeypatch):
+    from pilosa_tpu_torch import bench
+    for key, val in (("PILOSA_BENCH_BITS", str(1 << 22)),
+                     ("PILOSA_BENCH_ROWS", "4"), ("PILOSA_BENCH_ITERS", "4"),
+                     ("PILOSA_BENCH_TRIALS", "2")):
+        monkeypatch.setenv(key, val)
+    before = ck.LAUNCHES["op_count_rows"]
+    line = bench.run()
+    assert ck.LAUNCHES["op_count_rows"] == before + 1 + 2 * 4
+    assert line["platform"] == "gpu" and line["value"] > 0
+    assert line["metric"] == "intersect_count_4Mbit_rows"

@@ -73,4 +73,5 @@ def test_module_list_is_complete():
     assert {"pilosa_tpu_torch.executor", "pilosa_tpu_torch.carry",
             "pilosa_tpu_torch.device", "pilosa_tpu_torch.ops.cuda_kernels",
             "pilosa_tpu_torch.ops.build", "pilosa_tpu_torch.parallel.mesh",
-            "pilosa_tpu_torch.parallel.residency"} <= set(MODULES)
+            "pilosa_tpu_torch.parallel.residency",
+            "pilosa_tpu_torch.bench"} <= set(MODULES)
