@@ -7,12 +7,27 @@ checkout, then runs four phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
-   the odd shapes, bit-31 words, a 64-leaf mixed tree and a 1000-child
-   Union, and the op count at the benchmark's shape [16, 2^25] for every
-   op, at one long row, 1-D, W = 4k+1..3, W below one CTA's chunk,
-   all-ones and bit-31 words and views at odd word offsets; kernel and
-   plain times from CUDA events, with the inputs rotated so that the
-   50 MB L2 is exceeded as the serving path meets it.
+   the odd shapes, bit-31 words, a 64-leaf mixed tree, a 1000-child
+   Union (a program longer than the expression count stages in shared
+   memory) and a tree that needs spill slots; the expression count at
+   S = 1, 10 and 256 rows of 32,768 words and at W = 4; densify at
+   G = 0, 1, 8, 32 and 40, T × subs groups that its 32-group tile does
+   not divide, a group with lanes 0 and 127 set, bit-31 values and
+   all-padding rows; both of them again into an output that
+   ``torch.empty`` hands back dirty (a freed all-ones tensor of its
+   size), one launch each; and the op count at the benchmark's shape
+   [16, 2^25] for every op, at one long row, 1-D, W = 4k+1..3, W below
+   one CTA's chunk, all-ones and bit-31 words and views at odd word
+   offsets. Then four times of each kernel at the main path's shapes,
+   with the inputs rotated through copies so that the 50 MB L2 does not
+   hold what a launch reads (pilosa_tpu_torch/ops/timing.py):
+   ``ms``, the device time alone — K wrapper calls captured in one CUDA
+   graph, the graph replayed between CUDA events, divided by K;
+   ``call_ms``, what a caller pays — CUDA events around a loop of
+   wrapper calls (``call_ms - ms`` is the wrapper's host cost);
+   ``profiler_ms``, torch.profiler's device time per call (null where
+   the profiler records none), a cross-check of ``ms``; and
+   ``plain_ms``, CUDA events around calls of the plain version.
 2. ``count``: Count queries through ``Executor.execute`` over an index of
    256 slices (268,435,456 columns), cold and then resident.
 3. ``topn``: exact TopN through ``Executor.execute`` over 10 slices, the
@@ -57,24 +72,6 @@ def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _events_ms(fn, args_list: list, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn(*args)`` per call, from CUDA events over
-    ``iters`` calls cycling through ``args_list`` (distinct copies of
-    the inputs, so each launch reads what L2 does not hold)."""
-    import torch
-    for i in range(warmup):
-        fn(*args_list[i % len(args_list)])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*args_list[i % len(args_list)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _check_equal(name: str, got, want) -> int:
     """Max abs difference of kernel and plain results; fails unless 0
     (the results are integers)."""
@@ -99,21 +96,12 @@ def _rand_words(gen, shape, device):
     return w.to(device)
 
 
-def _dev_words(gen, shape, device):
-    """Random int32-viewed u32 words made on the card (the 4 GiB
-    benchmark operands would take long on the host)."""
-    import torch
-    w = torch.randint(-2**31, 2**31, shape, generator=gen,
-                      dtype=torch.int64, device=device).to(torch.int32)
-    w.view(-1)[0] = -1
-    return w
-
-
 def _op_count_checks(device, seed: int) -> tuple[int, int]:
     """op_count_rows against its plain version, exact, at the shapes of
     the benchmark and the odd ones; returns (checks, max abs error)."""
     import torch
     from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.ops.kernel_ab import dev_words
 
     gen = torch.Generator(device=device).manual_seed(seed)
     W = BENCH_WORDS
@@ -123,7 +111,7 @@ def _op_count_checks(device, seed: int) -> tuple[int, int]:
               ("and", (5, 37)), ("andnot", (4, 3))]
     checks = err = 0
     for op, shape in cases:
-        a, b = _dev_words(gen, shape, device), _dev_words(gen, shape, device)
+        a, b = dev_words(gen, shape, device), dev_words(gen, shape, device)
         err = max(err, _check_equal(f"op_count_rows[{op} {list(shape)}]",
                                     ck.op_count_rows(op, a, b),
                                     ck.op_count_rows_torch(op, a, b)))
@@ -136,7 +124,7 @@ def _op_count_checks(device, seed: int) -> tuple[int, int]:
                                         ck.op_count_rows(op, a, a),
                                         ck.op_count_rows_torch(op, a, a)))
             checks += 1
-    base = _dev_words(gen, (2, 8 * 1001 + 4), device)  # rows on the grid
+    base = dev_words(gen, (2, 8 * 1001 + 4), device)  # rows on the grid
     for off in (1, 2, 3):  # views at 4, 8 and 12 bytes past the grid
         a = base[0, off:off + 8 * 1001].view(8, 1001)
         b = base[1, off:off + 8 * 1001].view(8, 1001)
@@ -169,19 +157,21 @@ def _balanced(lo, hi, ops):
             _balanced(mid, hi, ops))
 
 
-def _sparse_slots(rng, t_rows, per_row, n_words):
-    """Bucketed (lane, value) slots of ``t_rows`` rows with ``per_row``
-    single-bit words each, through the port's host bucketing."""
-    import numpy as np
-    from pilosa_tpu_torch.ops import packed
-    pairs = []
-    for _ in range(t_rows):
-        idx = np.sort(rng.choice(n_words, size=per_row, replace=False)
-                      ).astype(np.int32)
-        val = (np.uint32(1) << rng.integers(0, 32, size=per_row,
-                                            dtype=np.uint32))
-        pairs.append((idx, val.astype(np.uint32)))
-    return packed.bucket_prepared(pairs, n_words // 128)
+def _dirty_check(name, out_shape, call, want, device) -> int:
+    """``call()`` once to warm the wrapper's caches, then again into
+    memory that ``torch.empty`` hands back dirty (a freed all-ones tensor
+    of the output's size): one launch, and exactly ``want``."""
+    import torch
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    call()
+    junk = torch.full(out_shape, -1, dtype=torch.int32, device=device)
+    del junk
+    before = ck.LAUNCHES[name]
+    got = call()
+    if ck.LAUNCHES[name] != before + 1:
+        _fail(f"{name}: {ck.LAUNCHES[name] - before} launches for one call")
+    return _check_equal(f"{name}[dirty output {list(out_shape)}]", got,
+                        want)
 
 
 def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
@@ -190,6 +180,9 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
     import numpy as np
     import torch
     from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.ops import timing
+    from pilosa_tpu_torch.ops.kernel_ab import (dev_words, odd_slots,
+                                                sparse_slots)
 
     gen = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -198,22 +191,26 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
     err = dict.fromkeys(ck.LAUNCHES, 0)
 
     # expr_count_rows: serving shapes, odd shapes, wide trees.
+    ops4 = ["and", "or", "xor", "andnot"]
     exprs = {
         "intersect": ("and", ("leaf", 0), ("leaf", 1)),
         "mixed": ("or", ("and", ("leaf", 0), ("leaf", 1)),
                   ("andnot", ("xor", ("leaf", 2), ("leaf", 0)),
                    ("leaf", 1))),
         "union8": _fold("or", 8),
-        "mixed64": _balanced(0, 64, ["and", "or", "xor", "andnot"]),
+        "mixed64": _balanced(0, 64, ops4),
         "union1000": _fold("or", 1000),
+        "spill256": _balanced(0, 256, ops4),  # 7 spill slots
     }
     cases = [("intersect", 2, 256, W), ("union8", 8, 256, W),
              ("mixed", 3, 9, 2048), ("mixed64", 64, 16, 2048),
-             ("union1000", 1000, 4, 2048)]
+             ("union1000", 1000, 4, 2048), ("intersect", 2, 1, W),
+             ("mixed", 3, 10, W), ("mixed", 3, 7, 4),
+             ("spill256", 256, 3, 2048)]
     for name, n_leaves, s, w in cases:
         leaves = _rand_words(gen, (n_leaves, s, w), device)
         err["expr_count_rows"] = max(err["expr_count_rows"], _check_equal(
-            f"expr_count_rows[{name}]",
+            f"expr_count_rows[{name} {s}x{w}]",
             ck.expr_count_rows(exprs[name], leaves),
             ck.expr_count_rows_torch(exprs[name], leaves)))
         checks += 1
@@ -232,16 +229,44 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             ck.topn_block_count_torch(expr, rows, leaves)))
         checks += 1
 
-    # densify: serving shape (256 slices, sparse leaf rows), odd shape.
+    # densify: serving shape (256 slices, sparse leaf rows), odd shapes
+    # through the host bucketing, then slots built directly for any G.
+    slot_sets = []
     for t, per_row, w in ((256, W // 128, W), (11, 300, 2048),
                           (11, 0, 2048)):
-        lanes, vals = _sparse_slots(rng, t, per_row, w)
+        slot_sets.append((f"{t}x{w} bucketed",)
+                         + sparse_slots(rng, t, per_row, w) + (w,))
+    for t, subs, g, empty in ((5, 33, 1, ()), (3, 47, 8, (1,)),
+                              (3, 47, 32, (2,)), (2, 16, 40, ()),
+                              (4, 16, 0, ()), (2, 1, 32, (1,))):
+        slot_sets.append((f"{t}x{subs}x{g}",)
+                         + odd_slots(rng, t, subs, g, empty)
+                         + (subs * 128,))
+    for name, lanes, vals, w in slot_sets:
         lane = torch.from_numpy(lanes.view(np.int32)).to(device)
         val = torch.from_numpy(vals.view(np.int32)).to(device)
         err["densify"] = max(err["densify"], _check_equal(
-            f"densify[{t}x{w}]", ck.densify(lane, val, w),
+            f"densify[{name}]", ck.densify(lane, val, w),
             ck.densify_torch(lane, val, w)))
         checks += 1
+
+    # Both redesigned kernels into dirty memory: nothing relies on a
+    # memset.
+    leaves = _rand_words(gen, (2, 256, W), device)
+    want = ck.expr_count_rows_torch(exprs["intersect"], leaves)
+    err["expr_count_rows"] = max(err["expr_count_rows"], _dirty_check(
+        "expr_count_rows", (256,),
+        lambda: ck.expr_count_rows(exprs["intersect"], leaves), want,
+        device))
+    lanes, vals = odd_slots(rng, 3, 47, 32, (2,))
+    lane = torch.from_numpy(lanes.view(np.int32)).to(device)
+    val = torch.from_numpy(vals.view(np.int32)).to(device)
+    want = ck.densify_torch(lane, val, 47 * 128)
+    err["densify"] = max(err["densify"], _dirty_check(
+        "densify", (3, 47 * 128), lambda: ck.densify(lane, val, 47 * 128),
+        want, device))
+    checks += 2
+    del leaves, want
 
     n, err["op_count_rows"] = _op_count_checks(device, seed)
     checks += n
@@ -254,54 +279,65 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
     rows_sets = [(("leaf", 0), _rand_words(gen, (10, 200, W), device),
                   [_rand_words(gen, (10, W), device)]) for _ in range(2)]
     tb_bytes = 10 * 200 * W * 4 + 10 * W * 4 + 10 * 200 * 4
-    lanes, vals = _sparse_slots(rng, 256, W // 128, W)
+    lanes, vals = sparse_slots(rng, 256, W // 128, W)
     dens = [(torch.from_numpy(lanes.view(np.int32)).to(device),
              torch.from_numpy(vals.view(np.int32)).to(device), W)
             for _ in range(copies)]
     de_bytes = lanes.size * 8 + 256 * W * 4
     gen_dev = torch.Generator(device=device).manual_seed(seed + 3)
-    bench_ops = [("and", _dev_words(gen_dev, (16, BENCH_WORDS), device),
-                  _dev_words(gen_dev, (16, BENCH_WORDS), device))]
+    bench_ops = [("and", dev_words(gen_dev, (16, BENCH_WORDS), device),
+                  dev_words(gen_dev, (16, BENCH_WORDS), device))]
     oc_bytes = 2 * 16 * BENCH_WORDS * 4 + 16 * 4
-    long_row = [("and", _dev_words(gen_dev, (1, BENCH_WORDS), device),
-                 _dev_words(gen_dev, (1, BENCH_WORDS), device))]
+    long_row = [("and", dev_words(gen_dev, (1, BENCH_WORDS), device),
+                 dev_words(gen_dev, (1, BENCH_WORDS), device))]
+    lr_bytes = 2 * BENCH_WORDS * 4 + 4
+
+    def times(kern, plain, args, iters, launches):
+        try:
+            prof_ms, prof_names = timing.profiler_ms(kern, args)
+        except Exception as e:  # the profiler is a cross-check only
+            prof_ms, prof_names = None, [f"profiler failed: {e}"[:200]]
+        return {"ms": timing.graph_ms(kern, args, launches),
+                "call_ms": timing.events_ms(kern, args, iters),
+                "profiler_ms": prof_ms, "profiler_kernels": prof_names,
+                "plain_ms": timing.events_ms(plain, args,
+                                             max(3, iters // 20),
+                                             warmup=1)}
+
     table = []
-    for name, src, rep, kern, plain, args, nbytes, iters, shape in (
+    for name, src, rep, kern, plain, args, nbytes, iters, launches, shape in (
             ("expr_count_rows", "pilosa_tpu_torch/ops/csrc/expr_count.cu",
              "pilosa_tpu/ops/pallas_kernels.py:143", ck.expr_count_rows,
-             ck.expr_count_rows_torch, inter, ec_bytes, 200,
+             ck.expr_count_rows_torch, inter, ec_bytes, 200, 20,
              f"Count(Intersect): leaves [2, 256, {W}]"),
             ("topn_block_count",
              "pilosa_tpu_torch/ops/csrc/topn_block_count.cu",
              "pilosa_tpu/ops/pallas_kernels.py:210", ck.topn_block_count,
-             ck.topn_block_count_torch, rows_sets, tb_bytes, 50,
+             ck.topn_block_count_torch, rows_sets, tb_bytes, 50, 20,
              f"resident TopN: rows [10, 200, {W}], 1 leaf"),
             ("densify", "pilosa_tpu_torch/ops/csrc/densify.cu",
              "pilosa_tpu/ops/pallas_kernels.py:323", ck.densify,
-             ck.densify_torch, dens, de_bytes, 200,
+             ck.densify_torch, dens, de_bytes, 200, 20,
              f"leaf slab upload: slots {list(lanes.shape)}"),
             ("op_count_rows", "pilosa_tpu_torch/ops/csrc/op_count.cu",
              "pilosa_tpu/ops/pallas_kernels.py:86", ck.op_count_rows,
-             ck.op_count_rows_torch, bench_ops, oc_bytes, 20,
+             ck.op_count_rows_torch, bench_ops, oc_bytes, 20, 4,
              f"bench of record: a, b [16, {BENCH_WORDS}]")):
-        ms = _events_ms(kern, args, iters)
-        plain_ms = _events_ms(plain, args, max(3, iters // 20), warmup=1)
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": 0, "max_abs_err": err[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "launches": 0, "max_abs_err": err[name],
+            **times(kern, plain, args, iters, launches),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None, "shape": shape,
             "bytes": nbytes})
-    timings = [{k: e[k] for k in ("name", "shape", "ms", "plain_ms",
-                                  "bound_ms", "library_ms")}
-               for e in table]
-    lr_bytes = 2 * BENCH_WORDS * 4 + 4
+    keys = ("name", "shape", "ms", "call_ms", "profiler_ms", "plain_ms",
+            "bound_ms", "library_ms")
+    timings = [{k: e[k] for k in keys} for e in table]
+    lr = times(ck.op_count_rows, ck.op_count_rows_torch, long_row, 50, 10)
     timings.append({
         "name": "op_count_rows",
         "shape": f"one long row: a, b [1, {BENCH_WORDS}]",
-        "ms": _events_ms(ck.op_count_rows, long_row, 50),
-        "plain_ms": _events_ms(ck.op_count_rows_torch, long_row, 3,
-                               warmup=1),
+        **{k: lr[k] for k in ("ms", "call_ms", "profiler_ms", "plain_ms")},
         "bound_ms": lr_bytes / HBM_BYTES_PER_S * 1e3, "library_ms": None})
     _emit({"phase": "kernels", "checks": checks, "exact": True,
            "library_ms": "null: no single PyTorch call computes any of "

@@ -7,7 +7,9 @@ compiled for ``sm_90a`` (H100) at first use into the ignored build
 directory ``pilosa_tpu_torch/_build/cuda/<digest>``, one ``nvcc``
 process per source, all started together. The digest covers every
 source and header and the flags, so an edited kernel rebuilds and an
-unchanged one loads from the directory.
+unchanged one loads from the directory. ``load(csrc)`` builds and loads
+the sources of another directory with the same C interface (an earlier
+design, for an A/B on the card: ops/kernel_ab.py).
 
 Nothing here runs at import: ``libraries()`` is called by the kernel
 wrappers (ops.cuda_kernels) when they first launch on a CUDA tensor.
@@ -46,19 +48,20 @@ def nvcc_path() -> str:
                        "toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
-def _digest() -> str:
+def _digest(csrc: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(CSRC)):
-        with open(os.path.join(CSRC, name), "rb") as f:
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> dict[str, str]:
-    """Compile every source that has no library yet, in parallel;
-    returns {source name: .so path}. ``verbose`` adds ``-Xptxas -v``
-    and prints the compiler's register/shared-memory report."""
-    out_dir = build_dir("cuda", _digest())
+def build(verbose: bool = False, csrc: str = CSRC) -> dict[str, str]:
+    """Compile every source of ``csrc`` that has no library yet, in
+    parallel; returns {source name: .so path}. ``verbose`` adds
+    ``-Xptxas -v`` and prints the compiler's register/shared-memory
+    report."""
+    out_dir = build_dir("cuda", _digest(csrc))
     os.makedirs(out_dir, exist_ok=True)
     nvcc = nvcc_path()
     paths = {name: os.path.join(out_dir, f"lib{name}.so")
@@ -69,7 +72,7 @@ def build(verbose: bool = False) -> dict[str, str]:
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+               "-o", tmp, os.path.join(csrc, f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -103,13 +106,18 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     fn.restype = i
 
 
+def load(csrc: str = CSRC) -> dict[str, ctypes.CDLL]:
+    """Build (where needed) and load the libraries of ``csrc``."""
+    libs = {name: ctypes.CDLL(path)
+            for name, path in build(csrc=csrc).items()}
+    _declare(libs)
+    return libs
+
+
 def libraries() -> dict[str, ctypes.CDLL]:
     """The loaded kernel libraries, building them on first call."""
     global _libs
     with _mu:
         if _libs is None:
-            libs = {name: ctypes.CDLL(path)
-                    for name, path in build().items()}
-            _declare(libs)
-            _libs = libs
+            _libs = load()
         return _libs

@@ -8,58 +8,63 @@
 //
 // Bound: device-memory bytes. Each leaf word is read once and nothing
 // but one int32 per slice row is written, so the least time is
-// L * S * W * 4 bytes over 3.35 TB/s. Design: a CTA owns one slice row
-// and a chunk of CHUNK 16-byte word groups; each thread loads `uint4`
-// words (coalesced, read-only path) from every leaf the program names,
-// evaluates the program in registers (expr_program.cuh), applies
-// __popc, and the CTA reduces in the warp and then in shared memory
-// before one atomicAdd into out[s]. Integer atomics make the sum exact
-// and independent of order. The output is zeroed on the same stream
-// first. Right and simple first: TMA and persistent CTAs are later work.
+// L * S * W * 4 bytes over 3.35 TB/s. Design: one CTA per slice row, in
+// one launch. The CTA stages the program and its leaves' base pointers
+// in shared memory (StagedProgram, expr_program.cuh), then each thread
+// walks its share of the row U 16-byte word groups at a time: every
+// instruction issues U independent coalesced loads (read-only path) and
+// evaluates on U register accumulators (eval_program_u), so U groups of
+// each leaf are in flight per thread and the decode is paid once for U.
+// __popc per group, a warp-then-shared-memory reduce, and thread 0
+// stores out[s]: each output written once, no memset, no atomics. At the
+// serving shape (S = 256, W = 32768) two 512-thread CTAs fit an SM, so
+// the grid runs in one wave. Exact in any order (integer sums).
 #include "expr_program.cuh"
 
 namespace {
 
-constexpr int BLOCK = 256;
-constexpr int CHUNK = 2048;  // 16-byte word groups per CTA (32 KiB a leaf)
+constexpr int BLOCK = 512;
+constexpr int U = 4;         // word groups of each leaf in flight a thread
+constexpr int STAGED = 512;  // instructions staged in shared memory
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, 2)
 expr_count_kernel(const long long* __restrict__ ptrs,
                   const int2* __restrict__ prog, int n_ins,
                   long long w4, int* __restrict__ out) {
+  __shared__ pilosa::StagedProgram<STAGED> staged;
   __shared__ int smem[BLOCK / 32];
-  uint4 stack[pilosa::MAX_STACK];
-  const int s = blockIdx.y;
-  const long long begin = static_cast<long long>(blockIdx.x) * CHUNK;
-  const long long end = begin + CHUNK < w4 ? begin + CHUNK : w4;
-  const size_t row = static_cast<size_t>(s) * static_cast<size_t>(w4);
+  uint4 stack[pilosa::MAX_STACK][U];
+  staged.stage(prog, n_ins, ptrs);
+  const size_t s = blockIdx.x;
+  const size_t row = s * static_cast<size_t>(w4);
+  const size_t end = row + static_cast<size_t>(w4);
   int count = 0;
-  for (long long i = begin + threadIdx.x; i < end; i += BLOCK) {
-    const uint4 v = pilosa::eval_program(prog, n_ins, ptrs,
-                                         row + static_cast<size_t>(i), stack);
-    count += pilosa::popc4(v);
+  for (size_t i = row + threadIdx.x; i < end;
+       i += static_cast<size_t>(BLOCK) * U) {
+    uint4 acc[U];
+    pilosa::eval_program_u<U>(staged, prog, n_ins, ptrs, i, BLOCK, end,
+                              acc, stack);
+#pragma unroll
+    for (int u = 0; u < U; ++u) count += pilosa::popc4(acc[u]);
   }
   count = pilosa::block_sum<BLOCK>(count, smem);
-  if (threadIdx.x == 0 && count) atomicAdd(out + s, count);
+  if (threadIdx.x == 0) out[s] = count;
 }
 
 }  // namespace
 
 // ptrs: device array of n_leaves slab base pointers, each [n_slices, w]
 // u32, 16-byte aligned; prog: device array of n_ins (opcode, arg) pairs;
-// out: [n_slices] int32. Returns the launch's cudaGetLastError().
+// out: [n_slices] int32, every entry written. Returns the launch's
+// cudaGetLastError().
 extern "C" int pilosa_expr_count(const void* ptrs, const void* prog,
                                  int n_ins, long long n_slices, long long w,
                                  void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, n_slices * sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long w4 = w / 4;
-  if (n_slices == 0 || w4 == 0) return static_cast<int>(cudaGetLastError());
-  dim3 grid(static_cast<unsigned>((w4 + CHUNK - 1) / CHUNK),
-            static_cast<unsigned>(n_slices));
-  expr_count_kernel<<<grid, BLOCK, 0, st>>>(
+  if (n_slices == 0) return static_cast<int>(cudaGetLastError());
+  if (n_slices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  expr_count_kernel<<<static_cast<unsigned>(n_slices), BLOCK, 0, st>>>(
       static_cast<const long long*>(ptrs), static_cast<const int2*>(prog),
-      n_ins, w4, static_cast<int*>(out));
+      n_ins, w / 4, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

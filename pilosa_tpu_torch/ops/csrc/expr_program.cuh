@@ -14,6 +14,13 @@
 //
 // Leaves are addressed through a device array of base pointers, one
 // [S, W] u32 slab per leaf, so resident slabs are read where they lie.
+//
+// Two interpreters: eval_program runs the program over one 16-byte word
+// group, reading every instruction and leaf pointer from global memory
+// (the TopN block count's); StagedProgram / eval_program_u run it over U
+// word groups at once from a copy of the program in shared memory (the
+// expression count's), so the U loads of an instruction are independent
+// and the decode is paid once for U groups.
 #pragma once
 
 #include <cstdint>
@@ -92,6 +99,103 @@ __device__ __forceinline__ uint4 eval_program(const int2* __restrict__ prog,
     }
   }
   return acc;
+}
+
+// The first STAGED instructions of a program, each with the base pointer
+// of the leaf it reads, copied to shared memory once per CTA. Later
+// instructions are read from global memory, as eval_program reads them:
+// no cap on program length or leaf count.
+template <int STAGED>
+struct StagedProgram {
+  int op[STAGED];
+  const uint4* leaf[STAGED];
+
+  // Every thread of the CTA calls this; it ends with a barrier.
+  __device__ __forceinline__ void stage(const int2* __restrict__ prog,
+                                        int n_ins,
+                                        const long long* __restrict__ ptrs) {
+    const int n = n_ins < STAGED ? n_ins : STAGED;
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      const int2 ins = __ldg(prog + k);
+      op[k] = ins.x;
+      leaf[k] = ins.x < OP_PUSH ? reinterpret_cast<const uint4*>(
+                                      __ldg(ptrs + ins.y))
+                                : nullptr;
+    }
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ int fetch(const int2* __restrict__ prog,
+                                       const long long* __restrict__ ptrs,
+                                       int k, const uint4** base) const {
+    if (k < STAGED) {
+      *base = leaf[k];
+      return op[k];
+    }
+    const int2 ins = __ldg(prog + k);
+    *base = ins.x < OP_PUSH
+                ? reinterpret_cast<const uint4*>(__ldg(ptrs + ins.y))
+                : nullptr;
+    return ins.x;
+  }
+};
+
+// Evaluate the program over U word groups of every leaf at once: groups
+// off + u * stride for u < U, of which those at or past `end` read as
+// zero words (and count zero: no opcode turns zeros into ones). Each
+// leaf-reading instruction issues its U loads before it combines any.
+// `stack` holds MAX_STACK slots of U groups.
+template <int U, int STAGED>
+__device__ __forceinline__ void eval_program_u(
+    const StagedProgram<STAGED>& sp_prog, const int2* __restrict__ prog,
+    int n_ins, const long long* __restrict__ ptrs, size_t off, size_t stride,
+    size_t end, uint4 (&acc)[U], uint4 (*stack)[U]) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = zero;
+  int sp = 0;
+  for (int k = 0; k < n_ins; ++k) {
+    const uint4* base;
+    const int op = sp_prog.fetch(prog, ptrs, k, &base);
+    if (op < OP_PUSH) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const size_t g = off + u * stride;
+        v[u] = g < end ? __ldg(base + g) : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        switch (op) {
+          case OP_LOAD: acc[u] = v[u]; break;
+          case OP_AND_LEAF: acc[u] = and4(acc[u], v[u]); break;
+          case OP_OR_LEAF: acc[u] = or4(acc[u], v[u]); break;
+          case OP_XOR_LEAF: acc[u] = xor4(acc[u], v[u]); break;
+          case OP_ANDNOT_LEAF: acc[u] = andnot4(acc[u], v[u]); break;
+          default: acc[u] = andnot4(v[u], acc[u]); break;  // RANDNOT
+        }
+      }
+      continue;
+    }
+    if (op == OP_PUSH) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) stack[sp][u] = acc[u];
+      ++sp;
+      continue;
+    }
+    --sp;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint4 top = stack[sp][u];
+      switch (op) {
+        case OP_AND_POP: acc[u] = and4(top, acc[u]); break;
+        case OP_OR_POP: acc[u] = or4(top, acc[u]); break;
+        case OP_XOR_POP: acc[u] = xor4(top, acc[u]); break;
+        case OP_ANDNOT_POP: acc[u] = andnot4(top, acc[u]); break;
+        default: acc[u] = andnot4(acc[u], top); break;  // RANDNOT_POP
+      }
+    }
+  }
 }
 
 // Sum `v` over the block; the result is valid in thread 0.

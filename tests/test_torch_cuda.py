@@ -19,6 +19,7 @@ from pilosa_tpu_torch import SLICE_WIDTH
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import cuda_kernels as ck
+from pilosa_tpu_torch.ops import kernel_ab
 from pilosa_tpu_torch.ops import packed
 from pilosa_tpu_torch.parallel import residency
 
@@ -96,6 +97,61 @@ def test_densify(cuda_device, per_row):
     val = torch.from_numpy(vals.view(np.int32)).to(cuda_device)
     assert torch.equal(ck.densify(lane, val, 2048),
                        ck.densify_torch(lane, val, 2048))
+
+
+def _dirty_call(name, out_shape, call, device):
+    """``call()`` once to warm the wrapper's caches, then again into the
+    memory of a freed all-ones tensor of the output's size (what
+    ``torch.empty`` hands back next); asserts that second call made one
+    launch and returns its result."""
+    call()
+    junk = torch.full(out_shape, -1, dtype=torch.int32, device=device)
+    del junk
+    before = ck.LAUNCHES[name]
+    got = call()
+    assert ck.LAUNCHES[name] == before + 1
+    return got
+
+
+# Densify at any G (the sparse gate sends G up to 32), T × subs groups that
+# the kernel's 32-group tile does not divide, lanes 0 and 127 of one group,
+# bit-31 values and all-padding rows, into dirty memory.
+@pytest.mark.parametrize("t_rows,subs,g_slots,empty", [
+    (5, 33, 1, ()), (11, 16, 8, (3,)), (3, 47, 32, (2,)), (2, 16, 40, ()),
+    (3, 64, 33, (0,)), (4, 16, 0, ()), (2, 1, 32, (1,)), (1, 256, 8, ()),
+])
+def test_densify_any_shape_dirty_output(cuda_device, t_rows, subs, g_slots,
+                                        empty):
+    lanes, vals = kernel_ab.odd_slots(np.random.default_rng(8), t_rows,
+                                      subs, g_slots, empty)
+    lane = torch.from_numpy(lanes.view(np.int32)).to(cuda_device)
+    val = torch.from_numpy(vals.view(np.int32)).to(cuda_device)
+    n_words = subs * 128
+    want = ck.densify_torch(lane, val, n_words)
+    got = _dirty_call("densify", (t_rows, n_words),
+                      lambda: ck.densify(lane, val, n_words), cuda_device)
+    assert torch.equal(got, want)
+
+
+# The expression count at S = 1, 10 and 256 rows of 32,768 words, at
+# W = 4, and over a 1000-child Union (longer than the program the kernel
+# stages in shared memory), the 64-leaf mixed tree and a tree that needs
+# seven spill slots, into dirty memory.
+@pytest.mark.parametrize("name,expr,n,shape", [
+    ("s1", ("and", ("leaf", 0), ("leaf", 1)), 2, (1, 32768)),
+    ("s10", MIXED, 3, (10, 32768)),
+    ("s256", ("and", ("leaf", 0), ("leaf", 1)), 2, (256, 32768)),
+    ("w4", MIXED, 3, (9, 4)),
+    ("union1000", _fold("or", 1000), 1000, (3, 2048)),
+    ("mixed64", _balanced(0, 64), 64, (5, 2048)),
+    ("spill256", _balanced(0, 256), 256, (3, 2048)),
+])
+def test_expr_count_dirty_output(cuda_device, name, expr, n, shape):
+    leaves = _words(np.random.default_rng(9), (n,) + shape, cuda_device)
+    want = ck.expr_count_rows_torch(expr, leaves)
+    got = _dirty_call("expr_count_rows", shape[:1],
+                      lambda: ck.expr_count_rows(expr, leaves), cuda_device)
+    assert torch.equal(got, want)
 
 
 def test_wrapper_raises_on_misaligned_words(cuda_device):

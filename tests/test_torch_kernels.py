@@ -22,6 +22,7 @@ from pilosa_tpu.parallel import mesh as jax_mesh
 from pilosa_tpu.storage.roaring import Bitmap as JaxRoaring
 
 from pilosa_tpu_torch.ops import cuda_kernels as ck
+from pilosa_tpu_torch.ops import kernel_ab
 from pilosa_tpu_torch.ops import kernels as tk
 from pilosa_tpu_torch.ops import packed
 from pilosa_tpu_torch.storage.roaring import Bitmap as TorchRoaring
@@ -122,12 +123,18 @@ class TestOpsKernelsTwins:
 
 
 class TestExprCountRows:
-    @pytest.mark.parametrize("expr", [
-        MIXED, ("leaf", 2), ("and", ("leaf", 0), ("leaf", 1)),
-        ("andnot", ("leaf", 1), ("leaf", 0)), ("xor", ("leaf", 0),
-                                               ("leaf", 2))])
-    def test_matches_pallas_interpret(self, expr):
-        leaves = _words(np.random.default_rng(6), (3, 9, 2048))
+    # The last three are the card tests' small shapes: S = 1, W = 4.
+    @pytest.mark.parametrize("expr,shape", [
+        (MIXED, (9, 2048)), (("leaf", 2), (9, 2048)),
+        (("and", ("leaf", 0), ("leaf", 1)), (9, 2048)),
+        (("andnot", ("leaf", 1), ("leaf", 0)), (9, 2048)),
+        (("xor", ("leaf", 0), ("leaf", 2)), (9, 2048)),
+        (("and", ("leaf", 0), ("leaf", 1)), (1, 32768)),
+        (MIXED, (9, 4)), (MIXED, (1, 4))],
+        ids=["expr0", "expr1", "expr2", "expr3", "expr4", "s1", "w4",
+             "s1_w4"])
+    def test_matches_pallas_interpret(self, expr, shape):
+        leaves = _words(np.random.default_rng(6), (3,) + shape)
         want = np.asarray(pk.expr_count_rows_pallas(expr, leaves,
                                                     interpret=True))
         got = ck.expr_count_rows_torch(expr, list(_t(leaves)))
@@ -201,10 +208,16 @@ def _bucketed(rng, t_rows, n_words, per_row):
 
 
 class TestDensify:
-    @pytest.mark.parametrize("per_row", [0, 7, 300])
+    # "gN": the card tests' slots built directly at G = N (lanes 0 and
+    # 127 of one group, bit-31 values, an all-padding row).
+    @pytest.mark.parametrize("per_row", [0, 7, 300, "g1", "g32", "g40"])
     def test_matches_pallas_interpret(self, per_row):
         rng = np.random.default_rng(12)
-        lanes, vals = _bucketed(rng, 11, 2048, per_row)  # T=11, subs=16
+        if isinstance(per_row, str):
+            lanes, vals = kernel_ab.odd_slots(rng, 11, 16, int(per_row[1:]),
+                                              (3,))
+        else:
+            lanes, vals = _bucketed(rng, 11, 2048, per_row)  # subs=16
         want = np.asarray(pk.densify_pallas(lanes, vals, 2048,
                                             interpret=True))
         got = ck.densify(_t(lanes), _t(vals), 2048).numpy().view(np.uint32)
