@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs four phases and prints one JSON line for each:
+checkout, then runs five phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -32,19 +32,38 @@ checkout, then runs four phases and prints one JSON line for each:
    256 slices (268,435,456 columns), cold and then resident.
 3. ``topn``: exact TopN through ``Executor.execute`` over 10 slices, the
    resident form (200 candidates) and the streaming form (1,000
-   candidates).
-4. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+   candidates). Phases 2 and 3 write one data directory (indexes
+   ``smoke`` and ``smoke_topn``).
+4. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
+   127.0.0.1:0 on the card over that directory, driven over HTTP with
+   urllib: it creates frame ``g`` in ``smoke``, imports row 1 of ``g``
+   at density 1/64 over all 256 slices as raw v2 positions and row 2 at
+   1/4096 as 256 protobuf ``ImportRequest``s (the port's codec), sets a
+   ``category`` row attribute on the 200 resident TopN candidates in
+   one query of ``SetRowAttrs`` calls and a ``tag`` on three columns;
+   then phase 2's Count queries, two Counts over ``g`` (one with sparse
+   leaves, through densify), the resident TopN with and without
+   ``field="category", filters=[0, 1]`` and one ``Bitmap`` with
+   ``columnAttrs=true``, each cold (residency cache empty) and warm,
+   with a JSON and with a protobuf answer. Every answer is held to the
+   host roaring answer from the server's own fragments; beside the
+   client's times, each query's warm time through
+   ``server.executor.execute`` in this process (the difference is the
+   HTTP front's cost).
+5. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Every answer of phases 2 and 3 is held to the host roaring answer
-computed from the port's own fragments, and every count of phase 4 to
-the host ``popcnt_and``. The kernels' launch counters are set to 0
-before phase 2 and read after phase 4: every kernel must have launched
-on that main path, and the op count in phase 4. Then it prints the
-card's name and power limit, the kernel table as one JSON object, and
-as its last line ``{"ok": true, "device": {...}}``. Any mismatch or
+Every answer of phases 2-4 is held to the host roaring answer computed
+from the port's own fragments, and every count of phase 5 to the host
+``popcnt_and``. The kernels' launch counters are set to 0 before phase
+2 and before phase 4 and read after phases 3, 4 and 5: every kernel must
+have launched on that main path, the expression count, the TopN block
+count and densify in the server phase by itself, and the op count in
+phase 5. Then it prints the card's name and power limit, the kernel
+table as one JSON object, and as its last line
+``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
 prints no result.
 """
@@ -360,47 +379,15 @@ def _random_row(rng, n_cols, n_bits):
     return np.unique(rng.integers(0, n_cols, size=n_bits, dtype=np.uint64))
 
 
-def phase_count(holder_dir, device, seed: int, n_slices: int = 256
-                ) -> dict:
-    import numpy as np
-    import torch
-    from pilosa_tpu_torch import SLICE_WIDTH
-    from pilosa_tpu_torch.executor import Executor
-    from pilosa_tpu_torch.models.holder import Holder
-    from pilosa_tpu_torch.ops import cuda_kernels as ck
-    from pilosa_tpu_torch.parallel import residency
+def _union(f, rows):
+    out = f.row(rows[0])
+    for r in rows[1:]:
+        out = out.union(f.row(r))
+    return out
 
-    n_cols = n_slices * SLICE_WIDTH
-    rng = np.random.default_rng(seed + 1)
-    t0 = time.perf_counter()
-    holder = Holder(os.path.join(holder_dir, "count"))
-    holder.open()
-    frame = holder.create_index("smoke").create_frame("f")
-    for row in range(1, 17):
-        density = 64 if row <= 8 else 4096
-        cols = _random_row(rng, n_cols, n_cols // density)
-        frame.import_bits(np.full(len(cols), row, np.uint64), cols)
-    load_s = time.perf_counter() - t0
 
-    # Host roaring answers from the port's fragments (no kernel code).
-    frags = [holder.fragment("smoke", "f", "standard", s)
-             for s in range(n_slices)]
-
-    def host_count(fn):
-        return sum(fn(f).count() for f in frags if f is not None)
-
-    def union(f, rows):
-        out = f.row(rows[0])
-        for r in rows[1:]:
-            out = out.union(f.row(r))
-        return out
-
-    want = {
-        "intersect": host_count(lambda f: f.row(1).intersect(f.row(2))),
-        "union8": host_count(lambda f: union(f, list(range(1, 9)))),
-        "difference": host_count(
-            lambda f: union(f, list(range(9, 17))).difference(f.row(1))),
-    }
+def _count_queries() -> dict:
+    """Phase 2's Count queries over index ``smoke``, frame ``f``."""
     u8 = ", ".join(f"Bitmap(rowID={r}, frame=f)" for r in range(1, 9))
     u16 = ", ".join(f"Bitmap(rowID={r}, frame=f)" for r in range(9, 17))
     queries = {
@@ -412,7 +399,65 @@ def phase_count(holder_dir, device, seed: int, n_slices: int = 256
     }
     queries["all3"] = " ".join(queries[k] for k in
                                ("intersect", "union8", "difference"))
+    return queries
+
+
+def _count_wants(holder, n_slices: int) -> dict:
+    """Host roaring answers of ``_count_queries`` from the holder's own
+    fragments (no kernel code)."""
+    frags = [holder.fragment("smoke", "f", "standard", s)
+             for s in range(n_slices)]
+
+    def host_count(fn):
+        return sum(fn(f).count() for f in frags if f is not None)
+
+    want = {
+        "intersect": host_count(lambda f: f.row(1).intersect(f.row(2))),
+        "union8": host_count(lambda f: _union(f, list(range(1, 9)))),
+        "difference": host_count(
+            lambda f: _union(f, list(range(9, 17))).difference(f.row(1))),
+    }
     want["all3"] = [want["intersect"], want["union8"], want["difference"]]
+    return want
+
+
+def _topn_host_pairs(holder, n_slices: int, src_fn, ids) -> list:
+    """Per-candidate exact counts of frame ``t`` against a source of
+    frame ``src`` from host roaring, then count-descending, id-ascending
+    (ids given: no n-trim)."""
+    counts = dict.fromkeys(ids, 0)
+    for s in range(n_slices):
+        sf = holder.fragment("smoke_topn", "src", "standard", s)
+        tf = holder.fragment("smoke_topn", "t", "standard", s)
+        if sf is None or tf is None:
+            continue
+        srow = src_fn(sf)
+        for rid in ids:
+            counts[rid] += tf.row(rid).intersection_count(srow)
+    return sorted(((r, c) for r, c in counts.items() if c > 0),
+                  key=lambda p: (-p[1], p[0]))
+
+
+def phase_count(holder, device, seed: int, n_slices: int = 256) -> dict:
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import residency
+
+    n_cols = n_slices * SLICE_WIDTH
+    rng = np.random.default_rng(seed + 1)
+    t0 = time.perf_counter()
+    frame = holder.create_index("smoke").create_frame("f")
+    for row in range(1, 17):
+        density = 64 if row <= 8 else 4096
+        cols = _random_row(rng, n_cols, n_cols // density)
+        frame.import_bits(np.full(len(cols), row, np.uint64), cols)
+    load_s = time.perf_counter() - t0
+
+    want = _count_wants(holder, n_slices)
+    queries = _count_queries()
     ex = Executor(holder, device=device)
     results = []
     for name, q in queries.items():
@@ -433,7 +478,6 @@ def phase_count(holder_dir, device, seed: int, n_slices: int = 256
         results[-1]["launches"] = {k: ck.LAUNCHES[k] - before[k]
                                    for k in before}
     snap = residency.device_cache().snapshot()
-    holder.close()
     out = {"phase": "count", "slices": n_slices, "columns": n_cols,
            "load_s": load_s, "resident_mib": snap["usedBytes"] / 2**20,
            "queries": results, "launches": dict(ck.LAUNCHES)}
@@ -441,21 +485,20 @@ def phase_count(holder_dir, device, seed: int, n_slices: int = 256
     return out
 
 
-def phase_topn(holder_dir, device, seed: int, n_slices: int = 10,
-               n_rows: int = 1000, total_bits: int = 30_000_000) -> dict:
+def phase_topn(holder, device, seed: int, n_slices: int = 10,
+               n_rows: int = 1000, total_bits: int = 30_000_000
+               ) -> tuple[dict, list]:
+    """Returns the phase's line and the 200 resident candidates."""
     import numpy as np
     import torch
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.executor import Executor
-    from pilosa_tpu_torch.models.holder import Holder
     from pilosa_tpu_torch.ops import cuda_kernels as ck
     from pilosa_tpu_torch.parallel import residency
 
     n_cols = n_slices * SLICE_WIDTH
     rng = np.random.default_rng(seed + 2)
     t0 = time.perf_counter()
-    holder = Holder(os.path.join(holder_dir, "topn"))
-    holder.open()
     idx = holder.create_index("smoke_topn")
     src = idx.create_frame("src")
     for row, density in ((1, 4), (2, 3)):
@@ -473,19 +516,7 @@ def phase_topn(holder_dir, device, seed: int, n_slices: int = 10,
     load_s = time.perf_counter() - t0
 
     def host_pairs(src_fn, ids):
-        """Per-candidate exact counts from host roaring, then
-        count-descending, id-ascending (ids given: no n-trim)."""
-        counts = dict.fromkeys(ids, 0)
-        for s in range(n_slices):
-            sf = holder.fragment("smoke_topn", "src", "standard", s)
-            tf = holder.fragment("smoke_topn", "t", "standard", s)
-            if sf is None or tf is None:
-                continue
-            srow = src_fn(sf)
-            for rid in ids:
-                counts[rid] += tf.row(rid).intersection_count(srow)
-        return sorted(((r, c) for r, c in counts.items() if c > 0),
-                      key=lambda p: (-p[1], p[0]))
+        return _topn_host_pairs(holder, n_slices, src_fn, ids)
 
     ids200 = sorted(rng.choice(n_rows, size=min(200, n_rows),
                                replace=False).tolist())
@@ -517,10 +548,203 @@ def phase_topn(holder_dir, device, seed: int, n_slices: int = 10,
             device) / 2**20
         results[-1]["launches"] = {k: ck.LAUNCHES[k] - before[k]
                                    for k in before}
-    holder.close()
     out = {"phase": "topn", "slices": n_slices, "columns": n_cols,
            "t_rows": n_rows, "t_bits": t_bits, "load_s": load_s,
            "queries": results, "launches": dict(ck.LAUNCHES)}
+    _emit(out)
+    return out, ids200
+
+
+def _http(host: str, path: str, body: bytes, headers=None):
+    """One POST with urllib; fails the run on any status but 200.
+    Returns (body, client ms)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://{host}{path}", data=body,
+                                 method="POST", headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            out, status = resp.read(), resp.status
+    except urllib.error.HTTPError as e:
+        _fail(f"server: POST {path}: HTTP {e.code}: {e.read()[:300]!r}")
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        _fail(f"server: POST {path}: HTTP {status}")
+    return out, ms
+
+
+def _answer_of(kind: str, r):
+    """Canonical form of one call's result ``r``: the executor's result,
+    a JSON result or a protobuf ``QueryResult``."""
+    if hasattr(r, "Pairs"):  # protobuf
+        if kind == "count":
+            return r.N
+        if kind == "topn":
+            return [(p.Key, p.Count) for p in r.Pairs]
+        return r.Bitmap.Bits.tolist()
+    if kind == "count":
+        return r
+    if kind == "topn":
+        return [(p["id"], p["count"]) if isinstance(p, dict)
+                else (p.id, p.count) for p in r]
+    return r["bits"] if isinstance(r, dict) else r.bits().tolist()
+
+
+def phase_server(data_dir, device, seed: int, ids200: list,
+                 n_slices: int = 256, n_topn_slices: int = 10) -> dict:
+    """The port's server on the card over phases 2 and 3's directory,
+    driven over HTTP; every answer held to the host roaring answer from
+    the server's own fragments."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import residency
+    from pilosa_tpu_torch.proto import internal as pb
+    from pilosa_tpu_torch.proto import rawimport
+    from pilosa_tpu_torch.server.server import Server
+
+    PB = "application/x-protobuf"
+    rng = np.random.default_rng(seed + 4)
+    t0 = time.perf_counter()
+    srv = Server(data_dir, host="127.0.0.1:0", device=device)
+    srv.open()
+    open_s = time.perf_counter() - t0
+    try:
+        host = srv.host
+        holder = srv.holder
+        # Writes over HTTP: frame g, row 1 of g at 1/64 as raw v2
+        # positions, row 2 at 1/4096 as protobuf ImportRequests.
+        _http(host, "/index/smoke/frame/g", b"{}")
+        t0 = time.perf_counter()
+        raw_bytes = 0
+        for s in range(n_slices):
+            cols = np.unique(rng.integers(0, SLICE_WIDTH,
+                                          size=SLICE_WIDTH // 64,
+                                          dtype=np.uint64))
+            body = rawimport.encode_positions(
+                "smoke", "g", s, np.uint64(SLICE_WIDTH) + cols)
+            raw_bytes += len(body)
+            _http(host, "/import", body,
+                  {"Content-Type": rawimport.CONTENT_TYPE, "Accept": PB})
+        raw_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pb_bytes = 0
+        for s in range(n_slices):
+            cols = np.unique(rng.integers(0, SLICE_WIDTH,
+                                          size=SLICE_WIDTH // 4096,
+                                          dtype=np.uint64))
+            body = pb.ImportRequest(
+                Index="smoke", Frame="g", Slice=s,
+                RowIDs=np.full(len(cols), 2, np.uint64),
+                ColumnIDs=cols + np.uint64(s * SLICE_WIDTH)
+            ).SerializeToString()
+            pb_bytes += len(body)
+            _http(host, "/import", body,
+                  {"Content-Type": PB, "Accept": PB})
+        pb_s = time.perf_counter() - t0
+        # Attributes: a category on each resident TopN candidate (one
+        # query of SetRowAttrs calls), a tag on three columns of row 9.
+        _http(host, "/index/smoke_topn/query", " ".join(
+            f"SetRowAttrs(frame=t, rowID={r}, category={r % 3})"
+            for r in ids200).encode())
+        f0 = holder.fragment("smoke", "f", "standard", 0)
+        tagged = f0.row(9).bits()[:3].tolist()
+        _http(host, "/index/smoke/query", " ".join(
+            f'SetColumnAttrs(id={c}, tag="c{i}")'
+            for i, c in enumerate(tagged)).encode())
+
+        # Host answers from the server's own fragments.
+        want = _count_wants(holder, n_slices)
+        queries = {k: ("smoke", q, "count")
+                   for k, q in _count_queries().items()}
+        fg = [(holder.fragment("smoke", "f", "standard", s),
+               holder.fragment("smoke", "g", "standard", s))
+              for s in range(n_slices)]
+        queries["g_intersect"] = (
+            "smoke", "Count(Intersect(Bitmap(rowID=1, frame=g),"
+                     " Bitmap(rowID=2, frame=g)))", "count")
+        want["g_intersect"] = sum(g.row(1).intersect(g.row(2)).count()
+                                  for _, g in fg)
+        queries["g_union_sparse"] = (
+            "smoke", "Count(Union(Bitmap(rowID=2, frame=g),"
+                     " Bitmap(rowID=9, frame=f)))", "count")
+        want["g_union_sparse"] = sum(g.row(2).union(f.row(9)).count()
+                                     for f, g in fg)
+        pairs = _topn_host_pairs(holder, n_topn_slices,
+                                 lambda f: f.row(1), ids200)
+        topn = (f"TopN(Bitmap(rowID=1, frame=src), frame=t, n=100,"
+                f" ids={ids200})")
+        queries["topn"] = ("smoke_topn", topn, "topn")
+        want["topn"] = pairs
+        queries["topn_filtered"] = (
+            "smoke_topn", topn[:-1] + ', field="category", filters=[0, 1])',
+            "topn")
+        want["topn_filtered"] = [p for p in pairs if p[0] % 3 in (0, 1)]
+        queries["bitmap_column_attrs"] = ("smoke", "Bitmap(rowID=9, frame=f)",
+                                          "bitmap")
+        want["bitmap_column_attrs"] = np.concatenate(
+            [f.row(9).bits() for f, _ in fg]).tolist()
+        want_attr_sets = [(c, {"tag": f"c{i}"}) for i, c in
+                          enumerate(tagged)]
+
+        results = []
+        for name, (index, q, kind) in queries.items():
+            expect = want[name]
+            n_calls = 3 if name == "all3" else 1
+            path = f"/index/{index}/query"
+            if kind == "bitmap":
+                path += "?columnAttrs=true"
+            entry = {"query": name, "index": index}
+            for fmt in ("json", "protobuf"):
+                headers = {"Accept": PB} if fmt == "protobuf" else {}
+                residency.device_cache().clear()
+                for state in ("cold", "warm"):
+                    body, ms = _http(host, path, q.encode(), headers)
+                    if fmt == "json":
+                        doc = json.loads(body)
+                        got = [_answer_of(kind, r) for r in doc["results"]]
+                        sets = [(c["id"], c.get("attrs", {}))
+                                for c in doc.get("columnAttrs", [])]
+                    else:
+                        resp = pb.QueryResponse.FromString(body)
+                        if resp.Err:
+                            _fail(f"server {name}: {resp.Err}")
+                        got = [_answer_of(kind, r) for r in resp.Results]
+                        sets = [(c.ID, {a.Key: a.StringValue
+                                        for a in c.Attrs})
+                                for c in resp.ColumnAttrSets]
+                    got = got if n_calls > 1 else got[0]
+                    if got != expect:
+                        _fail(f"server {name} ({fmt}, {state}): HTTP answer"
+                              f" differs from host ({str(got)[:120]} vs"
+                              f" {str(expect)[:120]})")
+                    if kind == "bitmap" and sets != want_attr_sets:
+                        _fail(f"server {name} ({fmt}): columnAttrs {sets}"
+                              f" != {want_attr_sets}")
+                    entry[f"{state}_{fmt}_ms"] = ms
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = srv.executor.execute(index, q)
+            torch.cuda.synchronize()
+            entry["executor_ms"] = (time.perf_counter() - t0) * 1e3
+            got = [_answer_of(kind, r) for r in out]
+            if (got if n_calls > 1 else got[0]) != expect:
+                _fail(f"server {name}: executor answer differs from host")
+            entry["front_ms"] = entry["warm_json_ms"] - entry["executor_ms"]
+            results.append(entry)
+    finally:
+        srv.close()
+    launches = dict(ck.LAUNCHES)
+    for name in ("expr_count_rows", "topn_block_count", "densify"):
+        if launches[name] <= 0:
+            _fail(f"{name}: no launch in the server phase")
+    out = {"phase": "server", "host": host, "device": str(device),
+           "open_s": open_s, "raw_import_s": raw_s,
+           "raw_import_bytes": raw_bytes, "pb_import_s": pb_s,
+           "pb_import_bytes": pb_bytes, "queries": results,
+           "launches": launches}
     _emit(out)
     return out
 
@@ -565,6 +789,7 @@ def main() -> None:
     try:
         from pilosa_tpu_torch import bench
         from pilosa_tpu_torch.device import resolve_device
+        from pilosa_tpu_torch.models.holder import Holder
         from pilosa_tpu_torch.ops import build
         from pilosa_tpu_torch.ops import cuda_kernels as ck
     except ImportError as e:
@@ -579,14 +804,23 @@ def main() -> None:
 
     table = phase_kernels(device, args.seed)
     ck.reset_launches()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as holder_dir:
-        phase_count(holder_dir, device, args.seed)
-        phase_topn(holder_dir, device, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        data_dir = os.path.join(tmp, "data")
+        holder = Holder(data_dir)
+        holder.open()
+        phase_count(holder, device, args.seed)
+        _, ids200 = phase_topn(holder, device, args.seed)
+        holder.close()
+        launches = dict(ck.LAUNCHES)
+        ck.reset_launches()
+        phase_server(data_dir, device, args.seed, ids200)
+        for name, n in ck.LAUNCHES.items():
+            launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]
     phase_bench(device)
     if ck.LAUNCHES["op_count_rows"] <= before_bench:
         _fail("op_count_rows: no launch in the bench phase")
-    launches = dict(ck.LAUNCHES)
+    launches["op_count_rows"] += ck.LAUNCHES["op_count_rows"] - before_bench
     for name, n in launches.items():
         if n <= 0:
             _fail(f"{name}: no launch on the main path")

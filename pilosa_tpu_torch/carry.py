@@ -6,6 +6,14 @@ slice-local bit positions (``row * SLICE_WIDTH + column % SLICE_WIDTH``)
 of that fragment — what the JAX fragment gives as
 ``frag.storage.all_positions()``. This is the port's counterpart of
 loading a checkpoint: the same bits, served by the port's executor.
+``row_attrs`` maps ``(index, frame)`` and ``column_attrs`` maps ``index``
+to ``{id: attribute dict}``, what the JAX package's attribute stores
+hold.
+
+The direct path needs no export: the port's ``Holder`` opens a data
+directory that the JAX package wrote and closed (the same fragment
+files, protobuf ``.meta`` files and sqlite attribute stores), and the
+JAX package opens one the port wrote.
 """
 
 from __future__ import annotations
@@ -15,10 +23,11 @@ import numpy as np
 from .models.holder import Holder
 
 
-def holder_from_state(path: str, state: dict, device=None):
+def holder_from_state(path: str, state: dict, device=None,
+                      row_attrs=None, column_attrs=None):
     """Open a Holder under ``path``, import every fragment of ``state``
-    and return ``(holder, executor)``, the executor on ``device`` (the
-    card unless the caller passes ``"cpu"``)."""
+    and the attributes, and return ``(holder, executor)``, the executor
+    on ``device`` (the card unless the caller passes ``"cpu"``)."""
     from .executor import Executor
     holder = Holder(path)
     holder.open()
@@ -28,4 +37,11 @@ def holder_from_state(path: str, state: dict, device=None):
         frag = fr.create_view_if_not_exists(view) \
             .create_fragment_if_not_exists(int(slice))
         frag.import_positions(np.asarray(positions, dtype=np.uint64))
+    for (index, frame), attrs in sorted((row_attrs or {}).items()):
+        holder.create_index_if_not_exists(index) \
+            .create_frame_if_not_exists(frame) \
+            .row_attr_store.set_bulk_attrs(attrs)
+    for index, attrs in sorted((column_attrs or {}).items()):
+        holder.create_index_if_not_exists(index) \
+            .column_attr_store.set_bulk_attrs(attrs)
     return holder, Executor(holder, device=device)

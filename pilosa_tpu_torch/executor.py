@@ -11,13 +11,17 @@ calls in order. What this slice of the port serves:
   (parallel.residency) and the expression-count kernel counts it
   (parallel.mesh.count_expr_sharded).
 - **TopN with one source child and ``ids``** (threshold at most 1, no
-  Tanimoto, no attribute filter) counts every candidate row against
-  the source on the device: the resident form when the candidate block
-  fits TOPN_BLOCK_BYTES, the streaming form up to
-  _TOPN_HOST_BLOCK_BYTES (``_execute_top_n``).
+  Tanimoto) counts every candidate row against the source on the
+  device: the resident form when the candidate block fits
+  TOPN_BLOCK_BYTES, the streaming form up to _TOPN_HOST_BLOCK_BYTES
+  (``_execute_top_n``). An attribute filter (``field``/``filters``)
+  drops candidates on the host first (``_attr_filtered_ids``).
 - ``Bitmap``/``Intersect``/``Union``/``Difference`` as top-level calls
-  are materialized by host roaring algebra over the fragments.
-- ``SetBit``/``ClearBit`` on the standard view.
+  are materialized by host roaring algebra over the fragments; a
+  top-level ``Bitmap`` carries its row's attributes.
+- ``SetBit``/``ClearBit`` on the standard view, ``SetRowAttrs`` and
+  ``SetColumnAttrs`` (a query of ``SetRowAttrs`` calls alone is one
+  bulk write per frame).
 
 Before a read query runs, empty operands (``Union()``) fold away from
 its bitmap trees by set algebra (``_fold_empty``), as the JAX package's
@@ -39,7 +43,8 @@ import numpy as np
 
 from .device import resolve_device
 from .errors import (TIME_FORMAT, FrameNotFoundError, IndexNotFoundError,
-                     PilosaError, QueryRequiredError)
+                     PilosaError, QueryRequiredError, later)
+from .models.frame import LATER_VIEWS
 from .models.view import VIEW_INVERSE, VIEW_STANDARD
 from .ops.packed import WORDS_PER_SLICE
 from .parallel import mesh as mesh_mod
@@ -57,16 +62,12 @@ MIN_THRESHOLD = 1
 _WRITE_CALLS = ("SetBit", "ClearBit", "SetFieldValue", "SetRowAttrs",
                 "SetColumnAttrs")
 
-# The slice of the port that will serve each call this one refuses.
-_LATER = {
-    "Range": "the Range/time-view/BSI slice",
-    "Sum": "the Range/time-view/BSI slice",
-    "Min": "the Range/time-view/BSI slice",
-    "Max": "the Range/time-view/BSI slice",
-    "SetFieldValue": "the Range/time-view/BSI slice",
-    "SetRowAttrs": "the HTTP-front slice (attribute stores)",
-    "SetColumnAttrs": "the HTTP-front slice (attribute stores)",
-}
+# The calls this slice refuses; the Range/time-view/BSI slice serves them.
+_LATER = frozenset(("Range", "Sum", "Min", "Max", "SetFieldValue"))
+
+
+def _has_only_set_row_attrs(calls: list[Call]) -> bool:
+    return bool(calls) and all(c.name == "SetRowAttrs" for c in calls)
 
 
 def _needs_slices(calls: list[Call]) -> bool:
@@ -130,11 +131,6 @@ def _parse_timestamp(c: Call, key: str = "timestamp"
         raise PilosaError(f"invalid date: {v}")
 
 
-def _later(what: str, where: str) -> PilosaError:
-    return PilosaError(f"{what} is not ported yet: it comes with {where}"
-                       " of pilosa_tpu_torch")
-
-
 class Executor:
     """Executes PQL queries against a Holder on one device.
 
@@ -168,6 +164,8 @@ class Executor:
             slices = list(range(idx.max_slice() + 1))
         slices = slices or []
         calls = query.calls
+        if _has_only_set_row_attrs(calls):
+            return self._execute_bulk_set_row_attrs(index, calls)
         if slices and _needs_slices(calls) and not query.write_calls():
             # As the JAX package plans a read query (executor.py
             # _maybe_plan): empty operands fold away before execution.
@@ -182,10 +180,17 @@ class Executor:
             return self._execute_count(index, c, slices)
         if c.name == "SetBit":
             return self._execute_mutate_bit(index, c, set=True)
+        if c.name == "SetRowAttrs":
+            _, frame, row_id, attrs = self._row_attrs_of(index, c)
+            frame.row_attr_store.set_attrs(row_id, attrs)
+            return None
+        if c.name == "SetColumnAttrs":
+            self._execute_set_column_attrs(index, c)
+            return None
         if c.name == "TopN":
             return self._execute_top_n(index, c, slices)
         if c.name in _LATER:
-            raise _later(f"{c.name}()", _LATER[c.name])
+            raise later(f"{c.name}()", LATER_VIEWS)
         return self._execute_bitmap_call(index, c, slices)
 
     # -- bitmap calls on the host --------------------------------------------
@@ -195,7 +200,25 @@ class Executor:
         bm = Bitmap()
         for slice in slices:
             bm.merge(self._bitmap_call_slice(index, c, slice))
+        if c.name == "Bitmap":
+            self._attach_bitmap_attrs(index, c, bm)
         return bm
+
+    def _attach_bitmap_attrs(self, index: str, c: Call, bm: Bitmap) -> None:
+        # executor.go:215-249: column attrs if the column label was used,
+        # row attrs otherwise.
+        idx = self.holder.index(index)
+        if idx is None:
+            return
+        column_id, col_ok = c.uint_arg(idx.column_label)
+        if col_ok:
+            bm.attrs = idx.column_attr_store.attrs(column_id)
+            return
+        frame = idx.frame(c.args.get("frame") or DEFAULT_FRAME)
+        if frame is not None:
+            row_id, ok = c.uint_arg(frame.row_label)
+            if ok:
+                bm.attrs = frame.row_attr_store.attrs(row_id)
 
     def _bitmap_call_slice(self, index: str, c: Call, slice: int) -> Bitmap:
         # executor.go:253-268
@@ -211,7 +234,7 @@ class Executor:
             return self._fold_slice(index, c, slice, "union",
                                     require_children=False)
         if c.name in _LATER:
-            raise _later(f"{c.name}()", _LATER[c.name])
+            raise later(f"{c.name}()", LATER_VIEWS)
         raise PilosaError(f"unknown call: {c.name}")
 
     def _fold_slice(self, index: str, c: Call, slice: int, op: str,
@@ -245,7 +268,9 @@ class Executor:
                 f"Bitmap() must specify either {frame.row_label} or"
                 f" {idx.column_label} values")
         if col_ok:
-            # Frames of this slice never enable inverse storage.
+            if frame.inverse_enabled:
+                raise later("Bitmap() of a column (the inverse view)",
+                            LATER_VIEWS)
             raise PilosaError("Bitmap() cannot retrieve columns unless"
                               " inverse storage enabled")
         frag = self.holder.fragment(index, frame_name, VIEW_STANDARD, slice)
@@ -366,8 +391,8 @@ class Executor:
         if len(c.children) > 1:
             raise PilosaError("TopN() can only have one input bitmap")
         if not c.children:
-            raise _later("TopN() without a source bitmap",
-                         "the sourceless-TopN slice (rank-cache phase)")
+            raise later("TopN() without a source bitmap",
+                        "the sourceless-TopN slice (rank-cache phase)")
         if tanimoto > 100:
             raise PilosaError("Tanimoto Threshold is from 1 to 100 only")
         src = c.children[0]
@@ -387,24 +412,24 @@ class Executor:
             # pair (the JAX package's fragment.top pushes no count 0).
             return []
         if expr is None:
-            raise _later(f"TopN() over {src}", "a later slice")
+            raise later(f"TopN() over {src}", "a later slice")
         if not row_ids:
-            raise _later("TopN() without ids (the rank-cache candidate"
-                         " phase)", "the sourceless-TopN slice")
+            raise later("TopN() without ids (the rank-cache candidate"
+                        " phase)", "the sourceless-TopN slice")
         if min_threshold > 1 or tanimoto > 0:
-            raise _later("TopN() threshold/tanimotoThreshold",
-                         "the threshold/Tanimoto slice")
-        if field and filters:
-            raise _later("TopN() attribute filters",
-                         "the HTTP-front slice (attribute stores)")
+            raise later("TopN() threshold/tanimotoThreshold",
+                        "the threshold/Tanimoto slice")
         if not slices:
             return []
-        ids = list(row_ids)
+        ids = self._attr_filtered_ids(index, frame_name, row_ids, field,
+                                      filters)
+        if not ids:
+            return []
         block_bytes = len(slices) * len(ids) * WORDS_PER_SLICE * 4
         if block_bytes > self._TOPN_HOST_BLOCK_BYTES:
-            raise _later(f"TopN() over a {block_bytes}-byte candidate "
-                         "block (the per-slice host path)",
-                         "the sourceless-TopN slice")
+            raise later(f"TopN() over a {block_bytes}-byte candidate "
+                        "block (the per-slice host path)",
+                        "the sourceless-TopN slice")
         if block_bytes <= mesh_mod.TOPN_BLOCK_BYTES:
             counts = self._topn_exact_resident(
                 index, frame_name, expr, leaves, tuple(ids), tuple(slices))
@@ -422,6 +447,22 @@ class Executor:
             if cnt > 0:
                 merged[rid] = merged.get(rid, 0) + cnt
         return pairs_sort(Pair(rid, cnt) for rid, cnt in merged.items())
+
+    def _attr_filtered_ids(self, index: str, frame_name: str, row_ids,
+                           field, filters) -> list[int]:
+        """Candidate ids whose row attribute ``field`` holds one of
+        ``filters``. Row attributes are frame-global, so filtering the
+        ids first equals the JAX package's per-slice filter."""
+        if not (field and filters):
+            return list(row_ids)
+        frame = self.holder.frame(index, frame_name)
+        if frame is None:
+            raise FrameNotFoundError(frame_name)
+        store = frame.row_attr_store
+        fset = set(filters)
+        return [rid for rid in row_ids
+                if (val := store.attrs(rid).get(field)) is not None
+                and val in fset]
 
     def _pack_candidate_rows(self, index: str, frame_name: str,
                              row_ids: list[int],
@@ -484,5 +525,55 @@ class Executor:
             op = frame.set_bit if set else frame.clear_bit
             return op(VIEW_STANDARD, row_id, col_id, timestamp)
         if view == VIEW_INVERSE:
+            if frame.inverse_enabled:
+                raise later(f"{name}() on the inverse view", LATER_VIEWS)
             raise PilosaError("inverse views not enabled for frame")
         raise PilosaError(f"invalid view: {view}")
+
+    # -- attributes (executor.go:800-988) ------------------------------------
+
+    def _row_attrs_of(self, index: str, c: Call):
+        """Resolve a SetRowAttrs call → (frame_name, frame, row_id,
+        attrs without the reserved keys)."""
+        frame_name = c.args.get("frame")
+        if not frame_name:
+            raise PilosaError("SetRowAttrs() frame required")
+        frame = self.holder.frame(index, frame_name)
+        if frame is None:
+            raise FrameNotFoundError(frame_name)
+        row_id, ok = c.uint_arg(frame.row_label)
+        if not ok:
+            raise PilosaError(
+                f"SetRowAttrs() row field '{frame.row_label}' required")
+        attrs = dict(c.args)
+        attrs.pop("frame", None)
+        attrs.pop(frame.row_label, None)
+        return frame_name, frame, row_id, attrs
+
+    def _execute_bulk_set_row_attrs(self, index: str,
+                                    calls: list[Call]) -> list:
+        # executor.go:857-941: group attrs by frame and row, one bulk
+        # write per frame.
+        by_frame: dict[str, tuple] = {}
+        for c in calls:
+            frame_name, frame, row_id, attrs = self._row_attrs_of(index, c)
+            rows = by_frame.setdefault(frame_name, (frame, {}))[1]
+            rows.setdefault(row_id, {}).update(attrs)
+        for frame, rows in by_frame.values():
+            frame.row_attr_store.set_bulk_attrs(rows)
+        return [None] * len(calls)
+
+    def _execute_set_column_attrs(self, index: str, c: Call) -> None:
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError(index)
+        id, ok = c.uint_arg("id")
+        col_name = "id"
+        if not ok:
+            id, ok = c.uint_arg(idx.column_label)
+            if not ok:
+                raise PilosaError("SetColumnAttrs() id required")
+            col_name = idx.column_label
+        attrs = dict(c.args)
+        attrs.pop(col_name, None)
+        idx.column_attr_store.set_attrs(id, attrs)

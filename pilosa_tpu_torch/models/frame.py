@@ -1,35 +1,99 @@
 """Frame: a named row-space within an index.
 
 Trimmed copy of the JAX package's ``models/frame.py`` (reference
-frame.go): the standard view, a row label, SetBit/ClearBit and bulk
-import. Inverse views, time quantums, BSI fields and the row attribute
-store wait for later slices. Options persist as JSON in ``.meta.json``
-(the JAX package's protobuf ``.meta`` comes with the slice that ports
-the HTTP front).
+frame.go). Options (rowLabel, inverseEnabled, cacheType, cacheSize,
+timeQuantum, BSI fields) persist as the same protobuf ``.meta`` file
+(frame.go:280-336), so either package opens the other's frames with
+their options; the row attribute store is ``<frame>/attrs``. This slice
+writes the standard view: SetBit, ClearBit and bulk import. The options
+that later slices serve are kept and reported, and a write that needs
+them (the inverse transpose, time views) raises PilosaError naming its
+slice.
 """
 
 from __future__ import annotations
 
 import datetime as dt
-import json
 import os
 import threading
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
 from .. import SLICE_WIDTH
-from ..errors import PilosaError, validate_label
+from ..errors import PilosaError, later, validate_label
+from ..proto import internal as pb
+from ..storage import cache as cache_mod
+from ..storage.attrs import AttrStore
 from ..utils.arrays import group_by_key, sort_dedupe
-from .view import VIEW_INVERSE, VIEW_STANDARD, View
+from .view import (VIEW_STANDARD, View, is_field_view, is_inverse_view,
+                   is_valid_view)
 
 DEFAULT_ROW_LABEL = "rowID"
+
+# Widest BSI field (value planes) the JAX package accepts.
+MAX_BIT_DEPTH = 63
+
+# The slice of the port that will serve what the options below enable.
+LATER_VIEWS = "the Range/time-view/BSI slice"
+
+
+@dataclass
+class Field:
+    """A BSI integer field of a frame: kept in ``.meta`` and reported in
+    ``/schema``; its values are served by a later slice."""
+    name: str
+    min: int = 0
+    max: int = 0
+
+    def __post_init__(self):
+        validate_label(self.name)
+        if self.max < self.min:
+            raise PilosaError(
+                f"field max ({self.max}) must be >= min ({self.min})")
+        if (self.max - self.min).bit_length() > MAX_BIT_DEPTH:
+            raise PilosaError("field range too wide (max 63 bits)")
+
+    def encode(self) -> pb.FieldMeta:
+        return pb.FieldMeta(Name=self.name, Min=self.min, Max=self.max)
+
+    @staticmethod
+    def decode(meta: pb.FieldMeta) -> "Field":
+        return Field(name=meta.Name, min=meta.Min, max=meta.Max)
+
+    def to_json(self) -> dict:
+        return {"name": self.name, "min": self.min, "max": self.max}
 
 
 @dataclass
 class FrameOptions:
     row_label: str = DEFAULT_ROW_LABEL
+    inverse_enabled: bool = False
+    cache_type: str = cache_mod.DEFAULT_CACHE_TYPE
+    cache_size: int = cache_mod.DEFAULT_CACHE_SIZE
+    time_quantum: str = ""
+    fields: Optional[list[Field]] = None
+
+    def encode(self) -> pb.FrameMeta:
+        return pb.FrameMeta(RowLabel=self.row_label,
+                            InverseEnabled=self.inverse_enabled,
+                            CacheType=self.cache_type,
+                            CacheSize=self.cache_size,
+                            TimeQuantum=self.time_quantum,
+                            Fields=[f.encode() for f in self.fields or []])
+
+    @staticmethod
+    def decode(meta: pb.FrameMeta) -> "FrameOptions":
+        return FrameOptions(row_label=meta.RowLabel or DEFAULT_ROW_LABEL,
+                            inverse_enabled=meta.InverseEnabled,
+                            cache_type=meta.CacheType
+                            or cache_mod.DEFAULT_CACHE_TYPE,
+                            cache_size=meta.CacheSize
+                            or cache_mod.DEFAULT_CACHE_SIZE,
+                            time_quantum=meta.TimeQuantum,
+                            fields=[Field.decode(f)
+                                    for f in meta.Fields] or None)
 
 
 class Frame:
@@ -39,15 +103,15 @@ class Frame:
         self.index = index
         self.name = name
         self.options = options or FrameOptions()
-        validate_label(self.options.row_label)
         self.views: dict[str, View] = {}
+        self.row_attr_store = AttrStore(os.path.join(path, "attrs"))
         self._mu = threading.RLock()
 
     # -- lifecycle -----------------------------------------------------------
 
     @property
     def meta_path(self) -> str:
-        return os.path.join(self.path, ".meta.json")
+        return os.path.join(self.path, ".meta")
 
     def views_path(self) -> str:
         return os.path.join(self.path, "views")
@@ -55,20 +119,37 @@ class Frame:
     def open(self) -> None:
         with self._mu:
             os.makedirs(self.views_path(), exist_ok=True)
-            if os.path.exists(self.meta_path):
-                with open(self.meta_path) as f:
-                    self.options = FrameOptions(**json.load(f))
-            with open(self.meta_path, "w") as f:
-                json.dump(asdict(self.options), f)
-            if os.path.isdir(os.path.join(self.views_path(),
-                                          VIEW_STANDARD)):
-                self.create_view_if_not_exists(VIEW_STANDARD)
+            self._load_meta()
+            self._save_meta()
+            self.row_attr_store.open()
+            for entry in sorted(os.listdir(self.views_path())):
+                if not is_valid_view(entry):
+                    continue
+                view = self._new_view(entry)
+                view.open()
+                self.views[entry] = view
 
     def close(self) -> None:
         with self._mu:
             for v in self.views.values():
                 v.close()
             self.views.clear()
+            self.row_attr_store.close()
+
+    def _load_meta(self) -> None:
+        try:
+            with open(self.meta_path, "rb") as f:
+                self.options = FrameOptions.decode(
+                    pb.FrameMeta.FromString(f.read()))
+        except FileNotFoundError:
+            pass
+
+    def _save_meta(self) -> None:
+        blob = self.options.encode().SerializeToString()
+        tmp = self.meta_path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, self.meta_path)
 
     # -- options accessors ---------------------------------------------------
 
@@ -78,34 +159,60 @@ class Frame:
 
     @property
     def inverse_enabled(self) -> bool:
-        return False
+        return self.options.inverse_enabled
+
+    def time_quantum(self) -> str:
+        return self.options.time_quantum
+
+    def fields(self) -> list[Field]:
+        with self._mu:
+            return list(self.options.fields or [])
 
     # -- views ---------------------------------------------------------------
+
+    def _new_view(self, name: str) -> View:
+        return View(os.path.join(self.views_path(), name), self.index,
+                    self.name, name)
 
     def view(self, name: str) -> Optional[View]:
         return self.views.get(name)
 
     def create_view_if_not_exists(self, name: str) -> View:
         with self._mu:
-            if name.startswith(VIEW_INVERSE):
+            if not self.inverse_enabled and is_inverse_view(name):
                 raise PilosaError("inverse views not enabled for frame")
-            if name != VIEW_STANDARD:
-                raise PilosaError(f"view {name!r}: only the standard view"
-                                  " is ported so far (time views come"
-                                  " with the Range slice)")
             v = self.views.get(name)
-            if v is None:
-                v = View(os.path.join(self.views_path(), name), self.index,
-                         self.name, name)
-                v.open()
-                self.views[name] = v
+            if v is not None:
+                return v
+            if name != VIEW_STANDARD:
+                raise later(f"writing view {name!r}", LATER_VIEWS)
+            v = self._new_view(name)
+            v.open()
+            self.views[name] = v
             return v
 
     def max_slice(self) -> int:
-        v = self.views.get(VIEW_STANDARD)
+        # Field views are column-sharded like standard, and a pure
+        # integer frame may hold bits only there (time views fan out
+        # beside standard, so standard bounds them).
+        return max((v.max_slice() for name, v in list(self.views.items())
+                    if name == VIEW_STANDARD or is_field_view(name)),
+                   default=0)
+
+    def max_inverse_slice(self) -> int:
+        v = self.views.get("inverse")
         return v.max_slice() if v else 0
 
     # -- bit ops (frame.go:446-527) ------------------------------------------
+
+    def _writable_standard_view(self, what: str) -> View:
+        """The standard view, for a write that lands there alone: a frame
+        with inverse storage also needs the transpose, which a later
+        slice writes."""
+        if self.inverse_enabled:
+            raise later(f"{what} on a frame with inverseEnabled",
+                        LATER_VIEWS)
+        return self.create_view_if_not_exists(VIEW_STANDARD)
 
     def set_bit(self, view_name: str, row_id: int, col_id: int,
                 t: Optional[dt.datetime] = None) -> bool:
@@ -117,9 +224,15 @@ class Frame:
 
     def _mutate(self, view_name: str, row_id: int, col_id: int,
                 t: Optional[dt.datetime], set: bool) -> bool:
-        # Frames of this slice have no time quantum, so a timestamp
-        # fans out to no time view (frame.go:446-485 with quantum "").
-        view = self.create_view_if_not_exists(view_name)
+        what = "SetBit()" if set else "ClearBit()"
+        if view_name != VIEW_STANDARD:
+            raise later(f"{what} on view {view_name!r}", LATER_VIEWS)
+        if t is not None and self.time_quantum():
+            # frame.go:446-485: a timestamp also writes one time view
+            # per quantum unit.
+            raise later(f"{what} with a timestamp on a frame with a time"
+                        " quantum", LATER_VIEWS)
+        view = self._writable_standard_view(what)
         op = view.set_bit if set else view.clear_bit
         return op(row_id, col_id)
 
@@ -134,8 +247,18 @@ class Frame:
             raise ValueError("row/column length mismatch")
         if not len(rows):
             return
-        view = self.create_view_if_not_exists(VIEW_STANDARD)
+        view = self._writable_standard_view("import")
         w = np.uint64(SLICE_WIDTH)
         for slice, rs, cs in group_by_key(cols // w, rows, cols):
             frag = view.create_fragment_if_not_exists(slice)
             frag.import_positions(sort_dedupe(rs * w + cs % w))
+
+    def import_slice_positions(self, slice: int,
+                               positions: np.ndarray) -> None:
+        """Standard-view bulk import of one slice's sorted, deduplicated
+        slice-local positions (the raw-import v2 wire form)."""
+        if not len(positions):
+            return
+        view = self._writable_standard_view("import")
+        view.create_fragment_if_not_exists(slice).import_positions(
+            positions)

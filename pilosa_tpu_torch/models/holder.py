@@ -1,13 +1,16 @@
 """Holder: root container for all indexes under one data directory.
 
 Trimmed copy of the JAX package's ``models/holder.py`` (reference
-holder.go): index CRUD and Index/Frame/View/Fragment navigation
-(holder.go:177-322). Quarantine and tiering wait for later slices.
+holder.go): index CRUD, Index/Frame/View/Fragment navigation
+(holder.go:177-322) and the schema summary (holder.go:154-171). It opens
+a data directory the JAX package wrote and closed. Quarantine, tiering
+and the cache-flush loop wait for later slices.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 from typing import Optional
 
@@ -88,3 +91,38 @@ class Holder:
     def fragment(self, index: str, frame: str, view: str, slice: int):
         v = self.view(index, frame, view)
         return v.fragment(slice) if v else None
+
+    def delete_index(self, name: str) -> None:
+        with self._mu:
+            idx = self.indexes.pop(name, None)
+            if idx is not None:
+                idx.close()
+            shutil.rmtree(self.index_path(name), ignore_errors=True)
+
+    # -- schema (holder.go:154-171)
+
+    def schema(self) -> list[dict]:
+        with self._mu:
+            out = []
+            for name in sorted(self.indexes):
+                idx = self.indexes[name]
+                frames = []
+                for fname in sorted(idx.frames):
+                    frame = idx.frames[fname]
+                    entry = {"name": fname,
+                             "views": [{"name": vn}
+                                       for vn in sorted(frame.views)]}
+                    fields = frame.fields()
+                    if fields:
+                        entry["fields"] = [f.to_json() for f in fields]
+                    frames.append(entry)
+                out.append({"name": name, "frames": frames})
+            return out
+
+    def max_slices(self) -> dict[str, int]:
+        return {name: idx.max_slice()
+                for name, idx in self.indexes.items()}
+
+    def max_inverse_slices(self) -> dict[str, int]:
+        return {name: idx.max_inverse_slice()
+                for name, idx in self.indexes.items()}

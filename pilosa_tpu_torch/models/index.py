@@ -1,20 +1,25 @@
-"""Index: a named database of frames.
+"""Index: a named database of frames with a column attribute store.
 
 Trimmed copy of the JAX package's ``models/index.py`` (reference
-index.go): the column label and the frames. The column attribute store
-and time quantums wait for later slices. Options persist as JSON in
-``.meta.json``.
+index.go): options (columnLabel, the default timeQuantum) persist as the
+same protobuf ``.meta`` file, the column attribute store is
+``<index>/.data``, and CreateFrame applies the option defaults and checks
+of index.go:378-432. One node: no slice knowledge learned from peers.
 """
 
 from __future__ import annotations
 
-import json
 import os
+import shutil
 import threading
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass
 from typing import Optional
 
-from ..errors import FrameExistsError, validate_label, validate_name
+from ..errors import (FrameExistsError, PilosaError, validate_label,
+                      validate_name)
+from ..proto import internal as pb
+from ..storage.attrs import AttrStore
+from ..utils import timequantum as tq
 from .frame import Frame, FrameOptions
 
 DEFAULT_COLUMN_LABEL = "columnID"
@@ -23,6 +28,17 @@ DEFAULT_COLUMN_LABEL = "columnID"
 @dataclass
 class IndexOptions:
     column_label: str = DEFAULT_COLUMN_LABEL
+    time_quantum: str = ""
+
+    def encode(self) -> pb.IndexMeta:
+        return pb.IndexMeta(ColumnLabel=self.column_label,
+                            TimeQuantum=self.time_quantum)
+
+    @staticmethod
+    def decode(meta: pb.IndexMeta) -> "IndexOptions":
+        return IndexOptions(
+            column_label=meta.ColumnLabel or DEFAULT_COLUMN_LABEL,
+            time_quantum=meta.TimeQuantum)
 
 
 class Index:
@@ -32,24 +48,22 @@ class Index:
         self.path = path
         self.name = name
         self.options = options or IndexOptions()
-        validate_label(self.options.column_label)
         self.frames: dict[str, Frame] = {}
+        self.column_attr_store = AttrStore(os.path.join(path, ".data"))
         self._mu = threading.RLock()
 
     # -- lifecycle
 
     @property
     def meta_path(self) -> str:
-        return os.path.join(self.path, ".meta.json")
+        return os.path.join(self.path, ".meta")
 
     def open(self) -> None:
         with self._mu:
             os.makedirs(self.path, exist_ok=True)
-            if os.path.exists(self.meta_path):
-                with open(self.meta_path) as f:
-                    self.options = IndexOptions(**json.load(f))
-            with open(self.meta_path, "w") as f:
-                json.dump(asdict(self.options), f)
+            self._load_meta()
+            self._save_meta()
+            self.column_attr_store.open()
             for entry in sorted(os.listdir(self.path)):
                 if os.path.isdir(os.path.join(self.path, entry)):
                     frame = Frame(self.frame_path(entry), self.name, entry)
@@ -61,15 +75,42 @@ class Index:
             for f in self.frames.values():
                 f.close()
             self.frames.clear()
+            self.column_attr_store.close()
+
+    def _load_meta(self) -> None:
+        try:
+            with open(self.meta_path, "rb") as f:
+                self.options = IndexOptions.decode(
+                    pb.IndexMeta.FromString(f.read()))
+        except FileNotFoundError:
+            pass
+
+    def _save_meta(self) -> None:
+        tmp = self.meta_path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(self.options.encode().SerializeToString())
+        os.replace(tmp, self.meta_path)
+
+    # -- options
 
     @property
     def column_label(self) -> str:
         return self.options.column_label
 
+    def time_quantum(self) -> str:
+        return self.options.time_quantum
+
+    # -- slices
+
     def max_slice(self) -> int:
         with self._mu:
             return max((f.max_slice() for f in self.frames.values()),
                        default=0)
+
+    def max_inverse_slice(self) -> int:
+        with self._mu:
+            return max((f.max_inverse_slice()
+                        for f in self.frames.values()), default=0)
 
     # -- frames
 
@@ -98,8 +139,23 @@ class Index:
     def _create_frame(self, name: str, options: Optional[FrameOptions]
                       ) -> Frame:
         validate_name(name)
+        options = options or FrameOptions()
+        validate_label(options.row_label)
+        # Default the frame's time quantum from the index (index.go:419-427).
+        if not options.time_quantum and self.time_quantum():
+            options.time_quantum = self.time_quantum()
+        tq.parse_time_quantum(options.time_quantum)
+        if options.cache_type not in ("lru", "ranked"):
+            raise PilosaError(f"invalid cache type: {options.cache_type!r}")
         frame = Frame(self.frame_path(name), self.name, name,
                       options=options)
         frame.open()
         self.frames[name] = frame
         return frame
+
+    def delete_frame(self, name: str) -> None:
+        with self._mu:
+            f = self.frames.pop(name, None)
+            if f is not None:
+                f.close()
+            shutil.rmtree(self.frame_path(name), ignore_errors=True)

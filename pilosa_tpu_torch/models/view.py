@@ -1,8 +1,11 @@
 """View: container of fragments by slice for one orientation.
 
 Trimmed copy of the JAX package's ``models/view.py`` (reference
-view.go): the standard view only. Directory layout
-``<frame>/views/<name>/fragments/<slice>`` (view.go:186-189).
+view.go). Queries and writes of this slice reach the standard view
+only; the inverse, time and BSI field views of a data directory the JAX
+package wrote are opened and listed, and their fragments left as they
+are. Directory layout ``<frame>/views/<name>/fragments/<slice>``
+(view.go:186-189).
 """
 
 from __future__ import annotations
@@ -16,6 +19,22 @@ from ..storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
 VIEW_INVERSE = "inverse"
+# BSI integer-field views: one per field, column-sharded like standard.
+VIEW_FIELD_PREFIX = "field_"
+
+
+def is_inverse_view(name: str) -> bool:
+    return name.startswith(VIEW_INVERSE)
+
+
+def is_field_view(name: str) -> bool:
+    return name.startswith(VIEW_FIELD_PREFIX)
+
+
+def is_valid_view(name: str) -> bool:
+    return (name.startswith(VIEW_STANDARD)
+            or name.startswith(VIEW_INVERSE)
+            or is_field_view(name))
 
 
 class View:

@@ -181,10 +181,10 @@ class Fragment:
         with self._mu:
             return packed.sparse_row_words(self.storage, row_id)
 
-    def _cached_positions(self) -> np.ndarray:
+    def positions(self) -> np.ndarray:
         """All set positions (sorted u64), cached per mutation epoch up
         to _POSITIONS_CACHE_BITS — the state ``carry`` exports and
-        imports."""
+        imports, and what ``/export`` streams."""
         hit = self._positions
         if hit is not None and hit[0] == self._epoch:
             return hit[1]

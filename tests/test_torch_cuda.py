@@ -254,3 +254,95 @@ def test_bench_on_the_card(cuda_device, monkeypatch):
     assert ck.LAUNCHES["op_count_rows"] == before + 1 + 2 * 4
     assert line["platform"] == "gpu" and line["value"] > 0
     assert line["metric"] == "intersect_count_4Mbit_rows"
+
+
+def test_server_counts_over_http_on_the_card(cuda_device, tmp_path):
+    import json
+    import urllib.request
+
+    from pilosa_tpu_torch.proto import internal as pb
+    from pilosa_tpu_torch.server.server import Server
+
+    srv = Server(str(tmp_path / "d"), host="127.0.0.1:0")  # the card
+    srv.open()
+
+    def post(path, body, headers=None):
+        req = urllib.request.Request(f"http://{srv.host}{path}", data=body,
+                                     method="POST", headers=headers or {})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200
+            return resp.read()
+
+    try:
+        assert srv.executor.device.type == "cuda"
+        post("/index/i", b"{}")
+        post("/index/i/frame/f", b"{}")
+        rng = np.random.default_rng(10)
+        cols = {}
+        for row, n in ((1, 60000), (2, 3000)):
+            cols[row] = np.unique(rng.integers(0, 3 * SLICE_WIDTH, size=n,
+                                               dtype=np.uint64))
+            body = pb.ImportRequest(
+                Index="i", Frame="f", RowIDs=np.full(len(cols[row]), row,
+                                                     np.uint64),
+                ColumnIDs=cols[row]).SerializeToString()
+            post("/import", body, {"Content-Type": "application/x-protobuf",
+                                   "Accept": "application/x-protobuf"})
+        before = ck.LAUNCHES["expr_count_rows"]
+        out = post("/index/i/query", b"Count(Intersect(Bitmap(rowID=1,"
+                   b" frame=f), Bitmap(rowID=2, frame=f)))")
+        assert json.loads(out) == {"results": [
+            len(np.intersect1d(cols[1], cols[2]))]}
+        assert ck.LAUNCHES["expr_count_rows"] == before + 1
+    finally:
+        srv.close()
+
+
+def test_server_verb_serves_on_the_card(cuda_device, tmp_path):
+    """``python -m pilosa_tpu_torch.cli server`` with no ``--device``
+    serves on the card: a write, then a Count over HTTP."""
+    import json
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import urllib.request
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d",
+         str(tmp_path / "d"), "-b", f"127.0.0.1:{port}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=repo)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith(f"pilosa-tpu serving at http://127.0.0.1:"
+                               f"{port}"), proc.stderr.read()
+        base = f"http://127.0.0.1:{port}"
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.read()
+
+        post("/index/i", b"{}")
+        post("/index/i/frame/f", b"{}")
+        post("/index/i/query", b"SetBit(frame=f, rowID=1, columnID=3)"
+             b" SetBit(frame=f, rowID=2, columnID=3)"
+             b" SetBit(frame=f, rowID=1, columnID=4)")
+        out = post("/index/i/query", b"Count(Intersect(Bitmap(rowID=1,"
+                   b" frame=f), Bitmap(rowID=2, frame=f)))")
+        assert json.loads(out) == {"results": [1]}
+    finally:
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+        err = proc.stderr.read()
+        proc.stdout.close()
+        proc.stderr.close()
+    assert "on cuda:0" in err, err

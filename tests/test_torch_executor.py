@@ -114,7 +114,7 @@ def test_carry_round_trip(pair):
     for frag in jex.holder.iter_fragments():
         mine = tex.holder.fragment(frag.index, frag.frame, frag.view,
                                    frag.slice)
-        assert np.array_equal(mine._cached_positions(),
+        assert np.array_equal(mine.positions(),
                               frag.storage.all_positions())
 
 
@@ -264,7 +264,7 @@ def test_setbit_ages_out_resident_slabs(tmp_path):
     "TopN(Bitmap(rowID=1, frame=f), frame=f, ids=[1],"
     " tanimotoThreshold=50)",
     "Sum(frame=f, field=\"v\")",
-    "SetRowAttrs(frame=f, rowID=1, x=1)",
+    "SetFieldValue(frame=f, columnID=1, v=3)",
 ])
 def test_later_slices_raise(pair, q):
     _, tex = pair

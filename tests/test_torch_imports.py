@@ -1,6 +1,7 @@
 """The port stands alone: every ``pilosa_tpu_torch`` module imports with
-``jax`` and ``pilosa_tpu`` blocked, and no module (nor ``chip_smoke.py``)
-names either in an import statement."""
+``jax``, ``pilosa_tpu`` and ``google.protobuf`` blocked (the card machine
+has no protobuf library), and no module (nor ``chip_smoke.py``) names
+any of them in an import statement."""
 
 import ast
 import os
@@ -25,22 +26,25 @@ SOURCES = sorted(
 
 _BLOCKER = """
 import importlib.abc, sys
+def blocked(name):
+    return (name.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu")
+            or name == "google.protobuf"
+            or name.startswith("google.protobuf."))
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "pilosa_tpu"):
+        if blocked(name):
             raise ImportError(f"blocked import: {name}")
         return None
 sys.meta_path.insert(0, Block())
 for name in sys.argv[1:]:
     __import__(name)
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu")
-               for m in sys.modules)
+assert not any(blocked(m) for m in sys.modules)
 print("OK", len(sys.argv) - 1)
 """
 
 
 def test_every_module_imports_without_jax():
+    # Also without google.protobuf: the blocker refuses both.
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", _BLOCKER, *MODULES],
@@ -67,6 +71,7 @@ def test_no_jax_or_reference_import(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "pilosa_tpu"), (path, name)
+        assert not name.startswith("google.protobuf"), (path, name)
 
 
 def test_module_list_is_complete():
@@ -74,4 +79,19 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.device", "pilosa_tpu_torch.ops.cuda_kernels",
             "pilosa_tpu_torch.ops.build", "pilosa_tpu_torch.parallel.mesh",
             "pilosa_tpu_torch.parallel.residency",
-            "pilosa_tpu_torch.bench"} <= set(MODULES)
+            "pilosa_tpu_torch.bench", "pilosa_tpu_torch.proto",
+            "pilosa_tpu_torch.proto.internal",
+            "pilosa_tpu_torch.proto.rawimport",
+            "pilosa_tpu_torch.utils.timequantum",
+            "pilosa_tpu_torch.utils.streams",
+            "pilosa_tpu_torch.utils.logger",
+            "pilosa_tpu_torch.storage.attrs",
+            "pilosa_tpu_torch.models.holder",
+            "pilosa_tpu_torch.models.index",
+            "pilosa_tpu_torch.models.frame",
+            "pilosa_tpu_torch.server.codec",
+            "pilosa_tpu_torch.server.handler",
+            "pilosa_tpu_torch.server.httpd",
+            "pilosa_tpu_torch.server.server",
+            "pilosa_tpu_torch.cli", "pilosa_tpu_torch.cli.__main__",
+            "pilosa_tpu_torch.cli.commands"} <= set(MODULES)
