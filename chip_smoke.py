@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs five phases and prints one JSON line for each:
+checkout, then runs six phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -32,9 +32,21 @@ checkout, then runs five phases and prints one JSON line for each:
    256 slices (268,435,456 columns), cold and then resident.
 3. ``topn``: exact TopN through ``Executor.execute`` over 10 slices, the
    resident form (200 candidates) and the streaming form (1,000
-   candidates). Phases 2 and 3 write one data directory (indexes
-   ``smoke`` and ``smoke_topn``).
-4. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
+   candidates). Phases 2-4 write one data directory (indexes
+   ``smoke``, ``smoke_topn`` and ``t3``).
+4. ``topn1000``: every form of TopN at BASELINE configuration 3's full
+   size — index ``t3``, 100,000 rows × 10 slices, the JAX suite's data
+   (rows 0-1999 at counts 1000 down to 21, the rest at 4 bits) in an
+   LRU frame ``f`` and a ranked frame ``fr`` — and over phase 3's
+   index: ``TopN(frame=f, n=1000)`` (the single pass over complete LRU
+   caches), ``TopN(frame=fr, n=1000)`` (two phases, the refetch on the
+   host), ``TopN(frame=fr, n=50)`` (two phases, the refetch a device
+   top-k: n is lowered until the candidate union fits the resident
+   block), a source with no ids, the same with ``threshold=3`` and a
+   Tanimoto query whose source holds a sparse leaf (densify); each cold
+   and warm (p50 of 5), every answer held to a plain two-phase
+   reference over roaring row counts (``_ref_topn``).
+5. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
    127.0.0.1:0 on the card over that directory, driven over HTTP with
    urllib: it creates frame ``g`` in ``smoke``, imports row 1 of ``g``
    at density 1/64 over all 256 slices as raw v2 positions and row 2 at
@@ -43,25 +55,28 @@ checkout, then runs five phases and prints one JSON line for each:
    one query of ``SetRowAttrs`` calls and a ``tag`` on three columns;
    then phase 2's Count queries, two Counts over ``g`` (one with sparse
    leaves, through densify), the resident TopN with and without
-   ``field="category", filters=[0, 1]`` and one ``Bitmap`` with
-   ``columnAttrs=true``, each cold (residency cache empty) and warm,
+   ``field="category", filters=[0, 1]``, one ``Bitmap`` with
+   ``columnAttrs=true`` and three of phase 4's TopN queries (the
+   reopened ``.cache`` sidecars rank their frames), each cold
+   (residency cache empty) and warm,
    with a JSON and with a protobuf answer. Every answer is held to the
    host roaring answer from the server's own fragments; beside the
    client's times, each query's warm time through
    ``server.executor.execute`` in this process (the difference is the
    HTTP front's cost).
-5. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+6. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Every answer of phases 2-4 is held to the host roaring answer computed
-from the port's own fragments, and every count of phase 5 to the host
+Every answer of phases 2-5 is held to the host roaring answer computed
+from the port's own fragments, and every count of phase 6 to the host
 ``popcnt_and``. The kernels' launch counters are set to 0 before phase
-2 and before phase 4 and read after phases 3, 4 and 5: every kernel must
-have launched on that main path, the expression count, the TopN block
-count and densify in the server phase by itself, and the op count in
-phase 5. Then it prints the card's name and power limit, the kernel
+2 and before phase 5 and read after phases 4, 5 and 6: every kernel must
+have launched on that main path, the TopN block count in phase 4's
+device top-k, the TopN block count, the expression count and densify in
+its sourced queries and again in the server phase by itself, and the op
+count in phase 6. Then it prints the card's name and power limit, the kernel
 table as one JSON object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
@@ -234,10 +249,14 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             ck.expr_count_rows_torch(exprs[name], leaves)))
         checks += 1
 
-    # topn_block_count: resident serving shape, odd shape, no expr.
+    # topn_block_count: resident serving shape, odd shape, no expr; the
+    # sourceless device top-k (no expression, 163 candidates) and the
+    # Tanimoto refetch (an Intersect of two leaves) at 10 slices.
     for s, r, w, expr, n_leaves in ((10, 200, W, ("leaf", 0), 1),
                                     (9, 5, 2048, exprs["mixed"], 3),
                                     (9, 5, 2048, None, 0),
+                                    (10, 163, W, None, 0),
+                                    (10, 131, W, exprs["intersect"], 2),
                                     (4, 3, 2048, exprs["union1000"], 1000)):
         rows = _rand_words(gen, (s, r, w), device)
         leaves = list(_rand_words(gen, (max(n_leaves, 1), s, w),
@@ -555,6 +574,262 @@ def phase_topn(holder, device, seed: int, n_slices: int = 10,
     return out, ids200
 
 
+def _build_topn1000_frames(holder, n_rows: int, n_slices: int) -> int:
+    """BASELINE configuration 3's frame, made as the JAX suite makes it
+    (benchmarks/suite.py _build_topn_frame, ``default_rng(33)``): rows
+    0-1999 at counts 1000 down to 21, the rest at 4 bits each, columns
+    uniform over ``n_slices`` slices, imported in 20 slice-grouped
+    batches — into frame ``f`` (LRU cache, the default) and frame
+    ``fr`` (``cacheType=ranked``) of index ``t3``. Returns the bits a
+    frame holds."""
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.models.frame import FrameOptions
+
+    rng = np.random.default_rng(33)
+    idx = holder.create_index("t3")
+    frames = [idx.create_frame("f"),
+              idx.create_frame("fr", FrameOptions(cache_type="ranked"))]
+    head = min(2000, n_rows)
+    counts = np.concatenate([
+        np.maximum(21, 1000 - np.arange(head)).astype(np.int64),
+        np.full(n_rows - head, 4, dtype=np.int64)])
+    rows = np.repeat(np.arange(n_rows, dtype=np.uint64), counts)
+    cols = rng.integers(0, n_slices * SLICE_WIDTH, size=len(rows),
+                        dtype=np.uint64)
+    order = np.argsort(cols // np.uint64(SLICE_WIDTH), kind="stable")
+    rows, cols = rows[order], cols[order]
+    step = max(1, len(rows) // 20)
+    for frame in frames:
+        for i in range(0, len(rows), step):
+            frame.import_bits(rows[i:i + step], cols[i:i + step])
+    return int(counts.sum())
+
+
+_ROW_SHIFT = 20  # log2(SLICE_WIDTH): a position's row is pos >> 20
+
+
+def _slice_counts(frag):
+    """{row: bit count} of one fragment, from its roaring positions."""
+    import numpy as np
+    pos = frag.storage.all_positions()
+    rows, counts = np.unique(pos >> np.uint64(_ROW_SHIFT),
+                             return_counts=True)
+    return rows, counts
+
+
+def _ref_topn(holder, index, frame, n_slices, n, src_cols=None,
+              threshold=1, tanimoto=0):
+    """Plain reference of ``TopN`` over the port's fragments, from
+    roaring row counts, with the reference's two phases
+    (executor.go:273-310, fragment.go:490-625): per slice, a walk of the
+    rows in rank order (count descending, id ascending) that keeps the
+    first n passing rows (all of them without a source) and, with a
+    source, every later row whose source count reaches the smallest kept
+    one, up to the first row whose own count falls below it; then the
+    union's exact sums, each slice's contribution kept only where that
+    slice's row count and intersection count pass the threshold (or the
+    Tanimoto bounds, as integer inequalities), count descending, id
+    ascending, trimmed to n. ``src_cols`` holds each slice's slice-local
+    source columns. Returns (pairs, candidate union size)."""
+    import numpy as np
+    mask = np.uint64((1 << _ROW_SHIFT) - 1)
+    cand: set = set()
+    per_slice = []
+    for s in range(n_slices):
+        frag = holder.fragment(index, frame, "standard", s)
+        if frag is None:
+            continue
+        rows, counts = _slice_counts(frag)
+        rc = dict(zip(rows.tolist(), counts.tolist()))
+        inter, s_n = rc, 0
+        if src_cols is not None:
+            pos = frag.storage.all_positions()
+            hit = pos[np.isin(pos & mask, src_cols[s])]
+            irows, icounts = np.unique(hit >> np.uint64(_ROW_SHIFT),
+                                       return_counts=True)
+            inter = dict(zip(irows.tolist(), icounts.tolist()))
+            s_n = len(src_cols[s])
+        per_slice.append((rc, inter, s_n))
+        order = np.lexsort((rows, -counts))
+        kept: list = []  # (count, row)
+        for rid, cnt in zip(rows[order].tolist(), counts[order].tolist()):
+            if tanimoto:
+                if not (100 * cnt > s_n * tanimoto
+                        and cnt * tanimoto < 100 * s_n):
+                    continue
+            elif cnt < threshold:
+                continue
+            if not n or len(kept) < n:
+                c = inter.get(rid, 0)
+                if c == 0:
+                    continue
+                if tanimoto:
+                    if 100 * c <= tanimoto * (cnt + s_n - c):
+                        continue
+                elif c < threshold:
+                    continue
+                kept.append((c, rid))
+                if len(kept) == n and src_cols is None:
+                    break
+                continue
+            low = min(kept)[0]
+            if low < threshold or cnt < low:
+                break
+            c = inter.get(rid, 0)
+            if c >= low:
+                kept.append((c, rid))
+        cand.update(r for _, r in kept)
+    totals = {}
+    for rid in cand:
+        tot = 0
+        for rc, inter, s_n in per_slice:
+            cnt, c = rc.get(rid, 0), inter.get(rid, 0)
+            if tanimoto:
+                keep = (100 * cnt > s_n * tanimoto
+                        and cnt * tanimoto < 100 * s_n and c > 0
+                        and 100 * c > tanimoto * (cnt + s_n - c))
+            else:
+                keep = cnt >= threshold and c >= threshold
+            tot += c if keep else 0
+        if tot > 0:
+            totals[rid] = tot
+    pairs = sorted(totals.items(), key=lambda p: (-p[1], p[0]))
+    return (pairs[:n] if n else pairs), len(cand)
+
+
+def phase_topn1000(holder, device, seed: int, n_rows: int = 100_000,
+                   n_slices: int = 10, warm_runs: int = 5
+                   ) -> tuple[dict, list]:
+    """Every form of TopN at BASELINE configuration 3's full size
+    (``t3``: 100,000 rows × 10 slices) and over phase 3's ``smoke_topn``
+    index; each query cold (device cache empty) and warm (p50 of
+    ``warm_runs``), every answer held to ``_ref_topn``. Returns the
+    phase's line and the (name, index, query, answer) list that the
+    server phase asks again over HTTP."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import mesh as mesh_mod
+    from pilosa_tpu_torch.parallel import residency
+
+    t_phase = t0 = time.perf_counter()
+    t3_bits = _build_topn1000_frames(holder, n_rows, n_slices)
+    # A sparse source row (1/4096) and four rows of t near its
+    # intersection with row 1, so that a Tanimoto query answers pairs
+    # and its source takes densify. Rows 0-999 of t stay as phase 3
+    # made them.
+    rng = np.random.default_rng(seed + 5)
+    n_cols = n_slices * SLICE_WIDTH
+    src = holder.frame("smoke_topn", "src")
+    sparse = _random_row(rng, n_cols, n_cols // 4096)
+    src.import_bits(np.full(len(sparse), 3, np.uint64), sparse)
+    sim = np.concatenate([
+        holder.fragment("smoke_topn", "src", "standard", s).row(1)
+        .intersect(holder.fragment("smoke_topn", "src", "standard", s)
+                   .row(3)).bits() for s in range(n_slices)])
+    extra = _random_row(rng, n_cols, len(sim))
+    near = [sim, np.delete(sim, np.arange(0, len(sim), 10)),
+            np.union1d(sim, extra[:len(sim) // 10]),
+            np.union1d(sim[::2], extra[:len(sim) // 2])]
+    t = holder.frame("smoke_topn", "t")
+    for i, cols in enumerate(near):
+        t.import_bits(np.full(len(cols), 1000 + i, np.uint64),
+                      cols.astype(np.uint64))
+    load_s = time.perf_counter() - t0
+
+    def src_cols(rows_of):
+        out = []
+        for s in range(n_slices):
+            fr = holder.fragment("smoke_topn", "src", "standard", s)
+            out.append(rows_of(fr).bits().astype(np.uint64)
+                       % np.uint64(SLICE_WIDTH))
+        return out
+
+    row1 = src_cols(lambda f: f.row(1))
+    inter13 = src_cols(lambda f: f.row(1).intersect(f.row(3)))
+    # Query 3's n: the largest of these whose candidate union fits the
+    # resident block budget, so that the refetch is the device top-k.
+    row_bytes = n_slices * SLICE_WIDTH // 8
+    for n3 in (50, 40, 30, 20, 10):
+        want3, union3 = _ref_topn(holder, "t3", "fr", n_slices, n3)
+        if union3 * row_bytes <= mesh_mod.TOPN_BLOCK_BYTES:
+            break
+    else:
+        _fail(f"topn1000: no n gives a union under the block budget "
+              f"({union3} rows at n=10)")
+    want1, union1 = _ref_topn(holder, "t3", "f", n_slices, 1000)
+    want2, union2 = _ref_topn(holder, "t3", "fr", n_slices, 1000)
+    src1 = "Bitmap(rowID=1, frame=src)"
+    tan_src = f"Intersect({src1}, Bitmap(rowID=3, frame=src))"
+    want4, union4 = _ref_topn(holder, "smoke_topn", "t", n_slices, 100,
+                              row1)
+    want5, union5 = _ref_topn(holder, "smoke_topn", "t", n_slices, 100,
+                              row1, threshold=3)
+    want6, union6 = _ref_topn(holder, "smoke_topn", "t", n_slices, 10,
+                              inter13, tanimoto=50)
+    queries = [
+        ("lru_n1000", "t3", "TopN(frame=f, n=1000)", want1, union1),
+        ("ranked_n1000", "t3", "TopN(frame=fr, n=1000)", want2, union2),
+        (f"ranked_n{n3}", "t3", f"TopN(frame=fr, n={n3})", want3, union3),
+        ("src", "smoke_topn", f"TopN({src1}, frame=t, n=100)", want4,
+         union4),
+        ("src_threshold3", "smoke_topn",
+         f"TopN({src1}, frame=t, n=100, threshold=3)", want5, union5),
+        ("tanimoto50", "smoke_topn",
+         f"TopN({tan_src}, frame=t, n=10, tanimotoThreshold=50)", want6,
+         union6),
+    ]
+    if not want6:
+        _fail("topn1000: the Tanimoto reference answers no pair")
+    ex = Executor(holder, device=device)
+    results = []
+    for name, index, q, want, union in queries:
+        residency.device_cache().clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = dict(ck.LAUNCHES)
+        out, cold_ms = _timed_query(ex, index, q)
+        warm = []
+        for _ in range(warm_runs):
+            out_w, ms = _timed_query(ex, index, q)
+            warm.append(ms)
+            if out_w != out:
+                _fail(f"topn1000 {name}: warm answer differs from cold")
+        got = [(p.id, p.count) for p in out[0]]
+        if got != want:
+            _fail(f"topn1000 {name}: pairs differ from the reference "
+                  f"({len(got)} vs {len(want)}; first {got[:3]} vs "
+                  f"{want[:3]})")
+        launches = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        results.append({
+            "query": name, "pql": q if len(q) < 120 else q[:117] + "...",
+            "union": union, "pairs": len(got), "top": got[:3],
+            "cold_ms": cold_ms, "warm_p50_ms": sorted(warm)[len(warm) // 2],
+            "warm_ms": warm,
+            "peak_mib": torch.cuda.max_memory_allocated(device) / 2**20,
+            "launches": launches})
+    by = {r["query"]: r for r in results}
+    if by[f"ranked_n{n3}"]["launches"]["topn_block_count"] <= 0:
+        _fail(f"topn1000: topn_block_count did not launch in "
+              f"TopN(frame=fr, n={n3})")
+    for name in ("topn_block_count", "expr_count_rows", "densify"):
+        if sum(by[q]["launches"][name] for q in
+               ("src", "src_threshold3", "tanimoto50")) <= 0:
+            _fail(f"topn1000: {name} did not launch in the sourced "
+                  "queries")
+    out = {"phase": "topn1000", "rows": n_rows, "slices": n_slices,
+           "columns": n_slices * SLICE_WIDTH, "t3_bits": t3_bits,
+           "load_s": load_s, "phase_s": time.perf_counter() - t_phase,
+           "n3": n3, "tanimoto_pairs": len(want6),
+           "queries": results, "launches": dict(ck.LAUNCHES)}
+    _emit(out)
+    return out, [(name, index, q, want) for name, index, q, want, _ in
+                 queries if name in ("lru_n1000", f"ranked_n{n3}",
+                                     "tanimoto50")]
+
+
 def _http(host: str, path: str, body: bytes, headers=None):
     """One POST with urllib; fails the run on any status but 200.
     Returns (body, client ms)."""
@@ -592,10 +867,13 @@ def _answer_of(kind: str, r):
 
 
 def phase_server(data_dir, device, seed: int, ids200: list,
-                 n_slices: int = 256, n_topn_slices: int = 10) -> dict:
-    """The port's server on the card over phases 2 and 3's directory,
+                 topn1000=(), n_slices: int = 256,
+                 n_topn_slices: int = 10) -> dict:
+    """The port's server on the card over phases 2, 3 and 4's directory,
     driven over HTTP; every answer held to the host roaring answer from
-    the server's own fragments."""
+    the server's own fragments, and each (name, index, query, answer) of
+    ``topn1000`` to the answer it gave through the executor in phase 4
+    (the reopened ``.cache`` sidecars rank its frames)."""
     import numpy as np
     import torch
     from pilosa_tpu_torch import SLICE_WIDTH
@@ -688,6 +966,9 @@ def phase_server(data_dir, device, seed: int, ids200: list,
             [f.row(9).bits() for f, _ in fg]).tolist()
         want_attr_sets = [(c, {"tag": f"c{i}"}) for i, c in
                           enumerate(tagged)]
+        for name, index, q, answer in topn1000:
+            queries[f"topn1000_{name}"] = (index, q, "topn")
+            want[f"topn1000_{name}"] = answer
 
         results = []
         for name, (index, q, kind) in queries.items():
@@ -810,10 +1091,11 @@ def main() -> None:
         holder.open()
         phase_count(holder, device, args.seed)
         _, ids200 = phase_topn(holder, device, args.seed)
+        _, topn1000 = phase_topn1000(holder, device, args.seed)
         holder.close()
         launches = dict(ck.LAUNCHES)
         ck.reset_launches()
-        phase_server(data_dir, device, args.seed, ids200)
+        phase_server(data_dir, device, args.seed, ids200, topn1000)
         for name, n in ck.LAUNCHES.items():
             launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]

@@ -2,7 +2,7 @@
 
 Trimmed copy of the JAX package's ``executor.py`` (reference
 executor.go): ``execute(index, pql)`` parses the query and runs its
-calls in order. What this slice of the port serves:
+calls in order. What the port serves:
 
 - **Count** of any bitmap tree of standard-view ``Bitmap`` leaves and
   ``Intersect``/``Union``/``Difference`` folds runs on the device, over
@@ -10,12 +10,20 @@ calls in order. What this slice of the port serves:
   expression over leaf slabs kept resident in the budgeted device cache
   (parallel.residency) and the expression-count kernel counts it
   (parallel.mesh.count_expr_sharded).
-- **TopN with one source child and ``ids``** (threshold at most 1, no
-  Tanimoto) counts every candidate row against the source on the
-  device: the resident form when the candidate block fits
-  TOPN_BLOCK_BYTES, the streaming form up to _TOPN_HOST_BLOCK_BYTES
-  (``_execute_top_n``). An attribute filter (``field``/``filters``)
-  drops candidates on the host first (``_attr_filtered_ids``).
+- **TopN**, every form the JAX package answers on one node
+  (``_execute_top_n``): sourceless or with one source, with or without
+  ``ids``, ``n``, ``threshold``, ``tanimotoThreshold`` and
+  ``field``/``filters``, over LRU and ranked count caches. Plain
+  sourceless TopN over complete LRU caches is one pass over the rank
+  arrays on the host; otherwise the reference's two phases run — the
+  per-slice candidate phase over the rank caches (``fragment.top``),
+  then the exact refetch of the candidate union. With a source the
+  refetch counts every candidate on the device (the TopN block count;
+  threshold > 1 and Tanimoto prune per slice on the device); without
+  one it is a device top-k while the block fits TOPN_BLOCK_BYTES. The
+  ids-without-source form reads the rank caches on the host, as the
+  JAX package does, and blocks over _TOPN_HOST_BLOCK_BYTES take the
+  per-slice path.
 - ``Bitmap``/``Intersect``/``Union``/``Difference`` as top-level calls
   are materialized by host roaring algebra over the fragments; a
   top-level ``Bitmap`` carries its row's attributes.
@@ -30,8 +38,9 @@ planner proves them empty: a Count or TopN over a source that folds to
 
 Every other call or form raises PilosaError and names the slice that
 will port it. A device error surfaces to the caller: there is no host
-fallback. Single node, one device: the cluster fan-out, pod, planner,
-result caches, cost model and fault handling wait for later slices.
+fallback. Single node, one device: the cluster fan-out, TopN pushdown,
+pod, planner, result caches, cost model and fault handling wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ from .parallel import residency
 from .pql.ast import Call, Query
 from .pql.parser import parse as parse_pql
 from .storage.bitmap import Bitmap
-from .storage.cache import Pair, pairs_sort
+from .storage.cache import LRUCache, Pair, pairs_sort
+from .storage.fragment import TopOptions
 
 # Frame used when a call does not specify one (executor.go:35).
 DEFAULT_FRAME = "general"
@@ -386,78 +396,372 @@ class Executor:
 
     def _execute_top_n(self, index: str, c: Call,
                        slices: list[int]) -> list[Pair]:
-        (frame_name, _n, field, row_ids, min_threshold, filters,
-         tanimoto) = self._topn_args(c)
         if len(c.children) > 1:
             raise PilosaError("TopN() can only have one input bitmap")
-        if not c.children:
-            raise later("TopN() without a source bitmap",
-                        "the sourceless-TopN slice (rank-cache phase)")
-        if tanimoto > 100:
-            raise PilosaError("Tanimoto Threshold is from 1 to 100 only")
-        src = c.children[0]
-        leaves: list[tuple] = []
-        expr = self._compile_device_expr(index, src, leaves)
-        if expr is None and not _is_empty(src):
-            # Malformed, a call of a later slice, or (in a query that
-            # also writes, which execute does not fold) a tree holding
-            # empty operands: the host path raises the JAX package's
-            # error for the first two, and the third folds away.
-            self._execute_bitmap_call(index, src, slices)
-            src = _fold_empty(src)
-            leaves = []
+        if c.children:
+            src = c.children[0]
+            leaves: list[tuple] = []
             expr = self._compile_device_expr(index, src, leaves)
-        if _is_empty(src):
-            # No candidate intersects ∅: every form of TopN answers no
-            # pair (the JAX package's fragment.top pushes no count 0).
+            if expr is None and not _is_empty(src):
+                # Malformed, a call of a later slice, or (in a query
+                # that also writes, which execute does not fold) a tree
+                # holding empty operands: the host path raises the JAX
+                # package's error for the first two, and the third
+                # folds away.
+                self._execute_bitmap_call(index, src, slices)
+                src = _fold_empty(src)
+                expr = self._compile_device_expr(index, src, [])
+                c = Call(c.name, c.args, [src])
+            if _is_empty(src):
+                # No candidate intersects ∅: every form of TopN answers
+                # no pair (the JAX package's fragment.top pushes no
+                # count 0) — after the Tanimoto bound, which the
+                # per-slice path checks wherever a fragment exists.
+                frame_name, *_, tanimoto = self._topn_args(c)
+                if tanimoto > 100 and any(
+                        self.holder.fragment(index, frame_name,
+                                             VIEW_STANDARD, s) is not None
+                        for s in slices):
+                    raise PilosaError(
+                        "Tanimoto Threshold is from 1 to 100 only")
+                return []
+            if expr is None:
+                raise later(f"TopN() over {src}", "a later slice")
+        # The JAX package's order (executor.py _execute_top_n): the
+        # single pass over complete LRU caches, else the per-slice
+        # candidate phase and, without ids, the exact refetch of the
+        # candidate union — a device top-k when the sourceless block
+        # fits TOPN_BLOCK_BYTES, else the per-slice path, trimmed to n.
+        row_ids, _ = c.uint_slice_arg("ids")
+        n, _ = c.uint_arg("n")
+        fast = self._topn_host_single_pass(index, c, slices)
+        if fast is not None:
+            return fast
+        pairs = self._top_n_slices(index, c, slices)
+        if not pairs or row_ids:
+            return pairs
+        other = Call(c.name, dict(c.args, ids=sorted({p.id for p in pairs})),
+                     c.children)
+        dev = self._topn_device_topk(index, other, slices, n)
+        if dev is not None:
+            return dev
+        trimmed = self._top_n_slices(index, other, slices)
+        if n and n < len(trimmed):
+            trimmed = trimmed[:n]
+        return trimmed
+
+    def _topn_host_single_pass(self, index: str, c: Call,
+                               slices: list[int]) -> Optional[list[Pair]]:
+        """The plain sourceless TopN form in ONE pass over the rank
+        caches, or None for the general path.
+
+        The reference runs two per-slice phases: local tops merged into
+        a candidate union, then an exact-count refetch of every
+        candidate on every slice (executor.go:273-310). With complete
+        per-fragment LRU count caches both phases read the SAME arrays,
+        so one walk yields both: the ≥floor prefix feeds a dense
+        accumulator (the phase-2 exact sums, per-slice floor applied)
+        and its n-trim marks candidates (the phase-1 union).
+
+        Gates: LRU caches only (RankCache rankings are rate-limited and
+        threshold-trimmed), and caches that have not evicted and cover
+        every present row (an evicted row's exact count needs the
+        phase-2 recount)."""
+        (frame_name, n, field, row_ids, min_threshold, filters,
+         tanimoto) = self._topn_args(c)
+        if row_ids or c.children or (field and filters) or tanimoto > 0:
+            return None
+        floor = max(min_threshold, 1)
+        acc_parts: list[tuple[np.ndarray, np.ndarray, int]] = []
+        max_id = 0
+        for slice in slices:
+            frag = self.holder.fragment(index, frame_name,
+                                        VIEW_STANDARD, slice)
+            if frag is None:
+                continue
+            cache = frag.cache
+            if (not isinstance(cache, LRUCache)
+                    or len(cache) >= cache.max_entries
+                    or not frag._cache_complete):
+                return None
+            with frag._mu:
+                ids, counts = cache.top_arrays()
+            if not len(ids):
+                continue
+            # counts are rank-sorted descending: the ≥floor set is a
+            # prefix (same binary-search cut as fragment.top).
+            cut = len(counts) - int(np.searchsorted(
+                counts[::-1], floor, side="left"))
+            if not cut:
+                continue
+            ids, counts = ids[:cut], counts[:cut]
+            acc_parts.append((ids, counts, min(n, cut) if n else cut))
+            max_id = max(max_id, int(ids.max()))
+        if not acc_parts:
             return []
-        if expr is None:
-            raise later(f"TopN() over {src}", "a later slice")
-        if not row_ids:
-            raise later("TopN() without ids (the rank-cache candidate"
-                        " phase)", "the sourceless-TopN slice")
-        if min_threshold > 1 or tanimoto > 0:
-            raise later("TopN() threshold/tanimotoThreshold",
-                        "the threshold/Tanimoto slice")
+        if max_id < (1 << 24):
+            # Dense accumulate: per-slice ids are unique, so fancy
+            # assignment sums safely slice by slice; candidate marks
+            # come from each slice's n-trimmed prefix.
+            sums = np.zeros(max_id + 1, dtype=np.int64)
+            cand_mark = np.zeros(max_id + 1, dtype=bool)
+            for ids, counts, marks in acc_parts:
+                idx = ids.astype(np.int64)
+                sums[idx] += counts
+                cand_mark[idx[:marks]] = True
+            cand = np.flatnonzero(cand_mark)
+            cand_sums = sums[cand]
+        else:
+            all_ids = np.concatenate([p[0] for p in acc_parts])
+            all_counts = np.concatenate([p[1] for p in acc_parts])
+            uids, inv = np.unique(all_ids, return_inverse=True)
+            usums = np.bincount(inv,
+                                weights=all_counts).astype(np.int64)
+            cand = np.unique(np.concatenate(
+                [p[0][:p[2]] for p in acc_parts]))
+            cand_sums = usums[np.searchsorted(uids, cand)]
+        order = np.lexsort((cand, -cand_sums))
+        cand, cand_sums = cand[order], cand_sums[order]
+        if n:
+            cand, cand_sums = cand[:n], cand_sums[:n]
+        return [Pair(i, cnt) for i, cnt in zip(cand.tolist(),
+                                               cand_sums.tolist())]
+
+    def _topn_device_topk(self, index: str, c: Call, slices: list[int],
+                          n: int) -> Optional[list[Pair]]:
+        """The sourceless TopN exact-count refetch as a device top-k
+        (mesh.topn_topk_sharded): the candidate union from phase 1
+        uploads as a resident block, the TopN block count with no
+        expression counts every candidate on every slice, and the top k
+        come back in ``pairs_sort`` order. Plain form only — thresholds
+        > 1, Tanimoto and attribute filters keep the per-slice path,
+        which owns those semantics. Counts are fresh popcounts. None =
+        the form or the block size (over TOPN_BLOCK_BYTES) takes the
+        per-slice path."""
+        (frame_name, _n, field, row_ids, min_threshold, filters,
+         tanimoto) = self._topn_args(c)
+        if (c.children or (field and filters) or tanimoto > 0
+                or min_threshold > 1 or not row_ids or not slices):
+            return None
+        ids = list(row_ids)
+        block_bytes = len(slices) * len(ids) * WORDS_PER_SLICE * 4
+        if block_bytes > mesh_mod.TOPN_BLOCK_BYTES:
+            return None
+        k = min(n, len(ids)) if n else len(ids)
+        frags, rows_key = self._topn_rows_key(index, frame_name,
+                                              tuple(ids), tuple(slices))
+        rows_arr = residency.candidate_block(self.device, rows_key, frags,
+                                             tuple(ids))
+        counts, idxs = mesh_mod.topn_topk_sharded(None, rows_arr, [], k)
+        return [Pair(ids[i], cnt)
+                for i, cnt in zip(idxs, counts) if cnt > 0]
+
+    def _top_n_slices(self, index: str, c: Call,
+                      slices: list[int]) -> list[Pair]:
+        """One TopN phase over every slice: the device leg for the
+        with-source ids forms, else the vectorized host leg for the
+        sourceless forms, else ``fragment.top`` slice by slice; per-slice
+        pairs summed by id (int64), then ``pairs_sort``."""
         if not slices:
             return []
-        ids = self._attr_filtered_ids(index, frame_name, row_ids, field,
-                                      filters)
-        if not ids:
-            return []
-        block_bytes = len(slices) * len(ids) * WORDS_PER_SLICE * 4
-        if block_bytes > self._TOPN_HOST_BLOCK_BYTES:
-            raise later(f"TopN() over a {block_bytes}-byte candidate "
-                        "block (the per-slice host path)",
-                        "the sourceless-TopN slice")
-        if block_bytes <= mesh_mod.TOPN_BLOCK_BYTES:
-            counts = self._topn_exact_resident(
-                index, frame_name, expr, leaves, tuple(ids), tuple(slices))
-        else:
-            counts = mesh_mod.topn_exact(
-                self.device, expr,
-                self._pack_candidate_rows(index, frame_name, ids, slices),
-                self._pack_leaf_block(index, leaves, slices))
-        # Same reduction as the JAX package's local leg: per-candidate
-        # pairs merged by id (a repeated id sums), then count-descending
-        # with ascending id on ties. ids given ⇒ no n-trim
-        # (executor.go:273-310).
+        out = NotImplemented
+        device_fn = self._topn_local_device_fn(index, c)
+        if device_fn is not None:
+            out = device_fn(slices)
+        if out is NotImplemented:
+            host_fn = self._topn_local_host_fn(index, c)
+            if host_fn is not None:
+                out = host_fn(slices)
         merged: dict[int, int] = {}
-        for rid, cnt in zip(ids, counts):
-            if cnt > 0:
-                merged[rid] = merged.get(rid, 0) + cnt
-        return pairs_sort(Pair(rid, cnt) for rid, cnt in merged.items())
+        if isinstance(out, dict):
+            merged = out
+        elif out is not NotImplemented:
+            for p in out:
+                merged[p.id] = merged.get(p.id, 0) + p.count
+        else:
+            for slice in slices:
+                for p in self._top_n_slice(index, c, slice):
+                    merged[p.id] = merged.get(p.id, 0) + p.count
+        return pairs_sort(Pair(i, cnt) for i, cnt in merged.items())
+
+    def _topn_local_device_fn(self, index: str, c: Call):
+        """The TopN exact-count phase on the device: ALL candidate rows
+        × ALL slices at once, for the with-source ids forms (explicit
+        candidate ids plus a device-compilable source bitmap). The plain
+        form sums the TopN block counts; threshold > 1 and Tanimoto run
+        the per-slice pruning on the device (mesh.topn_filtered_sharded,
+        fragment.go:560-614 semantics); attribute filters drop candidates
+        on the host first (row attrs are frame-global, so pre-filtering
+        ids is exactly the per-slice filter). The ids-without-source form
+        stays on the host on purpose: there the per-slice path answers
+        from RankCache counts, and the device's fresh popcounts could
+        disagree with a stale cache entry. None = the form takes another
+        leg; the returned function gives NotImplemented when the frame
+        is missing or the candidate block is over _TOPN_HOST_BLOCK_BYTES
+        (the per-slice path, which never builds a dense block)."""
+        (frame_name, _n, field, row_ids, min_threshold, filters,
+         tanimoto) = self._topn_args(c)
+        if not row_ids or tanimoto > 100 or len(c.children) != 1:
+            return None
+        leaves: list[tuple] = []
+        expr = self._compile_device_expr(index, c.children[0], leaves)
+        if expr is None:
+            return None
+        threshold = max(min_threshold, MIN_THRESHOLD)
+
+        def local_fn(slices: list[int]):
+            ids = self._attr_filtered_ids(index, frame_name, row_ids,
+                                          field, filters)
+            if ids is None:
+                return NotImplemented
+            if not ids:
+                return []
+            block_bytes = len(slices) * len(ids) * WORDS_PER_SLICE * 4
+            if block_bytes > self._TOPN_HOST_BLOCK_BYTES:
+                return NotImplemented
+            if block_bytes <= mesh_mod.TOPN_BLOCK_BYTES:
+                counts = self._topn_exact_resident(
+                    index, frame_name, expr, leaves, tuple(ids),
+                    tuple(slices), threshold, tanimoto)
+            else:
+                counts = mesh_mod.topn_exact(
+                    self.device, expr,
+                    self._pack_candidate_rows(index, frame_name, ids,
+                                              slices),
+                    self._pack_leaf_block(index, leaves, slices),
+                    threshold=threshold, tanimoto=tanimoto)
+            return [Pair(rid, cnt) for rid, cnt in zip(ids, counts)
+                    if cnt > 0]
+
+        return local_fn
+
+    def _topn_local_host_fn(self, index: str, c: Call):
+        """Vectorized host leg for the sourceless TopN forms: one
+        rank-array pass per fragment, merged as a single id→count dict.
+        It replays the per-slice semantics (floor, then the per-slice
+        n-trim for the plain form; cache counts with recounts of misses
+        for the ids form) in numpy. None when the form needs the
+        per-slice path (source bitmap, attribute filters, Tanimoto)."""
+        (frame_name, n, field, row_ids, min_threshold, filters,
+         tanimoto) = self._topn_args(c)
+        if c.children or (field and filters) or tanimoto > 0:
+            return None
+
+        def host_fn(batch: list[int]):
+            floor = max(min_threshold, 1)
+            merged_ids: list[np.ndarray] = []
+            merged_counts: list[np.ndarray] = []
+            row_arr = (np.asarray(sorted(row_ids), dtype=np.uint64)
+                       if row_ids else None)
+            for slice in batch:
+                frag = self.holder.fragment(index, frame_name,
+                                            VIEW_STANDARD, slice)
+                if frag is None:
+                    continue
+                if row_arr is not None and not isinstance(frag.cache,
+                                                          LRUCache):
+                    # RankCache rankings are rate-limited (stale up to
+                    # 10 s) and threshold-trimmed; the per-slice path's
+                    # cache.get() reads fresh entries — only the LRU
+                    # cache's arrays are equivalent to get().
+                    return NotImplemented
+                with frag._mu:
+                    frag.cache.invalidate()
+                    ids, counts = frag.cache.top_arrays()
+                    if row_arr is None:
+                        # plain form: the ≥-floor prefix, then the
+                        # per-slice n trim (fragment.top's array path).
+                        cut = len(counts) - int(np.searchsorted(
+                            counts[::-1], floor, side="left"))
+                        ids, counts = ids[:cut], counts[:cut]
+                        if n:
+                            ids, counts = ids[:n], counts[:n]
+                    elif len(ids) == 0:
+                        # empty cache: every candidate goes through the
+                        # recount.
+                        ids, counts = self._topn_recount(
+                            frag, row_arr,
+                            np.zeros(len(row_arr), np.int64),
+                            np.arange(len(row_arr)), floor)
+                    else:
+                        # ids form: per-slice counts per candidate; cache
+                        # misses with bits recount via row_count
+                        # (fragment._top_pairs semantics) + the per-slice
+                        # floor.
+                        order = np.argsort(ids)
+                        sids, scounts = ids[order], counts[order]
+                        pos = np.minimum(np.searchsorted(sids, row_arr),
+                                         len(sids) - 1)
+                        hit = sids[pos] == row_arr
+                        got = np.where(hit, scounts[pos],
+                                       0).astype(np.int64)
+                        missing = np.flatnonzero(~hit | (got <= 0))
+                        ids, counts = self._topn_recount(
+                            frag, row_arr, got, missing, floor)
+                if len(ids):
+                    merged_ids.append(ids.astype(np.uint64))
+                    merged_counts.append(counts.astype(np.int64))
+            if not merged_ids:
+                return {}
+            uids, inv = np.unique(np.concatenate(merged_ids),
+                                  return_inverse=True)
+            sums = np.bincount(inv, weights=np.concatenate(merged_counts)
+                               ).astype(np.int64)
+            return dict(zip(uids.tolist(), sums.tolist()))
+
+        return host_fn
+
+    @staticmethod
+    def _topn_recount(frag, row_arr, got, missing, floor):
+        """Recount the ``missing`` candidate positions of ``got`` via
+        row_count — only for rows that have bits here
+        (fragment.present_rows). Returns the ≥-floor (ids, counts).
+        Caller holds frag._mu."""
+        if len(missing):
+            present = frag.present_rows()
+            if present is not None:
+                missing = missing[np.isin(row_arr[missing], present)]
+            if len(missing):
+                got = got.copy()
+                for mi in missing.tolist():
+                    got[mi] = frag.row_count(int(row_arr[mi]))
+        keep = got >= floor
+        return row_arr[keep], got[keep]
+
+    def _top_n_slice(self, index: str, c: Call, slice: int) -> list[Pair]:
+        # executor.go:325-396
+        (frame_name, n, field, row_ids, min_threshold, filters,
+         tanimoto) = self._topn_args(c)
+        src = None
+        if len(c.children) == 1:
+            src = self._bitmap_call_slice(index, c.children[0], slice)
+        elif len(c.children) > 1:
+            raise PilosaError("TopN() can only have one input bitmap")
+        frag = self.holder.fragment(index, frame_name, VIEW_STANDARD, slice)
+        if frag is None:
+            return []
+        # Validation ordering matches the reference: tanimoto bounds
+        # are checked by Fragment.Top AFTER the nil-fragment return
+        # (fragment.go:490-625) — a bad threshold against a missing
+        # fragment is an empty result, not an error.
+        if tanimoto > 100:
+            raise PilosaError("Tanimoto Threshold is from 1 to 100 only")
+        return frag.top(TopOptions(
+            n=n, src=src, row_ids=row_ids, filter_field=field,
+            filter_values=filters, min_threshold=min_threshold,
+            tanimoto_threshold=tanimoto))
 
     def _attr_filtered_ids(self, index: str, frame_name: str, row_ids,
-                           field, filters) -> list[int]:
+                           field, filters) -> Optional[list[int]]:
         """Candidate ids whose row attribute ``field`` holds one of
         ``filters``. Row attributes are frame-global, so filtering the
-        ids first equals the JAX package's per-slice filter."""
+        ids first equals the per-slice filter. None = no such frame
+        (the per-slice path answers)."""
         if not (field and filters):
             return list(row_ids)
         frame = self.holder.frame(index, frame_name)
         if frame is None:
-            raise FrameNotFoundError(frame_name)
+            return None
         store = frame.row_attr_store
         fset = set(filters)
         return [rid for rid in row_ids
@@ -482,20 +786,34 @@ class Executor:
                 frag.pack_row(rid, out=rows[si, ri], cached=cached)
         return rows
 
+    def _topn_rows_key(self, index: str, frame_name: str,
+                       row_ids: tuple[int, ...],
+                       slices: tuple[int, ...]) -> tuple[list, tuple]:
+        """The fragments of a candidate block and its residency key."""
+        frags, gens = self._fragment_gens(index, frame_name, slices)
+        return frags, ("topnrows", str(self.device), id(self.holder), index,
+                       frame_name, row_ids, slices, gens)
+
     def _topn_exact_resident(self, index: str, frame_name: str, expr,
                              leaves: list[tuple],
                              row_ids: tuple[int, ...],
-                             slices: tuple[int, ...]) -> list[int]:
+                             slices: tuple[int, ...],
+                             threshold: int = 1,
+                             tanimoto: int = 0) -> list[int]:
         """TopN exact counts with the candidate block and leaf slabs
         device-resident (budgeted cache) — repeat TopN queries skip the
-        pack + upload."""
-        frags, gens = self._fragment_gens(index, frame_name, slices)
-        key = ("topnrows", str(self.device), id(self.holder), index,
-               frame_name, row_ids, slices, gens)
+        pack + upload. threshold > 1 or Tanimoto engage the per-slice
+        pruning (mesh.topn_filtered_sharded)."""
+        frags, key = self._topn_rows_key(index, frame_name, row_ids,
+                                         slices)
         rows_arr = residency.candidate_block(self.device, key, frags,
                                              row_ids)
         leaf_arrays = [self._leaf_device_array(index, leaf, slices)
                        for leaf in leaves]
+        if threshold > 1 or tanimoto > 0:
+            return mesh_mod.topn_filtered_sharded(
+                expr, rows_arr, leaf_arrays, threshold=threshold,
+                tanimoto=tanimoto)
         return mesh_mod.topn_exact_sharded(expr, rows_arr, leaf_arrays)
 
     # -- writes (executor.go:600-797) ----------------------------------------

@@ -4,8 +4,10 @@ Trimmed copy of the JAX package's ``models/frame.py`` (reference
 frame.go). Options (rowLabel, inverseEnabled, cacheType, cacheSize,
 timeQuantum, BSI fields) persist as the same protobuf ``.meta`` file
 (frame.go:280-336), so either package opens the other's frames with
-their options; the row attribute store is ``<frame>/attrs``. This slice
-writes the standard view: SetBit, ClearBit and bulk import. The options
+their options; the row attribute store is ``<frame>/attrs``. Each
+fragment keeps the TopN count cache of the frame's ``cacheType`` and
+``cacheSize``. This slice writes the standard view: SetBit, ClearBit
+and bulk import. The options
 that later slices serve are kept and reported, and a write that needs
 them (the inverse transpose, time views) raises PilosaError naming its
 slice.
@@ -172,7 +174,9 @@ class Frame:
 
     def _new_view(self, name: str) -> View:
         return View(os.path.join(self.views_path(), name), self.index,
-                    self.name, name)
+                    self.name, name, cache_type=self.options.cache_type,
+                    cache_size=self.options.cache_size,
+                    row_attr_store=self.row_attr_store)
 
     def view(self, name: str) -> Optional[View]:
         return self.views.get(name)

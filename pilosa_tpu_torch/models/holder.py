@@ -92,6 +92,15 @@ class Holder:
         v = self.view(index, frame, view)
         return v.fragment(slice) if v else None
 
+    def iter_fragments(self) -> list:
+        """A point-in-time list of every open fragment."""
+        with self._mu:
+            return [frag
+                    for idx in self.indexes.values()
+                    for frame in idx.frames.values()
+                    for view in frame.views.values()
+                    for frag in view.fragments.values()]
+
     def delete_index(self, name: str) -> None:
         with self._mu:
             idx = self.indexes.pop(name, None)

@@ -15,6 +15,7 @@ import threading
 from typing import Optional
 
 from .. import SLICE_WIDTH
+from ..storage import cache as cache_mod
 from ..storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
@@ -38,11 +39,17 @@ def is_valid_view(name: str) -> bool:
 
 
 class View:
-    def __init__(self, path: str, index: str, frame: str, name: str):
+    def __init__(self, path: str, index: str, frame: str, name: str,
+                 cache_type: str = cache_mod.DEFAULT_CACHE_TYPE,
+                 cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
+                 row_attr_store=None):
         self.path = path
         self.index = index
         self.frame = frame
         self.name = name
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.row_attr_store = row_attr_store
         self.fragments: dict[int, Fragment] = {}
         self._mu = threading.RLock()
 
@@ -73,7 +80,9 @@ class View:
 
     def _new_fragment(self, slice: int) -> Fragment:
         return Fragment(self.fragment_path(slice), self.index, self.frame,
-                        self.name, slice)
+                        self.name, slice, cache_type=self.cache_type,
+                        cache_size=self.cache_size,
+                        row_attr_store=self.row_attr_store)
 
     # -- fragments
 

@@ -1,4 +1,5 @@
-"""One-device slice executor: Count and TopN exact counts over packed
+"""One-device slice executor: Count, TopN exact counts, the TopN
+threshold/Tanimoto pruning and the sourceless TopN top-k over packed
 slice blocks — the torch form of the JAX package's ``parallel/mesh.py``
 (main-path subset).
 
@@ -116,23 +117,86 @@ def topn_exact_sharded(expr, rows: torch.Tensor,
     return per_slice.sum(dim=0, dtype=torch.int64).tolist()
 
 
+def _filtered_counts(expr, rows: torch.Tensor, leaf_arrays: list,
+                     threshold: int, tanimoto: int) -> torch.Tensor:
+    """``[S, R]`` int32 intersection counts with the reference's
+    per-slice threshold/Tanimoto pruning applied (fragment.go:560-614:
+    a slice's contribution drops when that slice's row count or
+    intersection count fails the bar), in the exact integer forms of
+    the JAX package's float comparisons (mesh.py:907-914):
+
+    - Tanimoto: ``100·rowc > srcc·t``, ``rowc·t < 100·srcc``,
+      ``inter > 0`` and ``100·inter > t·(rowc + srcc − inter)``;
+    - threshold: ``rowc >= threshold`` and ``inter >= threshold``.
+
+    ``inter`` and ``rowc`` are TopN block counts with the source program
+    and with none, ``srcc`` the source's expression count per slice;
+    the comparisons run in int64 on the device."""
+    inter = cuda_kernels.topn_block_count(expr, rows, leaf_arrays)
+    rowc = cuda_kernels.topn_block_count(None, rows, []).long()
+    s = _expr_slice_counts(expr, leaf_arrays).long()[:, None]
+    wide = inter.long()
+    if tanimoto > 0:
+        keep = ((100 * rowc > s * tanimoto)
+                & (rowc * tanimoto < s * 100)
+                & (wide > 0)
+                & (100 * wide > tanimoto * (rowc + s - wide)))
+    else:
+        keep = (rowc >= threshold) & (wide >= threshold)
+    return torch.where(keep, inter, torch.zeros_like(inter))
+
+
+def topn_filtered_sharded(expr, rows: torch.Tensor, leaf_arrays: list,
+                          threshold: int = 1,
+                          tanimoto: int = 0) -> list[int]:
+    """TopN counts with per-slice threshold/Tanimoto pruning on the
+    device (``_filtered_counts``) summed over every slice in int64:
+    the same residency contract as ``topn_exact_sharded``."""
+    threshold = min(threshold, 2**31 - 1)  # counts never exceed 2^31
+    per_slice = _filtered_counts(expr, rows, leaf_arrays, threshold,
+                                 tanimoto)
+    return per_slice.sum(dim=0, dtype=torch.int64).tolist()
+
+
+def topn_topk_sharded(expr, rows: torch.Tensor, leaf_arrays: list,
+                      k: int) -> tuple[list[int], list[int]]:
+    """Sourceless-TopN top-k over a device-resident candidate block:
+    the exact counts on the device, then the selection on the host with
+    ``np.lexsort((arange, -counts))[:k]`` — count descending, ascending
+    row index on ties, the ``pairs_sort`` order (what the JAX package
+    does on a Pallas mesh, mesh.py:1012-1017). Returns (counts, row
+    indices)."""
+    k = max(1, min(int(k), int(rows.shape[1])))
+    counts = topn_exact_sharded(expr, rows, leaf_arrays)
+    order = np.lexsort((np.arange(len(counts)), -np.asarray(counts)))[:k]
+    return [counts[i] for i in order.tolist()], order.tolist()
+
+
 def topn_exact(device: torch.device, expr, rows: np.ndarray,
-               leaves: np.ndarray | None) -> list[int]:
+               leaves: np.ndarray | None, threshold: int = 1,
+               tanimoto: int = 0) -> list[int]:
     """[R] exact counts of each candidate row against ``expr`` (or the
     rows' own popcounts when ``expr`` is None), summed over all slices,
-    from host blocks ``rows [S, R, W]`` and ``leaves [L, S, W]``.
+    from host blocks ``rows [S, R, W]`` and ``leaves [L, S, W]``;
+    threshold > 1 or Tanimoto engage the per-slice pruning.
 
     The streaming form: the leaves upload once, candidate rows upload
     in chunks of at most TOPN_BLOCK_BYTES — counts are independent per
-    row, so any row tiling is exact."""
+    row and the pruning masks are per slice, so any row tiling is
+    exact."""
     n_slices, n_rows, n_words = rows.shape
     leaf_arrays = (list(_to_device(device, leaves))
                    if leaves is not None and len(leaves) else [])
+    filtered = threshold > 1 or tanimoto > 0
     row_chunk = max(1, TOPN_BLOCK_BYTES // max(1, n_slices * n_words * 4))
     totals: list[int] = []
     for r_off in range(0, n_rows, row_chunk):
         chunk = _to_device(device, rows[:, r_off:r_off + row_chunk])
-        totals += topn_exact_sharded(expr, chunk, leaf_arrays)
+        if filtered:
+            totals += topn_filtered_sharded(expr, chunk, leaf_arrays,
+                                            threshold, tanimoto)
+        else:
+            totals += topn_exact_sharded(expr, chunk, leaf_arrays)
     return totals
 
 

@@ -1,5 +1,6 @@
 """The port's protobuf wire codec for the messages of the JAX package's
-``proto/internal.proto`` that the one-node server speaks.
+``proto/internal.proto`` that the one-node server speaks and writes
+(``.meta`` files and the fragments' ``.cache`` sidecars).
 
 The card machine has no protobuf library, so the port encodes and
 decodes the wire itself. Each message class has the field names of the
@@ -456,6 +457,11 @@ class FrameMeta(Message):
               (4, "CacheSize", "uint32", None),
               (5, "TimeQuantum", "string", None),
               (6, "Fields", "repeated_message", FieldMeta))
+
+
+class Cache(Message):
+    """A fragment's ``.cache`` sidecar: the count cache's row ids."""
+    FIELDS = ((1, "IDs", "packed_uint64", None),)
 
 
 class MaxSlicesResponse(Message):

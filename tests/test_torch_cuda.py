@@ -21,6 +21,7 @@ from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import cuda_kernels as ck
 from pilosa_tpu_torch.ops import kernel_ab
 from pilosa_tpu_torch.ops import packed
+from pilosa_tpu_torch.parallel import mesh as torch_mesh
 from pilosa_tpu_torch.parallel import residency
 
 pytestmark = pytest.mark.cuda
@@ -346,3 +347,149 @@ def test_server_verb_serves_on_the_card(cuda_device, tmp_path):
         proc.stdout.close()
         proc.stderr.close()
     assert "on cuda:0" in err, err
+
+
+# -- TopN: the device pruning, the device top-k and every executor form -----
+
+@pytest.mark.parametrize("s,r,w", [(1, 1, 4), (3, 7, 1028), (5, 33, 68),
+                                   (10, 163, 32768)])
+def test_topn_block_count_no_program(cuda_device, s, r, w):
+    """The empty program (``n_ins == 0``): plain row popcounts, at odd
+    row counts and odd numbers of 16-byte word groups."""
+    rows = _words(np.random.default_rng(s * r), (s, r, w), cuda_device)
+    before = ck.LAUNCHES["topn_block_count"]
+    got = ck.topn_block_count(None, rows, [])
+    assert ck.LAUNCHES["topn_block_count"] == before + 1
+    assert torch.equal(got, ck.topn_block_count_torch(None, rows, []))
+
+
+def _bit_words(bits, n_words):
+    arr = np.zeros(n_words * 32, dtype=bool)
+    arr[np.asarray(bits, dtype=np.int64)] = True
+    return np.packbits(arr, bitorder="little").view(np.uint32)
+
+
+# Per slice, the source's size: the boundaries of every inequality sit
+# at different counts on each slice, and one slice's source is empty.
+SRC_SIZES = (100, 0, 37)
+BOUNDARY_CNT = (1, 2, 36, 37, 49, 50, 51, 99, 100, 101, 102, 110, 199, 200,
+                201, 3700, 9999, 10000, 10001)
+BOUNDARY_INTER = (0, 1, 2, 3, 18, 19, 36, 37, 69, 70, 71, 100)
+
+
+def _boundary_block(n_words=1028):
+    """Rows whose (row count, intersection count) pairs sit on and
+    beside every bound of the Tanimoto and threshold inequalities, over
+    ``SRC_SIZES`` sources. Returns (rows [S, R, W], leaf [S, W],
+    [(cnt, inter)] per slice and row)."""
+    pairs = [(c, i) for c in BOUNDARY_CNT for i in BOUNDARY_INTER if i <= c]
+    rows = np.zeros((len(SRC_SIZES), len(pairs), n_words), np.uint32)
+    leaf = np.zeros((len(SRC_SIZES), n_words), np.uint32)
+    truth = []
+    for si, s_n in enumerate(SRC_SIZES):
+        leaf[si] = _bit_words(range(s_n), n_words)
+        per = []
+        for ri, (c, i) in enumerate(pairs):
+            i = min(i, s_n)
+            bits = list(range(i)) + list(range(200, 200 + c - i))
+            rows[si, ri] = _bit_words(bits, n_words)
+            per.append((c, i))
+        truth.append(per)
+    return rows, leaf, truth
+
+
+def _keep(cnt, inter, s_n, threshold, tanimoto):
+    if tanimoto:
+        return (100 * cnt > s_n * tanimoto and cnt * tanimoto < 100 * s_n
+                and inter > 0
+                and 100 * inter > tanimoto * (cnt + s_n - inter))
+    return cnt >= threshold and inter >= threshold
+
+
+@pytest.mark.parametrize("threshold,tanimoto", [
+    (1, 1), (1, 50), (1, 100), (2, 0), (37, 0), (100, 0), (3, 50)])
+def test_topn_filtered_on_the_card(cuda_device, threshold, tanimoto):
+    """``topn_filtered_sharded`` on the card equals its CPU result and
+    the integer inequalities written out here, row by row, slice by
+    slice."""
+    rows, leaf, truth = _boundary_block()
+    want = np.array([[inter if _keep(c, inter, SRC_SIZES[si], threshold,
+                                      tanimoto) else 0
+                      for c, inter in per] for si, per in enumerate(truth)])
+    expr = ("leaf", 0)
+    out = {}
+    for key, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        r = torch.from_numpy(rows.view(np.int32)).to(dev)
+        lv = [torch.from_numpy(leaf.view(np.int32)).to(dev)]
+        per_slice = torch_mesh._filtered_counts(expr, r, lv, threshold,
+                                                tanimoto)
+        assert np.array_equal(per_slice.cpu().numpy(), want)
+        out[key] = torch_mesh.topn_filtered_sharded(
+            expr, r, lv, threshold, tanimoto)
+    assert out["card"] == out["cpu"] == want.sum(axis=0).tolist()
+
+
+@pytest.mark.parametrize("k", [1, 5, 163, 170])
+def test_topn_topk_on_the_card(cuda_device, k):
+    rng = np.random.default_rng(k)
+    words = rng.integers(0, 2**32, size=(10, 163, 1028), dtype=np.uint32)
+    words[:, ::4] &= np.uint32(0xF)  # ties among the small rows
+    words[:, 7] = words[:, 3]
+    got = {}
+    for key, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        rows = torch.from_numpy(words.view(np.int32)).to(dev)
+        got[key] = torch_mesh.topn_topk_sharded(None, rows, [], k)
+    assert got["card"] == got["cpu"]
+    counts, idx = got["cpu"]
+    assert len(idx) == min(k, 163)
+    assert sorted(zip(counts, idx), key=lambda p: (-p[0], p[1])) == \
+        list(zip(counts, idx))
+
+
+def test_topn_forms_card_matches_cpu(cuda_device, tmp_path):
+    """Every TopN form through the executor on the card equals the
+    executor on the CPU, on an LRU and a ranked frame."""
+    from pilosa_tpu_torch.models.frame import FrameOptions
+    rng = np.random.default_rng(8)
+    holder = Holder(str(tmp_path))
+    holder.open()
+    idx = holder.create_index("i")
+    src = idx.create_frame("src")
+    for row, n in ((1, 300000), (2, 600)):
+        cols = rng.choice(3 * SLICE_WIDTH, size=n, replace=False)
+        src.import_bits(np.full(n, row, np.uint64), cols.astype(np.uint64))
+    for name, opts in (("f", FrameOptions()),
+                       ("fr", FrameOptions(cache_type="ranked"))):
+        fr = idx.create_frame(name, opts)
+        for row in range(40):
+            n = 20000 // (row + 1) + 3
+            cols = rng.choice(3 * SLICE_WIDTH, size=n, replace=False)
+            fr.import_bits(np.full(n, row, np.uint64),
+                           cols.astype(np.uint64))
+        near = holder.fragment("i", "src", "standard", 0).row(2).bits()
+        fr.import_bits(np.full(len(near), 77, np.uint64),
+                       near.astype(np.uint64))
+    card = Executor(holder, device=cuda_device)
+    cpu = Executor(holder, device="cpu")
+    s1, s2 = "Bitmap(rowID=1, frame=src)", "Bitmap(rowID=2, frame=src)"
+    forms = ["TopN(frame={F}, n=5)", "TopN(frame={F})",
+             "TopN(frame={F}, n=4, threshold=9)",
+             "TopN(frame={F}, ids=[1, 2, 3, 77, 99])",
+             f"TopN({s1}, frame={{F}}, n=6)",
+             f"TopN({s1}, frame={{F}}, n=6, threshold=40)",
+             f"TopN(Union({s1}, {s2}), frame={{F}}, ids=[0, 5, 77],"
+             " threshold=2)",
+             f"TopN({s2}, frame={{F}}, tanimotoThreshold=1)",
+             f"TopN({s2}, frame={{F}}, tanimotoThreshold=50)",
+             f"TopN(Intersect({s1}, {s2}), frame={{F}}, n=3,"
+             " tanimotoThreshold=10)"]
+    before = dict(ck.LAUNCHES)
+    for frame in ("f", "fr"):
+        for form in forms:
+            q = form.format(F=frame)
+            got = [(p.id, p.count) for p in card.execute("i", q)[0]]
+            want = [(p.id, p.count) for p in cpu.execute("i", q)[0]]
+            assert got == want, q
+    assert ck.LAUNCHES["topn_block_count"] > before["topn_block_count"]
+    assert ck.LAUNCHES["expr_count_rows"] > before["expr_count_rows"]
+    holder.close()

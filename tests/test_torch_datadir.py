@@ -37,6 +37,14 @@ READS = [
     "TopN(Bitmap(rowID=2, frame=g), frame=f, ids=[0,1,2,3,4,5])",
     "TopN(Bitmap(rowID=2, frame=g), frame=f, ids=[0,1,2,3,4,5],"
     " field=\"tier\", filters=[\"gold\"])",
+    # Every TopN form over the count caches: f is a ranked frame, g an
+    # LRU one; both reopen from the .cache sidecars.
+    "TopN(frame=f, n=3)", "TopN(frame=g, n=4)", "TopN(frame=g)",
+    "TopN(frame=f, ids=[0,2,4,9])", "TopN(frame=g, n=3, threshold=2)",
+    "TopN(Bitmap(rowID=2, frame=g), frame=f, n=2)",
+    "TopN(Bitmap(r=1, frame=f), frame=g, n=3, threshold=2)",
+    "TopN(Bitmap(r=1, frame=f), frame=g, tanimotoThreshold=1)",
+    "TopN(frame=f, n=5, field=\"tier\", filters=[\"gold\", \"tin\"])",
 ]
 
 
@@ -288,3 +296,122 @@ def test_carry_with_attributes(tmp_path):
     for path in ("/index/i/attr/diff", "/index/i/frame/f/attr/diff",
                  "/index/i/frame/g/attr/diff"):
         assert got[path] == want[path], path
+
+
+def _cache_files(root):
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".cache"):
+                with open(os.path.join(d, name), "rb") as f:
+                    out[os.path.relpath(os.path.join(d, name), root)] = \
+                        f.read()
+    return out
+
+
+def test_topn_reads_answer_pairs(tmp_path):
+    """The TopN reads of this file's directories are not empty."""
+    path = str(tmp_path / "jax")
+    _write_with_jax(path, np.random.default_rng(24))
+    got = _jax_answers(path)
+    for q in READS:
+        if q.startswith("TopN(frame=") or "n=2)" in q:
+            assert got[q][1]["results"][0], q
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_cache_sidecars_match(tmp_path, writer):
+    """Each package's ``.cache`` sidecars are the protobuf ``Cache`` of
+    the sorted cached row ids, byte for byte as upb encodes them; the
+    other package opens them to the same caches and closes them to the
+    same bytes."""
+    from pilosa_tpu.proto import internal_pb2
+
+    from pilosa_tpu_torch.models.holder import Holder
+
+    path = str(tmp_path / writer)
+    (_write_with_jax if writer == "jax" else _write_with_port)(
+        path, np.random.default_rng(25))
+    files = _cache_files(path)
+    assert len(files) >= 6  # frames f and g over three slices
+    for blob in files.values():
+        ids = list(internal_pb2.Cache.FromString(blob).IDs)
+        assert ids == sorted(ids) and ids
+        assert internal_pb2.Cache(IDs=ids).SerializeToString() == blob
+    caches = {}
+    for name, cls in (("jax", JaxHolder), ("port", Holder)):
+        h = cls(path)
+        h.open()
+        caches[name] = {
+            (fr.frame, fr.slice): (type(fr.cache).__name__,
+                                   fr.cache.max_entries,
+                                   fr.cache.top_arrays()[0].tolist(),
+                                   fr.cache.top_arrays()[1].tolist())
+            for fr in h.iter_fragments() if fr.view == "standard"}
+        h.close()
+        assert _cache_files(path) == files
+    assert caches["jax"] == caches["port"]
+    assert caches["port"][("f", 0)][:2] == ("RankCache", 5000)
+    assert caches["port"][("g", 0)][:2] == ("LRUCache", 50000)
+
+
+@pytest.mark.parametrize("damage", ["truncate", "garbage", "remove"])
+def test_damaged_cache_sidecar_rebuilds(tmp_path, damage):
+    """A torn, corrupt or missing sidecar is advisory: the fragment
+    opens, its cache is rebuilt from storage, and every TopN answer
+    equals the JAX package's over the same damaged directory."""
+    path, copy = str(tmp_path / "data"), str(tmp_path / "copy")
+    _write_with_port(path, np.random.default_rng(26))
+    want = _jax_answers(shutil.copytree(path, str(tmp_path / "intact")))
+    for name in _cache_files(path):
+        full = os.path.join(path, name)
+        if damage == "remove":
+            os.remove(full)
+            continue
+        with open(full, "rb") as f:
+            blob = f.read()
+        with open(full, "wb") as f:
+            f.write(blob[:len(blob) // 2] if damage == "truncate"
+                    else b"\xff" * 11)
+    shutil.copytree(path, copy)
+    got, _ = _port_answers(path)
+    for q in READS:
+        assert got[q] == want[q], q
+    assert _jax_answers(copy) == got
+
+
+def test_carry_frame_options(tmp_path):
+    """``carry.holder_from_state`` takes each frame's options: a ranked
+    frame carries across as a ranked frame of the same size and answers
+    every TopN form as the JAX package does."""
+    from pilosa_tpu_torch import carry
+    from pilosa_tpu_torch.server.handler import Handler
+
+    jax_dir = str(tmp_path / "jax")
+    _write_with_jax(jax_dir, np.random.default_rng(27))
+    jh = JaxHolder(jax_dir)
+    jh.open()
+    state = {(fr.index, fr.frame, fr.view, fr.slice):
+             fr.storage.all_positions() for fr in jh.iter_fragments()
+             if fr.view == "standard"}
+    opts = {("i", name): {"cache_type": fr.options.cache_type,
+                          "cache_size": fr.options.cache_size,
+                          "row_label": fr.options.row_label}
+            for name, fr in jh.index("i").frames.items()}
+    want = _answers(lambda m, p, b=b"": _wsgi(
+        JaxHandler(jh, JaxExecutor(jh, host="local")), m, p, b))
+    jh.close()
+    holder, ex = carry.holder_from_state(
+        str(tmp_path / "port"), state, device="cpu", frame_options=opts)
+    holder.index("i").options = IndexOptions(column_label="col",
+                                             time_quantum="YM")
+    frag = holder.fragment("i", "f", "standard", 0)
+    assert (holder.frame("i", "f").options.cache_type,
+            type(frag.cache).__name__, frag.cache.max_entries) == (
+        "ranked", "RankCache", 5000)
+    got = _answers(lambda m, p, b=b"": _wsgi(Handler(holder, ex), m, p, b))
+    holder.close()
+    residency.device_cache().clear()
+    for q in READS:
+        if q.startswith("TopN") and "filters" not in q:
+            assert got[q] == want[q], q

@@ -258,11 +258,6 @@ def test_setbit_ages_out_resident_slabs(tmp_path):
 @pytest.mark.parametrize("q", [
     "Count(Range(frame=f, rowID=1, start=\"2017-01-01T00:00\","
     " end=\"2017-02-01T00:00\"))",
-    "TopN(frame=f, n=2)",
-    "TopN(Bitmap(rowID=1, frame=f), frame=f, n=2)",
-    "TopN(Bitmap(rowID=1, frame=f), frame=f, ids=[1], threshold=3)",
-    "TopN(Bitmap(rowID=1, frame=f), frame=f, ids=[1],"
-    " tanimotoThreshold=50)",
     "Sum(frame=f, field=\"v\")",
     "SetFieldValue(frame=f, columnID=1, v=3)",
 ])

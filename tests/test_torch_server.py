@@ -191,6 +191,12 @@ def test_query_routes(pair):
         "Count(Bitmap(rowID=1, frame=f)) Bitmap(rowID=0, frame=f)"
         " TopN(Union(Bitmap(rowID=0, frame=f), Bitmap(rowID=5, frame=f)),"
         " frame=t, ids=[1,2,3,4])",
+        # Every TopN form over the count caches of frame t.
+        "TopN(frame=t, n=3)", "TopN(frame=t)",
+        "TopN(frame=t, n=5, field=\"category\", filters=[1, 2])",
+        "TopN(Bitmap(rowID=1, frame=f), frame=t, n=4)",
+        "TopN(Bitmap(rowID=1, frame=f), frame=t, n=4, threshold=2)",
+        "TopN(Bitmap(rowID=1, frame=f), frame=t, tanimotoThreshold=5)",
     ]
     for body in reads:
         for accept in ("", PB):

@@ -23,7 +23,7 @@ from pilosa_tpu_torch.proto import internal as tpb
 MESSAGES = ["Attr", "AttrMap", "Bitmap", "Pair", "QueryRequest",
             "QueryResponse", "QueryResult", "ColumnAttrSet",
             "ImportRequest", "ImportResponse", "IndexMeta", "FrameMeta",
-            "FieldMeta", "MaxSlicesResponse"]
+            "FieldMeta", "MaxSlicesResponse", "Cache"]
 
 _U64_EDGES = [0, 1, 127, 128, 16383, 16384, 2**32 - 1, 2**63 - 1, 2**63,
               2**64 - 1]
@@ -130,6 +130,8 @@ def _spec(name, rng):
     if name == "MaxSlicesResponse":
         return (name, {"MaxSlices": {_string(rng) + str(i): _u64s(rng, 1)[0]
                                      for i in range(int(rng.integers(0, 5)))}})
+    if name == "Cache":
+        return (name, {"IDs": _u64s(rng, int(rng.integers(0, 60)))})
     raise KeyError(name)
 
 
@@ -189,6 +191,16 @@ def check_both_ways(spec, byte_equal=True):
 def test_message_matches_upb(name, seed):
     rng = np.random.default_rng(1000 * seed + MESSAGES.index(name))
     check_both_ways(_spec(name, rng), byte_equal=name != "MaxSlicesResponse")
+
+
+def test_cache_sidecar_of_a_full_rank_cache():
+    """A ``.cache`` sidecar of 50,000 sorted row ids (the default cache
+    size) is upb's bytes, and decodes back to the ids."""
+    ids = np.unique(np.random.default_rng(3).integers(
+        0, 2**40, size=50_000, dtype=np.uint64))
+    blob = tpb.Cache(IDs=ids).SerializeToString()
+    assert blob == jpb.Cache(IDs=ids.tolist()).SerializeToString()
+    assert np.array_equal(tpb.Cache.FromString(blob).IDs, ids)
 
 
 def test_max_slices_map_decodes_either_order():
