@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs six phases and prints one JSON line for each:
+checkout, then runs eight phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -46,7 +46,18 @@ checkout, then runs six phases and prints one JSON line for each:
    Tanimoto query whose source holds a sparse leaf (densify); each cold
    and warm (p50 of 5), every answer held to a plain two-phase
    reference over roaring row counts (``_ref_topn``).
-5. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
+5. ``planner``: the planner's decisions over ``t3`` (10 slices, under
+   its EXACT_SLICES): a Count whose Intersect holds a proven-empty row
+   beside a missing frame answers 0 with no launch (over the 256 slices
+   of ``smoke`` it raises the missing frame instead, as the JAX package
+   does); a Union with a proven-empty operand answers and launches what
+   it does without it; a reordered Intersect answers what the
+   planner-off executor answers; a subtree repeated over three queries
+   hits the subresult cache on every slice the third time; and the
+   warm p50 of ``TopN(frame=f, n=1000)`` and of a Count with the
+   planner on and off, in turns. Each query's decisions and launches
+   are printed.
+6. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
    127.0.0.1:0 on the card over that directory, driven over HTTP with
    urllib: it creates frame ``g`` in ``smoke``, imports row 1 of ``g``
    at density 1/64 over all 256 slices as raw v2 positions and row 2 at
@@ -64,7 +75,23 @@ checkout, then runs six phases and prints one JSON line for each:
    client's times, each query's warm time through
    ``server.executor.execute`` in this process (the difference is the
    HTTP front's cost).
-6. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+7. ``durability``: the port's ``server`` verb as a subprocess on the
+   card over a fresh directory, seeded by protobuf ``/import`` with
+   configuration 4's rows over 256 slices, takes a write storm (8
+   threads of SetBit/ClearBit queries; after a quarter of it 2 threads
+   of 65,536-bit ``/import`` batches and one thread that drives slice 0
+   past MAX_OP_N so that background snapshots swap its WAL) and is
+   killed with SIGKILL.
+   A ``Server`` in this process reopens the directory on the card: every
+   acked write must be there and every acked ClearBit gone, no bit that
+   was never written may appear, and Counts of every touched row over
+   HTTP (expression count, densify) and a sourced TopN over six of them
+   (TopN block count) must equal the reopened fragments' host answers.
+   It prints acked writes/s, import bits/s, the ack latency p50/p99
+   (also for the writers alone and beside the imports), the
+   WAL bytes at the kill, the respawn-to-ready seconds, the launches and
+   the card's name and power limit.
+8. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
@@ -72,11 +99,12 @@ checkout, then runs six phases and prints one JSON line for each:
 Every answer of phases 2-5 is held to the host roaring answer computed
 from the port's own fragments, and every count of phase 6 to the host
 ``popcnt_and``. The kernels' launch counters are set to 0 before phase
-2 and before phase 5 and read after phases 4, 5 and 6: every kernel must
-have launched on that main path, the TopN block count in phase 4's
-device top-k, the TopN block count, the expression count and densify in
-its sourced queries and again in the server phase by itself, and the op
-count in phase 6. Then it prints the card's name and power limit, the kernel
+2, before phase 6 and before phase 7's reopen, and read after phases 5,
+6, 7 and 8: every kernel must have launched on that main path, the TopN
+block count in phase 4's device top-k, the TopN block count, the
+expression count and densify in its sourced queries, again in the
+server phase by itself and again after phase 7's reopen, and the op
+count in phase 8. Then it prints the card's name and power limit, the kernel
 table as one JSON object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
@@ -882,6 +910,7 @@ def phase_server(data_dir, device, seed: int, ids200: list,
     from pilosa_tpu_torch.proto import internal as pb
     from pilosa_tpu_torch.proto import rawimport
     from pilosa_tpu_torch.server.server import Server
+    from pilosa_tpu_torch.storage import native_ext
 
     PB = "application/x-protobuf"
     rng = np.random.default_rng(seed + 4)
@@ -1030,6 +1059,520 @@ def phase_server(data_dir, device, seed: int, ids200: list,
     return out
 
 
+def phase_planner(holder, device) -> dict:
+    """The planner's decisions on the card, over ``t3`` (10 slices, at
+    most EXACT_SLICES: the planner proves emptiness only when it
+    enumerates every slice). A Count whose Intersect holds a
+    proven-empty row beside a missing frame answers 0 with no launch;
+    the same query over the 256 slices of ``smoke`` raises the missing
+    frame, as the JAX package does; a Union with a proven-empty operand answers and
+    launches what it does without that operand; a reordered Intersect
+    answers what the planner-off executor and host roaring answer; a
+    subtree repeated across three queries hits the subresult cache on
+    every slice the third time. Every answer is held to host roaring.
+    Last, what planning costs a warm query: ``TopN(frame=f, n=1000)``
+    and a device Count, 20 runs each with the planner on and off in
+    turns."""
+    import numpy as np
+    from pilosa_tpu_torch.errors import FrameNotFoundError
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import residency
+    from pilosa_tpu_torch.plan.planner import EXACT_SLICES
+
+    n_slices = holder.index("t3").max_slice() + 1
+    if n_slices > EXACT_SLICES:
+        _fail(f"planner: t3 has {n_slices} slices > {EXACT_SLICES}")
+    frags = [holder.fragment("t3", "f", "standard", s)
+             for s in range(n_slices)]
+    empty = 200_000  # a row of t3/f with no bit
+    if any(f.row_count(empty) for f in frags):
+        _fail(f"planner: row {empty} of t3/f is not empty")
+    ex = Executor(holder, device=device)
+    plain = Executor(holder, device=device)
+    plain.planner_enabled = False
+    results = []
+
+    def run(name, q, executor=ex):
+        residency.device_cache().clear()
+        before = dict(ck.LAUNCHES)
+        out, ms = _timed_query(executor, "t3", q)
+        rec = {"query": name, "pql": q, "ms": ms,
+               "launches": {k: ck.LAUNCHES[k] - before[k] for k in before
+                            if ck.LAUNCHES[k] != before[k]},
+               "planner": executor.planner_enabled}
+        if executor.planner_enabled:
+            plan = ex.explain("t3", q)
+            rec["decisions"] = plan.get("decisions", {})
+            rec["plan"] = plan["calls"]
+        results.append(rec)
+        return out[0], rec
+
+    def host(fn):
+        out = None
+        for f in frags:
+            bm = fn(f)
+            out = bm if out is None else out.union(bm)
+        return out
+
+    def bf(r):
+        return f"Bitmap(rowID={r}, frame=f)"
+
+    # A proven-empty row beside a missing frame: 0 and no launch at
+    # ≤ EXACT_SLICES ...
+    q32 = f"Count(Intersect({bf(empty)}, Bitmap(rowID=1, frame=nope)))"
+    got, rec = run("empty_beside_missing_frame", q32)
+    if got != 0 or rec["launches"] or \
+            "short_circuit" not in rec["decisions"]:
+        _fail(f"planner: the empty-beside-missing-frame Count gave "
+              f"{got}, launches {rec['launches']}, decisions "
+              f"{rec['decisions']}")
+    # ... and the missing frame's error above it (no proof over 256).
+    try:
+        ex.execute("smoke", q32.replace(f"rowID={empty}", "rowID=999999"))
+    except FrameNotFoundError as e:
+        results.append({"query": "empty_beside_missing_frame_256_slices",
+                        "error": str(e)})
+    else:
+        _fail("planner: the empty-beside-missing-frame Count answered"
+              " over 256 slices")
+
+    # A Union with a proven-empty operand, beside the same Union
+    # without it.
+    want1 = host(lambda f: f.row(1)).count()
+    got_e, rec_e = run("union_with_empty",
+                       f"Count(Union({bf(1)}, {bf(empty)}))")
+    got_1, rec_1 = run("union_without", f"Count(Union({bf(1)}))")
+    if not (got_e == got_1 == want1) or rec_e["launches"] != \
+            rec_1["launches"]:
+        _fail(f"planner: Union with an empty operand {got_e} with "
+              f"launches {rec_e['launches']}, without {got_1} with "
+              f"launches {rec_1['launches']}, host {want1}")
+    if not rec_1["launches"]:
+        _fail("planner: the Union launched no kernel")
+
+    # A reordered Intersect: the larger row first.
+    q_re = f"Count(Intersect({bf(0)}, {bf(1500)}))"
+    want_re = host(lambda f: f.row(0).intersect(f.row(1500))).count()
+    got_re, rec_re = run("reordered_intersect", q_re)
+    got_off, _ = run("reordered_intersect_planner_off", q_re, plain)
+    if got_re != want_re or got_off != want_re or \
+            "reordered" not in rec_re["decisions"]:
+        _fail(f"planner: reordered Intersect {got_re}, planner off "
+              f"{got_off}, host {want_re}, decisions "
+              f"{rec_re['decisions']}")
+
+    # CSE: Intersect(0, 1) in three queries; the third hits per slice.
+    inter = f"Intersect({bf(0)}, {bf(1)})"
+    cse = [("cse_first", f"Union({inter}, {bf(2)})",
+            lambda f: f.row(0).intersect(f.row(1)).union(f.row(2))),
+           ("cse_second", f"Difference({inter}, {bf(3)})",
+            lambda f: f.row(0).intersect(f.row(1)).difference(f.row(3))),
+           ("cse_third", f"Union({inter}, {bf(2)})",
+            lambda f: f.row(0).intersect(f.row(1)).union(f.row(2)))]
+    sub = ex.planner.subresults
+    for name, q, fn in cse:
+        hits0 = sub.hits
+        got, rec = run(name, q)
+        want = host(fn).bits().tolist()
+        rec["subresult_hits"] = sub.hits - hits0
+        if got.bits().tolist() != want:
+            _fail(f"planner: {name} differs from host roaring")
+    if results[-1]["subresult_hits"] != n_slices:
+        _fail(f"planner: the third CSE query hit "
+              f"{results[-1]['subresult_hits']} of {n_slices} slices")
+
+    # What planning costs a warm query: the metric of record's TopN and
+    # a device Count, planner on and off in turns (on/off, off/on, ...),
+    # warm (device cache kept), the same answer both ways.
+    overhead = []
+    for name, q in (("topn_n1000", "TopN(frame=f, n=1000)"),
+                    ("count_intersect", f"Count(Intersect({bf(0)}, "
+                                        f"{bf(1)}))")):
+        times = {True: [], False: []}
+        answers = set()
+        for i in range(21):
+            for on in ((True, False) if i % 2 else (False, True)):
+                ex.planner_enabled = on
+                out, ms = _timed_query(ex, "t3", q)
+                answers.add(repr(out))
+                if i:  # the first round warms both
+                    times[on].append(ms)
+        ex.planner_enabled = True
+        if len(answers) != 1:
+            _fail(f"planner: {name} answers differ with the planner off")
+        on_p50 = float(np.median(times[True]))
+        off_p50 = float(np.median(times[False]))
+        overhead.append({"query": name, "runs": len(times[True]),
+                         "on_p50_ms": on_p50, "off_p50_ms": off_p50,
+                         "on_minus_off_ms": on_p50 - off_p50})
+    out = {"phase": "planner", "index": "t3", "slices": n_slices,
+           "queries": results, "overhead": overhead,
+           "subresults": sub.stats(),
+           "decision_totals": dict(ex.planner.decision_totals)}
+    _emit(out)
+    return out
+
+
+def _card() -> str:
+    """``name, power limit`` of the card (nvidia-smi)."""
+    from pilosa_tpu_torch import bench
+    return bench.card_info()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_up(host: str, proc, deadline_s: float) -> float:
+    """Seconds until ``host`` answers /version; fails if ``proc`` dies
+    or the deadline passes."""
+    import urllib.request
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < deadline_s:
+        if proc.poll() is not None:
+            _fail(f"durability: the server exited with {proc.returncode}")
+        try:
+            with urllib.request.urlopen(f"http://{host}/version",
+                                        timeout=5) as r:
+                r.read()
+            return time.perf_counter() - t0
+        except OSError:
+            time.sleep(0.2)
+    _fail(f"durability: {host} not up in {deadline_s} s")
+
+
+def _oplog_bytes(path: str) -> tuple[int, int]:
+    """(op-log bytes, snapshot bytes) of one fragment data file: what a
+    reopen replays past the footered snapshot body."""
+    from pilosa_tpu_torch.storage import integrity, roaring
+    with open(path, "rb") as f:
+        data = f.read()
+    buf = memoryview(data)
+    hdr, _, _, offs, sizes, ops_offset, body_end = \
+        roaring.parse_snapshot_layout(buf)
+    info = integrity.parse_and_verify_footer(buf, len(hdr), ops_offset,
+                                             offs, sizes, body_end)
+    start = body_end + (info.size if info is not None else 0)
+    return len(data) - start, start
+
+
+def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
+                     storm_s: float = 20.0) -> dict:
+    """Acked writes survive SIGKILL on the card. The port's ``server``
+    verb runs as a subprocess on the card over a fresh directory,
+    seeded by protobuf ``/import`` with BASELINE configuration 4's rows
+    (1-8 at 1/64, 9-16 at 1/4096 over 256 slices). A write storm of
+    ``storm_s`` seconds follows, every stream from ``seed``: 8 client
+    threads of SetBit/ClearBit queries (rows 100-179) throughout, and
+    after its first quarter (the ack latency of each window is printed)
+    2 threads of 65,536-bit protobuf ``/import`` batches over random
+    slices (rows 200-219) and one thread importing 65,536-bit batches
+    into slice 0 (rows 300-309), which drives that fragment past
+    MAX_OP_N so that background snapshots swap its WAL (the data file's
+    inode changes) mid-storm. Each thread records what was acked (HTTP
+    200). The
+    server is killed with SIGKILL; a ``Server`` in this process reopens
+    the directory on the card and must hold (a) every acked SetBit and
+    import bit and none of the acked ClearBits (for bits whose last op
+    was acked), (b) no bit of a storm row that was never attempted;
+    (c) Count of every touched row over HTTP (the expression count,
+    densify for these sparse rows) must equal the reopened fragments'
+    host row counts, and a sourced TopN over six touched rows (the TopN
+    block count) its host answer."""
+    import signal
+    import subprocess
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH as SW
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import residency
+    from pilosa_tpu_torch.proto import internal as pb
+    from pilosa_tpu_torch.server.server import Server
+    from pilosa_tpu_torch.storage import native_ext
+
+    PB = "application/x-protobuf"
+    W = np.uint64(SW)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data_dir = os.path.join(tmp, "durable")
+    frag_dir = os.path.join(data_dir, "c4", "f", "views", "standard",
+                            "fragments")
+    port = _free_port()
+    host = f"127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    log_path = os.path.join(tmp, "durable_server.log")
+    halt = threading.Event()
+    rng = np.random.default_rng(seed + 17)
+
+    def post(path, body, headers=None, timeout=60.0):
+        req = urllib.request.Request(f"http://{host}{path}", data=body,
+                                     method="POST", headers=headers or {})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.read()
+
+    points: list = []      # [thread, pos (row * 2^28 + col), op, acked]
+    batches: list = []     # [row * 2^28 + col positions, acked]
+    lat_ms: list = []
+    swaps = [0]
+    cols_total = np.uint64(n_slices * SW)
+
+    def writer(k):
+        g = np.random.default_rng(seed * 1000 + k)
+        mine = []
+        while not halt.is_set():
+            if mine and g.random() < 0.3:
+                pos, op = mine[int(g.integers(len(mine)))], "clear"
+            else:
+                pos = (np.uint64(100 + 10 * k + int(g.integers(10)))
+                       * cols_total + np.uint64(g.integers(cols_total)))
+                op = "set"
+                mine.append(pos)
+            entry = [k, pos, op, False]
+            points.append(entry)
+            call = "SetBit" if op == "set" else "ClearBit"
+            t0 = time.perf_counter()
+            try:
+                post("/index/c4/query",
+                     f"{call}(frame=f, rowID={int(pos // cols_total)},"
+                     f" columnID={int(pos % cols_total)})".encode(),
+                     timeout=30)
+            except (OSError, urllib.error.URLError):
+                continue
+            lat_ms.append((t0, (time.perf_counter() - t0) * 1e3))
+            entry[3] = True
+
+    def importer(row0, slice_=None, k=0):
+        g = np.random.default_rng(seed * 1000 + 100 + row0)
+        while not halt.is_set():
+            s = int(g.integers(n_slices)) if slice_ is None else slice_
+            rows = row0 + g.integers(10, size=65536).astype(np.uint64)
+            cols = np.uint64(s) * W + g.integers(SW, size=65536
+                                                  ).astype(np.uint64)
+            entry = [rows * cols_total + cols, False]
+            batches.append(entry)
+            body = pb.ImportRequest(Index="c4", Frame="f", Slice=s,
+                                    RowIDs=rows, ColumnIDs=cols
+                                    ).SerializeToString()
+            try:
+                post("/import", body, {"Content-Type": PB, "Accept": PB},
+                     timeout=120)
+            except (OSError, urllib.error.URLError):
+                continue
+            entry[1] = True
+
+    def watcher():
+        path = os.path.join(frag_dir, "0")
+        last = os.stat(path).st_ino
+        while not halt.is_set():
+            try:
+                ino = os.stat(path).st_ino
+            except FileNotFoundError:
+                ino = last  # mid-rename
+            if ino != last:
+                swaps[0] += 1
+                last = ino
+            time.sleep(0.02)
+
+    t_spawn = time.perf_counter()
+    with open(log_path, "w") as log:
+        # On the card the verb runs with no --device (its default);
+        # "--device cpu" only where the phase itself runs on the host.
+        dev_args = [] if device.type == "cuda" else ["--device", "cpu"]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+             "-d", data_dir, "-b", host] + dev_args, cwd=repo, env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+    threads = []
+    try:
+        spawn_s = _wait_up(host, proc, 300)
+        post("/index/c4", b"{}")
+        post("/index/c4/frame/f", b"{}")
+        t0 = time.perf_counter()
+        seed_bits = 0
+        for s in range(n_slices):
+            rows, cols = [], []
+            for row in range(1, 17):
+                density = 64 if row <= 8 else 4096
+                c = np.unique(rng.integers(0, SW, size=SW // density,
+                                           dtype=np.uint64))
+                rows.append(np.full(len(c), row, np.uint64))
+                cols.append(c + np.uint64(s) * W)
+            rows, cols = np.concatenate(rows), np.concatenate(cols)
+            seed_bits += len(rows)
+            post("/import", pb.ImportRequest(
+                Index="c4", Frame="f", Slice=s, RowIDs=rows,
+                ColumnIDs=cols).SerializeToString(),
+                {"Content-Type": PB, "Accept": PB}, timeout=300)
+        seed_s = time.perf_counter() - t0
+        writers = [threading.Thread(target=writer, args=(k,))
+                   for k in range(8)]
+        loaders = [threading.Thread(target=importer, args=(200,)),
+                   threading.Thread(target=importer, args=(210,)),
+                   threading.Thread(target=importer, args=(300, 0)),
+                   threading.Thread(target=watcher)]
+        threads = writers + loaders
+        # The point writers alone for the first quarter of the storm,
+        # then the import threads join: the ack latency of each window.
+        t_storm = time.perf_counter()
+        for t in writers:
+            t.start()
+        time.sleep(storm_s / 4)
+        t_loaded = time.perf_counter()
+        for t in loaders:
+            t.start()
+        time.sleep(storm_s * 3 / 4)
+        proc.send_signal(signal.SIGKILL)
+        storm_wall = time.perf_counter() - t_storm
+        halt.set()
+        proc.wait(timeout=60)
+    finally:
+        halt.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        for t in threads:
+            t.join(timeout=150)
+    if any(t.is_alive() for t in threads):
+        _fail("durability: a storm thread did not stop")
+    if not swaps[0]:
+        _fail("durability: no snapshot swapped slice 0's WAL mid-storm")
+
+    wal_bytes = snap_bytes = 0
+    for name in os.listdir(frag_dir):
+        if name.isdigit():
+            w, b = _oplog_bytes(os.path.join(frag_dir, name))
+            wal_bytes += w
+            snap_bytes += b
+
+    # What the reopened directory must hold.
+    acked_points = [e for e in points if e[3]]
+    last = {}
+    for k, pos, op, acked in points:
+        last[pos] = (op, acked)
+    must = [np.asarray([p for p, (op, a) in last.items()
+                        if a and op == "set"], dtype=np.uint64)]
+    must_not = np.asarray([p for p, (op, a) in last.items()
+                           if a and op == "clear"], dtype=np.uint64)
+    attempted = [np.asarray(list(last), dtype=np.uint64)]
+    import_bits = 0
+    for pos, acked in batches:
+        attempted.append(pos)
+        if acked:
+            must.append(pos)
+            import_bits += len(pos)
+    must = np.unique(np.concatenate(must))
+    attempted = np.unique(np.concatenate(attempted))
+    if not len(acked_points) or not import_bits:
+        _fail("durability: the storm acked no write")
+
+    ck.reset_launches()
+    residency.device_cache().clear()
+    t0 = time.perf_counter()
+    srv = Server(data_dir, host="127.0.0.1:0", device=device)
+    srv.open()
+    ready_s = time.perf_counter() - t0
+    try:
+        frags = [srv.holder.fragment("c4", "f", "standard", s)
+                 for s in range(n_slices)]
+        present = []
+        for s, f in enumerate(frags):
+            if f is None:
+                continue
+            p = f.positions()
+            rows = p // W
+            keep = rows >= 100
+            present.append(rows[keep] * cols_total + np.uint64(s) * W
+                           + p[keep] % W)
+        present = np.unique(np.concatenate(present))
+        missing = np.setdiff1d(must, present)
+        if len(missing):
+            _fail(f"durability: {len(missing)} acked writes missing "
+                  f"after SIGKILL, e.g. {missing[:3].tolist()}")
+        back = np.intersect1d(must_not, present)
+        if len(back):
+            _fail(f"durability: {len(back)} acked clears came back")
+        stray = np.setdiff1d(present, attempted)
+        if len(stray):
+            _fail(f"durability: {len(stray)} bits were never written")
+
+        touched = np.unique(attempted // cols_total).tolist()
+        rows_p, counts_p = np.unique(present // cols_total,
+                                     return_counts=True)
+        have = dict(zip(rows_p.tolist(), counts_p.tolist()))
+        host_counts = [have.get(r, 0) for r in touched]
+        q = " ".join(f"Count(Bitmap(rowID={r}, frame=f))" for r in touched)
+        body, count_ms = _http(srv.host, "/index/c4/query", q.encode())
+        got = json.loads(body)["results"]
+        if got != host_counts:
+            _fail(f"durability: Count over HTTP {got[:5]} != host "
+                  f"{host_counts[:5]}")
+        ids = [touched[0], touched[7], touched[-21], touched[-20],
+               touched[-10], touched[-1]]
+        src_cols = [f.row(1).bits().astype(np.uint64) if f else None
+                    for f in frags]
+        pairs = []
+        for r in ids:
+            n = 0
+            for s, f in enumerate(frags):
+                if f is not None:
+                    n += len(np.intersect1d(f.row(r).bits(), src_cols[s]))
+            if n:
+                pairs.append([r, n])
+        pairs.sort(key=lambda p: (-p[1], p[0]))
+        body, topn_ms = _http(
+            srv.host, "/index/c4/query",
+            f"TopN(Bitmap(rowID=1, frame=f), frame=f, ids={ids})".encode())
+        got_topn = [[p["id"], p["count"]]
+                    for p in json.loads(body)["results"][0]]
+        if got_topn != pairs:
+            _fail(f"durability: TopN {got_topn} != host {pairs}")
+        launches = dict(ck.LAUNCHES)
+        for name in ("expr_count_rows", "densify", "topn_block_count"):
+            if not launches[name]:
+                _fail(f"durability: {name} did not launch after the reopen")
+    finally:
+        t0 = time.perf_counter()
+        srv.close()
+        close_s = time.perf_counter() - t0
+    alone = np.asarray([ms for t0, ms in lat_ms if t0 < t_loaded])
+    loaded = np.asarray([ms for t0, ms in lat_ms if t0 >= t_loaded])
+    both = np.concatenate([alone, loaded])
+    import_s = storm_wall - (t_loaded - t_storm)
+    out = {"phase": "durability", "slices": n_slices,
+           "columns": n_slices * SW, "seed_bits": seed_bits,
+           "seed_s": seed_s, "spawn_to_ready_s": spawn_s,
+           "storm_s": storm_wall, "acked_writes": len(acked_points),
+           "acked_writes_per_s": len(acked_points) / storm_wall,
+           "unacked_writes": len(points) - len(acked_points),
+           "acked_import_batches": sum(1 for _, a in batches if a),
+           "import_bits_per_s": import_bits / import_s,
+           "ack_ms_p50": float(np.percentile(both, 50)),
+           "ack_ms_p99": float(np.percentile(both, 99)),
+           "acks_alone": len(alone),
+           "ack_ms_p50_alone": float(np.percentile(alone, 50)),
+           "ack_ms_p99_alone": float(np.percentile(alone, 99)),
+           "acks_with_imports": len(loaded),
+           "ack_ms_p50_with_imports": float(np.percentile(loaded, 50)),
+           "ack_ms_p99_with_imports": float(np.percentile(loaded, 99)),
+           "import_s": import_s,
+           "wal_swaps_seen": swaps[0], "wal_bytes_at_kill": wal_bytes,
+           "snapshot_bytes_at_kill": snap_bytes,
+           "respawn_to_ready_s": ready_s, "oplog_bytes_replayed": wal_bytes,
+           "bits_checked": int(len(must)), "clears_checked":
+           int(len(must_not)), "rows_counted": len(touched),
+           "count_ms": count_ms, "topn_ms": topn_ms, "close_s": close_s,
+           "mutate_ext": native_ext.EXT is not None,
+           "launches": launches, "card": _card()}
+    _emit(out)
+    return out
+
+
 def phase_bench(device) -> dict:
     """The benchmark of record in this process, at its default width and
     rows; ``bench.run`` raises when a device count differs from the
@@ -1092,10 +1635,14 @@ def main() -> None:
         phase_count(holder, device, args.seed)
         _, ids200 = phase_topn(holder, device, args.seed)
         _, topn1000 = phase_topn1000(holder, device, args.seed)
+        phase_planner(holder, device)
         holder.close()
         launches = dict(ck.LAUNCHES)
         ck.reset_launches()
         phase_server(data_dir, device, args.seed, ids200, topn1000)
+        for name, n in ck.LAUNCHES.items():
+            launches[name] += n
+        phase_durability(device, args.seed, tmp)
         for name, n in ck.LAUNCHES.items():
             launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]
@@ -1108,7 +1655,7 @@ def main() -> None:
             _fail(f"{name}: no launch on the main path")
         table[name]["launches"] = n
 
-    print(f"nvidia-smi: {bench.card_info()}", flush=True)
+    print(f"nvidia-smi: {_card()}", flush=True)
     _emit({"kernels": list(table.values())})
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

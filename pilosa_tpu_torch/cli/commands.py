@@ -22,8 +22,8 @@ def cmd_server(args, stdout, stderr) -> int:
     """Serve one node until SIGINT or SIGTERM (reference
     server/server.go). The executor runs on the card unless ``--device
     cpu`` is given; without a card the verb prints the error and exits
-    non-zero. Fragments persist when the server closes, so both signals
-    close it."""
+    non-zero. Both signals close the server cleanly (barrier, snapshot,
+    WAL close); an acked write survives SIGKILL too, through the WAL."""
     from ..server.server import Server
     from ..utils import logger as logger_mod
 

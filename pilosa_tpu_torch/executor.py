@@ -31,16 +31,21 @@ calls in order. What the port serves:
   ``SetColumnAttrs`` (a query of ``SetRowAttrs`` calls alone is one
   bulk write per frame).
 
-Before a read query runs, empty operands (``Union()``) fold away from
-its bitmap trees by set algebra (``_fold_empty``), as the JAX package's
-planner proves them empty: a Count or TopN over a source that folds to
-∅ answers 0 or no pair and launches nothing.
+Before a read query runs, the cost-based planner (plan.planner, as in
+the JAX package's ``_maybe_plan``) rewrites a clone of it: operands
+proven empty from the data are dropped or empty their parent (a Count
+of a proven-empty tree answers 0 and launches nothing; a TopN over a
+proven-empty source answers no pair), commutative operands are
+reordered smallest-first (the device program changes order, not
+shape), and repeated interior subtrees of the host folds go through
+the per-slice subresult cache. ``planner_enabled = False`` runs the
+parsed tree as it is.
 
 Every other call or form raises PilosaError and names the slice that
 will port it. A device error surfaces to the caller: there is no host
 fallback. Single node, one device: the cluster fan-out, TopN pushdown,
-pod, planner, result caches, cost model and fault handling wait for
-later slices.
+pod, result caches, cost model (and with it the planner's placement)
+and fault handling wait for later slices.
 """
 
 from __future__ import annotations
@@ -58,9 +63,10 @@ from .models.view import VIEW_INVERSE, VIEW_STANDARD
 from .ops.packed import WORDS_PER_SLICE
 from .parallel import mesh as mesh_mod
 from .parallel import residency
+from .plan import planner as plan_planner
 from .pql.ast import Call, Query
 from .pql.parser import parse as parse_pql
-from .storage.bitmap import Bitmap
+from .storage.bitmap import Bitmap, BitmapSegment
 from .storage.cache import LRUCache, Pair, pairs_sort
 from .storage.fragment import TopOptions
 
@@ -87,45 +93,24 @@ def _needs_slices(calls: list[Call]) -> bool:
     return any(c.name not in _WRITE_CALLS for c in calls)
 
 
-def _is_empty(c: Call) -> bool:
-    """``Union()`` with no operand is the empty set."""
-    return c.name == "Union" and not c.children
+def _attach_plan_nodes(call: Call, node) -> None:
+    """Pair the planner's PlanNode tree onto the cloned Call tree via a
+    ``_plan_node`` attribute, so the per-slice hooks read the plan from
+    the call itself. The planner clones calls 1:1 with the nodes it
+    emits (drops happen to both sides together), so a zip is exact; a
+    length mismatch would mean a planner bug and attaching stops rather
+    than mis-pair hints."""
+    call._plan_node = node
+    if len(call.children) != len(node.children):
+        return
+    for ch_call, ch_node in zip(call.children, node.children):
+        _attach_plan_nodes(ch_call, ch_node)
 
 
-def _fold_empty(c: Call) -> Call:
-    """``c`` with its syntactically empty operands folded away by set
-    algebra: x ∪ ∅ = x, x ∩ ∅ = ∅, x − ∅ = x, ∅ − x = ∅, and ∅ is
-    ``Union()``. An operand that folds into ∅ is not evaluated, so its
-    errors do not surface — the JAX package's planner proves these
-    branches empty and skips them the same way (plan/planner.py
-    short_circuit). ``Intersect()``/``Difference()`` with no operand
-    stay as they are: the host path raises for them. Returns ``c``
-    itself when nothing folds; never mutates the parsed tree."""
-    if c.name not in ("Intersect", "Union", "Difference") or not c.children:
-        return c
-    kids = [_fold_empty(ch) for ch in c.children]
-    empty = [_is_empty(k) for k in kids]
-    if (c.name == "Intersect" and any(empty)) or \
-            (c.name == "Difference" and empty[0]):
-        return Call("Union")
-    if c.name != "Intersect":
-        kids = [k for i, k in enumerate(kids)
-                if not empty[i] or (i == 0 and c.name == "Difference")]
-    if kids == c.children:
-        return c
-    return Call(c.name, c.args, kids)
-
-
-def _fold_query(calls: list[Call]) -> list[Call]:
-    """Fold the bitmap trees of a read query (``_fold_empty``): the
-    top-level bitmap calls and the source of each Count and TopN."""
-    out = []
-    for c in calls:
-        if c.name in ("Count", "TopN"):
-            kids = [_fold_empty(ch) for ch in c.children]
-            c = c if kids == c.children else Call(c.name, c.args, kids)
-        out.append(_fold_empty(c))
-    return out
+def _short_circuit(c: Call) -> bool:
+    """True when the planner proved ``c`` empty."""
+    node = getattr(c, "_plan_node", None)
+    return node is not None and node.short_circuit
 
 
 def _parse_timestamp(c: Call, key: str = "timestamp"
@@ -158,6 +143,10 @@ class Executor:
     def __init__(self, holder, device=None):
         self.holder = holder
         self.device = resolve_device(device)
+        # Cost-based planner (plan.planner), consulted once per read
+        # query; on by default as in the JAX package.
+        self.planner = plan_planner.Planner(holder)
+        self.planner_enabled = True
 
     def execute(self, index: str, query,
                 slices: Optional[list[int]] = None) -> list:
@@ -173,14 +162,65 @@ class Executor:
                 raise IndexNotFoundError(index)
             slices = list(range(idx.max_slice() + 1))
         slices = slices or []
-        calls = query.calls
-        if _has_only_set_row_attrs(calls):
-            return self._execute_bulk_set_row_attrs(index, calls)
-        if slices and _needs_slices(calls) and not query.write_calls():
-            # As the JAX package plans a read query (executor.py
-            # _maybe_plan): empty operands fold away before execution.
-            calls = _fold_query(calls)
-        return [self._execute_call(index, c, slices) for c in calls]
+        if _has_only_set_row_attrs(query.calls):
+            return self._execute_bulk_set_row_attrs(index, query.calls)
+        if slices and _needs_slices(query.calls):
+            query = self._maybe_plan(index, query, slices)
+        results = []
+        i = 0
+        while i < len(query.calls):
+            # Consecutive SetBit/ClearBit calls batch into one batched
+            # mutation + WAL append per touched fragment.
+            wbatch = self._mutate_batch_run(index, query.calls, i)
+            if wbatch is not None:
+                bools, n = wbatch
+                results.extend(bools)
+                i += n
+                continue
+            results.append(self._execute_call(index, query.calls[i],
+                                              slices))
+            i += 1
+        return results
+
+    # -- cost-based planning (plan.planner) ----------------------------------
+
+    def _maybe_plan(self, index: str, query: Query,
+                    slices: list[int]) -> Query:
+        """The planned clone of a read query, or ``query`` itself when
+        planning is off or the query writes. The plan tree rides each
+        cloned Call as ``_plan_node``. Planning failure is never a
+        query failure: the original tree executes."""
+        if not self.planner_enabled or query.write_calls():
+            return query
+        try:
+            planned, rec = self.planner.plan_query_cached(
+                index, query.calls, slices)
+        except (PilosaError, ValueError, TypeError):
+            # Planning never fails a query: the tree runs as parsed, and
+            # its own errors surface there.
+            return query
+        for call, node in zip(planned, rec.roots):
+            # Memo hits return calls already carrying their plan node.
+            if getattr(call, "_plan_node", None) is not node:
+                _attach_plan_nodes(call, node)
+        return Query(planned)
+
+    def explain(self, index: str, query,
+                slices: Optional[list[int]] = None) -> dict:
+        """EXPLAIN-only (?plan=1): plan the query without executing
+        and return the plan tree."""
+        if isinstance(query, str):
+            query = parse_pql(query)
+        if not isinstance(query, Query):
+            raise QueryRequiredError("query required")
+        if query.write_calls():
+            raise PilosaError("cannot EXPLAIN a write query")
+        if not slices:
+            idx = self.holder.index(index)
+            if idx is None:
+                raise IndexNotFoundError(index)
+            slices = list(range(idx.max_slice() + 1))
+        return self.planner.explain(index, query.calls, slices)
 
     def _execute_call(self, index: str, c: Call, slices: list[int]):
         # executor.go:146-170
@@ -207,6 +247,8 @@ class Executor:
 
     def _execute_bitmap_call(self, index: str, c: Call,
                              slices: list[int]) -> Bitmap:
+        if _short_circuit(c):
+            return Bitmap()
         bm = Bitmap()
         for slice in slices:
             bm.merge(self._bitmap_call_slice(index, c, slice))
@@ -231,6 +273,29 @@ class Executor:
                 bm.attrs = frame.row_attr_store.attrs(row_id)
 
     def _bitmap_call_slice(self, index: str, c: Call, slice: int) -> Bitmap:
+        # Plan consult (when the call was planned): proven-empty
+        # subtrees return without touching storage, and CSE-marked
+        # interior nodes go through the generation-token-keyed
+        # subresult cache — a write between queries changes the key,
+        # so a stale entry is never served.
+        node = getattr(c, "_plan_node", None)
+        if node is not None:
+            if node.short_circuit:
+                return Bitmap()
+            if node.cache_lookup:
+                key = self.planner.subresult_key(index, node, slice)
+                hit = self.planner.subresults.get(key)
+                if hit is not None:
+                    return _share_result(hit)
+                r = self._bitmap_slice_dispatch(index, c, slice)
+                if node.cache_store:
+                    self.planner.subresults.put(key, _share_result(r),
+                                                r.count())
+                return r
+        return self._bitmap_slice_dispatch(index, c, slice)
+
+    def _bitmap_slice_dispatch(self, index: str, c: Call,
+                               slice: int) -> Bitmap:
         # executor.go:253-268
         if c.name == "Bitmap":
             return self._bitmap_slice(index, c, slice)
@@ -365,6 +430,8 @@ class Executor:
             raise PilosaError("Count() requires an input bitmap")
         if len(c.children) > 1:
             raise PilosaError("Count() only accepts a single bitmap input")
+        if _short_circuit(c):
+            return 0  # the planner proved the tree empty: no launch
         leaves: list[tuple] = []
         expr = self._compile_device_expr(index, c.children[0], leaves)
         if expr is None:
@@ -400,21 +467,9 @@ class Executor:
             raise PilosaError("TopN() can only have one input bitmap")
         if c.children:
             src = c.children[0]
-            leaves: list[tuple] = []
-            expr = self._compile_device_expr(index, src, leaves)
-            if expr is None and not _is_empty(src):
-                # Malformed, a call of a later slice, or (in a query
-                # that also writes, which execute does not fold) a tree
-                # holding empty operands: the host path raises the JAX
-                # package's error for the first two, and the third
-                # folds away.
-                self._execute_bitmap_call(index, src, slices)
-                src = _fold_empty(src)
-                expr = self._compile_device_expr(index, src, [])
-                c = Call(c.name, c.args, [src])
-            if _is_empty(src):
-                # No candidate intersects ∅: every form of TopN answers
-                # no pair (the JAX package's fragment.top pushes no
+            if _short_circuit(src):
+                # No candidate intersects a proven-empty source: every
+                # form of TopN answers no pair (fragment.top pushes no
                 # count 0) — after the Tanimoto bound, which the
                 # per-slice path checks wherever a fragment exists.
                 frame_name, *_, tanimoto = self._topn_args(c)
@@ -425,8 +480,13 @@ class Executor:
                     raise PilosaError(
                         "Tanimoto Threshold is from 1 to 100 only")
                 return []
-            if expr is None:
-                raise later(f"TopN() over {src}", "a later slice")
+            if self._compile_device_expr(index, src, []) is None:
+                # Malformed, a call of a later slice, or (in a query
+                # that also writes, which is not planned) a tree
+                # holding an empty Union(): the host materialization
+                # raises the JAX package's error for the first two, and
+                # the per-slice phases below answer the third.
+                self._execute_bitmap_call(index, src, slices)
         # The JAX package's order (executor.py _execute_top_n): the
         # single pass over complete LRU caches, else the per-slice
         # candidate phase and, without ids, the exact refetch of the
@@ -848,6 +908,67 @@ class Executor:
             raise PilosaError("inverse views not enabled for frame")
         raise PilosaError(f"invalid view: {view}")
 
+    # Shortest run of SetBit/ClearBit calls that takes the batch lane.
+    _BATCH_MIN_MUTATES = 8
+
+    def _mutate_batch_run(self, index: str, calls: list[Call], start: int):
+        """(results, n_calls) for a maximal run of consecutive
+        timestamp-free standard-view SetBit (or ClearBit) calls, applied
+        through the fragments' batch lane (Frame.mutate_bits) — one
+        batched mutation and WAL append per touched fragment, the count
+        cache upkept in row order, as in the JAX package. None (the
+        per-op path) for short runs and anything unusual — other views,
+        inverse frames, timestamps, missing or malformed arguments — so
+        error semantics stay exactly per-op: nothing is applied until
+        every call of the run parses."""
+        name = calls[start].name
+        if name not in ("SetBit", "ClearBit"):
+            return None
+        n = len(calls)
+        j = start
+        while (j < n and calls[j].name == name
+               and "timestamp" not in calls[j].args
+               and calls[j].args.get("view", "") in ("", VIEW_STANDARD)):
+            j += 1
+        count = j - start
+        if count < self._BATCH_MIN_MUTATES:
+            return None
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError(index)
+        frames: dict = {}
+        ops: list[tuple] = []  # (k, frame_name, row, col)
+        for k, c in enumerate(calls[start:j]):
+            fname = c.args.get("frame")
+            if not fname:
+                return None
+            frame = frames.get(fname)
+            if frame is None:
+                frame = idx.frame(fname)
+                if frame is None or frame.inverse_enabled:
+                    return None
+                frames[fname] = frame
+            try:
+                row_id, ok = c.uint_arg(frame.row_label)
+                col_id, ok2 = c.uint_arg(idx.column_label)
+            except (PilosaError, ValueError, TypeError):
+                return None
+            if not (ok and ok2):
+                return None
+            ops.append((k, fname, row_id, col_id))
+        results = [False] * count
+        groups: dict[str, list] = {}
+        for op in ops:
+            groups.setdefault(op[1], []).append(op)
+        for fname, group in groups.items():
+            rows = np.fromiter((g[2] for g in group), np.uint64, len(group))
+            cols = np.fromiter((g[3] for g in group), np.uint64, len(group))
+            changed = frames[fname].mutate_bits(rows, cols, name == "SetBit")
+            for g, ch in zip(group, changed.tolist()):
+                if ch:
+                    results[g[0]] = True
+        return results, count
+
     # -- attributes (executor.go:800-988) ------------------------------------
 
     def _row_attrs_of(self, index: str, c: Call):
@@ -895,3 +1016,14 @@ class Executor:
         attrs = dict(c.args)
         attrs.pop(col_name, None)
         idx.column_attr_store.set_attrs(id, attrs)
+
+
+def _share_result(bm: Bitmap) -> Bitmap:
+    """COW handout of a cached result (mutating callers copy, never the
+    cached object)."""
+    out = Bitmap()
+    out.attrs = dict(bm.attrs)
+    for seg in bm.segments:
+        out.segments.append(BitmapSegment(seg.data.shared(), seg.slice,
+                                          False))
+    return out

@@ -27,6 +27,7 @@ from .. import SLICE_WIDTH
 from ..errors import PilosaError, later, validate_label
 from ..proto import internal as pb
 from ..storage import cache as cache_mod
+from ..storage import wal as wal_mod
 from ..storage.attrs import AttrStore
 from ..utils.arrays import group_by_key, sort_dedupe
 from .view import (VIEW_STANDARD, View, is_field_view, is_inverse_view,
@@ -100,11 +101,13 @@ class FrameOptions:
 
 class Frame:
     def __init__(self, path: str, index: str, name: str,
-                 options: Optional[FrameOptions] = None):
+                 options: Optional[FrameOptions] = None,
+                 wal_fsync: str = wal_mod.FSYNC_NONE):
         self.path = path
         self.index = index
         self.name = name
         self.options = options or FrameOptions()
+        self.wal_fsync = wal_fsync
         self.views: dict[str, View] = {}
         self.row_attr_store = AttrStore(os.path.join(path, "attrs"))
         self._mu = threading.RLock()
@@ -176,7 +179,8 @@ class Frame:
         return View(os.path.join(self.views_path(), name), self.index,
                     self.name, name, cache_type=self.options.cache_type,
                     cache_size=self.options.cache_size,
-                    row_attr_store=self.row_attr_store)
+                    row_attr_store=self.row_attr_store,
+                    wal_fsync=self.wal_fsync)
 
     def view(self, name: str) -> Optional[View]:
         return self.views.get(name)
@@ -225,6 +229,13 @@ class Frame:
     def clear_bit(self, view_name: str, row_id: int, col_id: int,
                   t: Optional[dt.datetime] = None) -> bool:
         return self._mutate(view_name, row_id, col_id, t, set=False)
+
+    def mutate_bits(self, row_ids, col_ids, set: bool) -> np.ndarray:
+        """Batched timestamp-free set/clear on the standard view (the
+        executor's SetBit-run lane). Returns per-op changed bools."""
+        view = self._writable_standard_view(
+            "SetBit()" if set else "ClearBit()")
+        return view.mutate_bits(row_ids, col_ids, set)
 
     def _mutate(self, view_name: str, row_id: int, col_id: int,
                 t: Optional[dt.datetime], set: bool) -> bool:

@@ -15,12 +15,16 @@ import threading
 from typing import Optional
 
 from ..errors import IndexExistsError, PilosaError, validate_name
+from ..storage import wal as wal_mod
 from .index import Index, IndexOptions
 
 
 class Holder:
-    def __init__(self, path: str):
+    def __init__(self, path: str, wal_fsync: str = wal_mod.FSYNC_NONE):
         self.path = path
+        # The fragments' WAL fsync policy (storage.wal): "none", "group"
+        # or "always".
+        self.wal_fsync = wal_mod.check_fsync_policy(wal_fsync)
         self.indexes: dict[str, Index] = {}
         self._mu = threading.RLock()
 
@@ -37,7 +41,7 @@ class Holder:
                     validate_name(entry)
                 except PilosaError:  # not an index directory
                     continue
-                idx = Index(full, entry)
+                idx = Index(full, entry, wal_fsync=self.wal_fsync)
                 idx.open()
                 self.indexes[entry] = idx
 
@@ -73,7 +77,8 @@ class Holder:
 
     def _create_index(self, name: str, options) -> Index:
         validate_name(name)
-        idx = Index(self.index_path(name), name, options=options)
+        idx = Index(self.index_path(name), name, options=options,
+                    wal_fsync=self.wal_fsync)
         idx.open()
         self.indexes[name] = idx
         return idx

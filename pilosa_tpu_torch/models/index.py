@@ -18,6 +18,7 @@ from typing import Optional
 from ..errors import (FrameExistsError, PilosaError, validate_label,
                       validate_name)
 from ..proto import internal as pb
+from ..storage import wal as wal_mod
 from ..storage.attrs import AttrStore
 from ..utils import timequantum as tq
 from .frame import Frame, FrameOptions
@@ -43,11 +44,13 @@ class IndexOptions:
 
 class Index:
     def __init__(self, path: str, name: str,
-                 options: Optional[IndexOptions] = None):
+                 options: Optional[IndexOptions] = None,
+                 wal_fsync: str = wal_mod.FSYNC_NONE):
         validate_name(name)
         self.path = path
         self.name = name
         self.options = options or IndexOptions()
+        self.wal_fsync = wal_fsync
         self.frames: dict[str, Frame] = {}
         self.column_attr_store = AttrStore(os.path.join(path, ".data"))
         self._mu = threading.RLock()
@@ -66,7 +69,8 @@ class Index:
             self.column_attr_store.open()
             for entry in sorted(os.listdir(self.path)):
                 if os.path.isdir(os.path.join(self.path, entry)):
-                    frame = Frame(self.frame_path(entry), self.name, entry)
+                    frame = Frame(self.frame_path(entry), self.name, entry,
+                                  wal_fsync=self.wal_fsync)
                     frame.open()
                     self.frames[entry] = frame
 
@@ -148,7 +152,7 @@ class Index:
         if options.cache_type not in ("lru", "ranked"):
             raise PilosaError(f"invalid cache type: {options.cache_type!r}")
         frame = Frame(self.frame_path(name), self.name, name,
-                      options=options)
+                      options=options, wal_fsync=self.wal_fsync)
         frame.open()
         self.frames[name] = frame
         return frame

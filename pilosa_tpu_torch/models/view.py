@@ -14,8 +14,11 @@ import os
 import threading
 from typing import Optional
 
+import numpy as np
+
 from .. import SLICE_WIDTH
 from ..storage import cache as cache_mod
+from ..storage import wal as wal_mod
 from ..storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
@@ -42,7 +45,7 @@ class View:
     def __init__(self, path: str, index: str, frame: str, name: str,
                  cache_type: str = cache_mod.DEFAULT_CACHE_TYPE,
                  cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
-                 row_attr_store=None):
+                 row_attr_store=None, wal_fsync: str = wal_mod.FSYNC_NONE):
         self.path = path
         self.index = index
         self.frame = frame
@@ -50,6 +53,7 @@ class View:
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.row_attr_store = row_attr_store
+        self.wal_fsync = wal_fsync
         self.fragments: dict[int, Fragment] = {}
         self._mu = threading.RLock()
 
@@ -82,7 +86,8 @@ class View:
         return Fragment(self.fragment_path(slice), self.index, self.frame,
                         self.name, slice, cache_type=self.cache_type,
                         cache_size=self.cache_size,
-                        row_attr_store=self.row_attr_store)
+                        row_attr_store=self.row_attr_store,
+                        wal_fsync=self.wal_fsync)
 
     # -- fragments
 
@@ -111,3 +116,34 @@ class View:
     def clear_bit(self, row_id: int, column_id: int) -> bool:
         frag = self.create_fragment_if_not_exists(column_id // SLICE_WIDTH)
         return frag.clear_bit(row_id, column_id)
+
+    def mutate_bits(self, row_ids: np.ndarray, column_ids: np.ndarray,
+                    set: bool) -> np.ndarray:
+        """Batched set/clear through the fragments' batch lane: one
+        stable argsort groups the ops by slice, one batched mutation per
+        touched fragment. Returns a per-op changed bool array (WAL'd
+        durability identical to the per-op path — fragment.set_bits)."""
+        rows = np.asarray(row_ids, dtype=np.uint64)
+        cols = np.asarray(column_ids, dtype=np.uint64)
+        changed = np.zeros(len(rows), dtype=bool)
+        if not len(rows):
+            return changed
+        slices = cols // np.uint64(SLICE_WIDTH)
+        order = np.argsort(slices, kind="stable")
+        srt = slices[order]
+        bounds = np.flatnonzero(srt[1:] != srt[:-1]) + 1
+        starts = np.concatenate(([0], bounds, [len(srt)]))
+        w = np.uint64(SLICE_WIDTH)
+        for s, e in zip(starts[:-1].tolist(), starts[1:].tolist()):
+            idx = order[s:e]
+            frag = self.create_fragment_if_not_exists(int(srt[s]))
+            op = frag.set_bits if set else frag.clear_bits
+            ch_pos = op(rows[idx], cols[idx])
+            if len(ch_pos):
+                pos = rows[idx] * w + cols[idx] % w
+                # Only the FIRST occurrence of a duplicated op changed
+                # (per-op semantics: the repeat is an idempotent no-op).
+                uniq, first = np.unique(pos, return_index=True)
+                hit = np.isin(uniq, ch_pos, assume_unique=True)
+                changed[idx[first[hit]]] = True
+        return changed

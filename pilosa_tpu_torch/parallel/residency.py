@@ -208,6 +208,14 @@ class DeviceRowCache:
         self._host_rows.pop(row_id, None)
         self.generation += 1
 
+    def invalidate_rows(self, row_ids) -> None:
+        """Batch invalidation: one generation bump for the whole write
+        batch (the key embeds the generation, so one bump suffices)."""
+        pop = self._host_rows.pop
+        for rid in row_ids:
+            pop(rid, None)
+        self.generation += 1
+
     def invalidate_all(self) -> None:
         self._host_rows.clear()
         self.generation += 1

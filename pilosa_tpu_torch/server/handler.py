@@ -9,15 +9,21 @@ unknown-key validation of index/frame options mirrors
 handler.go:299-351,577-610. Status mapping: ``HTTPError`` gives its
 status, ``PilosaError`` 400, any other exception 500.
 
-A query keeps parse → execute → encode. Admission, tenants, tracing,
-cost accounting, plan capture, workload capture and the WAL commit
-barrier wait for the slices that port those subsystems, as do the
+A query keeps parse → execute → commit barrier → encode: a query holding
+a write call, and every ``/import``, answers 200 only once
+``storage.wal.barrier_all()`` has put its WAL records in the OS (the
+JAX package's ack contract). A failed barrier answers 507 with
+``Retry-After`` when the disk is full, 500 otherwise. ``?plan=1`` on
+the query route plans the query without executing it (EXPLAIN).
+Admission, tenants, tracing, cost accounting, plan and workload capture
+wait for the slices that port those subsystems, as do the
 ``/debug/*``, ``/metrics``, cluster, backup, fragment-sync, pod and
 web-console routes.
 """
 
 from __future__ import annotations
 
+import errno
 import json
 import re
 from typing import Callable
@@ -33,6 +39,7 @@ from ..models.index import IndexOptions
 from ..pql import parser as pql
 from ..proto import internal as pb
 from ..proto import rawimport
+from ..storage import wal as storage_wal
 from ..storage.attrs import diff_blocks
 from ..storage.bitmap import Bitmap
 from ..utils import logger as logger_mod
@@ -106,11 +113,13 @@ class Request:
 
 class Response:
     def __init__(self, status: int = 200, body=b"",
-                 content_type: str = "application/json"):
+                 content_type: str = "application/json",
+                 headers: tuple = ()):
         # body: bytes, or an iterator of byte chunks (the CSV export).
         self.status = status
         self.body = body
         self.content_type = content_type
+        self.headers = list(headers)
 
     @staticmethod
     def json(obj, status: int = 200) -> "Response":
@@ -140,7 +149,11 @@ def _export_csv_chunks(positions: np.ndarray, slice: int,
 _STATUS_TEXT = {200: "OK", 400: "Bad Request", 404: "Not Found",
                 405: "Method Not Allowed", 406: "Not Acceptable",
                 409: "Conflict", 415: "Unsupported Media Type",
-                500: "Internal Server Error"}
+                500: "Internal Server Error",
+                507: "Insufficient Storage"}
+
+# Retry-After of a 507 (the JAX package's fault.diskfull RETRY_AFTER_S).
+RETRY_AFTER_S = 2
 
 
 class Handler:
@@ -230,7 +243,8 @@ class Handler:
         if isinstance(resp.body, bytes):
             start_response(status_line,
                            [("Content-Type", resp.content_type),
-                            ("Content-Length", str(len(resp.body)))])
+                            ("Content-Length", str(len(resp.body)))]
+                           + resp.headers)
             return [] if head else [resp.body]
         # Streamed body (CSV export): never buffered whole.
         start_response(status_line, [("Content-Type", resp.content_type)])
@@ -371,10 +385,13 @@ class Handler:
         index_name = req.vars["index"]
         proto_out = _PROTOBUF in req.accept
 
-        def error_resp(status, msg):
+        def error_resp(status, msg, headers=()):
             if proto_out:
-                return Response.proto(pb.QueryResponse(Err=msg), status)
-            return Response.json({"error": msg}, status)
+                resp = Response.proto(pb.QueryResponse(Err=msg), status)
+            else:
+                resp = Response.json({"error": msg}, status)
+            resp.headers.extend(headers)
+            return resp
 
         if req.content_type == _PROTOBUF:
             preq = pb.QueryRequest.FromString(req.body())
@@ -394,9 +411,32 @@ class Handler:
             query = pql.parse(query_str)
         except PilosaError as e:
             return error_resp(400, str(e))
+        if req.query.get("plan") == "1":
+            # EXPLAIN-only: the plan tree (estimates and decisions), no
+            # execution.
+            try:
+                tree = self.executor.explain(index_name, query,
+                                             slices or None)
+            except PilosaError as e:
+                return error_resp(400, str(e))
+            return Response.json({"results": [], "plan": tree})
         try:
             results = self.executor.execute(index_name, query,
                                             slices or None)
+            if query.write_calls():
+                # Commit barrier before the ack: every mutation this
+                # query applied has its WAL record in the OS (fsynced
+                # per the fsync policy) when the response goes out.
+                storage_wal.barrier_all()
+        except storage_wal.WalError as e:
+            # A barrier that failed on a full disk is retryable: 507 +
+            # Retry-After. Any other WAL failure stays a 500.
+            if getattr(e.__cause__, "errno", None) == errno.ENOSPC:
+                return error_resp(
+                    507, f"insufficient storage: write not durable ({e})",
+                    headers=[("Retry-After", str(RETRY_AFTER_S))])
+            self.logger.printf("query commit barrier failed: %s", e)
+            return error_resp(500, str(e))
         except PilosaError as e:
             return error_resp(400, str(e))
         except Exception as e:  # noqa: BLE001 - surfaced in response
@@ -494,6 +534,10 @@ class Handler:
             frame.import_slice_positions(slice, np.array(positions))
         else:
             frame.import_bits(rows, cols)
+        # Commit barrier before the 200: the import lanes barrier their
+        # own fragment's WAL; this covers every fragment the request
+        # touched, coalesced with concurrent imports' barriers.
+        storage_wal.barrier_all()
         return Response.proto(pb.ImportResponse())
 
     def _handle_get_export(self, req: Request) -> Response:

@@ -5,10 +5,14 @@ server.go:89-180) for a one-node server: ``open()`` opens the holder
 under ``data_dir``, builds the ``Executor`` on ``device`` (the card
 unless the caller passes ``"cpu"``), the ``Handler`` and the
 ``HTTPServer``, and serves on a thread; a bind to port 0 rewrites
-``host`` with the port the system chose. ``close()`` stops serving and
-closes the holder. Cluster membership, gossip, anti-entropy, the
-background loops (cache flush, WAL, scrub, tiering, backup) and the
-observability subsystems wait for the slices that port them.
+``host`` with the port the system chose. ``wal_fsync`` is every
+fragment's WAL fsync policy (storage.wal: "none", the default as in the
+JAX package, "group" or "always"). ``close()`` closes in the JAX
+package's order: stop serving, commit barrier, then the holder, whose
+fragments snapshot their op-logs and close their WALs. Cluster
+membership, gossip, anti-entropy, the background loops (cache flush,
+scrub, tiering, backup) and the observability subsystems wait for the
+slices that port them.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from ..device import resolve_device
 from ..errors import PilosaError
 from ..executor import Executor
 from ..models.holder import Holder
+from ..storage import wal as storage_wal
 from ..utils import logger as logger_mod
 from .handler import Handler
 from .httpd import HTTPServer
@@ -28,10 +33,12 @@ DEFAULT_PORT = 10101
 
 class Server:
     def __init__(self, data_dir: str, host: str = "localhost:10101",
-                 device=None, logger=logger_mod.NOP):
+                 device=None, logger=logger_mod.NOP,
+                 wal_fsync: str = storage_wal.FSYNC_NONE):
         self.data_dir = data_dir
         self.host = host
         self.device = device
+        self.wal_fsync = wal_fsync
         self.logger = logger
         self.holder = None
         self.executor = None
@@ -54,7 +61,7 @@ class Server:
         # The device first: without a card (and no "cpu" asked for) the
         # server does not start, before it touches the data directory.
         device = resolve_device(self.device)
-        self.holder = Holder(self.data_dir)
+        self.holder = Holder(self.data_dir, wal_fsync=self.wal_fsync)
         try:
             self.holder.open()
             self.executor = Executor(self.holder, device=device)
@@ -83,5 +90,6 @@ class Server:
             self._thread.join(timeout=10)
             self._httpd = None
         if self.holder is not None:
+            storage_wal.barrier_all()
             self.holder.close()
             self.holder = None

@@ -1,14 +1,26 @@
 """Fragment: the storage unit at one (frame, view, slice) intersection.
 
 Trimmed copy of the JAX package's ``storage/fragment.py``. A fragment
-owns one roaring bitmap holding a rows × 2^20-column block; bit position
-``pos = row * SLICE_WIDTH + (col % SLICE_WIDTH)`` (fragment.go:1511-1514).
+owns one file-backed roaring bitmap holding a rows × 2^20-column block;
+bit position ``pos = row * SLICE_WIDTH + (col % SLICE_WIDTH)``
+(fragment.go:1511-1514).
 
-Durability in this slice is a plain roaring snapshot: ``open`` reads the
-data file (the same snapshot format as the JAX package, op-log records
-included), ``close`` writes a fresh snapshot. The group-commit WAL, crc
-footers, tiering, quarantine, scrub and block sync wait for later
-slices.
+Durability model (the JAX package's, and the reference's):
+- data file = footered roaring snapshot + appended op-log (WAL); the
+  file is opened ``a+b`` unbuffered and ``flock``ed exclusively while
+  open, mapped, and its ops replay on open (a torn tail — a crash
+  mid-append — is trimmed to the last complete record);
+- every mutation appends an op record to the group-commit WAL
+  (storage.wal) and the serving layer's commit barrier
+  (``wal.barrier_all``) puts it in the OS before a write is acked;
+  after MAX_OP_N ops a background snapshot rewrites the file (temp +
+  rename) and splices the ops appended meanwhile (fragment.go:991-1057);
+- bulk imports take the WAL'd batch lane (small import, large
+  fragment), the WAL-first lane (one blob of op records, then the
+  bulk add) or, past _WAL_IMPORT_MAX_BYTES, the detach-then-snapshot
+  lane (fragment.go:924-989);
+- ``close`` is a commit barrier, a snapshot when the op-log holds
+  records, and the WAL's close.
 
 The TopN count cache (``cache``: a RankCache or an LRUCache, from the
 frame's ``cacheType``/``cacheSize``) is the JAX package's: every write
@@ -22,13 +34,19 @@ vectorized source-count pass.
 generation)`` pair is the staleness key of every device-resident block
 built from this fragment (parallel.residency); every write bumps the
 generation.
+
+Left out of the copy: tiering, quarantine and verify-on-read, scrub,
+block checksums and sync, the failpoints, accounting and stats, and the
+incremental per-row count map (a write recounts its rows).
 """
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import heapq
 import math
+import mmap
 import os
 import threading
 from dataclasses import dataclass, field
@@ -42,8 +60,27 @@ from ..proto import internal as pb
 from ..utils import arrays as arrays_mod
 from . import cache as cache_mod
 from . import roaring
+from . import wal as wal_mod
 from .bitmap import Bitmap
 from .cache import Pair
+
+# Number of operations before a snapshot rewrite (the JAX package's
+# default; reference fragment.go:63-65). Tests lower it on the module.
+MAX_OP_N = 50000
+
+# Replay-cost weight of one bulk-import blob position relative to one
+# discrete op record: a blob's single add-run replays through the
+# vectorized add_many lane, so a blob bit carries ~1/16th the reopen
+# replay pressure MAX_OP_N exists to bound.
+_BLOB_OP_WEIGHT = 16
+
+# Snapshots between full close/remap cycles (see Fragment.snapshot).
+_REMAP_EVERY = 16
+
+# Largest bulk import the WAL-first lane holds as op records (13 B per
+# position) before falling back to the detach-then-snapshot contract —
+# bounds transient log growth between snapshot cadences.
+_WAL_IMPORT_MAX_BYTES = 32 << 20
 
 # Largest position vector kept resident per fragment (8 B each ->
 # 32 MB); larger ones are rebuilt per pass instead of pinned.
@@ -86,7 +123,7 @@ class Fragment:
     def __init__(self, path: str, index: str, frame: str, view: str,
                  slice: int, cache_type: str = cache_mod.DEFAULT_CACHE_TYPE,
                  cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
-                 row_attr_store=None):
+                 row_attr_store=None, wal_fsync: str = wal_mod.FSYNC_NONE):
         self.path = path
         self.index = index
         self.frame = frame
@@ -95,6 +132,7 @@ class Fragment:
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.row_attr_store = row_attr_store
+        self.wal_fsync = wal_fsync
         self.storage: Optional[roaring.Bitmap] = None
         self.cache = None                       # rank/lru count cache
         self._cache_flushed = None              # last flush_cache blob
@@ -108,10 +146,23 @@ class Fragment:
         self._src_counts: dict[
             bytes, tuple[int, tuple[np.ndarray, np.ndarray]]] = {}
         self._epoch = 0
+        self._snapshot_n = 0
         self._positions = None
         self._total_bits = None
         self._present_rows = None
+        # The group-commit WAL over the data file: mutation paths
+        # APPEND records (no syscall); commit barriers flush them.
+        self._wal: Optional[wal_mod.GroupCommitWal] = None
         self._mu = threading.RLock()
+        # Snapshot lifecycle lock. Ordering rule: ALWAYS acquired
+        # BEFORE _mu when blocking (sync snapshot, close); the per-op
+        # async trigger — which runs UNDER _mu — only try-acquires and
+        # skips when busy, so the order cannot invert. Held by the
+        # background worker for its whole run (released cross-thread in
+        # its finally), so "with _snap_mu" doubles as the join barrier.
+        self._snap_mu = threading.Lock()
+        self._file = None
+        self._mmap: Optional[mmap.mmap] = None
         self._open = False
 
     # -- lifecycle -----------------------------------------------------------
@@ -125,15 +176,82 @@ class Fragment:
             if self._open:
                 return
             os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-            if os.path.exists(self.path):
-                with open(self.path, "rb") as f:
-                    self.storage = roaring.Bitmap.unmarshal(f.read())
-            else:
-                self.storage = roaring.Bitmap()
+            # The one-crossing mutate extension (built once, cached):
+            # serving fragments are where the per-op path runs hot.
+            from . import native_ext
+            native_ext.load()
             self.cache = cache_mod.new_cache(self.cache_type,
                                              self.cache_size)
+            self._open_storage(verify=True)
             self._open_cache()
             self._open = True
+
+    def _open_storage(self, verify: bool = False) -> None:
+        # Open (creating) the data file, flock it, seed an empty file
+        # with a footered empty snapshot, map, replay snapshot + op-log,
+        # then attach the WAL as the op writer (reference
+        # fragment.go:179-234). buffering=0: the WAL's leader write
+        # reaches the OS in one syscall.
+        self._file = open(self.path, "a+b", buffering=0)
+        try:
+            fcntl.flock(self._file.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            self._file.close()
+            self._file = None
+            raise
+        self._file.seek(0, os.SEEK_END)
+        if self._file.tell() == 0:
+            roaring.Bitmap().write_to(self._file, footer=True)
+        self._mmap = mmap.mmap(self._file.fileno(), 0, prot=mmap.PROT_READ)
+        self.storage = roaring.Bitmap.unmarshal(self._mmap, mapped=True,
+                                                tolerate_torn_tail=True,
+                                                verify_body=verify)
+        if self.storage.torn_bytes:
+            # A crash mid-append left a partial op record (or a torn
+            # footer); the WAL is append-only so the tail is the only
+            # casualty — trim it.
+            size = self._file.seek(0, os.SEEK_END)
+            self.storage.unmap()
+            self._mmap = None
+            os.ftruncate(self._file.fileno(), size - self.storage.torn_bytes)
+            self._file.seek(0, os.SEEK_END)
+            self._mmap = mmap.mmap(self._file.fileno(), 0,
+                                   prot=mmap.PROT_READ)
+            self.storage = roaring.Bitmap.unmarshal(self._mmap, mapped=True,
+                                                    verify_body=verify)
+        self._wal = wal_mod.GroupCommitWal(self._file, self.wal_fsync)
+        self.storage.op_writer = self._wal
+
+    def _close_storage(self) -> None:
+        if self._wal is not None:
+            # Orderly close = commit barrier: whatever a library caller
+            # appended without barriering is durable per policy before
+            # the fd goes away.
+            try:
+                self._wal.barrier()
+            except wal_mod.WalError:
+                pass  # torn log: reopen trims to the flushed prefix
+            self._wal.close()
+            self._wal = None
+        if self.storage is not None:
+            self.storage.op_writer = None
+        # No mmap.close() and no copy-out: row-cache entries and escaped
+        # query results share zero-copy container views into the map,
+        # and those views pin it; dropping our reference lets the OS
+        # unmap when the last view goes. The old inode stays valid
+        # under os.replace, so mapped views never go stale.
+        self._mmap = None
+        self.row_cache.clear()
+        if self._file is not None:
+            # Release the flock EXPLICITLY: mmap dups the fd, and while
+            # a container view keeps the old map alive, close() alone
+            # would leave the lock held and block the next open.
+            try:
+                fcntl.flock(self._file.fileno(), fcntl.LOCK_UN)
+            except OSError:
+                pass
+            self._file.close()
+            self._file = None
 
     def _open_cache(self) -> None:
         # Re-rank persisted ids with counts from storage
@@ -154,12 +272,13 @@ class Fragment:
 
     def _repair_cache_completeness(self) -> None:
         """Rows written after the sidecar's last flush (or every row,
-        when the sidecar is lost) are missing from the count cache.
-        Detect by cardinality (exact per-row counts must sum to the
-        storage total) and repair from present_rows when the fragment is
-        small enough to dump positions, else leave the cache flagged
-        incomplete — the single-pass TopN then takes the recounting
-        path."""
+        when the sidecar is lost — after a crash the replayed WAL holds
+        rows the persisted id list lacks) are missing from the count
+        cache. Detect by cardinality (exact per-row counts must sum to
+        the storage total) and repair from present_rows when the
+        fragment is small enough to dump positions, else leave the cache
+        flagged incomplete — the single-pass TopN then takes the
+        recounting path."""
         total = self._cached_total_bits()
         if hasattr(self.cache, "_od"):
             cached = sum(self.cache._od.values())
@@ -179,26 +298,177 @@ class Fragment:
         self._cache_complete = False
 
     def close(self) -> None:
-        with self._mu:
-            if not self._open:
-                return
-            self.snapshot()
-            self.row_cache.clear()
-            self.device.invalidate_all()
-            self.storage = None
-            self._open = False
+        # _snap_mu first (lock order): waits out any background
+        # snapshot and blocks new ones for the whole close.
+        with self._snap_mu:
+            with self._mu:
+                if not self._open:
+                    return
+                # Barrier, then a snapshot that folds the op-log in:
+                # its body covers any record a failed barrier could not
+                # write.
+                try:
+                    self.wal_barrier()
+                except wal_mod.WalError:
+                    pass
+                if self.storage.op_n:
+                    self._snapshot_locked()
+                self.flush_cache()
+                self._close_storage()
+                self.device.invalidate_all()
+                self.storage = None
+                self._open = False
 
-    def snapshot(self) -> None:
-        """Write the whole bitmap as a plain snapshot (temp + rename),
-        then the count cache's ids to the ``.cache`` sidecar."""
+    def wal_barrier(self) -> None:
+        """Commit barrier: every mutation applied so far has its WAL
+        record in the OS (fsynced per ``wal_fsync``) when this returns.
+        The serving layer calls the process-wide
+        ``storage.wal.barrier_all()`` before acking write requests;
+        library callers mutating fragments directly use this (or
+        ``close()``) to get the same durability point."""
+        wal = self._wal
+        if wal is not None:
+            wal.barrier()
+
+    def snapshot(self, sync: bool = True) -> None:
+        """Atomically rewrite the data file from current state
+        (reference fragment.go:991-1057): a footered snapshot, written
+        to a temp file, fsynced and renamed over the data file.
+
+        ``sync=False`` (the per-op MAX_OP_N trigger) serializes a
+        COW-frozen capture on a BACKGROUND thread and splices the ops
+        appended meanwhile from the old file's WAL tail at swap time;
+        durability is unchanged, since every op is already in the old
+        file's WAL. Bulk paths that detach the op writer MUST use
+        sync=True — their mutations exist nowhere but memory until the
+        snapshot lands.
+
+        The rewritten file is swapped under the live storage object —
+        only the fd, the flock, the op counter and the WAL's file
+        change. Every ``_REMAP_EVERY``-th snapshot takes the full
+        reopen instead: it re-establishes zero-copy mapped containers,
+        un-pinning old map generations that copy-on-write views would
+        otherwise keep alive."""
+        if not sync:
+            self._snapshot_async()
+            return
+        # Lock order: _snap_mu (waits out / blocks any worker) then
+        # _mu. Callers MUST NOT hold _mu here (the worker needs _mu to
+        # finish, so joining under _mu would deadlock).
+        with self._snap_mu:
+            self._snapshot_locked()
+
+    def _snapshot_locked(self) -> None:
         with self._mu:
             tmp = self.path + ".snapshotting"
             with open(tmp, "wb") as f:
-                self.storage.write_to(f)
+                self.storage.write_to(f, footer=True)
                 f.flush()
                 os.fsync(f.fileno())
+            self._swap_data_file(tmp, new_op_n=0)
+
+    def _swap_data_file(self, tmp: str, new_op_n: int) -> None:
+        """Swap ``tmp`` in as the data file (caller holds _mu; one
+        shared implementation for the sync and background paths):
+        replace the path, flock + attach a new fd — flock is per-inode,
+        so the old fd's lock cannot conflict, and the old map stays
+        alive while mapped container views pin it. Every
+        ``_REMAP_EVERY``-th snapshot does the full close/reopen instead.
+        A failed swap falls back to the full reopen so the WAL is never
+        silently left detached."""
+        self._snapshot_n += 1
+        if self._snapshot_n % _REMAP_EVERY == 0:
+            self._close_storage()
             os.replace(tmp, self.path)
-            self.flush_cache()
+            self._open_storage()
+            return
+        self.storage.op_writer = None
+        os.replace(tmp, self.path)
+        try:
+            new_file = open(self.path, "a+b", buffering=0)
+            fcntl.flock(new_file.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BaseException:
+            self._close_storage()
+            self._open_storage()
+            return
+        old_file, self._file = self._file, new_file
+        self._mmap = None
+        if old_file is not None:
+            try:
+                fcntl.flock(old_file.fileno(), fcntl.LOCK_UN)
+            except OSError:
+                pass
+            old_file.close()
+        new_file.seek(0, os.SEEK_END)
+        self.storage.op_n = new_op_n
+        # The snapshot body covers every applied mutation, so any
+        # pending (even failed/torn) records are superseded; the WAL
+        # continues over the fresh file with a clean slate.
+        self._wal.reset_file(new_file, clear_pending=True)
+        self.storage.op_writer = self._wal
+
+    def _snapshot_async(self) -> None:
+        # Called UNDER _mu (the per-op MAX_OP_N trigger): may only
+        # TRY-acquire _snap_mu — blocking here would invert the
+        # _snap_mu → _mu lock order against sync snapshot/close.
+        if not self._snap_mu.acquire(blocking=False):
+            return  # a worker or sync snapshot is running; op_n keeps
+            # re-triggering until one lands
+        try:
+            # The splice below needs the FILE to hold every op appended
+            # so far: tail_off divides "covered by the frozen body" from
+            # "spliced from the WAL tail". A failed/torn log raises here
+            # (fail-stop: a reopen trims to the flushed prefix).
+            self._wal.flush(None, sync=False)
+            frozen = self.storage.freeze()
+            tail_off = self._file.seek(0, os.SEEK_END)
+        except BaseException:
+            self._snap_mu.release()
+            raise
+        # _snap_mu intentionally stays held; the worker releases it
+        # (threading.Lock allows cross-thread release).
+        threading.Thread(
+            target=self._snapshot_worker, args=(frozen, tail_off),
+            name="frag-snapshot", daemon=True).start()
+
+    def _snapshot_worker(self, frozen, tail_off: int) -> None:
+        try:
+            tmp = self.path + ".snapshotting"
+            try:
+                with open(tmp, "wb") as f:
+                    # The expensive serialize + fsync of the frozen body
+                    # runs with NO fragment lock held; writers keep
+                    # appending to the old file's WAL.
+                    roaring.write_frozen(frozen, f, footer=True)
+                    f.flush()
+                    os.fsync(f.fileno())
+                    with self._mu:
+                        # Splice the ops that landed since the freeze,
+                        # then swap. WalError (a torn log) aborts the
+                        # swap through the OSError handler: the old
+                        # file stays the file of record.
+                        self._wal.flush(None, sync=False)
+                        with open(self.path, "rb") as rf:
+                            rf.seek(tail_off)
+                            tail = rf.read()
+                        f.write(tail)
+                        f.flush()
+                        os.fsync(f.fileno())
+                        self._swap_data_file(
+                            tmp, new_op_n=len(tail) // roaring.OP_SIZE)
+            except OSError:
+                # Pre-swap IO failure: op_writer was never detached, the
+                # old snapshot+WAL remains the file of record, and the
+                # next MAX_OP_N trigger retries.
+                pass
+        finally:
+            self._snap_mu.release()
+
+    def _join_snapshot(self) -> None:
+        """Barrier: returns once no background snapshot is in flight
+        (the worker holds _snap_mu for its entire run)."""
+        with self._snap_mu:
+            pass
 
     def flush_cache(self) -> None:
         """Persist cache ids to the .cache protobuf sidecar
@@ -308,7 +578,62 @@ class Fragment:
         self.row_cache.invalidate(row_id)
         self.device.invalidate_row(row_id)
         self.cache.add(row_id, self.row_count(row_id))
+        self._increment_op_n()
         return True
+
+    def set_bits(self, row_ids, column_ids) -> np.ndarray:
+        """Batched SetBit: one native crossing for container mutation +
+        WAL records, one group-commit append, batched cache upkeep.
+        Durability is the per-op path's: every changed bit has a
+        checksummed WAL record when the next barrier returns. Returns
+        the sorted changed positions (row*SLICE_WIDTH + slice-local
+        col)."""
+        return self._mutate_batch(row_ids, column_ids, set=True)
+
+    def clear_bits(self, row_ids, column_ids) -> np.ndarray:
+        """Batched ClearBit (see set_bits)."""
+        return self._mutate_batch(row_ids, column_ids, set=False)
+
+    def _mutate_batch(self, row_ids, column_ids, set: bool) -> np.ndarray:
+        rows = np.asarray(row_ids, dtype=np.uint64)
+        cols = np.asarray(column_ids, dtype=np.uint64)
+        if len(rows) != len(cols):
+            raise ValueError("row/column id length mismatch")
+        if not len(rows):
+            return np.empty(0, dtype=np.uint64)
+        min_col = self.slice * SLICE_WIDTH
+        if (int(cols.min()) < min_col
+                or int(cols.max()) >= min_col + SLICE_WIDTH):
+            raise ValueError("column out of bounds")
+        positions = rows * np.uint64(SLICE_WIDTH) + (
+            cols % np.uint64(SLICE_WIDTH))
+        return self._mutate_batch_positions(positions, set)
+
+    def _mutate_batch_positions(self, positions: np.ndarray,
+                                set: bool) -> np.ndarray:
+        row_shift = np.uint64(SLICE_WIDTH.bit_length() - 1)
+        with self._mu:
+            changed = self.storage.apply_batch(positions, set=set,
+                                               wal=True)
+            if not len(changed):
+                return changed
+            self._epoch += 1
+            ch_rows = np.unique(changed >> row_shift)
+            for rid, cnt in zip(ch_rows.tolist(),
+                                self._row_counts_of(ch_rows).tolist()):
+                self.row_cache.invalidate(rid)
+                self.cache.bulk_add(rid, cnt)
+            self.cache.invalidate()
+            self.device.invalidate_rows(ch_rows.tolist())
+            self._increment_op_n()
+            return changed
+
+    def _increment_op_n(self) -> None:
+        # locked() is a racy peek, benign both ways: a stale False just
+        # try-acquires (and fails fast) inside _snapshot_async; a stale
+        # True means the NEXT op re-triggers.
+        if self.storage.op_n > MAX_OP_N and not self._snap_mu.locked():
+            self.snapshot(sync=False)
 
     def import_bits(self, row_ids, column_ids) -> None:
         """Bulk import of (row, absolute column) pairs."""
@@ -326,32 +651,71 @@ class Fragment:
 
     def import_positions(self, positions: np.ndarray) -> None:
         """Bulk import of slice-local bit positions (row*SLICE_WIDTH +
-        col%SLICE_WIDTH): one vectorized add, persisted by the next
-        snapshot (close). The count cache follows the JAX package's two
-        import lanes: a small import into a large fragment (16 × its
-        positions below the container count, the JAX batch-write lane)
-        adds the rows whose count changed and invalidates the rankings;
-        any other import adds every touched row and re-ranks."""
+        col%SLICE_WIDTH), through one of three lanes:
+
+        - a small import into a large fragment (16 × its positions
+          below the container count) takes the WAL'd batch lane: the
+          rows whose count changed are added to the count cache and the
+          rankings invalidated;
+        - otherwise one blob of add records is appended to the WAL
+          (WAL-first) and the positions bulk-added, every touched row
+          added to the count cache and the rankings recalculated; the
+          snapshot moves to the MAX_OP_N cadence;
+        - past _WAL_IMPORT_MAX_BYTES of records the bulk add runs with
+          the op writer detached and a sync snapshot persists it.
+
+        The first two end in a commit barrier."""
         positions = np.asarray(positions, dtype=np.uint64)
         with self._mu:
+            small = len(positions) * 16 < len(self.storage.keys)
+        if small:
+            self._mutate_batch_positions(positions, set=True)
+            self.wal_barrier()
+            return
+        wal_first = (len(positions) * roaring.OP_SIZE
+                     <= _WAL_IMPORT_MAX_BYTES)
+        with self._mu:
+            self._epoch += 1
+            if wal_first:
+                roaring._wal_write(self.storage.op_writer,
+                                   roaring._wal_blob(positions,
+                                                     roaring.OP_ADD))
+                self.storage.op_n += max(
+                    1, len(positions) // _BLOB_OP_WEIGHT)
+                self.storage.add_many(positions)
+            else:
+                writer, self.storage.op_writer = \
+                    self.storage.op_writer, None
+                try:
+                    self.storage.add_many(positions)
+                finally:
+                    self.storage.op_writer = writer
+            # Cardinality-adaptive representation pass (run containers),
+            # restricted to containers this block put an ADJACENT value
+            # pair into: run-shaped data carries its adjacency in the
+            # import block itself.
+            srt = (positions if len(positions) < 2
+                   or positions[0] <= positions[-1] else None)
+            srt = np.sort(positions) if srt is None else srt
+            adj = np.flatnonzero(np.diff(srt) == np.uint64(1))
+            if len(adj):
+                self.storage.optimize(
+                    arrays_mod.sort_dedupe(srt[adj] >> np.uint64(16)))
             rows = arrays_mod.sort_dedupe(positions
                                           // np.uint64(SLICE_WIDTH))
-            small = len(positions) * 16 < len(self.storage.keys)
-            before = self._row_counts_of(rows) if small else None
-            self.storage.add_many(positions)
-            self._epoch += 1
-            counts = self._row_counts_of(rows)
-            if small:
-                changed = counts != before
-                rows, counts = rows[changed], counts[changed]
-            for rid, cnt in zip(rows.tolist(), counts.tolist()):
+            for rid, cnt in zip(rows.tolist(),
+                                self._row_counts_of(rows).tolist()):
                 self.cache.bulk_add(rid, cnt)
-            if small:
-                self.cache.invalidate()
-            else:
-                self.cache.recalculate()
+            self.cache.recalculate()
             self.row_cache.clear()
             self.device.invalidate_all()
+        # Outside _mu: the sync snapshot takes _snap_mu then _mu.
+        if wal_first:
+            with self._mu:
+                self._increment_op_n()
+            self.wal_barrier()
+        else:
+            self.snapshot()
 
     # -- device upload feeds -------------------------------------------------
 

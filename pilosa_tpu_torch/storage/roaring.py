@@ -46,9 +46,11 @@ All set algebra is vectorized (numpy or the optional C++ kernel lib in
 ``pilosa_tpu_torch.native``); the same dense-word orientation is what packs
 straight onto the card (see pilosa_tpu_torch.ops.packed).
 
-Copied from the JAX package's ``storage/roaring.py``; the group-commit
-WAL, failpoint, per-query accounting and one-crossing mutate-extension
-hooks are left out, and every path that runs without them is kept.
+Copied from the JAX package's ``storage/roaring.py``; the failpoint and
+per-query accounting hooks are left out, and every path that runs
+without them is kept. Op records go to the group-commit WAL
+(storage.wal) and point mutations take the one-crossing mutate
+extension (storage.native_ext) when it is built.
 """
 
 from __future__ import annotations
@@ -63,13 +65,19 @@ import numpy as np
 
 from . import integrity as _integrity
 from . import native
+from . import native_ext
+from . import wal as _wal_mod
 from ..utils.arrays import searchsorted_membership, sort_dedupe
 
 
 def _wal_write(writer, blob: bytes) -> None:
-    """Every op-log append funnels through here: a plain binary
-    file-like writer (the port's fragments attach none — they persist
-    a plain snapshot on close; the group-commit WAL is a later slice)."""
+    """Every op-log append funnels through here. A group-commit WAL
+    (storage.wal.GroupCommitWal — the fragment's op writer) buffers the
+    records; its LEADER flush is where bytes reach the file. Plain
+    file-like writers (tests attaching BytesIO) write directly."""
+    if type(writer) is _wal_mod.GroupCommitWal:
+        writer.append(blob)
+        return
     writer.write(blob)
 
 # --- constants (match reference wire format) ---------------------------------
@@ -1003,6 +1011,12 @@ def _wal_blob(values: np.ndarray, typ: int) -> bytes:
     extension loaded the whole build is one GIL-released C crossing, so
     concurrent import threads' record builds overlap each other's
     applies."""
+    ext = native_ext.EXT
+    if ext is not None:
+        fn = getattr(ext, "wal_records", None)
+        if fn is not None:
+            return fn(np.ascontiguousarray(values, dtype=np.uint64),
+                      typ)
     n = len(values)
     rec = np.zeros((n, OP_SIZE), dtype=np.uint8)
     rec[:, 0] = typ
@@ -1188,6 +1202,22 @@ class Bitmap:
     # -- point ops (public ops write to the op-log; _ops do not)
 
     def add(self, v: int) -> bool:
+        # The per-op write hot path: ONE compiled crossing does the
+        # container mutate AND builds the marshaled WAL record
+        # (native/fastmutate.c), so Python only appends the returned
+        # bytes to the group-commit log. The extension bails (None) on
+        # anything unusual — new container, COW-stale bitmap words,
+        # odd buffers — and the pure-Python path below re-runs the op
+        # from scratch (the extension made no state change when it
+        # bails), keeping behavior identical by construction.
+        ext = native_ext.EXT
+        if ext is not None:
+            rec = ext.setbit(self, v)
+            if rec is not None:
+                if rec is False:
+                    return False
+                self._write_op_bytes(rec)
+                return True
         changed = self._add(v)
         if changed:
             self._write_op(Op(OP_ADD, v))
@@ -1210,6 +1240,14 @@ class Bitmap:
         return c.add(lowbits(v))
 
     def remove(self, v: int) -> bool:
+        ext = native_ext.EXT
+        if ext is not None:
+            rec = ext.clearbit(self, v)
+            if rec is not None:
+                if rec is False:
+                    return False
+                self._write_op_bytes(rec)
+                return True
         changed = self._remove(v)
         if changed:
             self._write_op(Op(OP_REMOVE, v))
@@ -1234,6 +1272,13 @@ class Bitmap:
     def _write_op(self, op: Op) -> None:
         if self.op_writer is not None:
             _wal_write(self.op_writer, op.marshal())
+            self.op_n += 1
+
+    def _write_op_bytes(self, rec: bytes) -> None:
+        """Append an already-marshaled op record (the one-crossing
+        extension returns the bytes; byte-identical to Op.marshal)."""
+        if self.op_writer is not None:
+            _wal_write(self.op_writer, rec)
             self.op_n += 1
 
     # -- bulk ops

@@ -94,4 +94,10 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.server.httpd",
             "pilosa_tpu_torch.server.server",
             "pilosa_tpu_torch.cli", "pilosa_tpu_torch.cli.__main__",
-            "pilosa_tpu_torch.cli.commands"} <= set(MODULES)
+            "pilosa_tpu_torch.cli.commands",
+            "pilosa_tpu_torch.storage.wal",
+            "pilosa_tpu_torch.storage.native_ext",
+            "pilosa_tpu_torch.plan", "pilosa_tpu_torch.plan.record",
+            "pilosa_tpu_torch.plan.planner",
+            "pilosa_tpu_torch.cluster",
+            "pilosa_tpu_torch.cluster.generations"} <= set(MODULES)
