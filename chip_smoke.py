@@ -3,13 +3,14 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs eight phases and prints one JSON line for each:
+checkout, then runs nine phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
    the odd shapes, bit-31 words, a 64-leaf mixed tree, a 1000-child
    Union (a program longer than the expression count stages in shared
-   memory) and a tree that needs spill slots; the expression count at
+   memory), a tree that needs spill slots and the BSI comparison folds
+   of phase 6 (22 planes of 256 slices); the expression count at
    S = 1, 10 and 256 rows of 32,768 words and at W = 4; densify at
    G = 0, 1, 8, 32 and 40, T × subs groups that its 32-group tile does
    not divide, a group with lanes 0 and 127 set, bit-31 values and
@@ -57,7 +58,18 @@ checkout, then runs eight phases and prints one JSON line for each:
    warm p50 of ``TopN(frame=f, n=1000)`` and of a Count with the
    planner on and off, in turns. Each query's decisions and launches
    are printed.
-6. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
+6. ``fields``: BSI integer fields, time views and the inverse view
+   through ``Executor.execute`` (``phase_fields``): configuration 4's
+   256 slices with field ``amount`` of ``b4/v`` in [-10^6, 10^6]
+   (depth 21, 4,194,304 values, 704 MiB of plane slabs on the card),
+   Count(Range) of each operator and both clamps, Sum plain and
+   filtered, Min and Max; time views of ``tv/t`` (YMDH, ~2 M
+   timestamped bits through protobuf ``/import`` over 10 slices) under
+   Range Counts whose covers mix Y, M, D and H views; ``tv/inv``'s
+   inverse view under ``Bitmap(columnID=...)`` and a Count of two
+   columns. Every answer held to a numpy reference from the seeded
+   data; each Count's program length and device time against its bound.
+7. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
    127.0.0.1:0 on the card over that directory, driven over HTTP with
    urllib: it creates frame ``g`` in ``smoke``, imports row 1 of ``g``
    at density 1/64 over all 256 slices as raw v2 positions and row 2 at
@@ -74,8 +86,11 @@ checkout, then runs eight phases and prints one JSON line for each:
    host roaring answer from the server's own fragments; beside the
    client's times, each query's warm time through
    ``server.executor.execute`` in this process (the difference is the
-   HTTP front's cost).
-7. ``durability``: the port's ``server`` verb as a subprocess on the
+   HTTP front's cost). Then phase 6's queries again (the protobuf
+   ``ValCount`` decoded), a new field created over HTTP with its values
+   through the protobuf field-import route, and a time quantum set by
+   ``PATCH`` under a timestamped SetBit and a Range.
+8. ``durability``: the port's ``server`` verb as a subprocess on the
    card over a fresh directory, seeded by protobuf ``/import`` with
    configuration 4's rows over 256 slices, takes a write storm (8
    threads of SetBit/ClearBit queries; after a quarter of it 2 threads
@@ -91,20 +106,22 @@ checkout, then runs eight phases and prints one JSON line for each:
    (also for the writers alone and beside the imports), the
    WAL bytes at the kill, the respawn-to-ready seconds, the launches and
    the card's name and power limit.
-8. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+9. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Every answer of phases 2-5 is held to the host roaring answer computed
-from the port's own fragments, and every count of phase 6 to the host
-``popcnt_and``. The kernels' launch counters are set to 0 before phase
-2, before phase 6 and before phase 7's reopen, and read after phases 5,
-6, 7 and 8: every kernel must have launched on that main path, the TopN
-block count in phase 4's device top-k, the TopN block count, the
-expression count and densify in its sourced queries, again in the
-server phase by itself and again after phase 7's reopen, and the op
-count in phase 8. Then it prints the card's name and power limit, the kernel
+Every answer of phases 2-5 and 7 is held to the host roaring answer
+computed from the port's own fragments, every answer of phase 6 to
+numpy, and every count of phase 9 to the host ``popcnt_and``. The
+kernels' launch counters are set to 0 before phase 2, before phase 6,
+before phase 7 and before phase 8's reopen, and read after phases 5,
+6, 7, 8 and 9: every kernel must have launched on that main path, the
+TopN block count in phase 4's device top-k, the TopN block count, the
+expression count and densify in its sourced queries, the expression
+count (every device Count(Range) and Sum) and densify in phase 6,
+again in the server phase by itself and again after phase 8's reopen,
+and the op count in phase 9. Then it prints the card's name and power limit, the kernel
 table as one JSON object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
@@ -114,6 +131,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import datetime as dt
 import json
 import os
 import sys
@@ -123,6 +141,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 BENCH_WORDS = 1 << 25      # words of a benchmark row (2^30 bits)
 BENCH_ITERS = 64           # chained dispatches a trial in the bench phase
+_EPOCH = dt.datetime(2017, 1, 1)  # the time phase's data starts here
+_UNIX = dt.datetime(1970, 1, 1)
 
 
 def _fail(msg: str) -> None:
@@ -315,6 +335,22 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             f"densify[{name}]", ck.densify(lane, val, w),
             ck.densify_torch(lane, val, w)))
         checks += 1
+
+    # The BSI comparison folds of the fields phase: depth 21 at the
+    # serving shape (22 planes of 256 slices); "><" needs a spill slot.
+    from pilosa_tpu_torch.storage import bsi
+    planes = _rand_words(gen, (22, 256, W), device)
+    for op, upred in (("<", 1_123_456), (">=", 654_321), ("==", 999_999),
+                      ("!=", 5), ("><", (333_333, 1_500_000))):
+        expr = bsi.compare_fold_expr(
+            op, upred, 21, lambda p: ("leaf", 0 if p == bsi.EXISTS_PLANE
+                                      else p + 1))
+        err["expr_count_rows"] = max(err["expr_count_rows"], _check_equal(
+            f"expr_count_rows[bsi {op} 256x{W}]",
+            ck.expr_count_rows(expr, planes),
+            ck.expr_count_rows_torch(expr, planes)))
+        checks += 1
+    del planes
 
     # Both redesigned kernels into dirty memory: nothing relies on a
     # memset.
@@ -858,22 +894,24 @@ def phase_topn1000(holder, device, seed: int, n_rows: int = 100_000,
                                      "tanimoto50")]
 
 
-def _http(host: str, path: str, body: bytes, headers=None):
-    """One POST with urllib; fails the run on any status but 200.
+def _http(host: str, path: str, body: bytes, headers=None,
+          method: str = "POST"):
+    """One request with urllib; fails the run on any status but 200.
     Returns (body, client ms)."""
     import urllib.error
     import urllib.request
     req = urllib.request.Request(f"http://{host}{path}", data=body,
-                                 method="POST", headers=headers or {})
+                                 method=method, headers=headers or {})
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=600) as resp:
             out, status = resp.read(), resp.status
     except urllib.error.HTTPError as e:
-        _fail(f"server: POST {path}: HTTP {e.code}: {e.read()[:300]!r}")
+        _fail(f"server: {method} {path}: HTTP {e.code}:"
+              f" {e.read()[:300]!r}")
     ms = (time.perf_counter() - t0) * 1e3
     if status != 200:
-        _fail(f"server: POST {path}: HTTP {status}")
+        _fail(f"server: {method} {path}: HTTP {status}")
     return out, ms
 
 
@@ -883,11 +921,16 @@ def _answer_of(kind: str, r):
     if hasattr(r, "Pairs"):  # protobuf
         if kind == "count":
             return r.N
+        if kind == "valcount":
+            return (r.ValCount.Val, r.ValCount.Count)
         if kind == "topn":
             return [(p.Key, p.Count) for p in r.Pairs]
         return r.Bitmap.Bits.tolist()
     if kind == "count":
         return r
+    if kind == "valcount":
+        return ((r["value"], r["count"]) if isinstance(r, dict)
+                else (r.value, r.count))
     if kind == "topn":
         return [(p["id"], p["count"]) if isinstance(p, dict)
                 else (p.id, p.count) for p in r]
@@ -895,13 +938,19 @@ def _answer_of(kind: str, r):
 
 
 def phase_server(data_dir, device, seed: int, ids200: list,
-                 topn1000=(), n_slices: int = 256,
+                 topn1000=(), fields=(), n_slices: int = 256,
                  n_topn_slices: int = 10) -> dict:
-    """The port's server on the card over phases 2, 3 and 4's directory,
+    """The port's server on the card over phases 2-6's directory,
     driven over HTTP; every answer held to the host roaring answer from
-    the server's own fragments, and each (name, index, query, answer) of
+    the server's own fragments, each (name, index, query, answer) of
     ``topn1000`` to the answer it gave through the executor in phase 4
-    (the reopened ``.cache`` sidecars rank its frames)."""
+    (the reopened ``.cache`` sidecars rank its frames), and each (name,
+    index, query, kind, answer) of ``fields`` to phase 6's numpy answer
+    (the first JSON ask cold, the rest warm). Then the field routes: a
+    new field of ``b4/v``, its values through the protobuf field import,
+    a Sum and a Count(Range) over it against numpy, and a time quantum
+    set by ``PATCH`` on ``tv/inv`` followed by a timestamped SetBit and
+    a Range over it."""
     import numpy as np
     import torch
     from pilosa_tpu_torch import SLICE_WIDTH
@@ -998,18 +1047,24 @@ def phase_server(data_dir, device, seed: int, ids200: list,
         for name, index, q, answer in topn1000:
             queries[f"topn1000_{name}"] = (index, q, "topn")
             want[f"topn1000_{name}"] = answer
+        warm_from_json = set()
+        for name, index, q, kind, answer in fields:
+            queries[f"fields_{name}"] = (index, q, kind)
+            want[f"fields_{name}"] = answer
+            warm_from_json.add(f"fields_{name}")
 
         results = []
         for name, (index, q, kind) in queries.items():
             expect = want[name]
             n_calls = 3 if name == "all3" else 1
             path = f"/index/{index}/query"
-            if kind == "bitmap":
+            if name == "bitmap_column_attrs":
                 path += "?columnAttrs=true"
             entry = {"query": name, "index": index}
             for fmt in ("json", "protobuf"):
                 headers = {"Accept": PB} if fmt == "protobuf" else {}
-                residency.device_cache().clear()
+                if name not in warm_from_json:
+                    residency.device_cache().clear()
                 for state in ("cold", "warm"):
                     body, ms = _http(host, path, q.encode(), headers)
                     if fmt == "json":
@@ -1030,7 +1085,8 @@ def phase_server(data_dir, device, seed: int, ids200: list,
                         _fail(f"server {name} ({fmt}, {state}): HTTP answer"
                               f" differs from host ({str(got)[:120]} vs"
                               f" {str(expect)[:120]})")
-                    if kind == "bitmap" and sets != want_attr_sets:
+                    if (name == "bitmap_column_attrs"
+                            and sets != want_attr_sets):
                         _fail(f"server {name} ({fmt}): columnAttrs {sets}"
                               f" != {want_attr_sets}")
                     entry[f"{state}_{fmt}_ms"] = ms
@@ -1044,6 +1100,8 @@ def phase_server(data_dir, device, seed: int, ids200: list,
                 _fail(f"server {name}: executor answer differs from host")
             entry["front_ms"] = entry["warm_json_ms"] - entry["executor_ms"]
             results.append(entry)
+        if fields:
+            results += _server_field_routes(host, rng)
     finally:
         srv.close()
     launches = dict(ck.LAUNCHES)
@@ -1056,6 +1114,65 @@ def phase_server(data_dir, device, seed: int, ids200: list,
            "pb_import_bytes": pb_bytes, "queries": results,
            "launches": launches}
     _emit(out)
+    return out
+
+
+def _server_field_routes(host: str, rng) -> list:
+    """A new field over HTTP: create it, import its values with the
+    protobuf field-import route (one ImportValueRequest a slice), then a
+    Sum (JSON and protobuf) and a Count(Range) against numpy; and a time
+    quantum set by PATCH, a timestamped SetBit and a Range over it."""
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.proto import internal as pb
+
+    PB = "application/x-protobuf"
+    out = []
+    _http(host, "/index/b4/frame/v/field/score", b'{"min": 0, "max": 1000}')
+    t0 = time.perf_counter()
+    all_vals = []
+    for s in range(4):
+        cols = np.unique(rng.integers(0, SLICE_WIDTH, size=20_000,
+                                      dtype=np.uint64))
+        vals = rng.integers(0, 1001, size=len(cols))
+        body = pb.ImportValueRequest(
+            Index="b4", Frame="v", Field="score", Slice=s,
+            ColumnIDs=cols + np.uint64(s * SLICE_WIDTH), Values=vals
+        ).SerializeToString()
+        _http(host, "/index/b4/frame/v/field/score/import", body,
+              {"Content-Type": PB, "Accept": PB})
+        all_vals.append(vals)
+    vals = np.concatenate(all_vals)
+    import_ms = (time.perf_counter() - t0) * 1e3
+    checks = [("score_sum", "Sum(frame=v, field=score)", "valcount",
+               (int(vals.sum()), len(vals))),
+              ("score_count_gt", "Count(Range(frame=v, score > 500))",
+               "count", int((vals > 500).sum()))]
+    for name, q, kind, want in checks:
+        for fmt, headers in (("json", {}), ("protobuf", {"Accept": PB})):
+            body, ms = _http(host, "/index/b4/query", q.encode(), headers)
+            if fmt == "json":
+                got = _answer_of(kind, json.loads(body)["results"][0])
+            else:
+                got = _answer_of(kind, pb.QueryResponse.FromString(
+                    body).Results[0])
+            if got != want:
+                _fail(f"server {name} ({fmt}): {got} != numpy {want}")
+            out.append({"query": name, "format": fmt, "ms": ms,
+                        "answer": want})
+    out[0]["import_ms"] = import_ms
+    _http(host, "/index/tv/frame/inv/time-quantum",
+          b'{"timeQuantum": "YM"}', method="PATCH")
+    _http(host, "/index/tv/query",
+          b'SetBit(frame=inv, rowID=5, columnID=7,'
+          b' timestamp="2017-05-06T07:08")')
+    body, ms = _http(host, "/index/tv/query",
+                     b'Count(Range(frame=inv, rowID=5,'
+                     b' start="2017-05-01T00:00", end="2017-06-01T00:00"))')
+    if json.loads(body)["results"] != [1]:
+        _fail(f"server: Range over the patched time quantum gave {body!r}")
+    out.append({"query": "patched_time_quantum_range", "ms": ms,
+                "answer": 1})
     return out
 
 
@@ -1212,6 +1329,341 @@ def phase_planner(holder, device) -> dict:
            "decision_totals": dict(ex.planner.decision_totals)}
     _emit(out)
     return out
+
+
+FIELD_MIN, FIELD_MAX = -1_000_000, 1_000_000  # configuration 4's field
+TIME_QUANTUM = "YMDH"
+
+
+def _hour(t):
+    return int((t - _EPOCH).total_seconds() // 3600)
+
+
+def _fields_bsi_queries(vals):
+    """(name, PQL, numpy answer) of the BSI Count queries over ``vals``
+    (configuration 4's field ``amount`` of frame ``v``)."""
+    import numpy as np
+    x = int(vals[len(vals) // 3])
+    lo, hi = -250_000, 400_000
+    ops = {"eq": ("==", np.equal), "ne": ("!=", np.not_equal),
+           "lt": ("<", np.less), "le": ("<=", np.less_equal),
+           "gt": (">", np.greater), "ge": (">=", np.greater_equal)}
+    out = []
+    for name, (op, fn) in ops.items():
+        p = x if op in ("==", "!=") else 123_456
+        out.append((f"count_{name}",
+                    f"Count(Range(frame=v, amount {op} {p}))",
+                    int(fn(vals, p).sum())))
+    out.append(("count_between",
+                f"Count(Range(frame=v, amount >< [{lo}, {hi}]))",
+                int(((vals >= lo) & (vals <= hi)).sum())))
+    out.append(("count_clamp_all", "Count(Range(frame=v, amount < 2000000))",
+                len(vals)))
+    out.append(("count_clamp_none", "Count(Range(frame=v, amount > 1000000))",
+                0))
+    return out
+
+
+def phase_fields(holder, device, seed: int, n_slices: int = 256,
+                 n_time_slices: int = 10, time_bits: int = 2_000_000,
+                 n_rows: int = 100, n_days: int = 24) -> tuple:
+    """BSI integer fields, time views and the inverse view through
+    ``Executor.execute`` on the card, every answer held to a numpy
+    reference built from the seeded data (no code of the port).
+
+    - Index ``b4``, frame ``v``, field ``amount`` in [-10^6, 10^6]
+      (depth 21) at configuration 4's 256 slices: one column in 64
+      valued (4,194,304 values through ``import_field_values``), a
+      filter row in frame ``seg``; Count(Range) of every operator and
+      both clamps, Sum unfiltered and filtered, Min and Max, cold and
+      warm. For each Count: its launches, the comparison's program
+      length and spill slots, and the expression count's device time
+      over the resident plane slabs against its bound (each slab its
+      program reads, read once) and the one-pass bound of all 22
+      planes; for each Sum the device time of its 22 launches against
+      the same bound. Each of those kernel answers is also held to its
+      plain version on the same slabs.
+    - Index ``tv``, frame ``t`` (timeQuantum YMDH, 100 rows, 10 slices):
+      ~2 M timestamped bits over ``n_days`` days of 2017 (two hours a
+      day, at minute 0 or 30: 96 distinct timestamps) through protobuf ``/import`` with Timestamps (the port's
+      handler, in process) and 50 timestamped SetBit calls;
+      Count(Range(...)) over windows whose covers mix Y, M, D and H
+      views.
+    - Frame ``inv`` of ``tv`` (inverseEnabled, 10 slices):
+      ``Bitmap(columnID=c)`` and a Count of an Intersect of two columns.
+
+    Returns the phase's line and the (name, index, query, kind, answer)
+    list that the server phase asks again over HTTP."""
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.models.frame import Field, FrameOptions
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import residency
+    from pilosa_tpu_torch.pql.parser import parse
+    from pilosa_tpu_torch.proto import internal as pb
+    from pilosa_tpu_torch.server.handler import Handler
+    from pilosa_tpu_torch.utils import timequantum as tq
+
+    rng = np.random.default_rng(seed + 7)
+    t_phase = time.perf_counter()
+    slices = tuple(range(n_slices))
+    slab_bytes = n_slices * SLICE_WIDTH // 8
+
+    # -- BSI: configuration 4 ------------------------------------------------
+    t0 = time.perf_counter()
+    idx = holder.create_index("b4")
+    v = idx.create_frame("v")
+    field = v.create_field(Field("amount", FIELD_MIN, FIELD_MAX))
+    n_cols = n_slices * SLICE_WIDTH
+    cols = (np.arange(0, n_cols, 64, dtype=np.uint64)
+            + rng.integers(0, 64, size=n_cols // 64).astype(np.uint64))
+    vals = rng.integers(FIELD_MIN, FIELD_MAX + 1, size=len(cols))
+    v.import_field_values("amount", cols, vals)
+    in_seg = rng.random(len(cols)) < 0.125
+    seg_cols = np.concatenate([cols[in_seg], cols[~in_seg][:1000] + 1])
+    idx.create_frame("seg").import_bits(
+        np.full(len(seg_cols), 1, np.uint64), np.sort(seg_cols))
+    bsi_load_s = time.perf_counter() - t0
+
+    ex = Executor(holder, device=device)
+    depth = field.bit_depth
+    full_bound_ms = (depth + 1) * slab_bytes / HBM_BYTES_PER_S * 1e3
+    served = []
+    results = []
+
+    def ask(name, index, q, want, kind, device_time=False):
+        residency.device_cache().clear()
+        entry = {"query": name, "pql": q}
+        before = dict(ck.LAUNCHES)
+        for state in ("cold", "warm"):
+            out, ms = _timed_query(ex, index, q)
+            got = _answer_of(kind, out[0])
+            if got != want:
+                _fail(f"fields {name} ({state}): {str(got)[:120]} !="
+                      f" numpy {str(want)[:120]}")
+            entry[f"{state}_ms"] = ms
+            if state == "cold":
+                entry["launches"] = {k: ck.LAUNCHES[k] - before[k]
+                                     for k in before
+                                     if ck.LAUNCHES[k] != before[k]}
+        entry["answer"] = (want if not isinstance(want, list)
+                           else f"{len(want)} bits")
+        if device_time:
+            entry.update(_count_device_time(index, q, name))
+        results.append(entry)
+        return entry
+
+    def _count_device_time(index, q, name):
+        leaves = []
+        expr = ex._compile_device_expr(index, parse(q).calls[0].children[0],
+                                       leaves)
+        if expr is None:
+            return {"program": None}
+        prog, slots = ck.compile_program(expr)
+        arrs = [ex._leaf_device_array(index, leaf, slices)
+                for leaf in leaves]
+        return {"program": len(prog), "spill_slots": slots,
+                **_fields_device_time(name, [expr], arrs, n_slices),
+                "full_pass_bound_ms": full_bound_ms}
+
+    for name, q, want in _fields_bsi_queries(vals):
+        ask(name, "b4", q, want, "count", device_time=True)
+        if name in ("count_eq", "count_lt", "count_between",
+                    "count_clamp_all"):
+            served.append((name, "b4", q, "count", want))
+    seg_vals = vals[np.isin(cols, seg_cols)]
+    aggs = [("sum", "Sum(frame=v, field=amount)",
+             (int(vals.sum()), len(vals))),
+            ("sum_filtered", "Sum(Bitmap(frame=seg, rowID=1), frame=v,"
+                             " field=amount)",
+             (int(seg_vals.sum()), len(seg_vals))),
+            ("min", "Min(frame=v, field=amount)",
+             (int(vals.min()), int((vals == vals.min()).sum()))),
+            ("max", "Max(frame=v, field=amount)",
+             (int(vals.max()), int((vals == vals.max()).sum())))]
+    for name, q, want in aggs:
+        e = ask(name, "b4", q, want, "valcount")
+        served.append((name, "b4", q, "valcount", want))
+        if name.startswith("sum"):
+            if e["launches"].get("expr_count_rows") != depth + 1:
+                _fail(f"fields {name}: {e['launches']} launches, not "
+                      f"{depth + 1} expression counts")
+            c = parse(q).calls[0]
+            exprs, leaves = ex._sum_exprs("b4", "v", field, (
+                c.children[0] if c.children else None))
+            arrs = [ex._leaf_device_array("b4", leaf, slices)
+                    for leaf in leaves]
+            e.update(_fields_device_time(name, exprs, arrs, n_slices))
+
+    # -- time views ----------------------------------------------------------
+    t0 = time.perf_counter()
+    tv = holder.create_index("tv")
+    tv.create_frame("t", FrameOptions(time_quantum=TIME_QUANTUM))
+    handler = Handler(holder, ex)
+    days = np.sort(rng.choice(365, size=n_days, replace=False))
+    stamps = [_EPOCH + dt.timedelta(days=int(d), hours=int(h))
+              for d in days for h in rng.choice(24, size=2, replace=False)]
+    t_rows, t_cols, t_hours = [], [], []
+    per = time_bits // n_time_slices
+    for s in range(n_time_slices):
+        rows = rng.integers(0, n_rows, size=per).astype(np.uint64)
+        c = (rng.integers(0, SLICE_WIDTH, size=per).astype(np.uint64)
+             + np.uint64(s * SLICE_WIDTH))
+        pick = rng.integers(0, len(stamps), size=per)
+        minutes = rng.choice((0, 30), size=per)
+        ns = np.array([int((stamps[i] - _UNIX).total_seconds())
+                       for i in range(len(stamps))], np.int64)[pick]
+        ns = (ns + minutes * 60) * 10**9
+        body = pb.ImportRequest(Index="tv", Frame="t", Slice=s, RowIDs=rows,
+                                ColumnIDs=c, Timestamps=ns
+                                ).SerializeToString()
+        status = _wsgi_post(handler, "/import", body)
+        if status != 200:
+            _fail(f"fields: timestamped /import answered {status}")
+        t_rows.append(rows)
+        t_cols.append(c)
+        t_hours.append(np.array([_hour(stamps[i]) for i in
+                                 range(len(stamps))])[pick])
+    for k in range(50):
+        t = stamps[int(rng.integers(len(stamps)))] + dt.timedelta(minutes=k)
+        r, c = int(rng.integers(n_rows)), int(rng.integers(
+            n_time_slices * SLICE_WIDTH))
+        ex.execute("tv", f'SetBit(frame=t, rowID={r}, columnID={c},'
+                         f' timestamp="{t.strftime("%Y-%m-%dT%H:%M")}")')
+        t_rows.append(np.array([r], np.uint64))
+        t_cols.append(np.array([c], np.uint64))
+        t_hours.append(np.array([_hour(t)]))
+    t_rows, t_cols = np.concatenate(t_rows), np.concatenate(t_cols)
+    t_hours = np.concatenate(t_hours)
+    time_load_s = time.perf_counter() - t0
+    n_views = len(holder.frame("tv", "t").views)
+
+    windows = [("year", dt.datetime(2017, 1, 1), dt.datetime(2018, 1, 1)),
+               ("months", dt.datetime(2017, 3, 1), dt.datetime(2017, 7, 1)),
+               ("mixed", stamps[3] - dt.timedelta(hours=5),
+                stamps[-4] + dt.timedelta(hours=9)),
+               ("days_hours", stamps[10] - dt.timedelta(hours=3),
+                stamps[12] + dt.timedelta(hours=2))]
+    for wname, a, b in windows:
+        a = a.replace(minute=0)
+        b = b.replace(minute=0)
+        units = {len(vn) - len("standard_")
+                 for vn in tq.views_by_time_range("standard", a, b,
+                                                  TIME_QUANTUM)}
+        for r in (1, int(rng.integers(n_rows))):
+            m = ((t_rows == r) & (t_hours >= _hour(a))
+                 & (t_hours < _hour(b)))
+            want = len(np.unique(t_cols[m]))
+            q = (f'Count(Range(frame=t, rowID={r},'
+                 f' start="{a.strftime("%Y-%m-%dT%H:%M")}",'
+                 f' end="{b.strftime("%Y-%m-%dT%H:%M")}"))')
+            e = ask(f"time_{wname}_row{r}", "tv", q, want, "count")
+            e["cover_units"] = sorted(units)
+            if wname in ("year", "mixed") and r == 1:
+                served.append((f"time_{wname}_row{r}", "tv", q, "count",
+                               want))
+
+    # -- inverse view ----------------------------------------------------------
+    t0 = time.perf_counter()
+    inv = tv.create_frame("inv", FrameOptions(inverse_enabled=True))
+    hot = rng.integers(0, n_time_slices * SLICE_WIDTH, size=4,
+                       dtype=np.uint64)
+    i_rows = np.concatenate([rng.integers(0, 1000, size=400_000),
+                             rng.integers(0, 1000, size=1200)]
+                            ).astype(np.uint64)
+    i_cols = np.concatenate([
+        rng.integers(0, n_time_slices * SLICE_WIDTH, size=400_000,
+                     dtype=np.uint64), hot[rng.integers(0, 4, size=1200)]])
+    inv.import_bits(i_rows, i_cols)
+    inv_load_s = time.perf_counter() - t0
+
+    def rows_of(c):
+        return np.unique(i_rows[i_cols == c]).tolist()
+
+    a, b = int(hot[0]), int(hot[1])
+    for name, q, want, kind in (
+            ("inverse_bitmap", f"Bitmap(columnID={a}, frame=inv)",
+             rows_of(a), "bitmap"),
+            ("inverse_count_intersect",
+             f"Count(Intersect(Bitmap(columnID={a}, frame=inv),"
+             f" Bitmap(columnID={b}, frame=inv)))",
+             len(set(rows_of(a)) & set(rows_of(b))), "count")):
+        ask(name, "tv", q, want, kind)
+        served.append((name, "tv", q, kind, want))
+    if results[-1]["launches"].get("expr_count_rows", 0) < 1:
+        _fail("fields: the inverse Count launched no expression count")
+
+    out = {"phase": "fields", "slices": n_slices, "values": len(vals),
+           "depth": depth, "bsi_load_s": bsi_load_s,
+           "plane_slab_mib": (depth + 1) * slab_bytes / 2**20,
+           "full_pass_bound_ms": full_bound_ms,
+           "time_slices": n_time_slices, "time_bits": int(len(t_rows)),
+           "time_views": n_views, "time_load_s": time_load_s,
+           "inverse_bits": int(len(i_rows)), "inverse_load_s": inv_load_s,
+           "resident_mib": residency.device_cache().snapshot()["usedBytes"]
+           / 2**20, "queries": results,
+           "phase_s": time.perf_counter() - t_phase,
+           "card": _card()}
+    _emit(out)
+    return out, served
+
+
+def _fields_device_time(name, exprs, arrs, n_slices) -> dict:
+    """The expressions of one query (a Count's one, a Sum's depth+1)
+    over its resident slabs ``arrs``: each count held to its plain
+    version, then the device time of all of them (one CUDA graph) and
+    the plain versions' time, against the bound of reading each slab
+    once. Launches made here do not count as the main path's."""
+    import torch
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.ops import timing
+    from pilosa_tpu_torch.parallel import mesh as mesh_mod
+
+    per = []
+    for e in exprs:
+        ids = mesh_mod.expr_leaf_ids(e)
+        per.append((mesh_mod.remap_expr_leaves(
+            e, {g: i for i, g in enumerate(ids)}), [arrs[i] for i in ids]))
+
+    def run():
+        return [ck.expr_count_rows(e, ls) for e, ls in per]
+
+    def plain():
+        return [ck.expr_count_rows_torch(e, ls) for e, ls in per]
+
+    saved = dict(ck.LAUNCHES)
+    try:
+        for got, want in zip(run(), plain()):
+            if not torch.equal(got, want):
+                _fail(f"fields {name}: expr_count_rows differs from its"
+                      " plain version on the resident slabs")
+        device_ms = timing.graph_ms(run, [()], 10 if len(per) == 1 else 2)
+        plain_ms = timing.events_ms(plain, [()], 3, warmup=1)
+    finally:
+        ck.LAUNCHES.update(saved)
+    n_read = len({i for e in exprs for i in mesh_mod.expr_leaf_ids(e)})
+    slab = n_slices * SLICE_WIDTH // 8
+    return {"leaves": n_read, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": (n_read * slab + len(per) * n_slices * 4)
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def _wsgi_post(app, path, body):
+    """POST ``body`` (protobuf) to a WSGI app in this process → status."""
+    import io
+    out = {}
+
+    def start_response(status, headers):
+        out["status"] = int(status.split()[0])
+
+    b"".join(app({"REQUEST_METHOD": "POST", "PATH_INFO": path,
+                  "QUERY_STRING": "", "CONTENT_LENGTH": str(len(body)),
+                  "CONTENT_TYPE": "application/x-protobuf",
+                  "HTTP_ACCEPT": "application/x-protobuf",
+                  "wsgi.input": io.BytesIO(body)}, start_response))
+    return out["status"]
 
 
 def _card() -> str:
@@ -1636,10 +2088,17 @@ def main() -> None:
         _, ids200 = phase_topn(holder, device, args.seed)
         _, topn1000 = phase_topn1000(holder, device, args.seed)
         phase_planner(holder, device)
-        holder.close()
         launches = dict(ck.LAUNCHES)
         ck.reset_launches()
-        phase_server(data_dir, device, args.seed, ids200, topn1000)
+        _, fields = phase_fields(holder, device, args.seed)
+        for name in ("expr_count_rows", "densify"):
+            if ck.LAUNCHES[name] <= 0:
+                _fail(f"{name}: no launch in the fields phase")
+        for name, n in ck.LAUNCHES.items():
+            launches[name] += n
+        holder.close()
+        ck.reset_launches()
+        phase_server(data_dir, device, args.seed, ids200, topn1000, fields)
         for name, n in ck.LAUNCHES.items():
             launches[name] += n
         phase_durability(device, args.seed, tmp)

@@ -76,13 +76,6 @@ _LABEL_RE = re.compile(r"^[A-Za-z][A-Za-z0-9_-]{0,64}$")
 TIME_FORMAT = "%Y-%m-%dT%H:%M"
 
 
-def later(what: str, where: str) -> PilosaError:
-    """The error of a call or form that a later slice of the port
-    serves, naming that slice."""
-    return PilosaError(f"{what} is not ported yet: it comes with {where}"
-                       " of pilosa_tpu_torch")
-
-
 def validate_name(name: str) -> None:
     """Validate an index/frame/view name (reference: pilosa.go:109-114)."""
     if not isinstance(name, str) or not _NAME_RE.match(name):

@@ -4,12 +4,20 @@ Trimmed copy of the JAX package's ``executor.py`` (reference
 executor.go): ``execute(index, pql)`` parses the query and runs its
 calls in order. What the port serves:
 
-- **Count** of any bitmap tree of standard-view ``Bitmap`` leaves and
-  ``Intersect``/``Union``/``Difference`` folds runs on the device, over
-  every slice at once (``_execute_count``): the tree compiles to an
-  expression over leaf slabs kept resident in the budgeted device cache
-  (parallel.residency) and the expression-count kernel counts it
-  (parallel.mesh.count_expr_sharded).
+- **Count** of any bitmap tree of ``Bitmap`` leaves (a row of the
+  standard view, or with ``columnID`` a row of the inverse view),
+  ``Range`` leaves and ``Intersect``/``Union``/``Difference`` folds runs
+  on the device, over every slice at once (``_execute_count``): the tree
+  compiles to an expression over leaf slabs kept resident in the
+  budgeted device cache (parallel.residency) and the expression-count
+  kernel counts it (parallel.mesh.count_expr_sharded). A time ``Range``
+  is an or-fold of one leaf per view of its minimal time-view cover; a
+  BSI ``Range(field OP value)`` is the comparison as a fold over the
+  field's bit planes (storage.bsi.compare_fold_expr).
+- **Sum** of a BSI field is depth+1 plane counts, each plane ∧ the
+  optional filter, on the device (``_sum_device``), folded as
+  ``min·count + Σ 2^i·count_i`` in Python ints; **Min** and **Max** run
+  the plane walk on the host, as in the JAX package.
 - **TopN**, every form the JAX package answers on one node
   (``_execute_top_n``): sourceless or with one source, with or without
   ``ids``, ``n``, ``threshold``, ``tanimotoThreshold`` and
@@ -24,12 +32,16 @@ calls in order. What the port serves:
   ids-without-source form reads the rank caches on the host, as the
   JAX package does, and blocks over _TOPN_HOST_BLOCK_BYTES take the
   per-slice path.
-- ``Bitmap``/``Intersect``/``Union``/``Difference`` as top-level calls
-  are materialized by host roaring algebra over the fragments; a
-  top-level ``Bitmap`` carries its row's attributes.
-- ``SetBit``/``ClearBit`` on the standard view, ``SetRowAttrs`` and
-  ``SetColumnAttrs`` (a query of ``SetRowAttrs`` calls alone is one
-  bulk write per frame).
+- ``Bitmap``/``Range``/``Intersect``/``Union``/``Difference`` as
+  top-level calls are materialized by host roaring algebra over the
+  fragments (a BSI ``Range`` by the JAX package's circuit,
+  storage.bsi.range_bitmap); a top-level ``Bitmap`` carries its row's
+  (or column's) attributes, and one of a column runs over the inverse
+  view's slices.
+- ``SetBit``/``ClearBit`` on the standard and inverse views (with a
+  timestamp, also on the time views), ``SetFieldValue``,
+  ``SetRowAttrs`` and ``SetColumnAttrs`` (a query of ``SetRowAttrs``
+  calls alone is one bulk write per frame).
 
 Before a read query runs, the cost-based planner (plan.planner, as in
 the JAX package's ``_maybe_plan``) rewrites a clone of it: operands
@@ -41,11 +53,10 @@ shape), and repeated interior subtrees of the host folds go through
 the per-slice subresult cache. ``planner_enabled = False`` runs the
 parsed tree as it is.
 
-Every other call or form raises PilosaError and names the slice that
-will port it. A device error surfaces to the caller: there is no host
-fallback. Single node, one device: the cluster fan-out, TopN pushdown,
-pod, result caches, cost model (and with it the planner's placement)
-and fault handling wait for later slices.
+A device error surfaces to the caller: there is no host fallback.
+Single node, one device: the cluster fan-out, TopN pushdown, pod,
+result caches, cost model (and with it the planner's placement) and
+fault handling wait for later slices.
 """
 
 from __future__ import annotations
@@ -57,8 +68,7 @@ import numpy as np
 
 from .device import resolve_device
 from .errors import (TIME_FORMAT, FrameNotFoundError, IndexNotFoundError,
-                     PilosaError, QueryRequiredError, later)
-from .models.frame import LATER_VIEWS
+                     PilosaError, QueryRequiredError)
 from .models.view import VIEW_INVERSE, VIEW_STANDARD
 from .ops.packed import WORDS_PER_SLICE
 from .parallel import mesh as mesh_mod
@@ -66,9 +76,11 @@ from .parallel import residency
 from .plan import planner as plan_planner
 from .pql.ast import Call, Query
 from .pql.parser import parse as parse_pql
+from .storage import bsi
 from .storage.bitmap import Bitmap, BitmapSegment
 from .storage.cache import LRUCache, Pair, pairs_sort
 from .storage.fragment import TopOptions
+from .utils import timequantum as tq
 
 # Frame used when a call does not specify one (executor.go:35).
 DEFAULT_FRAME = "general"
@@ -77,9 +89,6 @@ MIN_THRESHOLD = 1
 
 _WRITE_CALLS = ("SetBit", "ClearBit", "SetFieldValue", "SetRowAttrs",
                 "SetColumnAttrs")
-
-# The calls this slice refuses; the Range/time-view/BSI slice serves them.
-_LATER = frozenset(("Range", "Sum", "Min", "Max", "SetFieldValue"))
 
 
 def _has_only_set_row_attrs(calls: list[Call]) -> bool:
@@ -156,15 +165,26 @@ class Executor:
             query = parse_pql(query)
         if not isinstance(query, Query):
             raise QueryRequiredError("query required")
-        if not slices and _needs_slices(query.calls):
+        needs = _needs_slices(query.calls)
+        # A top-level Bitmap of a column reads the inverse view, whose
+        # slices follow row ids: it takes the inverse slice list when
+        # the caller gave no slices, as in the JAX package's _execute.
+        # Every other call, a Count of inverse leaves too, takes the
+        # column slices.
+        computed_slices = not slices
+        inverse_slices: list[int] = []
+        column_label = "columnID"
+        if not slices and needs:
             idx = self.holder.index(index)
             if idx is None:
                 raise IndexNotFoundError(index)
             slices = list(range(idx.max_slice() + 1))
+            inverse_slices = list(range(idx.max_inverse_slice() + 1))
+            column_label = idx.column_label
         slices = slices or []
         if _has_only_set_row_attrs(query.calls):
             return self._execute_bulk_set_row_attrs(index, query.calls)
-        if slices and _needs_slices(query.calls):
+        if slices and needs:
             query = self._maybe_plan(index, query, slices)
         results = []
         i = 0
@@ -177,8 +197,16 @@ class Executor:
                 results.extend(bools)
                 i += n
                 continue
-            results.append(self._execute_call(index, query.calls[i],
-                                              slices))
+            call = query.calls[i]
+            call_slices = slices
+            if call.supports_inverse() and needs and computed_slices:
+                frame_name = call.args.get("frame") or DEFAULT_FRAME
+                frame = self.holder.frame(index, frame_name)
+                if frame is None:
+                    raise FrameNotFoundError(frame_name)
+                if call.is_inverse(frame.row_label, column_label):
+                    call_slices = inverse_slices
+            results.append(self._execute_call(index, call, call_slices))
             i += 1
         return results
 
@@ -239,8 +267,10 @@ class Executor:
             return None
         if c.name == "TopN":
             return self._execute_top_n(index, c, slices)
-        if c.name in _LATER:
-            raise later(f"{c.name}()", LATER_VIEWS)
+        if c.name in ("Sum", "Min", "Max"):
+            return self._execute_field_aggregate(index, c, slices)
+        if c.name == "SetFieldValue":
+            return self._execute_set_field_value(index, c)
         return self._execute_bitmap_call(index, c, slices)
 
     # -- bitmap calls on the host --------------------------------------------
@@ -305,11 +335,11 @@ class Executor:
         if c.name == "Intersect":
             return self._fold_slice(index, c, slice, "intersect",
                                     require_children=True)
+        if c.name == "Range":
+            return self._range_slice(index, c, slice)
         if c.name == "Union":
             return self._fold_slice(index, c, slice, "union",
                                     require_children=False)
-        if c.name in _LATER:
-            raise later(f"{c.name}()", LATER_VIEWS)
         raise PilosaError(f"unknown call: {c.name}")
 
     def _fold_slice(self, index: str, c: Call, slice: int, op: str,
@@ -342,29 +372,254 @@ class Executor:
             raise PilosaError(
                 f"Bitmap() must specify either {frame.row_label} or"
                 f" {idx.column_label} values")
+        view, id = VIEW_STANDARD, row_id
         if col_ok:
-            if frame.inverse_enabled:
-                raise later("Bitmap() of a column (the inverse view)",
-                            LATER_VIEWS)
-            raise PilosaError("Bitmap() cannot retrieve columns unless"
-                              " inverse storage enabled")
-        frag = self.holder.fragment(index, frame_name, VIEW_STANDARD, slice)
+            view, id = VIEW_INVERSE, col_id
+            if not frame.inverse_enabled:
+                raise PilosaError("Bitmap() cannot retrieve columns unless"
+                                  " inverse storage enabled")
+        frag = self.holder.fragment(index, frame_name, view, slice)
         if frag is None:
             return Bitmap()
-        return frag.row(row_id)
+        return frag.row(id)
+
+    # -- Range: time views and BSI fields (executor.go:490-546) --------------
+
+    def _range_views(self, index: str, c: Call, strict: bool):
+        """``(frame_name, row_id, view_names)`` of a time Range: the
+        minimal time-view cover. The one parse of both the host path
+        and the device compiler; ``strict`` raises the host path's
+        errors, otherwise a malformed call gives None. An empty view
+        list (no time quantum) is an empty result, not an error."""
+        frame_name = c.args.get("frame") or DEFAULT_FRAME
+        frame = self.holder.frame(index, frame_name)
+        if frame is None:
+            if not strict:
+                return None
+            raise FrameNotFoundError(frame_name)
+        row_id, ok = c.uint_arg(frame.row_label)
+        if not ok:
+            if not strict:
+                return None
+            raise PilosaError(
+                f"Range() row field '{frame.row_label}' required")
+        start = c.args.get("start")
+        if start is None:
+            if not strict:
+                return None
+            raise PilosaError("Range() start time required")
+        end = c.args.get("end")
+        if end is None:
+            if not strict:
+                return None
+            raise PilosaError("Range() end time required")
+        try:
+            start_t = dt.datetime.strptime(start, TIME_FORMAT)
+            end_t = dt.datetime.strptime(end, TIME_FORMAT)
+        except (TypeError, ValueError):
+            if not strict:
+                return None
+            raise PilosaError("cannot parse Range() time")
+        q = frame.time_quantum()
+        if not q:
+            return frame_name, row_id, []
+        return (frame_name, row_id,
+                tq.views_by_time_range(VIEW_STANDARD, start_t, end_t, q))
+
+    def _field_range_parse(self, index: str, c: Call, strict: bool):
+        """``(frame_name, Field, Condition)`` of a Range with a ``field
+        OP value`` condition; None without one, or (not strict) when
+        the frame or field is missing."""
+        pair = c.condition_arg()
+        if pair is None:
+            return None
+        field_name, cond = pair
+        frame_name = c.args.get("frame") or DEFAULT_FRAME
+        frame = self.holder.frame(index, frame_name)
+        if frame is None:
+            if not strict:
+                return None
+            raise FrameNotFoundError(frame_name)
+        field = frame.field(field_name)
+        if field is None:
+            if not strict:
+                return None
+            raise PilosaError(f"field not found: {field_name}")
+        return frame_name, field, cond
+
+    @staticmethod
+    def _bsi_plane_row(plane: int) -> int:
+        """Circuit plane (bsi.EXISTS_PLANE or value bit i) → the field
+        view's row id."""
+        if plane == bsi.EXISTS_PLANE:
+            return bsi.EXISTS_ROW
+        return bsi.PLANE_ROW_OFFSET + plane
+
+    def _field_range_slice(self, index: str, c: Call,
+                           slice: int) -> Bitmap:
+        """Host leg of Range(field OP value): the JAX package's circuit
+        over the fragment's rows in roaring algebra."""
+        frame_name, field, cond = self._field_range_parse(index, c,
+                                                          strict=True)
+        frag = self.holder.fragment(index, frame_name, field.view_name,
+                                    slice)
+        if frag is None:
+            return Bitmap()
+        bm = bsi.range_bitmap(
+            cond.op, cond.value, field.min, field.max,
+            lambda plane: frag.row(self._bsi_plane_row(plane)))
+        return bm if bm is not None else Bitmap()
+
+    def _range_slice(self, index: str, c: Call, slice: int) -> Bitmap:
+        # executor.go:490-546: union the minimal time-view cover.
+        if c.condition_arg() is not None:
+            return self._field_range_slice(index, c, slice)
+        frame_name, row_id, views = self._range_views(index, c,
+                                                      strict=True)
+        bm = Bitmap()
+        for view in views:
+            frag = self.holder.fragment(index, frame_name, view, slice)
+            if frag is not None:
+                bm = bm.union(frag.row(row_id))
+        return bm
+
+    # -- Sum / Min / Max over a BSI field ------------------------------------
+
+    def _execute_field_aggregate(self, index: str, c: Call,
+                                 slices: list[int]) -> bsi.ValCount:
+        """Sum / Min / Max of a BSI field, with an optional filter
+        bitmap child. Sum runs on the device when its filter compiles;
+        otherwise, and for Min and Max, one batched plane walk over
+        every slice on the host (bsi.sum_count_many / min_max_many)."""
+        name = c.name
+        frame_name = c.args.get("frame") or DEFAULT_FRAME
+        field_name = c.args.get("field")
+        if not field_name or not isinstance(field_name, str):
+            raise PilosaError(f"{name}() field required")
+        frame = self.holder.frame(index, frame_name)
+        if frame is None:
+            raise FrameNotFoundError(frame_name)
+        field = frame.field(field_name)
+        if field is None:
+            raise PilosaError(f"field not found: {field_name}")
+        if len(c.children) > 1:
+            raise PilosaError(
+                f"{name}() only accepts a single bitmap input")
+        child = c.children[0] if c.children else None
+        if name == "Sum" and slices:
+            out = self._sum_device(index, frame_name, field, child, slices)
+            if out is not None:
+                return out
+        legs = []
+        for s in slices:
+            frag = self.holder.fragment(index, frame_name,
+                                        field.view_name, s)
+            if frag is None:
+                continue
+            filt = (self._bitmap_call_slice(index, child, s)
+                    if child is not None else None)
+            legs.append((lambda plane, f=frag:
+                         f.row(self._bsi_plane_row(plane)), filt))
+        if name == "Sum":
+            return bsi.sum_count_many(field.min, field.max, legs)
+        return bsi.min_max_many(field.min, field.max, legs,
+                                want_min=name == "Min")
+
+    def _sum_exprs(self, index: str, frame_name: str, field,
+                   child: Optional[Call]):
+        """``(exprs, leaves)`` of a device Sum: K = depth+1 expressions,
+        each a plane leaf ∧ the compiled filter (the existence row
+        first), over the plane leaves and the filter's; None when the
+        filter does not compile."""
+        leaves: list[tuple] = []
+        filter_expr = None
+        if child is not None:
+            filter_expr = self._compile_device_expr(index, child, leaves)
+            if filter_expr is None:
+                return None
+        exprs = []
+        for plane in range(bsi.EXISTS_PLANE, field.bit_depth):
+            leaves.append((frame_name, field.view_name,
+                           self._bsi_plane_row(plane)))
+            leaf = ("leaf", len(leaves) - 1)
+            exprs.append(leaf if filter_expr is None
+                         else ("and", leaf, filter_expr))
+        return tuple(exprs), leaves
+
+    def _sum_device(self, index: str, frame_name: str, field,
+                    child: Optional[Call],
+                    slices: list[int]) -> Optional[bsi.ValCount]:
+        """Device Sum: the K counts of ``_sum_exprs`` over resident
+        plane slabs (mesh.count_exprs_sharded, one expression-count
+        launch a plane); the weighted fold runs in Python ints, so no
+        depth overflows. None when the filter does not compile (the
+        host path owns its errors)."""
+        built = self._sum_exprs(index, frame_name, field, child)
+        if built is None:
+            return None
+        exprs, leaves = built
+        arrs = [self._leaf_device_array(index, leaf, tuple(slices))
+                for leaf in leaves]
+        counts = mesh_mod.count_exprs_sharded(exprs, arrs)
+        count = counts[0]
+        total = field.min * count + sum(
+            n << i for i, n in enumerate(counts[1:]))
+        return bsi.ValCount(total, count)
+
+    def _execute_set_field_value(self, index: str, c: Call) -> bool:
+        """SetFieldValue(frame=f, <col>=N, <field>=V): the frame's
+        per-plane write of one column (executor.go:664-691, one node)."""
+        frame_name = c.args.get("frame")
+        if not frame_name:
+            raise PilosaError("SetFieldValue() frame required")
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError(index)
+        frame = idx.frame(frame_name)
+        if frame is None:
+            raise FrameNotFoundError(frame_name)
+        col_id, ok = c.uint_arg(idx.column_label)
+        if not ok:
+            raise PilosaError(f"SetFieldValue() column field"
+                              f" '{idx.column_label}' required")
+        pairs = [(k, v) for k, v in c.args.items()
+                 if k not in ("frame", idx.column_label)]
+        if len(pairs) != 1:
+            raise PilosaError(
+                "SetFieldValue() requires exactly one field=value")
+        field_name, value = pairs[0]
+        if isinstance(value, bool) or not isinstance(value, int):
+            raise PilosaError(
+                f"SetFieldValue() value must be an integer: {value!r}")
+        return frame.set_field_value(field_name, col_id, value)
 
     # -- device expressions --------------------------------------------------
 
     def _compile_device_expr(self, index: str, c: Call, leaves: list):
         """Compile a pure bitmap call tree into a mesh expression tree.
 
-        Supported: standard-view Bitmap leaves combined with
-        Intersect/Union/Difference (n-ary calls fold left to right, like
-        _fold_slice). Returns None for anything else (malformed args,
-        missing frames, empty folds, calls of later slices) — the host
-        path owns their errors and semantics. Recursion follows the PQL
-        nesting depth, not the fold width.
+        Supported: Bitmap leaves (standard or inverse) and Range (an
+        or-fold over its minimal time-view cover, a leaf per view; or a
+        BSI comparison) combined with Intersect/Union/Difference (n-ary
+        calls fold left to right, like _fold_slice). Returns None for
+        anything else (malformed args, missing frames or fields, empty
+        folds, an empty time cover, a provably empty comparison) — the
+        host path owns their errors and semantics. Recursion follows
+        the PQL nesting depth, not the fold width.
         """
+        if c.name == "Range":
+            if c.condition_arg() is not None:
+                return self._compile_field_range_expr(index, c, leaves)
+            parsed = self._range_views(index, c, strict=False)
+            if parsed is None or not parsed[2]:
+                return None
+            frame_name, row_id, views = parsed
+            expr = None
+            for vn in views:
+                leaves.append((frame_name, vn, row_id))
+                part = ("leaf", len(leaves) - 1)
+                expr = part if expr is None else ("or", expr, part)
+            return expr
         if c.name == "Bitmap":
             idx = self.holder.index(index)
             if idx is None:
@@ -373,10 +628,14 @@ class Executor:
             if frame is None:
                 return None
             row_id, row_ok = c.uint_arg(frame.row_label)
-            _, col_ok = c.uint_arg(idx.column_label)
-            if not row_ok or col_ok:
+            col_id, col_ok = c.uint_arg(idx.column_label)
+            if row_ok == col_ok:
                 return None
-            leaves.append((frame.name, VIEW_STANDARD, row_id))
+            view, id = ((VIEW_STANDARD, row_id) if row_ok
+                        else (VIEW_INVERSE, col_id))
+            if view == VIEW_INVERSE and not frame.inverse_enabled:
+                return None
+            leaves.append((frame.name, view, id))
             return ("leaf", len(leaves) - 1)
         op = self._DEVICE_FOLD_OPS.get(c.name)
         if op is None or not c.children:
@@ -390,9 +649,37 @@ class Executor:
             expr = (op, expr, p)
         return expr
 
-    def _fragment_gens(self, index: str, frame: str,
+    def _compile_field_range_expr(self, index: str, c: Call,
+                                  leaves: list):
+        """Range(field OP value) as the comparison fold over the field's
+        bit-plane leaves (storage.bsi.compare_fold_expr: depth+1
+        instructions, ``><`` two chains and one spill slot). A clamp to
+        "all" is the existence row; a clamp to "none" and a provably
+        empty comparison give None (the host path answers them)."""
+        parsed = self._field_range_parse(index, c, strict=False)
+        if parsed is None:
+            return None
+        frame_name, field, cond = parsed
+        clamped = bsi.clamp(cond.op, cond.value, field.min, field.max)
+        if clamped == "none":
+            return None
+        leaf_ids: dict[tuple, int] = {}
+
+        def leaf(plane: int):
+            key = (frame_name, field.view_name, self._bsi_plane_row(plane))
+            if key not in leaf_ids:
+                leaves.append(key)
+                leaf_ids[key] = len(leaves) - 1
+            return ("leaf", leaf_ids[key])
+
+        if clamped == "all":
+            return leaf(bsi.EXISTS_PLANE)
+        cop, upred = clamped
+        return bsi.compare_fold_expr(cop, upred, field.bit_depth, leaf)
+
+    def _fragment_gens(self, index: str, frame: str, view: str,
                        slices: tuple[int, ...]) -> tuple[list, tuple]:
-        frags = [self.holder.fragment(index, frame, VIEW_STANDARD, s)
+        frags = [self.holder.fragment(index, frame, view, s)
                  for s in slices]
         gens = tuple((f.device.uid, f.device.generation) if f is not None
                      else (0, 0) for f in frags)
@@ -405,7 +692,7 @@ class Executor:
         fragment's (uid, generation), so a write or reopen stops the
         entry being referenced and it ages out of the LRU."""
         frame, view, row_id = leaf
-        frags, gens = self._fragment_gens(index, frame, slices)
+        frags, gens = self._fragment_gens(index, frame, view, slices)
         key = ("leaf", str(self.device), id(self.holder), index, frame,
                view, row_id, slices, gens)
         return residency.leaf_slab(self.device, key, frags, row_id)
@@ -435,9 +722,10 @@ class Executor:
         leaves: list[tuple] = []
         expr = self._compile_device_expr(index, c.children[0], leaves)
         if expr is None:
-            # Not a device expression (an empty Union, a call of a later
-            # slice, a malformed leaf): the host materialization gives
-            # the JAX package's answer or raises its error.
+            # Not a device expression (an empty Union, a malformed leaf,
+            # an empty time cover, a comparison clamped to none): the
+            # host materialization gives the JAX package's answer or
+            # raises its error.
             return self._execute_bitmap_call(index, c.children[0],
                                              slices).count()
         if not slices:
@@ -481,11 +769,12 @@ class Executor:
                         "Tanimoto Threshold is from 1 to 100 only")
                 return []
             if self._compile_device_expr(index, src, []) is None:
-                # Malformed, a call of a later slice, or (in a query
+                # Malformed, a Range the host answers (an empty time
+                # cover, a comparison clamped to none), or (in a query
                 # that also writes, which is not planned) a tree
                 # holding an empty Union(): the host materialization
-                # raises the JAX package's error for the first two, and
-                # the per-slice phases below answer the third.
+                # raises the JAX package's error for the first, and
+                # the per-slice phases below answer the others.
                 self._execute_bitmap_call(index, src, slices)
         # The JAX package's order (executor.py _execute_top_n): the
         # single pass over complete LRU caches, else the per-slice
@@ -850,7 +1139,8 @@ class Executor:
                        row_ids: tuple[int, ...],
                        slices: tuple[int, ...]) -> tuple[list, tuple]:
         """The fragments of a candidate block and its residency key."""
-        frags, gens = self._fragment_gens(index, frame_name, slices)
+        frags, gens = self._fragment_gens(index, frame_name, VIEW_STANDARD,
+                                          slices)
         return frags, ("topnrows", str(self.device), id(self.holder), index,
                        frame_name, row_ids, slices, gens)
 
@@ -899,13 +1189,18 @@ class Executor:
             raise PilosaError(
                 f"{name}() column field '{idx.column_label}' required")
         timestamp = _parse_timestamp(c) if set else None
-        if view in ("", VIEW_STANDARD):
-            op = frame.set_bit if set else frame.clear_bit
+        # The inverse view holds the transpose: its row is the column id.
+        op = frame.set_bit if set else frame.clear_bit
+        if view == VIEW_STANDARD:
             return op(VIEW_STANDARD, row_id, col_id, timestamp)
         if view == VIEW_INVERSE:
+            return op(VIEW_INVERSE, col_id, row_id, timestamp)
+        if view == "":
+            ret = op(VIEW_STANDARD, row_id, col_id, timestamp)
             if frame.inverse_enabled:
-                raise later(f"{name}() on the inverse view", LATER_VIEWS)
-            raise PilosaError("inverse views not enabled for frame")
+                if op(VIEW_INVERSE, col_id, row_id, timestamp):
+                    ret = True
+            return ret
         raise PilosaError(f"invalid view: {view}")
 
     # Shortest run of SetBit/ClearBit calls that takes the batch lane.
@@ -913,14 +1208,14 @@ class Executor:
 
     def _mutate_batch_run(self, index: str, calls: list[Call], start: int):
         """(results, n_calls) for a maximal run of consecutive
-        timestamp-free standard-view SetBit (or ClearBit) calls, applied
-        through the fragments' batch lane (Frame.mutate_bits) — one
-        batched mutation and WAL append per touched fragment, the count
-        cache upkept in row order, as in the JAX package. None (the
-        per-op path) for short runs and anything unusual — other views,
-        inverse frames, timestamps, missing or malformed arguments — so
-        error semantics stay exactly per-op: nothing is applied until
-        every call of the run parses."""
+        timestamp-free SetBit (or ClearBit) calls on the standard or
+        inverse view, applied through the fragments' batch lane
+        (Frame.mutate_bits) — one batched mutation and WAL append per
+        touched fragment and view, the count cache upkept in row order,
+        as in the JAX package. None (the per-op path) for short runs and
+        anything unusual — other views, timestamps, missing or malformed
+        arguments — so error semantics stay exactly per-op: nothing is
+        applied until every call of the run parses."""
         name = calls[start].name
         if name not in ("SetBit", "ClearBit"):
             return None
@@ -928,7 +1223,8 @@ class Executor:
         j = start
         while (j < n and calls[j].name == name
                and "timestamp" not in calls[j].args
-               and calls[j].args.get("view", "") in ("", VIEW_STANDARD)):
+               and calls[j].args.get("view", "") in
+               ("", VIEW_STANDARD, VIEW_INVERSE)):
             j += 1
         count = j - start
         if count < self._BATCH_MIN_MUTATES:
@@ -937,7 +1233,9 @@ class Executor:
         if idx is None:
             raise IndexNotFoundError(index)
         frames: dict = {}
-        ops: list[tuple] = []  # (k, frame_name, row, col)
+        # (call k, frame, view, view row, view column): the inverse view
+        # takes the transpose, its slice chosen by the row id.
+        vops: list[tuple] = []
         for k, c in enumerate(calls[start:j]):
             fname = c.args.get("frame")
             if not fname:
@@ -945,7 +1243,7 @@ class Executor:
             frame = frames.get(fname)
             if frame is None:
                 frame = idx.frame(fname)
-                if frame is None or frame.inverse_enabled:
+                if frame is None:
                     return None
                 frames[fname] = frame
             try:
@@ -955,15 +1253,20 @@ class Executor:
                 return None
             if not (ok and ok2):
                 return None
-            ops.append((k, fname, row_id, col_id))
+            view = c.args.get("view", "")
+            if view in ("", VIEW_STANDARD):
+                vops.append((k, fname, VIEW_STANDARD, row_id, col_id))
+            if view == VIEW_INVERSE or (view == "" and frame.inverse_enabled):
+                vops.append((k, fname, VIEW_INVERSE, col_id, row_id))
         results = [False] * count
-        groups: dict[str, list] = {}
-        for op in ops:
-            groups.setdefault(op[1], []).append(op)
-        for fname, group in groups.items():
-            rows = np.fromiter((g[2] for g in group), np.uint64, len(group))
-            cols = np.fromiter((g[3] for g in group), np.uint64, len(group))
-            changed = frames[fname].mutate_bits(rows, cols, name == "SetBit")
+        groups: dict[tuple, list] = {}
+        for vop in vops:
+            groups.setdefault((vop[1], vop[2]), []).append(vop)
+        for (fname, view), group in groups.items():
+            rows = np.fromiter((g[3] for g in group), np.uint64, len(group))
+            cols = np.fromiter((g[4] for g in group), np.uint64, len(group))
+            changed = frames[fname].mutate_bits(view, rows, cols,
+                                                name == "SetBit")
             for g, ch in zip(group, changed.tolist()):
                 if ch:
                     results[g[0]] = True

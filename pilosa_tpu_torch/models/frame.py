@@ -6,11 +6,10 @@ timeQuantum, BSI fields) persist as the same protobuf ``.meta`` file
 (frame.go:280-336), so either package opens the other's frames with
 their options; the row attribute store is ``<frame>/attrs``. Each
 fragment keeps the TopN count cache of the frame's ``cacheType`` and
-``cacheSize``. This slice writes the standard view: SetBit, ClearBit
-and bulk import. The options
-that later slices serve are kept and reported, and a write that needs
-them (the inverse transpose, time views) raises PilosaError naming its
-slice.
+``cacheSize``. A write with a timestamp also writes one view per
+time-quantum unit (frame.go:446-485), a frame with ``inverseEnabled``
+keeps the transpose in its ``inverse`` views, and each BSI field keeps
+its bit planes in a ``field_<name>`` view (storage.bsi).
 """
 
 from __future__ import annotations
@@ -24,28 +23,24 @@ from typing import Optional
 import numpy as np
 
 from .. import SLICE_WIDTH
-from ..errors import PilosaError, later, validate_label
+from ..errors import PilosaError, validate_label
 from ..proto import internal as pb
+from ..storage import bsi
 from ..storage import cache as cache_mod
 from ..storage import wal as wal_mod
 from ..storage.attrs import AttrStore
+from ..utils import timequantum as tq
 from ..utils.arrays import group_by_key, sort_dedupe
-from .view import (VIEW_STANDARD, View, is_field_view, is_inverse_view,
-                   is_valid_view)
+from .view import (VIEW_INVERSE, VIEW_STANDARD, View, field_view_name,
+                   is_field_view, is_inverse_view, is_valid_view)
 
 DEFAULT_ROW_LABEL = "rowID"
-
-# Widest BSI field (value planes) the JAX package accepts.
-MAX_BIT_DEPTH = 63
-
-# The slice of the port that will serve what the options below enable.
-LATER_VIEWS = "the Range/time-view/BSI slice"
 
 
 @dataclass
 class Field:
-    """A BSI integer field of a frame: kept in ``.meta`` and reported in
-    ``/schema``; its values are served by a later slice."""
+    """A BSI integer field of a frame: values in [min, max] stored as
+    bit-plane rows in the ``field_<name>`` view (storage.bsi)."""
     name: str
     min: int = 0
     max: int = 0
@@ -55,8 +50,16 @@ class Field:
         if self.max < self.min:
             raise PilosaError(
                 f"field max ({self.max}) must be >= min ({self.min})")
-        if (self.max - self.min).bit_length() > MAX_BIT_DEPTH:
+        if bsi.bit_depth(self.min, self.max) > bsi.MAX_BIT_DEPTH:
             raise PilosaError("field range too wide (max 63 bits)")
+
+    @property
+    def bit_depth(self) -> int:
+        return bsi.bit_depth(self.min, self.max)
+
+    @property
+    def view_name(self) -> str:
+        return field_view_name(self.name)
 
     def encode(self) -> pb.FieldMeta:
         return pb.FieldMeta(Name=self.name, Min=self.min, Max=self.max)
@@ -169,9 +172,130 @@ class Frame:
     def time_quantum(self) -> str:
         return self.options.time_quantum
 
+    def set_time_quantum(self, q: str) -> None:
+        with self._mu:
+            self.options.time_quantum = tq.parse_time_quantum(q)
+            self._save_meta()
+
+    # -- BSI integer fields (storage.bsi row layout) -------------------------
+
     def fields(self) -> list[Field]:
         with self._mu:
             return list(self.options.fields or [])
+
+    def field(self, name: str) -> Optional[Field]:
+        with self._mu:
+            for f in self.options.fields or []:
+                if f.name == name:
+                    return f
+            return None
+
+    def create_field(self, field: Field) -> Field:
+        """Register a field and persist it in the ``.meta`` protobuf.
+        Idempotent when (name, min, max) match; another range for an
+        existing name is an error (its planes would decode against the
+        wrong base and depth)."""
+        with self._mu:
+            existing = self.field(field.name)
+            if existing is not None:
+                if (existing.min, existing.max) != (field.min, field.max):
+                    raise PilosaError(
+                        f"field already exists with different range:"
+                        f" {field.name}")
+                return existing
+            if self.options.fields is None:
+                self.options.fields = []
+            self.options.fields.append(field)
+            self._save_meta()
+            return field
+
+    def _field_of(self, field_name: str) -> Field:
+        field = self.field(field_name)
+        if field is None:
+            raise PilosaError(f"field not found: {field_name}")
+        return field
+
+    def set_field_value(self, field_name: str, column_id: int,
+                        value: int) -> bool:
+        """Point write of one column's integer value: the existence bit
+        and a set or clear of every plane (a re-set value clears stale
+        1-planes). Returns whether any bit changed."""
+        field = self._field_of(field_name)
+        if not field.min <= value <= field.max:
+            raise PilosaError(
+                f"value {value} out of range for field {field_name}"
+                f" [{field.min}, {field.max}]")
+        view = self.create_view_if_not_exists(field.view_name)
+        u = value - field.min
+        changed = view.set_bit(bsi.EXISTS_ROW, column_id)
+        for i in range(field.bit_depth):
+            row = bsi.PLANE_ROW_OFFSET + i
+            op = view.set_bit if (u >> i) & 1 else view.clear_bit
+            if op(row, column_id):
+                changed = True
+        return changed
+
+    def field_value(self, field_name: str, column_id: int
+                    ) -> tuple[int, bool]:
+        """(value, exists) of one column, read back from its planes."""
+        field = self._field_of(field_name)
+        view = self.view(field.view_name)
+        frag = (view.fragment(column_id // SLICE_WIDTH)
+                if view is not None else None)
+        if frag is None:
+            return 0, False
+        col = np.uint64(column_id)
+        if col not in frag.row(bsi.EXISTS_ROW).bits():
+            return 0, False
+        u = 0
+        for i in range(field.bit_depth):
+            if col in frag.row(bsi.PLANE_ROW_OFFSET + i).bits():
+                u |= 1 << i
+        return u + field.min, True
+
+    def import_field_values(self, field_name: str, column_ids,
+                            values) -> None:
+        """Bulk value import, an assignment like SetFieldValue: a
+        duplicate column's last value wins; per fragment the zero
+        planes of the imported columns are cleared through the WAL'd
+        batch lane, then the existence row and the one planes are
+        bulk-added."""
+        field = self._field_of(field_name)
+        cols = np.asarray(column_ids, dtype=np.uint64)
+        vals = np.asarray(values, dtype=np.int64)
+        if len(cols) != len(vals):
+            raise ValueError("column/value length mismatch")
+        if not len(cols):
+            return
+        if int(vals.min()) < field.min or int(vals.max()) > field.max:
+            raise PilosaError(
+                f"value out of range for field {field_name}"
+                f" [{field.min}, {field.max}]")
+        if len(cols) > 1:
+            # np.unique keeps the first occurrence: reverse for the last.
+            _, first_of_rev = np.unique(cols[::-1], return_index=True)
+            keep = np.sort(len(cols) - 1 - first_of_rev)
+            cols, vals = cols[keep], vals[keep]
+        u = (vals - field.min).astype(np.uint64)
+        view = self.create_view_if_not_exists(field.view_name)
+        w = np.uint64(SLICE_WIDTH)
+        for slice, cs, us in group_by_key(cols // w, cols, u):
+            frag = view.create_fragment_if_not_exists(slice)
+            local = cs % w
+            set_parts = [np.uint64(bsi.EXISTS_ROW) * w + local]
+            clear_parts = []
+            for i in range(field.bit_depth):
+                row = np.uint64(bsi.PLANE_ROW_OFFSET + i)
+                on = (us >> np.uint64(i)) & np.uint64(1) == 1
+                set_parts.append(row * w + local[on])
+                clear_parts.append(row * w + local[~on])
+            clear = (np.concatenate(clear_parts) if clear_parts
+                     else np.empty(0, np.uint64))
+            if len(clear):
+                # Before the add: a snapshot that ends the import then
+                # holds the clears too.
+                frag.clear_positions(clear)
+            frag.import_positions(sort_dedupe(np.concatenate(set_parts)))
 
     # -- views ---------------------------------------------------------------
 
@@ -190,13 +314,10 @@ class Frame:
             if not self.inverse_enabled and is_inverse_view(name):
                 raise PilosaError("inverse views not enabled for frame")
             v = self.views.get(name)
-            if v is not None:
-                return v
-            if name != VIEW_STANDARD:
-                raise later(f"writing view {name!r}", LATER_VIEWS)
-            v = self._new_view(name)
-            v.open()
-            self.views[name] = v
+            if v is None:
+                v = self._new_view(name)
+                v.open()
+                self.views[name] = v
             return v
 
     def max_slice(self) -> int:
@@ -208,19 +329,10 @@ class Frame:
                    default=0)
 
     def max_inverse_slice(self) -> int:
-        v = self.views.get("inverse")
+        v = self.views.get(VIEW_INVERSE)
         return v.max_slice() if v else 0
 
     # -- bit ops (frame.go:446-527) ------------------------------------------
-
-    def _writable_standard_view(self, what: str) -> View:
-        """The standard view, for a write that lands there alone: a frame
-        with inverse storage also needs the transpose, which a later
-        slice writes."""
-        if self.inverse_enabled:
-            raise later(f"{what} on a frame with inverseEnabled",
-                        LATER_VIEWS)
-        return self.create_view_if_not_exists(VIEW_STANDARD)
 
     def set_bit(self, view_name: str, row_id: int, col_id: int,
                 t: Optional[dt.datetime] = None) -> bool:
@@ -230,50 +342,108 @@ class Frame:
                   t: Optional[dt.datetime] = None) -> bool:
         return self._mutate(view_name, row_id, col_id, t, set=False)
 
-    def mutate_bits(self, row_ids, col_ids, set: bool) -> np.ndarray:
-        """Batched timestamp-free set/clear on the standard view (the
-        executor's SetBit-run lane). Returns per-op changed bools."""
-        view = self._writable_standard_view(
-            "SetBit()" if set else "ClearBit()")
+    def mutate_bits(self, view_name: str, row_ids, col_ids,
+                    set: bool) -> np.ndarray:
+        """Batched timestamp-free set/clear on one view (the executor's
+        SetBit-run lane). Returns per-op changed bools."""
+        if not is_valid_view(view_name):
+            raise PilosaError(f"invalid view: {view_name!r}")
+        view = self.create_view_if_not_exists(view_name)
         return view.mutate_bits(row_ids, col_ids, set)
 
     def _mutate(self, view_name: str, row_id: int, col_id: int,
                 t: Optional[dt.datetime], set: bool) -> bool:
-        what = "SetBit()" if set else "ClearBit()"
-        if view_name != VIEW_STANDARD:
-            raise later(f"{what} on view {view_name!r}", LATER_VIEWS)
-        if t is not None and self.time_quantum():
-            # frame.go:446-485: a timestamp also writes one time view
-            # per quantum unit.
-            raise later(f"{what} with a timestamp on a frame with a time"
-                        " quantum", LATER_VIEWS)
-        view = self._writable_standard_view(what)
+        if not is_valid_view(view_name):
+            raise PilosaError(f"invalid view: {view_name!r}")
+        view = self.create_view_if_not_exists(view_name)
         op = view.set_bit if set else view.clear_bit
-        return op(row_id, col_id)
+        changed = op(row_id, col_id)
+        if t is None:
+            return changed
+        for subname in tq.views_by_time(view_name, t, self.time_quantum()):
+            sub = self.create_view_if_not_exists(subname)
+            op = sub.set_bit if set else sub.clear_bit
+            if op(row_id, col_id):
+                changed = True
+        return changed
 
     # -- bulk import (frame.go:530-606) --------------------------------------
 
-    def import_bits(self, row_ids, column_ids) -> None:
-        """Group bits by slice and bulk-import each standard-view
-        fragment."""
+    def import_bits(self, row_ids, column_ids, timestamps=None) -> None:
+        """Group bits by (view, slice), the time views and the inverse
+        transpose included, then bulk-import each fragment."""
         rows = np.asarray(row_ids, dtype=np.uint64)
         cols = np.asarray(column_ids, dtype=np.uint64)
         if len(rows) != len(cols):
             raise ValueError("row/column length mismatch")
-        if not len(rows):
-            return
-        view = self._writable_standard_view("import")
+        if timestamps is not None:
+            timestamps = list(timestamps)
+            if len(timestamps) != len(rows):
+                raise ValueError("timestamp length mismatch")
+        q = self.time_quantum()
+        # (view, slice) -> chunks of slice-local positions
+        data: dict[tuple[str, int], list] = {}
         w = np.uint64(SLICE_WIDTH)
-        for slice, rs, cs in group_by_key(cols // w, rows, cols):
-            frag = view.create_fragment_if_not_exists(slice)
-            frag.import_positions(sort_dedupe(rs * w + cs % w))
+
+        def put(view_names, rids, cids):
+            # One sort of (slice << 44 | position) keys orders every
+            # fragment's positions at once while rows fit 24 bits and
+            # slices 20; wider ids group by slice.
+            if not len(rids):
+                return
+            slices = cids // w
+            if int(rids.max()) < (1 << 24) and int(slices.max()) < (1 << 20):
+                keys = sort_dedupe((slices << np.uint64(44))
+                                   | (rids * w + cids % w))
+                pos = keys & np.uint64((1 << 44) - 1)
+                sl = keys >> np.uint64(44)
+                b = np.flatnonzero(sl[1:] != sl[:-1]) + 1
+                for s, e in zip(np.concatenate(([0], b)).tolist(),
+                                np.concatenate((b, [len(sl)])).tolist()):
+                    for vn in view_names:
+                        data.setdefault((vn, int(sl[s])), []).append(
+                            pos[s:e])
+                return
+            for slice, rs, cs in group_by_key(slices, rids, cids):
+                for vn in view_names:
+                    data.setdefault((vn, slice), []).append(rs * w + cs % w)
+
+        plain = (np.ones(len(rows), dtype=bool) if timestamps is None
+                 else np.array([t is None for t in timestamps], dtype=bool))
+        if plain.any():
+            put([VIEW_STANDARD], rows[plain], cols[plain])
+            if self.inverse_enabled:
+                put([VIEW_INVERSE], cols[plain], rows[plain])
+        if not plain.all():
+            # A time view's name depends only on the timestamp's local
+            # fields: one fan-out per distinct timestamp.
+            by_ts: dict = {}
+            for i in np.flatnonzero(~plain).tolist():
+                ts = timestamps[i]
+                key = (ts.replace(tzinfo=None)
+                       if isinstance(ts, dt.datetime) else ts)
+                by_ts.setdefault(key, []).append(i)
+            for ts, ii in by_ts.items():
+                idx = np.asarray(ii)
+                r_ts, c_ts = rows[idx], cols[idx]
+                put(tq.views_by_time(VIEW_STANDARD, ts, q)
+                    + [VIEW_STANDARD], r_ts, c_ts)
+                if self.inverse_enabled:
+                    put(tq.views_by_time(VIEW_INVERSE, ts, q)
+                        + [VIEW_INVERSE], c_ts, r_ts)
+        for (view_name, slice), chunks in sorted(data.items()):
+            frag = self.create_view_if_not_exists(view_name) \
+                .create_fragment_if_not_exists(slice)
+            frag.import_positions(
+                chunks[0] if len(chunks) == 1 else np.concatenate(chunks))
 
     def import_slice_positions(self, slice: int,
                                positions: np.ndarray) -> None:
         """Standard-view bulk import of one slice's sorted, deduplicated
-        slice-local positions (the raw-import v2 wire form)."""
+        slice-local positions (the raw-import v2 wire form). The caller
+        sends a frame with inverse storage through ``import_bits``."""
         if not len(positions):
             return
-        view = self._writable_standard_view("import")
+        view = self.create_view_if_not_exists(VIEW_STANDARD)
         view.create_fragment_if_not_exists(slice).import_positions(
             positions)

@@ -104,6 +104,11 @@ class Index:
     def time_quantum(self) -> str:
         return self.options.time_quantum
 
+    def set_time_quantum(self, q: str) -> None:
+        with self._mu:
+            self.options.time_quantum = tq.parse_time_quantum(q)
+            self._save_meta()
+
     # -- slices
 
     def max_slice(self) -> int:

@@ -1,11 +1,11 @@
 """View: container of fragments by slice for one orientation.
 
 Trimmed copy of the JAX package's ``models/view.py`` (reference
-view.go). Queries and writes of this slice reach the standard view
-only; the inverse, time and BSI field views of a data directory the JAX
-package wrote are opened and listed, and their fragments left as they
-are. Directory layout ``<frame>/views/<name>/fragments/<slice>``
-(view.go:186-189).
+view.go). Names: ``standard``, ``inverse``, their time-suffixed
+variants (``standard_2017``, ``inverse_201701``, ...) and one
+``field_<name>`` view a BSI field. Directory layout
+``<frame>/views/<name>/fragments/<slice>`` (view.go:186-189). One
+node: creating a fragment announces no slice to peers.
 """
 
 from __future__ import annotations
@@ -33,6 +33,10 @@ def is_inverse_view(name: str) -> bool:
 
 def is_field_view(name: str) -> bool:
     return name.startswith(VIEW_FIELD_PREFIX)
+
+
+def field_view_name(field: str) -> str:
+    return VIEW_FIELD_PREFIX + field
 
 
 def is_valid_view(name: str) -> bool:

@@ -10,7 +10,9 @@ are summed in int64, so no 16-bit hi/lo split is needed.
 
 Conventions as in the JAX module: operands are ``[n_words]`` (one row)
 or ``[n_rows, n_words]`` (a row block); ops are elementwise in the last
-axis. The BSI comparison circuit waits for the slice that ports Range.
+axis. A BSI comparison is an expression over plane leaves
+(storage.bsi.compare_fold_expr), counted like any other; the JAX
+module's materializing circuit comes with the device ``materialize``.
 """
 
 from __future__ import annotations

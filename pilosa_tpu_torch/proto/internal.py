@@ -411,13 +411,16 @@ class QueryRequest(Message):
               (5, "Remote", "bool", None))
 
 
+class ValCount(Message):
+    FIELDS = ((1, "Val", "int64", None), (2, "Count", "int64", None))
+
+
 class QueryResult(Message):
-    # ValCount (field 5) comes with the BSI slice; a decoder here skips
-    # it as an unknown field.
     FIELDS = ((1, "Bitmap", "message", Bitmap),
               (2, "N", "uint64", None),
               (3, "Pairs", "repeated_message", Pair),
-              (4, "Changed", "bool", None))
+              (4, "Changed", "bool", None),
+              (5, "ValCount", "message", ValCount))
 
 
 class QueryResponse(Message):
@@ -432,6 +435,13 @@ class ImportRequest(Message):
               (4, "RowIDs", "packed_uint64", None),
               (5, "ColumnIDs", "packed_uint64", None),
               (6, "Timestamps", "packed_int64", None))
+
+
+class ImportValueRequest(Message):
+    FIELDS = ((1, "Index", "string", None), (2, "Frame", "string", None),
+              (3, "Field", "string", None), (4, "Slice", "uint64", None),
+              (5, "ColumnIDs", "packed_uint64", None),
+              (6, "Values", "packed_int64", None))
 
 
 # -- private types (internal.proto) ------------------------------------------

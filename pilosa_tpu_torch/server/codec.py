@@ -4,9 +4,9 @@ Trimmed copy of the JAX package's ``server/codec.py`` on the port's wire
 codec (``proto/internal.py``): runtime results (storage.Bitmap,
 cache.Pair, attribute dicts, counts, changed flags) to the protobuf
 ``QueryResponse`` and to the reference's JSON shapes
-(handler.go:1307-1397, bitmap.go:220-233, cache.go:292-293). ValCount
-comes with the BSI slice; the node-to-node decoders with the cluster
-slice.
+(handler.go:1307-1397, bitmap.go:220-233, cache.go:292-293) and the
+``ValCount`` of Sum/Min/Max (``{"value": v, "count": n}``). The
+node-to-node decoders come with the cluster slice.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import base64
 from ..proto import internal as pb
 from ..storage.attrs import encode_attr_list
 from ..storage.bitmap import Bitmap
+from ..storage.bsi import ValCount
 
 
 def encode_bitmap(bm: Bitmap) -> pb.Bitmap:
@@ -28,6 +29,8 @@ def encode_query_result(result) -> pb.QueryResult:
     out = pb.QueryResult()
     if isinstance(result, Bitmap):
         out.Bitmap = encode_bitmap(result)
+    elif isinstance(result, ValCount):
+        out.ValCount = pb.ValCount(Val=result.value, Count=result.count)
     elif isinstance(result, list):
         out.Pairs = [pb.Pair(Key=p.id, Count=p.count) for p in result]
     elif isinstance(result, bool):
@@ -49,7 +52,7 @@ def encode_query_response(results: list, column_attr_sets=None,
 # -- JSON shapes --------------------------------------------------------------
 
 def result_to_json(result):
-    if isinstance(result, Bitmap):
+    if isinstance(result, (Bitmap, ValCount)):
         return result.to_json()
     if isinstance(result, list):  # pairs
         return [{"id": p.id, "count": p.count} for p in result]

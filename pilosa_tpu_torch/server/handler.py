@@ -10,9 +10,9 @@ handler.go:299-351,577-610. Status mapping: ``HTTPError`` gives its
 status, ``PilosaError`` 400, any other exception 500.
 
 A query keeps parse → execute → commit barrier → encode: a query holding
-a write call, and every ``/import``, answers 200 only once
-``storage.wal.barrier_all()`` has put its WAL records in the OS (the
-JAX package's ack contract). A failed barrier answers 507 with
+a write call, every ``/import`` and every field import answers 200 only
+once ``storage.wal.barrier_all()`` has put its WAL records in the OS
+(the JAX package's ack contract). A failed barrier answers 507 with
 ``Retry-After`` when the disk is full, 500 otherwise. ``?plan=1`` on
 the query route plans the query without executing it (EXPLAIN).
 Admission, tenants, tracing, cost accounting, plan and workload capture
@@ -23,6 +23,7 @@ web-console routes.
 
 from __future__ import annotations
 
+import datetime as dt
 import errno
 import json
 import re
@@ -33,8 +34,8 @@ import numpy as np
 
 from .. import SLICE_WIDTH, __version__
 from ..errors import (FrameExistsError, IndexExistsError, PilosaError,
-                      later, validate_label)
-from ..models.frame import LATER_VIEWS, Field, FrameOptions
+                      validate_label)
+from ..models.frame import Field, FrameOptions
 from ..models.index import IndexOptions
 from ..pql import parser as pql
 from ..proto import internal as pb
@@ -194,8 +195,18 @@ class Handler:
         r("POST", "/index/{index}/query", self._handle_post_query)
         r("POST", "/index/{index}/frame/{frame}/attr/diff",
           self._handle_frame_attr_diff)
+        r("PATCH", "/index/{index}/frame/{frame}/time-quantum",
+          self._handle_patch_frame_time_quantum)
         r("GET", "/index/{index}/frame/{frame}/views",
           self._handle_get_frame_views)
+        r("GET", "/index/{index}/frame/{frame}/fields",
+          self._handle_get_frame_fields)
+        r("POST", "/index/{index}/frame/{frame}/field/{field}",
+          self._handle_post_frame_field)
+        r("POST", "/index/{index}/frame/{frame}/field/{field}/import",
+          self._handle_post_field_import)
+        r("PATCH", "/index/{index}/time-quantum",
+          self._handle_patch_index_time_quantum)
         r("GET", "/export", self._handle_get_export)
         r("POST", "/import", self._handle_post_import)
         r("GET", "/hosts", self._handle_get_hosts)
@@ -325,6 +336,14 @@ class Handler:
         self.holder.delete_index(req.vars["index"])
         return Response.json({})
 
+    def _handle_patch_index_time_quantum(self, req: Request) -> Response:
+        q = tq.parse_time_quantum(req.json().get("timeQuantum", ""))
+        idx = self.holder.index(req.vars["index"])
+        if idx is None:
+            raise HTTPError(404, "index not found")
+        idx.set_time_quantum(q)
+        return Response.json({})
+
     # -- frame CRUD ----------------------------------------------------------
 
     def _handle_post_frame(self, req: Request) -> Response:
@@ -350,6 +369,14 @@ class Handler:
         idx = self.holder.index(req.vars["index"])
         if idx is not None:
             idx.delete_frame(req.vars["frame"])
+        return Response.json({})
+
+    def _handle_patch_frame_time_quantum(self, req: Request) -> Response:
+        q = tq.parse_time_quantum(req.json().get("timeQuantum", ""))
+        frame = self.holder.frame(req.vars["index"], req.vars["frame"])
+        if frame is None:
+            raise HTTPError(404, "frame not found")
+        frame.set_time_quantum(q)
         return Response.json({})
 
     def _handle_get_frame_views(self, req: Request) -> Response:
@@ -378,6 +405,64 @@ class Handler:
             except (TypeError, ValueError) as e:
                 raise HTTPError(400, str(e))
         return out
+
+    # -- BSI integer fields --------------------------------------------------
+
+    def _handle_get_frame_fields(self, req: Request) -> Response:
+        frame = self.holder.frame(req.vars["index"], req.vars["frame"])
+        if frame is None:
+            raise HTTPError(404, "frame not found")
+        return Response.json(
+            {"fields": [f.to_json() for f in frame.fields()]})
+
+    def _handle_post_frame_field(self, req: Request) -> Response:
+        """Create one BSI field on an existing frame (body: ``{"min": N,
+        "max": M}``)."""
+        frame = self.holder.frame(req.vars["index"], req.vars["frame"])
+        if frame is None:
+            raise HTTPError(404, "frame not found")
+        body = req.json()
+        for k in body:
+            if k not in ("min", "max"):
+                raise HTTPError(400, f"Unknown key: {k}:{body[k]}")
+        try:
+            field = Field(name=req.vars["field"],
+                          min=int(body.get("min", 0)),
+                          max=int(body.get("max", 0)))
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, str(e))
+        frame.create_field(field)
+        return Response.json({})
+
+    def _handle_post_field_import(self, req: Request) -> Response:
+        """Bulk field-value import: a protobuf ``ImportValueRequest``
+        (answered in protobuf) or the JSON form ``{"columns": [...],
+        "values": [...]}``, acked after the commit barrier."""
+        index_name, frame_name = req.vars["index"], req.vars["frame"]
+        field_name = req.vars["field"]
+        if req.content_type == _PROTOBUF:
+            ireq = pb.ImportValueRequest.FromString(req.body())
+            if (ireq.Index, ireq.Frame, ireq.Field) != (
+                    index_name, frame_name, field_name):
+                raise HTTPError(400, "import target mismatch")
+            cols = np.asarray(ireq.ColumnIDs, dtype=np.uint64)
+            vals = np.asarray(ireq.Values, dtype=np.int64)
+        else:
+            body = req.json()
+            cols = np.asarray(body.get("columns", []), dtype=np.uint64)
+            vals = np.asarray(body.get("values", []), dtype=np.int64)
+        if len(cols) != len(vals):
+            raise HTTPError(400, "import array length mismatch")
+        frame = self.holder.frame(index_name, frame_name)
+        if frame is None:
+            raise HTTPError(404, "frame not found")
+        if frame.field(field_name) is None:
+            raise HTTPError(404, "field not found")
+        frame.import_field_values(field_name, cols, vals)
+        storage_wal.barrier_all()  # commit before the 200
+        if req.content_type == _PROTOBUF:
+            return Response.proto(pb.ImportResponse())
+        return Response.json({})
 
     # -- query (handler.go:811-893) ------------------------------------------
 
@@ -525,18 +610,30 @@ class Handler:
         frame = idx.frame(frame_name)
         if frame is None:
             raise HTTPError(404, "frame not found")
+        timestamps = None
         if ts_ns is not None and ts_ns.any():
-            raise later("/import with timestamps (time views)",
-                        LATER_VIEWS)
+            # Nanoseconds since the epoch → naive UTC; 0 is no timestamp.
+            timestamps = [
+                dt.datetime.fromtimestamp(ts / 1e9, dt.timezone.utc)
+                .replace(tzinfo=None) if ts else None
+                for ts in np.asarray(ts_ns).tolist()]
+        if positions is not None and frame.inverse_enabled:
+            # The positions form is the standard view's lane; the
+            # inverse transpose needs (row, column) pairs.
+            w = np.uint64(SLICE_WIDTH)
+            rows = positions // w
+            cols = np.uint64(slice) * w + positions % w
+            positions = None
         if positions is not None:
             # A writable copy: the decoded array is a view of the
             # request body.
             frame.import_slice_positions(slice, np.array(positions))
         else:
-            frame.import_bits(rows, cols)
+            frame.import_bits(rows, cols, timestamps)
         # Commit barrier before the 200: the import lanes barrier their
         # own fragment's WAL; this covers every fragment the request
-        # touched, coalesced with concurrent imports' barriers.
+        # touched (time views and the inverse transpose included),
+        # coalesced with concurrent imports' barriers.
         storage_wal.barrier_all()
         return Response.proto(pb.ImportResponse())
 

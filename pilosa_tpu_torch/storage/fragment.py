@@ -649,6 +649,13 @@ class Fragment:
             cols % np.uint64(SLICE_WIDTH))
         self.import_positions(positions)
 
+    def clear_positions(self, positions: np.ndarray) -> np.ndarray:
+        """Batched clear of slice-local bit positions through the WAL'd
+        batch lane (the BSI value import clears the stale planes of
+        re-imported columns with it). Returns the changed positions."""
+        return self._mutate_batch_positions(
+            np.asarray(positions, dtype=np.uint64), set=False)
+
     def import_positions(self, positions: np.ndarray) -> None:
         """Bulk import of slice-local bit positions (row*SLICE_WIDTH +
         col%SLICE_WIDTH), through one of three lanes:

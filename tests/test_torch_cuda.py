@@ -493,3 +493,104 @@ def test_topn_forms_card_matches_cpu(cuda_device, tmp_path):
     assert ck.LAUNCHES["topn_block_count"] > before["topn_block_count"]
     assert ck.LAUNCHES["expr_count_rows"] > before["expr_count_rows"]
     holder.close()
+
+
+# -- BSI fields, time views and the inverse view on the card -----------------
+
+@pytest.fixture(scope="module")
+def fields(tmp_path_factory):
+    """A frame with a 21-bit field (one column in 16 valued), a filter
+    row, and a YMDH time frame with inverse storage, built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    import datetime as dt
+
+    from pilosa_tpu_torch.models.frame import Field, FrameOptions
+    rng = np.random.default_rng(11)
+    n_slices = 3
+    holder = Holder(str(tmp_path_factory.mktemp("fields")))
+    holder.open()
+    idx = holder.create_index("i")
+    v = idx.create_frame("v")
+    v.create_field(Field("amount", -1_000_000, 1_000_000))
+    cols = (np.arange(0, n_slices * SLICE_WIDTH, 16, dtype=np.uint64)
+            + rng.integers(0, 16, n_slices * SLICE_WIDTH // 16
+                           ).astype(np.uint64))
+    vals = rng.integers(-1_000_000, 1_000_001, size=len(cols))
+    v.import_field_values("amount", cols, vals)
+    keep = cols[rng.random(len(cols)) < 0.25]
+    idx.create_frame("seg").import_bits(np.full(len(keep), 1, np.uint64),
+                                        keep)
+    t = idx.create_frame("t", FrameOptions(time_quantum="YMDH",
+                                           inverse_enabled=True))
+    stamps = [dt.datetime(2017, m, d, h) for m, d in
+              ((1, 3), (2, 9), (2, 10), (6, 1), (11, 20), (12, 31))
+              for h in (8, 16)]
+    n = 20000
+    t.import_bits(rng.integers(0, 5, size=n).astype(np.uint64),
+                  rng.integers(0, n_slices * SLICE_WIDTH, size=n,
+                               dtype=np.uint64),
+                  [stamps[i] for i in rng.integers(len(stamps), size=n)])
+    yield holder, vals
+    holder.close()
+    residency.device_cache().clear()
+
+
+@pytest.mark.parametrize("cond", ["== {x}", "!= {x}", "< {x}", "<= {x}",
+                                  "> {x}", ">= {x}", ">< [{lo}, {x}]",
+                                  "< 2000000", "> 1000000"])
+def test_count_range_card_matches_cpu(cuda_device, fields, cond):
+    holder, vals = fields
+    card = Executor(holder, device=cuda_device)
+    cpu = Executor(holder, device="cpu")
+    x, lo = int(vals[7]), int(vals[7]) - 300_000
+    q = f"Count(Range(frame=v, amount {cond.format(x=x, lo=lo)}))"
+    before = ck.LAUNCHES["expr_count_rows"]
+    got = card.execute("i", q)
+    assert got == cpu.execute("i", q)
+    ops = {"==": np.equal, "!=": np.not_equal, "<": np.less,
+           "<=": np.less_equal, ">": np.greater, ">=": np.greater_equal}
+    op, arg = cond.split(" ", 1)
+    want = (int(((vals >= lo) & (vals <= x)).sum()) if op == "><"
+            else int(ops[op](vals, int(arg.format(x=x))).sum()))
+    assert got == [want]
+    if cond != "> 1000000":  # clamped to none: the host answers 0
+        assert ck.LAUNCHES["expr_count_rows"] == before + 1
+
+
+def test_sum_and_views_card_matches_cpu(cuda_device, fields):
+    holder, vals = fields
+    card = Executor(holder, device=cuda_device)
+    cpu = Executor(holder, device="cpu")
+    before = ck.LAUNCHES["expr_count_rows"]
+    got = card.execute("i", "Sum(frame=v, field=amount)")[0]
+    assert ck.LAUNCHES["expr_count_rows"] == before + 22
+    assert (got.value, got.count) == (int(vals.sum()), len(vals))
+    for q in ["Sum(Bitmap(frame=seg, rowID=1), frame=v, field=amount)",
+              "Sum(Range(frame=v, amount > 0), frame=v, field=amount)",
+              "Min(frame=v, field=amount)", "Max(frame=v, field=amount)",
+              "Count(Range(frame=t, rowID=1, start=\"2017-02-03T08:00\","
+              " end=\"2017-11-20T16:00\"))",
+              "Count(Range(frame=t, rowID=2, start=\"2017-01-01T00:00\","
+              " end=\"2018-01-01T00:00\"))",
+              "Count(Intersect(Bitmap(columnID=5, frame=t),"
+              " Bitmap(columnID=9, frame=t)))"]:
+        a, b = card.execute("i", q)[0], cpu.execute("i", q)[0]
+        assert (getattr(a, "value", a), getattr(a, "count", a)) == \
+            (getattr(b, "value", b), getattr(b, "count", b)), q
+
+
+def test_bsi_fold_programs_on_the_card(cuda_device):
+    from pilosa_tpu_torch.storage import bsi
+    rng = np.random.default_rng(13)
+    planes = _words(rng, (64, 8, 2048), cuda_device)
+
+    def leaf(p):
+        return ("leaf", 0 if p == bsi.EXISTS_PLANE else p + 1)
+
+    for op, upred in (("<", 0x2AAAAAAAAAAAAAAA), (">=", 12345),
+                      ("==", 2**62 + 5), ("!=", 7),
+                      ("><", (2**40, 2**61 + 3))):
+        expr = bsi.compare_fold_expr(op, upred, 63, leaf)
+        assert torch.equal(ck.expr_count_rows(expr, planes),
+                           ck.expr_count_rows_torch(expr, planes)), op

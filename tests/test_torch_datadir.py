@@ -415,3 +415,110 @@ def test_carry_frame_options(tmp_path):
     for q in READS:
         if q.startswith("TopN") and "filters" not in q:
             assert got[q] == want[q], q
+
+
+VIEW_READS = [
+    "Count(Range(frame=v, amt > 100))", "Range(frame=v, amt >< [-9, 40])",
+    "Sum(frame=v, field=amt)", "Min(frame=v, field=amt)",
+    "Max(Bitmap(frame=tv, rowID=1), frame=v, field=amt)",
+    "Count(Range(frame=tv, rowID=1, start=\"2017-01-01T00:00\","
+    " end=\"2017-03-05T07:00\"))",
+    "Range(frame=tv, rowID=2, start=\"2017-02-03T04:00\","
+    " end=\"2018-01-01T00:00\")",
+    "Bitmap(col=7, frame=tv)", "Count(Bitmap(col=7, frame=tv))",
+    f"Bitmap(col={SLICE_WIDTH + 3}, frame=tv)",
+    "Count(Range(frame=inh, rowID=4, start=\"2017-01-01T00:00\","
+    " end=\"2017-02-01T00:00\"))",
+]
+
+
+def _write_views(path, rng, jax):
+    """Field, time and inverse views through one package's own API:
+    index ``w`` (column label ``col``, time quantum YM), frame ``v``
+    with field ``amt``, frame ``tv`` (YMDH, inverse) and frame ``inh``,
+    which takes the index's time quantum."""
+    if jax:
+        h = JaxHolder(path)
+        IO, FO, F = JaxIndexOptions, JaxFrameOptions, JaxField
+    else:
+        from pilosa_tpu_torch.models.holder import Holder
+        h = Holder(path)
+        IO, FO, F = IndexOptions, FrameOptions, Field
+    h.open()
+    idx = h.create_index("w", IO(column_label="col", time_quantum="YM"))
+    v = idx.create_frame("v", FO(fields=[F("amt", -10, 3000)]))
+    cols = rng.integers(0, 3 * SLICE_WIDTH, size=500, dtype=np.uint64)
+    v.import_field_values("amt", cols, rng.integers(-10, 3001, size=500))
+    v.set_field_value("amt", 5, 42)
+    tv = idx.create_frame("tv", FO(time_quantum="YMDH",
+                                   inverse_enabled=True))
+    import datetime as dt
+    stamps = [dt.datetime(2017, 1 + int(m), 1 + int(d), int(hh))
+              for m, d, hh in zip(rng.integers(12, size=300),
+                                  rng.integers(28, size=300),
+                                  rng.integers(24, size=300))]
+    tv.import_bits(rng.integers(0, 5, size=300).astype(np.uint64),
+                   rng.integers(0, 2 * SLICE_WIDTH, size=300,
+                                dtype=np.uint64), stamps)
+    tv.import_bits(np.array([1, 2, SLICE_WIDTH + 9], np.uint64),
+                   np.array([7, 7, SLICE_WIDTH + 3], np.uint64))
+    tv.set_bit("standard", 3, 7, dt.datetime(2017, 2, 3, 4))
+    tv.set_bit("inverse", 7, 4)
+    inh = idx.create_frame("inh")
+    inh.set_bit("standard", 4, 9, dt.datetime(2017, 1, 9, 9))
+    h.close()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_views_and_fields_open_in_both(tmp_path, writer):
+    """Each package opens the other's field views, time views, inverse
+    views and the ``.meta`` holding fields and time quanta: the same
+    views, the same bits and the same answers over HTTP."""
+    from pilosa_tpu_torch.models.holder import Holder
+
+    path, copy = str(tmp_path / "data"), str(tmp_path / "copy")
+    _write_views(path, np.random.default_rng(28), writer == "jax")
+    metas = _meta_files(path)
+    shutil.copytree(path, copy)
+    frags = {}
+    for name, cls in (("jax", JaxHolder), ("port", Holder)):
+        h = cls(path)
+        h.open()
+        frags[name] = {
+            (fr.frame, fr.view, fr.slice):
+            (fr.positions() if name == "port"
+             else fr.storage.all_positions()).tolist()
+            for fr in h.iter_fragments()}
+        if name == "port":
+            idx = h.index("w")
+            assert idx.options == IndexOptions(column_label="col",
+                                               time_quantum="YM")
+            assert h.frame("w", "v").field("amt") == Field("amt", -10, 3000)
+            assert h.frame("w", "v").field_value("amt", 5) == (42, True)
+            assert h.frame("w", "inh").time_quantum() == "YM"
+            assert idx.max_inverse_slice() == 1
+        h.close()
+        assert _meta_files(path) == metas
+    assert frags["port"] == frags["jax"]
+    views = {k[1] for k in frags["port"]}
+    assert {"field_amt", "inverse", "inverse_2017", "standard_2017020304",
+            "standard_201701"} <= views
+    jh = JaxHolder(copy)
+    jh.open()
+    app = JaxHandler(jh, JaxExecutor(jh, host="local"))
+    want = {q: _wsgi(app, "POST", "/index/w/query", q.encode())
+            for q in VIEW_READS}
+    want["/schema"] = _wsgi(app, "GET", "/schema")
+    jh.close()
+    srv = Server(path, host="127.0.0.1:0", device="cpu")
+    srv.open()
+    try:
+        for q in VIEW_READS:
+            got = _http(srv, "POST", "/index/w/query", q.encode())
+            assert (got[0], json.loads(got[1])) == \
+                (want[q][0], json.loads(want[q][1])), q
+        got = _http(srv, "GET", "/schema")
+        assert json.loads(got[1]) == json.loads(want["/schema"][1])
+    finally:
+        srv.close()
+        residency.device_cache().clear()

@@ -86,6 +86,7 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.utils.streams",
             "pilosa_tpu_torch.utils.logger",
             "pilosa_tpu_torch.storage.attrs",
+            "pilosa_tpu_torch.storage.bsi",
             "pilosa_tpu_torch.models.holder",
             "pilosa_tpu_torch.models.index",
             "pilosa_tpu_torch.models.frame",

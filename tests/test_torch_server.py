@@ -405,29 +405,44 @@ def test_write_then_count_over_http(server):
 
 
 def test_calls_of_later_slices_answer_400(server):
+    """Calls an earlier slice refused with a 400 answer 200 now: writes
+    to an inverse frame and to time views, a Bitmap of a column, and
+    timestamped and inverse ``/import`` in both wire forms."""
     http(server, "POST", "/index/i", b"{}")
     http(server, "POST", "/index/i/frame/inv",
          b'{"options": {"inverseEnabled": true}}')
     http(server, "POST", "/index/i/frame/tq",
          b'{"options": {"timeQuantum": "YMD"}}')
-    for q in (b"SetBit(frame=inv, rowID=1, columnID=2)",
-              b"Bitmap(columnID=2, frame=inv)",
-              b"SetBit(frame=tq, rowID=1, columnID=2,"
-              b" timestamp=\"2017-01-02T03:04\")"):
+    for q, want in ((b"SetBit(frame=inv, rowID=1, columnID=2)",
+                     b'{"results": [true]}\n'),
+                    (b"Bitmap(columnID=2, frame=inv)",
+                     b'{"results": [{"attrs": {}, "bits": [1]}]}\n'),
+                    (b"SetBit(frame=tq, rowID=1, columnID=2,"
+                     b" timestamp=\"2017-01-02T03:04\")",
+                     b'{"results": [true]}\n')):
         status, out = http(server, "POST", "/index/i/query", q)
-        assert status == 400 and b"not ported yet" in out, out
-    body = tpb.ImportRequest(Index="i", Frame="tq", RowIDs=[1], ColumnIDs=[2],
+        assert (status, out) == (200, want)
+    body = tpb.ImportRequest(Index="i", Frame="tq", RowIDs=[1], ColumnIDs=[3],
                              Timestamps=[10**18]).SerializeToString()
     status, out = http(server, "POST", "/import", body,
                        {"Content-Type": PB, "Accept": PB})
-    assert status == 400 and b"not ported yet" in out
+    assert status == 200
     status, out = http(server, "POST", "/import", rawimport.encode(
-        "i", "inv", 0, np.array([1], np.uint64), np.array([2], np.uint64),
+        "i", "inv", 0, np.array([1], np.uint64), np.array([5], np.uint64),
         None), {"Content-Type": rawimport.CONTENT_TYPE, "Accept": PB})
-    assert status == 400 and b"not ported yet" in out
+    assert status == 200
+    status, out = http(server, "POST", "/index/i/query",
+                       b"Bitmap(columnID=5, frame=inv)"
+                       b" Count(Range(frame=tq, rowID=1,"
+                       b" start=\"2001-09-09T00:00\","
+                       b" end=\"2001-09-10T00:00\"))")
+    assert json.loads(out) == {"results": [{"attrs": {}, "bits": [1]}, 1]}
+    assert sorted(server.holder.frame("i", "tq").views) == [
+        "standard", "standard_2001", "standard_200109", "standard_20010909",
+        "standard_2017", "standard_201701", "standard_20170102"]
     # Untimed writes to the time-quantum frame land in its standard view.
     assert http(server, "POST", "/index/i/query",
-                b"SetBit(frame=tq, rowID=1, columnID=2)")[0] == 200
+                b"SetBit(frame=tq, rowID=1, columnID=4)")[0] == 200
 
 
 @pytest.mark.parametrize("stop", [signal.SIGINT, signal.SIGTERM])

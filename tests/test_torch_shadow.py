@@ -11,7 +11,10 @@ SetColumnAttrs queries, protobuf ``/import``, Count trees of
 Intersect/Union/Difference, every TopN form of
 ``tests/test_torch_topn.py``, Bitmap calls, and the query whose
 proven-empty branch beside a missing frame the JAX planner answers
-with 0. Then ``pilosa_tpu.obs.replay.shadow`` replays the JAX server's
+with 0; and on two frames the test adds (a BSI field, a time quantum
+with inverse storage) SetFieldValue, the protobuf field import,
+timestamped SetBit and ``/import``, time and field ``Range``, ``Sum``,
+``Min``, ``Max`` and ``Bitmap(columnID=...)``. Then ``pilosa_tpu.obs.replay.shadow`` replays the JAX server's
 captured records against both: every write again, in recorded order,
 then every read, whose result digests must match.
 
@@ -73,8 +76,75 @@ def _import_body(rng, frame, n):
                                 ).SerializeToString()
 
 
+def _ts(day, hour):
+    return (f"2017-{1 + day // 28:02d}-{1 + day % 28:02d}T{hour:02d}:"
+            f"{(day * 7) % 60:02d}")
+
+
+def _ns(day, hour):
+    import datetime as dt
+    t = dt.datetime(2017, 1 + day // 28, 1 + day % 28, hour, (day * 7) % 60)
+    return int((t - dt.datetime(1970, 1, 1)).total_seconds()) * 10**9
+
+
+def _views_workload(rng):
+    """Steps on the frames ``bsi`` (field ``amt``) and ``tq`` (time
+    quantum YMD, inverse storage): ("query", pql), ("import", body) or
+    ("field_import", body)."""
+    steps = []
+    n_cols = N_SLICES * SLICE_WIDTH
+    for i in range(20):
+        steps.append(("query", f"SetFieldValue(frame=bsi,"
+                               f" columnID={int(rng.integers(n_cols))},"
+                               f" amt={int(rng.integers(-100, 5001))})"))
+        day, hour = int(rng.integers(300)), int(rng.integers(24))
+        steps.append(("query", f"SetBit(frame=tq, rowID={i % 7},"
+                               f" columnID={int(rng.integers(n_cols))},"
+                               f' timestamp="{_ts(day, hour)}")'))
+    for s in range(N_SLICES):
+        cols = s * SLICE_WIDTH + rng.choice(SLICE_WIDTH, 400, replace=False)
+        steps.append(("field_import", jax_pb.ImportValueRequest(
+            Index="d", Frame="bsi", Field="amt", Slice=s,
+            ColumnIDs=cols.tolist(),
+            Values=rng.integers(-100, 5001, 400).tolist()
+        ).SerializeToString()))
+        days = rng.integers(300, size=500)
+        hours = rng.integers(24, size=500)
+        steps.append(("import", jax_pb.ImportRequest(
+            Index="d", Frame="tq", Slice=s,
+            RowIDs=rng.integers(7, size=500).tolist(),
+            ColumnIDs=(s * SLICE_WIDTH + rng.integers(
+                SLICE_WIDTH, size=500)).tolist(),
+            Timestamps=[_ns(int(d), int(h)) for d, h in zip(days, hours)]
+        ).SerializeToString()))
+    steps.append(("query", "SetBit(frame=tq, rowID=3, columnID=11)"))
+    reads = [
+        "Count(Range(frame=bsi, amt > 100))",
+        "Count(Range(frame=bsi, amt >< [-50, 2500]))",
+        "Count(Range(frame=bsi, amt == 7))",
+        "Count(Range(frame=bsi, amt != 7))",
+        "Range(frame=bsi, amt < -90)",
+        "Sum(frame=bsi, field=amt)", "Min(frame=bsi, field=amt)",
+        "Max(frame=bsi, field=amt)",
+        "Sum(Bitmap(frame=tq, rowID=2), frame=bsi, field=amt)",
+        "Max(Range(frame=tq, rowID=1, start=\"2017-01-01T00:00\","
+        " end=\"2017-07-01T00:00\"), frame=bsi, field=amt)",
+        "Bitmap(columnID=11, frame=tq)",
+        "Count(Bitmap(columnID=11, frame=tq))",
+    ]
+    for _ in range(8):
+        a, b = sorted(int(d) for d in rng.integers(300, size=2))
+        r = int(rng.integers(7))
+        rq = (f'Range(frame=tq, rowID={r}, start="{_ts(a, 3)[:-3]}:00",'
+              f' end="{_ts(b, 20)[:-3]}:00")')
+        reads += [f"Count({rq})", rq]
+    steps += [("query", q) for q in reads]
+    return steps
+
+
 def _workload(rng):
-    """(kind, payload) steps: ("query", pql) or ("import", body)."""
+    """(kind, payload) steps: ("query", pql), ("import", body) or
+    ("field_import", body)."""
     steps = []
     for i in range(60):
         frame = WRITE_FRAMES[i % 3]
@@ -106,7 +176,7 @@ def _workload(rng):
               'Bitmap(rowID=5, frame="fs"))',
               'Intersect(Bitmap(rowID=1, frame="f"), Union())'):
         steps.append(("query", q))
-    return steps
+    return steps + _views_workload(rng)
 
 
 @pytest.fixture(autouse=True)
@@ -133,10 +203,21 @@ def test_port_answers_the_captured_workload(tmp_path):
         steps = _workload(np.random.default_rng(607))
         proto = {"Content-Type": "application/x-protobuf",
                  "Accept": "application/x-protobuf"}
+        for host in (js.host, ps.host):
+            for path, body in (
+                    ("/index/d/frame/bsi", b'{"options": {"fields": [{"name":'
+                                           b' "amt", "min": -100, "max":'
+                                           b' 5000}]}}'),
+                    ("/index/d/frame/tq", b'{"options": {"timeQuantum": "YMD",'
+                                          b' "inverseEnabled": true}}')):
+                assert _post(host, path, body)[0] == 200
         for kind, payload in steps:
             for host in (js.host, ps.host):
                 if kind == "import":
                     assert _post(host, "/import", payload, proto)[0] == 200
+                elif kind == "field_import":
+                    assert _post(host, "/index/d/frame/bsi/field/amt/import",
+                                 payload, proto)[0] == 200
                 else:
                     status, _ = _post(host, "/index/d/query",
                                       payload.encode())
