@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs nine phases and prints one JSON line for each:
+checkout, then runs ten phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -19,7 +19,11 @@ checkout, then runs nine phases and prints one JSON line for each:
    size), one launch each; and the op count at the benchmark's shape
    [16, 2^25] for every op, at one long row, 1-D, W = 4k+1..3, W below
    one CTA's chunk, all-ones and bit-31 words and views at odd word
-   offsets. Then four times of each kernel at the main path's shapes,
+   offsets; the expression-words kernel at one slice row of a
+   1000-leaf Union, 256 slices of a 16-leaf Union (also into a dirty
+   output), a spill-slot tree, W = 4 and the BSI folds; the batched
+   expression count at K = 1, 2, 16 (also into a dirty output) and 22.
+   Then four times of each kernel at the main path's shapes,
    with the inputs rotated through copies so that the 50 MB L2 does not
    hold what a launch reads (pilosa_tpu_torch/ops/timing.py):
    ``ms``, the device time alone — K wrapper calls captured in one CUDA
@@ -28,7 +32,11 @@ checkout, then runs nine phases and prints one JSON line for each:
    wrapper calls (``call_ms - ms`` is the wrapper's host cost);
    ``profiler_ms``, torch.profiler's device time per call (null where
    the profiler records none), a cross-check of ``ms``; and
-   ``plain_ms``, CUDA events around calls of the plain version.
+   ``plain_ms``, CUDA events around calls of the plain version;
+   densify's ``library_ms`` is ``torch.zeros`` and ``scatter_add_`` on
+   its slots (checked against its words first); the expression-words
+   kernel is also timed at configuration 2's one slice row of a
+   1000-leaf Union (its leaf-split fold).
 2. ``count``: Count queries through ``Executor.execute`` over an index of
    256 slices (268,435,456 columns), cold and then resident.
 3. ``topn``: exact TopN through ``Executor.execute`` over 10 slices, the
@@ -69,7 +77,18 @@ checkout, then runs nine phases and prints one JSON line for each:
    inverse view under ``Bitmap(columnID=...)`` and a Count of two
    columns. Every answer held to a numpy reference from the seeded
    data; each Count's program length and device time against its bound.
-7. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
+7. ``batch``: the fused batch and the device materialize leg
+   (``phase_batch``): BASELINE configuration 2 (index ``c2``, one
+   slice, 1,000 rows of array and bitmap containers) under a Union and
+   a Difference of all of them and an Intersect of 8, cold, warm and as
+   a result-cache hit, against numpy and the port's host fold; at
+   configuration 4 the bitmap Union of ``smoke``'s rows 1-16, the
+   Difference of rows 1-8 and two bitmap field Ranges of ``b4``, each
+   split into kernel, copy and repack; and the multi-call bodies — 16
+   Counts, the filtered Sum, 4 Counts and 2 TopNs over ``t3`` — with
+   their launches (1, 1, 3) and host fetches (1 each) a warm run and
+   their warm time against the same calls as one-call queries.
+8. ``server``: ``pilosa_tpu_torch.server.server.Server`` on
    127.0.0.1:0 on the card over that directory, driven over HTTP with
    urllib: it creates frame ``g`` in ``smoke``, imports row 1 of ``g``
    at density 1/64 over all 256 slices as raw v2 positions and row 2 at
@@ -89,8 +108,13 @@ checkout, then runs nine phases and prints one JSON line for each:
    HTTP front's cost). Then phase 6's queries again (the protobuf
    ``ValCount`` decoded), a new field created over HTTP with its values
    through the protobuf field-import route, and a time quantum set by
-   ``PATCH`` under a timestamped SetBit and a Range.
-8. ``durability``: the port's ``server`` verb as a subprocess on the
+   ``PATCH`` under a timestamped SetBit and a Range; phase 7's
+   configuration-2 Union again. Last, one keep-alive connection sends
+   1,000 pipelined SetBit queries and 64 pipelined Counts (the HTTP
+   front's batch lane): every answer checked, requests/s and the
+   executor calls counted, and after the server closes every acked bit
+   is read back from the reopened fragment files.
+9. ``durability``: the port's ``server`` verb as a subprocess on the
    card over a fresh directory, seeded by protobuf ``/import`` with
    configuration 4's rows over 256 slices, takes a write storm (8
    threads of SetBit/ClearBit queries; after a quarter of it 2 threads
@@ -100,28 +124,32 @@ checkout, then runs nine phases and prints one JSON line for each:
    A ``Server`` in this process reopens the directory on the card: every
    acked write must be there and every acked ClearBit gone, no bit that
    was never written may appear, and Counts of every touched row over
-   HTTP (expression count, densify) and a sourced TopN over six of them
+   HTTP in one body (the batched expression count, densify) and a
+   sourced TopN over six of them
    (TopN block count) must equal the reopened fragments' host answers.
    It prints acked writes/s, import bits/s, the ack latency p50/p99
    (also for the writers alone and beside the imports), the
    WAL bytes at the kill, the respawn-to-ready seconds, the launches and
    the card's name and power limit.
-9. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+10. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Every answer of phases 2-5 and 7 is held to the host roaring answer
+Every answer of phases 2-5 and 8 is held to the host roaring answer
 computed from the port's own fragments, every answer of phase 6 to
-numpy, and every count of phase 9 to the host ``popcnt_and``. The
-kernels' launch counters are set to 0 before phase 2, before phase 6,
-before phase 7 and before phase 8's reopen, and read after phases 5,
-6, 7, 8 and 9: every kernel must have launched on that main path, the
-TopN block count in phase 4's device top-k, the TopN block count, the
-expression count and densify in its sourced queries, the expression
-count (every device Count(Range) and Sum) and densify in phase 6,
-again in the server phase by itself and again after phase 8's reopen,
-and the op count in phase 9. Then it prints the card's name and power limit, the kernel
+numpy, of phase 7 to numpy or to words packed on the host, and every
+count of phase 10 to the host ``popcnt_and``. The kernels' launch
+counters are set to 0 before phase 2, before phase 6, before phase 7,
+before phase 8 and before phase 9's reopen, and read after phases 5,
+6, 7, 8, 9 and 10: every kernel must have launched on that main path,
+the TopN block count in phase 4's device top-k, the TopN block count,
+the expression count and densify in its sourced queries, the
+expression count (every device Count(Range)), its batched entry (every
+Sum) and densify in phase 6, the expression-words kernel, the batched
+count and the TopN block count in phase 7, again in the server phase
+by itself and again after phase 9's reopen, and the op count in phase
+10. Then it prints the card's name and power limit, the kernel
 table as one JSON object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
@@ -134,6 +162,7 @@ import argparse
 import datetime as dt
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -239,6 +268,12 @@ def _balanced(lo, hi, ops):
             _balanced(mid, hi, ops))
 
 
+def _filtered_exprs(k):
+    """K programs over one leaf set, each a leaf ∧ leaf 0: a filtered
+    Sum's shape (leaf 0 the filter, leaf 1+i plane i)."""
+    return tuple(("and", ("leaf", 1 + i), ("leaf", 0)) for i in range(k))
+
+
 def _dirty_check(name, out_shape, call, want, device) -> int:
     """``call()`` once to warm the wrapper's caches, then again into
     memory that ``torch.empty`` hands back dirty (a freed all-ones tensor
@@ -338,6 +373,7 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
 
     # The BSI comparison folds of the fields phase: depth 21 at the
     # serving shape (22 planes of 256 slices); "><" needs a spill slot.
+    # The same folds as words (expr_words, the materializing Range).
     from pilosa_tpu_torch.storage import bsi
     planes = _rand_words(gen, (22, 256, W), device)
     for op, upred in (("<", 1_123_456), (">=", 654_321), ("==", 999_999),
@@ -349,8 +385,58 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             f"expr_count_rows[bsi {op} 256x{W}]",
             ck.expr_count_rows(expr, planes),
             ck.expr_count_rows_torch(expr, planes)))
+        err["expr_words"] = max(err["expr_words"], _check_equal(
+            f"expr_words[bsi {op} 256x{W}]", ck.expr_words(expr, planes),
+            ck.expr_words_torch(expr, planes)))
+        checks += 2
+
+    # The batched count: K = 1, 2 and 16 programs over the planes, each
+    # reading leaf 0 (a filter), then K = 16 into a dirty output.
+    for k in (1, 2, 16):
+        batch = _filtered_exprs(k)
+        err["expr_count_batch"] = max(err["expr_count_batch"], _check_equal(
+            f"expr_count_batch[K={k} 256x{W}]",
+            ck.expr_count_batch(batch, planes),
+            ck.expr_count_batch_torch(batch, planes)))
         checks += 1
+    err["expr_count_batch"] = max(err["expr_count_batch"], _dirty_check(
+        "expr_count_batch", (16, 256),
+        lambda: ck.expr_count_batch(batch, planes),
+        ck.expr_count_batch_torch(batch, planes), device))
+    checks += 1
     del planes
+
+    # expr_words: configuration 2's one slice row of a 1000-leaf Union
+    # (the leaf-split fold; a program longer than the kernel stages),
+    # the other flat folds there (an Intersect of 9, a Difference of
+    # 1000, a Xor of 1100: past the staged instructions), a flat fold
+    # whose last CTA is part full, configuration 4's 16-row Union over
+    # 256 slices (then into a dirty output), a tree that needs spill
+    # slots, W = 4.
+    folds = {"union": "or", "intersect": "and", "difference": "andnot",
+             "xor": "xor"}
+    for name, n_leaves, s, w in (("union1000", 1000, 1, W),
+                                 ("intersect9", 9, 1, W),
+                                 ("difference1000", 1000, 1, W),
+                                 ("xor1100", 1100, 1, W),
+                                 ("union20", 20, 3, 2052),
+                                 ("union16", 16, 256, W),
+                                 ("spill256", 256, 3, 2048),
+                                 ("mixed", 3, 7, 4)):
+        fold = folds.get(name.rstrip("0123456789"))
+        expr = _fold(fold, n_leaves) if fold else exprs[name]
+        leaves = _rand_words(gen, (n_leaves, s, w), device)
+        want = ck.expr_words_torch(expr, leaves)
+        err["expr_words"] = max(err["expr_words"], _check_equal(
+            f"expr_words[{name} {s}x{w}]", ck.expr_words(expr, leaves),
+            want))
+        checks += 1
+        if name == "union16":
+            err["expr_words"] = max(err["expr_words"], _dirty_check(
+                "expr_words", (256, W),
+                lambda: ck.expr_words(expr, leaves), want, device))
+            checks += 1
+        del leaves, want
 
     # Both redesigned kernels into dirty memory: nothing relies on a
     # memset.
@@ -393,6 +479,21 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
     long_row = [("and", dev_words(gen_dev, (1, BENCH_WORDS), device),
                  dev_words(gen_dev, (1, BENCH_WORDS), device))]
     lr_bytes = 2 * BENCH_WORDS * 4 + 4
+    words_sets = [(_fold("or", 16), _rand_words(gen, (16, 256, W), device))
+                  for _ in range(2)]
+    ew_bytes = 17 * 256 * W * 4
+    c2_sets = [(_fold("or", 1000), _rand_words(gen, (1000, 1, W), device))
+               for _ in range(2)]
+    c2_bytes = 1001 * W * 4
+    sum_exprs = _filtered_exprs(22)
+    sum_sets = [(sum_exprs, _rand_words(gen, (23, 256, W), device))
+                for _ in range(2)]
+    eb_bytes = 23 * 256 * W * 4 + 22 * 256 * 4
+    err["expr_count_batch"] = max(err["expr_count_batch"], _check_equal(
+        f"expr_count_batch[K=22 256x{W}]",
+        ck.expr_count_batch(*sum_sets[0]),
+        ck.expr_count_batch_torch(*sum_sets[0])))
+    checks += 1
 
     def times(kern, plain, args, iters, launches):
         try:
@@ -424,7 +525,15 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             ("op_count_rows", "pilosa_tpu_torch/ops/csrc/op_count.cu",
              "pilosa_tpu/ops/pallas_kernels.py:86", ck.op_count_rows,
              ck.op_count_rows_torch, bench_ops, oc_bytes, 20, 4,
-             f"bench of record: a, b [16, {BENCH_WORDS}]")):
+             f"bench of record: a, b [16, {BENCH_WORDS}]"),
+            ("expr_words", "pilosa_tpu_torch/ops/csrc/expr_words.cu",
+             "pilosa_tpu/parallel/programs.py:265", ck.expr_words,
+             ck.expr_words_torch, words_sets, ew_bytes, 50, 10,
+             f"configuration 4's bitmap Union: leaves [16, 256, {W}]"),
+            ("expr_count_batch", "pilosa_tpu_torch/ops/csrc/expr_count.cu",
+             "pilosa_tpu/parallel/mesh.py:627", ck.expr_count_batch,
+             ck.expr_count_batch_torch, sum_sets, eb_bytes, 50, 10,
+             f"filtered Sum: K = 22 over leaves [23, 256, {W}]")):
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": 0, "max_abs_err": err[name],
@@ -432,6 +541,7 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None, "shape": shape,
             "bytes": nbytes})
+    table[2].update(_densify_library(dens, W, device))
     keys = ("name", "shape", "ms", "call_ms", "profiler_ms", "plain_ms",
             "bound_ms", "library_ms")
     timings = [{k: e[k] for k in keys} for e in table]
@@ -441,11 +551,54 @@ def phase_kernels(device, seed: int, w_serving: int = 32768) -> dict:
         "shape": f"one long row: a, b [1, {BENCH_WORDS}]",
         **{k: lr[k] for k in ("ms", "call_ms", "profiler_ms", "plain_ms")},
         "bound_ms": lr_bytes / HBM_BYTES_PER_S * 1e3, "library_ms": None})
+    c2 = times(ck.expr_words, ck.expr_words_torch, c2_sets, 50, 10)
+    timings.append({
+        "name": "expr_words",
+        "shape": f"configuration 2's Union: leaves [1000, 1, {W}]",
+        **{k: c2[k] for k in ("ms", "call_ms", "profiler_ms", "plain_ms")},
+        "bound_ms": c2_bytes / HBM_BYTES_PER_S * 1e3, "library_ms": None})
     _emit({"phase": "kernels", "checks": checks, "exact": True,
-           "library_ms": "null: no single PyTorch call computes any of "
-                         "these functions (torch has no popcount op)",
+           "library_ms": "null for the expression count, its batched "
+                         "entry, the TopN block count and the op count: "
+                         "no single PyTorch call computes them (torch has "
+                         "no popcount op); null for expr_words: torch has "
+                         "no fused n-ary bitwise fold; densify: "
+                         "torch.zeros + scatter_add_ on the same slots "
+                         "(lane indices built outside the timed region)",
+           "densify_library_shape": table[2]["library_shape"],
            "timings": timings})
     return {e["name"]: e for e in table}
+
+
+def _densify_library(dens, n_words, device) -> dict:
+    """densify's yardstick: ``torch.zeros`` of the ``[T, subs, 128]``
+    output, then ``scatter_add_`` of the slots' values at their lanes —
+    the same words on every slot set bucket_prepared builds (each set
+    word has exactly one slot, padding slots hold 0), held to densify's
+    words first. The int64 lane indices are built outside the timed
+    region."""
+    import torch
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.ops import timing
+
+    t_rows, subs, _ = dens[0][0].shape
+    lib_args = [((lane & (ck.DENSIFY_LANES - 1)).long(), val)
+                for lane, val, _ in dens]
+
+    def library(lane_i64, val):
+        out = torch.zeros((t_rows, subs, ck.DENSIFY_LANES),
+                          dtype=torch.int32, device=device)
+        out.scatter_add_(2, lane_i64, val)
+        return out.view(t_rows, n_words)
+
+    saved = dict(ck.LAUNCHES)
+    _check_equal("densify[scatter_add_ library]", library(*lib_args[0]),
+                 ck.densify(*dens[0]))
+    ck.LAUNCHES.update(saved)
+    return {"library_ms": timing.graph_ms(library, lib_args, 20),
+            "library_shape": f"torch.zeros([{t_rows}, {subs}, 128]) + "
+                             f"scatter_add_(2, lane int64 {list(dens[0][0].shape)}, "
+                             f"val int32)"}
 
 
 def _timed_query(ex, index, q):
@@ -940,7 +1093,7 @@ def _answer_of(kind: str, r):
 def phase_server(data_dir, device, seed: int, ids200: list,
                  topn1000=(), fields=(), n_slices: int = 256,
                  n_topn_slices: int = 10) -> dict:
-    """The port's server on the card over phases 2-6's directory,
+    """The port's server on the card over phases 2-7's directory,
     driven over HTTP; every answer held to the host roaring answer from
     the server's own fragments, each (name, index, query, answer) of
     ``topn1000`` to the answer it gave through the executor in phase 4
@@ -1102,8 +1255,11 @@ def phase_server(data_dir, device, seed: int, ids200: list,
             results.append(entry)
         if fields:
             results += _server_field_routes(host, rng)
+        pipeline, acked = _server_pipeline(srv, rng, n_slices)
     finally:
         srv.close()
+    pipeline["acked_present_after_reopen"] = _check_acked_after_reopen(
+        *acked)
     launches = dict(ck.LAUNCHES)
     for name in ("expr_count_rows", "topn_block_count", "densify"):
         if launches[name] <= 0:
@@ -1112,7 +1268,7 @@ def phase_server(data_dir, device, seed: int, ids200: list,
            "open_s": open_s, "raw_import_s": raw_s,
            "raw_import_bytes": raw_bytes, "pb_import_s": pb_s,
            "pb_import_bytes": pb_bytes, "queries": results,
-           "launches": launches}
+           "pipeline": pipeline, "launches": launches}
     _emit(out)
     return out
 
@@ -1280,13 +1436,15 @@ def phase_planner(holder, device) -> dict:
               f"{rec_re['decisions']}")
 
     # CSE: Intersect(0, 1) in three queries; the third hits per slice.
+    # (No query repeats another whole: the bitmap-result cache would
+    # answer it without a per-slice fold.)
     inter = f"Intersect({bf(0)}, {bf(1)})"
     cse = [("cse_first", f"Union({inter}, {bf(2)})",
             lambda f: f.row(0).intersect(f.row(1)).union(f.row(2))),
            ("cse_second", f"Difference({inter}, {bf(3)})",
             lambda f: f.row(0).intersect(f.row(1)).difference(f.row(3))),
-           ("cse_third", f"Union({inter}, {bf(2)})",
-            lambda f: f.row(0).intersect(f.row(1)).union(f.row(2)))]
+           ("cse_third", f"Union({inter}, {bf(4)})",
+            lambda f: f.row(0).intersect(f.row(1)).union(f.row(4)))]
     sub = ex.planner.subresults
     for name, q, fn in cse:
         hits0 = sub.hits
@@ -1333,6 +1491,22 @@ def phase_planner(holder, device) -> dict:
 
 FIELD_MIN, FIELD_MAX = -1_000_000, 1_000_000  # configuration 4's field
 TIME_QUANTUM = "YMDH"
+
+
+def _b4_data(rng, n_slices: int):
+    """(columns, values, filter columns) of configuration 4's field
+    ``amount`` and filter row, drawn from ``rng`` in this order: one
+    column in 64 valued, values uniform in [FIELD_MIN, FIELD_MAX], the
+    filter an eighth of the valued columns and 1,000 others."""
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH
+    n_cols = n_slices * SLICE_WIDTH
+    cols = (np.arange(0, n_cols, 64, dtype=np.uint64)
+            + rng.integers(0, 64, size=n_cols // 64).astype(np.uint64))
+    vals = rng.integers(FIELD_MIN, FIELD_MAX + 1, size=len(cols))
+    in_seg = rng.random(len(cols)) < 0.125
+    seg_cols = np.concatenate([cols[in_seg], cols[~in_seg][:1000] + 1])
+    return cols, vals, seg_cols
 
 
 def _hour(t):
@@ -1415,13 +1589,8 @@ def phase_fields(holder, device, seed: int, n_slices: int = 256,
     idx = holder.create_index("b4")
     v = idx.create_frame("v")
     field = v.create_field(Field("amount", FIELD_MIN, FIELD_MAX))
-    n_cols = n_slices * SLICE_WIDTH
-    cols = (np.arange(0, n_cols, 64, dtype=np.uint64)
-            + rng.integers(0, 64, size=n_cols // 64).astype(np.uint64))
-    vals = rng.integers(FIELD_MIN, FIELD_MAX + 1, size=len(cols))
+    cols, vals, seg_cols = _b4_data(rng, n_slices)
     v.import_field_values("amount", cols, vals)
-    in_seg = rng.random(len(cols)) < 0.125
-    seg_cols = np.concatenate([cols[in_seg], cols[~in_seg][:1000] + 1])
     idx.create_frame("seg").import_bits(
         np.full(len(seg_cols), 1, np.uint64), np.sort(seg_cols))
     bsi_load_s = time.perf_counter() - t0
@@ -1486,9 +1655,10 @@ def phase_fields(holder, device, seed: int, n_slices: int = 256,
         e = ask(name, "b4", q, want, "valcount")
         served.append((name, "b4", q, "valcount", want))
         if name.startswith("sum"):
-            if e["launches"].get("expr_count_rows") != depth + 1:
-                _fail(f"fields {name}: {e['launches']} launches, not "
-                      f"{depth + 1} expression counts")
+            if (e["launches"].get("expr_count_batch") != 1
+                    or "expr_count_rows" in e["launches"]):
+                _fail(f"fields {name}: {e['launches']} launches, not one "
+                      f"batched count of {depth + 1} expressions")
             c = parse(q).calls[0]
             exprs, leaves = ex._sum_exprs("b4", "v", field, (
                 c.children[0] if c.children else None))
@@ -1612,9 +1782,11 @@ def phase_fields(holder, device, seed: int, n_slices: int = 256,
 def _fields_device_time(name, exprs, arrs, n_slices) -> dict:
     """The expressions of one query (a Count's one, a Sum's depth+1)
     over its resident slabs ``arrs``: each count held to its plain
-    version, then the device time of all of them (one CUDA graph) and
-    the plain versions' time, against the bound of reading each slab
-    once. Launches made here do not count as the main path's."""
+    version, then the device time of the query's launch (a Sum's one
+    batched count) and of the expressions launched one by one (a Sum
+    without the batched entry), each in one CUDA graph, and the plain versions' time, against
+    the bound of reading each slab once. Launches made here do not
+    count as the main path's."""
     import torch
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.ops import cuda_kernels as ck
@@ -1633,21 +1805,506 @@ def _fields_device_time(name, exprs, arrs, n_slices) -> dict:
     def plain():
         return [ck.expr_count_rows_torch(e, ls) for e, ls in per]
 
+    def batched():
+        return ck.expr_count_batch(tuple(exprs), arrs)
+
     saved = dict(ck.LAUNCHES)
+    out = {}
     try:
         for got, want in zip(run(), plain()):
             if not torch.equal(got, want):
                 _fail(f"fields {name}: expr_count_rows differs from its"
                       " plain version on the resident slabs")
-        device_ms = timing.graph_ms(run, [()], 10 if len(per) == 1 else 2)
-        plain_ms = timing.events_ms(plain, [()], 3, warmup=1)
+        if len(per) == 1:
+            out["device_ms"] = timing.graph_ms(run, [()], 10)
+        else:
+            if not torch.equal(batched(), torch.stack(plain())):
+                _fail(f"fields {name}: expr_count_batch differs from the"
+                      " plain counts on the resident slabs")
+            out["device_ms"] = timing.graph_ms(batched, [()], 5)
+            out["per_expr_device_ms"] = timing.graph_ms(run, [()], 2)
+        out["plain_ms"] = timing.events_ms(plain, [()], 3, warmup=1)
     finally:
         ck.LAUNCHES.update(saved)
     n_read = len({i for e in exprs for i in mesh_mod.expr_leaf_ids(e)})
     slab = n_slices * SLICE_WIDTH // 8
-    return {"leaves": n_read, "device_ms": device_ms, "plain_ms": plain_ms,
+    return {"leaves": n_read, **out,
             "bound_ms": (n_read * slab + len(per) * n_slices * 4)
             / HBM_BYTES_PER_S * 1e3}
+
+
+C2_ROWS = 1000  # BASELINE configuration 2: Union/Difference over 1K rows
+
+
+def _c2_rows(rng) -> dict:
+    """Configuration 2's rows of one slice, as the JAX suite builds them
+    (benchmarks/suite.py config2_executor_wide_union): 900 rows of 500
+    random columns (array containers) and, every tenth row, half of one
+    65,536-column container (bitmap containers: container (r // 10) % 12,
+    so 8 or 9 dense rows share each)."""
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH
+    rows = {}
+    for r in range(C2_ROWS):
+        if r % 10 == 0:
+            base = ((r // 10) % 12) * 65536
+            cols = base + rng.choice(65536, 32768, replace=False)
+        else:
+            cols = rng.choice(SLICE_WIDTH, 500, replace=False)
+        rows[r] = np.sort(cols).astype(np.uint64)
+    return rows
+
+
+def _bitmap_words(bm, n_slices: int):
+    """``[n_slices, W]`` u32 dense words of a result Bitmap."""
+    import numpy as np
+    from pilosa_tpu_torch.ops import packed
+    out = np.zeros((n_slices, packed.WORDS_PER_SLICE), dtype=np.uint32)
+    for seg in bm.segments:
+        idx, vals = packed.sparse_words(
+            seg.data, packed.WORDS_PER_SLICE,
+            base_word=seg.slice * packed.WORDS_PER_SLICE)
+        out[seg.slice, idx] = vals
+    return out
+
+
+def _row_words(holder, index, frame, rows, n_slices: int):
+    """``{row: [n_slices, W] u32}`` packed from the fragments (host)."""
+    import numpy as np
+    from pilosa_tpu_torch.ops import packed
+    out = {}
+    for r in rows:
+        w = np.zeros((n_slices, packed.WORDS_PER_SLICE), dtype=np.uint32)
+        for s in range(n_slices):
+            frag = holder.fragment(index, frame, "standard", s)
+            if frag is not None:
+                frag.pack_row(r, out=w[s], cached=False)
+        out[r] = w
+    return out
+
+
+def _batch_bitmap(ex, host_ex, index, name, q, check,
+                  cold: bool = True) -> dict:
+    """One bitmap call: cold (result cache and resident slabs cleared;
+    with ``cold``), warm (result cache cleared, slabs resident) and
+    resident (a result cache hit where the result fits the cache), each
+    answer passed to ``check``; then, with ``host_ex``, the port's host
+    path (the device declined by its byte bound: fold_rows for plain
+    folds) on the same call."""
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import residency
+    entry = {"query": name}
+    if cold:
+        residency.device_cache().clear()
+    for state in ("cold", "warm", "resident")[0 if cold else 1:]:
+        if state != "resident":
+            ex.clear_result_cache()
+        hits = ex.result_cache_hits
+        before = dict(ck.LAUNCHES)
+        out, entry[f"{state}_ms"] = _timed_query(ex, index, q)
+        check(f"{name} ({state})", out[0])
+        entry[f"{state}_launches"] = {k: ck.LAUNCHES[k] - before[k]
+                                      for k in before
+                                      if ck.LAUNCHES[k] != before[k]}
+        if state == "resident":
+            entry["cache_hit"] = ex.result_cache_hits > hits
+    if entry["warm_launches"] != {"expr_words": 1}:
+        _fail(f"batch {name}: warm launches {entry['warm_launches']}, not"
+              " one expr_words")
+    if host_ex is not None:
+        out, entry["host_ms"] = _timed_query(host_ex, index, q)
+        check(f"{name} (host path)", out[0])
+    entry["bits"] = out[0].count()
+    return entry
+
+
+def _materialize_split(ex, index, q, slices) -> dict:
+    """The device leg of one bitmap call in its three parts: the
+    expression-words kernel over the resident slabs (device time, CUDA
+    graph), the device-to-host copy of the words and the host repack to
+    roaring. Launches made here do not count as the main path's."""
+    import torch
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.ops import timing
+    from pilosa_tpu_torch.parallel import mesh as mesh_mod
+    from pilosa_tpu_torch.pql.parser import parse
+    leaves = []
+    expr = ex._compile_device_expr(index, parse(q).calls[0], leaves)
+    arrs = [ex._leaf_device_array(index, leaf, tuple(slices))
+            for leaf in leaves]
+    saved = dict(ck.LAUNCHES)
+    try:
+        kernel_ms = timing.graph_ms(
+            lambda: mesh_mod.materialize_words(expr, arrs), [()], 5)
+        words = mesh_mod.materialize_words(expr, arrs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = mesh_mod.fetch_words(words)
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ex._repack_words(host, list(slices))
+        repack_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _repack_per_container(host)
+        per_container_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ck.LAUNCHES.update(saved)
+    n_bytes = (len(leaves) + 1) * words.numel() * 4
+    return {"leaves": len(leaves), "kernel_ms": kernel_ms,
+            "copy_ms": copy_ms, "repack_ms": repack_ms,
+            "repack_per_container_ms": per_container_ms,
+            "kernel_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "copy_mib": words.numel() * 4 / 2**20}
+
+
+def _repack_per_container(words) -> int:
+    """The repack as the JAX package does it, one numpy expansion a
+    sparse container (roaring.bitmap_words_to_values), for a time beside
+    the port's one pass a slice; returns the containers built."""
+    import numpy as np
+    from pilosa_tpu_torch.storage import roaring
+    n = 0
+    for row in words:
+        w64 = row.view("<u8").reshape(-1, 1024)
+        counts = np.bitwise_count(w64).astype(np.int64).sum(axis=1)
+        for ci in np.flatnonzero(counts).tolist():
+            if counts[ci] > roaring.ARRAY_MAX_SIZE:
+                roaring.Container.from_bitmap(w64[ci], n=int(counts[ci]),
+                                              mapped=True)
+            else:
+                roaring.Container.from_array(
+                    roaring.bitmap_words_to_values(w64[ci]))
+            n += 1
+    return n
+
+
+def _multi_call(ex, index, name, body, singles, want_launches,
+                runs: int = 5) -> dict:
+    """A multi-call body against the same calls sent one call a query:
+    cold once (slabs resident after), then ``runs`` warm runs of each in
+    turns; the body's launches a warm run must be ``want_launches`` and
+    its answers equal the one-call answers. The body's device-to-host
+    fetches (mesh.FETCHES) a warm run must be one."""
+    import statistics
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.parallel import mesh
+    ex.execute(index, body)
+    body_ms, single_ms = [], []
+    launches = None
+    fetches = []
+    for _ in range(runs):
+        before = dict(ck.LAUNCHES)
+        mesh.FETCHES["host"] = 0
+        got, ms = _timed_query(ex, index, body)
+        body_ms.append(ms)
+        fetches.append(mesh.FETCHES["host"])
+        launches = {k: ck.LAUNCHES[k] - before[k] for k in before
+                    if ck.LAUNCHES[k] != before[k]}
+        want, total = [], 0.0
+        for q in singles:
+            out, ms = _timed_query(ex, index, q)
+            want += out
+            total += ms
+        single_ms.append(total)
+        if [_answer_of(_kind(r), r) for r in got] != \
+                [_answer_of(_kind(r), r) for r in want]:
+            _fail(f"batch {name}: the body's answers differ from the"
+                  " one-call answers")
+    if sum(launches.values()) != want_launches:
+        _fail(f"batch {name}: {launches} launches a warm run, not"
+              f" {want_launches}")
+    if set(fetches) != {1}:
+        _fail(f"batch {name}: {fetches} host fetches a warm run, not 1")
+    return {"query": name, "calls": len(singles), "launches": launches,
+            "host_fetches": fetches[-1],
+            "warm_ms": statistics.median(body_ms),
+            "one_call_queries_warm_ms": statistics.median(single_ms),
+            "answers": [_answer_of(_kind(r), r) for r in got][:6]}
+
+
+def _kind(r) -> str:
+    if isinstance(r, int):
+        return "count"
+    if hasattr(r, "value"):
+        return "valcount"
+    return "topn" if isinstance(r, list) else "bitmap"
+
+
+def phase_batch(holder, device, seed: int, n_slices: int = 256) -> tuple:
+    """The fused batch and the device materialize leg through
+    ``Executor.execute``:
+
+    - BASELINE configuration 2: index ``c2``, one slice, 1,000 rows
+      (``_c2_rows``); Union and Difference of all 1,000 and an
+      Intersect of 8 dense rows, cold, warm and resident, each held to
+      numpy and to the port's host path (fold_rows).
+    - Configuration 4: over ``smoke`` (256 slices) the bitmap Union of
+      rows 1-16 and Difference of rows 1-8, held to words packed from
+      the fragments on the host; over ``b4`` a bitmap field Range
+      ``>`` and ``><``, held to numpy; each split into kernel, copy
+      and repack.
+    - Multi-call bodies: the 16 Counts of the count phase's rows, the
+      filtered Sum of ``b4`` and, over ``t3``, 4 Counts and 2 TopNs of
+      200 ids, each warm against the same calls as one-call queries;
+      1, 1 and 3 launches a warm run.
+
+    Returns the phase's line and the (name, index, query, kind, answer)
+    list that the server phase asks again over HTTP."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.pql.parser import parse
+
+    rng = np.random.default_rng(seed + 9)
+    t_phase = time.perf_counter()
+    ex = Executor(holder, device=device)
+    host_ex = Executor(holder, device=device, materialize_device_bytes=0,
+                       result_cache_bits=-1)
+    results, served = [], []
+
+    def bits_check(want):
+        def check(what, bm):
+            got = bm.bits()
+            if not np.array_equal(got, want):
+                _fail(f"batch {what}: {len(got)} bits, numpy {len(want)}"
+                      " (or their columns differ)")
+        return check
+
+    def words_check(want, n):
+        def check(what, bm):
+            if not np.array_equal(_bitmap_words(bm, n), want):
+                _fail(f"batch {what}: words differ from the host's")
+        return check
+
+    # -- configuration 2 -----------------------------------------------------
+    t0 = time.perf_counter()
+    rows = _c2_rows(rng)
+    frame = holder.create_index("c2").create_frame("f")
+    frame.import_bits(
+        np.concatenate([np.full(len(c), r, np.uint64)
+                        for r, c in rows.items()]),
+        np.concatenate(list(rows.values())))
+    c2_load_s = time.perf_counter() - t0
+    children = ", ".join(f"Bitmap(rowID={r}, frame=f)"
+                         for r in range(C2_ROWS))
+    rest = np.unique(np.concatenate([rows[r] for r in range(1, C2_ROWS)]))
+    dense8 = [r for r in range(0, C2_ROWS, 10) if (r // 10) % 12 == 0][:8]
+    inter = rows[dense8[0]]
+    for r in dense8[1:]:
+        inter = np.intersect1d(inter, rows[r])
+    union = np.union1d(rows[0], rest)
+    c2 = [("c2_union", f"Union({children})", union),
+          ("c2_difference", f"Difference({children})",
+           np.setdiff1d(rows[0], rest)),
+          ("c2_intersect8", "Intersect(" + ", ".join(
+              f"Bitmap(rowID={r}, frame=f)" for r in dense8) + ")", inter)]
+    for name, q, want in c2:
+        e = _batch_bitmap(ex, host_ex, "c2", name, q, bits_check(want))
+        e.update(_materialize_split(ex, "c2", q, [0]))
+        results.append(e)
+    served.append(("c2_union", "c2", c2[0][1], "bitmap", union.tolist()))
+
+    # -- configuration 4: bitmap Union, Difference and field Range -----------
+    words = _row_words(holder, "smoke", "f", range(1, 17), n_slices)
+    u16 = np.zeros_like(words[1])
+    for r in range(1, 17):
+        u16 |= words[r]
+    rest8 = np.zeros_like(words[1])
+    for r in range(2, 9):
+        rest8 |= words[r]
+    diff8 = words[1] & ~rest8
+    del words, rest8
+    slices = list(range(n_slices))
+    # At 256 slices the host path takes seconds a call: configuration 4
+    # is held to the host's words and to numpy, and only its first call
+    # runs cold.
+    for name, q, want in (
+            ("c4_union16", "Union(" + ", ".join(
+                f"Bitmap(rowID={r}, frame=f)" for r in range(1, 17)) + ")",
+             u16),
+            ("c4_difference8", "Difference(" + ", ".join(
+                f"Bitmap(rowID={r}, frame=f)" for r in range(1, 9)) + ")",
+             diff8)):
+        e = _batch_bitmap(ex, None, "smoke", name, q,
+                          words_check(want, n_slices),
+                          cold=name == "c4_union16")
+        e.update(_materialize_split(ex, "smoke", q, slices))
+        results.append(e)
+    del u16, diff8
+    cols, vals, seg_cols = _b4_data(np.random.default_rng(seed + 7),
+                                    n_slices)
+    order = np.argsort(cols)
+    cols, vals = cols[order], vals[order]
+    for name, q, mask in (
+            ("b4_range_gt", "Range(frame=v, amount > 500000)",
+             vals > 500_000),
+            ("b4_range_between", "Range(frame=v, amount >< [-200000,"
+                                 " 600000])",
+             (vals >= -200_000) & (vals <= 600_000))):
+        e = _batch_bitmap(ex, None, "b4", name, q, bits_check(cols[mask]),
+                          cold=False)
+        e.update(_materialize_split(ex, "b4", q, slices))
+        results.append(e)
+
+    # -- multi-call bodies -----------------------------------------------------
+    counts16 = [f"Count(Intersect(Bitmap(rowID={r}, frame=f),"
+                f" Bitmap(rowID={r % 16 + 1}, frame=f)))"
+                for r in range(1, 17)]
+    multi = [_multi_call(ex, "smoke", "counts16", " ".join(counts16),
+                         counts16, 1)]
+    fsum = "Sum(Bitmap(frame=seg, rowID=1), frame=v, field=amount)"
+    e = _multi_call(ex, "b4", "sum_filtered", fsum, [fsum], 1)
+    seg_vals = vals[np.isin(cols, seg_cols)]
+    if e["answers"] != [(int(seg_vals.sum()), len(seg_vals))]:
+        _fail(f"batch sum_filtered: {e['answers']} != numpy")
+    field = holder.frame("b4", "v").field("amount")
+    exprs, leaves = ex._sum_exprs("b4", "v", field,
+                                  parse(fsum).calls[0].children[0])
+    arrs = [ex._leaf_device_array("b4", leaf, tuple(slices))
+            for leaf in leaves]
+    e.update(_fields_device_time("sum_filtered", exprs, arrs, n_slices))
+    multi.append(e)
+    ids = sorted(rng.choice(2000, size=200, replace=False).tolist())
+    mixed = ["Count(Bitmap(rowID=3, frame=f))",
+             f"TopN(Bitmap(rowID=1, frame=f), frame=f, ids={ids})",
+             "Count(Intersect(Bitmap(rowID=1, frame=f),"
+             " Bitmap(rowID=2, frame=f)))",
+             "Count(Union(Bitmap(rowID=4, frame=f), Bitmap(rowID=5,"
+             " frame=f)))",
+             f"TopN(Bitmap(rowID=2, frame=f), frame=f, ids={ids})",
+             "Count(Bitmap(rowID=6, frame=f))"]
+    multi.append(_multi_call(ex, "t3", "counts4_topn2", " ".join(mixed),
+                             mixed, 3))
+    torch.cuda.synchronize()
+    out = {"phase": "batch", "c2_rows": C2_ROWS, "c2_load_s": c2_load_s,
+           "bitmap_calls": results, "multi_call": multi,
+           "launches": dict(ck.LAUNCHES),
+           "phase_s": time.perf_counter() - t_phase, "card": _card()}
+    _emit(out)
+    return out, served
+
+
+def _server_pipeline(srv, rng, n_slices: int = 256, n_writes: int = 1000,
+                     n_counts: int = 64) -> dict:
+    """The HTTP front's batch lane on the running server: one keep-alive
+    connection sends ``n_writes`` pipelined SetBit POSTs (row 100 of
+    ``smoke/g``, the last 10 repeating earlier columns, which answer
+    false as they would sent alone) in one write, then ``n_counts``
+    pipelined Count POSTs; every response checked, requests/s and the
+    executor calls they made counted. Returns the line and the acked
+    (slice, column) pairs for the reopen check."""
+    import socket
+
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH
+
+    calls = {"execute_partial": 0, "execute": 0}
+    ex = srv.executor
+    real = {name: getattr(ex, name) for name in calls}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return call
+
+    cols = rng.choice(n_slices * SLICE_WIDTH, size=n_writes - 10,
+                      replace=False).tolist()
+    cols += cols[:10]
+    writes = [f"SetBit(frame=g, rowID=100, columnID={c})" for c in cols]
+    want_w = [b'{"results": [true]}\n'] * (n_writes - 10) + \
+        [b'{"results": [false]}\n'] * 10
+    reads = ["Count(Bitmap(rowID=100, frame=g))",
+             "Count(Intersect(Bitmap(rowID=100, frame=g),"
+             " Bitmap(rowID=1, frame=g)))"]
+    h, port = srv.host.split(":")
+
+    def pipelined(bodies):
+        reqs = b"".join(
+            f"POST /index/smoke/query HTTP/1.1\r\nHost: x\r\n"
+            f"Content-Length: {len(b)}\r\n\r\n{b}".encode()
+            for b in bodies)
+        got, buf = [], b""
+        t0 = time.perf_counter()
+        with socket.create_connection((h, int(port)), timeout=600) as s:
+            s.sendall(reqs)
+            while len(got) < len(bodies):
+                end = buf.find(b"\r\n\r\n")
+                if end >= 0:
+                    head = buf[:end].decode("latin-1").lower()
+                    n = int(head.split("content-length:")[1]
+                            .split("\r\n")[0])
+                    if len(buf) >= end + 4 + n:
+                        if not head.startswith("http/1.1 200"):
+                            _fail(f"server pipeline: {head[:40]!r}")
+                        got.append(buf[end + 4:end + 4 + n])
+                        buf = buf[end + 4 + n:]
+                        continue
+                chunk = s.recv(1 << 20)
+                if not chunk:
+                    _fail("server pipeline: connection closed early")
+                buf += chunk
+        return got, time.perf_counter() - t0
+
+    for name in calls:
+        setattr(ex, name, counted(name))
+    try:
+        got_w, w_s = pipelined(writes)
+        w_calls = dict(calls)
+        got_r, r_s = pipelined([reads[i % 2] for i in range(n_counts)])
+    finally:
+        for name in calls:
+            setattr(ex, name, real[name])
+    if got_w != want_w:
+        bad = next(i for i, (a, b) in enumerate(zip(got_w, want_w))
+                   if a != b)
+        _fail(f"server pipeline: SetBit {bad} answered {got_w[bad]!r}")
+    g1 = np.concatenate([srv.holder.fragment("smoke", "g", "standard", s)
+                         .row(1).bits() for s in range(n_slices)])
+    uniq = set(cols)
+    want_r = [len(uniq), int(np.isin(np.fromiter(uniq, np.uint64),
+                                     g1).sum())]
+    for i, body in enumerate(got_r):
+        if json.loads(body) != {"results": [want_r[i % 2]]}:
+            _fail(f"server pipeline: Count {i} answered {body!r}, host"
+                  f" {want_r[i % 2]}")
+    paths = {s: srv.holder.fragment("smoke", "g", "standard", s).path
+             for s in {c // SLICE_WIDTH for c in uniq}}
+    def executor_calls(c):
+        # execute_partial runs through execute: count each call once.
+        return {"batched_runs": c["execute_partial"],
+                "one_by_one": c["execute"] - c["execute_partial"]}
+
+    line = {"setbit_requests": n_writes, "setbit_s": w_s,
+            "setbit_requests_per_s": n_writes / w_s,
+            "setbit_executor_calls": executor_calls(w_calls),
+            "count_requests": n_counts, "count_s": r_s,
+            "count_requests_per_s": n_counts / r_s,
+            "count_executor_calls": executor_calls(
+                {k: calls[k] - w_calls[k] for k in calls})}
+    return line, (paths, sorted(uniq))
+
+
+def _check_acked_after_reopen(paths: dict, cols: list) -> int:
+    """Open each touched fragment file of ``smoke/g`` anew: every acked
+    pipelined SetBit of row 100 must be there."""
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.storage.fragment import Fragment
+    have = set()
+    for s, path in paths.items():
+        frag = Fragment(path, "smoke", "g", "standard", s)
+        frag.open()
+        try:
+            have.update(frag.row(100).bits().tolist())
+        finally:
+            frag.close()
+    lost = [c for c in cols if c not in have]
+    if lost:
+        _fail(f"server pipeline: {len(lost)} acked SetBits missing after"
+              f" the reopen (first column {lost[0]}, slice"
+              f" {lost[0] // SLICE_WIDTH})")
+    return len(cols)
 
 
 def _wsgi_post(app, path, body):
@@ -1725,8 +2382,9 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
     slices (rows 200-219) and one thread importing 65,536-bit batches
     into slice 0 (rows 300-309), which drives that fragment past
     MAX_OP_N so that background snapshots swap its WAL (the data file's
-    inode changes) mid-storm. Each thread records what was acked (HTTP
-    200). The
+    inode changes and it shrinks) mid-storm; the storm runs on, for at
+    most 60 s, until one swap has been seen. Each thread records what
+    was acked (HTTP 200). The
     server is killed with SIGKILL; a ``Server`` in this process reopens
     the directory on the card and must hold (a) every acked SetBit and
     import bit and none of the acked ClearBits (for bits whose last op
@@ -1772,6 +2430,8 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
     batches: list = []     # [row * 2^28 + col positions, acked]
     lat_ms: list = []
     swaps = [0]
+    watched = {"max_bytes": 0}
+    import_tally: dict = {}   # first row of an import thread -> tally
     cols_total = np.uint64(n_slices * SW)
 
     def writer(k):
@@ -1799,8 +2459,10 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
             lat_ms.append((t0, (time.perf_counter() - t0) * 1e3))
             entry[3] = True
 
-    def importer(row0, slice_=None, k=0):
+    def importer(row0, slice_=None):
         g = np.random.default_rng(seed * 1000 + 100 + row0)
+        tally = import_tally.setdefault(row0, {"acked": 0, "failed": 0,
+                                               "error": None})
         while not halt.is_set():
             s = int(g.integers(n_slices)) if slice_ is None else slice_
             rows = row0 + g.integers(10, size=65536).astype(np.uint64)
@@ -1814,21 +2476,32 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
             try:
                 post("/import", body, {"Content-Type": PB, "Accept": PB},
                      timeout=120)
-            except (OSError, urllib.error.URLError):
+            except (OSError, urllib.error.URLError) as e:
+                tally["failed"] += 1
+                tally["error"] = repr(e)[:200]
                 continue
+            tally["acked"] += 1
             entry[1] = True
 
     def watcher():
+        # A snapshot swap renames a new file over the data file (a new
+        # inode) and folds the WAL tail into the body (the file shrinks:
+        # the log only grows between swaps). Either sign counts, since
+        # a file system may reuse or synthesize inode numbers.
         path = os.path.join(frag_dir, "0")
-        last = os.stat(path).st_ino
+        st = os.stat(path)
+        last, size = (st.st_dev, st.st_ino), st.st_size
         while not halt.is_set():
             try:
-                ino = os.stat(path).st_ino
+                st = os.stat(path)
             except FileNotFoundError:
-                ino = last  # mid-rename
-            if ino != last:
+                time.sleep(0.02)  # mid-rename
+                continue
+            ident = (st.st_dev, st.st_ino)
+            if ident != last or st.st_size < size:
                 swaps[0] += 1
-                last = ino
+            last, size = ident, st.st_size
+            watched["max_bytes"] = max(watched["max_bytes"], size)
             time.sleep(0.02)
 
     t_spawn = time.perf_counter()
@@ -1879,6 +2552,14 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
         for t in loaders:
             t.start()
         time.sleep(storm_s * 3 / 4)
+        # The kill must land after at least one snapshot swapped slice
+        # 0's WAL: on a slow host or disk the storm runs on until one
+        # has, for at most 60 s more.
+        t_end = time.perf_counter() + 60.0
+        while not swaps[0] and time.perf_counter() < t_end:
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
         proc.send_signal(signal.SIGKILL)
         storm_wall = time.perf_counter() - t_storm
         halt.set()
@@ -1893,7 +2574,17 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
     if any(t.is_alive() for t in threads):
         _fail("durability: a storm thread did not stop")
     if not swaps[0]:
-        _fail("durability: no snapshot swapped slice 0's WAL mid-storm")
+        try:
+            with open(log_path, errors="replace") as f:
+                tail = f.read()[-2000:]
+        except OSError:
+            tail = ""
+        print(f"durability: server log tail:\n{tail}", file=sys.stderr)
+        free = shutil.disk_usage(tmp).free
+        _fail("durability: no snapshot swapped slice 0's WAL mid-storm "
+              f"(slice 0 imports {import_tally.get(300)}, data file at "
+              f"most {watched['max_bytes']} B, {free} B free under "
+              f"{tmp}, server rc {proc.returncode})")
 
     wal_bytes = snap_bytes = 0
     for name in os.listdir(frag_dir):
@@ -1985,7 +2676,9 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
         if got_topn != pairs:
             _fail(f"durability: TopN {got_topn} != host {pairs}")
         launches = dict(ck.LAUNCHES)
-        for name in ("expr_count_rows", "densify", "topn_block_count"):
+        # The Counts of the touched rows are one body: its runs take the
+        # batched expression count.
+        for name in ("expr_count_batch", "densify", "topn_block_count"):
             if not launches[name]:
                 _fail(f"durability: {name} did not launch after the reopen")
     finally:
@@ -2013,6 +2706,7 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
            "ack_ms_p50_with_imports": float(np.percentile(loaded, 50)),
            "ack_ms_p99_with_imports": float(np.percentile(loaded, 99)),
            "import_s": import_s,
+           "slice0_imports_acked": import_tally[300]["acked"],
            "wal_swaps_seen": swaps[0], "wal_bytes_at_kill": wal_bytes,
            "snapshot_bytes_at_kill": snap_bytes,
            "respawn_to_ready_s": ready_s, "oplog_bytes_replayed": wal_bytes,
@@ -2096,11 +2790,22 @@ def main() -> None:
                 _fail(f"{name}: no launch in the fields phase")
         for name, n in ck.LAUNCHES.items():
             launches[name] += n
-        holder.close()
         ck.reset_launches()
-        phase_server(data_dir, device, args.seed, ids200, topn1000, fields)
+        _, batch_served = phase_batch(holder, device, args.seed)
+        for name in ("expr_words", "expr_count_batch", "topn_block_count"):
+            if ck.LAUNCHES[name] <= 0:
+                _fail(f"{name}: no launch in the batch phase")
         for name, n in ck.LAUNCHES.items():
             launches[name] += n
+        holder.close()
+        ck.reset_launches()
+        phase_server(data_dir, device, args.seed, ids200, topn1000,
+                     fields + batch_served)
+        for name, n in ck.LAUNCHES.items():
+            launches[name] += n
+        # Nothing reads the earlier phases' directory again: free its
+        # disk for the durability storm's WAL.
+        shutil.rmtree(data_dir)
         phase_durability(device, args.seed, tmp)
         for name, n in ck.LAUNCHES.items():
             launches[name] += n

@@ -33,11 +33,26 @@ calls in order. What the port serves:
   JAX package does, and blocks over _TOPN_HOST_BLOCK_BYTES take the
   per-slice path.
 - ``Bitmap``/``Range``/``Intersect``/``Union``/``Difference`` as
-  top-level calls are materialized by host roaring algebra over the
-  fragments (a BSI ``Range`` by the JAX package's circuit,
-  storage.bsi.range_bitmap); a top-level ``Bitmap`` carries its row's
-  (or column's) attributes, and one of a column runs over the inverse
-  view's slices.
+  top-level calls are materialized. A ``Union``/``Intersect``/
+  ``Difference`` of ``MIN_DEVICE_LEAVES`` (8) or more leaf rows, and a
+  field ``Range(field OP value)``, run on the device
+  (``_bitmap_local_device_fn``: the expression-words kernel over the
+  resident leaf slabs, mesh.materialize_expr_sharded /
+  bsi_range_sharded), fetched in one copy and repacked to roaring per
+  slice; everything else is host roaring algebra over the fragments
+  (a fold of 8 or more plain rows of one view in one vectorized pass,
+  Fragment.fold_rows; a BSI ``Range`` the device declines by the JAX
+  package's circuit, storage.bsi.range_bitmap). A top-level
+  Union/Intersect/Difference result is kept in a small bitmap-result
+  cache keyed on its leaf rows and their fragments' generations. A
+  top-level ``Bitmap`` carries its row's (or column's) attributes, and
+  one of a column runs over the inverse view's slices.
+- **A run of two or more consecutive Counts and exact-count TopNs**
+  (``_device_batch_run``) runs as one fused tree over one deduplicated
+  leaf-slab set: one batched expression-count launch for its Counts,
+  one TopN block count a TopN, one host fetch (mesh.fused_tree_sharded).
+  ``execute_partial`` returns the results so far and the error, for
+  the HTTP front's pipelined batch lane.
 - ``SetBit``/``ClearBit`` on the standard and inverse views (with a
   timestamp, also on the time views), ``SetFieldValue``,
   ``SetRowAttrs`` and ``SetColumnAttrs`` (a query of ``SetRowAttrs``
@@ -53,30 +68,38 @@ shape), and repeated interior subtrees of the host folds go through
 the per-slice subresult cache. ``planner_enabled = False`` runs the
 parsed tree as it is.
 
-A device error surfaces to the caller: there is no host fallback.
-Single node, one device: the cluster fan-out, TopN pushdown, pod,
-result caches, cost model (and with it the planner's placement) and
-fault handling wait for later slices.
+A device error surfaces to the caller: there is no host fallback. A
+device leg may decline only before it launches (a call that does not
+compile, a byte budget exceeded, a call the planner proved empty, too
+few leaves). Single node, one device: the cluster fan-out, TopN
+pushdown, pod, the cluster result cache, cost model (and with it the
+planner's placement) and fault handling wait for later slices. The JAX
+package's environment gates are class constants here (their defaults),
+which tests override through the constructor.
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
 
+from . import SLICE_WIDTH
 from .device import resolve_device
 from .errors import (TIME_FORMAT, FrameNotFoundError, IndexNotFoundError,
                      PilosaError, QueryRequiredError)
 from .models.view import VIEW_INVERSE, VIEW_STANDARD
+from .ops import packed
 from .ops.packed import WORDS_PER_SLICE
 from .parallel import mesh as mesh_mod
 from .parallel import residency
 from .plan import planner as plan_planner
 from .pql.ast import Call, Query
 from .pql.parser import parse as parse_pql
-from .storage import bsi
+from .storage import bsi, roaring
 from .storage.bitmap import Bitmap, BitmapSegment
 from .storage.cache import LRUCache, Pair, pairs_sort
 from .storage.fragment import TopOptions
@@ -148,8 +171,25 @@ class Executor:
     # Largest dense candidate block the TopN device leg may pack on the
     # host for the streaming form (slices × candidates × 128 KB).
     _TOPN_HOST_BLOCK_BYTES = 2 << 30
+    # Materializing calls take the device, and plain-row folds the
+    # vectorized host fold, from this many leaf rows (the JAX package's
+    # PILOSA_TPU_MESH_MIN_LEAVES default).
+    MIN_DEVICE_LEAVES = 8
+    # Most Count/TopN calls fused into one batch run (longer runs split).
+    _BATCH_MAX_COUNTS = 16
+    # Device bytes of one materializing fold (every leaf slab and the
+    # result live together) and of one batch run's slabs and blocks.
+    _MATERIALIZE_DEVICE_BYTES = 4 << 30
+    # Bitmap-result cache bounds: entries and total cached bits (the
+    # JAX package's PILOSA_QUERY_RESULT_CACHE_* defaults).
+    _RESULT_CACHE_ENTRIES = 8
+    _RESULT_CACHE_BITS = 32 << 20
 
-    def __init__(self, holder, device=None):
+    def __init__(self, holder, device=None, *,
+                 batch_max_counts: Optional[int] = None,
+                 materialize_device_bytes: Optional[int] = None,
+                 result_cache_entries: Optional[int] = None,
+                 result_cache_bits: Optional[int] = None):
         self.holder = holder
         self.device = resolve_device(device)
         # Cost-based planner (plan.planner), consulted once per read
@@ -157,8 +197,45 @@ class Executor:
         self.planner = plan_planner.Planner(holder)
         self.planner_enabled = True
 
+        def pick(value, default):
+            return default if value is None else value
+
+        self.batch_max_counts = pick(batch_max_counts,
+                                     self._BATCH_MAX_COUNTS)
+        self.materialize_device_bytes = pick(materialize_device_bytes,
+                                             self._MATERIALIZE_DEVICE_BYTES)
+        self.result_cache_entries = pick(result_cache_entries,
+                                         self._RESULT_CACHE_ENTRIES)
+        self.result_cache_bits = pick(result_cache_bits,
+                                      self._RESULT_CACHE_BITS)
+        self._bitmap_results: OrderedDict[tuple, tuple] = OrderedDict()
+        self._bitmap_results_mu = threading.Lock()
+        self.result_cache_hits = 0
+        self.result_cache_misses = 0
+
+    def execute_partial(self, index: str, query,
+                        slices: Optional[list[int]] = None
+                        ) -> tuple[list, Optional[Exception]]:
+        """Like execute(), but an exception mid-query returns
+        (results so far, error) instead of raising: the calls before the
+        error were applied, the calls after it never ran (the HTTP
+        front's pipelined batch lane maps the prefix onto its requests).
+        A query of SetRowAttrs calls alone is refused (its bulk path
+        applies them out of order, so a prefix would mean nothing)."""
+        if isinstance(query, str):
+            query = parse_pql(query)
+        if _has_only_set_row_attrs(query.calls):
+            raise PilosaError("execute_partial: bulk attrs unsupported")
+        results: list = []
+        try:
+            self.execute(index, query, slices, _partial_out=results)
+        except Exception as e:  # noqa: BLE001 - contract: return it
+            return results, e
+        return results, None
+
     def execute(self, index: str, query,
-                slices: Optional[list[int]] = None) -> list:
+                slices: Optional[list[int]] = None,
+                _partial_out: Optional[list] = None) -> list:
         if not index:
             raise PilosaError("index required")
         if isinstance(query, str):
@@ -186,9 +263,17 @@ class Executor:
             return self._execute_bulk_set_row_attrs(index, query.calls)
         if slices and needs:
             query = self._maybe_plan(index, query, slices)
-        results = []
+        results = _partial_out if _partial_out is not None else []
         i = 0
         while i < len(query.calls):
+            # Consecutive Counts and exact-count TopNs fuse into one
+            # device tree: one batched count launch, one fetch.
+            batch = self._device_batch_run(index, query.calls, i, slices)
+            if batch is not None:
+                batch_results, n = batch
+                results.extend(batch_results)
+                i += n
+                continue
             # Consecutive SetBit/ClearBit calls batch into one batched
             # mutation + WAL append per touched fragment.
             wbatch = self._mutate_batch_run(index, query.calls, i)
@@ -275,16 +360,179 @@ class Executor:
 
     # -- bitmap calls on the host --------------------------------------------
 
-    def _execute_bitmap_call(self, index: str, c: Call,
-                             slices: list[int]) -> Bitmap:
+    def _execute_bitmap_call(self, index: str, c: Call, slices: list[int],
+                             host_only: bool = False) -> Bitmap:
+        """A bitmap call over ``slices``: a result-cache hit, else the
+        device materialize leg where it takes the call, else the host
+        fold slice by slice (``host_only``: always the host, the Count
+        fallback's way)."""
         if _short_circuit(c):
             return Bitmap()
-        bm = Bitmap()
-        for slice in slices:
-            bm.merge(self._bitmap_call_slice(index, c, slice))
+        compiled: list = []
+        key = self._bitmap_result_key(index, c, slices, compiled)
+        if key is not None:
+            with self._bitmap_results_mu:
+                hit = self._bitmap_results.get(key)
+                if hit is not None:
+                    self._bitmap_results.move_to_end(key)
+                    self.result_cache_hits += 1
+                else:
+                    self.result_cache_misses += 1
+            if hit is not None:
+                return _share_result(hit[0])
+        bm = NotImplemented
+        if slices and not host_only:
+            local_fn = self._bitmap_local_device_fn(
+                index, c, compiled[0] if compiled else None)
+            if local_fn is not None:
+                bm = local_fn(slices)
+        if bm is NotImplemented:
+            bm = Bitmap()
+            for slice in slices:
+                bm.merge(self._bitmap_call_slice(index, c, slice))
         if c.name == "Bitmap":
             self._attach_bitmap_attrs(index, c, bm)
+        if key is not None:
+            self._result_cache_put(key, bm)
+            return _share_result(bm)
         return bm
+
+    # -- the bitmap-result cache ---------------------------------------------
+
+    def clear_result_cache(self) -> None:
+        with self._bitmap_results_mu:
+            self._bitmap_results.clear()
+
+    def _bitmap_result_key(self, index: str, c: Call, slices: list[int],
+                           compiled_out: Optional[list] = None):
+        """Cache key of a top-level Union/Intersect/Difference, or None
+        when the call is not cached. The key holds the compiled
+        expression AND its leaf rows ``(frame, view, row)``, the slices
+        and every leaf fragment's (uid, generation): a write to a leaf
+        bumps its generation and misses. (The JAX package's key,
+        executor.py:1023-1024, names leaves by position only, so two
+        Unions of one shape over one view share it; the leaves here
+        keep them apart.) The compiled (expr, leaves) is appended to
+        ``compiled_out`` so the device leg reuses it."""
+        if c.name not in ("Union", "Intersect", "Difference"):
+            return None
+        leaves: list[tuple] = []
+        expr = self._compile_device_expr(index, c, leaves)
+        if expr is None or not leaves:
+            return None
+        if compiled_out is not None:
+            compiled_out.append((expr, leaves))
+        if len(leaves) * len(slices) > (1 << 16):
+            return None  # building the key would outweigh the win
+        gens = []
+        for frame, view, _row in leaves:
+            for s in slices:
+                f = self.holder.fragment(index, frame, view, s)
+                gens.append((f.device.uid, f.device.generation)
+                            if f is not None else (0, 0))
+        return (index, expr, tuple(leaves), tuple(slices), tuple(gens))
+
+    def _result_cache_put(self, key: tuple, bm: Bitmap) -> None:
+        """Keep ``bm`` under ``key`` unless it holds more bits than the
+        whole budget; evict least recently used entries past the entry
+        and bit bounds."""
+        bits = bm.count()
+        if bits > self.result_cache_bits:
+            return
+        with self._bitmap_results_mu:
+            cache = self._bitmap_results
+            cache[key] = (bm, bits)
+            cache.move_to_end(key)
+            total = sum(b for _, b in cache.values())
+            while ((len(cache) > self.result_cache_entries
+                    or total > self.result_cache_bits) and len(cache) > 1):
+                _, (_, evicted) = cache.popitem(last=False)
+                total -= evicted
+
+    # -- the device materialize leg ------------------------------------------
+
+    def _bitmap_local_device_fn(self, index: str, c: Call, compiled=None):
+        """The materializing device leg: a Union/Intersect/Difference of
+        ``MIN_DEVICE_LEAVES`` or more leaf rows folds on the device in
+        one expression-words launch over the resident leaf slabs, its
+        dense words come back in one copy and repack to roaring per
+        slice (all-zero slices skipped) — one pass over device memory in
+        place of a container merge a leaf (roaring.go:1270-1558). A
+        field Range takes ``_field_range_local_device_fn``. None: the
+        host path (another call, too few leaves, a tree that does not
+        compile, or the planner placed the subtree on the host); the
+        returned function gives NotImplemented past the byte bounds."""
+        node = getattr(c, "_plan_node", None)
+        if node is not None and node.placement == "host":
+            return None
+        if c.name == "Range" and c.condition_arg() is not None:
+            return self._field_range_local_device_fn(index, c)
+        if c.name not in self._DEVICE_FOLD_OPS:
+            return None
+        if compiled is not None:
+            expr, leaves = compiled
+        else:
+            leaves = []
+            expr = self._compile_device_expr(index, c, leaves)
+        if expr is None or len(leaves) < self.MIN_DEVICE_LEAVES:
+            return None
+        return self._materialize_leg(
+            index, leaves,
+            lambda arrs: mesh_mod.materialize_expr_sharded(expr, arrs))
+
+    def _field_range_local_device_fn(self, index: str, c: Call):
+        """The materializing device leg of Range(field OP value): the
+        comparison fold over the exists row and the value planes in one
+        expression-words launch (mesh.bsi_range_sharded), fetched once
+        and repacked per slice. Trivial clamps ("all"/"none") and
+        malformed calls stay on the host (None)."""
+        parsed = self._field_range_parse(index, c, strict=False)
+        if parsed is None:
+            return None
+        frame_name, field, cond = parsed
+        clamped = bsi.clamp(cond.op, cond.value, field.min, field.max)
+        if clamped in ("none", "all"):
+            return None
+        cop, upred = clamped
+        depth = field.bit_depth
+        leaves = [(frame_name, field.view_name, self._bsi_plane_row(p))
+                  for p in range(bsi.EXISTS_PLANE, depth)]
+        return self._materialize_leg(
+            index, leaves,
+            lambda arrs: mesh_mod.bsi_range_sharded(cop, upred, depth, arrs))
+
+    def _materialize_leg(self, index: str, leaves: list[tuple], words_of):
+        """``local_fn(slices)`` of a materializing device leg: the
+        resident slabs of ``leaves``, ``words_of(slabs)`` (the dense
+        ``[S, W]`` words, one launch and one copy), the repack; or
+        NotImplemented past the byte bounds — the dense result on the
+        host (with a leaf slab in flight) within _TOPN_HOST_BLOCK_BYTES,
+        every leaf slab plus the result on the device within
+        materialize_device_bytes."""
+        def local_fn(slices: list[int]):
+            slab = len(slices) * WORDS_PER_SLICE * 4
+            if (2 * slab > self._TOPN_HOST_BLOCK_BYTES
+                    or (len(leaves) + 1) * slab
+                    > self.materialize_device_bytes):
+                return NotImplemented
+            arrs = [self._leaf_device_array(index, leaf, tuple(slices))
+                    for leaf in leaves]
+            return self._repack_words(words_of(arrs), slices)
+
+        return local_fn
+
+    @staticmethod
+    def _repack_words(words: np.ndarray, slices: list[int]) -> Bitmap:
+        """Dense ``[S, W]`` u32 words → a Bitmap with one segment per
+        non-empty slice."""
+        out = Bitmap()
+        for si, slice in enumerate(slices):
+            w = words[si]
+            if not w.any():
+                continue
+            out.add_segment(packed.unpack_to_bitmap(
+                w, base_word=slice * WORDS_PER_SLICE), slice, writable=True)
+        return out
 
     def _attach_bitmap_attrs(self, index: str, c: Call, bm: Bitmap) -> None:
         # executor.go:215-249: column attrs if the column label was used,
@@ -342,16 +590,64 @@ class Executor:
                                     require_children=False)
         raise PilosaError(f"unknown call: {c.name}")
 
+    _HOST_FOLD_OPS = {"union": "or", "intersect": "and",
+                      "difference": "andnot"}
+
     def _fold_slice(self, index: str, c: Call, slice: int, op: str,
                     require_children: bool) -> Bitmap:
         if require_children and not c.children:
             raise PilosaError(f"empty {c.name} query is currently"
                               " not supported")
+        # A wide fold whose children are all plain Bitmap rows of one
+        # (frame, view) is ONE vectorized pass over the fragment
+        # (fold_rows) in place of a roaring merge a child. fold_rows
+        # gathers only the rows' container key spans, so its cost is
+        # that of the selected bits, the data the per-child path reads
+        # less a Bitmap and a merge a row: at this many leaves it always
+        # pays (the JAX package's fold_scan_pays answers True for that
+        # reason, pilosa_tpu/storage/fragment.py:1674). Narrow folds and
+        # mixed or nested children keep the per-child merge, which also
+        # owns every error.
+        if len(c.children) >= self.MIN_DEVICE_LEAVES:
+            plain = self._plain_fold_leaves(index, c)
+            if plain is not None:
+                frame_name, view, rids = plain
+                frag = self.holder.fragment(index, frame_name, view, slice)
+                if frag is None:
+                    return Bitmap()
+                out = Bitmap()
+                cols = frag.fold_rows(self._HOST_FOLD_OPS[op], rids)
+                if len(cols):
+                    base = np.uint64(slice) * np.uint64(SLICE_WIDTH)
+                    out.add_segment(roaring.Bitmap.from_sorted(cols + base),
+                                    slice, writable=True)
+                return out
         out = Bitmap()
         for i, child in enumerate(c.children):
             bm = self._bitmap_call_slice(index, child, slice)
             out = bm if i == 0 else getattr(out, op)(bm)
         return out
+
+    def _plain_fold_leaves(self, index: str, c: Call):
+        """(frame, view, row ids) when every child compiles to one leaf
+        row of one (frame, view); None otherwise (the per-child path
+        owns errors and mixed shapes)."""
+        leaves: list[tuple] = []
+        frame_view = None
+        rids = []
+        for child in c.children:
+            expr = self._compile_device_expr(index, child, leaves)
+            if expr is None or expr[0] != "leaf":
+                return None
+            frame_name, view, rid = leaves[expr[1]]
+            if frame_view is None:
+                frame_view = (frame_name, view)
+            elif frame_view != (frame_name, view):
+                return None
+            rids.append(rid)
+        if frame_view is None:
+            return None
+        return frame_view[0], frame_view[1], rids
 
     def _bitmap_slice(self, index: str, c: Call, slice: int) -> Bitmap:
         # executor.go:420-465: row id → standard view, column id → inverse.
@@ -726,13 +1022,160 @@ class Executor:
             # an empty time cover, a comparison clamped to none): the
             # host materialization gives the JAX package's answer or
             # raises its error.
-            return self._execute_bitmap_call(index, c.children[0],
-                                             slices).count()
+            return self._execute_bitmap_call(index, c.children[0], slices,
+                                             host_only=True).count()
         if not slices:
             return 0
         arrs = [self._leaf_device_array(index, leaf, tuple(slices))
                 for leaf in leaves]
         return mesh_mod.count_expr_sharded(expr, arrs)
+
+    # -- the fused batch of Counts and TopNs ---------------------------------
+
+    def _device_batch_run(self, index: str, calls: list[Call], start: int,
+                          slices: list[int]):
+        """(results, n_calls) for a maximal run of two or more
+        consecutive device calls starting at ``start`` — Count over any
+        compilable bitmap tree and the exact-count TopN form (explicit
+        ids and a compilable source) — run as ONE fused tree over a
+        shared, deduplicated leaf-slab set: one batched count launch for
+        the Counts (mesh.count_exprs_sharded), one TopN block count a
+        TopN (mesh.fused_tree_sharded) and one host fetch for all of
+        them. A Count the planner proved empty answers 0 in the run
+        and adds no leaf. None: the calls run one by one (fewer than
+        two fusable calls). The run stops at the first call that does
+        not fuse, at ``batch_max_counts`` calls and where the next
+        call's slabs and blocks would pass materialize_device_bytes;
+        Count and TopN take the column slices, so every call of a run
+        shares ``slices``."""
+        if (not slices or start + 1 >= len(calls)
+                or calls[start].name not in ("Count", "TopN")
+                or calls[start + 1].name not in ("Count", "TopN")):
+            return None
+        budget = self.materialize_device_bytes
+        leaves: list[tuple] = []
+        leaf_ids: dict[tuple, int] = {}
+        plan: list[tuple] = []        # ("count"|"zero"|"topn", value)
+        topn_items: list[tuple] = []  # (expr, frame_name, ids)
+        rows_bytes = 0  # the run's candidate blocks, summed
+        j = start
+
+        def absorb(call_leaves: list[tuple], expr):
+            """Intern a call's leaves into the shared slab set; returns
+            its expression over the shared leaf ids."""
+            remap = {}
+            for li, leaf in enumerate(call_leaves):
+                if leaf not in leaf_ids:
+                    leaf_ids[leaf] = len(leaves)
+                    leaves.append(leaf)
+                remap[li] = leaf_ids[leaf]
+            if all(k == v for k, v in remap.items()):
+                return expr
+            return mesh_mod.remap_expr_leaves(expr, remap)
+
+        while j < len(calls) and len(plan) < self.batch_max_counts:
+            c = calls[j]
+            if c.name == "Count" and len(c.children) == 1:
+                if _short_circuit(c):
+                    plan.append(("zero", 0))
+                    j += 1
+                    continue
+                call_leaves: list[tuple] = []
+                expr = self._compile_device_expr(index, c.children[0],
+                                                 call_leaves)
+                if expr is None:
+                    break
+                new = sum(1 for leaf in call_leaves if leaf not in leaf_ids)
+                if (self._leaf_block_bytes(len(leaves) + new, len(slices))
+                        + rows_bytes > budget):
+                    break  # the prefix that fits runs fused
+                plan.append(("count", absorb(call_leaves, expr)))
+                j += 1
+                continue
+            if c.name == "TopN":
+                item = self._topn_fusable(index, c, slices,
+                                          budget - rows_bytes, leaves,
+                                          leaf_ids)
+                if item is None:
+                    break
+                expr, frame_name, ids, call_leaves = item
+                plan.append(("topn", len(topn_items)))
+                topn_items.append((absorb(call_leaves, expr), frame_name,
+                                   ids))
+                # Every block of the run is live at once: the budget
+                # bounds their sum.
+                rows_bytes += self._leaf_block_bytes(len(ids), len(slices))
+                j += 1
+                continue
+            break
+        if j - start < 2:
+            return None
+        count_exprs = tuple(e for kind, e in plan if kind == "count")
+        arrs = [self._leaf_device_array(index, leaf, tuple(slices))
+                for leaf in leaves]
+        topn_counts: list[list[int]] = []
+        if topn_items:
+            rows_arrays = []
+            for _, frame_name, ids in topn_items:
+                frags, key = self._topn_rows_key(index, frame_name,
+                                                 tuple(ids), tuple(slices))
+                rows_arrays.append(residency.candidate_block(
+                    self.device, key, frags, tuple(ids)))
+            counts, topn_counts = mesh_mod.fused_tree_sharded(
+                count_exprs, [(e, len(ids)) for e, _, ids in topn_items],
+                arrs, rows_arrays)
+        elif count_exprs:
+            counts = mesh_mod.count_exprs_sharded(count_exprs, arrs)
+        else:
+            counts = []
+        results: list = []
+        count_i = 0
+        for kind, v in plan:
+            if kind == "zero":
+                results.append(0)
+            elif kind == "count":
+                results.append(counts[count_i])
+                count_i += 1
+            else:
+                ids = topn_items[v][2]
+                results.append(pairs_sort(
+                    [Pair(rid, cnt) for rid, cnt
+                     in zip(ids, topn_counts[v]) if cnt > 0]))
+        return results, j - start
+
+    def _topn_fusable(self, index: str, c: Call, slices: list[int],
+                      budget: int, leaves: list[tuple], leaf_ids: dict):
+        """(expr, frame_name, ids, call_leaves) when this TopN joins a
+        fused tree: the exact-count form (explicit ids and one
+        compilable source), unfiltered (threshold ≤ 1, no Tanimoto),
+        attribute filters applied to the ids up front (row attributes
+        are frame-global), its block within TOPN_BLOCK_BYTES and the
+        run's budget. None ends the run (the per-call path owns every
+        other form and all errors)."""
+        (frame_name, _n, field, row_ids, min_threshold, filters,
+         tanimoto) = self._topn_args(c)
+        if (not row_ids or len(c.children) != 1 or tanimoto > 0
+                or min_threshold > 1):
+            return None
+        call_leaves: list[tuple] = []
+        expr = self._compile_device_expr(index, c.children[0], call_leaves)
+        if expr is None:
+            return None
+        ids = self._attr_filtered_ids(index, frame_name, row_ids, field,
+                                      filters)
+        if not ids:
+            return None  # no frame, or no candidate left: per call
+        block_bytes = self._leaf_block_bytes(len(ids), len(slices))
+        new = sum(1 for leaf in call_leaves if leaf not in leaf_ids)
+        if (block_bytes > mesh_mod.TOPN_BLOCK_BYTES
+                or self._leaf_block_bytes(len(leaves) + new, len(slices))
+                + block_bytes > budget):
+            return None
+        return expr, frame_name, ids, call_leaves
+
+    @staticmethod
+    def _leaf_block_bytes(n_rows: int, n_slices: int) -> int:
+        return n_rows * n_slices * WORDS_PER_SLICE * 4
 
     # -- TopN (executor.go:271-396) ------------------------------------------
 

@@ -27,7 +27,8 @@ import threading
 from ..utils import build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("expr_count", "topn_block_count", "densify", "op_count")
+SOURCES = ("expr_count", "topn_block_count", "densify", "op_count",
+           "expr_words")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -64,8 +65,11 @@ def build(verbose: bool = False, csrc: str = CSRC) -> dict[str, str]:
     out_dir = build_dir("cuda", _digest(csrc))
     os.makedirs(out_dir, exist_ok=True)
     nvcc = nvcc_path()
+    # An earlier design's directory (ops/kernel_ab.py) may lack a later
+    # source: build what it has.
     paths = {name: os.path.join(out_dir, f"lib{name}.so")
-             for name in SOURCES}
+             for name in SOURCES
+             if os.path.exists(os.path.join(csrc, f"{name}.cu"))}
     procs = []
     for name, so in paths.items():
         if os.path.exists(so) and not verbose:
@@ -90,20 +94,29 @@ def build(verbose: bool = False, csrc: str = CSRC) -> dict[str, str]:
     return paths
 
 
-def _declare(libs: dict[str, ctypes.CDLL]) -> None:
+# (library, C function, argument types) of every entry point.
+def _signatures():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = libs["expr_count"].pilosa_expr_count
-    fn.argtypes = [vp, vp, i, ll, ll, vp, vp]
-    fn.restype = i
-    fn = libs["topn_block_count"].pilosa_topn_block_count
-    fn.argtypes = [vp, ll, ll, ll, vp, vp, i, vp, vp]
-    fn.restype = i
-    fn = libs["densify"].pilosa_densify
-    fn.argtypes = [vp, vp, ll, ll, ll, vp, vp]
-    fn.restype = i
-    fn = libs["op_count"].pilosa_op_count
-    fn.argtypes = [vp, vp, ll, ll, i, vp, vp]
-    fn.restype = i
+    return (("expr_count", "pilosa_expr_count", [vp, vp, i, ll, ll, vp, vp]),
+            ("expr_count", "pilosa_expr_count_batch",
+             [vp, vp, vp, i, ll, ll, vp, vp]),
+            ("expr_words", "pilosa_expr_words", [vp, vp, i, ll, ll, vp, vp]),
+            ("expr_words", "pilosa_expr_fold_words",
+             [vp, vp, i, i, ll, ll, vp, vp]),
+            ("topn_block_count", "pilosa_topn_block_count",
+             [vp, ll, ll, ll, vp, vp, i, vp, vp]),
+            ("densify", "pilosa_densify", [vp, vp, ll, ll, ll, vp, vp]),
+            ("op_count", "pilosa_op_count", [vp, vp, ll, ll, i, vp, vp]))
+
+
+def _declare(libs: dict[str, ctypes.CDLL]) -> None:
+    """Set each entry point's argument and return types (an earlier
+    design's libraries may lack the later ones)."""
+    for lib, name, argtypes in _signatures():
+        fn = getattr(libs[lib], name, None) if lib in libs else None
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
 
 def load(csrc: str = CSRC) -> dict[str, ctypes.CDLL]:

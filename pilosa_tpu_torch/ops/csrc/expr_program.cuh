@@ -15,12 +15,14 @@
 // Leaves are addressed through a device array of base pointers, one
 // [S, W] u32 slab per leaf, so resident slabs are read where they lie.
 //
-// Two interpreters: eval_program runs the program over one 16-byte word
+// Three interpreters: eval_program runs the program over one 16-byte word
 // group, reading every instruction and leaf pointer from global memory
 // (the TopN block count's); StagedProgram / eval_program_u run it over U
 // word groups at once from a copy of the program in shared memory (the
 // expression count's), so the U loads of an instruction are independent
-// and the decode is paid once for U groups.
+// and the decode is paid once for U groups; eval_program_window runs it
+// over one group with the loads of P instructions in flight at once (the
+// materializing expr_words').
 #pragma once
 
 #include <cstdint>
@@ -196,6 +198,57 @@ __device__ __forceinline__ void eval_program_u(
       }
     }
   }
+}
+
+// Evaluate the program over one 16-byte word group `off` of every leaf,
+// P instructions at a time: the loads of a window's leaf-reading
+// instructions are all issued before any of them is combined (a leaf
+// load never depends on the running value), so P loads a thread are in
+// flight where eval_program_u keeps one instruction's. This is the
+// materializing interpreter (expr_words.cu): at one slice row a
+// 1000-leaf fold has too few word groups to hide a load's latency any
+// other way. `stack` holds MAX_STACK groups.
+template <int P, int STAGED>
+__device__ __forceinline__ uint4 eval_program_window(
+    const StagedProgram<STAGED>& sp_prog, const int2* __restrict__ prog,
+    int n_ins, const long long* __restrict__ ptrs, size_t off,
+    uint4* stack) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 acc = zero;
+  int sp = 0;
+  for (int k0 = 0; k0 < n_ins; k0 += P) {
+    int op[P];
+    uint4 v[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      op[j] = -1;
+      v[j] = zero;
+      if (k0 + j < n_ins) {
+        const uint4* base;
+        op[j] = sp_prog.fetch(prog, ptrs, k0 + j, &base);
+        if (op[j] < OP_PUSH) v[j] = __ldg(base + off);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      switch (op[j]) {
+        case OP_LOAD: acc = v[j]; break;
+        case OP_AND_LEAF: acc = and4(acc, v[j]); break;
+        case OP_OR_LEAF: acc = or4(acc, v[j]); break;
+        case OP_XOR_LEAF: acc = xor4(acc, v[j]); break;
+        case OP_ANDNOT_LEAF: acc = andnot4(acc, v[j]); break;
+        case OP_RANDNOT_LEAF: acc = andnot4(v[j], acc); break;
+        case OP_PUSH: stack[sp++] = acc; break;
+        case OP_AND_POP: acc = and4(stack[--sp], acc); break;
+        case OP_OR_POP: acc = or4(stack[--sp], acc); break;
+        case OP_XOR_POP: acc = xor4(stack[--sp], acc); break;
+        case OP_ANDNOT_POP: acc = andnot4(stack[--sp], acc); break;
+        case OP_RANDNOT_POP: acc = andnot4(acc, stack[--sp]); break;
+        default: break;  // past the program's end
+      }
+    }
+  }
+  return acc;
 }
 
 // Sum `v` over the block; the result is valid in thread 0.

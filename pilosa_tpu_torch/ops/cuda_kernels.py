@@ -13,6 +13,19 @@ densify               densify_pallas (:294-339)                 densify.cu
 op_count_rows         op_count_rows_pallas (:226-254)           op_count.cu
 ====================  ======================================  =========================
 
+Two more replace XLA programs of ``pilosa_tpu/parallel/programs.py``
+around those kernels:
+
+====================  ======================================  =========================
+wrapper               replaces (pilosa_tpu/parallel)            CUDA source (ops/csrc)
+====================  ======================================  =========================
+expr_count_batch      programs.count_exprs_program (:133),      expr_count.cu
+                      mesh._exprs_hi_lo (:627-646)
+expr_words            programs.materialize_program (:265),      expr_words.cu
+                      programs.bsi_range_program (:282)         (a flat fold: its
+                                                                leaf-split kernel)
+====================  ======================================  =========================
+
 Words are int32 views of the u32 words (see ops.kernels). A wrapper given
 CPU tensors computes its plain version (``*_torch``, same signature);
 given CUDA tensors it launches its kernel on the current stream or
@@ -28,6 +41,7 @@ they lie with no stacking copy.
 
 from __future__ import annotations
 
+import functools
 import threading
 from collections import OrderedDict
 
@@ -38,7 +52,7 @@ from .kernels import _BITWISE, op_count_rows as op_count_rows_torch
 from .kernels import popcount_rows
 
 LAUNCHES = {"expr_count_rows": 0, "topn_block_count": 0, "densify": 0,
-            "op_count_rows": 0}
+            "op_count_rows": 0, "expr_count_batch": 0, "expr_words": 0}
 
 # Opcodes of csrc/expr_program.cuh.
 OP_LOAD = 0
@@ -151,6 +165,19 @@ def expr_count_rows_torch(expr, leaves) -> torch.Tensor:
     return popcount_rows(eval_expr_torch(expr, leaves))
 
 
+def expr_count_batch_torch(exprs, leaves) -> torch.Tensor:
+    """``[K, S]`` int32: row k is ``expr_count_rows_torch(exprs[k],
+    leaves)``; every expression names leaves of the one shared list."""
+    return torch.stack([expr_count_rows_torch(e, leaves) for e in exprs])
+
+
+def expr_words_torch(expr, leaves) -> torch.Tensor:
+    """``[S, W]`` int32 words of ``expr`` over ``leaves``, a tensor of
+    its own (a bare leaf is copied)."""
+    out = eval_expr_torch(expr, leaves)
+    return out.clone() if expr[0] == "leaf" else out
+
+
 def topn_block_count_torch(expr, rows: torch.Tensor,
                            leaves) -> torch.Tensor:
     """``[S, R]`` int32 of ``popcount(rows[s, r] & expr(leaves[:, s]))``,
@@ -226,13 +253,37 @@ def _program_meta(expr, leaves: list, device) -> tuple[torch.Tensor, int]:
     content is a pure function of (expr, pointers), so buffers are kept
     in a small LRU: a repeat query over resident slabs launches with no
     host work and no host-to-device copy."""
-    key = (expr, tuple(t.data_ptr() for t in leaves), str(device))
+    return _cached_meta((expr, tuple(t.data_ptr() for t in leaves),
+                         str(device)),
+                        lambda: _build_meta(expr, leaves, device))
+
+
+def _batch_meta(exprs: tuple, leaves: list,
+                device) -> tuple[torch.Tensor, int]:
+    """The batched form of ``_program_meta``: the leaf base pointers,
+    then K + 1 int64 offsets, then the K programs back to back (program
+    k is instructions offs[k]..offs[k+1]); kept in the same LRU."""
+    def build():
+        progs = [_checked_program(e, len(leaves)) for e in exprs]
+        offs = np.zeros(len(progs) + 1, dtype=np.int64)
+        offs[1:] = np.cumsum([len(p) for p in progs])
+        ptrs = np.asarray([t.data_ptr() for t in leaves], dtype=np.int64)
+        host = np.concatenate([ptrs, offs] + [p.view(np.int64).ravel()
+                                              for p in progs])
+        return torch.from_numpy(host).to(device), len(exprs)
+
+    return _cached_meta(("batch", exprs,
+                         tuple(t.data_ptr() for t in leaves), str(device)),
+                        build)
+
+
+def _cached_meta(key: tuple, build) -> tuple[torch.Tensor, int]:
     with _meta_mu:
         hit = _meta_cache.get(key)
         if hit is not None:
             _meta_cache.move_to_end(key)
             return hit
-    meta = _build_meta(expr, leaves, device)
+    meta = build()
     with _meta_mu:
         _meta_cache[key] = meta
         while len(_meta_cache) > _META_ENTRIES:
@@ -240,13 +291,20 @@ def _program_meta(expr, leaves: list, device) -> tuple[torch.Tensor, int]:
     return meta
 
 
-def _build_meta(expr, leaves: list, device) -> tuple[torch.Tensor, int]:
+def _checked_program(expr, n_leaves: int) -> np.ndarray:
+    """``compile_program(expr)``'s instructions (none for None), after
+    checking that every leaf it names is one of ``n_leaves``."""
     prog = (compile_program(expr)[0] if expr is not None
             else np.zeros((0, 2), np.int32))
     named = prog[prog[:, 0] < OP_PUSH, 1]  # leaf-reading opcodes
-    if len(named) and int(named.max()) >= len(leaves):
+    if len(named) and int(named.max()) >= n_leaves:
         raise ValueError(f"expression names leaf {int(named.max())} of "
-                         f"{len(leaves)}")
+                         f"{n_leaves}")
+    return prog
+
+
+def _build_meta(expr, leaves: list, device) -> tuple[torch.Tensor, int]:
+    prog = _checked_program(expr, len(leaves))
     ptrs = np.asarray([t.data_ptr() for t in leaves], dtype=np.int64)
     host = np.concatenate([ptrs, prog.view(np.int64).ravel()])
     return torch.from_numpy(host).to(device), len(prog)
@@ -265,12 +323,8 @@ def _stream(device) -> int:
 def expr_count_rows(expr, leaves) -> torch.Tensor:
     """``[S]`` int32 counts of ``expr`` over ``leaves`` — L ``[S, W]``
     slabs (a list, or an ``[L, S, W]`` tensor)."""
-    leaves = list(leaves)
-    if not leaves:
-        raise ValueError("expr_count_rows: no leaves")
-    device = leaves[0].device
-    n_slices, n_words = leaves[0].shape
-    leaves = _leaf_list(leaves, n_slices, n_words, device)
+    leaves, device, n_slices, n_words = _cuda_leaves("expr_count_rows",
+                                                     leaves)
     if device.type == "cpu":
         return expr_count_rows_torch(expr, leaves)
     if device.type != "cuda":
@@ -285,6 +339,87 @@ def expr_count_rows(expr, leaves) -> torch.Tensor:
         meta.data_ptr(), meta.data_ptr() + 8 * len(leaves), n_ins,
         n_slices, n_words, out.data_ptr(), _stream(device)))
     return out
+
+
+def _cuda_leaves(name: str, leaves) -> tuple[list, torch.device, int, int]:
+    """(checked leaf list, device, S, W) of a wrapper's leaf slabs."""
+    leaves = list(leaves)
+    if not leaves:
+        raise ValueError(f"{name}: no leaves")
+    device = leaves[0].device
+    n_slices, n_words = leaves[0].shape
+    return (_leaf_list(leaves, n_slices, n_words, device), device, n_slices,
+            n_words)
+
+
+def expr_count_batch(exprs, leaves) -> torch.Tensor:
+    """``[K, S]`` int32 counts of the K expressions ``exprs`` over one
+    shared list of ``[S, W]`` leaf slabs, in one launch (each expression
+    names leaves of the whole list)."""
+    exprs = tuple(exprs)
+    if not exprs:
+        raise ValueError("expr_count_batch: no expressions")
+    leaves, device, n_slices, n_words = _cuda_leaves("expr_count_batch",
+                                                     leaves)
+    if device.type == "cpu":
+        return expr_count_batch_torch(exprs, leaves)
+    if device.type != "cuda":
+        raise ValueError(f"expr_count_batch: unsupported device {device}")
+    for leaf in leaves:
+        _check_cuda_words("expr_count_batch", leaf)
+    from .build import libraries
+    meta, k = _batch_meta(exprs, leaves, device)
+    out = torch.empty((k, n_slices), dtype=torch.int32, device=device)
+    base = meta.data_ptr()
+    LAUNCHES["expr_count_batch"] += 1
+    _raise_on("expr_count_batch",
+              libraries()["expr_count"].pilosa_expr_count_batch(
+                  base, base + 8 * (len(leaves) + k + 1),
+                  base + 8 * len(leaves), k, n_slices, n_words,
+                  out.data_ptr(), _stream(device)))
+    return out
+
+
+def expr_words(expr, leaves) -> torch.Tensor:
+    """``[S, W]`` int32 words of ``expr`` over ``leaves`` — L ``[S, W]``
+    slabs (a list, or an ``[L, S, W]`` tensor): the materializing form
+    of expr_count_rows."""
+    leaves, device, n_slices, n_words = _cuda_leaves("expr_words", leaves)
+    if device.type == "cpu":
+        return expr_words_torch(expr, leaves)
+    if device.type != "cuda":
+        raise ValueError(f"expr_words: unsupported device {device}")
+    for leaf in leaves:
+        _check_cuda_words("expr_words", leaf)
+    from .build import libraries
+    meta, n_ins = _program_meta(expr, leaves, device)
+    out = torch.empty((n_slices, n_words), dtype=torch.int32, device=device)
+    lib = libraries()["expr_words"]
+    ptrs, prog = meta.data_ptr(), meta.data_ptr() + 8 * len(leaves)
+    fold_op = _flat_fold_op(expr)
+    LAUNCHES["expr_words"] += 1
+    if fold_op >= 0:  # a flat fold: the leaf-split kernel
+        err = lib.pilosa_expr_fold_words(ptrs, prog, n_ins, fold_op,
+                                         n_slices, n_words, out.data_ptr(),
+                                         _stream(device))
+    else:
+        err = lib.pilosa_expr_words(ptrs, prog, n_ins, n_slices, n_words,
+                                    out.data_ptr(), _stream(device))
+    _raise_on("expr_words", err)
+    return out
+
+
+@functools.lru_cache(maxsize=_META_ENTRIES)
+def _flat_fold_op(expr) -> int:
+    """The leaf opcode of a flat program — a load of its first leaf,
+    then one ``_OP_LEAF`` opcode for every other instruction (a left
+    fold of Intersect, Union, Xor or Difference) — else -1."""
+    prog = compile_program(expr)[0]
+    ops = prog[1:, 0]
+    if (len(ops) == 0 or prog[0, 0] != OP_LOAD or (ops != ops[0]).any()
+            or int(ops[0]) not in _OP_LEAF.values()):
+        return -1
+    return int(ops[0])
 
 
 def topn_block_count(expr, rows: torch.Tensor, leaves) -> torch.Tensor:

@@ -5,7 +5,8 @@
 ``DIR`` is the ``pilosa_tpu_torch/ops/csrc`` directory of an earlier
 commit with the same C interface, unpacked for example with
 ``git archive <commit> pilosa_tpu_torch/ops/csrc | tar -x -C <dir>``
-into a directory that .gitignore lists. Both sets of sources are built
+into a directory that .gitignore lists; a kernel whose entry point one
+of the two designs lacks is left out. Both sets of sources are built
 (ops.build.load) and loaded side by side, and the wrappers of
 ops.cuda_kernels launch whichever set ``build._libs`` holds. For each
 kernel, at the shape the main path gives it (chip_smoke.py's timing
@@ -102,6 +103,8 @@ def _cases(device, seed: int) -> list[dict]:
     lanes, vals = sparse_slots(rng, 256, W // 128, W)
     lane = torch.from_numpy(lanes.view(np.int32)).to(device)
     val = torch.from_numpy(vals.view(np.int32)).to(device)
+    c2_args = [(_or_fold(1000), dev_words(gen, (1000, 1, W), device))
+               for _ in range(2)]
     return [
         {"name": "expr_count_rows", "shape": f"leaves [2, 256, {W}]",
          "fn": ck.expr_count_rows, "plain": ck.expr_count_rows_torch,
@@ -122,7 +125,54 @@ def _cases(device, seed: int) -> list[dict]:
          "args": [("and", dev_words(gen, (16, BENCH_WORDS), device),
                    dev_words(gen, (16, BENCH_WORDS), device))],
          "bytes": 2 * 16 * BENCH_WORDS * 4 + 16 * 4},
+        {"name": "expr_words", "shape": f"leaves [16, 256, {W}]",
+         "fn": ck.expr_words, "plain": ck.expr_words_torch,
+         "symbol": ("expr_words", "pilosa_expr_fold_words"),
+         "args": [(_or_fold(16), dev_words(gen, (16, 256, W), device))
+                  for _ in range(2)],
+         "bytes": 17 * 256 * W * 4},
+        {"name": "expr_words", "shape": f"leaves [1000, 1, {W}]",
+         "fn": ck.expr_words, "plain": ck.expr_words_torch,
+         "symbol": ("expr_words", "pilosa_expr_fold_words"),
+         "args": c2_args, "bytes": 1001 * W * 4},
+        {"name": "expr_words grid-stride kernel (no leaf split)",
+         "shape": f"leaves [1000, 1, {W}]",
+         "fn": _grid_stride_words, "plain": ck.expr_words_torch,
+         "symbol": ("expr_words", "pilosa_expr_words"),
+         "args": c2_args, "bytes": 1001 * W * 4},
+        {"name": "expr_count_batch", "shape": f"K = 22, leaves [23, 256, {W}]",
+         "fn": ck.expr_count_batch, "plain": ck.expr_count_batch_torch,
+         "symbol": ("expr_count", "pilosa_expr_count_batch"),
+         "args": [(tuple(("and", ("leaf", 1 + i), ("leaf", 0))
+                         for i in range(22)),
+                   dev_words(gen, (23, 256, W), device)) for _ in range(2)],
+         "bytes": 23 * 256 * W * 4 + 22 * 256 * 4},
     ]
+
+
+def _grid_stride_words(expr, leaves):
+    """cuda_kernels.expr_words through the grid-stride kernel
+    (pilosa_expr_words) for any program, a flat fold too: the design
+    the leaf-split fold is measured against."""
+    import torch
+    from . import build
+    from . import cuda_kernels as ck
+    leaves, device, n_slices, n_words = ck._cuda_leaves("expr_words", leaves)
+    meta, n_ins = ck._program_meta(expr, leaves, device)
+    out = torch.empty((n_slices, n_words), dtype=torch.int32, device=device)
+    ck._raise_on("expr_words", build.libraries()["expr_words"]
+                 .pilosa_expr_words(meta.data_ptr(),
+                                    meta.data_ptr() + 8 * len(leaves), n_ins,
+                                    n_slices, n_words, out.data_ptr(),
+                                    ck._stream(device)))
+    return out
+
+
+def _or_fold(n):
+    e = ("leaf", 0)
+    for i in range(1, n):
+        e = ("or", e, ("leaf", i))
+    return e
 
 
 def main() -> None:
@@ -143,6 +193,11 @@ def main() -> None:
     libs = {"baseline": build.load(args.baseline), "tree": build.load()}
     rows = []
     for case in _cases(device, args.seed):
+        lib, symbol = case.get("symbol", (None, None))
+        if lib is not None and any(
+                getattr(libs[side].get(lib), symbol, None) is None
+                for side in libs):
+            continue  # an entry point one of the designs lacks
         fn, copies = case["fn"], case["args"]
         for side, lib in libs.items():
             build._libs = lib

@@ -1,7 +1,8 @@
-"""One-device slice executor: Count, TopN exact counts, the TopN
-threshold/Tanimoto pruning and the sourceless TopN top-k over packed
-slice blocks — the torch form of the JAX package's ``parallel/mesh.py``
-(main-path subset).
+"""One-device slice executor: Count (one expression or a batch of
+them), the fused multi-call tree, TopN exact counts, the TopN
+threshold/Tanimoto pruning, the sourceless TopN top-k and the
+materializing fold and field Range over packed slice blocks — the torch
+form of the JAX package's ``parallel/mesh.py`` (main-path subset).
 
 The JAX module shards the slice axis over a TPU mesh and reduces with
 psum, splitting per-slice counts into 16-bit halves because int64 is
@@ -24,10 +25,24 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels
+from ..storage import bsi
 
 # Device-block budget for one topn_exact row chunk (the JAX package's
 # bound, mesh.py:1195).
 TOPN_BLOCK_BYTES = 256 << 20
+
+
+# Device-to-host result fetches of this module: one added where a
+# result leaves the device (each waits for the device), so a caller that
+# zeroes it before a query and reads it after sees that query's syncs
+# here (chip_smoke.py's batch phase, the batch tests).
+FETCHES = {"host": 0}
+
+
+def _fetch(t: torch.Tensor) -> list:
+    """``t.tolist()``, counted in FETCHES."""
+    FETCHES["host"] += 1
+    return t.tolist()
 
 
 def _to_device(device: torch.device, words: np.ndarray) -> torch.Tensor:
@@ -74,23 +89,38 @@ def remap_expr_leaves(expr, remap: dict[int, int]) -> tuple:
     return done[id(expr)]
 
 
-def _expr_slice_counts(expr, leaf_arrays: list) -> torch.Tensor:
-    """[S] int32 counts of ``expr``, reading only ITS leaves."""
+def _own_leaves(expr, leaf_arrays: list) -> tuple:
+    """(``expr`` over only the leaves it reads, those leaves)."""
     ids = expr_leaf_ids(expr)
     if ids == list(range(len(leaf_arrays))):
-        return cuda_kernels.expr_count_rows(expr, leaf_arrays)
+        return expr, leaf_arrays
     local = remap_expr_leaves(expr, {g: li for li, g in enumerate(ids)})
-    return cuda_kernels.expr_count_rows(local,
-                                        [leaf_arrays[i] for i in ids])
+    return local, [leaf_arrays[i] for i in ids]
+
+
+def _expr_slice_counts(expr, leaf_arrays: list) -> torch.Tensor:
+    """[S] int32 counts of ``expr``, reading only ITS leaves."""
+    return cuda_kernels.expr_count_rows(*_own_leaves(expr, leaf_arrays))
+
+
+def _count_totals(exprs: tuple, leaf_arrays: list) -> torch.Tensor:
+    """``[K]`` int64 totals of K expressions over shared leaf slabs, on
+    the device: the expression count for one (reading only its leaves),
+    its batched entry for more (one launch)."""
+    if len(exprs) == 1:
+        per_slice = _expr_slice_counts(exprs[0], leaf_arrays)[None]
+    else:
+        per_slice = cuda_kernels.expr_count_batch(exprs, leaf_arrays)
+    return per_slice.sum(dim=1, dtype=torch.int64)
 
 
 def count_exprs_sharded(exprs: tuple, leaf_arrays: list) -> list[int]:
     """K expression counts over shared device-resident ``[S, W]`` leaf
-    slabs: one kernel launch per expression, the K totals summed in
-    int64 on the device and fetched in one copy."""
-    totals = [_expr_slice_counts(expr, leaf_arrays).sum(dtype=torch.int64)
-              for expr in exprs]
-    return torch.stack(totals).tolist()
+    slabs (each expression names leaves of the whole list): one kernel
+    launch, the K totals summed in int64 on the device and fetched in
+    one copy — the torch form of the JAX count batch (``count_batch``,
+    programs.py:133)."""
+    return _fetch(_count_totals(tuple(exprs), leaf_arrays))
 
 
 def count_expr_sharded(expr: tuple, leaf_arrays: list) -> int:
@@ -107,6 +137,77 @@ def count_expr(device: torch.device, expr: tuple,
     return count_expr_sharded(expr, list(_to_device(device, leaves)))
 
 
+def fused_tree_sharded(count_exprs: tuple, topn_items: list,
+                       leaf_arrays: list, rows_arrays: list
+                       ) -> tuple[list[int], list[list[int]]]:
+    """A multi-call tree — K expression Counts and M exact-count TopN
+    blocks — over shared device-resident leaf slabs: one batched count
+    launch (none without Counts) and one TopN block count a block, the
+    totals summed in int64 on the device and fetched in ONE copy.
+    ``topn_items`` is ``[(expr, n_rows), ...]`` with ``rows_arrays[i]``
+    the matching ``[S, R_i, W]`` candidate block. Returns (count values,
+    per-TopN count lists): the torch form of the JAX ``fused_tree``
+    (mesh.py:801, programs.py:307)."""
+    parts = []
+    if count_exprs:
+        parts.append(_count_totals(tuple(count_exprs), leaf_arrays))
+    for (expr, _), rows in zip(topn_items, rows_arrays):
+        parts.append(cuda_kernels.topn_block_count(
+            expr, rows, leaf_arrays).sum(dim=0, dtype=torch.int64))
+    if not parts:
+        return [], []
+    flat = _fetch(torch.cat(parts))
+    counts = flat[:len(count_exprs)]
+    out_topn: list[list[int]] = []
+    off = len(count_exprs)
+    for _, n_rows in topn_items:
+        out_topn.append(flat[off:off + n_rows])
+        off += n_rows
+    return counts, out_topn
+
+
+def materialize_words(expr, leaf_arrays: list) -> torch.Tensor:
+    """``[S, W]`` int32 words of ``expr`` on the device, reading only
+    its leaves (the expression-words kernel)."""
+    return cuda_kernels.expr_words(*_own_leaves(expr, leaf_arrays))
+
+
+def fetch_words(words: torch.Tensor) -> np.ndarray:
+    """Device int32 words → host ``[S, W]`` u32 (one copy, counted in
+    FETCHES)."""
+    FETCHES["host"] += 1
+    return words.cpu().numpy().view(np.uint32)
+
+
+def materialize_expr_sharded(expr, leaf_arrays: list) -> np.ndarray:
+    """``[S, W]`` u32 dense words of the expression bitmap: one
+    expression-words launch over the resident leaf slabs, fetched to the
+    host for the roaring repack — the torch form of the JAX
+    ``materialize`` (mesh.py:1144, programs.py:265)."""
+    return fetch_words(materialize_words(expr, leaf_arrays))
+
+
+def bsi_range_sharded(op: str, upred, depth: int,
+                      plane_arrays: list) -> np.ndarray:
+    """``[S, W]`` u32 dense matched words of a BSI comparison over
+    device-resident plane slabs (``plane_arrays[0]`` the existence row,
+    ``plane_arrays[1+i]`` offset-value bit i, each ``[S, W]``): the
+    port's fold of the JAX circuit (storage.bsi.compare_fold_expr; the
+    same words as ``ops.kernels.bsi_compare_select`` for every operator)
+    through the expression-words kernel — the torch form of the JAX
+    ``bsi_range_sharded`` (mesh.py:1164, programs.py:282). ``op`` "><"
+    takes ``upred = (lo, hi)`` in offset space. A provably empty
+    comparison is zero words with no launch."""
+    expr = bsi.compare_fold_expr(
+        op, upred, depth,
+        lambda plane: ("leaf", 0 if plane == bsi.EXISTS_PLANE
+                       else plane + 1))
+    if expr is None:
+        n_slices, n_words = plane_arrays[0].shape
+        return np.zeros((n_slices, n_words), dtype=np.uint32)
+    return fetch_words(materialize_words(expr, plane_arrays))
+
+
 def topn_exact_sharded(expr, rows: torch.Tensor,
                        leaf_arrays: list) -> list[int]:
     """TopN exact counts over a device-resident candidate block ``rows
@@ -114,7 +215,7 @@ def topn_exact_sharded(expr, rows: torch.Tensor,
     ``popcount(row ∩ expr)`` (plain row popcounts when ``expr`` is
     None) summed over every slice."""
     per_slice = cuda_kernels.topn_block_count(expr, rows, leaf_arrays)
-    return per_slice.sum(dim=0, dtype=torch.int64).tolist()
+    return _fetch(per_slice.sum(dim=0, dtype=torch.int64))
 
 
 def _filtered_counts(expr, rows: torch.Tensor, leaf_arrays: list,
@@ -155,7 +256,7 @@ def topn_filtered_sharded(expr, rows: torch.Tensor, leaf_arrays: list,
     threshold = min(threshold, 2**31 - 1)  # counts never exceed 2^31
     per_slice = _filtered_counts(expr, rows, leaf_arrays, threshold,
                                  tanimoto)
-    return per_slice.sum(dim=0, dtype=torch.int64).tolist()
+    return _fetch(per_slice.sum(dim=0, dtype=torch.int64))
 
 
 def topn_topk_sharded(expr, rows: torch.Tensor, leaf_arrays: list,

@@ -1,8 +1,6 @@
 """Minimal threaded HTTP/1.1 server for the WSGI handler.
 
-A copy of the JAX package's ``server/httpd.py`` without the query batch
-lane: every request goes to the WSGI app on its own (the batched run of
-pipelined queries comes with the fused-batch slice).
+A copy of the JAX package's ``server/httpd.py``.
 
 The reference serves each connection on a goroutine with net/http
 (server.go:146): keep-alive connections, concurrent accept, little
@@ -16,11 +14,21 @@ Design:
   the few headers the app reads).
 - PIPELINING: every complete request already buffered is parsed before
   responding, and the responses go out in order.
+- QUERY BATCH LANE: consecutive pipelined ``POST /index/{i}/query``
+  requests (plain-PQL JSON, same index, no query string) go to the
+  server's ``query_batcher`` as ONE executor call — a 1,000-request
+  SetBit burst becomes a few batched mutations and one commit barrier.
+  A write that adds a slice ends the executor call, so a later read in
+  the burst sees that slice, as it would sent alone.
+  Each request keeps its own response; when the batcher declines
+  (None) the requests go one by one, so error semantics stay those of
+  sequential dispatch.
 """
 
 from __future__ import annotations
 
 import io
+import re
 import socket
 import sys
 import threading
@@ -31,7 +39,14 @@ from ..utils import logger as logger_mod
 # path's 10M-bit buffers with headroom.
 _MAX_REQUEST = 1 << 28
 
-_STATUS_REASON = {400: "Bad Request"}
+_QUERY_PATH_RE = re.compile(r"^/index/([^/]+)/query$")
+
+_STATUS_REASON = {200: "OK", 400: "Bad Request", 404: "Not Found",
+                  405: "Method Not Allowed", 409: "Conflict",
+                  429: "Too Many Requests",
+                  500: "Internal Server Error",
+                  501: "Not Implemented", 503: "Service Unavailable",
+                  504: "Gateway Timeout", 507: "Insufficient Storage"}
 
 
 class _Request:
@@ -50,9 +65,11 @@ class HTTPServer:
     """Threaded HTTP/1.1 front door over a WSGI app."""
 
     def __init__(self, app, host: str, port: int,
-                 logger=logger_mod.NOP):
+                 logger=logger_mod.NOP, query_batcher=None):
         self.app = app
         self.logger = logger
+        # query_batcher(index, [pql bodies]) -> list of payloads | None
+        self.query_batcher = query_batcher
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -239,15 +256,53 @@ class HTTPServer:
 
     def _process(self, reqs: list[_Request]) -> tuple[list, bool]:
         """Response items (bytes, or a generator for streamed bodies)
-        for a pipelined group, in request order."""
+        for a pipelined group, in request order, batching query POST
+        runs."""
         out: list = []
         close = False
-        for req in reqs:
-            resp, close = self._dispatch_wsgi(req)
+        i = 0
+        n = len(reqs)
+        while i < n:
+            run_index = self._batchable_index(reqs[i])
+            if run_index is not None:
+                j = i + 1
+                while (j < n
+                       and self._batchable_index(reqs[j]) == run_index):
+                    j += 1
+                if j - i >= 2 and self.query_batcher is not None:
+                    bodies = [reqs[k].body.decode("latin-1")
+                              for k in range(i, j)]
+                    batched = self.query_batcher(run_index, bodies)
+                    if batched is not None:
+                        out.append(b"".join(
+                            self._json_response(payload,
+                                                reqs[i + k].close)
+                            for k, payload in enumerate(batched)))
+                        close = reqs[j - 1].close
+                        i = j
+                        continue
+            resp, close = self._dispatch_wsgi(reqs[i])
             out.append(resp)
+            i += 1
             if close:
                 break
         return out, close
+
+    def _batchable_index(self, req: _Request):
+        """The index name when this request can join a query batch run,
+        else None (protobuf bodies or answers, a query string —
+        slices, columnAttrs, plan — and a closing request go one by
+        one)."""
+        if req.method != "POST" or req.qs or req.close:
+            return None
+        m = _QUERY_PATH_RE.match(req.path)
+        if m is None:
+            return None
+        if "protobuf" in req.headers.get("content-type", ""):
+            return None
+        if "protobuf" in req.headers.get("accept", ""):
+            return None
+        return m.group(1)
 
     def _dispatch_wsgi(self, req: _Request):
         environ = {
@@ -304,6 +359,21 @@ class HTTPServer:
         return stream(), True
 
     # -- response builders ---------------------------------------------------
+
+    @staticmethod
+    def _json_response(payload, close: bool) -> bytes:
+        """Frame one batch-lane payload: plain bytes are a 200; a
+        (status, bytes) tuple carries an error status."""
+        status = 200
+        if isinstance(payload, tuple):
+            status, payload = payload
+        conn_hdr = "close" if close else "keep-alive"
+        reason = _STATUS_REASON.get(status, "Unknown")
+        return (f"HTTP/1.1 {status} {reason}\r\n"
+                f"Content-Type: application/json\r\n"
+                f"Content-Length: {len(payload)}\r\n"
+                f"Connection: {conn_hdr}\r\n\r\n"
+                ).encode("latin-1") + payload
 
     @staticmethod
     def _plain_response(status: int, msg: str, close: bool) -> bytes:

@@ -538,6 +538,48 @@ class Fragment:
         return self.storage.count_range(row_id * SLICE_WIDTH,
                                         (row_id + 1) * SLICE_WIDTH)
 
+    def fold_rows(self, op: str, row_ids: list[int]) -> np.ndarray:
+        """Slice-local columns of a left fold of ``op`` over the given
+        rows, gathered from the rows' container key spans in one
+        vectorized pass instead of one roaring merge a row (the
+        reference folds row by row, executor.go:253-268).
+
+        Semantics match the sequential fold: ``or`` = union of all;
+        ``and`` = columns present in every distinct row; ``andnot`` =
+        the first row minus the union of the rest."""
+        if op not in ("or", "and", "andnot"):
+            raise ValueError(f"unknown fold op: {op!r}")
+        if not row_ids:
+            return np.empty(0, dtype=np.uint64)
+        with self._mu:
+            w = np.uint64(SLICE_WIDTH)
+            ids = np.unique(np.asarray(row_ids, dtype=np.uint64))
+            # A row covers SLICE_WIDTH / 65536 consecutive container keys.
+            shift = np.uint64((SLICE_WIDTH // 65536).bit_length() - 1)
+            positions = self.storage.positions_for_key_ranges(
+                ids << shift, (ids + np.uint64(1)) << shift)
+        if not len(positions):
+            return np.empty(0, dtype=np.uint64)
+        rows = positions // w
+        cols = positions % w
+        if op == "or":
+            return np.unique(cols)
+        if op == "and":
+            uniq, counts = np.unique(cols, return_counts=True)
+            # (row, col) pairs are distinct: a column's count is the
+            # number of rows holding it.
+            return uniq[counts == len(ids)]
+        # andnot: the sequential left-to-right difference is the first
+        # row minus the union of the rest; a repeat of the first row
+        # later in the list subtracts it from itself.
+        first = np.uint64(row_ids[0])
+        if any(np.uint64(r) == first for r in row_ids[1:]):
+            return np.empty(0, dtype=np.uint64)
+        first_cols = np.unique(cols[rows == first])
+        rest_cols = np.unique(cols[rows != first])
+        return first_cols[~np.isin(first_cols, rest_cols,
+                                   assume_unique=True)]
+
     def _row_counts_of(self, row_ids: np.ndarray) -> np.ndarray:
         """Exact bit counts of many rows in one pass over the container
         table: slice rows align on container boundaries, so a row's

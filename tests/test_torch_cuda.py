@@ -562,9 +562,11 @@ def test_sum_and_views_card_matches_cpu(cuda_device, fields):
     holder, vals = fields
     card = Executor(holder, device=cuda_device)
     cpu = Executor(holder, device="cpu")
-    before = ck.LAUNCHES["expr_count_rows"]
+    before = dict(ck.LAUNCHES)
     got = card.execute("i", "Sum(frame=v, field=amount)")[0]
-    assert ck.LAUNCHES["expr_count_rows"] == before + 22
+    # The 22 plane counts are one batched launch.
+    assert ck.LAUNCHES["expr_count_batch"] == before["expr_count_batch"] + 1
+    assert ck.LAUNCHES["expr_count_rows"] == before["expr_count_rows"]
     assert (got.value, got.count) == (int(vals.sum()), len(vals))
     for q in ["Sum(Bitmap(frame=seg, rowID=1), frame=v, field=amount)",
               "Sum(Range(frame=v, amount > 0), frame=v, field=amount)",
@@ -594,3 +596,105 @@ def test_bsi_fold_programs_on_the_card(cuda_device):
         expr = bsi.compare_fold_expr(op, upred, 63, leaf)
         assert torch.equal(ck.expr_count_rows(expr, planes),
                            ck.expr_count_rows_torch(expr, planes)), op
+
+
+# -- the expression-words kernel and the batched expression count -----------
+
+def _bsi_folds():
+    from pilosa_tpu_torch.storage import bsi
+
+    def leaf(p):
+        return ("leaf", 0 if p == bsi.EXISTS_PLANE else p + 1)
+
+    return {op: bsi.compare_fold_expr(op, upred, 21, leaf)
+            for op, upred in (("<", 1_123_456), (">=", 654_321),
+                              ("==", 999_999), ("!=", 5),
+                              ("><", (333_333, 1_500_000)))}
+
+
+# expr_words at configuration 2's shape (one slice row, a 1000-leaf
+# Union: the leaf-split fold, a program longer than the kernel stages),
+# the other flat folds at few word groups (Intersect, Xor past the
+# staged instructions, Difference, a part-full last CTA, 16 slices,
+# fewer leaves than the split takes), configuration 4's 16-row Union
+# over 256 slices, a tree with spill slots, the 22-plane BSI folds
+# (``><`` with a spill slot), W = 4 and odd slice counts, into dirty
+# memory.
+@pytest.mark.parametrize("name,expr,n,shape", [
+    ("union1000_s1", _fold("or", 1000), 1000, (1, 32768)),
+    ("intersect9_s1", _fold("and", 9), 9, (1, 32768)),
+    ("xor1100_s1", _fold("xor", 1100), 1100, (1, 32768)),
+    ("difference300_s2", _fold("andnot", 300), 300, (2, 32768)),
+    ("union20_odd", _fold("or", 20), 20, (3, 2052)),
+    ("union9_s16", _fold("or", 9), 9, (16, 32768)),
+    ("intersect5_s1", _fold("and", 5), 5, (1, 32768)),
+    ("union16_s256", _fold("or", 16), 16, (256, 32768)),
+    ("difference9", _fold("andnot", 9), 9, (3, 32768)),
+    ("spill256", _balanced(0, 256), 256, (3, 2048)),
+    ("mixed", MIXED, 3, (9, 4)),
+    ("leaf", ("leaf", 1), 2, (5, 2048)),
+] + [(f"bsi{op}", e, 22, (7, 32768)) for op, e in _bsi_folds().items()])
+def test_expr_words(cuda_device, name, expr, n, shape):
+    leaves = _words(np.random.default_rng(14), (n,) + shape, cuda_device)
+    want = ck.expr_words_torch(expr, leaves)
+    got = _dirty_call("expr_words", shape,
+                      lambda: ck.expr_words(expr, leaves), cuda_device)
+    assert torch.equal(got, want)
+
+
+def _batch_exprs(k):
+    """K expressions over one leaf set that share leaf 0 (a filter)."""
+    return tuple(("and", ("leaf", 1 + i), ("leaf", 0)) if i % 3
+                 else ("or", ("andnot", ("leaf", 1 + i), ("leaf", 0)),
+                       ("leaf", 0))
+                 for i in range(k))
+
+
+@pytest.mark.parametrize("k,shape", [(1, (256, 32768)), (2, (3, 2048)),
+                                     (16, (256, 32768)), (22, (256, 32768)),
+                                     (22, (1, 4)), (5, (7, 2052))])
+def test_expr_count_batch(cuda_device, k, shape):
+    leaves = list(_words(np.random.default_rng(15), (k + 1,) + shape,
+                         cuda_device))
+    exprs = _batch_exprs(k)
+    want = ck.expr_count_batch_torch(exprs, leaves)
+    got = _dirty_call("expr_count_batch", (k, shape[0]),
+                      lambda: ck.expr_count_batch(exprs, leaves),
+                      cuda_device)
+    assert tuple(got.shape) == (k, shape[0])
+    assert torch.equal(got, want)
+
+
+def test_batch_and_materialize_card_matches_cpu(cuda_device, tmp_path):
+    rng = np.random.default_rng(16)
+    holder = Holder(str(tmp_path))
+    holder.open()
+    f = holder.create_index("i").create_frame("f")
+    for row in range(20):
+        n = (3000, 150000)[row % 4 == 0]
+        cols = rng.choice(3 * SLICE_WIDTH, size=n, replace=False)
+        f.import_bits(np.full(n, row, np.uint64), cols.astype(np.uint64))
+    card = Executor(holder, device=cuda_device)
+    cpu = Executor(holder, device="cpu")
+    u9 = ", ".join(f"Bitmap(rowID={r}, frame=f)" for r in range(9))
+    queries = {
+        "expr_count_batch": " ".join(
+            f"Count(Intersect(Bitmap(rowID={r}, frame=f),"
+            f" Bitmap(rowID=0, frame=f)))" for r in range(1, 17)),
+        "topn_block_count": "Count(Bitmap(rowID=1, frame=f)) TopN(Bitmap("
+                            "rowID=2, frame=f), frame=f, ids=[0,1,2,3,4])"
+                            " Count(Bitmap(rowID=3, frame=f))",
+        "expr_words": f"Union({u9}) Difference({u9})"
+                      f" Intersect(Bitmap(rowID=0, frame=f), {u9})",
+    }
+
+    def norm(rs):
+        return [r if isinstance(r, int) else
+                [int(b) for b in r.bits()] if hasattr(r, "bits") else
+                [(p.id, p.count) for p in r] for r in rs]
+
+    for kernel, q in queries.items():
+        before = ck.LAUNCHES[kernel]
+        assert norm(card.execute("i", q)) == norm(cpu.execute("i", q)), q
+        assert ck.LAUNCHES[kernel] > before, q
+    holder.close()

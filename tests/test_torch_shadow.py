@@ -14,7 +14,8 @@ proven-empty branch beside a missing frame the JAX planner answers
 with 0; and on two frames the test adds (a BSI field, a time quantum
 with inverse storage) SetFieldValue, the protobuf field import,
 timestamped SetBit and ``/import``, time and field ``Range``, ``Sum``,
-``Min``, ``Max`` and ``Bitmap(columnID=...)``. Then ``pilosa_tpu.obs.replay.shadow`` replays the JAX server's
+``Min``, ``Max`` and ``Bitmap(columnID=...)``; bitmap calls of 8 or
+more leaves and multi-call bodies of Counts and TopNs. Then ``pilosa_tpu.obs.replay.shadow`` replays the JAX server's
 captured records against both: every write again, in recorded order,
 then every read, whose result digests must match.
 
@@ -129,6 +130,9 @@ def _views_workload(rng):
         "Sum(Bitmap(frame=tq, rowID=2), frame=bsi, field=amt)",
         "Max(Range(frame=tq, rowID=1, start=\"2017-01-01T00:00\","
         " end=\"2017-07-01T00:00\"), frame=bsi, field=amt)",
+        "Count(Range(frame=bsi, amt > 10)) Count(Range(frame=bsi,"
+        " amt >< [0, 100])) Count(Intersect(Range(frame=bsi, amt < 0),"
+        " Bitmap(frame=tq, rowID=2)))",
         "Bitmap(columnID=11, frame=tq)",
         "Count(Bitmap(columnID=11, frame=tq))",
     ]
@@ -176,7 +180,34 @@ def _workload(rng):
               'Bitmap(rowID=5, frame="fs"))',
               'Intersect(Bitmap(rowID=1, frame="f"), Union())'):
         steps.append(("query", q))
-    return steps + _views_workload(rng)
+    return steps + _wide_and_batched(rng) + _views_workload(rng)
+
+
+def _wide_and_batched(rng):
+    """Bitmap calls of 8 or more leaves (the device materialize leg)
+    and multi-call bodies of Counts and TopNs (the fused batch). No two
+    of the bitmap calls share a shape: the JAX server's result cache
+    answers a second call of one shape with the first's bits (ROADMAP
+    fault 3.5)."""
+    def bm(r, frame="f"):
+        return f'Bitmap(rowID={r}, frame="{frame}")'
+
+    ids = sorted(rng.choice(N_ROWS, size=24, replace=False).tolist())
+    reads = [
+        "Union(" + ", ".join(bm(r) for r in range(8)) + ")",
+        "Difference(" + ", ".join([bm(1, "src")] + [bm(r) for r in
+                                                    range(2, 11)]) + ")",
+        "Intersect(Union(" + ", ".join(bm(r) for r in range(6)) + "),"
+        " Union(" + ", ".join(bm(r, "fs") for r in range(4)) + "))",
+        " ".join(f"Count(Union({bm(r)}, {bm(r + 1, 'fs')}))"
+                 for r in range(5)),
+        f"Count({bm(1, 'src')}) TopN({bm(1, 'src')}, frame=\"f\","
+        f" ids={ids}) Count(Intersect({bm(2)}, {bm(3, 'src')}))"
+        f" TopN(Intersect({bm(1, 'src')}, {bm(3, 'src')}), frame=\"fs\","
+        f" ids={ids[:9]})",
+        " ".join(f"Count({_rand_tree(rng, 2)})" for _ in range(17)),
+    ]
+    return [("query", q) for q in reads]
 
 
 @pytest.fixture(autouse=True)

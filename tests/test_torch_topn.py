@@ -375,8 +375,14 @@ def test_topk_matches_jax_order():
 
 
 def test_executor_module_has_no_device_fallback():
-    """No TopN leg catches a device error (no host fallback)."""
+    """No TopN leg catches a device error (no host fallback). The one
+    catch-all of the class is ``execute_partial``'s, which hands the
+    error back to its caller beside the results before it."""
     import inspect
-    src = inspect.getsource(TorchExecutor)
-    assert "except Exception" not in src
-    assert "except BaseException" not in src
+    for name, fn in inspect.getmembers(TorchExecutor, inspect.isfunction):
+        src = inspect.getsource(fn)
+        assert "except BaseException" not in src, name
+        if name != "execute_partial":
+            assert "except Exception" not in src, name
+    src = inspect.getsource(TorchExecutor.execute_partial)
+    assert "return results, e" in src
