@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs ten phases and prints one JSON line for each:
+checkout, then runs eleven phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -114,7 +114,27 @@ checkout, then runs ten phases and prints one JSON line for each:
    front's batch lane): every answer checked, requests/s and the
    executor calls counted, and after the server closes every acked bit
    is read back from the reopened fragment files.
-9. ``durability``: the port's ``server`` verb as a subprocess on the
+9. ``control``: the query lifecycle and the calibrated routing over
+   the same directory (``phase_control``). The cost model's
+   calibration five times on the card (``sync_s``, ``upload_bps``,
+   ``host_bps``, ``pack_bps``, ``device_bps``; parallel/costmodel.py);
+   an in-process ``Server`` (its warmup must launch all six kernel
+   entries) for the routing table — the warm p50 of phase 2's
+   ``Count(Intersect)`` on the host leg, on the pinned device leg and
+   as the calibrated routing sends it, at 1, 2, 4, 8, 16, 64 and 256
+   slices, with the route taken, every answer equal — and the
+   lifecycle's own cost (the warm HTTP p50 of that Count over 200
+   requests with the cost ledger and tracing off, then on); then the
+   ``server`` verb as a subprocess with one admission slot and no
+   queue: phase 3's streaming TopN repeated in one body until it runs
+   two seconds, under ``?timeout=100ms`` (504 with the JAX text),
+   cancelled by ``DELETE /debug/queries/{id}`` from a second
+   connection (409, then a right Count and a right TopN), and twice at
+   once (one 200, one 429 with Retry-After); a ``?trace=1`` Count whose
+   trace holds ``mesh_dispatch`` spans and whose ``X-Pilosa-Stats``
+   reports kernel launches; and ``/metrics`` parsed, its request,
+   status and admission samples moved.
+10. ``durability``: the port's ``server`` verb as a subprocess on the
    card over a fresh directory, seeded by protobuf ``/import`` with
    configuration 4's rows over 256 slices, takes a write storm (8
    threads of SetBit/ClearBit queries; after a quarter of it 2 threads
@@ -131,25 +151,29 @@ checkout, then runs ten phases and prints one JSON line for each:
    (also for the writers alone and beside the imports), the
    WAL bytes at the kill, the respawn-to-ready seconds, the launches and
    the card's name and power limit.
-10. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+11. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Every answer of phases 2-5 and 8 is held to the host roaring answer
-computed from the port's own fragments, every answer of phase 6 to
-numpy, of phase 7 to numpy or to words packed on the host, and every
-count of phase 10 to the host ``popcnt_and``. The kernels' launch
-counters are set to 0 before phase 2, before phase 6, before phase 7,
-before phase 8 and before phase 9's reopen, and read after phases 5,
-6, 7, 8, 9 and 10: every kernel must have launched on that main path,
-the TopN block count in phase 4's device top-k, the TopN block count,
-the expression count and densify in its sourced queries, the
+The kernel phases (2-8 and the reopen of 10) pin every device leg
+(``_pinned``: ``mesh_min_slices=1`` and a cost model that vetoes
+nothing), as the tests pin it, so the calibrated routing cannot move
+their launches to the host. Every answer of phases 2-5 and 8 is held
+to the host roaring answer computed from the port's own fragments,
+every answer of phase 6 to numpy, of phase 7 to numpy or to words
+packed on the host, of phase 9 to host roaring, and every count of
+phase 11 to the host ``popcnt_and``. The kernels' launch counters are
+set to 0 before phase 2, before phase 6, before phase 7, before phase
+8, before phase 9 and before phase 10's reopen, and read after phases
+5, 6, 7, 8, 9, 10 and 11: every kernel must have launched on that main
+path, the TopN block count in phase 4's device top-k, the TopN block
+count, the expression count and densify in its sourced queries, the
 expression count (every device Count(Range)), its batched entry (every
 Sum) and densify in phase 6, the expression-words kernel, the batched
 count and the TopN block count in phase 7, again in the server phase
-by itself and again after phase 9's reopen, and the op count in phase
-10. Then it prints the card's name and power limit, the kernel
+by itself and again after phase 10's reopen, and the op count in
+phase 11. Then it prints the card's name and power limit, the kernel
 table as one JSON object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
@@ -181,6 +205,15 @@ def _fail(msg: str) -> None:
 
 def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _pinned() -> dict:
+    """Executor arguments that pin every device leg, as the tests pin
+    them: the slice floor at one and a cost model that vetoes nothing
+    (margin 0). The kernel phases run with them, so the calibrated
+    routing cannot move their launches to the host."""
+    from pilosa_tpu_torch.parallel import costmodel
+    return {"mesh_min_slices": 1, "cost_model": costmodel.pinned(0.0)}
 
 
 def _check_equal(name: str, got, want) -> int:
@@ -601,11 +634,11 @@ def _densify_library(dens, n_words, device) -> dict:
                              f"val int32)"}
 
 
-def _timed_query(ex, index, q):
+def _timed_query(ex, index, q, slices=None):
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = ex.execute(index, q)
+    out = ex.execute(index, q, slices)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
 
@@ -694,7 +727,7 @@ def phase_count(holder, device, seed: int, n_slices: int = 256) -> dict:
 
     want = _count_wants(holder, n_slices)
     queries = _count_queries()
-    ex = Executor(holder, device=device)
+    ex = Executor(holder, device=device, **_pinned())
     results = []
     for name, q in queries.items():
         residency.device_cache().clear()
@@ -766,7 +799,7 @@ def phase_topn(holder, device, seed: int, n_slices: int = 10,
                       f" ids={ids_all})",
          host_pairs(lambda f: f.row(1).intersect(f.row(2)), ids_all)),
     ]
-    ex = Executor(holder, device=device)
+    ex = Executor(holder, device=device, **_pinned())
     results = []
     for name, q, want in queries:
         residency.device_cache().clear()
@@ -1001,7 +1034,7 @@ def phase_topn1000(holder, device, seed: int, n_rows: int = 100_000,
     ]
     if not want6:
         _fail("topn1000: the Tanimoto reference answers no pair")
-    ex = Executor(holder, device=device)
+    ex = Executor(holder, device=device, **_pinned())
     results = []
     for name, index, q, want, union in queries:
         residency.device_cache().clear()
@@ -1117,7 +1150,8 @@ def phase_server(data_dir, device, seed: int, ids200: list,
     PB = "application/x-protobuf"
     rng = np.random.default_rng(seed + 4)
     t0 = time.perf_counter()
-    srv = Server(data_dir, host="127.0.0.1:0", device=device)
+    srv = Server(data_dir, host="127.0.0.1:0", device=device,
+                 warmup=False, executor_options=_pinned())
     srv.open()
     open_s = time.perf_counter() - t0
     try:
@@ -1361,8 +1395,8 @@ def phase_planner(holder, device) -> dict:
     empty = 200_000  # a row of t3/f with no bit
     if any(f.row_count(empty) for f in frags):
         _fail(f"planner: row {empty} of t3/f is not empty")
-    ex = Executor(holder, device=device)
-    plain = Executor(holder, device=device)
+    ex = Executor(holder, device=device, **_pinned())
+    plain = Executor(holder, device=device, **_pinned())
     plain.planner_enabled = False
     results = []
 
@@ -1595,7 +1629,7 @@ def phase_fields(holder, device, seed: int, n_slices: int = 256,
         np.full(len(seg_cols), 1, np.uint64), np.sort(seg_cols))
     bsi_load_s = time.perf_counter() - t0
 
-    ex = Executor(holder, device=device)
+    ex = Executor(holder, device=device, **_pinned())
     depth = field.bit_depth
     full_bound_ms = (depth + 1) * slab_bytes / HBM_BYTES_PER_S * 1e3
     served = []
@@ -2058,9 +2092,9 @@ def phase_batch(holder, device, seed: int, n_slices: int = 256) -> tuple:
 
     rng = np.random.default_rng(seed + 9)
     t_phase = time.perf_counter()
-    ex = Executor(holder, device=device)
+    ex = Executor(holder, device=device, **_pinned())
     host_ex = Executor(holder, device=device, materialize_device_bytes=0,
-                       result_cache_bits=-1)
+                       result_cache_bits=-1, **_pinned())
     results, served = [], []
 
     def bits_check(want):
@@ -2617,7 +2651,8 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
     ck.reset_launches()
     residency.device_cache().clear()
     t0 = time.perf_counter()
-    srv = Server(data_dir, host="127.0.0.1:0", device=device)
+    srv = Server(data_dir, host="127.0.0.1:0", device=device,
+                 warmup=False, executor_options=_pinned())
     srv.open()
     ready_s = time.perf_counter() - t0
     try:
@@ -2719,6 +2754,396 @@ def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
     return out
 
 
+_ROUTE_SLICES = (1, 2, 4, 8, 16, 64, 256)
+_CAL_KEYS = ("sync_s", "upload_bps", "host_bps", "pack_bps", "device_bps")
+
+
+def _median(vals):
+    v = sorted(vals)
+    return v[len(v) // 2]
+
+
+def _request(host: str, method: str, path: str, body: bytes = b"",
+             headers=None, timeout: float = 120.0):
+    """(status, headers, body, client ms) of one request over a fresh
+    connection; any status is returned, none fails the run."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://{host}{path}",
+                                 data=body if method != "GET" else None,
+                                 method=method, headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            out = (resp.status, dict(resp.headers), resp.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, dict(e.headers), e.read())
+    return out + ((time.perf_counter() - t0) * 1e3,)
+
+
+def _scrape(host: str) -> dict:
+    """GET /metrics parsed into {sample name with labels: value};
+    fails on a line that is not a comment or a sample."""
+    status, _, body, _ = _request(host, "GET", "/metrics")
+    if status != 200:
+        _fail(f"control: /metrics answered {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, sep, value = line.rpartition(" ")
+        if not sep:
+            _fail(f"control: /metrics line does not parse: {line!r}")
+        try:
+            out[name] = float(value)
+        except ValueError:
+            _fail(f"control: /metrics value does not parse: {line!r}")
+    return out
+
+
+def _family_sum(samples: dict, family: str, **labels) -> float:
+    total = 0.0
+    for name, v in samples.items():
+        base = name.split("{", 1)[0]
+        if base != family:
+            continue
+        if all(f'{k}="{val}"' in name for k, val in labels.items()):
+            total += v
+    return total
+
+
+def phase_control(data_dir, device, seed: int, tmp: str,
+                  n_slices: int = 256, n_requests: int = 200) -> dict:
+    """The query lifecycle and the H100-calibrated routing (see the
+    module docstring): the calibration, the routing table, the
+    lifecycle's own cost in this process, then a ``server`` subprocess
+    with one admission slot and no queue for the deadline, the cancel,
+    the overload and the scrape. The two servers serve copies of the
+    two indexes the phase queries (``smoke`` and ``smoke_topn``), one
+    copy each (a fragment file is locked while open): opening the whole
+    directory takes ~20 s a process. The subprocess starts first, so
+    its start overlaps the work in this process."""
+    import signal
+    import subprocess
+
+    t_phase = time.perf_counter()
+    card = _card()
+    dirs = {}
+    for name in ("inproc", "sub"):
+        dirs[name] = os.path.join(tmp, f"control_{name}")
+        for index in ("smoke", "smoke_topn"):
+            shutil.copytree(os.path.join(data_dir, index),
+                            os.path.join(dirs[name], index))
+    cal_dir = os.path.join(tmp, "costcal")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    host = f"127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    dev_args = ["--device", "cpu"] if device.type == "cpu" else []
+    log_path = os.path.join(tmp, "control_server.log")
+    t_spawn = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+             "-d", dirs["sub"], "-b", host, "--query.concurrency", "1",
+             "--query.queue-depth", "0", "--cost.dir", cal_dir]
+            + dev_args, cwd=repo, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        return _control_run(dirs["inproc"], device, n_requests, t_phase,
+                            card, cal_dir, host, proc, t_spawn)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _control_run(data_dir, device, n_requests, t_phase, card, cal_dir,
+                 host, proc, t_spawn) -> dict:
+    """``phase_control``'s checks and measurements, with the subprocess
+    ``proc`` serving ``host`` (started at ``t_spawn``)."""
+    import http.client
+    import re
+    import threading
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel import costmodel
+    from pilosa_tpu_torch.server.server import Server
+
+    # 1. The calibration, five times, through the port's own code.
+    runs = [costmodel.calibrate(device).to_dict() for _ in range(5)]
+    cal = {k: _median([r[k] for r in runs]) for k in _CAL_KEYS}
+    if not cal["device_bps"] < HBM_BYTES_PER_S:
+        _fail(f"control: device_bps {cal['device_bps']} past the card's"
+              f" {HBM_BYTES_PER_S}")
+
+    # 2. The routing table and the lifecycle's cost, in this process.
+    count_q = _count_queries()["intersect"]
+    ids_all = list(range(1000))
+    slow_q = ("TopN(Intersect(Bitmap(rowID=1, frame=src), Bitmap(rowID=2,"
+              f" frame=src)), frame=t, n=1000, ids={ids_all})").encode()
+    srv = Server(data_dir, host="127.0.0.1:0", device=device,
+                 cal_dir=cal_dir)
+    t0 = time.perf_counter()
+    srv.open()
+    open_s = time.perf_counter() - t0
+    try:
+        srv.warmup.wait(300)
+        warm = srv.warmup.to_json()
+        if device.type == "cuda" and (warm["state"] != "done"
+                                      or warm["coverage"]["missing"]):
+            _fail(f"control: warmup {warm}")
+        want_slow = _topn_host_pairs(
+            srv.holder, 10, lambda f: f.row(1).intersect(f.row(2)), ids_all)
+        host_ex = Executor(srv.holder, device=device,
+                           mesh_min_slices=1 << 30)
+        dev_ex = Executor(srv.holder, device=device, **_pinned())
+        routed = srv.executor
+        table = []
+        for width in _ROUTE_SLICES:
+            slices = list(range(width))
+            row = {"slices": width}
+            answers = {}
+            for name, ex in (("host", host_ex), ("device", dev_ex),
+                             ("routed", routed)):
+                vetoes = ex.cost_vetoes
+                ex.execute("smoke", count_q, slices)  # warm the leg
+                ms = []
+                for _ in range(7):
+                    out, t = _timed_query(ex, "smoke", count_q, slices)
+                    ms.append(t)
+                answers[name] = out[0]
+                row[f"{name}_p50_ms"] = _median(ms)
+                if name == "routed":
+                    row["vetoes"] = ex.cost_vetoes - vetoes
+                    row["route"] = ("host" if width < ex.mesh_min_slices
+                                    or row["vetoes"] else "device")
+            if len(set(answers.values())) != 1:
+                _fail(f"control: Count at {width} slices: {answers}")
+            row["answer"] = answers["host"]
+            row["equal"] = True
+            table.append(row)
+        # The smallest width from which the device leg is never slower.
+        floor = None
+        for i, row in enumerate(table):
+            if all(r["device_p50_ms"] <= r["host_p50_ms"] for r in table[i:]):
+                floor = row["slices"]
+                break
+        want_count = table[-1]["answer"]
+        # The lifecycle's own cost: the same requests with the ledger
+        # and tracing off, then both on.
+        conn = http.client.HTTPConnection(srv.host, timeout=120)
+
+        def p50(path: str) -> dict:
+            ms = []
+            for i in range(20 + n_requests):
+                t0 = time.perf_counter()
+                conn.request("POST", path, count_q.encode())
+                resp = conn.getresponse()
+                body = resp.read()
+                if resp.status != 200 or \
+                        json.loads(body)["results"] != [want_count]:
+                    _fail(f"control: {path}: {resp.status} {body[:200]!r}")
+                if i >= 20:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            ms.sort()
+            return {"p50_ms": ms[len(ms) // 2],
+                    "p99_ms": ms[int(0.99 * (len(ms) - 1))]}
+
+        srv.handler.accounting = False
+        lifecycle_off = p50("/index/smoke/query")
+        srv.handler.accounting = True
+        lifecycle_on = p50("/index/smoke/query?trace=1")
+        conn.close()
+    finally:
+        srv.close()
+
+    # 3. The server subprocess with one slot and no queue.
+    _wait_up(host, proc, 300)
+    spawn_s = time.perf_counter() - t_spawn
+    t_end = time.perf_counter() + 300
+    while time.perf_counter() < t_end:
+        st = json.loads(_request(host, "GET", "/status")[2])
+        if st.get("warmup", {}).get("state") in ("done", "failed",
+                                                 "disabled"):
+            break
+        time.sleep(0.2)
+    if device.type == "cuda" and st["warmup"]["state"] != "done":
+        _fail(f"control: subprocess warmup {st.get('warmup')}")
+    path = "/index/smoke_topn/query"
+
+    def slow_ok(status, body, k) -> bool:
+        if status != 200:
+            return False
+        rs = json.loads(body)["results"]
+        return len(rs) == k and all(
+            [(p["id"], p["count"]) for p in r] == want_slow
+            for r in rs)
+
+    topn_ms = []
+    for _ in range(2):  # cold, then warm
+        status, _, body, ms = _request(host, "POST", path, slow_q)
+        if not slow_ok(status, body, 1):
+            _fail(f"control: the streaming TopN answers {status}"
+                  f" {body[:200]!r}")
+        topn_ms.append(ms)
+    # The slow query: the TopN k times in one body, k such that it
+    # runs two seconds or more whichever leg the routing takes.
+    k = max(1, min(40, -int(-2000.0 // max(topn_ms[-1], 1.0))))
+    slow_q = b" ".join([slow_q] * k)
+    status, _, body, slow_ms = _request(host, "POST", path, slow_q)
+    if not slow_ok(status, body, k):
+        _fail(f"control: the slow query answers {status}")
+    # Deadline: 504 with the JAX text, well before the query's time.
+    status, _, body, ms = _request(host, "POST",
+                                   path + "?timeout=100ms", slow_q)
+    err = json.loads(body).get("error", "")
+    if status != 504 or not re.fullmatch(
+            r"query [0-9a-f]{16}: deadline exceeded after \d+\.\d{3}s",
+            err):
+        _fail(f"control: deadline answered {status} {err!r}")
+    deadline = {"status": status, "error": err, "answer_ms": ms,
+                "past_deadline_ms": ms - 100.0, "query_ms": slow_ms}
+
+    def in_flight(qid: str, within_s: float = 30.0) -> None:
+        t_end = time.perf_counter() + within_s
+        while time.perf_counter() < t_end:
+            qs = json.loads(_request(host, "GET", "/debug/queries")[2])
+            if any(q["id"] == qid and q["state"] == "running"
+                   for q in qs["queries"]):
+                return
+            time.sleep(0.01)
+        _fail(f"control: query {qid} never ran")
+
+    # Cancel from a second connection: 409 with the JAX text, then a
+    # Count and the same TopN answer right (no torn cache or slab).
+    res: dict = {}
+    qid = "control-cancel"
+    th = threading.Thread(target=lambda: res.setdefault(
+        "r", _request(host, "POST", path, slow_q,
+                      {"X-Pilosa-Query-Id": qid})))
+    th.start()
+    in_flight(qid)
+    time.sleep(0.2)
+    t_del = time.perf_counter()
+    st_del, _, body_del, _ = _request(host, "DELETE",
+                                      f"/debug/queries/{qid}")
+    th.join(120)
+    cancel_ms = (time.perf_counter() - t_del) * 1e3
+    status, _, body, ms = res["r"]
+    err = json.loads(body).get("error", "")
+    if (st_del != 200 or json.loads(body_del) != {"id": qid,
+                                                  "cancelled": 1}
+            or status != 409
+            or err != f"query {qid} cancelled: cancelled via API"):
+        _fail(f"control: cancel answered {status} {err!r}"
+              f" (DELETE {st_del} {body_del!r})")
+    # The Count twice: a cold leg the model vetoes once takes the
+    # device at its second sighting (Executor._device_pays).
+    for _ in range(2):
+        status, _, body, _ = _request(host, "POST",
+                                      "/index/smoke/query",
+                                      count_q.encode())
+        if status != 200 or \
+                json.loads(body)["results"] != [want_count]:
+            _fail(f"control: Count after the cancel: {status}"
+                  f" {body!r}")
+    status, _, body, _ = _request(host, "POST", path, slow_q)
+    if not slow_ok(status, body, k):
+        _fail("control: the TopN after the cancel differs")
+    cancel = {"status": 409, "error": err, "answer_ms": ms,
+              "after_delete_ms": cancel_ms, "count_after": want_count}
+
+    # Overload: one slot, no queue — one 200 and one 429.
+    res = {}
+    qid = "control-hold"
+    th = threading.Thread(target=lambda: res.setdefault(
+        "a", _request(host, "POST", path, slow_q,
+                      {"X-Pilosa-Query-Id": qid})))
+    th.start()
+    in_flight(qid)
+    during = _scrape(host)
+    st_b, hd_b, body_b, ms_b = _request(host, "POST", path, slow_q)
+    th.join(120)
+    st_a, _, body_a, _ = res["a"]
+    retry = hd_b.get("Retry-After")
+    text_b = body_b.decode(errors="replace").strip()
+    if (not slow_ok(st_a, body_a, k) or st_b != 429
+            or not retry or not retry.isdigit()
+            or text_b != "too many requests: admission queue full"
+            " (0 waiting, 1 in flight)"):
+        _fail(f"control: overload answered {st_a} and {st_b}"
+              f" (Retry-After {retry!r}, {body_b[:200]!r})")
+    overload = {"statuses": [st_a, st_b], "retry_after": retry,
+                "error": text_b,
+                "reject_ms": ms_b}
+
+    # Scrape and trace.
+    qid = "control-trace"
+    status, hdrs, body, _ = _request(
+        host, "POST", "/index/smoke/query?trace=1", count_q.encode(),
+        {"X-Pilosa-Query-Id": qid})
+    stats = json.loads(hdrs.get("X-Pilosa-Stats", "{}"))
+    if (status != 200 or json.loads(body)["results"] != [want_count]
+            or hdrs.get("X-Pilosa-Query-Id") != qid
+            or not stats.get("devicePrograms", 0) > 0):
+        _fail(f"control: traced Count {status}, stats {stats}")
+    status, _, body, _ = _request(host, "GET", f"/debug/traces/{qid}")
+    events = json.loads(body).get("traceEvents", []) \
+        if status == 200 else []
+    spans = [e for e in events if e.get("name") == "mesh_dispatch"]
+    if not spans:
+        _fail(f"control: trace {qid} holds no mesh_dispatch span"
+              f" ({status})")
+    after = _scrape(host)
+    requests = _family_sum(after, "pilosa_query_requests_total")
+    rejected = _family_sum(after, "pilosa_admission_rejections_total",
+                           lane="read")
+    inflight_during = _family_sum(during,
+                                  "pilosa_admission_inflight_queries")
+    inflight_after = _family_sum(after,
+                                 "pilosa_admission_inflight_queries")
+    by_status = {str(code): _family_sum(
+        after, "pilosa_query_requests_total", status=str(code))
+        for code in (200, 409, 429, 504)}
+    if (requests <= 0 or rejected < 1 or inflight_during != 1
+            or inflight_after != 0
+            or min(by_status.values()) < 1):
+        _fail(f"control: /metrics did not move: requests {requests},"
+              f" rejected {rejected}, in flight {inflight_during} →"
+              f" {inflight_after}, by status {by_status}")
+    scrape = {"requests_total": requests, "by_status": by_status,
+              "admission_rejections": rejected,
+              "inflight_during": inflight_during,
+              "inflight_after": inflight_after,
+              "samples": len(after),
+              "stats_header": stats,
+              "mesh_dispatch_spans": [
+                  {"kind": s.get("args", {}).get("kind"),
+                   "dur_us": s["dur"]} for s in spans]}
+    dvars = json.loads(_request(host, "GET", "/debug/vars")[2])
+    out = {"phase": "control", "card": card, "calibration": cal,
+           "calibration_runs": runs, "routing": table,
+           "floor_measured": floor, "floor_default":
+           Executor.MESH_MIN_SLICES, "open_s": open_s, "warmup": warm,
+           "lifecycle_off": lifecycle_off, "lifecycle_on": lifecycle_on,
+           "lifecycle_requests": n_requests, "spawn_s": spawn_s,
+           "topn_ms": topn_ms, "slow_repeats": k,
+           "slow_query_ms": slow_ms, "deadline": deadline,
+           "cancel": cancel, "overload": overload, "scrape": scrape,
+           "subprocess_vetoes": dvars.get("costModelVetoes"),
+           "subprocess_cold_admits": dvars.get("coldAdmits"),
+           "subprocess_cost_model": dvars.get("costModel"),
+           "phase_s": time.perf_counter() - t_phase}
+    _emit(out)
+    return out
+
+
 def phase_bench(device) -> dict:
     """The benchmark of record in this process, at its default width and
     rows; ``bench.run`` raises when a device count differs from the
@@ -2801,6 +3226,10 @@ def main() -> None:
         ck.reset_launches()
         phase_server(data_dir, device, args.seed, ids200, topn1000,
                      fields + batch_served)
+        for name, n in ck.LAUNCHES.items():
+            launches[name] += n
+        ck.reset_launches()
+        phase_control(data_dir, device, args.seed, tmp)
         for name, n in ck.LAUNCHES.items():
             launches[name] += n
         # Nothing reads the earlier phases' directory again: free its

@@ -29,12 +29,13 @@ from .models.holder import Holder
 
 def holder_from_state(path: str, state: dict, device=None,
                       row_attrs=None, column_attrs=None,
-                      frame_options=None):
+                      frame_options=None, executor_options=None):
     """Open a Holder under ``path``, create the frames of
     ``frame_options`` with their options, import every fragment of
     ``state`` and the attributes, and return ``(holder, executor)``, the
     executor on ``device`` (the card unless the caller passes
-    ``"cpu"``)."""
+    ``"cpu"``) with the keyword arguments ``executor_options`` (e.g.
+    ``mesh_min_slices=1`` to pin the device legs)."""
     from .executor import Executor
     holder = Holder(path)
     holder.open()
@@ -56,4 +57,5 @@ def holder_from_state(path: str, state: dict, device=None,
     for index, attrs in sorted((column_attrs or {}).items()):
         holder.create_index_if_not_exists(index) \
             .column_attr_store.set_bulk_attrs(attrs)
-    return holder, Executor(holder, device=device)
+    return holder, Executor(holder, device=device,
+                            **(executor_options or {}))

@@ -1,9 +1,12 @@
 """Command logic of the port's CLI.
 
 Trimmed copy of the JAX package's ``cli/commands.py`` (reference ctl/):
-the ``server`` verb with ``-d/--data-dir``, ``-b/--bind`` and
-``--device``. The TOML config file and the other verbs wait for later
-slices (``import`` and ``export`` need the cluster client).
+the ``server`` verb with ``-d/--data-dir``, ``-b/--bind``,
+``--device``, the admission bounds (``--query.concurrency``,
+``--query.queue-depth``) and ``--cost.dir``, where the cost model's
+calibration is kept. The TOML config file and the
+other verbs wait for later slices (``import`` and ``export`` need the
+cluster client).
 """
 
 from __future__ import annotations
@@ -26,10 +29,18 @@ def cmd_server(args, stdout, stderr) -> int:
     WAL close); an acked write survives SIGKILL too, through the WAL."""
     from ..server.server import Server
     from ..utils import logger as logger_mod
+    from ..utils.config import QueryConfig
 
     logger = logger_mod.Logger(stderr)
+    query = QueryConfig()
+    for attr in ("concurrency", "queue_depth"):
+        value = getattr(args, f"query_{attr}")
+        if value is not None:
+            setattr(query, attr, value)
     server = Server(os.path.expanduser(args.data_dir), host=args.bind,
-                    device=args.device, logger=logger)
+                    device=args.device, logger=logger, query_config=query,
+                    cal_dir=(os.path.expanduser(args.cost_dir)
+                             if args.cost_dir else None))
     server.open()
 
     def stop(signum, frame):
@@ -66,6 +77,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the executor (default the card,"
                         " cuda:0; 'cpu' runs every kernel's plain version"
                         " on the host)")
+    s.add_argument("--query.concurrency", dest="query_concurrency",
+                   type=int, default=None, metavar="N",
+                   help="max queries executing concurrently"
+                        " (admission cap, default 16)")
+    s.add_argument("--query.queue-depth", dest="query_queue_depth",
+                   type=int, default=None, metavar="N",
+                   help="max queries waiting for a slot before the"
+                        " server answers 429 (default 64)")
+    s.add_argument("--cost.dir", dest="cost_dir", default="",
+                   metavar="DIR",
+                   help="directory that keeps the cost model's"
+                        " calibration of this host and card (default:"
+                        " measured at first device use, not kept)")
     s.set_defaults(fn=cmd_server)
     return p
 

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 from ..utils import build_dir
 
@@ -128,9 +129,17 @@ def load(csrc: str = CSRC) -> dict[str, ctypes.CDLL]:
 
 
 def libraries() -> dict[str, ctypes.CDLL]:
-    """The loaded kernel libraries, building them on first call."""
+    """The loaded kernel libraries, building them on first call. That
+    first load (and the nvcc build it may run) is charged as compile
+    seconds to the query that paid for it (obs.accounting), under a
+    ``kernel_build`` trace span."""
     global _libs
     with _mu:
         if _libs is None:
-            _libs = load()
+            from ..obs import accounting as obs_accounting
+            from ..obs import trace as obs_trace
+            t0 = time.perf_counter()
+            with obs_trace.span_current("kernel_build"):
+                _libs = load()
+            obs_accounting.note_compile(time.perf_counter() - t0)
         return _libs

@@ -17,14 +17,29 @@ Expressions are the executor's hashable trees: ``("leaf", i)`` selects
 leaf slab i, ``(op, a, b)`` combines subtrees with and/or/xor/andnot.
 Functions that upload take the ``torch.device`` explicitly; the
 resident forms run where their tensors lie.
+
+Every dispatch entry passes ``_dispatch``: the query's deadline and
+cancel check (sched.context.check_current — a check falls before the
+launch; a launched kernel runs to its end), one device program and its
+operand bytes on the query's cost ledger (obs.accounting), and a
+``mesh_dispatch`` trace span tagged with the entry's kind (the JAX
+package's kinds). A launch is asynchronous, so the span covers launch
+AND fetch (tag ``timing="launch+fetch"``) and with it the device time;
+densify's output stays on the card, so its span covers the launch
+alone (``timing="launch"``).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
+from ..obs import accounting as _accounting
+from ..obs import trace as obs_trace
 from ..ops import cuda_kernels
+from ..sched import context as sched_context
 from ..storage import bsi
 
 # Device-block budget for one topn_exact row chunk (the JAX package's
@@ -37,6 +52,20 @@ TOPN_BLOCK_BYTES = 256 << 20
 # zeroes it before a query and reads it after sees that query's syncs
 # here (chip_smoke.py's batch phase, the batch tests).
 FETCHES = {"host": 0}
+
+
+@contextmanager
+def _dispatch(kind: str, operands, timing: str = "launch+fetch", **tags):
+    """The gate and the bookkeeping of one device dispatch (see the
+    module docstring)."""
+    sched_context.check_current()
+    cost = _accounting.current_cost()
+    if cost is not None:
+        cost.note_device_dispatch(
+            sum(t.numel() * t.element_size() for t in operands))
+    with obs_trace.span_current("mesh_dispatch", kind=kind, timing=timing,
+                                **tags):
+        yield
 
 
 def _fetch(t: torch.Tensor) -> list:
@@ -120,7 +149,13 @@ def count_exprs_sharded(exprs: tuple, leaf_arrays: list) -> list[int]:
     launch, the K totals summed in int64 on the device and fetched in
     one copy — the torch form of the JAX count batch (``count_batch``,
     programs.py:133)."""
-    return _fetch(_count_totals(tuple(exprs), leaf_arrays))
+    kind = "count_expr" if len(exprs) == 1 else "count_exprs"
+    with _dispatch(kind, leaf_arrays, slices=_slices(leaf_arrays)):
+        return _fetch(_count_totals(tuple(exprs), leaf_arrays))
+
+
+def _slices(arrays: list) -> int:
+    return int(arrays[0].shape[0]) if arrays else 0
 
 
 def count_expr_sharded(expr: tuple, leaf_arrays: list) -> int:
@@ -148,15 +183,17 @@ def fused_tree_sharded(count_exprs: tuple, topn_items: list,
     the matching ``[S, R_i, W]`` candidate block. Returns (count values,
     per-TopN count lists): the torch form of the JAX ``fused_tree``
     (mesh.py:801, programs.py:307)."""
-    parts = []
-    if count_exprs:
-        parts.append(_count_totals(tuple(count_exprs), leaf_arrays))
-    for (expr, _), rows in zip(topn_items, rows_arrays):
-        parts.append(cuda_kernels.topn_block_count(
-            expr, rows, leaf_arrays).sum(dim=0, dtype=torch.int64))
-    if not parts:
+    if not count_exprs and not topn_items:
         return [], []
-    flat = _fetch(torch.cat(parts))
+    with _dispatch("fused_tree", list(leaf_arrays) + list(rows_arrays),
+                   slices=_slices(leaf_arrays)):
+        parts = []
+        if count_exprs:
+            parts.append(_count_totals(tuple(count_exprs), leaf_arrays))
+        for (expr, _), rows in zip(topn_items, rows_arrays):
+            parts.append(cuda_kernels.topn_block_count(
+                expr, rows, leaf_arrays).sum(dim=0, dtype=torch.int64))
+        flat = _fetch(torch.cat(parts))
     counts = flat[:len(count_exprs)]
     out_topn: list[list[int]] = []
     off = len(count_exprs)
@@ -184,7 +221,8 @@ def materialize_expr_sharded(expr, leaf_arrays: list) -> np.ndarray:
     expression-words launch over the resident leaf slabs, fetched to the
     host for the roaring repack — the torch form of the JAX
     ``materialize`` (mesh.py:1144, programs.py:265)."""
-    return fetch_words(materialize_words(expr, leaf_arrays))
+    with _dispatch("materialize", leaf_arrays, slices=_slices(leaf_arrays)):
+        return fetch_words(materialize_words(expr, leaf_arrays))
 
 
 def bsi_range_sharded(op: str, upred, depth: int,
@@ -205,7 +243,8 @@ def bsi_range_sharded(op: str, upred, depth: int,
     if expr is None:
         n_slices, n_words = plane_arrays[0].shape
         return np.zeros((n_slices, n_words), dtype=np.uint32)
-    return fetch_words(materialize_words(expr, plane_arrays))
+    with _dispatch("bsi_range", plane_arrays, depth=depth):
+        return fetch_words(materialize_words(expr, plane_arrays))
 
 
 def topn_exact_sharded(expr, rows: torch.Tensor,
@@ -214,6 +253,12 @@ def topn_exact_sharded(expr, rows: torch.Tensor,
     [n_slices, R, W]`` and per-leaf slabs: ``[R]`` counts of
     ``popcount(row ∩ expr)`` (plain row popcounts when ``expr`` is
     None) summed over every slice."""
+    with _dispatch("topn_exact", [rows, *leaf_arrays],
+                   slices=int(rows.shape[0]), rows=int(rows.shape[1])):
+        return _topn_counts(expr, rows, leaf_arrays)
+
+
+def _topn_counts(expr, rows: torch.Tensor, leaf_arrays: list) -> list[int]:
     per_slice = cuda_kernels.topn_block_count(expr, rows, leaf_arrays)
     return _fetch(per_slice.sum(dim=0, dtype=torch.int64))
 
@@ -254,9 +299,11 @@ def topn_filtered_sharded(expr, rows: torch.Tensor, leaf_arrays: list,
     device (``_filtered_counts``) summed over every slice in int64:
     the same residency contract as ``topn_exact_sharded``."""
     threshold = min(threshold, 2**31 - 1)  # counts never exceed 2^31
-    per_slice = _filtered_counts(expr, rows, leaf_arrays, threshold,
-                                 tanimoto)
-    return _fetch(per_slice.sum(dim=0, dtype=torch.int64))
+    with _dispatch("topn_filtered", [rows, *leaf_arrays],
+                   slices=int(rows.shape[0]), rows=int(rows.shape[1])):
+        per_slice = _filtered_counts(expr, rows, leaf_arrays, threshold,
+                                     tanimoto)
+        return _fetch(per_slice.sum(dim=0, dtype=torch.int64))
 
 
 def topn_topk_sharded(expr, rows: torch.Tensor, leaf_arrays: list,
@@ -268,7 +315,9 @@ def topn_topk_sharded(expr, rows: torch.Tensor, leaf_arrays: list,
     does on a Pallas mesh, mesh.py:1012-1017). Returns (counts, row
     indices)."""
     k = max(1, min(int(k), int(rows.shape[1])))
-    counts = topn_exact_sharded(expr, rows, leaf_arrays)
+    with _dispatch("topn_topk", [rows, *leaf_arrays],
+                   slices=int(rows.shape[0]), rows=int(rows.shape[1])):
+        counts = _topn_counts(expr, rows, leaf_arrays)
     order = np.lexsort((np.arange(len(counts)), -np.asarray(counts)))[:k]
     return [counts[i] for i in order.tolist()], order.tolist()
 
@@ -292,6 +341,7 @@ def topn_exact(device: torch.device, expr, rows: np.ndarray,
     row_chunk = max(1, TOPN_BLOCK_BYTES // max(1, n_slices * n_words * 4))
     totals: list[int] = []
     for r_off in range(0, n_rows, row_chunk):
+        sched_context.check_current()
         chunk = _to_device(device, rows[:, r_off:r_off + row_chunk])
         if filtered:
             totals += topn_filtered_sharded(expr, chunk, leaf_arrays,
@@ -308,7 +358,8 @@ def densify_sharded(device: torch.device, lanes: np.ndarray,
     ``[S, (R,) subs*128]`` int32 words."""
     lead, (subs, g_slots) = lanes.shape[:-2], lanes.shape[-2:]
     n_words = subs * cuda_kernels.DENSIFY_LANES
-    out = cuda_kernels.densify(
-        _to_device(device, lanes.reshape(-1, subs, g_slots)),
-        _to_device(device, vals.reshape(-1, subs, g_slots)), n_words)
+    lanes_d = _to_device(device, lanes.reshape(-1, subs, g_slots))
+    vals_d = _to_device(device, vals.reshape(-1, subs, g_slots))
+    with _dispatch("densify", [lanes_d, vals_d], timing="launch"):
+        out = cuda_kernels.densify(lanes_d, vals_d, n_words)
     return out.reshape(lead + (n_words,))

@@ -21,7 +21,9 @@ feeds a gate (ops.packed.sparse_gate). Sparse blocks upload their
 bucketed slots and densify on the device (ops.cuda_kernels.densify);
 dense blocks are packed on the host and moved with one ``.to(device)``.
 Slabs hold exactly the query's slices — no bucket padding, which the
-JAX package needed only to bound XLA compiles.
+JAX package needed only to bound XLA compiles. Each row extraction
+checks the query's deadline and cancel flag first (sched.context); a
+stopped build inserts nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops import packed
+from ..sched import context as sched_context
 
 # Default packed-row budget per fragment (256 rows × 128 KB = 32 MB
 # host-side).
@@ -147,6 +150,14 @@ def _upload_pairs(device: torch.device, pairs: list,
         block.view(np.int32).reshape(lead_shape + (n_words,))).to(device)
 
 
+def _extract(frag, row_id: int):
+    """One row's sparse (word, value) pairs (None: absent fragment),
+    after the query's deadline and cancel check: a stopped query leaves
+    the block unbuilt, so no half-filled slab enters the cache."""
+    sched_context.check_current()
+    return None if frag is None else frag.sparse_row_pairs(row_id)
+
+
 def leaf_slab(device: torch.device, key: tuple, frags: list,
               row_id: int) -> torch.Tensor:
     """Device-resident ``[n_slices, words]`` int32 slab of one PQL leaf
@@ -155,8 +166,7 @@ def leaf_slab(device: torch.device, key: tuple, frags: list,
     the key contract (every backing fragment's (uid, generation))."""
 
     def build():
-        pairs = [frag.sparse_row_pairs(row_id) if frag is not None
-                 else None for frag in frags]
+        pairs = [_extract(frag, row_id) for frag in frags]
         return _upload_pairs(device, pairs, (len(frags),))
 
     return device_cache().get_or_build(key, build)
@@ -168,8 +178,7 @@ def candidate_block(device: torch.device, key: tuple, frags: list,
     block (same key/staleness contract as ``leaf_slab``)."""
 
     def build():
-        pairs = [None if frag is None else frag.sparse_row_pairs(rid)
-                 for frag in frags for rid in row_ids]
+        pairs = [_extract(frag, rid) for frag in frags for rid in row_ids]
         return _upload_pairs(device, pairs, (len(frags), len(row_ids)))
 
     return device_cache().get_or_build(key, build)

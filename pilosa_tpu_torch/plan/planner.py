@@ -25,9 +25,9 @@ rewritten tree. Four decision kinds, each recorded in the plan tree:
   tokens (cluster.generations), so any write to any involved fragment
   invalidates by key mismatch.
 - **placement** — per-subtree host/device pricing from measured cost
-  constants. It stays inert here: ``calibration`` is None, as the JAX
-  planner's is before its executor installs one, and the cost model
-  that would install it waits for a later slice.
+  constants (``calibration``, parallel.costmodel): installed by the
+  executor's cost model on the card, inert (None) on the CPU unless a
+  model is injected.
 
 Estimates come from ``Fragment`` count caches (``cache.get(rid)``) with
 a ``row_count`` fallback, summed across slices — exact up to
@@ -37,17 +37,20 @@ Finished plans are memoized (``plan_query_cached``): a repeated query
 reuses its plan after an epoch-validation sweep over the exact facts
 the plan's proofs rest on.
 
-Left out of the copy: the planner metrics, the misestimate stream, the
-blackbox snapshot and the tiered-storage estimate guard.
+The planner metrics (``pilosa_planner_*``) and the misestimate stream
+(``observe_misestimate``) are the JAX package's. Left out of the copy:
+the blackbox snapshot and the tiered-storage estimate guard.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Optional
 
 from ..cluster import generations
+from ..obs import metrics as obs_metrics
 from ..ops.packed import WORDS_PER_SLICE
 from ..pql.ast import Call, Condition
 from .record import PlanNode, PlanRecord, fingerprint_calls
@@ -89,8 +92,8 @@ class SubresultCache:
         self._mu = threading.Lock()
         self._entries: OrderedDict[tuple, tuple] = OrderedDict()
         self._bits = 0
-        # Lookup outcomes and stores (the JAX package's
-        # pilosa_planner_subresult_events_total, as plain counters).
+        # Lookup outcomes and stores (also counted in
+        # pilosa_planner_subresult_cache_events_total).
         self.hits = self.misses = self.stores = 0
 
     def get(self, key: tuple):
@@ -98,9 +101,12 @@ class SubresultCache:
             ent = self._entries.get(key)
             if ent is None:
                 self.misses += 1
+                obs_metrics.PLANNER_SUBRESULT_EVENTS.labels(
+                    "miss").inc()
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
+        obs_metrics.PLANNER_SUBRESULT_EVENTS.labels("hit").inc()
         return ent[0]
 
     def put(self, key: tuple, bm, bits: int) -> None:
@@ -118,6 +124,9 @@ class SubresultCache:
                     break
                 _, (_, b) = self._entries.popitem(last=False)
                 self._bits -= b
+                obs_metrics.PLANNER_SUBRESULT_EVENTS.labels(
+                    "evict").inc()
+        obs_metrics.PLANNER_SUBRESULT_EVENTS.labels("store").inc()
 
     def clear(self) -> None:
         with self._mu:
@@ -142,10 +151,11 @@ class Planner:
         self.margin = margin
         self.subresults = SubresultCache(subresult_entries,
                                          subresult_bits)
-        # Measured cost constants (the JAX package's parallel.costmodel
-        # Calibration). None until the cost model is ported: placement
-        # then decides nothing, as in the JAX planner before its
-        # executor installs a calibration.
+        # Measured cost constants (parallel.costmodel.Calibration),
+        # installed by the executor with its cost model (on the card at
+        # first device use, or an injected model) and primed by the
+        # server's warmup. None (the CPU without a model): placement
+        # decides nothing.
         self.calibration = None
         self._mu = threading.Lock()
         self._seen: OrderedDict[str, int] = OrderedDict()
@@ -168,6 +178,7 @@ class Planner:
         queries and disabled planning never reach here). ``deps``, when
         given, collects the (frame, view, fragment-epoch) facts the
         plan's estimates rest on — the memo validity set."""
+        t0 = time.perf_counter()
         if record is None:
             record = PlanRecord(fingerprint_calls(calls))
         idx = self.holder.index(index)
@@ -181,6 +192,8 @@ class Planner:
             planned.append(c)
         record.note("planned")
         self._bump("planned")
+        obs_metrics.PLANNER_PLAN_SECONDS.observe(
+            time.perf_counter() - t0)
         return planned, record
 
     def plan_query_cached(self, index: str, calls: list[Call], slices,
@@ -211,12 +224,14 @@ class Planner:
             # Unhashable literal somewhere in the tree — plan uncached.
             key = ent = None
         if ent is not None and self._deps_valid(index, ent["deps"]):
-            ent["hits"] += 1
+            ent["hits"] = hits = ent["hits"] + 1
             rec = PlanRecord(ent["fingerprint"], node=node)
             # Roots/calls are aliased, not copied: plan shape is
-            # immutable after planning.
+            # immutable after planning (only per-node actuals race,
+            # and those are observability-only).
             rec.roots = ent["roots"]
             rec.decisions.update(ent["decisions"])
+            rec.sample = hits % 16 == 0
             # A hit is another sighting of every cacheable subtree —
             # keep the cross-query CSE ladder climbing to store state.
             for n in ent["cse_nodes"]:
@@ -279,7 +294,19 @@ class Planner:
 
     # -- decision bookkeeping ------------------------------------------------
 
+    def snapshot(self) -> dict:
+        """Planner state for /debug/plans."""
+        with self._mu:
+            totals = dict(self.decision_totals)
+            seen = len(self._seen)
+        out = {"decisions": totals, "seenSubtrees": seen,
+               "subresultCache": self.subresults.stats()}
+        if self.calibration is not None:
+            out["calibration"] = self.calibration.to_dict()
+        return out
+
     def _bump(self, outcome: str) -> None:
+        obs_metrics.PLANNER_DECISIONS.labels(outcome).inc()
         with self._mu:
             self.decision_totals[outcome] = \
                 self.decision_totals.get(outcome, 0) + 1
@@ -569,6 +596,16 @@ class Planner:
         for fv in sorted(node.frames):
             out.append((fv, toks.get(fv, (0, 0))))
         return (index, node.key, int(slice), tuple(out))
+
+
+def observe_misestimate(node: PlanNode, rows: int) -> None:
+    """Stamp a node's actual cardinality and observe its
+    actual/estimated ratio (pilosa_planner_misestimation_ratio)."""
+    node.actual_rows = rows
+    if node.est_rows is None:
+        return
+    obs_metrics.PLANNER_MISESTIMATE.observe(
+        (rows + 1) / (node.est_rows + 1))
 
 
 def _memo_call_key(call: Call) -> tuple:

@@ -4,12 +4,13 @@ fingerprint.
 Trimmed copy of the JAX package's ``plan/record.py``. The planner
 (plan.planner) rewrites a read query before execution; every planned
 query carries a ``PlanRecord`` holding the chosen plan tree with
-per-node estimated cardinality and the decisions taken, which
-``?plan=1`` returns (EXPLAIN). The JAX module's process-wide enable
-switch is the executor's ``planner_enabled`` attribute here (on by
-default, as there). Remote-leg stitching (``X-Pilosa-Plan``) and the
-per-query context binding wait for the cluster and observability
-slices.
+per-node estimated cardinality (and, as it runs, actual cardinality
+and wall time) and the decisions taken: ``?plan=1`` returns it without
+executing (EXPLAIN), ``?profile=1`` with the results (EXPLAIN
+ANALYZE), and the record rides the query's context (``ctx.plan``). The
+JAX module's process-wide enable switch is the executor's
+``planner_enabled`` attribute here (on by default, as there).
+Remote-leg stitching (``X-Pilosa-Plan``) waits for the cluster slice.
 
 Fingerprint stability contract: the fingerprint hashes the NORMALIZED
 canonical tree — numeric literals (row/column ids, TopN n, condition
@@ -65,13 +66,16 @@ def fingerprint_calls(calls) -> str:
 
 class PlanNode:
     """One operator of the chosen plan. ``est_rows``/``est_cost_s``
-    are the planner's predictions; ``decisions`` records what the
-    planner DID here (reordered / short_circuit / cse / placement:*) so
-    a plan reads as a decision log, not just a shape."""
+    are the planner's predictions; ``actual_rows``/``actual_s`` are
+    filled by the executor as the node runs (ANALYZE). ``decisions``
+    records what the planner DID here (reordered / short_circuit / cse
+    / placement:*) so a plan reads as a decision log, not just a
+    shape."""
 
     __slots__ = ("op", "detail", "est_rows", "exact", "est_cost_s",
-                 "placement", "decisions", "children", "frames", "key",
-                 "cache_lookup", "cache_store", "short_circuit")
+                 "placement", "decisions", "children", "actual_rows",
+                 "actual_s", "frames", "key", "cache_lookup",
+                 "cache_store", "short_circuit")
 
     def __init__(self, op: str, detail: str = ""):
         self.op = op
@@ -82,6 +86,8 @@ class PlanNode:
         self.placement = "auto"
         self.decisions: list[str] = []
         self.children: list[PlanNode] = []
+        self.actual_rows: Optional[int] = None
+        self.actual_s: Optional[float] = None
         # Planner wiring (not serialized): frame/view keys under this
         # subtree, the canonical subtree string (the subresult-cache
         # key stem), and the cache/short-circuit marks.
@@ -100,6 +106,10 @@ class PlanNode:
             out["exact"] = self.exact
         if self.est_cost_s is not None:
             out["estCostS"] = round(self.est_cost_s, 6)
+        if self.actual_rows is not None:
+            out["actualRows"] = int(self.actual_rows)
+        if self.actual_s is not None:
+            out["actualS"] = round(self.actual_s, 6)
         if self.placement != "auto":
             out["placement"] = self.placement
         if self.decisions:
@@ -110,16 +120,24 @@ class PlanNode:
 
 
 class PlanRecord:
-    """The per-query plan ledger: root plan nodes (one per planned
-    call), the query fingerprint and a decision roll-up."""
+    """The per-query plan ledger riding ``ctx.plan`` (the ctx.cost
+    pattern): root plan nodes (one per planned call), the query
+    fingerprint and a decision roll-up."""
 
-    __slots__ = ("fingerprint", "node", "roots", "decisions", "_mu")
+    __slots__ = ("fingerprint", "node", "roots", "decisions", "analyze",
+                 "sample", "_mu")
 
     def __init__(self, fingerprint: str, node: str = ""):
         self.fingerprint = fingerprint
         self.node = node
         self.roots: list[PlanNode] = []
         self.decisions: dict[str, int] = {}
+        self.analyze = False
+        # Observability sampling gate: freshly-planned queries and a
+        # 1-in-16 slice of plan-memo hits carry per-node actuals and
+        # feed the plan store / misestimation stream; the rest skip
+        # that bookkeeping. ?profile=1 (analyze) always records.
+        self.sample = True
         self._mu = threading.Lock()
 
     def note(self, outcome: str, n: int = 1) -> None:

@@ -15,36 +15,64 @@ once ``storage.wal.barrier_all()`` has put its WAL records in the OS
 (the JAX package's ack contract). A failed barrier answers 507 with
 ``Retry-After`` when the disk is full, 500 otherwise. ``?plan=1`` on
 the query route plans the query without executing it (EXPLAIN).
-Admission, tenants, tracing, cost accounting, plan and workload capture
-wait for the slices that port those subsystems, as do the
-``/debug/*``, ``/metrics``, cluster, backup, fragment-sync, pod and
-web-console routes.
+
+The query lifecycle is the JAX handler's (handler.py:1628-1860, one
+node): each query gets its lane (read or write), a QueryContext with its
+id (``X-Pilosa-Query-Id`` when the client names it), its deadline
+(``X-Pilosa-Deadline`` seconds, else ``?timeout=``, else the server's
+default) and its tenant (``X-Pilosa-Tenant``, else the index); a cost
+ledger (``X-Pilosa-Stats`` on every answer, the cost tree and the plan
+under ``?profile=1``); the tenant's kill policy; a trace when the
+tracer is on or ``?trace=1`` asks; registration for ``/debug/queries``;
+and an admission slot — 429 with ``Retry-After`` under overload. A
+deadline answers 504, a cancel 409, a cost-policy kill 402, with the
+JAX texts. The import and schema routes take a write or admin slot.
+Routes: ``/metrics``, ``/debug/vars``, ``/debug/queries``,
+``/debug/queries/slow``, ``DELETE /debug/queries/{qid}``,
+``/debug/traces`` (``?source=disk`` lists nothing: the tail sampler's
+disk ring is not ported), ``/debug/traces/summary``,
+``/debug/traces/{qid}``, ``/debug/tenants`` and ``/debug/plans``. The
+cluster, backup, fragment-sync, pod and web-console routes, partial
+results and workload capture wait for the slices that port them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime as dt
 import errno
 import json
 import re
-from typing import Callable
+import time
+from typing import Callable, Optional
 from urllib.parse import parse_qs
 
 import numpy as np
 
 from .. import SLICE_WIDTH, __version__
 from ..errors import (FrameExistsError, IndexExistsError, PilosaError,
-                      validate_label)
+                      QueryCancelledError, QueryDeadlineError,
+                      QueryKilledError, validate_label)
+from ..executor import _WRITE_CALLS, ExecOptions
 from ..models.frame import Field, FrameOptions
 from ..models.index import IndexOptions
+from ..obs import accounting as obs_accounting
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..parallel import residency
 from ..pql import parser as pql
 from ..proto import internal as pb
 from ..proto import rawimport
+from ..sched import (KILL_POLICY, KILLED_BY_HEADER, LANE_ADMIN, LANE_READ,
+                     LANE_WRITE, AdmissionFullError, QueryContext,
+                     QueryRegistry)
+from ..storage import roaring
 from ..storage import wal as storage_wal
 from ..storage.attrs import diff_blocks
 from ..storage.bitmap import Bitmap
 from ..utils import logger as logger_mod
 from ..utils import timequantum as tq
+from ..utils.config import parse_duration
 from ..utils.streams import CappedReader
 from . import codec
 
@@ -61,10 +89,11 @@ NODE_STATE_UP = "UP"
 
 
 class HTTPError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str, headers=None):
         super().__init__(message)
         self.status = status
         self.message = message
+        self.headers = list(headers or ())
 
 
 class Request:
@@ -123,12 +152,14 @@ class Response:
         self.headers = list(headers)
 
     @staticmethod
-    def json(obj, status: int = 200) -> "Response":
-        return Response(status, (json.dumps(obj) + "\n").encode())
+    def json(obj, status: int = 200, headers=()) -> "Response":
+        return Response(status, (json.dumps(obj) + "\n").encode(),
+                        headers=headers)
 
     @staticmethod
-    def proto(msg, status: int = 200) -> "Response":
-        return Response(status, msg.SerializeToString(), _PROTOBUF)
+    def proto(msg, status: int = 200, headers=()) -> "Response":
+        return Response(status, msg.SerializeToString(), _PROTOBUF,
+                        headers=headers)
 
 
 def _export_csv_chunks(positions: np.ndarray, slice: int,
@@ -147,10 +178,14 @@ def _export_csv_chunks(positions: np.ndarray, slice: int,
                       for r, c in zip(rows, cols)).encode()
 
 
-_STATUS_TEXT = {200: "OK", 400: "Bad Request", 404: "Not Found",
+_STATUS_TEXT = {200: "OK", 400: "Bad Request",
+                402: "Payment Required",  # cost-policy kill
+                404: "Not Found",
                 405: "Method Not Allowed", 406: "Not Acceptable",
                 409: "Conflict", 415: "Unsupported Media Type",
+                429: "Too Many Requests",
                 500: "Internal Server Error",
+                504: "Gateway Timeout",
                 507: "Insufficient Storage"}
 
 # Retry-After of a 507 (the JAX package's fault.diskfull RETRY_AFTER_S).
@@ -164,51 +199,89 @@ class Handler:
     handler served in-process."""
 
     def __init__(self, holder, executor, host: str = "",
-                 logger=logger_mod.NOP):
+                 logger=logger_mod.NOP, admission=None, registry=None,
+                 warmup=None, default_timeout_s: float = 0.0,
+                 tracer=None, stats=None, accounting: bool = True,
+                 tenants=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
         self.host = host
         self.version = __version__
-        # (method, regex, handler)
+        # Query lifecycle (sched): admission=None means no admission
+        # control (bare handlers); the registry always exists so
+        # /debug/queries works on any handler.
+        self.admission = admission
+        self.tenants = tenants
+        self.registry = registry if registry is not None \
+            else QueryRegistry(logger=self.logger)
+        self.warmup = warmup
+        self.default_timeout_s = default_timeout_s or 0.0
+        # Observability (obs): a tracer (off by default — ?trace=1
+        # still traces one request), the stats client behind
+        # /debug/vars, and the per-handler accounting gate.
+        self.tracer = tracer if tracer is not None \
+            else obs_trace.Tracer(enabled=False)
+        self.stats = stats
+        self.accounting = accounting
+        # (method, regex, handler, admission lane)
         self._routes: list[tuple] = []
         self._add_routes()
 
     # -- routing -------------------------------------------------------------
 
-    def _route(self, method: str, pattern: str, fn: Callable) -> None:
+    def _route(self, method: str, pattern: str, fn: Callable,
+               lane: Optional[str] = None) -> None:
         # {name} segments become named groups matching one path segment.
+        # ``lane`` routes the whole handler through that admission lane
+        # (the query handler manages its own, deadline-aware slot).
         regex = re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern)
-        self._routes.append((method, re.compile(f"^{regex}$"), fn))
+        self._routes.append((method, re.compile(f"^{regex}$"), fn, lane))
 
     def _add_routes(self) -> None:
         # Route table (reference handler.go:82-120), one-node routes.
         r = self._route
         r("GET", "/index", self._handle_get_schema)
         r("GET", "/index/{index}", self._handle_get_index)
-        r("POST", "/index/{index}", self._handle_post_index)
-        r("DELETE", "/index/{index}", self._handle_delete_index)
+        r("POST", "/index/{index}", self._handle_post_index,
+          lane=LANE_ADMIN)
+        r("DELETE", "/index/{index}", self._handle_delete_index,
+          lane=LANE_ADMIN)
         r("POST", "/index/{index}/attr/diff", self._handle_index_attr_diff)
-        r("POST", "/index/{index}/frame/{frame}", self._handle_post_frame)
+        r("POST", "/index/{index}/frame/{frame}", self._handle_post_frame,
+          lane=LANE_ADMIN)
         r("DELETE", "/index/{index}/frame/{frame}",
-          self._handle_delete_frame)
+          self._handle_delete_frame, lane=LANE_ADMIN)
         r("POST", "/index/{index}/query", self._handle_post_query)
         r("POST", "/index/{index}/frame/{frame}/attr/diff",
           self._handle_frame_attr_diff)
         r("PATCH", "/index/{index}/frame/{frame}/time-quantum",
-          self._handle_patch_frame_time_quantum)
+          self._handle_patch_frame_time_quantum, lane=LANE_ADMIN)
         r("GET", "/index/{index}/frame/{frame}/views",
           self._handle_get_frame_views)
         r("GET", "/index/{index}/frame/{frame}/fields",
           self._handle_get_frame_fields)
         r("POST", "/index/{index}/frame/{frame}/field/{field}",
-          self._handle_post_frame_field)
+          self._handle_post_frame_field, lane=LANE_ADMIN)
         r("POST", "/index/{index}/frame/{frame}/field/{field}/import",
-          self._handle_post_field_import)
+          self._handle_post_field_import, lane=LANE_WRITE)
         r("PATCH", "/index/{index}/time-quantum",
-          self._handle_patch_index_time_quantum)
+          self._handle_patch_index_time_quantum, lane=LANE_ADMIN)
+        r("GET", "/debug/tenants", self._handle_debug_tenants)
+        r("GET", "/debug/queries", self._handle_debug_queries)
+        r("GET", "/debug/queries/slow", self._handle_debug_slow_queries)
+        r("DELETE", "/debug/queries/{qid}", self._handle_delete_query)
+        r("GET", "/debug/traces", self._handle_debug_traces)
+        # /summary must register BEFORE the {qid} wildcard or the
+        # wildcard swallows it.
+        r("GET", "/debug/traces/summary",
+          self._handle_debug_traces_summary)
+        r("GET", "/debug/traces/{qid}", self._handle_debug_trace)
+        r("GET", "/debug/vars", self._handle_expvar)
+        r("GET", "/debug/plans", self._handle_debug_plans)
+        r("GET", "/metrics", self._handle_metrics)
         r("GET", "/export", self._handle_get_export)
-        r("POST", "/import", self._handle_post_import)
+        r("POST", "/import", self._handle_post_import, lane=LANE_WRITE)
         r("GET", "/hosts", self._handle_get_hosts)
         r("GET", "/schema", self._handle_get_schema)
         r("GET", "/slices/max", self._handle_slice_max)
@@ -224,7 +297,7 @@ class Handler:
         if head:
             method = "GET"
         matched_path = False
-        for m, regex, fn in self._routes:
+        for m, regex, fn, lane in self._routes:
             match = regex.match(path)
             if match is None:
                 continue
@@ -232,10 +305,21 @@ class Handler:
             if m != method:
                 continue
             try:
-                resp = fn(Request(environ, match.groupdict()))
+                if lane is None:
+                    resp = fn(Request(environ, match.groupdict()))
+                else:
+                    # Tenant principal for the import and schema lanes:
+                    # header > {index} path segment > default, resolved
+                    # before the slot is taken.
+                    vars_ = match.groupdict()
+                    tenant = (environ.get("HTTP_X_PILOSA_TENANT", "")
+                              or vars_.get("index", ""))
+                    with self._admitted(lane, tenant=tenant):
+                        resp = fn(Request(environ, vars_))
             except HTTPError as e:
                 resp = Response(e.status, (e.message + "\n").encode(),
-                                "text/plain; charset=utf-8")
+                                "text/plain; charset=utf-8",
+                                headers=e.headers)
             except PilosaError as e:
                 resp = Response(400, (str(e) + "\n").encode(),
                                 "text/plain; charset=utf-8")
@@ -258,7 +342,8 @@ class Handler:
                            + resp.headers)
             return [] if head else [resp.body]
         # Streamed body (CSV export): never buffered whole.
-        start_response(status_line, [("Content-Type", resp.content_type)])
+        start_response(status_line, [("Content-Type", resp.content_type)]
+                       + resp.headers)
         return resp.body
 
     # -- meta ----------------------------------------------------------------
@@ -282,9 +367,13 @@ class Handler:
                             "slices": list(range(max_slice + 1)),
                             "frames": [{"name": fn}
                                        for fn in sorted(idx.frames)]})
-        return Response.json({"status": {"nodes": [
+        out = {"status": {"nodes": [
             {"host": self.host, "state": NODE_STATE_UP,
-             "indexes": indexes}]}})
+             "indexes": indexes}]}}
+        if self.warmup is not None:
+            # Cold-start warmup state (sched.warmup), the JAX block.
+            out["warmup"] = self.warmup.to_json()
+        return Response.json(out)
 
     def _handle_get_schema(self, req: Request) -> Response:
         return Response.json({"indexes": self.holder.schema()})
@@ -460,9 +549,67 @@ class Handler:
             raise HTTPError(404, "field not found")
         frame.import_field_values(field_name, cols, vals)
         storage_wal.barrier_all()  # commit before the 200
+        obs_metrics.IMPORT_BITS.labels("field_values").inc(len(cols))
         if req.content_type == _PROTOBUF:
             return Response.proto(pb.ImportResponse())
         return Response.json({})
+
+    # -- query lifecycle (sched) ---------------------------------------------
+
+    def _query_timeout_s(self, req: Request) -> Optional[float]:
+        """Deadline budget for this request: ``X-Pilosa-Deadline``
+        (remaining seconds) wins over ``?timeout=`` (Go-style duration,
+        the client-facing form), which wins over the configured
+        default. None = unbounded."""
+        hdr = req.environ.get("HTTP_X_PILOSA_DEADLINE", "")
+        if hdr:
+            try:
+                return max(float(hdr), 0.001)
+            except ValueError:
+                raise HTTPError(400, f"invalid X-Pilosa-Deadline: {hdr}")
+        arg = req.query.get("timeout")
+        if arg:
+            try:
+                return max(parse_duration(arg), 0.001)
+            except ValueError:
+                raise HTTPError(400, f"invalid timeout: {arg}")
+        return self.default_timeout_s or None
+
+    def _admit(self, lane: str, ctx=None, tenant: str = ""):
+        """Acquire an execution slot (None admission = unlimited, for
+        bare handlers). AdmissionFullError maps to 429 with the
+        controller's Retry-After estimate; a deadline that expires while
+        queued maps like any other expiry (504) — the query never held
+        a slot."""
+        if self.admission is None:
+            return None
+        try:
+            return self.admission.acquire(lane, ctx,
+                                          tenant=tenant or None)
+        except AdmissionFullError as e:
+            if self.stats is not None:
+                self.stats.count("queriesRejected", 1)
+            obs_metrics.ADMISSION_REJECTED.labels(lane).inc()
+            if e.tenant:
+                # Tenant-scoped shed: only the offending tenant 429s.
+                if self.tenants is not None:
+                    self.tenants.note_shed(e.tenant, lane)
+                else:
+                    obs_metrics.TENANT_SHED.labels(e.tenant, lane).inc()
+            raise HTTPError(
+                429, f"too many requests: {e}",
+                headers=[("Retry-After", str(int(e.retry_after_s)))])
+
+    @contextlib.contextmanager
+    def _admitted(self, lane: str, tenant: str = ""):
+        """Slot-scoped admission for the non-query lanes (imports ride
+        ``write``, schema mutations ``admin``)."""
+        slot = self._admit(lane, tenant=tenant)
+        try:
+            yield
+        finally:
+            if slot is not None:
+                slot.release()
 
     # -- query (handler.go:811-893) ------------------------------------------
 
@@ -472,11 +619,9 @@ class Handler:
 
         def error_resp(status, msg, headers=()):
             if proto_out:
-                resp = Response.proto(pb.QueryResponse(Err=msg), status)
-            else:
-                resp = Response.json({"error": msg}, status)
-            resp.headers.extend(headers)
-            return resp
+                return Response.proto(pb.QueryResponse(Err=msg), status,
+                                      headers=headers)
+            return Response.json({"error": msg}, status, headers=headers)
 
         if req.content_type == _PROTOBUF:
             preq = pb.QueryRequest.FromString(req.body())
@@ -492,10 +637,13 @@ class Handler:
             except ValueError:
                 return error_resp(400, "invalid slice argument")
             column_attrs = req.query.get("columnAttrs") == "true"
+        parse_wall = time.time()
+        parse_t0 = time.perf_counter()
         try:
             query = pql.parse(query_str)
         except PilosaError as e:
             return error_resp(400, str(e))
+        parse_s = time.perf_counter() - parse_t0
         if req.query.get("plan") == "1":
             # EXPLAIN-only: the plan tree (estimates and decisions), no
             # execution.
@@ -505,29 +653,105 @@ class Handler:
             except PilosaError as e:
                 return error_resp(400, str(e))
             return Response.json({"results": [], "plan": tree})
+
+        # Lifecycle: classify the lane, build the QueryContext, attach
+        # the ledger, the kill policy and the trace, register, admit.
+        lane = (LANE_WRITE
+                if any(c.name in _WRITE_CALLS for c in query.calls)
+                else LANE_READ)
+        tenant = req.environ.get("HTTP_X_PILOSA_TENANT", "") or index_name
+        ctx = QueryContext(
+            pql=query_str, index=index_name, lane=lane,
+            timeout_s=self._query_timeout_s(req),
+            id=req.environ.get("HTTP_X_PILOSA_QUERY_ID", "") or None,
+            node=self.host, tenant=tenant)
+        ctx.stages["parse"] = parse_s
+        # ?profile=1 asks for EXPLAIN ANALYZE: exact per-node actual
+        # cardinalities on top of the always-on wall times.
+        ctx.profile = req.query.get("profile") == "1"
+        if self.accounting:
+            obs_accounting.attach(ctx, node=self.host)
+        if self.tenants is not None:
+            self.tenants.install(ctx)
+        trace = None
+        if self.tracer.enabled or req.query.get("trace") == "1":
+            trace = self.tracer.start(ctx, node=self.host)
+            trace.add_span("parse", parse_wall, parse_s)
+        # Query latency label set: one call name when the query is
+        # homogeneous, "multi" otherwise (bounded cardinality).
+        call_names = {c.name for c in query.calls}
+        call_label = call_names.pop() if len(call_names) == 1 else "multi"
+
+        def _resp_headers() -> list:
+            # The id rides every response; the ledger's compact roll-up
+            # too (X-Pilosa-Stats).
+            hs = [("X-Pilosa-Query-Id", ctx.id)]
+            if ctx.cost is not None:
+                hs.append((obs_accounting.STATS_HEADER,
+                           json.dumps(ctx.cost.summary(),
+                                      separators=(",", ":"))))
+            return hs
+
+        # Register BEFORE admission so a queued query is visible at
+        # /debug/queries and cancellable while it waits.
+        slot = None
+        err: Optional[BaseException] = None
+        self.registry.register(ctx)
         try:
-            results = self.executor.execute(index_name, query,
-                                            slices or None)
-            if query.write_calls():
+            with ctx.stage("admission"):
+                slot = self._admit(lane, ctx)
+            ctx.state = "running"
+            with ctx.stage("execute"):
+                results = self.executor.execute(
+                    index_name, query, slices or None,
+                    ExecOptions(ctx=ctx))
+            if lane == LANE_WRITE:
                 # Commit barrier before the ack: every mutation this
                 # query applied has its WAL record in the OS (fsynced
                 # per the fsync policy) when the response goes out.
-                storage_wal.barrier_all()
+                with ctx.stage("commit"):
+                    storage_wal.barrier_all()
+        except HTTPError as e:  # 429 from _admit
+            err = e
+            raise
+        except QueryDeadlineError as e:
+            err = e
+            return error_resp(504, str(e), headers=_resp_headers())
+        except QueryKilledError as e:
+            # Cost-policy kill: a DISTINCT status so clients tell a
+            # budget kill from an operator cancel.
+            err = e
+            hs = _resp_headers()
+            hs.append((KILLED_BY_HEADER, KILL_POLICY))
+            return error_resp(402, str(e), headers=hs)
+        except QueryCancelledError as e:
+            err = e
+            return error_resp(409, str(e), headers=_resp_headers())
         except storage_wal.WalError as e:
             # A barrier that failed on a full disk is retryable: 507 +
             # Retry-After. Any other WAL failure stays a 500.
+            err = e
             if getattr(e.__cause__, "errno", None) == errno.ENOSPC:
+                hs = _resp_headers()
+                hs.append(("Retry-After", str(RETRY_AFTER_S)))
                 return error_resp(
                     507, f"insufficient storage: write not durable ({e})",
-                    headers=[("Retry-After", str(RETRY_AFTER_S))])
+                    headers=hs)
             self.logger.printf("query commit barrier failed: %s", e)
-            return error_resp(500, str(e))
+            return error_resp(500, str(e), headers=_resp_headers())
         except PilosaError as e:
-            return error_resp(400, str(e))
+            err = e
+            return error_resp(400, str(e), headers=_resp_headers())
         except Exception as e:  # noqa: BLE001 - surfaced in response
+            err = e
             self.logger.printf("query error: index=%s query=%.120s: %s",
                                index_name, query_str, e)
-            return error_resp(500, str(e))
+            return error_resp(500, str(e), headers=_resp_headers())
+        finally:
+            if slot is not None:
+                slot.release()
+            self._finish_query(ctx, err, trace, call_label, query_str,
+                               req.query.get("trace") == "1")
 
         # Optional column-attribute join (handler.go:208-227).
         attr_sets = []
@@ -540,10 +764,276 @@ class Handler:
                 attrs = idx.column_attr_store.attrs(id)
                 if attrs:
                     attr_sets.append((id, attrs))
-        if proto_out:
-            return Response.proto(
-                codec.encode_query_response(results, attr_sets))
-        return Response.json(codec.query_response_json(results, attr_sets))
+        headers = _resp_headers()
+        with ctx.stage("encode"):
+            if proto_out:
+                return Response.proto(
+                    codec.encode_query_response(results, attr_sets),
+                    headers=headers)
+            payload = codec.query_response_json(results, attr_sets)
+            if ctx.profile and ctx.cost is not None:
+                # The per-stage cost tree rides inline with the results.
+                payload["profile"] = ctx.cost.to_tree(dict(ctx.stages))
+            if ctx.profile and ctx.plan is not None:
+                # The chosen plan with per-node est-vs-actual rows.
+                payload["plan"] = ctx.plan.to_tree()
+            return Response.json(payload, headers=headers)
+
+    @staticmethod
+    def _status_of(err: Optional[BaseException]) -> int:
+        if isinstance(err, HTTPError):
+            return err.status
+        if isinstance(err, QueryDeadlineError):
+            return 504
+        if isinstance(err, QueryKilledError):
+            return 402
+        if isinstance(err, QueryCancelledError):
+            return 409
+        if (isinstance(err, storage_wal.WalError)
+                and getattr(err.__cause__, "errno", None) == errno.ENOSPC):
+            return 507
+        if isinstance(err, PilosaError):
+            return 400
+        if err is not None:
+            return 500
+        return 200
+
+    def _finish_query(self, ctx, err, trace, call_label: str,
+                      query_str: str, trace_asked: bool) -> None:
+        """Query end: keep the trace (when the tracer is on or
+        ``?trace=1`` asked), feed the plan store, finish the registry
+        entry, and record the latency, outcome and chargeback metrics —
+        for every outcome, 429/504/409 included."""
+        status = self._status_of(err)
+        if trace is not None:
+            if ctx.cost is not None:
+                # Cost roll-up as span args.
+                trace.add_span("query_cost", ctx.started_wall, 0.0,
+                               tags=ctx.cost.summary())
+            if ctx.plan is not None and (ctx.plan.sample
+                                         or ctx.plan.analyze):
+                tags = {"fingerprint": ctx.plan.fingerprint}
+                tags.update(ctx.plan.decision_summary())
+                trace.add_span("query_plan", ctx.started_wall, 0.0,
+                               tags=tags)
+            reason = trace.keep_reason or None
+            if reason is None and (self.tracer.enabled or trace_asked):
+                reason = "requested"
+                if not self.tracer.keep(trace, reason=reason):
+                    reason = trace.keep_reason or reason
+            ctx.trace_kept = reason is not None
+            ctx.keep_reason = reason or ""
+        if ctx.plan is not None and (ctx.plan.sample or ctx.plan.analyze):
+            # Per-fingerprint aggregation behind /debug/plans: fresh
+            # plans and a 1-in-16 slice of memo hits record.
+            est = actual = None
+            for root in ctx.plan.roots:
+                if (root.est_rows is not None
+                        and root.actual_rows is not None):
+                    est, actual = root.est_rows, root.actual_rows
+                    break
+            self.executor.plan_store.record(
+                ctx.plan.fingerprint, ctx.plan.to_tree, ctx.elapsed(),
+                pql=query_str, est_rows=est, actual_rows=actual)
+        self.registry.finish(ctx, error=err)
+        labels = (call_label, ctx.lane, str(status))
+        # The latency observation carries the query id as an
+        # OpenMetrics exemplar.
+        obs_metrics.QUERY_SECONDS.labels(*labels).observe(
+            ctx.elapsed(), exemplar={"trace_id": ctx.id})
+        obs_metrics.QUERIES_TOTAL.labels(*labels).inc()
+        tlabel = ctx.tenant or "default"
+        obs_metrics.TENANT_QUERY_SECONDS.labels(tlabel).observe(
+            ctx.elapsed())
+        obs_metrics.TENANT_QUERIES.labels(tlabel, str(status)).inc()
+        cost = ctx.cost
+        if cost is not None:
+            for resource, amount in (
+                    ("container_ops", sum(cost.container_ops.values())),
+                    ("words_scanned", cost.words_scanned),
+                    ("bits_written", cost.bits_written),
+                    ("device_bytes", cost.device_bytes),
+                    ("queue_wait_ms",
+                     int(ctx.stages.get("admission", 0.0) * 1e3)),
+                    ("wall_us", int(ctx.elapsed() * 1e6))):
+                if amount:
+                    obs_metrics.TENANT_COST_UNITS.labels(
+                        tlabel, resource).inc(amount)
+
+    # -- lifecycle and observability routes -----------------------------------
+
+    def _handle_debug_queries(self, req: Request) -> Response:
+        out = {"queries": self.registry.active(),
+               "slow": self.registry.slow_queries()}
+        if self.admission is not None:
+            out["admission"] = self.admission.snapshot()
+        return Response.json(out)
+
+    def _handle_debug_slow_queries(self, req: Request) -> Response:
+        return Response.json({"slow": self.registry.slow_queries()})
+
+    def _handle_delete_query(self, req: Request) -> Response:
+        """Cancel every in-flight query registered under the id on this
+        node (every executor layer checks the flag cooperatively)."""
+        qid = req.vars["qid"]
+        return Response.json({"id": qid,
+                              "cancelled": self.registry.cancel_local(qid)})
+
+    def _handle_debug_tenants(self, req: Request) -> Response:
+        """The multi-tenant operator view: per tenant — policy and
+        effective weight, penalty-box state, in-flight / queued / served
+        / shed / killed. ``writeReady`` is the JAX block's shape: the
+        port has no write-ready latch (a full disk answers 507 per
+        write), so it always reads ready."""
+        rows: dict[str, dict] = {}
+
+        def row(name: str) -> dict:
+            return rows.setdefault(name, {})
+
+        if self.tenants is not None:
+            for name, snap in self.tenants.snapshot().items():
+                row(name).update(snap)
+        if self.admission is not None:
+            adm = self.admission.snapshot()
+            for name, snap in (adm.get("tenants") or {}).items():
+                row(name).update(snap)
+        if self.tenants is not None:
+            for name, r in rows.items():
+                if "policy" not in r:
+                    score = self.tenants.penalty_score(name)
+                    r["policy"] = self.tenants.policy(name).to_json()
+                    r["effectiveWeight"] = round(
+                        self.tenants.effective_weight(name), 4)
+                    r["penaltyScore"] = round(score, 4)
+                    r["inPenaltyBox"] = score > 0.0
+                    r.setdefault("killed", 0)
+                    r.setdefault("shed", 0)
+        return Response.json({
+            "tenants": rows,
+            "writeReady": {"writeReady": True, "since": None, "site": None,
+                           "dir": None, "events": {}, "recoveries": 0},
+        })
+
+    def _handle_debug_traces(self, req: Request) -> Response:
+        """The in-memory ring (newest first); ``?reason=`` filters,
+        ``?limit=N&offset=M`` page. ``?source=disk`` lists the tail
+        sampler's disk ring, which the port does not keep: empty."""
+        reason = req.query.get("reason", "")
+        try:
+            limit = max(1, int(req.query.get("limit", "100")))
+            offset = max(0, int(req.query.get("offset", "0")))
+        except ValueError:
+            raise HTTPError(400, "invalid limit/offset")
+        if req.query.get("source") == "disk":
+            return Response.json({"enabled": self.tracer.enabled,
+                                  "source": "disk", "traces": [],
+                                  "offset": offset, "limit": limit,
+                                  "total": 0})
+        traces = self.tracer.traces()
+        if reason:
+            traces = [t for t in traces if t.get("reason") == reason]
+        return Response.json({"enabled": self.tracer.enabled,
+                              "tail": False,
+                              "offset": offset, "limit": limit,
+                              "total": len(traces),
+                              "traces": traces[offset:offset + limit]})
+
+    def _handle_debug_traces_summary(self, req: Request) -> Response:
+        """Keep-reason roll-up of the in-memory ring (the disk ring is
+        not kept)."""
+        ring: dict[str, int] = {}
+        for t in self.tracer.traces():
+            r = t.get("reason") or "unkept"
+            ring[r] = ring.get(r, 0) + 1
+        return Response.json({"ring": ring, "disk": {}})
+
+    def _handle_debug_trace(self, req: Request) -> Response:
+        """One trace as Chrome trace-event JSON (open in perfetto);
+        ``?format=spans`` returns the raw span list instead."""
+        trace = self.tracer.get(req.vars["qid"])
+        if trace is None:
+            raise HTTPError(404, "trace not found")
+        if req.query.get("format") == "spans":
+            return Response.json(
+                {"id": trace.id, "reason": trace.keep_reason,
+                 "spans": [s.to_json() for s in trace.spans()]})
+        return Response.json(trace.to_chrome())
+
+    def _handle_expvar(self, req: Request) -> Response:
+        """expvar counters plus the device-path state: the residency
+        cache and the cost model (vetoes, constants, drift)."""
+        snap = dict(self.stats.snapshot()
+                    if hasattr(self.stats, "snapshot") else {})
+        snap["deviceBlockCache"] = residency.device_cache().snapshot()
+        vetoes = getattr(self.executor, "cost_vetoes", None)
+        if vetoes is not None:
+            snap["costModelVetoes"] = vetoes
+            snap["coldAdmits"] = self.executor.cold_admits
+        model = getattr(self.executor, "cost_model", None)
+        if model is not None:
+            snap["costModel"] = {"syncS": model.cal.sync_s,
+                                 "hostBps": model.cal.host_bps,
+                                 "margin": model.margin,
+                                 "drift": model.drift_snapshot()}
+        return Response.json(snap)
+
+    def _handle_debug_plans(self, req: Request) -> Response:
+        """The bounded per-fingerprint plan store (plan.store), hottest
+        first (``?limit=N``), with the planner's own state."""
+        try:
+            limit = max(1, int(req.query.get("limit", "64")))
+        except ValueError:
+            raise HTTPError(400, "invalid limit")
+        out: dict = {"enabled": bool(getattr(self.executor,
+                                             "planner_enabled", False))}
+        store = getattr(self.executor, "plan_store", None)
+        if store is not None:
+            out.update(store.snapshot(limit=limit))
+        planner = getattr(self.executor, "planner", None)
+        if planner is not None:
+            out["planner"] = planner.snapshot()
+        return Response.json(out)
+
+    def _handle_metrics(self, req: Request) -> Response:
+        """Prometheus text exposition of the process registry (0.0.4,
+        or OpenMetrics with exemplars when the scraper asks). The cheap
+        gauges and the roaring op counters refresh at scrape time."""
+        self._refresh_scrape_gauges()
+        if "application/openmetrics-text" in req.accept:
+            body = obs_metrics.default_registry().render(
+                openmetrics=True).encode()
+            return Response(
+                200, body,
+                "application/openmetrics-text; version=1.0.0;"
+                " charset=utf-8")
+        return Response(200,
+                        obs_metrics.default_registry().render().encode(),
+                        "text/plain; version=0.0.4; charset=utf-8")
+
+    def _refresh_scrape_gauges(self) -> None:
+        if self.admission is not None:
+            adm = self.admission.snapshot()
+            obs_metrics.ADMISSION_IN_FLIGHT.set(adm.get("inFlight", 0))
+            # Zero every lane first: a drained lane drops out of the
+            # snapshot and must not report its last depth forever.
+            for lane in (LANE_READ, LANE_WRITE, LANE_ADMIN):
+                obs_metrics.ADMISSION_QUEUE_DEPTH.labels(lane).set(
+                    (adm.get("queued") or {}).get(lane, 0))
+            now = self.admission.tenant_in_flight()
+            for labels, _child in \
+                    obs_metrics.TENANT_INFLIGHT._label_dicts():
+                t = labels.get("tenant", "")
+                if t and t not in now:
+                    obs_metrics.TENANT_INFLIGHT.labels(t).set(0)
+            for tenant, n in now.items():
+                obs_metrics.TENANT_INFLIGHT.labels(tenant).set(n)
+        for (op, kind), n in roaring.op_counts().items():
+            if n:
+                obs_metrics.ROARING_OPS.labels(op, kind).set_total(n)
+        snap = residency.device_cache().snapshot()
+        obs_metrics.RESIDENCY_BYTES.labels("used").set(snap["usedBytes"])
+        obs_metrics.RESIDENCY_BYTES.labels("budget").set(
+            snap["budgetBytes"])
 
     # -- attr diff (anti-entropy) --------------------------------------------
 
@@ -635,6 +1125,8 @@ class Handler:
         # touched (time views and the inverse transpose included),
         # coalesced with concurrent imports' barriers.
         storage_wal.barrier_all()
+        obs_metrics.IMPORT_BITS.labels("bits").inc(
+            len(positions) if positions is not None else len(rows))
         return Response.proto(pb.ImportResponse())
 
     def _handle_get_export(self, req: Request) -> Response:

@@ -41,7 +41,8 @@ _MAX_REQUEST = 1 << 28
 
 _QUERY_PATH_RE = re.compile(r"^/index/([^/]+)/query$")
 
-_STATUS_REASON = {200: "OK", 400: "Bad Request", 404: "Not Found",
+_STATUS_REASON = {200: "OK", 400: "Bad Request", 402: "Payment Required",
+                  404: "Not Found",
                   405: "Method Not Allowed", 409: "Conflict",
                   429: "Too Many Requests",
                   500: "Internal Server Error",

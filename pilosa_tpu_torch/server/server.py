@@ -13,12 +13,24 @@ fragments snapshot their op-logs and close their WALs. The HTTP front's
 pipelined batch lane (``_query_batcher``) runs consecutive plain-PQL
 query POSTs of one index as one ``Executor.execute_partial`` call (a
 write that adds a slice ends the call) and, when they wrote, one commit
-barrier before their acks. Admission,
-tenants, the query registry and the metrics around that lane in the
-JAX package wait for the operator slice. Cluster
-membership, gossip, anti-entropy, the background loops (cache flush,
-scrub, tiering, backup) and the observability subsystems wait for the
-slices that port them.
+barrier before their acks.
+
+The query lifecycle (the JAX server's sched and obs wiring): every query
+goes through the weighted admission queue (``query_config``:
+concurrency and queue depth; overflow answers 429 with Retry-After),
+under its tenant's policy (``tenants_config``), registered in the query
+registry behind ``/debug/queries`` (cancel by id, the slow-query log),
+with a cost ledger (unless ``handler.accounting`` is off) and, when
+asked or ``trace_config.enabled``, a trace kept in the tracer's ring.
+A pipelined batch run holds ONE admission slot and ONE context; when
+admission is full the lane declines and the requests go one by one
+through the handler, which answers the 429s. ``open()`` starts the
+warmup (sched.warmup: build, load and launch every kernel entry once)
+on a daemon thread; ``cal_dir`` is where the executor persists the cost
+model's calibration (none: not persisted); ``executor_options`` are
+further Executor arguments. Cluster membership, gossip, anti-entropy,
+the background loops (cache flush, scrub, tiering, backup) and the
+other observability subsystems wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -27,16 +39,29 @@ import errno
 import json
 import threading
 
+from typing import Optional
+
 from .. import SLICE_WIDTH
 from ..device import resolve_device
-from ..errors import PilosaError
-from ..executor import _WRITE_CALLS, Executor
+from ..errors import (PilosaError, QueryCancelledError,
+                      QueryDeadlineError)
+from ..executor import _WRITE_CALLS, ExecOptions, Executor
 from ..models.holder import Holder
 from ..models.view import VIEW_INVERSE
+from ..obs import accounting as obs_accounting
+from ..obs import metrics as obs_metrics
+from ..obs.metrics import RegistryStatsClient, default_registry
+from ..obs.trace import Tracer
 from ..pql import parser as pql
 from ..pql.ast import Query
+from ..sched import (LANE_READ, LANE_WRITE, AdmissionController,
+                     AdmissionFullError, QueryContext, QueryRegistry,
+                     TenantRegistry)
+from ..sched.warmup import Warmup
 from ..storage import wal as storage_wal
 from ..utils import logger as logger_mod
+from ..utils.config import QueryConfig, TenantsConfig, TraceConfig
+from ..utils.stats import ExpvarStatsClient, MultiStatsClient
 from . import codec
 from .handler import Handler
 from .httpd import HTTPServer
@@ -47,17 +72,49 @@ DEFAULT_PORT = 10101
 class Server:
     def __init__(self, data_dir: str, host: str = "localhost:10101",
                  device=None, logger=logger_mod.NOP,
-                 wal_fsync: str = storage_wal.FSYNC_NONE):
+                 wal_fsync: str = storage_wal.FSYNC_NONE,
+                 query_config: Optional[QueryConfig] = None,
+                 trace_config: Optional[TraceConfig] = None,
+                 tenants_config: Optional[TenantsConfig] = None,
+                 cal_dir: Optional[str] = None, warmup: bool = True,
+                 executor_options: Optional[dict] = None):
         self.data_dir = data_dir
         self.host = host
         self.device = device
         self.wal_fsync = wal_fsync
         self.logger = logger
+        self.cal_dir = cal_dir
+        # Extra Executor keyword arguments (e.g. mesh_min_slices=1 and
+        # costmodel.pinned(0.0) to pin every device leg).
+        self.executor_options = dict(executor_options or {})
         self.holder = None
         self.executor = None
         self.handler = None
         self._httpd = None
         self._thread = None
+        # Observability: the expvar collector behind /debug/vars, its
+        # call sites fed into the /metrics registry too.
+        self.trace_config = trace_config or TraceConfig()
+        self.stats = MultiStatsClient(
+            [ExpvarStatsClient(), RegistryStatsClient(default_registry())])
+        self.tracer = Tracer(enabled=self.trace_config.enabled,
+                             max_traces=self.trace_config.max_traces,
+                             max_spans=self.trace_config.max_spans)
+        # Query lifecycle: the weighted admission queue with the tenant
+        # (= index) as its second stride level, and the in-flight
+        # registry behind /debug/queries.
+        self.query_config = query_config or QueryConfig()
+        self.tenants_config = tenants_config or TenantsConfig()
+        self.tenants = TenantRegistry(self.tenants_config.table, node=host)
+        self.admission = AdmissionController(
+            concurrency=self.query_config.concurrency,
+            queue_depth=self.query_config.queue_depth,
+            tenants=self.tenants)
+        self.query_registry = QueryRegistry(
+            slow_threshold_s=self.query_config.slow_threshold or None,
+            stats=self.stats, logger=logger)
+        self.warmup_enabled = warmup
+        self.warmup: Optional[Warmup] = None
 
     # -- lifecycle (server.go:89-180) ----------------------------------------
 
@@ -77,9 +134,18 @@ class Server:
         self.holder = Holder(self.data_dir, wal_fsync=self.wal_fsync)
         try:
             self.holder.open()
-            self.executor = Executor(self.holder, device=device)
-            self.handler = Handler(self.holder, self.executor,
-                                   host=self.host, logger=self.logger)
+            self.executor = Executor(self.holder, device=device,
+                                     cal_dir=self.cal_dir,
+                                     **self.executor_options)
+            if self.warmup_enabled:
+                self.warmup = Warmup(self.executor, logger=self.logger)
+            self.handler = Handler(
+                self.holder, self.executor, host=self.host,
+                logger=self.logger, admission=self.admission,
+                registry=self.query_registry, warmup=self.warmup,
+                default_timeout_s=self.query_config.default_timeout,
+                tracer=self.tracer, stats=self.stats,
+                tenants=self.tenants)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
@@ -92,6 +158,8 @@ class Server:
         if actual_port != port:
             self.host = f"{bind_host}:{actual_port}"
             self.handler.host = self.host
+        if self.warmup is not None:
+            self.warmup.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="httpd")
         self._thread.start()
@@ -99,6 +167,9 @@ class Server:
                            device)
 
     def close(self) -> None:
+        if self.warmup is not None:
+            self.warmup.stop()
+            self.warmup.wait(60)
         if self._httpd is not None:
             self._httpd.server_close()
             self._thread.join(timeout=10)
@@ -126,7 +197,15 @@ class Server:
         requests after it in the run run one by one (none of their
         calls ran). No applied mutation runs twice (a SetBit run again
         would answer false to the client that set the bit). Requests
-        that wrote take one commit barrier before any ack goes out."""
+        that wrote take one commit barrier before any ack goes out.
+
+        Lifecycle: the whole pipelined group occupies ONE admission slot
+        (its lane classified over all calls, its tenant the index) and
+        registers ONE QueryContext (the default timeout, a cost ledger)
+        that every run executes under; with admission full the lane
+        declines (None) and per-request dispatch answers the 429s. A
+        request whose call hits the deadline or a cancel answers 504 or
+        409; the requests before it keep their answers."""
         if self.executor is None:
             return None
         try:
@@ -136,6 +215,41 @@ class Server:
         calls = [c for q in queries for c in q.calls]
         if not calls or all(c.name == "SetRowAttrs" for c in calls):
             return None  # the bulk attribute path applies out of order
+        lane = (LANE_WRITE if any(c.name in _WRITE_CALLS for c in calls)
+                else LANE_READ)
+        try:
+            slot = self.admission.acquire(lane, tenant=index)
+        except AdmissionFullError:
+            return None  # per-request dispatch answers the 429s
+        ctx = QueryContext(pql=f"<pipelined batch: {len(calls)} calls>",
+                           index=index, lane=lane,
+                           timeout_s=self.query_config.default_timeout
+                           or None, node=self.host, tenant=index)
+        if self.handler.accounting:
+            obs_accounting.attach(ctx, node=self.host)
+        self.tenants.install(ctx)
+        out: list = []
+        failed = True
+        try:
+            with self.query_registry.track(ctx):
+                out = self._run_group(index, queries, calls,
+                                      ExecOptions(ctx=ctx))
+            failed = any(isinstance(p, tuple) for p in out)
+        finally:
+            slot.release()
+            # The batch lane bypasses the handler's query path, so it
+            # records its own latency sample.
+            labels = ("batch", lane, "500" if failed else "200")
+            obs_metrics.QUERY_SECONDS.labels(*labels).observe(
+                ctx.elapsed())
+            obs_metrics.QUERIES_TOTAL.labels(*labels).inc()
+        return out
+
+    def _run_group(self, index: str, queries: list[Query], calls: list,
+                   opt: ExecOptions) -> list:
+        """The payloads of a pipelined group: runs split where a write
+        can add a slice, then one commit barrier when any request
+        wrote."""
         idx = self.holder.index(index)
         out: list = []
         start = 0
@@ -150,7 +264,7 @@ class Server:
                     end += 1
             else:
                 end = len(queries)  # every call fails: no index
-            out += self._run_payloads(index, queries[start:end])
+            out += self._run_payloads(index, queries[start:end], opt)
             start = end
         if any(c.name in _WRITE_CALLS for c in calls):
             try:
@@ -162,14 +276,16 @@ class Server:
                 return [_error_payload(e, status) for _ in queries]
         return out
 
-    def _run_payloads(self, index: str, queries: list[Query]) -> list:
+    def _run_payloads(self, index: str, queries: list[Query],
+                      opt: Optional[ExecOptions] = None) -> list:
         """The responses of one run of requests: one ``execute_partial``
         call over their calls, mapped back onto the requests."""
         calls = [c for q in queries for c in q.calls]
         if all(c.name == "SetRowAttrs" for c in calls):
             # The bulk attribute path applies out of order: one by one.
             return [self._single_query_payload(index, q) for q in queries]
-        results, err = self.executor.execute_partial(index, Query(calls))
+        results, err = self.executor.execute_partial(index, Query(calls),
+                                                     opt=opt)
         out = []
         pos = 0
         failed = False
@@ -180,8 +296,7 @@ class Server:
             elif not failed:
                 # This request holds the failing call: the error
                 # response sequential dispatch gives.
-                out.append(_error_payload(
-                    err, 400 if isinstance(err, PilosaError) else 500))
+                out.append(_error_payload(err, _error_status(err)))
                 failed = True
             else:
                 # None of these calls ran: run the request on its own.
@@ -237,6 +352,17 @@ def _ok_payload(results: list) -> bytes:
         return b'{"results": [false]}\n'
     return (json.dumps(codec.query_response_json(results, [])) + "\n"
             ).encode()
+
+
+def _error_status(err: Exception) -> int:
+    """The status sequential dispatch answers for ``err``."""
+    if isinstance(err, QueryDeadlineError):
+        return 504
+    if isinstance(err, QueryCancelledError):
+        return 409
+    if isinstance(err, PilosaError):
+        return 400
+    return 500
 
 
 def _error_payload(err: Exception, status: int) -> tuple[int, bytes]:

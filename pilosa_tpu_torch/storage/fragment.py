@@ -36,8 +36,10 @@ built from this fragment (parallel.residency); every write bumps the
 generation.
 
 Left out of the copy: tiering, quarantine and verify-on-read, scrub,
-block checksums and sync, the failpoints, accounting and stats, and the
-incremental per-row count map (a write recounts its rows).
+block checksums and sync, the failpoints and stats, and the incremental
+per-row count map (a write recounts its rows). Bits written are charged
+to the current query's cost ledger (obs.accounting) at the three sites
+the JAX package charges them.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from typing import Optional
 import numpy as np
 
 from .. import SLICE_WIDTH
+from ..obs import accounting as _accounting
 from ..parallel.residency import DeviceRowCache
 from ..proto import internal as pb
 from ..utils import arrays as arrays_mod
@@ -616,6 +619,7 @@ class Fragment:
         changed = self.storage.add(pos) if set else self.storage.remove(pos)
         if not changed:
             return False
+        _accounting.note_bits_written(1)
         self._epoch += 1
         self.row_cache.invalidate(row_id)
         self.device.invalidate_row(row_id)
@@ -659,6 +663,7 @@ class Fragment:
                                                wal=True)
             if not len(changed):
                 return changed
+            _accounting.note_bits_written(len(changed))
             self._epoch += 1
             ch_rows = np.unique(changed >> row_shift)
             for rid, cnt in zip(ch_rows.tolist(),
@@ -725,6 +730,7 @@ class Fragment:
                      <= _WAL_IMPORT_MAX_BYTES)
         with self._mu:
             self._epoch += 1
+            _accounting.note_bits_written(len(positions))
             if wal_first:
                 roaring._wal_write(self.storage.op_writer,
                                    roaring._wal_blob(positions,

@@ -46,9 +46,10 @@ All set algebra is vectorized (numpy or the optional C++ kernel lib in
 ``pilosa_tpu_torch.native``); the same dense-word orientation is what packs
 straight onto the card (see pilosa_tpu_torch.ops.packed).
 
-Copied from the JAX package's ``storage/roaring.py``; the failpoint and
-per-query accounting hooks are left out, and every path that runs
-without them is kept. Op records go to the group-commit WAL
+Copied from the JAX package's ``storage/roaring.py``; the failpoint
+hooks are left out, and every path that runs without them is kept.
+Every container set-algebra op is counted by operand kinds and charged
+to the current query's cost ledger (``_bump``, obs.accounting). Op records go to the group-commit WAL
 (storage.wal) and point mutations take the one-crossing mutate
 extension (storage.native_ext) when it is built.
 """
@@ -63,6 +64,7 @@ from typing import Callable, Iterator as TIterator, Optional
 
 import numpy as np
 
+from ..obs import accounting as _accounting
 from . import integrity as _integrity
 from . import native
 from . import native_ext
@@ -790,8 +792,8 @@ def _interval_combine(a_runs: np.ndarray, b_runs: np.ndarray,
 # statistics the Roaring library paper (arXiv:1709.07821) credits for
 # making its optimizations tractable. Pre-seeded plain ints bumped
 # inline (GIL-coarse increments; a rare lost count is acceptable for
-# metrics), published as pilosa_roaring_container_ops_total by the
-# runtime collector (obs.runtime).
+# metrics), published as pilosa_roaring_container_ops_total when
+# /metrics is scraped.
 OP_KINDS = ("array_array", "array_bitmap", "bitmap_bitmap",
             "run_run", "run_array", "run_bitmap")
 _OPS = ("intersect", "intersection_count", "union", "difference", "xor")
@@ -814,9 +816,34 @@ def op_counts() -> dict[tuple[str, str], int]:
     return dict(_OP_COUNTS)
 
 
+# Word-equivalents a bitmap container operand contributes: the unit the
+# scan cost an operand adds to the per-query ledger.
+_BITMAP_WORDS = 1024
+
+
+def _scan_words(c: Container) -> int:
+    """Word-equivalents one operand contributes: a bitmap container is
+    a full 1024-word scan; an array container counts its elements at
+    64 per word; a run container counts its interval list's bytes at 8
+    per word."""
+    if c.runs is not None:
+        return max(1, (int(c.runs.size) * 2) >> 3)
+    if c.is_array():
+        return (len(c.array) + 63) >> 6
+    return _BITMAP_WORDS
+
+
 def _bump(op: str, a: Container, b: Container) -> None:
-    """Count one container set-algebra op by operand kinds."""
-    _OP_COUNTS[(op, _op_kind(a, b))] += 1
+    """One site feeding both accountings: the process-global counters
+    (pilosa_roaring_container_ops_total at scrape time) and the current
+    query's cost ledger (obs.accounting) when one is bound to this
+    thread."""
+    kind = _op_kind(a, b)
+    _OP_COUNTS[(op, kind)] += 1
+    cost = _accounting.current_cost()
+    if cost is not None:
+        cost.note_container_op(op, kind,
+                               _scan_words(a) + _scan_words(b))
 
 
 # Size ratio past which a sorted-array intersection switches from the

@@ -1,0 +1,141 @@
+"""The query lifecycle's configuration: durations, tenants, admission
+and tracing.
+
+The part of the JAX package's ``utils/config.py`` (reference config.go)
+that a one-node ``Server`` takes for the sched and obs subsystems: the
+Go-style duration parser behind ``?timeout=``, the mandatory ``default``
+tenant and the ``[tenants]`` table's validation, and the ``[query]``,
+``[tenants]`` and ``[trace]`` sections as dataclasses with the JAX
+package's defaults. The TOML loader, the environment and
+flag overlays and the other sections wait for the operator slice.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+
+
+def parse_duration(v) -> float:
+    """Go-style duration string ("10m", "1h30m", "45s") → seconds."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    units = {"ns": 1e-9, "us": 1e-6, "ms": 1e-3, "s": 1.0, "m": 60.0,
+             "h": 3600.0}
+    total = 0.0
+    matched = False
+    for num, unit in re.findall(r"([0-9.]+)(ns|us|ms|s|m|h)", str(v)):
+        total += float(num) * units[unit]
+        matched = True
+    if not matched:
+        raise ValueError(f"invalid duration: {v!r}")
+    return total
+
+
+# Query lifecycle defaults (sched subsystem).
+DEFAULT_QUERY_CONCURRENCY = 16
+DEFAULT_QUERY_QUEUE_DEPTH = 64
+
+
+@dataclass
+class QueryConfig:
+    """[query] section: concurrency/queue_depth bound the admission
+    controller (overflow answers 429); default_timeout (seconds, 0 =
+    none) applies when a request carries neither ?timeout= nor
+    X-Pilosa-Deadline; slow_threshold (seconds, 0 = disabled) arms the
+    slow-query log."""
+    concurrency: int = DEFAULT_QUERY_CONCURRENCY
+    queue_depth: int = DEFAULT_QUERY_QUEUE_DEPTH
+    default_timeout: float = 0.0
+    slow_threshold: float = 0.0
+
+
+# -- [tenants]: per-tenant QoS (sched.tenants) -------------------------------
+# One sub-table per tenant (tenant = index). The ``default`` entry is
+# MANDATORY whenever the table is present: it is what unknown tenants
+# (new indexes, requests with no header) schedule under.
+
+_TENANT_KEYS = ("weight", "concurrency", "queue-depth",
+                "max-container-ops", "max-device-bytes", "max-wall",
+                "cache-share")
+
+DEFAULT_TENANT = "default"
+
+
+def validate_tenant_entry(name: str, entry) -> dict:
+    """One ``[tenants.<name>]`` table → normalized snake_case dict.
+    Fails LOUDLY (ValueError) on unknown keys, non-positive weights,
+    or out-of-range shares — a half-parsed QoS table that silently
+    drops a ceiling is an isolation hole, not a default."""
+    if not isinstance(entry, dict):
+        raise ValueError(f"[tenants.{name}]: expected a table,"
+                         f" got {type(entry).__name__}")
+    unknown = sorted(set(entry) - set(_TENANT_KEYS))
+    if unknown:
+        raise ValueError(
+            f"[tenants.{name}]: unknown key(s) {', '.join(unknown)}"
+            f" (valid: {', '.join(_TENANT_KEYS)})")
+    out: dict = {}
+    if "weight" in entry:
+        w = float(entry["weight"])
+        if w <= 0:
+            raise ValueError(
+                f"[tenants.{name}]: weight must be positive, got {w}")
+        out["weight"] = w
+    for key, attr in (("concurrency", "concurrency"),
+                      ("queue-depth", "queue_depth"),
+                      ("max-container-ops", "max_container_ops"),
+                      ("max-device-bytes", "max_device_bytes")):
+        if key in entry:
+            v = int(entry[key])
+            if v < 0:
+                raise ValueError(f"[tenants.{name}]: {key} must be"
+                                 f" >= 0 (0 = unlimited), got {v}")
+            out[attr] = v
+    if "max-wall" in entry:
+        v = parse_duration(entry["max-wall"])
+        if v < 0:
+            raise ValueError(f"[tenants.{name}]: max-wall must be"
+                             f" >= 0 (0 = unlimited), got {v}")
+        out["max_wall_s"] = v
+    if "cache-share" in entry:
+        v = float(entry["cache-share"])
+        if not 0.0 < v <= 1.0:
+            raise ValueError(
+                f"[tenants.{name}]: cache-share must be in (0, 1],"
+                f" got {v}")
+        out["cache_share"] = v
+    return out
+
+
+def parse_tenant_table(table) -> dict[str, dict]:
+    """The whole ``[tenants]`` table → {name: normalized dict}. A
+    present-but-defaultless table fails loudly."""
+    if not isinstance(table, dict):
+        raise ValueError("[tenants]: expected a table of tables")
+    out = {str(name): validate_tenant_entry(str(name), entry)
+           for name, entry in table.items()}
+    if out and DEFAULT_TENANT not in out:
+        raise ValueError(
+            "[tenants]: a 'default' entry is required — it is what"
+            " unknown tenants schedule and account under")
+    return out
+
+
+@dataclass
+class TenantsConfig:
+    """[tenants] section (sched.tenants): ``table`` maps tenant name →
+    normalized entry (parse_tenant_table); empty = every tenant rides
+    the built-in default policy."""
+    table: dict = field(default_factory=dict)
+
+
+@dataclass
+class TraceConfig:
+    """[trace] section (obs.trace): ``enabled`` keeps EVERY query's
+    trace (off by default; ``?trace=1`` opts in per request either
+    way); ``max_traces``/``max_spans`` bound the per-node ring. The JAX
+    package's tail-sampling knobs wait for obs.sampler."""
+    enabled: bool = False
+    max_traces: int = 64
+    max_spans: int = 512

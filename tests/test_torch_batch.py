@@ -85,7 +85,7 @@ def pair(tmp_path_factory):
     _write_both(jh, th, np.random.default_rng(81))
     jex = JaxExecutor(jh, host="local", use_mesh=True, mesh_min_slices=1,
                       result_cache_bits=-1)
-    tex = Executor(th, device="cpu")
+    tex = Executor(th, device="cpu", mesh_min_slices=1)
     yield jex, tex
     assert jex.device_fallbacks == 0
     jex.close()
@@ -236,7 +236,7 @@ def _cut_cases():
 def test_batch_runs_cut(pair, monkeypatch, name):
     jex, tex = pair
     q, opts, jattrs, runs = _cut_cases()[name]
-    tex = Executor(tex.holder, device="cpu", **opts)
+    tex = Executor(tex.holder, device="cpu", mesh_min_slices=1, **opts)
     for k, v in jattrs.items():
         monkeypatch.setattr(jex, k, v)
     spy = _Spy(monkeypatch, tex)

@@ -212,7 +212,7 @@ def pair(tmp_path_factory):
     th.open()
     writes = _write_both(jh, th, np.random.default_rng(77))
     jex = JaxExecutor(jh, host="local", use_mesh=True, mesh_min_slices=1)
-    tex = Executor(th, device="cpu")
+    tex = Executor(th, device="cpu", mesh_min_slices=1)
     for w in writes:
         assert tex.execute("i", w) == jex.execute("i", w), w
     yield jex, tex
@@ -373,7 +373,7 @@ def test_write_between_counts_changes_the_answer(tmp_path):
     f.import_field_values("v", np.arange(0, 3 * SLICE_WIDTH, 999,
                                          dtype=np.uint64),
                           np.arange(0, 3 * SLICE_WIDTH, 999) % 101)
-    ex = Executor(h, device="cpu")
+    ex = Executor(h, device="cpu", mesh_min_slices=1)
     q = "Count(Range(frame=f, v > 90))"
     before = ex.execute("i", q)[0]
     s_before = ex.execute("i", "Sum(frame=f, field=v)")[0]
@@ -475,7 +475,7 @@ def handlers(tmp_path):
     th.open()
     jex = JaxExecutor(jh, host="local")
     yield JaxHandler(jh, jex, host="local"), Handler(th, Executor(
-        th, device="cpu"))
+        th, device="cpu", mesh_min_slices=1))
     jex.close()
     jh.close()
     th.close()

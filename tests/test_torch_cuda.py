@@ -21,10 +21,15 @@ from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import cuda_kernels as ck
 from pilosa_tpu_torch.ops import kernel_ab
 from pilosa_tpu_torch.ops import packed
+from pilosa_tpu_torch.parallel import costmodel
 from pilosa_tpu_torch.parallel import mesh as torch_mesh
 from pilosa_tpu_torch.parallel import residency
 
 pytestmark = pytest.mark.cuda
+
+# The device legs pinned (the floor at one slice, a cost model that
+# vetoes nothing): these tests hold the kernels, not the routing.
+PIN = {"mesh_min_slices": 1, "cost_model": costmodel.pinned(0.0)}
 
 MIXED = ("or", ("and", ("leaf", 0), ("leaf", 1)),
          ("andnot", ("xor", ("leaf", 2), ("leaf", 0)), ("leaf", 1)))
@@ -170,7 +175,7 @@ def test_executor_card_matches_cpu(cuda_device, tmp_path):
         n = (4000, 200000)[row % 2]
         cols = rng.choice(4 * SLICE_WIDTH, size=n, replace=False)
         f.import_bits(np.full(n, row, np.uint64), cols.astype(np.uint64))
-    card = Executor(holder, device=cuda_device)
+    card = Executor(holder, device=cuda_device, **PIN)
     cpu = Executor(holder, device="cpu")
     queries = [
         "Count(Intersect(Bitmap(rowID=0, frame=f), Bitmap(rowID=1,"
@@ -264,7 +269,8 @@ def test_server_counts_over_http_on_the_card(cuda_device, tmp_path):
     from pilosa_tpu_torch.proto import internal as pb
     from pilosa_tpu_torch.server.server import Server
 
-    srv = Server(str(tmp_path / "d"), host="127.0.0.1:0")  # the card
+    srv = Server(str(tmp_path / "d"), host="127.0.0.1:0",  # the card
+                 warmup=False, executor_options=PIN)
     srv.open()
 
     def post(path, body, headers=None):
@@ -469,7 +475,7 @@ def test_topn_forms_card_matches_cpu(cuda_device, tmp_path):
         near = holder.fragment("i", "src", "standard", 0).row(2).bits()
         fr.import_bits(np.full(len(near), 77, np.uint64),
                        near.astype(np.uint64))
-    card = Executor(holder, device=cuda_device)
+    card = Executor(holder, device=cuda_device, **PIN)
     cpu = Executor(holder, device="cpu")
     s1, s2 = "Bitmap(rowID=1, frame=src)", "Bitmap(rowID=2, frame=src)"
     forms = ["TopN(frame={F}, n=5)", "TopN(frame={F})",
@@ -541,7 +547,7 @@ def fields(tmp_path_factory):
                                   "< 2000000", "> 1000000"])
 def test_count_range_card_matches_cpu(cuda_device, fields, cond):
     holder, vals = fields
-    card = Executor(holder, device=cuda_device)
+    card = Executor(holder, device=cuda_device, **PIN)
     cpu = Executor(holder, device="cpu")
     x, lo = int(vals[7]), int(vals[7]) - 300_000
     q = f"Count(Range(frame=v, amount {cond.format(x=x, lo=lo)}))"
@@ -560,7 +566,7 @@ def test_count_range_card_matches_cpu(cuda_device, fields, cond):
 
 def test_sum_and_views_card_matches_cpu(cuda_device, fields):
     holder, vals = fields
-    card = Executor(holder, device=cuda_device)
+    card = Executor(holder, device=cuda_device, **PIN)
     cpu = Executor(holder, device="cpu")
     before = dict(ck.LAUNCHES)
     got = card.execute("i", "Sum(frame=v, field=amount)")[0]
@@ -674,7 +680,7 @@ def test_batch_and_materialize_card_matches_cpu(cuda_device, tmp_path):
         n = (3000, 150000)[row % 4 == 0]
         cols = rng.choice(3 * SLICE_WIDTH, size=n, replace=False)
         f.import_bits(np.full(n, row, np.uint64), cols.astype(np.uint64))
-    card = Executor(holder, device=cuda_device)
+    card = Executor(holder, device=cuda_device, **PIN)
     cpu = Executor(holder, device="cpu")
     u9 = ", ".join(f"Bitmap(rowID={r}, frame=f)" for r in range(9))
     queries = {
@@ -698,3 +704,97 @@ def test_batch_and_materialize_card_matches_cpu(cuda_device, tmp_path):
         assert norm(card.execute("i", q)) == norm(cpu.execute("i", q)), q
         assert ck.LAUNCHES[kernel] > before, q
     holder.close()
+
+
+# -- the query lifecycle and the calibrated routing on the card --------------
+
+def test_calibration_on_the_card(cuda_device):
+    """Every measured quantity is a positive, finite rate or time, and
+    the expression count's bytes/s stay under the card's 3.35 TB/s."""
+    cal = costmodel.calibrate(cuda_device)
+    for name, value in cal.to_dict().items():
+        assert value > 0 and np.isfinite(value), (name, value)
+    assert cal.sync_s < 0.01
+    assert cal.device_bps < 3.35e12
+
+
+def test_mesh_dispatch_span_covers_the_kernel(cuda_device):
+    """A ``mesh_dispatch`` span (launch and fetch) lasts at least the
+    kernel's device time, timed with CUDA events around the kernel
+    alone (no fetch) on the same inputs."""
+    from pilosa_tpu_torch.obs import trace as obs_trace
+    from pilosa_tpu_torch.sched import context as sched_context
+    leaves = list(_words(np.random.default_rng(3), (2, 256, 32768),
+                         cuda_device))
+    expr = ("and", ("leaf", 0), ("leaf", 1))
+    torch_mesh.count_expr_sharded(expr, leaves)  # build and warm
+    device_s = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(cuda_device)
+        start.record()
+        ck.expr_count_rows(expr, leaves)
+        end.record()
+        end.synchronize()
+        device_s = min(device_s, start.elapsed_time(end) / 1e3)
+    ctx = sched_context.QueryContext(id="span")
+    tr = obs_trace.Tracer().start(ctx)
+    torch.cuda.synchronize(cuda_device)
+    with sched_context.use(ctx):
+        got = torch_mesh.count_expr_sharded(expr, leaves)
+    spans = [s for s in tr.spans() if s.name == "mesh_dispatch"]
+    assert len(spans) == 1 and spans[0].tags["kind"] == "count_expr"
+    assert spans[0].tags["timing"] == "launch+fetch"
+    assert spans[0].dur >= device_s, (spans[0].dur, device_s)
+    assert got == int(ck.expr_count_rows_torch(expr, leaves).long().sum())
+
+
+def test_warmup_launches_every_kernel(cuda_device, tmp_path):
+    from pilosa_tpu_torch.sched.warmup import KERNELS, Warmup
+    holder = Holder(str(tmp_path / "d"))
+    holder.open()
+    try:
+        before = dict(ck.LAUNCHES)
+        w = Warmup(Executor(holder, device=cuda_device,
+                            cal_dir=str(tmp_path / "cal")))
+        w.start()
+        w.wait(300)
+        out = w.to_json()
+        assert out["state"] == "done", out
+        assert out["coverage"] == {"warmed": 6, "programs": 6,
+                                   "missing": []}
+        for name in KERNELS:
+            assert ck.LAUNCHES[name] == before[name] + 1, name
+    finally:
+        holder.close()
+
+
+def test_routed_executor_matches_cpu(cuda_device, tmp_path):
+    """The calibrated routing on the card (no pin) gives the CPU
+    executor's answers, cold and warm, whichever leg it takes."""
+    holder = Holder(str(tmp_path / "d"))
+    holder.open()
+    try:
+        rng = np.random.default_rng(12)
+        f = holder.create_index("i").create_frame("f")
+        for row in range(4):
+            cols = np.unique(rng.integers(0, 8 * SLICE_WIDTH, size=20000,
+                                          dtype=np.uint64))
+            f.import_bits(np.full(len(cols), row, np.uint64), cols)
+        card = Executor(holder, device=cuda_device,
+                        cal_dir=str(tmp_path / "cal"))
+        cpu = Executor(holder, device="cpu")
+        qs = ["Count(Intersect(Bitmap(rowID=0, frame=f),"
+              " Bitmap(rowID=1, frame=f)))",
+              "Count(Bitmap(rowID=2, frame=f)) Count(Bitmap(rowID=3,"
+              " frame=f))",
+              "TopN(Bitmap(rowID=0, frame=f), frame=f, ids=[1, 2, 3])"]
+        for _ in range(3):
+            for q in qs:
+                assert str(card.execute("i", q)) == str(cpu.execute("i", q))
+        assert card.cost_model is not None
+        assert card.planner.calibration is card.cost_model.cal
+        assert (tmp_path / "cal").exists()
+    finally:
+        holder.close()

@@ -25,6 +25,10 @@ from pilosa_tpu_torch.parallel import residency
 N_SLICES = 8
 N_ROWS = 6
 
+# The port's device legs at every slice count (the JAX executor's
+# use_mesh=True, mesh_min_slices=1).
+PIN_DEVICE = {"mesh_min_slices": 1}
+
 
 def export_state(holder) -> dict:
     """(index, frame, view, slice) → u64 positions, via the JAX API."""
@@ -91,7 +95,8 @@ def pair(tmp_path_factory):
     jh.open()
     _fill(jh, np.random.default_rng(4242))
     th, tex = carry.holder_from_state(str(tmp_path_factory.mktemp("port")),
-                                      export_state(jh), device="cpu")
+                                      export_state(jh), device="cpu",
+                                      executor_options=PIN_DEVICE)
     jex = JaxExecutor(jh, host="local", use_mesh=True, mesh_min_slices=1)
     yield jex, tex
     assert jex.device_fallbacks == 0
@@ -207,7 +212,8 @@ def test_wide_union_1000(tmp_path):
     cols = rng.integers(0, SLICE_WIDTH, size=20000).astype(np.uint64)
     f.import_bits(rows, cols)
     th, tex = carry.holder_from_state(str(tmp_path / "port"),
-                                      export_state(jh), device="cpu")
+                                      export_state(jh), device="cpu",
+                                      executor_options=PIN_DEVICE)
     jex = JaxExecutor(jh, host="local", use_mesh=False)
     union = "Union(" + ", ".join(f"Bitmap(rowID={i}, frame=f)"
                                  for i in range(1000)) + ")"
@@ -229,7 +235,8 @@ def test_setbit_ages_out_resident_slabs(tmp_path):
         cols = rng.choice(2 * SLICE_WIDTH, size=3000, replace=False)
         f.import_bits(np.full(3000, row, np.uint64), cols.astype(np.uint64))
     th, tex = carry.holder_from_state(str(tmp_path / "port"),
-                                      export_state(jh), device="cpu")
+                                      export_state(jh), device="cpu",
+                                      executor_options=PIN_DEVICE)
     jex = JaxExecutor(jh, host="local", use_mesh=True, mesh_min_slices=1)
     q = ("Count(Intersect(Bitmap(rowID=1, frame=f), Bitmap(rowID=2,"
          " frame=f))) TopN(Bitmap(rowID=1, frame=f), frame=f, ids=[1, 2])")

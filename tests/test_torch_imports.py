@@ -101,4 +101,29 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.plan", "pilosa_tpu_torch.plan.record",
             "pilosa_tpu_torch.plan.planner",
             "pilosa_tpu_torch.cluster",
-            "pilosa_tpu_torch.cluster.generations"} <= set(MODULES)
+            "pilosa_tpu_torch.cluster.generations"} | set(
+                LIFECYCLE) <= set(MODULES)
+
+
+# The query lifecycle's modules, each at the path of its JAX
+# counterpart (utils.config holds only the lifecycle's part).
+LIFECYCLE = ("pilosa_tpu_torch.utils.stats", "pilosa_tpu_torch.obs",
+             "pilosa_tpu_torch.obs.metrics",
+             "pilosa_tpu_torch.obs.accounting",
+             "pilosa_tpu_torch.obs.trace", "pilosa_tpu_torch.sched",
+             "pilosa_tpu_torch.sched.context",
+             "pilosa_tpu_torch.sched.registry",
+             "pilosa_tpu_torch.utils.config",
+             "pilosa_tpu_torch.sched.tenants",
+             "pilosa_tpu_torch.sched.admission",
+             "pilosa_tpu_torch.plan.store",
+             "pilosa_tpu_torch.parallel.costmodel",
+             "pilosa_tpu_torch.sched.warmup")
+
+
+@pytest.mark.parametrize("module", LIFECYCLE)
+def test_lifecycle_module_mirrors_the_jax_path(module):
+    rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
+        ".", os.sep)
+    assert (os.path.exists(os.path.join(REPO, rel + ".py"))
+            or os.path.exists(os.path.join(REPO, rel, "__init__.py")))

@@ -95,7 +95,8 @@ def pair(tmp_path_factory):
     _write_both(jh, th, np.random.default_rng(93))
     jex = JaxExecutor(jh, host="local", use_mesh=True, mesh_min_slices=1,
                       result_cache_bits=-1)
-    tex = Executor(th, device="cpu", result_cache_bits=-1)
+    tex = Executor(th, device="cpu", result_cache_bits=-1,
+                   mesh_min_slices=1)
     yield jex, tex
     assert jex.device_fallbacks == 0
     jex.close()
@@ -301,7 +302,7 @@ def test_fold_rows_refuses_an_unknown_op(pair):
 # -- the bitmap-result cache --------------------------------------------------
 
 def _cached(tex):
-    return Executor(tex.holder, device="cpu")
+    return Executor(tex.holder, device="cpu", mesh_min_slices=1)
 
 
 def test_result_cache_hit_after_repeat(pair, monkeypatch):
@@ -354,11 +355,13 @@ def test_result_cache_keys_on_leaf_rows(pair):
 
 def test_result_cache_bounds(pair):
     jex, tex = pair
-    ex = Executor(tex.holder, device="cpu", result_cache_entries=2)
+    ex = Executor(tex.holder, device="cpu", result_cache_entries=2,
+                  mesh_min_slices=1)
     qs = [_fold("Union", [_bm(r), _bm(r + 1)]) for r in range(1, 8, 2)]
     for q in qs:
         assert _bits(ex.execute("m", q)) == _bits(jex.execute("m", q))
     assert len(ex._bitmap_results) == 2
-    small = Executor(tex.holder, device="cpu", result_cache_bits=10)
+    small = Executor(tex.holder, device="cpu", result_cache_bits=10,
+                     mesh_min_slices=1)
     assert _bits(small.execute("m", qs[0])) == _bits(jex.execute("m", qs[0]))
     assert len(small._bitmap_results) == 0

@@ -354,10 +354,14 @@ def test_server_socket_and_pipelining(server):
                        {"Content-Type": PB, "Accept": PB})
     assert (status, out) == (200, b"")
     status, out = http(server, "GET", "/status")
-    assert status == 200 and json.loads(out) == {"status": {"nodes": [
+    got = json.loads(out)
+    assert status == 200 and got["status"] == {"nodes": [
         {"host": server.host, "state": "UP", "indexes": [
             {"name": "i", "maxSlice": 1, "slices": [0, 1],
-             "frames": [{"name": "f"}]}]}]}}
+             "frames": [{"name": "f"}]}]}]}
+    # The JAX warmup block: no kernel to warm on the CPU.
+    assert set(got) == {"status", "warmup"}
+    assert got["warmup"]["state"] == "disabled"
     assert json.loads(http(server, "GET", "/hosts")[1]) == [
         {"host": server.host, "internalHost": ""}]
     # Three requests pipelined on one connection, answered in order.

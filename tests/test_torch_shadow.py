@@ -15,7 +15,10 @@ with 0; and on two frames the test adds (a BSI field, a time quantum
 with inverse storage) SetFieldValue, the protobuf field import,
 timestamped SetBit and ``/import``, time and field ``Range``, ``Sum``,
 ``Min``, ``Max`` and ``Bitmap(columnID=...)``; bitmap calls of 8 or
-more leaves and multi-call bodies of Counts and TopNs. Then ``pilosa_tpu.obs.replay.shadow`` replays the JAX server's
+more leaves and multi-call bodies of Counts and TopNs; and reads and a
+write sent with the query lifecycle's options (a generous
+``?timeout=``, ``?profile=1``, ``X-Pilosa-Tenant``). Then
+``pilosa_tpu.obs.replay.shadow`` replays the JAX server's
 captured records against both: every write again, in recorded order,
 then every read, whose result digests must match.
 
@@ -180,7 +183,29 @@ def _workload(rng):
               'Bitmap(rowID=5, frame="fs"))',
               'Intersect(Bitmap(rowID=1, frame="f"), Union())'):
         steps.append(("query", q))
-    return steps + _wide_and_batched(rng) + _views_workload(rng)
+    return (steps + _wide_and_batched(rng) + _views_workload(rng)
+            + _lifecycle_requests(rng))
+
+
+def _lifecycle_requests(rng):
+    """Requests with the query lifecycle's options: a generous
+    ``?timeout=``, ``?profile=1`` and a named tenant
+    (``X-Pilosa-Tenant``), on reads and on a write."""
+    tenant = {"X-Pilosa-Tenant": "acme"}
+    steps = []
+    for suffix, headers in (("?timeout=30s", {}), ("?profile=1", {}),
+                            ("", tenant), ("?timeout=1m&profile=1", tenant)):
+        steps.append(("query_opts", (f"Count({_rand_tree(rng, 3)})",
+                                     suffix, headers)))
+        steps.append(("query_opts", ('TopN(Bitmap(rowID=1, frame="src"),'
+                                     ' frame="f", n=5)', suffix, headers)))
+    col = int(rng.integers(N_SLICES * SLICE_WIDTH))
+    steps.append(("query_opts", (f'SetBit(frame="f", rowID=2,'
+                                 f' columnID={col})', "?timeout=30s",
+                                 tenant)))
+    steps.append(("query_opts", ('Count(Bitmap(rowID=2, frame="f"))',
+                                 "?timeout=30s", tenant)))
+    return steps
 
 
 def _wide_and_batched(rng):
@@ -249,6 +274,11 @@ def test_port_answers_the_captured_workload(tmp_path):
                 elif kind == "field_import":
                     assert _post(host, "/index/d/frame/bsi/field/amt/import",
                                  payload, proto)[0] == 200
+                elif kind == "query_opts":
+                    pql, suffix, headers = payload
+                    status, _ = _post(host, "/index/d/query" + suffix,
+                                      pql.encode(), headers)
+                    assert status == 200, (host, payload)
                 else:
                     status, _ = _post(host, "/index/d/query",
                                       payload.encode())
@@ -257,7 +287,8 @@ def test_port_answers_the_captured_workload(tmp_path):
         queries = [r for r in records if r.get("kind") == "query"]
         reads = [r for r in queries if r.get("lane") == "read"]
         writes = [r for r in queries if r.get("lane") != "read"]
-        n_query_steps = sum(1 for k, _ in steps if k == "query")
+        n_query_steps = sum(1 for k, _ in steps
+                            if k in ("query", "query_opts"))
         assert len(queries) == n_query_steps
         assert len(reads) > 100 and len(writes) > 60
 

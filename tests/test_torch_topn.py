@@ -137,7 +137,8 @@ def _make_pair(tmp_path_factory, seed):
     th, tex = carry.holder_from_state(
         str(tmp_path_factory.mktemp("port")), export_state(jh),
         device="cpu", row_attrs=row_attrs,
-        frame_options={("d", k): v for k, v in FRAMES.items()})
+        frame_options={("d", k): v for k, v in FRAMES.items()},
+        executor_options={"mesh_min_slices": 1})
     jex = JaxExecutor(jh, host="local", use_mesh=True, mesh_min_slices=1)
     return jh, jex, th, tex
 

@@ -205,7 +205,8 @@ def apps(tmp_path_factory):
     jex = JaxExecutor(jh, host="local", use_mesh=True, mesh_min_slices=1,
                       result_cache_bits=-1)
     pair = (JaxHandler(jh, jex, host="local"),
-            Handler(th, Executor(th, device="cpu")))
+            Handler(th, Executor(th, device="cpu",
+                                          mesh_min_slices=1)))
     times = _seed(pair, np.random.default_rng(88))
     yield pair, jh, th, times
     assert jex.device_fallbacks == 0
