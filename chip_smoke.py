@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs eleven phases and prints one JSON line for each:
+checkout, then runs twelve phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -151,29 +151,42 @@ checkout, then runs eleven phases and prints one JSON line for each:
    (also for the writers alone and beside the imports), the
    WAL bytes at the kill, the respawn-to-ready seconds, the launches and
    the card's name and power limit.
-11. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+11. ``cluster``: BASELINE configuration 5 as a static cluster of three
+   node processes of the port on the card (``phase_cluster``): index
+   ``c5`` at 256 slices (cut from 954) with 1,000,000 Zipf(1.1) row
+   ids, replicas 2; the data written into each owner's directory with
+   the port's storage layer and placement; Counts and three TopNs from
+   every coordinator held to the host references, 1,000 SetBits read
+   back from both owners, a SIGKILL and the same reads, a restart with
+   anti-entropy, and the routed Count on the device leg of every node.
+   The nodes are this script's child mode (``--cluster-node``), whose
+   launch counters come back on their exit lines.
+12. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-The kernel phases (2-8 and the reopen of 10) pin every device leg
-(``_pinned``: ``mesh_min_slices=1`` and a cost model that vetoes
-nothing), as the tests pin it, so the calibrated routing cannot move
-their launches to the host. Every answer of phases 2-5 and 8 is held
-to the host roaring answer computed from the port's own fragments,
-every answer of phase 6 to numpy, of phase 7 to numpy or to words
-packed on the host, of phase 9 to host roaring, and every count of
-phase 11 to the host ``popcnt_and``. The kernels' launch counters are
-set to 0 before phase 2, before phase 6, before phase 7, before phase
-8, before phase 9 and before phase 10's reopen, and read after phases
-5, 6, 7, 8, 9, 10 and 11: every kernel must have launched on that main
+The kernel phases (2-8, the reopen of 10 and the cluster's nodes until
+its routed pass) pin every device leg (``_pinned``:
+``mesh_min_slices=1`` and a cost model that vetoes nothing), as the
+tests pin it, so the calibrated routing cannot move their launches to
+the host. Every answer of phases 2-5 and 8 is held to the host roaring
+answer computed from the port's own fragments, every answer of phase 6
+to numpy, of phase 7 to numpy or to words packed on the host, of phases
+9 and 11 to host roaring, and every count of phase 12 to the host
+``popcnt_and``. The kernels' launch counters are set to 0 before phase
+2, before phase 6, before phase 7, before phase 8, before phase 9 and
+before phase 10's reopen, and read after phases 5, 6, 7, 8, 9, 10 and
+12 (each cluster node's from its own process, and every node that owns
+slices must have launched the expression count, densify and the TopN
+block count): every kernel must have launched on that main
 path, the TopN block count in phase 4's device top-k, the TopN block
 count, the expression count and densify in its sourced queries, the
 expression count (every device Count(Range)), its batched entry (every
 Sum) and densify in phase 6, the expression-words kernel, the batched
 count and the TopN block count in phase 7, again in the server phase
 by itself and again after phase 10's reopen, and the op count in
-phase 11. Then it prints the card's name and power limit, the kernel
+phase 12. Then it prints the card's name and power limit, the kernel
 table as one JSON object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
@@ -196,6 +209,7 @@ BENCH_WORDS = 1 << 25      # words of a benchmark row (2^30 bits)
 BENCH_ITERS = 64           # chained dispatches a trial in the bench phase
 _EPOCH = dt.datetime(2017, 1, 1)  # the time phase's data starts here
 _UNIX = dt.datetime(1970, 1, 1)
+_PB = "application/x-protobuf"
 
 
 def _fail(msg: str) -> None:
@@ -890,11 +904,12 @@ def _ref_topn(holder, index, frame, n_slices, n, src_cols=None,
         frag = holder.fragment(index, frame, "standard", s)
         if frag is None:
             continue
-        rows, counts = _slice_counts(frag)
+        pos = frag.storage.all_positions()
+        rows, counts = np.unique(pos >> np.uint64(_ROW_SHIFT),
+                                 return_counts=True)
         rc = dict(zip(rows.tolist(), counts.tolist()))
         inter, s_n = rc, 0
         if src_cols is not None:
-            pos = frag.storage.all_positions()
             hit = pos[np.isin(pos & mask, src_cols[s])]
             irows, icounts = np.unique(hit >> np.uint64(_ROW_SHIFT),
                                        return_counts=True)
@@ -903,6 +918,8 @@ def _ref_topn(holder, index, frame, n_slices, n, src_cols=None,
         per_slice.append((rc, inter, s_n))
         order = np.lexsort((rows, -counts))
         kept: list = []  # (count, row)
+        low = None  # the smallest kept count once n are kept: every
+        # later keep is at least as large, so it stays the minimum
         for rid, cnt in zip(rows[order].tolist(), counts[order].tolist()):
             if tanimoto:
                 if not (100 * cnt > s_n * tanimoto
@@ -923,7 +940,8 @@ def _ref_topn(holder, index, frame, n_slices, n, src_cols=None,
                 if len(kept) == n and src_cols is None:
                     break
                 continue
-            low = min(kept)[0]
+            if low is None:
+                low = min(kept)[0]
             if low < threshold or cnt < low:
                 break
             c = inter.get(rid, 0)
@@ -3144,6 +3162,559 @@ def _control_run(data_dir, device, n_requests, t_phase, card, cal_dir,
     return out
 
 
+# -- the static cluster (BASELINE configuration 5) ----------------------------
+
+_C5_SEG = 1_000_000  # frame f's segment row, past the Zipf row ids
+
+
+def _c5_data(rng, n_slices: int, n_rows: int, total_bits: int,
+             device) -> dict:
+    """Configuration 5's data, made from ``rng``: frame ``f`` with
+    ``n_rows`` row ids whose bit counts follow Zipf(1.1) (at least 2
+    bits each, ``total_bits`` or more in all; a row's bits fall in a
+    window of consecutive slices about 64 bits a slice deep, and in
+    each slice within one 65,536-column container of its own, so each
+    slice holds the rows whose window covers it, one container each),
+    the segment row ``_C5_SEG`` of ``f`` at density 1/64, and
+    configuration 4's rows 1-16 of frame ``c`` (1-8 at 1/64, 9-16 at
+    1/4096). Returns ``{"f": [positions per slice], "c": [...], "seg":
+    [slice-local columns per slice], "c_cols": {row: [columns per
+    slice]}}``."""
+    import numpy as np
+    import torch
+    W = 1 << _ROW_SHIFT
+    w = np.arange(1, n_rows + 1, dtype=np.float64) ** -1.1
+    counts = np.maximum(2, np.floor(w * (total_bits / w.sum()))).astype(
+        np.int64)
+    win = np.clip(-(-counts // 64), 1, n_slices)
+    start = rng.integers(0, n_slices - win + 1)
+    block = rng.integers(0, W >> 16, size=n_rows)  # the row's container
+    # The bits themselves are drawn on the card (a generator seeded from
+    # ``rng``), and their (slice, position) keys sorted and deduplicated
+    # there.
+    dev = device if device.type == "cuda" else torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(
+        int(rng.integers(0, 2**62)))
+    ct = torch.from_numpy(counts).to(dev)
+    rows = torch.repeat_interleave(
+        torch.arange(n_rows, dtype=torch.int64, device=dev), ct)
+    slices = (torch.repeat_interleave(torch.from_numpy(start).to(dev), ct)
+              + (torch.rand(len(rows), generator=gen, device=dev,
+                            dtype=torch.float64)
+                 * torch.repeat_interleave(torch.from_numpy(win).to(dev),
+                                           ct)).long())
+    cols = (torch.repeat_interleave(torch.from_numpy(block).to(dev), ct)
+            << 16) + torch.randint(0, 1 << 16, (len(rows),), generator=gen,
+                                   device=dev)
+    keys = (slices << 40) | (rows << _ROW_SHIFT) | cols
+    del rows, slices, cols
+    keys = torch.unique(keys).cpu().numpy()
+    bounds = np.searchsorted(keys >> 40, np.arange(n_slices + 1))
+    mask = np.int64((1 << 40) - 1)
+    out = {"f": [], "c": [], "seg": [], "c_cols": {r: [] for r in
+                                                   range(1, 17)}}
+    for s in range(n_slices):
+        seg = np.unique(rng.integers(0, W, size=W // 64, dtype=np.uint64))
+        pos = (keys[bounds[s]:bounds[s + 1]] & mask).astype(np.uint64)
+        pos = np.concatenate((pos, np.uint64(_C5_SEG) * np.uint64(W) + seg))
+        out["f"].append(pos)
+        out["seg"].append(seg)
+        parts = []
+        for r in range(1, 17):
+            c = np.unique(rng.integers(0, W, size=W // (64 if r <= 8
+                                                        else 4096),
+                                       dtype=np.uint64))
+            out["c_cols"][r].append(c)
+            parts.append(np.uint64(r) * np.uint64(W) + c)
+        out["c"].append(np.concatenate(parts))
+    return out
+
+
+def _c5_write(task) -> None:
+    """One fragment file of ``phase_cluster``: the slice's sorted
+    positions as a footered roaring snapshot (the port's storage layer)
+    at the first path, copied to the others (a worker of a process pool:
+    the container loop is Python)."""
+    positions, paths = task
+    from pilosa_tpu_torch.storage import roaring
+    with open(paths[0], "wb") as f:
+        roaring.Bitmap.from_sorted(positions).write_to(f, footer=True)
+    for path in paths[1:]:
+        shutil.copyfile(paths[0], path)
+
+
+class _FragSet:
+    """``holder.fragment`` over {slice: sorted positions} of one frame —
+    what ``_ref_topn`` reads (``frag.storage.all_positions()``)."""
+
+    def __init__(self, positions: dict):
+        import types
+        self.frags = {
+            s: types.SimpleNamespace(storage=types.SimpleNamespace(
+                all_positions=(lambda p=p: p)))
+            for s, p in positions.items()}
+
+    def fragment(self, index, frame, view, slice):
+        return self.frags.get(slice)
+
+
+def _node_proc(repo, tmp, i, host, hosts, data_dir, pinned, device,
+               extra=()):
+    """One node of the cluster: this script's child mode, which runs
+    the ``server`` verb's code with the pins (or without) and prints its
+    launch counters and peak device memory at exit."""
+    import subprocess
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    args = [sys.executable, os.path.abspath(__file__), "--cluster-node",
+            "1" if pinned else "0", "server", "-d", data_dir, "-b", host,
+            "--cluster.hosts", ",".join(hosts), "--cluster.replicas", "2",
+            "--cluster.type", "http", "--cluster.poll-interval", "1s",
+            "--cost.dir", os.path.join(tmp, f"cal{i}")] + list(extra)
+    if device.type == "cpu":
+        args += ["--device", "cpu"]
+    log = open(os.path.join(tmp, f"node{i}.log"), "ab")
+    return subprocess.Popen(args, cwd=repo, env=env,
+                            stdout=subprocess.PIPE, stderr=log)
+
+
+def _node_up(hosts: list, procs: list, deadline_s: float,
+             max_slice: int) -> float:
+    """Seconds until every node answers and knows every slice of
+    ``c5`` (its own fragments, then the peers' max slices from the
+    1 s poll)."""
+    import urllib.request
+    t0 = time.perf_counter()
+    for host, proc in zip(hosts, procs):
+        while True:
+            if proc.poll() is not None:
+                _fail(f"cluster: node {host} exited with {proc.returncode}")
+            try:
+                with urllib.request.urlopen(f"http://{host}/slices/max",
+                                            timeout=5) as r:
+                    if json.loads(r.read())["maxSlices"].get(
+                            "c5", -1) >= max_slice:
+                        break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > deadline_s:
+                _fail(f"cluster: {host} not up in {deadline_s} s")
+            time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def _node_stop(proc, host: str) -> dict:
+    """SIGTERM a node; its launch counters, peak device MiB and status
+    from the line it prints at exit."""
+    import signal
+    import subprocess
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        _fail(f"cluster: node {host} did not stop on SIGTERM")
+    for line in out.decode().splitlines():
+        if line.startswith("cluster-node "):
+            return json.loads(line[len("cluster-node "):])
+    _fail(f"cluster: node {host} printed no counters (rc"
+          f" {proc.returncode})")
+
+
+def _pairs_json(r) -> list:
+    return [(p["id"], p["count"]) for p in r]
+
+
+def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
+                  n_rows: int = 1_000_000, total_bits: int = 1 << 26,
+                  n_writes: int = 1000, warm_runs: int = 5) -> dict:
+    """BASELINE configuration 5 (a cluster TopN over 1 B columns ×
+    1 M rows) on one card as three node processes of the port (the
+    ``server`` verb, ``--cluster.type http --cluster.replicas 2``) on
+    127.0.0.1, index ``c5`` cut from 954 to ``n_slices`` slices (the
+    whole script's time limit). This process writes each slice's
+    fragments into its two owners' data directories with the port's
+    storage layer and placement (cluster.topology), and computes the
+    references from them: the host popcount of each Count and
+    ``_ref_topn`` of each TopN. Then, from every node as coordinator,
+    the eight Count(Intersect) pairs of rows 1-16 of ``c`` in one
+    body, ``TopN(frame=f, n=1000)`` (the pushdown) and
+    ``TopN(Bitmap(rowID=seg, frame=f), frame=f, n=50)``, cold and warm;
+    ``n_writes`` SetBits through one coordinator, each read back from
+    both owners of its slice with a Remote query; a SIGKILL of one node
+    and the same reads from a survivor; its restart with a 5 s
+    anti-entropy interval, one replica made to diverge by a Remote
+    SetBit and the seconds until both owners' block checksums agree;
+    and the nodes restarted without the pins, the Count routed by the
+    calibrated cost model, which must take the device leg on every
+    node."""
+    import http.client
+    import shutil
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from pilosa_tpu_torch.cluster.topology import new_cluster
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.proto import internal as pb
+    from pilosa_tpu_torch.server import codec
+
+    t_phase = time.perf_counter()
+    W = 1 << _ROW_SHIFT
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(seed + 50)
+    ports = [_free_port() for _ in range(3)]
+    hosts = [f"127.0.0.1:{p}" for p in ports]
+    cl = new_cluster(hosts, replica_n=2)
+    owners = [[n.host for n in cl.fragment_nodes("c5", s)]
+              for s in range(n_slices)]
+    dirs = [os.path.join(tmp, f"c5node{i}") for i in range(3)]
+    idx_of = {h: i for i, h in enumerate(hosts)}
+
+    # -- data: each slice's fragment files written once, as footered
+    # roaring snapshots (a node rebuilds the count caches at open), into
+    # the first owner's directory, then copied to the second owner's.
+    t0 = time.perf_counter()
+    data = _c5_data(rng, n_slices, n_rows, total_bits, device)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for d in dirs:
+        h = Holder(d)
+        h.open()
+        idx = h.create_index("c5")
+        for fname in ("f", "c", "w"):
+            idx.create_frame(fname).create_view_if_not_exists("standard")
+        h.close()
+    import multiprocessing
+    tasks = []
+    for s in range(n_slices):
+        for fname in ("f", "c"):
+            rel = os.path.join("c5", fname, "views", "standard",
+                               "fragments", str(s))
+            tasks.append((data[fname][s],
+                          [os.path.join(dirs[idx_of[h]], rel)
+                           for h in owners[s]]))
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        pool.map(_c5_write, tasks, chunksize=4)
+    del tasks
+    import_s = time.perf_counter() - t0
+    load_s = time.perf_counter() - t0
+
+    def query(host, body, qs="", timeout=300.0):
+        status, hdrs, out, ms = _request(host, "POST", f"/index/c5/query{qs}",
+                                         body.encode(), timeout=timeout)
+        if status != 200:
+            _fail(f"cluster: {host} {body[:60]}: HTTP {status}:"
+                  f" {out[:300]!r}")
+        return json.loads(out)["results"], ms, hdrs
+
+    def check(name, host, res, state):
+        body, want = queries[name]
+        got = res if name == "counts" else _pairs_json(res[0])
+        if name != "counts":
+            want = [tuple(p) for p in want]
+        if got != want:
+            _fail(f"cluster: {name} from {host} ({state}) differs from"
+                  f" the host reference: {str(got)[:200]} !="
+                  f" {str(want)[:200]}")
+
+    def read_all(coords, label):
+        """Every query from every coordinator: (cold ms, warm p50 ms)."""
+        out = {}
+        for host in coords:
+            row = {}
+            for name, (body, _) in queries.items():
+                res, cold, _ = query(host, body)
+                check(name, host, res, f"{label} cold")
+                warm = []
+                for _ in range(warm_runs):
+                    res, ms, _ = query(host, body)
+                    check(name, host, res, f"{label} warm")
+                    warm.append(ms)
+                row[name] = {"cold_ms": cold, "warm_p50_ms": _median(warm)}
+            out[host] = row
+        return out
+
+    def rpcs(host) -> dict:
+        samples = _scrape(host)
+        return {peer: _family_sum(samples, "pilosa_cluster_rpc_seconds_count",
+                                  peer=peer, kind="query")
+                for peer in hosts if peer != host}
+
+    def remote_bits(host, frame, row, slice) -> set:
+        body = codec.encode_query_request(
+            f"Bitmap(rowID={row}, frame={frame})", [slice], remote=True)
+        status, _, out, _ = _request(host, "POST", "/index/c5/query", body,
+                                     {"Content-Type": _PB, "Accept": _PB})
+        if status != 200:
+            _fail(f"cluster: remote read {host} slice {slice}: {status}")
+        bm = codec.decode_query_results(pb.QueryResponse.FromString(out),
+                                        ["Bitmap"])[0]
+        return set(bm.bits().tolist())
+
+    procs = [None, None, None]
+    node_lines = []
+    try:
+        # -- pinned nodes (opening while the references compute), reads
+        # from every coordinator -------------------------------------------
+        t0 = time.perf_counter()
+        for i in range(3):
+            procs[i] = _node_proc(repo, tmp, i, hosts[i], hosts, dirs[i],
+                                  True, device)
+        t_ref = time.perf_counter()
+        n_bits = int(sum(len(p) for p in data["f"]))
+        # References, from the positions the fragments were written
+        # from.
+        pairs = [(2 * k + 1, 2 * k + 2) for k in range(8)]
+        count_body = " ".join(
+            f"Count(Intersect(Bitmap(rowID={a}, frame=c),"
+            f" Bitmap(rowID={b}, frame=c)))" for a, b in pairs)
+        want_counts = [int(sum(len(np.intersect1d(data["c_cols"][a][s],
+                                                  data["c_cols"][b][s],
+                                                  assume_unique=True))
+                               for s in range(n_slices))) for a, b in pairs]
+        fs = _FragSet(dict(enumerate(data["f"])))
+        want_top, n_cand = _ref_topn(fs, "c5", "f", n_slices, 1000)
+        want_src, n_cand_src = _ref_topn(fs, "c5", "f", n_slices, 50,
+                                         src_cols=data["seg"])
+        # The refetch form of the sourced TopN (explicit ids, the TopN block
+        # count on every node): its top 10 rows, a block every leg keeps
+        # resident.
+        ids10 = sorted(r for r, _ in want_src[:10])
+        queries = {
+            "counts": (count_body, want_counts),
+            "topn1000": ("TopN(frame=f, n=1000)", want_top),
+            "topn_src": (f"TopN(Bitmap(rowID={_C5_SEG}, frame=f), frame=f,"
+                         f" n=50)", want_src),
+            "topn_ids": (f"TopN(Bitmap(rowID={_C5_SEG}, frame=f), frame=f,"
+                         f" ids={json.dumps(ids10).replace(' ', '')})",
+                         want_src[:10]),
+        }
+        del data, fs
+        ref_s = time.perf_counter() - t_ref
+        up_s = _node_up(hosts, procs, 300, n_slices - 1)
+        t0 = time.perf_counter()
+        reads = read_all(hosts, "pinned")
+        reads_s = time.perf_counter() - t0
+        # The pushdown's round trips: a write changes the tokens, so the
+        # next TopN misses the cluster result cache and runs the
+        # pushdown with the warm hint memo.
+        coord = hosts[0]
+        slice_remote = next(s for s in range(n_slices)
+                            if coord not in owners[s])
+        query(coord, f"SetBit(frame=w, rowID=1, columnID="
+                     f"{slice_remote * W + 1})")
+        before = rpcs(coord)
+        res, pushdown_ms, _ = query(coord, queries["topn1000"][0])
+        check("topn1000", coord, res, "pushdown")
+        after = rpcs(coord)
+        # One a peer when the hints (the last merge's top 1,024) cover
+        # the candidate union, two when a peer must refetch the rest.
+        round_trips = {p: after[p] - before[p] for p in after}
+
+        # -- acked writes land on both owners -----------------------------
+        wcols = np.unique(rng.integers(0, n_slices * W, size=n_writes,
+                                       dtype=np.int64)).tolist()
+
+        def writer(cols):
+            conn = http.client.HTTPConnection(coord, timeout=120)
+            for c in cols:
+                conn.request("POST", "/index/c5/query",
+                             f"SetBit(frame=w, rowID=7, columnID={c})"
+                             .encode())
+                r = conn.getresponse()
+                body = r.read()
+                if r.status != 200 or json.loads(body)["results"] != [True]:
+                    return f"SetBit {c}: {r.status} {body[:200]!r}"
+            conn.close()
+            return None
+
+        t0w = time.perf_counter()
+        with ThreadPoolExecutor(4) as wp:  # four client connections
+            errs = [e for e in wp.map(writer, [wcols[k::4]
+                                               for k in range(4)]) if e]
+        if errs:
+            _fail(f"cluster: {errs[0]}")
+        write_s = time.perf_counter() - t0w
+        by_slice: dict = {}
+        for c in wcols:
+            by_slice.setdefault(c // W, set()).add(c)
+        for s, cols in by_slice.items():
+            for host in owners[s]:
+                missing = cols - remote_bits(host, "w", 7, s)
+                if missing:
+                    _fail(f"cluster: acked SetBits missing on owner"
+                          f" {host} of slice {s}: {sorted(missing)[:5]}")
+
+        # -- failover: SIGKILL one node, read from a survivor --------------
+        victim = 2
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(30)
+        procs[victim].stdout.close()
+        procs[victim] = None
+        failover = {}
+        for i, name in enumerate(queries):
+            res, ms, _ = query(coord, queries[name][0])
+            check(name, coord, res, "after SIGKILL")
+            if i == 0:
+                failover["first_ms"] = ms
+            warm = []
+            for _ in range(warm_runs):
+                res, ms, _ = query(coord, queries[name][0])
+                check(name, coord, res, "after SIGKILL warm")
+                warm.append(ms)
+            failover[f"{name}_warm_p50_ms"] = _median(warm)
+
+        # -- anti-entropy: restart the victim, make one replica diverge ----
+        procs[victim] = _node_proc(repo, tmp, victim, hosts[victim], hosts,
+                                   dirs[victim], True, device,
+                                   ("--anti-entropy.interval", "5s"))
+        restart_s = _node_up([hosts[victim]], [procs[victim]], 300,
+                             n_slices - 1)
+        s_div = next(s for s in range(n_slices)
+                     if hosts[victim] in owners[s])
+        other = next(h for h in owners[s_div] if h != hosts[victim])
+        col = s_div * W + 4242
+        body = codec.encode_query_request(
+            f"SetBit(frame=w, rowID=9, columnID={col})", None, remote=True)
+        status, _, out, _ = _request(other, "POST", "/index/c5/query", body,
+                                     {"Content-Type": _PB, "Accept": _PB})
+        if status != 200:
+            _fail(f"cluster: diverging SetBit: {status} {out[:200]!r}")
+        t_div = time.perf_counter()
+
+        def blocks(host):
+            st, _, out, _ = _request(
+                host, "GET", f"/fragment/blocks?index=c5&frame=w"
+                             f"&view=standard&slice={s_div}")
+            return json.loads(out)["blocks"] if st == 200 else None
+
+        converge_s = None
+        while time.perf_counter() - t_div < 120:
+            a, b = blocks(other), blocks(hosts[victim])
+            if a is not None and a == b:
+                converge_s = time.perf_counter() - t_div
+                break
+            time.sleep(0.25)
+        if converge_s is None:
+            _fail("cluster: the replicas did not converge in 120 s")
+        for host in owners[s_div]:
+            if col not in remote_bits(host, "w", 9, s_div):
+                _fail(f"cluster: the diverged bit is missing on {host}")
+        # Every node, the restarted one too, answers again.
+        for host in hosts:
+            for name in ("counts", "topn_ids"):
+                res, _, _ = query(host, queries[name][0])
+                check(name, host, res, "after anti-entropy")
+        for i in range(3):
+            line = _node_stop(procs[i], hosts[i])
+            procs[i] = None
+            node_lines.append(line)
+
+        # -- routed: the calibrated cost model must take the device leg ----
+        for i in range(3):
+            procs[i] = _node_proc(repo, tmp, i, hosts[i], hosts, dirs[i],
+                                  False, device)
+        _node_up(hosts, procs, 300, n_slices - 1)
+        routed_q = ("Count(Intersect(Bitmap(rowID=1, frame=c),"
+                    " Bitmap(rowID=2, frame=c)))")
+        # Calibration at first use, then a cold leg's second sighting;
+        # a write into a peer's slice before each run makes the cluster
+        # result cache miss, so every run fans out.
+        for k in range(3):
+            query(coord, f"SetBit(frame=w, rowID=2, columnID="
+                         f"{slice_remote * W + 100 + k})")
+            st, _, raw, routed_ms = _request(
+                coord, "POST", "/index/c5/query?profile=1",
+                routed_q.encode())
+            payload = json.loads(raw)
+            if st != 200 or payload["results"] != [want_counts[0]]:
+                _fail(f"cluster: routed Count {st} {raw[:200]!r} !="
+                      f" {want_counts[0]}")
+        tree = payload["profile"]
+        legs = [tree] + tree.get("children", [])
+        routed = {leg["node"]: leg["devicePrograms"] for leg in legs}
+        if len(legs) < 2 or any(v <= 0 for v in routed.values()):
+            _fail(f"cluster: the routed Count took a host leg: {routed}")
+        routed_lines = [_node_stop(procs[i], hosts[i]) for i in range(3)]
+        procs = [None, None, None]
+    finally:
+        for p in procs:
+            if p is not None:
+                p.kill()
+                p.communicate()
+    launches: dict = {}
+    nodes = []
+    for line, host in zip(node_lines, hosts):
+        owned = sum(host in o for o in owners)
+        if owned and (line["launches"].get("expr_count_rows", 0) <= 0
+                      or line["launches"].get("densify", 0) <= 0
+                      or line["launches"].get("topn_block_count", 0) <= 0):
+            _fail(f"cluster: node {host} owns {owned} slices and launched"
+                  f" {line['launches']}")
+        for k, v in line["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        nodes.append({"host": host, "owned_slices": owned,
+                      "peak_mib": line["peak_mib"],
+                      "launches": line["launches"]})
+    for line in routed_lines:
+        for k, v in line["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    phase_s = time.perf_counter() - t_phase
+    out = {"phase": "cluster", "config": "BASELINE configuration 5",
+           "nodes": 3, "replicas": 2, "slices": n_slices,
+           "columns": n_slices * W, "row_ids": n_rows, "bits_f": n_bits,
+           "reduced": [f"slices: 954 -> {n_slices} (the whole script's"
+                       " 1200 s limit)"],
+           "gen_s": gen_s, "import_s": import_s, "ref_s": ref_s,
+           "load_s": load_s, "spawn_s": up_s, "reads_s": reads_s,
+           "candidates": {"topn1000": n_cand, "topn_src": n_cand_src},
+           "reads": reads, "pushdown_round_trips": round_trips,
+           "pushdown_ms": pushdown_ms,
+           "writes": {"n": len(wcols), "seconds": write_s,
+                      "per_s": len(wcols) / write_s,
+                      "slices": len(by_slice), "on_both_owners": True},
+           "failover": failover, "restart_s": restart_s,
+           "converge_s": converge_s, "routed_device_programs": routed,
+           "routed_ms": routed_ms, "per_node": nodes,
+           "launches": launches, "card": _card(), "seconds": phase_s}
+    _emit(out)
+    if device.type == "cuda" and phase_s > 180:
+        _fail(f"cluster: the phase took {phase_s:.1f} s, over 180 s")
+    return out
+
+
+def _cluster_node(argv: list) -> None:
+    """Child mode of ``phase_cluster``: one node, the ``server`` verb's
+    code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
+    the kernel phases' pins (``_pinned``) and, either way, no warmup (its
+    launches would count). At exit it prints its launch counters and
+    peak device MiB on one ``cluster-node {...}`` line."""
+    import torch
+    if not torch.cuda.is_available() and "--device" not in argv:
+        _fail("no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pilosa_tpu_torch.cli import commands
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    from pilosa_tpu_torch.server import server as server_mod
+    pinned = argv[0] == "1"
+    init = server_mod.Server.__init__
+
+    def pinned_init(self, *a, **kw):
+        kw["warmup"] = False
+        if pinned:
+            kw["executor_options"] = _pinned()
+        init(self, *a, **kw)
+
+    server_mod.Server.__init__ = pinned_init
+    rc = commands.main(argv[1:])
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if torch.cuda.is_available() else 0.0)
+    print("cluster-node " + json.dumps({"launches": dict(ck.LAUNCHES),
+                                        "peak_mib": peak}), flush=True)
+    sys.exit(rc)
+
+
 def phase_bench(device) -> dict:
     """The benchmark of record in this process, at its default width and
     rows; ``bench.run`` raises when a device count differs from the
@@ -3173,6 +3744,9 @@ def phase_bench(device) -> dict:
 
 
 def main() -> None:
+    if len(sys.argv) > 1 and sys.argv[1] == "--cluster-node":
+        _cluster_node(sys.argv[2:])
+        return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3237,6 +3811,11 @@ def main() -> None:
         shutil.rmtree(data_dir)
         phase_durability(device, args.seed, tmp)
         for name, n in ck.LAUNCHES.items():
+            launches[name] += n
+        # The cluster's nodes are processes of their own: their counters
+        # come back on their exit lines.
+        for name, n in phase_cluster(device, args.seed, tmp)[
+                "launches"].items():
             launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]
     phase_bench(device)

@@ -1,2 +1,3 @@
-"""The port's share of the JAX package's ``cluster`` package: only the
-generation tokens one node keys its caches on (``generations``)."""
+"""The port's copy of the JAX package's ``cluster`` package: placement
+(``topology``), the broadcast envelope (``broadcast``), generation tokens
+(``generations``) and the node-to-node HTTP client (``client``)."""

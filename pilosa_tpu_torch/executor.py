@@ -91,11 +91,34 @@ store only a finished value).
 A device error surfaces to the caller: there is no host fallback. A
 device leg may decline only before it launches (a call that does not
 compile, a byte budget exceeded, a call the planner proved empty, too
-few leaves or slices, a cost-model veto). Single node, one device: the
-cluster fan-out, TopN pushdown, pod, the cluster result cache and fault
-handling wait for later slices. The JAX package's environment gates are
-class constants here (their defaults), which tests override through the
-constructor.
+few leaves or slices, a cost-model veto).
+
+**The static cluster** (the JAX package's map-reduce, executor.go:1103-
+1236): the executor knows its ``host`` and the ``Cluster`` placement. A
+read call over slices this node does not all own fans out
+(``_map_reduce``): the slices are grouped by the replica owner that
+serves each (``_slices_by_node``: this node first, then peers in health
+order, open circuits sunk to the end), this node's group runs the local
+legs above — on the card — and each peer's group is one remote query
+(``_exec_remote``, the call with ``Remote`` set and its slice list), the
+partials reduced as the JAX package reduces them. A failed leg's slices
+re-map onto the surviving replicas. A query that came in with
+``remote`` set runs on this node only. SetBit/ClearBit and
+SetFieldValue go to every replica owner, attribute writes to every
+node. The plain sourceless TopN over a distributed index is the
+pushdown (``_topn_distributed``): each owner answers exact untrimmed
+partials, with the speculative hints of the last merge, and the
+coordinator refetches only the rows a node did not report; any other
+TopN form, and a pushdown that fails, runs the reference's two-phase
+fan-out. Repeated reads over a distributed slice set answer from the
+coordinator's cluster result cache while every peer's generation
+tokens validate (``/generations``). The one-node fast paths — the fused
+batch, the single-pass TopN, the device top-k, the bitmap-result cache
+and the planner's proofs — run when this node owns every slice a query
+touches (``_owns_all_slices``). The JAX package's environment gates
+are class constants here (their defaults), which tests override
+through the constructor; the resize double read, the hedged leg and
+the pod wait for later slices.
 """
 
 from __future__ import annotations
@@ -104,15 +127,19 @@ import datetime as dt
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
 from . import SLICE_WIDTH
+from .cluster import generations as gens_mod
+from .cluster.topology import Cluster, Node, new_cluster
 from .device import resolve_device
 from .errors import (TIME_FORMAT, FrameNotFoundError, IndexNotFoundError,
-                     PilosaError, QueryRequiredError)
+                     PilosaError, QueryCancelledError, QueryDeadlineError,
+                     QueryRequiredError, SliceUnavailableError)
 from .models.view import VIEW_INVERSE, VIEW_STANDARD
 from .ops import packed
 from .ops.packed import WORDS_PER_SLICE
@@ -140,12 +167,21 @@ MIN_THRESHOLD = 1
 _WRITE_CALLS = ("SetBit", "ClearBit", "SetFieldValue", "SetRowAttrs",
                 "SetColumnAttrs")
 
+# What fails a node leg and re-maps its slices onto replicas: the
+# transport's errors (ClientError, CircuitOpenError, connection errors)
+# and a peer's or this node's query errors. A device error is none of
+# these: it surfaces, as everywhere in the executor.
+_LEG_ERRORS = (PilosaError, OSError)
+
 
 @dataclass
 class ExecOptions:
-    """``ctx`` carries the query's lifecycle state
-    (sched.context.QueryContext: deadline budget, cancel flag, cost
-    ledger, trace); None (internal callers) means unbounded."""
+    """``remote``: the query is a coordinator's leg (run on this node's
+    slices only, never forwarded). ``ctx`` carries the query's
+    lifecycle state (sched.context.QueryContext: deadline budget,
+    cancel flag, cost ledger, trace); None (internal callers) means
+    unbounded."""
+    remote: bool = False
     ctx: Optional[object] = None
 
 
@@ -194,10 +230,15 @@ def _parse_timestamp(c: Call, key: str = "timestamp"
 
 
 class Executor:
-    """Executes PQL queries against a Holder on one device.
+    """Executes PQL queries against a Holder on one device, fanning out
+    across a Cluster.
 
     ``device`` is the card (``cuda:0``) unless the caller passes
     ``"cpu"``, where every kernel wrapper computes its plain version.
+    ``client`` is the node-to-node transport (cluster.client.Client);
+    any object with ``execute_query(node, index, query, slices,
+    remote)`` works — tests inject scripted fakes, as the reference's
+    executor tests do.
     """
 
     _DEVICE_FOLD_OPS = {"Intersect": "and", "Union": "or",
@@ -237,8 +278,24 @@ class Executor:
     # width from 2 to 256 slices (chip_smoke.py's control phase routing
     # table; PERF.md §6).
     COST_MARGIN = 0.5
+    # Coordinator cluster result cache entries (the JAX package's
+    # PILOSA_QUERY_CLUSTER_CACHE_ENTRIES default; 0 turns it off).
+    CLUSTER_CACHE_ENTRIES = 64
+    # Distributed TopN pushdown (PILOSA_TPU_TOPN_PUSHDOWN, on).
+    TOPN_PUSHDOWN = True
+    # A hit's /generations validation probe costs at most this before
+    # the fan-out answers instead.
+    _CLUSTER_PROBE_TIMEOUT_S = 1.0
+    # The fan-out's wake-up tick for deadline and cancel checks, and the
+    # grace a dead query's in-flight legs get before it returns.
+    _CTX_POLL_S = 0.25
+    _DEAD_DRAIN_S = 1.0
+    # Most concurrent node legs of one executor.
+    _MAX_WORKERS = 16
 
     def __init__(self, holder, device=None, *,
+                 host: str = "", cluster: Optional[Cluster] = None,
+                 client=None, fault=None, gens=None,
                  batch_max_counts: Optional[int] = None,
                  materialize_device_bytes: Optional[int] = None,
                  result_cache_entries: Optional[int] = None,
@@ -248,6 +305,17 @@ class Executor:
                  cal_dir: Optional[str] = None):
         self.holder = holder
         self.device = resolve_device(device)
+        # Placement: this node's host and the cluster's (one node when
+        # none is given), the transport to peers, the fault layer
+        # (fault.FaultManager: replica order, open circuits) and the
+        # coordinator's generation map (cluster.generations).
+        self.host = host
+        self.cluster = cluster or new_cluster([host])
+        self.client = client
+        self.fault = fault
+        self.gens = gens
+        self._pool_obj: Optional[ThreadPoolExecutor] = None
+        self._pool_mu = threading.Lock()
         # Cost-based planner (plan.planner), consulted once per read
         # query; on by default as in the JAX package. Its placement
         # prices subtrees with the cost model's constants and margin.
@@ -289,6 +357,30 @@ class Executor:
         self._bitmap_results_mu = threading.Lock()
         self.result_cache_hits = 0
         self.result_cache_misses = 0
+        # Coordinator hot-query result cache: merged read results over a
+        # distributed slice set, validated on a hit by a /generations
+        # probe of every peer involved.
+        self._cluster_cache: OrderedDict[tuple, dict] = OrderedDict()
+        self._cluster_cache_mu = threading.Lock()
+        # The TopN pushdown's speculative hint memo: (index, frame) -> the
+        # last merged candidate union (bounded), sent with the pushdown
+        # legs so a warm TopN is one round trip.
+        self._topn_hint_memo: OrderedDict[tuple, tuple] = OrderedDict()
+
+    def close(self) -> None:
+        """Stop the node-leg worker pool."""
+        with self._pool_mu:
+            pool, self._pool_obj = self._pool_obj, None
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    def _pool(self) -> ThreadPoolExecutor:
+        with self._pool_mu:
+            if self._pool_obj is None:
+                self._pool_obj = ThreadPoolExecutor(
+                    max_workers=self._MAX_WORKERS,
+                    thread_name_prefix="pilosa-leg")
+            return self._pool_obj
 
     def execute_partial(self, index: str, query,
                         slices: Optional[list[int]] = None,
@@ -352,10 +444,21 @@ class Executor:
             column_label = idx.column_label
         slices = slices or []
         if _has_only_set_row_attrs(query.calls):
-            return self._execute_bulk_set_row_attrs(index, query.calls)
+            return self._execute_bulk_set_row_attrs(index, query.calls, opt)
         plan_rec = None
         if slices and needs:
             query, plan_rec = self._maybe_plan(index, query, slices, opt)
+        # Coordinator hot-query result cache: a repeated read over a
+        # distributed slice set answers after one /generations probe a
+        # peer, while no replica took a write.
+        cluster_key = pre_tokens = None
+        if _partial_out is None:
+            cluster_key = self._cluster_cache_key(index, query, slices, opt)
+            if cluster_key is not None:
+                hit = self._cluster_cache_lookup(cluster_key, index, opt)
+                if hit is not None:
+                    return hit
+                pre_tokens = self._cluster_cache_snapshot(index, slices)
         results = _partial_out if _partial_out is not None else []
         i = 0
         while i < len(query.calls):
@@ -363,7 +466,8 @@ class Executor:
                 opt.ctx.check()  # between calls of a multi-call query
             # Consecutive Counts and exact-count TopNs fuse into one
             # device tree: one batched count launch, one fetch.
-            batch = self._device_batch_run(index, query.calls, i, slices)
+            batch = self._device_batch_run(index, query.calls, i, slices,
+                                           opt)
             if batch is not None:
                 batch_results, n = batch
                 results.extend(batch_results)
@@ -371,7 +475,7 @@ class Executor:
                 continue
             # Consecutive SetBit/ClearBit calls batch into one batched
             # mutation + WAL append per touched fragment.
-            wbatch = self._mutate_batch_run(index, query.calls, i)
+            wbatch = self._mutate_batch_run(index, query.calls, i, opt)
             if wbatch is not None:
                 bools, n = wbatch
                 results.extend(bools)
@@ -390,13 +494,16 @@ class Executor:
                             and (plan_rec.sample or plan_rec.analyze))
             if analyze_call:
                 t_call = time.perf_counter()
-            r = self._execute_call(index, call, call_slices)
+            r = self._execute_call(index, call, call_slices, opt)
             if analyze_call:
                 self._plan_record_actual(call, r,
                                          time.perf_counter() - t_call,
                                          plan_rec)
             results.append(r)
             i += 1
+        if cluster_key is not None:
+            self._cluster_cache_store(cluster_key, index, slices, results,
+                                      pre_tokens)
         return results
 
     # -- cost-based planning (plan.planner) ----------------------------------
@@ -411,9 +518,13 @@ class Executor:
         executes."""
         if not self.planner_enabled or query.write_calls():
             return query, None
+        # The planner's proofs read local fragments: exact only when
+        # this node holds every slice.
+        all_local = self._owns_all_slices(index, slices)
         try:
             planned, rec = self.planner.plan_query_cached(
-                index, query.calls, slices)
+                index, query.calls, slices, all_local=all_local,
+                node=self.host)
         except (PilosaError, ValueError, TypeError):
             # Planning never fails a query: the tree runs as parsed, and
             # its own errors surface there.
@@ -457,41 +568,62 @@ class Executor:
             if idx is None:
                 raise IndexNotFoundError(index)
             slices = list(range(idx.max_slice() + 1))
-        return self.planner.explain(index, query.calls, slices)
+        return self.planner.explain(
+            index, query.calls, slices,
+            all_local=self._owns_all_slices(index, slices))
 
-    def _execute_call(self, index: str, c: Call, slices: list[int]):
+    def _execute_call(self, index: str, c: Call, slices: list[int],
+                      opt: ExecOptions):
         # executor.go:146-170
         if c.name == "ClearBit":
-            return self._execute_mutate_bit(index, c, set=False)
+            return self._execute_mutate_bit(index, c, False, opt)
         if c.name == "Count":
-            return self._execute_count(index, c, slices)
+            return self._execute_count(index, c, slices, opt)
         if c.name == "SetBit":
-            return self._execute_mutate_bit(index, c, set=True)
+            return self._execute_mutate_bit(index, c, True, opt)
         if c.name == "SetRowAttrs":
             _, frame, row_id, attrs = self._row_attrs_of(index, c)
             frame.row_attr_store.set_attrs(row_id, attrs)
+            self._broadcast_call(index, [c], opt)
             return None
         if c.name == "SetColumnAttrs":
-            self._execute_set_column_attrs(index, c)
+            self._execute_set_column_attrs(index, c, opt)
             return None
         if c.name == "TopN":
-            return self._execute_top_n(index, c, slices)
+            return self._execute_top_n(index, c, slices, opt)
         if c.name in ("Sum", "Min", "Max"):
-            return self._execute_field_aggregate(index, c, slices)
+            return self._execute_field_aggregate(index, c, slices, opt)
         if c.name == "SetFieldValue":
-            return self._execute_set_field_value(index, c)
-        return self._execute_bitmap_call(index, c, slices)
+            return self._execute_set_field_value(index, c, opt)
+        return self._execute_bitmap_call(index, c, slices, opt)
 
     # -- bitmap calls on the host --------------------------------------------
 
     def _execute_bitmap_call(self, index: str, c: Call, slices: list[int],
-                             host_only: bool = False) -> Bitmap:
-        """A bitmap call over ``slices``: a result-cache hit, else the
-        device materialize leg where it takes the call, else the host
-        fold slice by slice (``host_only``: always the host, the Count
-        fallback's way)."""
+                             opt: ExecOptions) -> Bitmap:
+        """A bitmap call over ``slices``: the local leg where this node
+        owns them all, else the fan-out, each node's partial merged and
+        the row (or column) attributes attached here."""
         if _short_circuit(c):
             obs_metrics.PLANNER_DECISIONS.labels("short_circuit_hit").inc()
+            return Bitmap()
+        if not self._fans_out(index, slices, opt):
+            return self._bitmap_local(index, c, slices)
+        bm = self._map_reduce(
+            index, slices, c, opt,
+            lambda group: self._bitmap_local(index, c, group),
+            _merge_bitmaps) or Bitmap()
+        if c.name == "Bitmap":
+            self._attach_bitmap_attrs(index, c, bm)
+        return bm
+
+    def _bitmap_local(self, index: str, c: Call, slices: list[int],
+                      host_only: bool = False) -> Bitmap:
+        """A bitmap call over this node's ``slices``: a result-cache
+        hit, else the device materialize leg where it takes the call,
+        else the host fold slice by slice (``host_only``: always the
+        host, the Count fallback's way)."""
+        if _short_circuit(c):
             return Bitmap()
         compiled: list = []
         key = self._bitmap_result_key(index, c, slices, compiled)
@@ -551,6 +683,10 @@ class Executor:
             return None
         if compiled_out is not None:
             compiled_out.append((expr, leaves))
+        if not self._owns_all_slices(index, slices):
+            # A slice this node does not hold has no local generation:
+            # uncached (the JAX package keys it on the peer's tokens).
+            return None
         if len(leaves) * len(slices) > (1 << 16):
             return None  # building the key would outweigh the win
         gens = []
@@ -921,11 +1057,14 @@ class Executor:
     # -- Sum / Min / Max over a BSI field ------------------------------------
 
     def _execute_field_aggregate(self, index: str, c: Call,
-                                 slices: list[int]) -> bsi.ValCount:
+                                 slices: list[int],
+                                 opt: ExecOptions) -> bsi.ValCount:
         """Sum / Min / Max of a BSI field, with an optional filter
         bitmap child. Sum runs on the device when its filter compiles;
         otherwise, and for Min and Max, one batched plane walk over
-        every slice on the host (bsi.sum_count_many / min_max_many)."""
+        every slice on the host (bsi.sum_count_many / min_max_many).
+        Over a distributed slice set each node answers one partial,
+        combined here as (sum, count) addition or a min/max combine."""
         name = c.name
         frame_name = c.args.get("frame") or DEFAULT_FRAME
         field_name = c.args.get("field")
@@ -941,6 +1080,27 @@ class Executor:
             raise PilosaError(
                 f"{name}() only accepts a single bitmap input")
         child = c.children[0] if c.children else None
+        if self._fans_out(index, slices, opt):
+            want_min = name == "Min"
+
+            def reduce_fn(prev, v):
+                if prev is None:
+                    return v
+                if name == "Sum":
+                    return bsi.combine_sum(prev, v)
+                return bsi.combine_min_max(prev, v, want_min=want_min)
+            return self._map_reduce(
+                index, slices, c, opt,
+                lambda group: self._field_aggregate_local(
+                    index, name, frame_name, field, child, group),
+                reduce_fn) or bsi.ValCount(0, 0)
+        return self._field_aggregate_local(index, name, frame_name, field,
+                                           child, slices)
+
+    def _field_aggregate_local(self, index: str, name: str,
+                               frame_name: str, field,
+                               child: Optional[Call],
+                               slices: list[int]) -> bsi.ValCount:
         if name == "Sum" and slices:
             out = self._sum_device(index, frame_name, field, child, slices)
             if out is not None:
@@ -1008,9 +1168,12 @@ class Executor:
             n << i for i, n in enumerate(counts[1:]))
         return bsi.ValCount(total, count)
 
-    def _execute_set_field_value(self, index: str, c: Call) -> bool:
+    def _execute_set_field_value(self, index: str, c: Call,
+                                 opt: ExecOptions) -> bool:
         """SetFieldValue(frame=f, <col>=N, <field>=V): the frame's
-        per-plane write of one column (executor.go:664-691, one node)."""
+        per-plane write of one column on every replica owner of the
+        column's slice, forwarded to the remote owners unless the call
+        came in with ``remote`` set (executor.go:664-691)."""
         frame_name = c.args.get("frame")
         if not frame_name:
             raise PilosaError("SetFieldValue() frame required")
@@ -1033,7 +1196,20 @@ class Executor:
         if isinstance(value, bool) or not isinstance(value, int):
             raise PilosaError(
                 f"SetFieldValue() value must be an integer: {value!r}")
-        return frame.set_field_value(field_name, col_id, value)
+        slice = col_id // SLICE_WIDTH
+        ret = False
+        for node in self.cluster.fragment_nodes(index, slice):
+            if node.host == self.host:
+                if frame.set_field_value(field_name, col_id, value):
+                    ret = True
+                continue
+            if opt.remote:
+                continue
+            res = self._exec_remote(node, index, Query([c]), None, opt)
+            if res and res[0]:
+                ret = True
+            idx.set_remote_max_slice(slice)
+        return ret
 
     # -- device expressions --------------------------------------------------
 
@@ -1161,7 +1337,8 @@ class Executor:
 
     # -- Count (executor.go:568-597) -----------------------------------------
 
-    def _execute_count(self, index: str, c: Call, slices: list[int]) -> int:
+    def _execute_count(self, index: str, c: Call, slices: list[int],
+                       opt: ExecOptions) -> int:
         if len(c.children) == 0:
             raise PilosaError("Count() requires an input bitmap")
         if len(c.children) > 1:
@@ -1170,6 +1347,16 @@ class Executor:
             # The planner proved the tree empty: no launch.
             obs_metrics.PLANNER_DECISIONS.labels("short_circuit_hit").inc()
             return 0
+        if not self._fans_out(index, slices, opt):
+            return self._count_local(index, c, slices)
+        return self._map_reduce(
+            index, slices, c, opt,
+            lambda group: self._count_local(index, c, group),
+            lambda prev, v: (prev or 0) + v) or 0
+
+    def _count_local(self, index: str, c: Call, slices: list[int]) -> int:
+        """A Count over this node's ``slices``: the expression count on
+        the device where the routing takes it, else the host leg."""
         child = c.children[0]
         leaves: list[tuple] = []
         expr = self._compile_device_expr(index, child, leaves)
@@ -1178,8 +1365,8 @@ class Executor:
             # an empty time cover, a comparison clamped to none): the
             # host materialization gives the JAX package's answer or
             # raises its error.
-            return self._execute_bitmap_call(index, child, slices,
-                                             host_only=True).count()
+            return self._bitmap_local(index, child, slices,
+                                      host_only=True).count()
         if not slices:
             return 0
         node = getattr(child, "_plan_node", None)
@@ -1319,7 +1506,7 @@ class Executor:
     # -- the fused batch of Counts and TopNs ---------------------------------
 
     def _device_batch_run(self, index: str, calls: list[Call], start: int,
-                          slices: list[int]):
+                          slices: list[int], opt: ExecOptions):
         """(results, n_calls) for a maximal run of two or more
         consecutive device calls starting at ``start`` — Count over any
         compilable bitmap tree and the exact-count TopN form (explicit
@@ -1333,11 +1520,14 @@ class Executor:
         not fuse, at ``batch_max_counts`` calls and where the next
         call's slabs and blocks would pass materialize_device_bytes;
         Count and TopN take the column slices, so every call of a run
-        shares ``slices``."""
+        shares ``slices``. Only where this node owns every slice (its
+        fragments then track every write): a distributed query fans out
+        call by call."""
         if (not slices or start + 1 >= len(calls)
                 or len(slices) < self.mesh_min_slices
                 or calls[start].name not in ("Count", "TopN")
-                or calls[start + 1].name not in ("Count", "TopN")):
+                or calls[start + 1].name not in ("Count", "TopN")
+                or not self._owns_all_slices(index, slices)):
             return None
         budget = self.materialize_device_bytes
         leaves: list[tuple] = []
@@ -1498,8 +1688,8 @@ class Executor:
         return (frame_name, n, field, row_ids, min_threshold, filters,
                 tanimoto)
 
-    def _execute_top_n(self, index: str, c: Call,
-                       slices: list[int]) -> list[Pair]:
+    def _execute_top_n(self, index: str, c: Call, slices: list[int],
+                       opt: ExecOptions) -> list[Pair]:
         if len(c.children) > 1:
             raise PilosaError("TopN() can only have one input bitmap")
         if c.children:
@@ -1524,32 +1714,57 @@ class Executor:
                 # holding an empty Union(): the host materialization
                 # raises the JAX package's error for the first, and
                 # the per-slice phases below answer the others.
-                self._execute_bitmap_call(index, src, slices)
-        # The JAX package's order (executor.py _execute_top_n): the
-        # single pass over complete LRU caches, else the per-slice
-        # candidate phase and, without ids, the exact refetch of the
-        # candidate union — a device top-k when the sourceless block
-        # fits TOPN_BLOCK_BYTES, else the per-slice path, trimmed to n.
+                self._bitmap_local(index, src, slices)
+        # The JAX package's order (executor.py _execute_top_n): a
+        # coordinator's pushdown leg answers exact untrimmed partials;
+        # else the single pass over complete LRU caches; else, over a
+        # distributed index, the pushdown; else the candidate phase and,
+        # on the coordinator without ids, the exact refetch of the
+        # candidate union — a device top-k when this node holds every
+        # slice and the sourceless block fits TOPN_BLOCK_BYTES, else
+        # the per-slice path (fanned out), trimmed to n.
         row_ids, _ = c.uint_slice_arg("ids")
         n, _ = c.uint_arg("n")
-        fast = self._topn_host_single_pass(index, c, slices)
+        if opt.remote and not row_ids and c.args.get("pushdown"):
+            return self._topn_exact_partial(index, c, slices)
+        local = self._owns_all_slices(index, slices)
+        fast = (self._topn_host_single_pass(index, c, slices)
+                if local and not opt.remote else None)
         if fast is not None:
             return fast
-        pairs = self._top_n_slices(index, c, slices)
-        if not pairs or row_ids:
+        if not opt.remote and not row_ids and not local:
+            dist = self._topn_distributed(index, c, slices, opt, n)
+            if dist is not None:
+                return dist
+        pairs = self._top_n_phase(index, c, slices, opt)
+        if not pairs or row_ids or opt.remote:
             return pairs
         other = Call(c.name, dict(c.args, ids=sorted({p.id for p in pairs})),
                      c.children)
-        dev = self._topn_device_topk(index, other, slices, n)
+        dev = (self._topn_device_topk(index, other, slices, n) if local
+               else None)
         if dev is not None:
             return dev
-        trimmed = self._top_n_slices(index, other, slices)
+        trimmed = self._top_n_phase(index, other, slices, opt)
         if n and n < len(trimmed):
             trimmed = trimmed[:n]
         return trimmed
 
+    def _top_n_phase(self, index: str, c: Call, slices: list[int],
+                     opt: ExecOptions) -> list[Pair]:
+        """One TopN phase over ``slices``: this node's legs where it
+        owns them all, else the fan-out, per-node pairs summed by id."""
+        if not self._fans_out(index, slices, opt):
+            return self._top_n_slices(index, c, slices)
+        merged = self._map_reduce(
+            index, slices, c, opt,
+            lambda group: self._top_n_slices(index, c, group),
+            _topn_merge_reduce)
+        return pairs_sort(Pair(i, cnt) for i, cnt in (merged or {}).items())
+
     def _topn_host_single_pass(self, index: str, c: Call,
-                               slices: list[int]) -> Optional[list[Pair]]:
+                               slices: list[int], trim: bool = True
+                               ) -> Optional[list[Pair]]:
         """The plain sourceless TopN form in ONE pass over the rank
         caches, or None for the general path.
 
@@ -1564,7 +1779,9 @@ class Executor:
         Gates: LRU caches only (RankCache rankings are rate-limited and
         threshold-trimmed), and caches that have not evicted and cover
         every present row (an evicted row's exact count needs the
-        phase-2 recount)."""
+        phase-2 recount). ``trim=False`` skips the final n-trim and
+        returns every candidate with its exact sum: the partial a
+        pushdown leg answers."""
         (frame_name, n, field, row_ids, min_threshold, filters,
          tanimoto) = self._topn_args(c)
         if row_ids or c.children or (field and filters) or tanimoto > 0:
@@ -1620,7 +1837,7 @@ class Executor:
             cand_sums = usums[np.searchsorted(uids, cand)]
         order = np.lexsort((cand, -cand_sums))
         cand, cand_sums = cand[order], cand_sums[order]
-        if n:
+        if n and trim:
             cand, cand_sums = cand[:n], cand_sums[:n]
         return [Pair(i, cnt) for i, cnt in zip(cand.tolist(),
                                                cand_sums.tolist())]
@@ -1941,7 +2158,8 @@ class Executor:
 
     # -- writes (executor.go:600-797) ----------------------------------------
 
-    def _execute_mutate_bit(self, index: str, c: Call, set: bool) -> bool:
+    def _execute_mutate_bit(self, index: str, c: Call, set: bool,
+                            opt: ExecOptions) -> bool:
         name = "SetBit" if set else "ClearBit"
         view = c.args.get("view", "")
         frame_name = c.args.get("frame")
@@ -1962,24 +2180,64 @@ class Executor:
             raise PilosaError(
                 f"{name}() column field '{idx.column_label}' required")
         timestamp = _parse_timestamp(c) if set else None
-        # The inverse view holds the transpose: its row is the column id.
-        op = frame.set_bit if set else frame.clear_bit
+        # The inverse view holds the transpose: its row is the column id,
+        # and its slice follows the row id.
         if view == VIEW_STANDARD:
-            return op(VIEW_STANDARD, row_id, col_id, timestamp)
+            return self._mutate_bit_view(index, c, frame, VIEW_STANDARD,
+                                         row_id, col_id, timestamp, set, opt)
         if view == VIEW_INVERSE:
-            return op(VIEW_INVERSE, col_id, row_id, timestamp)
+            return self._mutate_bit_view(index, c, frame, VIEW_INVERSE,
+                                         col_id, row_id, timestamp, set, opt)
         if view == "":
-            ret = op(VIEW_STANDARD, row_id, col_id, timestamp)
+            ret = self._mutate_bit_view(index, c, frame, VIEW_STANDARD,
+                                        row_id, col_id, timestamp, set, opt)
             if frame.inverse_enabled:
-                if op(VIEW_INVERSE, col_id, row_id, timestamp):
+                if self._mutate_bit_view(index, c, frame, VIEW_INVERSE,
+                                         col_id, row_id, timestamp, set,
+                                         opt):
                     ret = True
             return ret
         raise PilosaError(f"invalid view: {view}")
 
+    def _mutate_bit_view(self, index: str, c: Call, frame, view: str,
+                         row_id: int, col_id: int,
+                         timestamp: Optional[dt.datetime], set: bool,
+                         opt: ExecOptions) -> bool:
+        """One view's write on every replica owner of the slice
+        ``col_id`` falls in (executor.go:664-691, 768-797): applied here
+        where this node owns it, forwarded to each remote owner unless
+        the call came in with ``remote`` set. The answer is True when
+        any owner changed a bit; an owner that refuses raises."""
+        slice = col_id // SLICE_WIDTH
+        op = frame.set_bit if set else frame.clear_bit
+        ret = False
+        forwarded = False
+        for node in self.cluster.fragment_nodes(index, slice):
+            if node.host == self.host:
+                if op(view, row_id, col_id, timestamp):
+                    ret = True
+                continue
+            if opt.remote:
+                continue
+            res = self._exec_remote(node, index, Query([c]), None, opt)
+            forwarded = True
+            if res and res[0]:
+                ret = True
+        if forwarded:
+            # Remember the slice, so this coordinator's next read spans
+            # it even where it holds no copy.
+            idx = self.holder.index(index)
+            if view == VIEW_INVERSE:
+                idx.set_remote_max_inverse_slice(slice)
+            else:
+                idx.set_remote_max_slice(slice)
+        return ret
+
     # Shortest run of SetBit/ClearBit calls that takes the batch lane.
     _BATCH_MIN_MUTATES = 8
 
-    def _mutate_batch_run(self, index: str, calls: list[Call], start: int):
+    def _mutate_batch_run(self, index: str, calls: list[Call], start: int,
+                          opt: ExecOptions):
         """(results, n_calls) for a maximal run of consecutive
         timestamp-free SetBit (or ClearBit) calls on the standard or
         inverse view, applied through the fragments' batch lane
@@ -1988,7 +2246,11 @@ class Executor:
         as in the JAX package. None (the per-op path) for short runs and
         anything unusual — other views, timestamps, missing or malformed
         arguments — so error semantics stay exactly per-op: nothing is
-        applied until every call of the run parses."""
+        applied until every call of the run parses. Only runs whose
+        writes all land on this node batch: a run that would forward a
+        write to a remote owner takes the per-op path, whose
+        apply-then-raise order on a failed forward is the reference's;
+        a remote leg's run applies this node's share."""
         name = calls[start].name
         if name not in ("SetBit", "ClearBit"):
             return None
@@ -2034,6 +2296,14 @@ class Executor:
         results = [False] * count
         groups: dict[tuple, list] = {}
         for vop in vops:
+            owners = self.cluster.fragment_nodes(index,
+                                                 vop[4] // SLICE_WIDTH)
+            if all(n.host != self.host for n in owners):
+                if not opt.remote:
+                    return None
+                continue
+            if not opt.remote and any(n.host != self.host for n in owners):
+                return None
             groups.setdefault((vop[1], vop[2]), []).append(vop)
         for (fname, view), group in groups.items():
             rows = np.fromiter((g[3] for g in group), np.uint64, len(group))
@@ -2065,8 +2335,8 @@ class Executor:
         attrs.pop(frame.row_label, None)
         return frame_name, frame, row_id, attrs
 
-    def _execute_bulk_set_row_attrs(self, index: str,
-                                    calls: list[Call]) -> list:
+    def _execute_bulk_set_row_attrs(self, index: str, calls: list[Call],
+                                    opt: ExecOptions) -> list:
         # executor.go:857-941: group attrs by frame and row, one bulk
         # write per frame.
         by_frame: dict[str, tuple] = {}
@@ -2076,9 +2346,11 @@ class Executor:
             rows.setdefault(row_id, {}).update(attrs)
         for frame, rows in by_frame.values():
             frame.row_attr_store.set_bulk_attrs(rows)
+        self._broadcast_call(index, calls, opt)
         return [None] * len(calls)
 
-    def _execute_set_column_attrs(self, index: str, c: Call) -> None:
+    def _execute_set_column_attrs(self, index: str, c: Call,
+                                  opt: ExecOptions) -> None:
         idx = self.holder.index(index)
         if idx is None:
             raise IndexNotFoundError(index)
@@ -2092,6 +2364,564 @@ class Executor:
         attrs = dict(c.args)
         attrs.pop(col_name, None)
         idx.column_attr_store.set_attrs(id, attrs)
+        self._broadcast_call(index, [c], opt)
+
+    def _broadcast_call(self, index: str, calls: list[Call],
+                        opt: ExecOptions) -> None:
+        """Forward attribute writes to every other node in parallel
+        (executor.go:836-854); the first failure raises."""
+        if opt.remote:
+            return
+        others = [n for n in self.cluster.nodes if n.host != self.host]
+        if not others:
+            return
+        q = Query(list(calls))
+        futs = [self._pool().submit(self._exec_remote, n, index, q, None,
+                                    opt) for n in others]
+        errs = []
+        for f in futs:
+            try:
+                f.result()
+            except _LEG_ERRORS as e:
+                errs.append(e)
+        if errs:
+            raise errs[0]
+
+    # -- TopN over a distributed index (executor.go:273-334) -----------------
+
+    def _topn_exact_partial(self, index: str, c: Call,
+                            slices: list[int]) -> list[Pair]:
+        """A pushdown leg: EXACT node-local TopN partials over
+        ``slices``, untrimmed — the single pass when its gates hold,
+        else the local two phases (candidates, then their refetch). Every
+        candidate of the per-slice n-trims comes back with its exact sum
+        over these slices, so the coordinator's candidate union equals
+        what one node spanning every slice would mark. ``hints`` (the
+        coordinator's candidate ids when it dispatched) come back
+        exact-counted in the same answer: a hinted row the local trims
+        missed is refetched here, so a warm TopN is one round trip. A
+        hinted row with no ≥ floor count here is left out (it adds 0)."""
+        base = Call(c.name, {k: v for k, v in c.args.items()
+                             if k not in ("pushdown", "hints")}, c.children)
+        pairs = self._topn_host_single_pass(index, base, slices, trim=False)
+        if pairs is None:
+            pairs = self._top_n_slices(index, base, slices)
+            if pairs:
+                pairs = self._top_n_slices(
+                    index, Call(c.name, dict(base.args, ids=sorted(
+                        {p.id for p in pairs})), c.children), slices)
+        hints, _ = c.uint_slice_arg("hints")
+        if hints:
+            have = {p.id for p in pairs}
+            missing = sorted(i for i in set(hints) if i not in have)
+            if missing:
+                pairs = list(pairs) + self._top_n_slices(
+                    index, Call(c.name, dict(base.args, ids=missing),
+                                c.children), slices)
+        return pairs
+
+    def _topn_distributed(self, index: str, c: Call, slices: list[int],
+                          opt: ExecOptions,
+                          n: int) -> Optional[list[Pair]]:
+        """The coordinator's pushdown for the plain sourceless form over
+        a distributed index: each owner answers exact untrimmed partials
+        over its own slices (``pushdown=true`` legs), and the merge
+        follows the reference's two phases (executor.go:273-310):
+        candidate union, then an exact refetch only of the rows a node
+        did not report. Failed legs re-map onto replicas. Any failure
+        but the query's own deadline or cancel falls back to the fan-out
+        path (None): reads are idempotent, so a spent pushdown is only
+        spent work, never a wrong answer."""
+        if (not self.TOPN_PUSHDOWN or self.client is None or not slices
+                or len(self.cluster.nodes) < 2
+                or not getattr(self.client, "generation_aware", False)):
+            return None
+        (frame_name, _n, field, row_ids, _thresh, filters,
+         tanimoto) = self._topn_args(c)
+        if row_ids or c.children or (field and filters) or tanimoto > 0:
+            return None
+        try:
+            legs = self._topn_pushdown_gather(index, c, slices, opt)
+            merged = self._topn_pushdown_merge(index, c, legs, opt)
+        except (QueryDeadlineError, QueryCancelledError):
+            raise
+        except _LEG_ERRORS:
+            # The fan-out path owns failures.
+            obs_metrics.TOPN_PUSHDOWN.labels("fallback").inc()
+            return None
+        obs_metrics.TOPN_PUSHDOWN.labels("merged").inc()
+        out = pairs_sort([Pair(i, cnt) for i, cnt in merged.items()
+                          if cnt > 0])
+        # The merged candidate union (its head) is the next query's
+        # speculative hints, bounded per entry and per memo.
+        memo = self._topn_hint_memo
+        memo[(index, frame_name)] = tuple(p.id for p in out[:1024])
+        memo.move_to_end((index, frame_name))
+        while len(memo) > 64:
+            memo.popitem(last=False)
+        if n and n < len(out):
+            out = out[:n]
+        return out
+
+    def _topn_pushdown_gather(self, index: str, c: Call,
+                              slices: list[int],
+                              opt: ExecOptions) -> list[tuple]:
+        """One pushdown leg a node: ``[(node, slices, id→count,
+        hinted ids)]``, with the map-reduce's failover. The remote legs
+        leave at once with the speculative hints (the last merged
+        union of this frame) and this node's partial computes while
+        they run; a hint is only a hint — a row a leg does not hold
+        reads 0, and a candidate the speculation missed is refetched in
+        a second round."""
+        nodes = list(self.cluster.nodes)
+        ctx = opt.ctx
+        pool = self._pool()
+        futures: dict = {}
+        legs: list[tuple] = []
+        local_groups: list[tuple] = []
+        remote_slices: list[int] = []
+        for node, group in self._slices_by_node(nodes, index, slices):
+            if node.host == self.host:
+                local_groups.append((node, group))
+            else:
+                remote_slices.extend(group)
+        frame_name = self._topn_args(c)[0]
+        hints = sorted(self._topn_hint_memo.get((index, frame_name), ()))
+        c_pd = Call(c.name, dict(c.args, pushdown=True), c.children)
+        if hints:
+            c_pd.args["hints"] = hints
+        hinted = frozenset(hints)
+
+        def submit(nodes, slices):
+            for node, group in self._slices_by_node(nodes, index, slices):
+                fut = pool.submit(self._topn_pushdown_node, node, index,
+                                  c_pd, group, opt)
+                futures[fut] = (node, group)
+                if ctx is not None:
+                    ctx.add_leg(node.host, len(group))
+
+        processed = 0
+        try:
+            submit(nodes, remote_slices)
+            for node, group in local_groups:
+                legs.append((node, group, _topn_to_dict(
+                    self._topn_exact_partial(index, c, group)),
+                    frozenset()))
+            while processed < len(remote_slices):
+                done = self._wait_legs(futures, ctx)
+                for fut in done:
+                    node, group = futures.pop(fut)
+                    try:
+                        r = fut.result()
+                    except (QueryDeadlineError, QueryCancelledError):
+                        raise
+                    except _LEG_ERRORS as e:  # re-map onto replicas
+                        nodes = [x for x in nodes if x is not node]
+                        obs_metrics.FAILOVER_SLICES.labels(
+                            node.host or "local").inc(len(group))
+                        try:
+                            submit(nodes, group)
+                        except SliceUnavailableError:
+                            raise e
+                        continue
+                    legs.append((node, group, r,
+                                 frozenset() if node.host == self.host
+                                 else hinted))
+                    processed += len(group)
+        finally:
+            self._drain(futures, ctx)
+        return legs
+
+    def _topn_pushdown_node(self, node: Node, index: str, c_pd: Call,
+                            group: list[int], opt: ExecOptions) -> dict:
+        """One node's exact partial: a remote leg forwards ``c_pd`` (the
+        call with the ``pushdown`` marker and the hints); a leg re-mapped
+        onto this node runs the same semantics in-process."""
+        with sched_context.use(opt.ctx):
+            if opt.ctx is not None:
+                opt.ctx.check()
+            if node.host == self.host:
+                return _topn_to_dict(
+                    self._topn_exact_partial(index, c_pd, group))
+            rs = self._exec_remote(node, index, Query([c_pd]), group, opt)
+            return _topn_to_dict(rs[0] if rs else None)
+
+    def _topn_pushdown_merge(self, index: str, c: Call, legs: list[tuple],
+                             opt: ExecOptions) -> dict:
+        """The two-phase merge of the partials: sum what every node
+        reported, then refetch exact counts only for (node, rows of the
+        union that node neither reported nor was hinted) — a row
+        trimmed out on one node still collects its count there before
+        the global trim."""
+        union: set = set()
+        total: dict = {}
+        for _node, _group, m, _hinted in legs:
+            union.update(m)
+            for k, cnt in m.items():
+                total[k] = total.get(k, 0) + cnt
+        jobs = []
+        for node, group, m, hinted in legs:
+            missing = sorted(i for i in union
+                             if i not in m and i not in hinted)
+            if missing:
+                jobs.append((node, group, missing))
+        if not jobs:
+            return total
+        futs = [self._pool().submit(self._topn_refetch_leg, node, index, c,
+                                    group, missing, opt)
+                for node, group, missing in jobs]
+        try:
+            for fut in futs:
+                for k, cnt in fut.result().items():
+                    total[k] = total.get(k, 0) + cnt
+        finally:
+            self._drain({f: None for f in futs}, None)
+        return total
+
+    def _topn_refetch_leg(self, node: Node, index: str, c: Call,
+                          group: list[int], ids: list[int],
+                          opt: ExecOptions) -> dict:
+        """Exact counts of ``ids`` over one node's slices (the
+        reference's phase 2, for the rows that node is missing)."""
+        with sched_context.use(opt.ctx):
+            if opt.ctx is not None:
+                opt.ctx.check()
+            other = Call(c.name, {k: v for k, v in c.args.items()
+                                  if k != "pushdown"}, c.children)
+            other.args["ids"] = [int(i) for i in ids]
+            if node.host == self.host:
+                return _topn_to_dict(self._top_n_slices(index, other, group))
+            rs = self._exec_remote(node, index, Query([other]), group, opt)
+            return _topn_to_dict(rs[0] if rs else None)
+
+    # -- placement and fan-out (executor.go:1087-1236) -----------------------
+
+    def _owns_all_slices(self, index: str, slices: list[int]) -> bool:
+        """True when this node holds a replica of every slice in
+        ``slices`` — the gate of the one-node fast paths (the fused
+        batch, the single-pass TopN, the device top-k, the result cache,
+        the planner's proofs). Writes go to every replica owner, so an
+        owned slice's local fragment tracks every write."""
+        if len(self.cluster.nodes) == 1 and self.cluster.resize is None:
+            return True
+        allowed = self.cluster.read_allowed
+        return all(allowed(self.host, index, s) for s in slices)
+
+    def _fans_out(self, index: str, slices: list[int],
+                  opt: Optional[ExecOptions]) -> bool:
+        """Does a read over ``slices`` go through the map-reduce? On a
+        cluster, unless it is a coordinator's leg (``remote``): the
+        placement decides which node serves each slice (this node
+        first where a fault manager orders the owners, as a server's
+        does)."""
+        return (opt is not None and not opt.remote and bool(slices)
+                and len(self.cluster.nodes) > 1)
+
+    def _slices_by_node(self, nodes: list[Node], index: str,
+                        slices: list[int]) -> list[tuple[Node, list[int]]]:
+        """Group ``slices`` by the replica owner that serves each. With a
+        fault manager the owners come in health order, this node first
+        and open circuits sunk to the end, so the first query after a
+        peer dies pays one timeout and the next ones route around it. A
+        slice with no owner among ``nodes`` raises
+        SliceUnavailableError."""
+        fault = self.fault
+        m: dict[int, tuple[Node, list[int]]] = {}
+        # PARTITION_N bounds the distinct owner tuples: one ordering
+        # each, not one a slice.
+        order_memo: dict[tuple, list[Node]] = {}
+        for slice in slices:
+            owners = self.cluster.read_nodes(index, slice)
+            if fault is not None and len(owners) > 1:
+                key = tuple(id(n) for n in owners)
+                ordered = order_memo.get(key)
+                if ordered is None:
+                    ordered = order_memo[key] = fault.order_nodes(
+                        owners, local=self.host)
+                owners = ordered
+            for node in owners:
+                if any(n is node for n in nodes):
+                    m.setdefault(id(node), (node, []))[1].append(slice)
+                    break
+            else:
+                raise SliceUnavailableError(str(slice))
+        return list(m.values())
+
+    def _wait_legs(self, futures: dict, ctx) -> set:
+        """The legs done so far, waking every _CTX_POLL_S for the
+        query's deadline and cancel."""
+        if ctx is None:
+            done, _ = wait(list(futures), return_when=FIRST_COMPLETED)
+            return done
+        ctx.check()
+        done, _ = wait(list(futures), timeout=self._CTX_POLL_S,
+                       return_when=FIRST_COMPLETED)
+        return done
+
+    def _drain(self, futures: dict, ctx) -> None:
+        """On the way out: cancel the legs that have not started, wait
+        for the running ones (a dead query's for _DEAD_DRAIN_S only)."""
+        pending = [f for f in futures if not f.cancel()]
+        if not pending:
+            return
+        if ctx is not None and (ctx.cancelled() or ctx.expired()):
+            wait(pending, timeout=self._DEAD_DRAIN_S)
+        else:
+            wait(pending)
+
+    def _map_reduce(self, index: str, slices: list[int], c: Call,
+                    opt: ExecOptions, local_fn: Callable,
+                    reduce_fn: Callable):
+        """Fan ``c`` out over ``slices`` (executor.go:1103-1236): one leg
+        a serving node — ``local_fn(group)`` for this node's group, a
+        remote query for a peer's — each leg's result folded by
+        ``reduce_fn`` as it completes. A failed leg's slices re-map onto
+        the surviving replicas; the last error raises when none is left.
+        The query's own deadline or cancel is never re-mapped."""
+        if not slices:
+            return None
+        nodes = list(self.cluster.nodes)
+        ctx = opt.ctx
+        if ctx is not None:
+            ctx.check()
+        pool = self._pool()
+        futures: dict = {}
+        result = None
+        processed = 0
+
+        def submit(nodes, slices):
+            for node, group in self._slices_by_node(nodes, index, slices):
+                fut = pool.submit(self._mapper_node, node, index, c, group,
+                                  opt, local_fn)
+                futures[fut] = (node, group)
+                if ctx is not None:
+                    ctx.add_leg(node.host, len(group))
+
+        try:
+            submit(nodes, slices)
+            while processed < len(slices):
+                for fut in self._wait_legs(futures, ctx):
+                    node, group = futures.pop(fut)
+                    try:
+                        r = fut.result()
+                    except (QueryDeadlineError, QueryCancelledError):
+                        raise
+                    except _LEG_ERRORS as e:  # re-map onto replicas
+                        nodes = [n for n in nodes if n is not node]
+                        obs_metrics.FAILOVER_SLICES.labels(
+                            node.host or "local").inc(len(group))
+                        try:
+                            submit(nodes, group)
+                        except SliceUnavailableError:
+                            raise e
+                        continue
+                    result = reduce_fn(result, r)
+                    processed += len(group)
+        finally:
+            self._drain(futures, ctx)
+        return result
+
+    def _mapper_node(self, node: Node, index: str, c: Call,
+                     slices: list[int], opt: ExecOptions, local_fn):
+        # The query context is bound to the worker thread, so the device
+        # dispatch and the residency packing check it.
+        with sched_context.use(opt.ctx):
+            if opt.ctx is not None:
+                opt.ctx.check()
+            if node.host == self.host:
+                return local_fn(slices)
+            results = self._exec_remote(node, index, Query([c]), slices,
+                                        opt)
+            return results[0] if results else None
+
+    def _exec_remote(self, node: Node, index: str, query: Query,
+                     slices: Optional[list[int]], opt: ExecOptions) -> list:
+        """One remote leg: ``query`` with ``Remote`` set over
+        ``slices``. The peer inherits the remaining budget and the query
+        id (a cluster cancel finds its leg), and the client clamps its
+        socket timeouts to the budget; scripted fakes without
+        ``deadline_aware`` get the plain call."""
+        if self.client is None:
+            raise SliceUnavailableError(
+                f"no client to reach remote node {node.host}")
+        ctx = opt.ctx
+        t0 = time.perf_counter()
+        try:
+            if ctx is not None and getattr(self.client, "deadline_aware",
+                                           False):
+                ctx.check()
+                return self.client.execute_query(
+                    node, index, str(query), slices, remote=True,
+                    deadline_s=ctx.remaining(), query_id=ctx.id)
+            return self.client.execute_query(node, index, str(query),
+                                             slices, remote=True)
+        finally:
+            obs_metrics.RPC_SECONDS.labels(
+                peer=node.host, kind="query").observe(
+                    time.perf_counter() - t0)
+
+    # -- the coordinator's cluster result cache (cluster.generations) --------
+
+    def _cluster_cache_key(self, index: str, query: Query,
+                           slices: list[int],
+                           opt: ExecOptions) -> Optional[tuple]:
+        """(index, PQL, slices, epoch) when this read may be cached: a
+        coordinator's query over slices this node does not all own,
+        with a generation map and a probing client. Declined: writes,
+        top-level Bitmap calls and attribute-filtered TopNs (attribute
+        writes bump no generation, so a cached copy could serve stale
+        attributes)."""
+        if (self.CLUSTER_CACHE_ENTRIES <= 0 or self.gens is None
+                or self.client is None
+                or not hasattr(self.client, "generations")
+                or opt.remote or not slices
+                or len(self.cluster.nodes) < 2
+                or self.cluster.resize is not None):
+            return None
+        for call in query.calls:
+            if (call.name in _WRITE_CALLS or call.name == "Bitmap"
+                    or call.args.get("filters")):
+                return None
+        if self._owns_all_slices(index, slices):
+            return None
+        return (index, str(query), tuple(slices), self.cluster.epoch)
+
+    def _cluster_cache_lookup(self, key: tuple, index: str,
+                              opt: ExecOptions) -> Optional[list]:
+        with self._cluster_cache_mu:
+            ent = self._cluster_cache.get(key)
+        if ent is None:
+            obs_metrics.CLUSTER_CACHE_REQUESTS.labels("miss").inc()
+            return None
+        if self._cluster_cache_validate(ent, index, opt):
+            with self._cluster_cache_mu:
+                if key in self._cluster_cache:
+                    self._cluster_cache.move_to_end(key)
+            obs_metrics.CLUSTER_CACHE_REQUESTS.labels("hit").inc()
+            obs_accounting.note_result_cache_hit()
+            return [_share_cached(r) for r in ent["results"]]
+        with self._cluster_cache_mu:
+            self._cluster_cache.pop(key, None)
+        obs_metrics.CLUSTER_CACHE_REQUESTS.labels("invalidated").inc()
+        return None
+
+    def _cluster_cache_validate(self, ent: dict, index: str,
+                                opt: ExecOptions) -> bool:
+        """True iff every token the entry was cached under still holds:
+        local slices against the live fragments, remote slices against
+        a /generations probe of the peer that served them. A mismatch
+        or an unreachable peer reads as invalid, never as stale."""
+        for s, toks in ent["local"].items():
+            if gens_mod.slice_tokens(self.holder, index, s) != toks:
+                return False
+        remote: dict = ent["remote"]
+        if not remote:
+            return True
+        ctx = opt.ctx
+        timeout = self._CLUSTER_PROBE_TIMEOUT_S
+        if ctx is not None and ctx.remaining() is not None:
+            timeout = min(timeout, ctx.remaining())
+
+        def probe(peer, entry):
+            got = self.client.generations(index, sorted(entry), host=peer,
+                                          deadline_s=timeout)
+            return all(got.get(s) == toks for s, toks in entry.items())
+
+        futs = {self._pool().submit(probe, p, e): None
+                for p, e in remote.items()}
+        try:
+            return all(f.result() for f in futs)
+        except (QueryDeadlineError, QueryCancelledError):
+            if ctx is not None:
+                ctx.check()  # the query itself is dead: propagate
+            return False  # only the bounded probe expired: recompute
+        except _LEG_ERRORS:  # unreachable peer: recompute
+            return False
+        finally:
+            self._drain(futs, None)
+
+    def _cluster_cache_snapshot(self, index: str,
+                                slices: list[int]) -> Optional[dict]:
+        """Token snapshot: live tokens of the slices this node serves,
+        and for the others the map's freshest (peer, tokens) from an
+        earlier exchange. A remote slice the map has never seen gives
+        None: this round stays uncached, and its legs fill the map for
+        the next one."""
+        local: dict = {}
+        remote: dict = {}
+        for s in slices:
+            if self.cluster.read_allowed(self.host, index, s):
+                local[s] = gens_mod.slice_tokens(self.holder, index, s)
+                continue
+            got = self.gens.newest(index, s)
+            if got is None:
+                return None
+            peer, toks, _ts = got
+            if not self.cluster.read_allowed(peer, index, s):
+                return None
+            remote.setdefault(peer, {})[s] = dict(toks)
+        return {"local": local, "remote": remote}
+
+    def _cluster_cache_store(self, key: tuple, index: str,
+                             slices: list[int], results: list,
+                             pre: Optional[dict]) -> None:
+        """Cache a finished read's results under its pre-execution
+        token snapshot, only when the tokens held still across the query
+        (a write racing the legs leaves it uncached) and the bitmaps
+        stay within the result cache's bits."""
+        if pre is None:
+            return
+        bits = sum(r.count() for r in results if isinstance(r, Bitmap))
+        if bits > self.result_cache_bits:
+            return
+        if self._cluster_cache_snapshot(index, slices) != pre:
+            return
+        ent = {"results": [_share_cached(r) for r in results],
+               "local": pre["local"], "remote": pre["remote"]}
+        with self._cluster_cache_mu:
+            cache = self._cluster_cache
+            cache[key] = ent
+            cache.move_to_end(key)
+            while len(cache) > self.CLUSTER_CACHE_ENTRIES:
+                cache.popitem(last=False)
+
+
+def _merge_bitmaps(prev: Optional[Bitmap], v: Bitmap) -> Bitmap:
+    if prev is None:
+        prev = Bitmap()
+    prev.merge(v)
+    return prev
+
+
+def _topn_to_dict(res) -> dict:
+    """A pushdown leg's result (a Pair list off the wire, None) as
+    id→count."""
+    if res is None:
+        return {}
+    if isinstance(res, dict):
+        return dict(res)
+    return {p.id: p.count for p in res}
+
+
+def _topn_merge_reduce(prev, v):
+    """id→count merge across disjoint-slice partials."""
+    m = prev or {}
+    if isinstance(v, dict):
+        for k, cnt in v.items():
+            m[k] = m.get(k, 0) + cnt
+    elif v:
+        for p in v:
+            m[p.id] = m.get(p.id, 0) + p.count
+    return m
+
+
+def _share_cached(r):
+    """COW or shallow handout of one cached query result."""
+    if isinstance(r, Bitmap):
+        return _share_result(r)
+    if isinstance(r, list):
+        return list(r)
+    return r
 
 
 def _share_result(bm: Bitmap) -> Bitmap:

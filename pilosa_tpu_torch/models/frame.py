@@ -105,10 +105,13 @@ class FrameOptions:
 class Frame:
     def __init__(self, path: str, index: str, name: str,
                  options: Optional[FrameOptions] = None,
-                 wal_fsync: str = wal_mod.FSYNC_NONE):
+                 wal_fsync: str = wal_mod.FSYNC_NONE,
+                 on_create_slice=None):
         self.path = path
         self.index = index
         self.name = name
+        # fn(slice, inverse) for the views' new max slices.
+        self.on_create_slice = on_create_slice
         self.options = options or FrameOptions()
         self.wal_fsync = wal_fsync
         self.views: dict[str, View] = {}
@@ -304,7 +307,14 @@ class Frame:
                     self.name, name, cache_type=self.options.cache_type,
                     cache_size=self.options.cache_size,
                     row_attr_store=self.row_attr_store,
-                    wal_fsync=self.wal_fsync)
+                    wal_fsync=self.wal_fsync,
+                    on_create_slice=self._announce_slice(name))
+
+    def _announce_slice(self, view_name: str):
+        if self.on_create_slice is None:
+            return None
+        inverse = is_inverse_view(view_name)
+        return lambda slice: self.on_create_slice(slice, inverse)
 
     def view(self, name: str) -> Optional[View]:
         return self.views.get(name)

@@ -26,6 +26,9 @@ class Holder:
         # or "always".
         self.wal_fsync = wal_mod.check_fsync_policy(wal_fsync)
         self.indexes: dict[str, Index] = {}
+        # fn(index, slice, inverse), set by a cluster server: a new
+        # fragment past a view's max slice announces the slice to peers.
+        self.on_create_slice = None
         self._mu = threading.RLock()
 
     # -- lifecycle
@@ -41,7 +44,8 @@ class Holder:
                     validate_name(entry)
                 except PilosaError:  # not an index directory
                     continue
-                idx = Index(full, entry, wal_fsync=self.wal_fsync)
+                idx = Index(full, entry, wal_fsync=self.wal_fsync,
+                            on_create_slice=self._announce_slice)
                 idx.open()
                 self.indexes[entry] = idx
 
@@ -50,6 +54,11 @@ class Holder:
             for idx in self.indexes.values():
                 idx.close()
             self.indexes.clear()
+
+    def _announce_slice(self, index: str, slice: int,
+                        inverse: bool) -> None:
+        if self.on_create_slice is not None:
+            self.on_create_slice(index, slice, inverse)
 
     # -- index CRUD
 
@@ -78,7 +87,8 @@ class Holder:
     def _create_index(self, name: str, options) -> Index:
         validate_name(name)
         idx = Index(self.index_path(name), name, options=options,
-                    wal_fsync=self.wal_fsync)
+                    wal_fsync=self.wal_fsync,
+                    on_create_slice=self._announce_slice)
         idx.open()
         self.indexes[name] = idx
         return idx

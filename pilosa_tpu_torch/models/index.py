@@ -4,7 +4,8 @@ Trimmed copy of the JAX package's ``models/index.py`` (reference
 index.go): options (columnLabel, the default timeQuantum) persist as the
 same protobuf ``.meta`` file, the column attribute store is
 ``<index>/.data``, and CreateFrame applies the option defaults and checks
-of index.go:378-432. One node: no slice knowledge learned from peers.
+of index.go:378-432. The max slice takes the largest one learned from
+peers (``set_remote_max_slice``, index.go:251-297).
 """
 
 from __future__ import annotations
@@ -45,10 +46,18 @@ class IndexOptions:
 class Index:
     def __init__(self, path: str, name: str,
                  options: Optional[IndexOptions] = None,
-                 wal_fsync: str = wal_mod.FSYNC_NONE):
+                 wal_fsync: str = wal_mod.FSYNC_NONE,
+                 on_create_slice=None):
         validate_name(name)
         self.path = path
         self.name = name
+        # fn(index, slice, inverse) for the frames' new max slices.
+        self.on_create_slice = on_create_slice
+        # The largest slices peers hold (index.go:251-297): learned from
+        # CreateSliceMessage broadcasts, the max-slice poll and remote
+        # writes, so a coordinator's slice list spans every node.
+        self.remote_max_slice = 0
+        self.remote_max_inverse_slice = 0
         self.options = options or IndexOptions()
         self.wal_fsync = wal_fsync
         self.frames: dict[str, Frame] = {}
@@ -70,7 +79,8 @@ class Index:
             for entry in sorted(os.listdir(self.path)):
                 if os.path.isdir(os.path.join(self.path, entry)):
                     frame = Frame(self.frame_path(entry), self.name, entry,
-                                  wal_fsync=self.wal_fsync)
+                                  wal_fsync=self.wal_fsync,
+                                  on_create_slice=self._announce())
                     frame.open()
                     self.frames[entry] = frame
 
@@ -113,13 +123,28 @@ class Index:
 
     def max_slice(self) -> int:
         with self._mu:
-            return max((f.max_slice() for f in self.frames.values()),
-                       default=0)
+            return max([f.max_slice() for f in self.frames.values()]
+                       + [self.remote_max_slice])
 
     def max_inverse_slice(self) -> int:
         with self._mu:
-            return max((f.max_inverse_slice()
-                        for f in self.frames.values()), default=0)
+            return max([f.max_inverse_slice() for f in self.frames.values()]
+                       + [self.remote_max_inverse_slice])
+
+    def set_remote_max_slice(self, n: int) -> None:
+        with self._mu:
+            self.remote_max_slice = max(self.remote_max_slice, n)
+
+    def set_remote_max_inverse_slice(self, n: int) -> None:
+        with self._mu:
+            self.remote_max_inverse_slice = max(
+                self.remote_max_inverse_slice, n)
+
+    def _announce(self):
+        if self.on_create_slice is None:
+            return None
+        return lambda slice, inverse: self.on_create_slice(
+            self.name, slice, inverse)
 
     # -- frames
 
@@ -157,7 +182,8 @@ class Index:
         if options.cache_type not in ("lru", "ranked"):
             raise PilosaError(f"invalid cache type: {options.cache_type!r}")
         frame = Frame(self.frame_path(name), self.name, name,
-                      options=options, wal_fsync=self.wal_fsync)
+                      options=options, wal_fsync=self.wal_fsync,
+                      on_create_slice=self._announce())
         frame.open()
         self.frames[name] = frame
         return frame

@@ -49,11 +49,15 @@ class View:
     def __init__(self, path: str, index: str, frame: str, name: str,
                  cache_type: str = cache_mod.DEFAULT_CACHE_TYPE,
                  cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
-                 row_attr_store=None, wal_fsync: str = wal_mod.FSYNC_NONE):
+                 row_attr_store=None, wal_fsync: str = wal_mod.FSYNC_NONE,
+                 on_create_slice=None):
         self.path = path
         self.index = index
         self.frame = frame
         self.name = name
+        # fn(slice), called when a new fragment raises the view's max
+        # slice (view.go:232-246 broadcasts CreateSliceMessage).
+        self.on_create_slice = on_create_slice
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.row_attr_store = row_attr_store
@@ -102,9 +106,12 @@ class View:
         with self._mu:
             frag = self.fragments.get(slice)
             if frag is None:
+                grows = slice > max(self.fragments, default=0)
                 frag = self._new_fragment(slice)
                 frag.open()
                 self.fragments[slice] = frag
+                if grows and self.on_create_slice is not None:
+                    self.on_create_slice(slice)
             return frag
 
     def max_slice(self) -> int:

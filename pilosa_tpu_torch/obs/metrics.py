@@ -558,6 +558,53 @@ PLANNER_PLAN_SECONDS = _DEFAULT.histogram(
     buckets=(0.00001, 0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1,
              0.5, 1.0))
 
+# -- cluster and fault families (the JAX package's names) -------------------
+RPC_SECONDS = _DEFAULT.histogram(
+    "pilosa_cluster_rpc_seconds",
+    "Cluster fan-out RPC latency, by peer host",
+    labels=("peer", "kind"))
+PEER_HEALTH = _DEFAULT.gauge(
+    "pilosa_cluster_peer_health",
+    "Blended per-peer health score in [0, 1]: EWMA of RPC outcomes"
+    " scaled by gossip liveness (fault subsystem)",
+    labels=("peer",))
+BREAKER_STATE = _DEFAULT.gauge(
+    "pilosa_fault_breaker_state",
+    "Per-peer circuit-breaker state: 0=closed, 1=half-open, 2=open",
+    labels=("peer",))
+BREAKER_TRANSITIONS = _DEFAULT.counter(
+    "pilosa_fault_breaker_transitions_total",
+    "Circuit-breaker state transitions, by peer and target state",
+    labels=("peer", "state"))
+FAILPOINT_TRIGGERS = _DEFAULT.counter(
+    "pilosa_fault_failpoint_triggers_total",
+    "Armed failpoint injections fired, by site",
+    labels=("site",))
+FAILOVER_SLICES = _DEFAULT.counter(
+    "pilosa_cluster_failover_slices_total",
+    "Slices re-mapped onto surviving replicas after a node leg"
+    " failed mid-query, by failed peer",
+    labels=("peer",))
+GENERATION_UPDATES = _DEFAULT.counter(
+    "pilosa_cluster_generation_updates_total",
+    "Per-slice generation-token entries applied to the coordinator"
+    " generation map, by source peer (X-Pilosa-Generations headers"
+    " and /generations probes)",
+    labels=("peer",))
+CLUSTER_CACHE_REQUESTS = _DEFAULT.counter(
+    "pilosa_executor_cluster_cache_requests_total",
+    "Coordinator hot-query result-cache lookups, by outcome: hit"
+    " (every generation token validated), miss (no entry or"
+    " unvalidatable), invalidated (a token mismatched — a replica"
+    " took a write since the entry was cached)",
+    labels=("outcome",))
+TOPN_PUSHDOWN = _DEFAULT.counter(
+    "pilosa_executor_topn_pushdown_total",
+    "Distributed TopN pushdown outcomes: merged (per-node partials"
+    " merged per the two-phase semantics) or fallback (pushdown"
+    " failed; the fan-out path answered)",
+    labels=("outcome",))
+
 
 # -- legacy StatsClient bridge ------------------------------------------------
 

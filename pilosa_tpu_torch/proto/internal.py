@@ -1,6 +1,7 @@
 """The port's protobuf wire codec for the messages of the JAX package's
-``proto/internal.proto`` that the one-node server speaks and writes
-(``.meta`` files and the fragments' ``.cache`` sidecars).
+``proto/internal.proto`` that the server speaks and writes (``.meta``
+files, the fragments' ``.cache`` sidecars, and the cluster's node-to-node
+messages: block sync, broadcasts and node status).
 
 The card machine has no protobuf library, so the port encodes and
 decodes the wire itself. Each message class has the field names of the
@@ -476,3 +477,66 @@ class Cache(Message):
 
 class MaxSlicesResponse(Message):
     FIELDS = ((1, "MaxSlices", "map_string_uint64", None),)
+
+
+# -- cluster types (internal.proto) ------------------------------------------
+
+class Bit(Message):
+    FIELDS = ((1, "RowID", "uint64", None), (2, "ColumnID", "uint64", None),
+              (3, "Timestamp", "int64", None))
+
+
+class BlockDataRequest(Message):
+    FIELDS = ((1, "Index", "string", None), (2, "Frame", "string", None),
+              (3, "Block", "uint64", None), (4, "Slice", "uint64", None),
+              (5, "View", "string", None))
+
+
+class BlockDataResponse(Message):
+    FIELDS = ((1, "RowIDs", "packed_uint64", None),
+              (2, "ColumnIDs", "packed_uint64", None))
+
+
+class CreateSliceMessage(Message):
+    FIELDS = ((1, "Index", "string", None), (2, "Slice", "uint64", None),
+              (3, "IsInverse", "bool", None))
+
+
+class DeleteIndexMessage(Message):
+    FIELDS = ((1, "Index", "string", None),)
+
+
+class CreateIndexMessage(Message):
+    FIELDS = ((1, "Index", "string", None),
+              (2, "Meta", "message", IndexMeta))
+
+
+class CreateFrameMessage(Message):
+    FIELDS = ((1, "Index", "string", None), (2, "Frame", "string", None),
+              (3, "Meta", "message", FrameMeta))
+
+
+class DeleteFrameMessage(Message):
+    FIELDS = ((1, "Index", "string", None), (2, "Frame", "string", None))
+
+
+class Frame(Message):
+    FIELDS = ((1, "Name", "string", None),
+              (2, "Meta", "message", FrameMeta))
+
+
+class Index(Message):
+    FIELDS = ((1, "Name", "string", None),
+              (2, "Meta", "message", IndexMeta),
+              (3, "MaxSlice", "uint64", None),
+              (4, "Frames", "repeated_message", Frame),
+              (5, "Slices", "packed_uint64", None))
+
+
+class NodeStatus(Message):
+    FIELDS = ((1, "Host", "string", None), (2, "State", "string", None),
+              (3, "Indexes", "repeated_message", Index))
+
+
+class ClusterStatus(Message):
+    FIELDS = ((1, "Nodes", "repeated_message", NodeStatus),)

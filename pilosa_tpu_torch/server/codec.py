@@ -5,22 +5,74 @@ codec (``proto/internal.py``): runtime results (storage.Bitmap,
 cache.Pair, attribute dicts, counts, changed flags) to the protobuf
 ``QueryResponse`` and to the reference's JSON shapes
 (handler.go:1307-1397, bitmap.go:220-233, cache.go:292-293) and the
-``ValCount`` of Sum/Min/Max (``{"value": v, "count": n}``). The
-node-to-node decoders come with the cluster slice.
+``ValCount`` of Sum/Min/Max (``{"value": v, "count": n}``), and the
+node-to-node side: the QueryRequest a coordinator sends, the per-call
+decode of a peer's QueryResponse (executor.go:1058-1080) and the
+anti-entropy block JSON.
 """
 
 from __future__ import annotations
 
 import base64
+from typing import Optional
 
+import numpy as np
+
+from .. import SLICE_WIDTH
 from ..proto import internal as pb
-from ..storage.attrs import encode_attr_list
+from ..storage import roaring
+from ..storage.attrs import decode_attr_list, encode_attr_list
 from ..storage.bitmap import Bitmap
 from ..storage.bsi import ValCount
+from ..storage.cache import Pair
+from ..utils.arrays import group_by_key
 
 
 def encode_bitmap(bm: Bitmap) -> pb.Bitmap:
     return pb.Bitmap(Bits=bm.bits(), Attrs=encode_attr_list(bm.attrs))
+
+
+def decode_bitmap(msg: pb.Bitmap) -> Bitmap:
+    """The segmented result bitmap from the wire bit list, one roaring
+    build per slice."""
+    bm = Bitmap()
+    cols = np.asarray(msg.Bits, dtype=np.uint64)
+    if len(cols):
+        for slice, group in group_by_key(cols // np.uint64(SLICE_WIDTH),
+                                         cols):
+            bm.add_segment(roaring.Bitmap.from_sorted(group), int(slice),
+                           writable=True)
+    bm.attrs = decode_attr_list(msg.Attrs)
+    return bm
+
+
+def encode_query_request(query: str, slices: Optional[list[int]] = None,
+                         column_attrs: bool = False, remote: bool = False
+                         ) -> bytes:
+    return pb.QueryRequest(Query=query, Slices=slices or [],
+                           ColumnAttrs=column_attrs,
+                           Remote=remote).SerializeToString()
+
+
+def decode_query_results(resp: pb.QueryResponse, call_names: list[str]
+                         ) -> list:
+    """Per-call results by call name (executor.go:1058-1080)."""
+    out = []
+    for name, res in zip(call_names, resp.Results):
+        if name == "TopN":
+            out.append([Pair(int(m.Key), int(m.Count)) for m in res.Pairs])
+        elif name == "Count":
+            out.append(int(res.N))
+        elif name in ("SetBit", "ClearBit", "SetFieldValue"):
+            out.append(bool(res.Changed))
+        elif name in ("Sum", "Min", "Max"):
+            vc = res.ValCount or pb.ValCount()
+            out.append(ValCount(int(vc.Val), int(vc.Count)))
+        elif name in ("SetRowAttrs", "SetColumnAttrs"):
+            out.append(None)
+        else:
+            out.append(decode_bitmap(res.Bitmap or pb.Bitmap()))
+    return out
 
 
 def encode_query_result(result) -> pb.QueryResult:
@@ -71,6 +123,13 @@ def query_response_json(results: list, column_attr_sets=None,
     if err:
         out["error"] = err
     return out
+
+
+def blocks_to_json(blocks: list[tuple[int, bytes]]) -> list[dict]:
+    """FragmentBlock JSON: checksum bytes base64 like Go's []byte
+    (fragment.go:1270-1273)."""
+    return [{"id": bid, "checksum": base64.b64encode(chk).decode()}
+            for bid, chk in blocks]
 
 
 def blocks_from_json(objs: list[dict]) -> list[tuple[int, bytes]]:

@@ -31,9 +31,25 @@ Routes: ``/metrics``, ``/debug/vars``, ``/debug/queries``,
 ``/debug/queries/slow``, ``DELETE /debug/queries/{qid}``,
 ``/debug/traces`` (``?source=disk`` lists nothing: the tail sampler's
 disk ring is not ported), ``/debug/traces/summary``,
-``/debug/traces/{qid}``, ``/debug/tenants`` and ``/debug/plans``. The
-cluster, backup, fragment-sync, pod and web-console routes, partial
-results and workload capture wait for the slices that port them.
+``/debug/traces/{qid}``, ``/debug/tenants`` and ``/debug/plans``.
+
+The cluster's routes (handler.py:374, :414-428 of the JAX package):
+``/hosts`` and ``/status`` list the cluster's nodes (``/status`` each
+node's state and the slices it owns); a protobuf query's ``Remote`` and
+``Slices`` fields make it a coordinator's leg — no admission slot, this
+node's slices only — whose answer carries the generation tokens of the
+served slices (``X-Pilosa-Generations``) and, as asked, the spans and
+the cost tree for the coordinator to stitch; ``/import`` and
+``/export`` answer 412 for a slice this node does not own; index and
+frame creation and deletion broadcast their message to the peers;
+``/fragment/nodes``, ``/fragment/blocks``, ``/fragment/block/data`` and
+``POST /fragment/import`` serve anti-entropy, ``GET``/``POST
+/fragment/data`` a fragment's tar stream; ``/generations`` the
+cluster result cache's probe; ``POST /messages`` takes a peer's
+broadcast; ``/debug/topology`` shows the placement and
+``/debug/failpoints`` arms the fault sites. The backup, resize, pod,
+federation and web-console routes, partial results and workload capture
+wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import datetime as dt
 import errno
+import io
 import json
 import re
 import time
@@ -53,7 +70,11 @@ from .. import SLICE_WIDTH, __version__
 from ..errors import (FrameExistsError, IndexExistsError, PilosaError,
                       QueryCancelledError, QueryDeadlineError,
                       QueryKilledError, validate_label)
+from ..cluster import generations as gens_mod
+from ..cluster.broadcast import (NOP_BROADCASTER, CancelQueryMessage,
+                                 unmarshal_message)
 from ..executor import _WRITE_CALLS, ExecOptions
+from ..fault import failpoints as fault_failpoints
 from ..models.frame import Field, FrameOptions
 from ..models.index import IndexOptions
 from ..obs import accounting as obs_accounting
@@ -84,8 +105,6 @@ _VALID_INDEX_OPTIONS = {"columnLabel", "timeQuantum"}
 _VALID_FRAME_OPTIONS = {"rowLabel", "inverseEnabled", "cacheType",
                         "cacheSize", "timeQuantum", "fields"}
 
-# Node state in /status (the one node of this server is always up).
-NODE_STATE_UP = "UP"
 
 
 class HTTPError(Exception):
@@ -202,11 +221,18 @@ class Handler:
                  logger=logger_mod.NOP, admission=None, registry=None,
                  warmup=None, default_timeout_s: float = 0.0,
                  tracer=None, stats=None, accounting: bool = True,
-                 tenants=None):
+                 tenants=None, cluster=None, broadcaster=None,
+                 status_handler=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
         self.host = host
+        # The cluster's placement (None: a bare one-node handler), the
+        # schema broadcaster, and the server that applies received
+        # broadcasts and reports the cluster's status.
+        self.cluster = cluster
+        self.broadcaster = broadcaster or NOP_BROADCASTER
+        self.status_handler = status_handler
         self.version = __version__
         # Query lifecycle (sched): admission=None means no admission
         # control (bare handlers); the registry always exists so
@@ -267,6 +293,9 @@ class Handler:
           self._handle_post_field_import, lane=LANE_WRITE)
         r("PATCH", "/index/{index}/time-quantum",
           self._handle_patch_index_time_quantum, lane=LANE_ADMIN)
+        r("GET", "/debug/topology", self._handle_debug_topology)
+        r("GET", "/debug/failpoints", self._handle_debug_failpoints)
+        r("POST", "/debug/failpoints", self._handle_post_failpoints)
         r("GET", "/debug/tenants", self._handle_debug_tenants)
         r("GET", "/debug/queries", self._handle_debug_queries)
         r("GET", "/debug/queries/slow", self._handle_debug_slow_queries)
@@ -281,12 +310,22 @@ class Handler:
         r("GET", "/debug/plans", self._handle_debug_plans)
         r("GET", "/metrics", self._handle_metrics)
         r("GET", "/export", self._handle_get_export)
+        r("GET", "/fragment/block/data", self._handle_fragment_block_data)
+        r("GET", "/fragment/blocks", self._handle_fragment_blocks)
+        r("GET", "/fragment/data", self._handle_get_fragment_data)
+        r("POST", "/fragment/data", self._handle_post_fragment_data,
+          lane=LANE_WRITE)
+        r("POST", "/fragment/import", self._handle_post_fragment_import,
+          lane=LANE_WRITE)
+        r("GET", "/fragment/nodes", self._handle_fragment_nodes)
+        r("GET", "/generations", self._handle_get_generations)
         r("POST", "/import", self._handle_post_import, lane=LANE_WRITE)
         r("GET", "/hosts", self._handle_get_hosts)
         r("GET", "/schema", self._handle_get_schema)
         r("GET", "/slices/max", self._handle_slice_max)
         r("GET", "/status", self._handle_get_status)
         r("GET", "/version", self._handle_get_version)
+        r("POST", "/messages", self._handle_post_message)
 
     def __call__(self, environ, start_response):
         method = environ.get("REQUEST_METHOD", "GET")
@@ -352,24 +391,35 @@ class Handler:
         return Response.json({"version": self.version})
 
     def _handle_get_hosts(self, req: Request) -> Response:
-        return Response.json([{"host": self.host, "internalHost": ""}]
-                             if self.host else [])
+        if self.cluster is None:
+            return Response.json([{"host": self.host, "internalHost": ""}]
+                                 if self.host else [])
+        return Response.json([{"host": n.host,
+                               "internalHost": n.internal_host}
+                              for n in self.cluster.nodes])
 
     def _handle_get_status(self, req: Request) -> Response:
-        """The one node, UP, with each index's max slice, the slices it
-        owns (all of them) and its frames — the JAX server's JSON shape
-        (server.go:306-351)."""
-        indexes = []
-        for name in sorted(self.holder.indexes):
-            idx = self.holder.indexes[name]
-            max_slice = idx.max_slice()
-            indexes.append({"name": name, "maxSlice": max_slice,
-                            "slices": list(range(max_slice + 1)),
-                            "frames": [{"name": fn}
-                                       for fn in sorted(idx.frames)]})
+        """Every node of the cluster with its state and, per index, the
+        max slice, the slices it owns and the frames — the JAX server's
+        JSON shape (server.go:306-351); protobuf ``ClusterStatus`` when
+        asked."""
+        if self.status_handler is not None:
+            cs = self.status_handler.cluster_status()
+        else:
+            cs = pb.ClusterStatus(Nodes=[_local_status(
+                self.holder, self.host, None)])
+        if _PROTOBUF in req.accept:
+            return Response.proto(cs)
         out = {"status": {"nodes": [
-            {"host": self.host, "state": NODE_STATE_UP,
-             "indexes": indexes}]}}
+            {"host": ns.Host, "state": ns.State,
+             "indexes": [{"name": ix.Name, "maxSlice": ix.MaxSlice,
+                          "slices": np.asarray(ix.Slices).tolist(),
+                          "frames": [{"name": f.Name} for f in ix.Frames]}
+                         for ix in ns.Indexes]}
+            for ns in cs.Nodes]}}
+        if self.cluster is not None and len(self.cluster.nodes) > 1:
+            # Peer health and breakers, the JAX server's fault block.
+            out["fault"] = self.status_handler.fault.snapshot()
         if self.warmup is not None:
             # Cold-start warmup state (sched.warmup), the JAX block.
             out["warmup"] = self.warmup.to_json()
@@ -419,10 +469,14 @@ class Handler:
             self.holder.create_index(name, options)
         except IndexExistsError as e:
             raise HTTPError(409, str(e))
+        self.broadcaster.send_sync(pb.CreateIndexMessage(
+            Index=name, Meta=options.encode()))
         return Response.json({})
 
     def _handle_delete_index(self, req: Request) -> Response:
-        self.holder.delete_index(req.vars["index"])
+        name = req.vars["index"]
+        self.holder.delete_index(name)
+        self.broadcaster.send_sync(pb.DeleteIndexMessage(Index=name))
         return Response.json({})
 
     def _handle_patch_index_time_quantum(self, req: Request) -> Response:
@@ -452,12 +506,18 @@ class Handler:
             idx.create_frame(frame_name, options)
         except FrameExistsError as e:
             raise HTTPError(409, str(e))
+        self.broadcaster.send_sync(pb.CreateFrameMessage(
+            Index=index_name, Frame=frame_name, Meta=options.encode()))
         return Response.json({})
 
     def _handle_delete_frame(self, req: Request) -> Response:
-        idx = self.holder.index(req.vars["index"])
-        if idx is not None:
-            idx.delete_frame(req.vars["frame"])
+        index_name, frame_name = req.vars["index"], req.vars["frame"]
+        idx = self.holder.index(index_name)
+        if idx is None:
+            return Response.json({})
+        idx.delete_frame(frame_name)
+        self.broadcaster.send_sync(pb.DeleteFrameMessage(
+            Index=index_name, Frame=frame_name))
         return Response.json({})
 
     def _handle_patch_frame_time_quantum(self, req: Request) -> Response:
@@ -506,8 +566,10 @@ class Handler:
 
     def _handle_post_frame_field(self, req: Request) -> Response:
         """Create one BSI field on an existing frame (body: ``{"min": N,
-        "max": M}``)."""
-        frame = self.holder.frame(req.vars["index"], req.vars["frame"])
+        "max": M}``); the frame's meta is broadcast again so peers
+        register the field too."""
+        index_name, frame_name = req.vars["index"], req.vars["frame"]
+        frame = self.holder.frame(index_name, frame_name)
         if frame is None:
             raise HTTPError(404, "frame not found")
         body = req.json()
@@ -521,6 +583,9 @@ class Handler:
         except (TypeError, ValueError) as e:
             raise HTTPError(400, str(e))
         frame.create_field(field)
+        self.broadcaster.send_sync(pb.CreateFrameMessage(
+            Index=index_name, Frame=frame_name,
+            Meta=frame.options.encode()))
         return Response.json({})
 
     def _handle_post_field_import(self, req: Request) -> Response:
@@ -536,10 +601,15 @@ class Handler:
                 raise HTTPError(400, "import target mismatch")
             cols = np.asarray(ireq.ColumnIDs, dtype=np.uint64)
             vals = np.asarray(ireq.Values, dtype=np.int64)
+            self._check_owner(index_name, ireq.Slice)
         else:
             body = req.json()
             cols = np.asarray(body.get("columns", []), dtype=np.uint64)
             vals = np.asarray(body.get("values", []), dtype=np.int64)
+            # Every touched slice must be this node's (412 otherwise,
+            # nothing applied).
+            for slice in np.unique(cols // np.uint64(SLICE_WIDTH)).tolist():
+                self._check_owner(index_name, slice)
         if len(cols) != len(vals):
             raise HTTPError(400, "import array length mismatch")
         frame = self.holder.frame(index_name, frame_name)
@@ -623,11 +693,13 @@ class Handler:
                                       headers=headers)
             return Response.json({"error": msg}, status, headers=headers)
 
+        remote = False
         if req.content_type == _PROTOBUF:
             preq = pb.QueryRequest.FromString(req.body())
             query_str = preq.Query
             slices = np.asarray(preq.Slices).tolist()
             column_attrs = preq.ColumnAttrs
+            remote = preq.Remote
         else:
             query_str = req.body().decode()
             try:
@@ -644,7 +716,7 @@ class Handler:
         except PilosaError as e:
             return error_resp(400, str(e))
         parse_s = time.perf_counter() - parse_t0
-        if req.query.get("plan") == "1":
+        if req.query.get("plan") == "1" and not remote:
             # EXPLAIN-only: the plan tree (estimates and decisions), no
             # execution.
             try:
@@ -664,7 +736,7 @@ class Handler:
             pql=query_str, index=index_name, lane=lane,
             timeout_s=self._query_timeout_s(req),
             id=req.environ.get("HTTP_X_PILOSA_QUERY_ID", "") or None,
-            node=self.host, tenant=tenant)
+            remote=remote, node=self.host, tenant=tenant)
         ctx.stages["parse"] = parse_s
         # ?profile=1 asks for EXPLAIN ANALYZE: exact per-node actual
         # cardinalities on top of the always-on wall times.
@@ -674,7 +746,11 @@ class Handler:
         if self.tenants is not None:
             self.tenants.install(ctx)
         trace = None
-        if self.tracer.enabled or req.query.get("trace") == "1":
+        # A coordinator asks its leg to trace itself (X-Pilosa-Trace);
+        # the leg's spans ride back on the answer for stitching.
+        if (self.tracer.enabled or req.query.get("trace") == "1"
+                or (remote and req.environ.get(
+                    "HTTP_X_PILOSA_TRACE", "") == "1")):
             trace = self.tracer.start(ctx, node=self.host)
             trace.add_span("parse", parse_wall, parse_s)
         # Query latency label set: one call name when the query is
@@ -684,12 +760,23 @@ class Handler:
 
         def _resp_headers() -> list:
             # The id rides every response; the ledger's compact roll-up
-            # too (X-Pilosa-Stats).
+            # too (X-Pilosa-Stats). A coordinator's leg also carries its
+            # served slices' generation tokens, its spans when traced
+            # and its full cost tree (X-Pilosa-Cost), error answers too.
             hs = [("X-Pilosa-Query-Id", ctx.id)]
+            if remote:
+                gh = self._generations_header(index_name, slices)
+                if gh is not None:
+                    hs.append(gh)
+                if trace is not None:
+                    hs.append((obs_trace.SPANS_HEADER, trace.spans_json()))
             if ctx.cost is not None:
                 hs.append((obs_accounting.STATS_HEADER,
                            json.dumps(ctx.cost.summary(),
                                       separators=(",", ":"))))
+                if remote:
+                    hs.append((obs_accounting.COST_HEADER,
+                               ctx.cost.wire_json(dict(ctx.stages))))
             return hs
 
         # Register BEFORE admission so a queued query is visible at
@@ -698,13 +785,16 @@ class Handler:
         err: Optional[BaseException] = None
         self.registry.register(ctx)
         try:
-            with ctx.stage("admission"):
-                slot = self._admit(lane, ctx)
+            # A coordinator's leg was admitted once, at its coordinator:
+            # admitting it again could deadlock a saturated cluster.
+            if not remote:
+                with ctx.stage("admission"):
+                    slot = self._admit(lane, ctx)
             ctx.state = "running"
             with ctx.stage("execute"):
                 results = self.executor.execute(
                     index_name, query, slices or None,
-                    ExecOptions(ctx=ctx))
+                    ExecOptions(remote=remote, ctx=ctx))
             if lane == LANE_WRITE:
                 # Commit barrier before the ack: every mutation this
                 # query applied has its WAL record in the OS (fsynced
@@ -876,8 +966,12 @@ class Handler:
         """Cancel every in-flight query registered under the id on this
         node (every executor layer checks the flag cooperatively)."""
         qid = req.vars["qid"]
-        return Response.json({"id": qid,
-                              "cancelled": self.registry.cancel_local(qid)})
+        n = self.registry.cancel_local(qid)
+        if req.query.get("local") != "true":
+            # Cluster-wide: peers cancel the legs registered under the
+            # same id (``?local=true`` keeps it to this node).
+            self.broadcaster.send_async(CancelQueryMessage(qid))
+        return Response.json({"id": qid, "cancelled": n})
 
     def _handle_debug_tenants(self, req: Request) -> Response:
         """The multi-tenant operator view: per tenant — policy and
@@ -1094,6 +1188,7 @@ class Handler:
         elif len(rows) != len(cols) or (
                 ts_ns is not None and len(ts_ns) != len(rows)):
             raise HTTPError(400, "import array length mismatch")
+        self._check_owner(index_name, slice)
         idx = self.holder.index(index_name)
         if idx is None:
             raise HTTPError(404, "index not found")
@@ -1127,12 +1222,233 @@ class Handler:
         storage_wal.barrier_all()
         obs_metrics.IMPORT_BITS.labels("bits").inc(
             len(positions) if positions is not None else len(rows))
-        return Response.proto(pb.ImportResponse())
+        # The ack carries the written slice's fresh generation tokens:
+        # an importing coordinator's cached results for it invalidate
+        # on the ack itself.
+        gh = self._generations_header(index_name, [slice])
+        return Response.proto(pb.ImportResponse(),
+                              headers=[gh] if gh is not None else [])
+
+    # -- cluster: ownership, fragment sync, generations, messages ------------
+
+    def _check_owner(self, index: str, slice: int) -> None:
+        """412 when this node holds no replica of ``slice`` (a client
+        importing or exporting must go to the slice's owners)."""
+        if self.cluster is not None and not self.cluster.owns_fragment(
+                self.host, index, slice):
+            raise HTTPError(412, f"host does not own slice"
+                                 f" {self.host}-{index} slice:{slice}")
+
+    def _generations_header(self, index_name: str,
+                            slices) -> Optional[tuple]:
+        """(header, payload) with this node's tokens for ``slices``
+        (every owned slice when none is named), or None when there is
+        nothing to report."""
+        if self.holder.index(index_name) is None:
+            return None
+        if not slices:
+            slices = self._owned_slices(index_name)
+        if not slices:
+            return None
+        tokens = gens_mod.local_tokens(self.holder, index_name, slices)
+        return (gens_mod.GENERATIONS_HEADER,
+                gens_mod.encode_wire(index_name, tokens))
+
+    def _owned_slices(self, index_name: str) -> list[int]:
+        idx = self.holder.index(index_name)
+        if idx is None:
+            return []
+        max_slice = idx.max_slice()
+        if self.cluster is None:
+            return list(range(max_slice + 1))
+        return self.cluster.owns_slices(index_name, max_slice, self.host)
+
+    def _fragment_from_query(self, req: Request):
+        return self.holder.fragment(req.query.get("index", ""),
+                                    req.query.get("frame", ""),
+                                    req.query.get("view", ""),
+                                    req.uint_param("slice"))
+
+    def _handle_fragment_nodes(self, req: Request) -> Response:
+        slice = req.uint_param("slice")
+        index = req.query.get("index", "")
+        if self.cluster is None:
+            return Response.json([{"host": self.host, "internalHost": ""}])
+        return Response.json([{"host": n.host,
+                               "internalHost": n.internal_host}
+                              for n in self.cluster.fragment_nodes(
+                                  index, slice)])
+
+    def _handle_fragment_blocks(self, req: Request) -> Response:
+        frag = self._fragment_from_query(req)
+        if frag is None:
+            raise HTTPError(404, "fragment not found")
+        return Response.json({"blocks": codec.blocks_to_json(frag.blocks())})
+
+    def _handle_fragment_block_data(self, req: Request) -> Response:
+        breq = pb.BlockDataRequest.FromString(req.body())
+        frag = self.holder.fragment(breq.Index, breq.Frame, breq.View,
+                                    breq.Slice)
+        if frag is None:
+            raise HTTPError(404, "fragment not found")
+        ps = frag.block_data(breq.Block)
+        return Response.proto(pb.BlockDataResponse(
+            RowIDs=ps.row_ids, ColumnIDs=ps.column_ids))
+
+    def _handle_get_fragment_data(self, req: Request) -> Response:
+        """The fragment as the reference's tar stream (data + cache),
+        spooled to disk past 8 MiB and streamed back."""
+        import tempfile
+        frag = self._fragment_from_query(req)
+        if frag is None:
+            raise HTTPError(404, "fragment not found")
+        spool = tempfile.SpooledTemporaryFile(max_size=8 << 20)
+        frag.write_to(spool)
+        spool.seek(0)
+
+        def chunks():
+            with spool:
+                while True:
+                    b = spool.read(1 << 20)
+                    if not b:
+                        return
+                    yield b
+        return Response(200, chunks(), "application/octet-stream")
+
+    def _handle_post_fragment_data(self, req: Request) -> Response:
+        """Replace one fragment from a tar stream of ``GET
+        /fragment/data``; the body is read whole before the swap."""
+        slice = req.uint_param("slice")
+        frame = self.holder.frame(req.query.get("index", ""),
+                                  req.query.get("frame", ""))
+        if frame is None:
+            raise HTTPError(404, "frame not found")
+        frag = frame.create_view_if_not_exists(
+            req.query.get("view", "")).create_fragment_if_not_exists(slice)
+        frag.read_from(io.BytesIO(req.body()))
+        return Response.json({})
+
+    def _handle_post_fragment_import(self, req: Request) -> Response:
+        """Additive import of slice-local positions (LE u64,
+        row*SLICE_WIDTH + col%SLICE_WIDTH) into one exact (frame, view)
+        fragment: idempotent, so a torn push re-pushes safely."""
+        index_name = req.query.get("index", "")
+        frame_name = req.query.get("frame", "")
+        view = req.query.get("view", "")
+        slice = req.uint_param("slice")
+        if not index_name or not frame_name or not view:
+            raise HTTPError(400, "index, frame, and view required")
+        self._check_owner(index_name, slice)
+        frame = self.holder.frame(index_name, frame_name)
+        if frame is None:
+            raise HTTPError(404, "frame not found")
+        body = req.body()
+        if len(body) % 8:
+            raise HTTPError(400, "positions body not 8-byte aligned")
+        positions = np.frombuffer(body, dtype="<u8")
+        frag = frame.create_view_if_not_exists(
+            view).create_fragment_if_not_exists(slice)
+        if len(positions):
+            # A writable sorted copy of the request buffer's view.
+            frag.import_positions(np.sort(positions).astype(np.uint64))
+        storage_wal.barrier_all()
+        obs_metrics.IMPORT_BITS.labels("fragment").inc(len(positions))
+        gh = self._generations_header(index_name, [slice])
+        return Response.json({"accepted": int(len(positions))},
+                             headers=[gh] if gh is not None else [])
+
+    def _handle_get_generations(self, req: Request) -> Response:
+        """The cluster result cache's validation probe: this node's
+        (uid, generation) tokens for the named slices (default: every
+        slice it owns). No query runs, so a probe costs a round trip."""
+        index_name = req.query.get("index", "")
+        if not index_name:
+            raise HTTPError(400, "index required")
+        if self.holder.index(index_name) is None:
+            raise HTTPError(404, "index not found")
+        try:
+            slices = [int(s) for s in req.query.get("slices", "").split(",")
+                      if s != ""]
+        except ValueError:
+            raise HTTPError(400, "invalid slices argument")
+        if not slices:
+            slices = self._owned_slices(index_name)
+        tokens = gens_mod.local_tokens(self.holder, index_name, slices)
+        return Response.json({
+            "index": index_name, "host": self.host,
+            "tokens": {str(s): {k: [v[0], v[1]] for k, v in m.items()}
+                       for s, m in tokens.items()}})
+
+    def _handle_post_message(self, req: Request) -> Response:
+        if self.status_handler is None:
+            raise HTTPError(404, "no broadcast handler")
+        try:
+            msg = unmarshal_message(req.body())
+        except (ValueError, IndexError, pb.DecodeError) as e:
+            raise HTTPError(400, f"invalid message: {e}")
+        self.status_handler.receive_message(msg)
+        return Response.json({})
+
+    def _handle_debug_topology(self, req: Request) -> Response:
+        """Placement: the epoch, the members and each index's owners a
+        slice."""
+        cl = self.cluster
+        if cl is None:
+            return Response.json({"epoch": 0, "nodes": [], "indexes": {},
+                                  "resize": None})
+        indexes = {}
+        for name in sorted(self.holder.indexes):
+            idx = self.holder.indexes[name]
+            hi = max(idx.max_slice(), idx.max_inverse_slice())
+            indexes[name] = {
+                "maxSlice": idx.max_slice(),
+                "owners": {str(s): [n.host for n in
+                                    cl.fragment_nodes(name, s)]
+                           for s in range(hi + 1)}}
+        return Response.json({
+            "epoch": cl.epoch, "partitionN": cl.partition_n,
+            "replicaN": cl.replica_n,
+            "nodes": [n.host for n in cl.nodes], "resize": None,
+            "indexes": indexes})
+
+    def _handle_debug_failpoints(self, req: Request) -> Response:
+        """The armed failpoints and the seed that replays them."""
+        return Response.json(fault_failpoints.default().snapshot())
+
+    def _handle_post_failpoints(self, req: Request) -> Response:
+        """Arm or disarm failpoints: ``{"site": "rpc.send", "spec":
+        "error(0.5)"}`` or ``{"failpoints": {"rpc.send": "error"}}``;
+        spec "off" disarms. An unknown site or a malformed spec is 400
+        with nothing armed."""
+        body = req.json()
+        updates: dict = {}
+        if "failpoints" in body:
+            if not isinstance(body["failpoints"], dict):
+                raise HTTPError(400, "failpoints is not a map")
+            updates.update(body["failpoints"])
+        if "site" in body:
+            updates[body["site"]] = body.get("spec", "off")
+        if not updates:
+            raise HTTPError(400, "no failpoints given")
+        for site, spec in updates.items():
+            if site not in fault_failpoints.SITES:
+                raise HTTPError(400, f"unknown failpoint site: {site}")
+            try:
+                fault_failpoints.parse_spec(site, str(spec))
+            except ValueError as e:
+                raise HTTPError(400, str(e))
+        reg = fault_failpoints.default()
+        for site, spec in updates.items():
+            reg.arm(site, str(spec))
+            self.logger.printf("failpoint %s: %s (seed %d)", site,
+                               spec or "off", reg.seed)
+        return Response.json(reg.snapshot())
 
     def _handle_get_export(self, req: Request) -> Response:
         if req.accept != "text/csv":
             raise HTTPError(406, "Not acceptable")
         slice = req.uint_param("slice")
+        self._check_owner(req.query.get("index", ""), slice)
         frag = self.holder.fragment(req.query.get("index", ""),
                                     req.query.get("frame", ""),
                                     req.query.get("view", ""), slice)
@@ -1140,3 +1456,21 @@ class Handler:
             return Response(200, b"", "text/csv")
         return Response(200, _export_csv_chunks(frag.positions(), slice),
                         "text/csv")
+
+
+def _local_status(holder, host: str, cluster) -> pb.NodeStatus:
+    """One node's NodeStatus (server.go:306-323): each index with its
+    meta, max slice, frames and the slices this node owns as primary
+    (all of them without a cluster)."""
+    indexes = []
+    for name in sorted(holder.indexes):
+        idx = holder.indexes[name]
+        max_slice = idx.max_slice()
+        owned = (list(range(max_slice + 1)) if cluster is None
+                 else cluster.owns_slices(name, max_slice, host))
+        indexes.append(pb.Index(
+            Name=name, Meta=idx.options.encode(), MaxSlice=max_slice,
+            Frames=[pb.Frame(Name=fn, Meta=idx.frames[fn].options.encode())
+                    for fn in sorted(idx.frames)],
+            Slices=owned))
+    return pb.NodeStatus(Host=host, State="UP", Indexes=indexes)

@@ -28,9 +28,21 @@ through the handler, which answers the 429s. ``open()`` starts the
 warmup (sched.warmup: build, load and launch every kernel entry once)
 on a daemon thread; ``cal_dir`` is where the executor persists the cost
 model's calibration (none: not persisted); ``executor_options`` are
-further Executor arguments. Cluster membership, gossip, anti-entropy,
-the background loops (cache flush, scrub, tiering, backup) and the
-other observability subsystems wait for the slices that port them.
+further Executor arguments.
+
+The static cluster (the JAX server's wiring, server.go:182-300):
+``cluster`` is the placement (``cluster.topology.Cluster``, this node's
+``host`` among its nodes; one node when None). The server builds the
+node's FaultManager, its generation map, one keep-alive Client a peer
+(``client_for``) and the executor's routing transport over them, and the
+broadcaster (``cluster_type`` "http": schema messages POSTed to every
+peer's ``/messages``; "static": none). It applies the broadcasts it
+receives (``receive_message``), announces a fragment past a view's max
+slice to its peers (CreateSliceMessage), and runs three loops while the
+cluster has peers: the max-slice poll (``polling_interval``), the
+half-open breaker probes, and anti-entropy (``anti_entropy_interval``,
+server.syncer.HolderSyncer). Gossip, resize, the cache flush loop,
+scrub, tiering and backup wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -42,11 +54,19 @@ import threading
 from typing import Optional
 
 from .. import SLICE_WIDTH
+from ..cluster.broadcast import (NOP_BROADCASTER, CancelQueryMessage,
+                                 HTTPBroadcaster)
+from ..cluster.client import Client
+from ..cluster.generations import GenerationMap
+from ..cluster.topology import NODE_STATE_DOWN, NODE_STATE_UP, new_cluster
 from ..device import resolve_device
 from ..errors import (PilosaError, QueryCancelledError,
                       QueryDeadlineError)
 from ..executor import _WRITE_CALLS, ExecOptions, Executor
+from ..fault import FaultManager
+from ..models.frame import FrameOptions
 from ..models.holder import Holder
+from ..models.index import IndexOptions
 from ..models.view import VIEW_INVERSE
 from ..obs import accounting as obs_accounting
 from ..obs import metrics as obs_metrics
@@ -60,11 +80,15 @@ from ..sched import (LANE_READ, LANE_WRITE, AdmissionController,
 from ..sched.warmup import Warmup
 from ..storage import wal as storage_wal
 from ..utils import logger as logger_mod
-from ..utils.config import QueryConfig, TenantsConfig, TraceConfig
+from ..proto import internal as pb
+from ..utils.config import (DEFAULT_ANTI_ENTROPY_INTERVAL,
+                            DEFAULT_POLLING_INTERVAL, QueryConfig,
+                            TenantsConfig, TraceConfig)
 from ..utils.stats import ExpvarStatsClient, MultiStatsClient
 from . import codec
-from .handler import Handler
+from .handler import Handler, _local_status
 from .httpd import HTTPServer
+from .syncer import HolderSyncer
 
 DEFAULT_PORT = 10101
 
@@ -77,9 +101,26 @@ class Server:
                  trace_config: Optional[TraceConfig] = None,
                  tenants_config: Optional[TenantsConfig] = None,
                  cal_dir: Optional[str] = None, warmup: bool = True,
-                 executor_options: Optional[dict] = None):
+                 executor_options: Optional[dict] = None,
+                 cluster=None, cluster_type: str = "static",
+                 polling_interval: float = DEFAULT_POLLING_INTERVAL,
+                 anti_entropy_interval: float
+                 = DEFAULT_ANTI_ENTROPY_INTERVAL):
         self.data_dir = data_dir
         self.host = host
+        # Placement: the static cluster, or (None) this node alone,
+        # built at open() once the bound port is known.
+        self.cluster = cluster
+        self.cluster_type = cluster_type
+        self.polling_interval = polling_interval
+        self.anti_entropy_interval = anti_entropy_interval
+        self.broadcaster = NOP_BROADCASTER
+        self.fault: Optional[FaultManager] = None
+        self.gens = GenerationMap()
+        self._clients: dict[str, Client] = {}
+        self._clients_mu = threading.Lock()
+        self._closing = threading.Event()
+        self._loops: list[threading.Thread] = []
         self.device = device
         self.wal_fsync = wal_fsync
         self.logger = logger
@@ -131,11 +172,21 @@ class Server:
         # The device first: without a card (and no "cpu" asked for) the
         # server does not start, before it touches the data directory.
         device = resolve_device(self.device)
+        own_cluster = self.cluster is None
+        if own_cluster:
+            self.cluster = new_cluster([self.host])
+        elif self.cluster.node_by_host(self.host) is None:
+            raise PilosaError(f"host {self.host} is not a member of the"
+                              " cluster")
+        self.fault = FaultManager(node=self.host)
         self.holder = Holder(self.data_dir, wal_fsync=self.wal_fsync)
         try:
             self.holder.open()
             self.executor = Executor(self.holder, device=device,
                                      cal_dir=self.cal_dir,
+                                     host=self.host, cluster=self.cluster,
+                                     client=_RoutingClient(self),
+                                     fault=self.fault, gens=self.gens,
                                      **self.executor_options)
             if self.warmup_enabled:
                 self.warmup = Warmup(self.executor, logger=self.logger)
@@ -145,7 +196,8 @@ class Server:
                 registry=self.query_registry, warmup=self.warmup,
                 default_timeout_s=self.query_config.default_timeout,
                 tracer=self.tracer, stats=self.stats,
-                tenants=self.tenants)
+                tenants=self.tenants, cluster=self.cluster,
+                status_handler=self)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
@@ -158,15 +210,39 @@ class Server:
         if actual_port != port:
             self.host = f"{bind_host}:{actual_port}"
             self.handler.host = self.host
+            self.executor.host = self.host
+            self.fault.node = self.host
+            if own_cluster:
+                self.cluster.nodes[0].host = self.host
+        if self.cluster_type == "http":
+            self.broadcaster = HTTPBroadcaster(self)
+            self.handler.broadcaster = self.broadcaster
+        self.holder.on_create_slice = self._on_create_slice
         if self.warmup is not None:
             self.warmup.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="httpd")
         self._thread.start()
+        if len(self.cluster.nodes) > 1:
+            for fn, interval, name in (
+                    (self.poll_max_slices, self.polling_interval,
+                     "max slices poll"),
+                    (self.probe_open_breakers, self._BREAKER_PROBE_INTERVAL,
+                     "breaker probe"),
+                    (self.sync_holder, self.anti_entropy_interval,
+                     "anti-entropy")):
+                if interval <= 0:
+                    continue  # 0 turns a loop off, as in the JAX server
+                t = threading.Thread(target=self._loop,
+                                     args=(interval, fn, name),
+                                     daemon=True, name=name)
+                t.start()
+                self._loops.append(t)
         self.logger.printf("listening as http://%s on %s", self.host,
                            device)
 
     def close(self) -> None:
+        self._closing.set()
         if self.warmup is not None:
             self.warmup.stop()
             self.warmup.wait(60)
@@ -174,10 +250,140 @@ class Server:
             self._httpd.server_close()
             self._thread.join(timeout=10)
             self._httpd = None
+        for t in self._loops:
+            t.join(timeout=10)
+        self._loops = []
+        if self.executor is not None:
+            self.executor.close()
+        with self._clients_mu:
+            for c in self._clients.values():
+                c.close()
+            self._clients.clear()
         if self.holder is not None:
             storage_wal.barrier_all()
             self.holder.close()
             self.holder = None
+
+    # -- cluster (server.go:182-440) -----------------------------------------
+
+    def client_for(self, host: str) -> Client:
+        """The shared keep-alive Client of a peer, fault- and
+        generation-aware."""
+        with self._clients_mu:
+            client = self._clients.get(host)
+            if client is None:
+                client = self._clients[host] = Client(
+                    host, fault=self.fault, gens=self.gens)
+            return client
+
+    def _client_factory(self, host: str) -> Client:
+        return self.client_for(host)
+
+    def _loop(self, interval: float, fn, name: str) -> None:
+        while not self._closing.wait(interval):
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 - a loop outlives errors
+                self.logger.printf("%s error: %s", name, e)
+
+    def poll_max_slices(self) -> None:
+        """Adopt the peers' larger max slices (server.go:216-252)."""
+        for node in self.cluster.nodes:
+            if node.host == self.host:
+                continue
+            client = self.client_for(node.host)
+            for inverse in (False, True):
+                for name, value in client.max_slices(
+                        inverse=inverse).items():
+                    idx = self.holder.index(name)
+                    if idx is None:
+                        continue
+                    if inverse:
+                        idx.set_remote_max_inverse_slice(value)
+                    else:
+                        idx.set_remote_max_slice(value)
+
+    # A peer behind an open circuit gets no traffic, so its recovery
+    # is probed: one /version request a second to each probe-ready peer.
+    _BREAKER_PROBE_INTERVAL = 1.0
+
+    def probe_open_breakers(self) -> None:
+        for host in self.fault.probe_targets():
+            try:
+                self.client_for(host)._do("GET", "/version",
+                                          deadline_s=2.0)
+            except QueryDeadlineError:
+                # The client does not feed budget-clamped timeouts to
+                # the breaker; the probe's 2 s is the probe's verdict.
+                self.fault.record_rpc(host, False)
+            except (PilosaError, OSError):
+                pass  # the outcome fed the breaker
+
+    def sync_holder(self) -> None:
+        """One anti-entropy sweep (server.go:182-214)."""
+        with self.logger.track("holder sync"):
+            HolderSyncer(self.holder, self.host, self.cluster,
+                         closing=self._closing,
+                         client_factory=self._client_factory,
+                         fault=self.fault, logger=self.logger).sync_holder()
+
+    def _on_create_slice(self, index: str, slice: int,
+                         inverse: bool) -> None:
+        """Announce a new max slice to the peers (view.go:236-246)."""
+        self.broadcaster.send_async(pb.CreateSliceMessage(
+            Index=index, Slice=slice, IsInverse=inverse))
+
+    def receive_message(self, m) -> None:
+        """Apply a peer's broadcast (server.go:255-300)."""
+        if isinstance(m, pb.CreateSliceMessage):
+            idx = self.holder.index(m.Index)
+            if idx is None:
+                return
+            if m.IsInverse:
+                idx.set_remote_max_inverse_slice(m.Slice)
+            else:
+                idx.set_remote_max_slice(m.Slice)
+        elif isinstance(m, pb.CreateIndexMessage):
+            self.holder.create_index_if_not_exists(
+                m.Index, IndexOptions.decode(m.Meta or pb.IndexMeta()))
+        elif isinstance(m, pb.DeleteIndexMessage):
+            self.holder.delete_index(m.Index)
+        elif isinstance(m, pb.CreateFrameMessage):
+            idx = self.holder.index(m.Index)
+            if idx is not None:
+                opts = FrameOptions.decode(m.Meta or pb.FrameMeta())
+                frame = idx.create_frame_if_not_exists(m.Frame, opts)
+                # A field created on an existing frame broadcasts the
+                # whole meta again: register the fields this node lacks.
+                for fld in opts.fields or []:
+                    if frame.field(fld.name) is None:
+                        frame.create_field(fld)
+        elif isinstance(m, pb.DeleteFrameMessage):
+            idx = self.holder.index(m.Index)
+            if idx is not None:
+                idx.delete_frame(m.Frame)
+        elif isinstance(m, CancelQueryMessage):
+            n = self.query_registry.cancel_local(
+                m.id, reason="cancelled cluster-wide")
+            if n:
+                self.logger.printf("cancelled query %s (%d context%s)",
+                                   m.id, n, "" if n == 1 else "s")
+        else:
+            raise PilosaError(f"unexpected message: {m!r}")
+
+    def cluster_status(self) -> pb.ClusterStatus:
+        """Every node's NodeStatus (server.go:325-351): this node's
+        live, a peer's from the shared schema and placement, DOWN while
+        its circuit is open."""
+        nodes = []
+        for n in self.cluster.nodes:
+            ns = _local_status(self.holder, n.host, self.cluster)
+            if n.host != self.host and not self.fault.would_allow(n.host):
+                ns.State = NODE_STATE_DOWN
+            else:
+                ns.State = NODE_STATE_UP
+            nodes.append(ns)
+        return pb.ClusterStatus(Nodes=nodes)
 
     # -- the pipelined query batch lane (the JAX server's _query_batcher) ----
 
@@ -314,6 +520,29 @@ class Server:
         except Exception as e:  # noqa: BLE001 - surfaced as a 500
             return _error_payload(e, 500)
         return _ok_payload(rs)
+
+
+class _RoutingClient:
+    """The executor's transport: each remote leg goes through the
+    target peer's pooled Client (deadline- and generation-aware)."""
+
+    deadline_aware = True
+    generation_aware = True
+
+    def __init__(self, server: Server):
+        self.server = server
+
+    def execute_query(self, node, index, query, slices, remote,
+                      deadline_s=None, query_id=None):
+        return self.server.client_for(node.host).execute_query(
+            node, index, query, slices, remote=remote,
+            deadline_s=deadline_s, query_id=query_id)
+
+    def generations(self, index, slices=None, host=None,
+                    deadline_s=None):
+        """The cluster result cache's validation probe."""
+        return self.server.client_for(host).generations(
+            index, slices, deadline_s=deadline_s)
 
 
 def _grows_slices(idx, calls: list, max_slice: int,

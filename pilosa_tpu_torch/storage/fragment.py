@@ -35,8 +35,13 @@ generation)`` pair is the staleness key of every device-resident block
 built from this fragment (parallel.residency); every write bumps the
 generation.
 
+The anti-entropy half (``blocks``, ``block_data``, ``merge_block``):
+SHA1 block checksums of 100-row blocks and the majority merge, the JAX
+package's bytes and semantics; a merge's local diff goes through the
+WAL'd batch lane.
+
 Left out of the copy: tiering, quarantine and verify-on-read, scrub,
-block checksums and sync, the failpoints and stats, and the incremental
+the failpoints and stats, and the incremental
 per-row count map (a write recounts its rows). Bits written are charged
 to the current query's cost ledger (obs.accounting) at the three sites
 the JAX package charges them.
@@ -104,6 +109,17 @@ _SRC_VECTOR_BITS = 16 << 20
 _ROW_KEY_SHIFT = np.uint64((SLICE_WIDTH // 65536).bit_length() - 1)
 
 
+# Rows per anti-entropy checksum block (reference fragment.go HashBlockSize).
+HASH_BLOCK_SIZE = 100
+
+
+@dataclass
+class PairSet:
+    """Parallel row/column id arrays (reference fragment.go PairSet)."""
+    row_ids: np.ndarray
+    column_ids: np.ndarray
+
+
 @dataclass
 class TopOptions:
     """Options for Fragment.top (reference fragment.go TopOptions)."""
@@ -151,6 +167,7 @@ class Fragment:
         self._epoch = 0
         self._snapshot_n = 0
         self._positions = None
+        self._blocks = None  # (epoch, block checksums), see blocks()
         self._total_bits = None
         self._present_rows = None
         # The group-commit WAL over the data file: mutation paths
@@ -771,6 +788,163 @@ class Fragment:
             self.wal_barrier()
         else:
             self.snapshot()
+
+    # -- block checksums and the majority merge (anti-entropy) ----------------
+
+    def checksum(self) -> bytes:
+        """Whole-fragment checksum = SHA1 over the block checksums
+        (reference fragment.go:679-687)."""
+        h = hashlib.sha1()
+        for _bid, chk in self.blocks():
+            h.update(chk)
+        return h.digest()
+
+    def blocks(self) -> list[tuple[int, bytes]]:
+        """(block_id, sha1) for every non-empty 100-row block
+        (reference fragment.go:704-767): SHA1 of the block's big-endian
+        u64 positions, the JAX package's (and the reference's
+        blockHasher's) bytes. Cached per mutation epoch."""
+        with self._mu:
+            hit = self._blocks
+            if hit is not None and hit[0] == self._epoch:
+                return hit[1]
+            values = self.storage.all_positions()
+            out = []
+            if len(values):
+                block_ids = values // np.uint64(HASH_BLOCK_SIZE
+                                                * SLICE_WIDTH)
+                bounds = np.flatnonzero(np.diff(block_ids)) + 1
+                starts = np.concatenate(([0], bounds)).tolist()
+                ends = np.concatenate((bounds, [len(values)])).tolist()
+                for s, e in zip(starts, ends):
+                    out.append((int(block_ids[s]), hashlib.sha1(
+                        values[s:e].astype(">u8").tobytes()).digest()))
+            self._blocks = (self._epoch, out)
+            return out
+
+    def block_data(self, block_id: int) -> PairSet:
+        """The bits of one block as (row, slice-local column) arrays
+        (reference fragment.go:785-795)."""
+        span = HASH_BLOCK_SIZE * SLICE_WIDTH
+        with self._mu:
+            vals = self.storage.slice_range(block_id * span,
+                                            (block_id + 1) * span)
+        return PairSet(vals // np.uint64(SLICE_WIDTH),
+                       vals % np.uint64(SLICE_WIDTH))
+
+    def merge_block(self, block_id: int, data: list[PairSet]
+                    ) -> tuple[list[PairSet], list[PairSet]]:
+        """Majority merge of one block against peer copies (reference
+        fragment.go:802-920, vectorized as in the JAX package): a bit
+        ends set iff at least half of the ``len(data) + 1`` copies have
+        it, so with two replicas the merge is a union. The local diff
+        is applied here through the WAL'd batch lane and committed;
+        returns the (sets, clears) diff of each peer."""
+        for ps in data:
+            if len(ps.row_ids) != len(ps.column_ids):
+                raise ValueError("pair set mismatch")
+        W = np.uint64(SLICE_WIDTH)
+        with self._mu:
+            local = self.block_data(block_id)
+            copies = [local] + list(data)
+            min_row = block_id * HASH_BLOCK_SIZE
+            max_row = (block_id + 1) * HASH_BLOCK_SIZE
+            positions = []
+            for ps in copies:
+                rows = np.asarray(ps.row_ids, dtype=np.uint64)
+                cols = np.asarray(ps.column_ids, dtype=np.uint64)
+                keep = ((rows >= np.uint64(min_row))
+                        & (rows < np.uint64(max_row)) & (cols < W))
+                # One vote per copy, even for a pair repeated on the wire.
+                positions.append(np.unique(rows[keep] * W + cols[keep]))
+            uniq, counts = np.unique(np.concatenate(positions),
+                                     return_counts=True)
+            want = counts >= (len(copies) + 1) // 2
+            sets_out, clears_out = [], []
+            for pos in positions:
+                has = np.isin(uniq, pos, assume_unique=True)
+                to_set = uniq[want & ~has]
+                to_clear = uniq[~want & has]
+                sets_out.append(PairSet(to_set // W, to_set % W))
+                clears_out.append(PairSet(to_clear // W, to_clear % W))
+            local_set = sets_out[0].row_ids * W + sets_out[0].column_ids
+            local_clear = (clears_out[0].row_ids * W
+                           + clears_out[0].column_ids)
+            if len(local_set):
+                self._mutate_batch_positions(local_set, set=True)
+            if len(local_clear):
+                self._mutate_batch_positions(local_clear, set=False)
+        if len(local_set) or len(local_clear):
+            # Anti-entropy acks the merge to its peers: commit first.
+            self.wal_barrier()
+        return sets_out[1:], clears_out[1:]
+
+    # -- the fragment as a tar stream (/fragment/data) ------------------------
+
+    def write_to(self, w) -> None:
+        """Stream the fragment as the reference's tar archive of ``data``
+        (the snapshot and WAL file bytes) and ``cache`` (the count
+        cache's id sidecar), the JAX package's format
+        (fragment.go:1113-1155). The data file's size is taken under the
+        lock through an fd opened first: a concurrent snapshot replaces
+        the path, but the old inode only ever grew by appended ops, so
+        that many bytes are a consistent snapshot + WAL prefix."""
+        import tarfile
+        from ..utils.streams import CappedReader
+        self.flush_cache()
+        self.wal_barrier()
+        tw = tarfile.open(fileobj=w, mode="w|")
+        with open(self.path, "rb") as f:
+            with self._mu:
+                size = os.fstat(f.fileno()).st_size
+            info = tarfile.TarInfo("data")
+            info.size, info.mode = size, 0o600
+            tw.addfile(info, CappedReader(f, size))
+        info = tarfile.TarInfo("cache")
+        info.mode = 0o600
+        try:
+            with open(self.cache_path, "rb") as f:
+                info.size = os.fstat(f.fileno()).st_size
+                tw.addfile(info, f)
+        except FileNotFoundError:
+            info.size = 0
+            tw.addfile(info)
+        tw.close()
+
+    def read_from(self, r) -> None:
+        """Replace the fragment from a ``write_to`` tar stream: the data
+        file swapped in whole, storage reopened, the cache reloaded."""
+        import io
+        import shutil
+        import tarfile
+        tr = tarfile.open(fileobj=r, mode="r|")
+        # _snap_mu first (lock order): no late snapshot may splice a
+        # pre-restore body over the restored file.
+        with self._snap_mu, self._mu:
+            for info in tr:
+                src = tr.extractfile(info) or io.BytesIO()
+                if info.name == "data":
+                    self._close_storage()
+                    tmp = self.path + ".restoring"
+                    try:
+                        with open(tmp, "wb") as f:
+                            shutil.copyfileobj(src, f)
+                            f.flush()
+                            os.fsync(f.fileno())
+                        os.replace(tmp, self.path)
+                    finally:
+                        # A torn upload leaves the old file in place.
+                        self._open_storage()
+                    self._epoch += 1
+                    self.row_cache.clear()
+                    self.device.invalidate_all()
+                elif info.name == "cache":
+                    with open(self.cache_path, "wb") as f:
+                        shutil.copyfileobj(src, f)
+                    self.cache = cache_mod.new_cache(self.cache_type,
+                                                     self.cache_size)
+                    self._cache_flushed = None
+                    self._open_cache()
 
     # -- device upload feeds -------------------------------------------------
 

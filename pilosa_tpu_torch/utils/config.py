@@ -5,8 +5,8 @@ The part of the JAX package's ``utils/config.py`` (reference config.go)
 that a one-node ``Server`` takes for the sched and obs subsystems: the
 Go-style duration parser behind ``?timeout=``, the mandatory ``default``
 tenant and the ``[tenants]`` table's validation, and the ``[query]``,
-``[tenants]`` and ``[trace]`` sections as dataclasses with the JAX
-package's defaults. The TOML loader, the environment and
+``[tenants]``, ``[trace]`` and ``[cluster]`` sections as dataclasses
+with the JAX package's defaults. The TOML loader, the environment and
 flag overlays and the other sections wait for the operator slice.
 """
 
@@ -139,3 +139,28 @@ class TraceConfig:
     enabled: bool = False
     max_traces: int = 64
     max_spans: int = 512
+
+
+# Cluster defaults (reference server.go:33-37 and the JAX package's
+# utils/config.py).
+DEFAULT_REPLICA_N = 1
+DEFAULT_CLUSTER_TYPE = "static"
+DEFAULT_POLLING_INTERVAL = 60.0
+DEFAULT_ANTI_ENTROPY_INTERVAL = 600.0
+CLUSTER_TYPES = ("static", "http", "gossip")
+
+
+@dataclass
+class ClusterConfig:
+    """[cluster] section, and the anti-entropy interval: ``hosts`` is
+    the static membership (this node among them), ``type`` the
+    broadcast backend (``static`` sends no schema messages, ``http``
+    POSTs them to every peer's ``/messages``; ``gossip`` waits for the
+    gossip slice), ``polling_interval`` the max-slice poll of the
+    peers."""
+    replica_n: int = DEFAULT_REPLICA_N
+    type: str = DEFAULT_CLUSTER_TYPE
+    hosts: list = field(default_factory=list)
+    internal_hosts: list = field(default_factory=list)
+    polling_interval: float = DEFAULT_POLLING_INTERVAL
+    anti_entropy_interval: float = DEFAULT_ANTI_ENTROPY_INTERVAL

@@ -798,3 +798,95 @@ def test_routed_executor_matches_cpu(cuda_device, tmp_path):
         assert (tmp_path / "cal").exists()
     finally:
         holder.close()
+
+
+# -- the static cluster on the card -------------------------------------------
+
+class _DirectClient:
+    """The transport to a second in-process executor: a remote leg is
+    that executor's ``execute`` with ``remote`` set, on the card."""
+
+    generation_aware = True
+
+    def __init__(self, executors: dict):
+        self.executors = executors
+        self.calls = []
+
+    def execute_query(self, node, index, query, slices, remote):
+        from pilosa_tpu_torch.executor import ExecOptions
+        self.calls.append((node.host, query))
+        return self.executors[node.host].execute(
+            index, query, slices, ExecOptions(remote=remote))
+
+
+def test_two_executor_cluster_on_the_card(cuda_device, tmp_path):
+    """A two-node cluster of port executors on the card (replicas 1:
+    each holds its own slices), the coordinator's peer behind a client
+    that calls it directly: every Count and TopN leg's kernels give the
+    single-node CPU executor's answers over the same bits, and both the
+    expression count and the TopN block count launch."""
+    from pilosa_tpu_torch.cluster.topology import new_cluster
+    rng = np.random.default_rng(21)
+    n_slices = 6
+    cluster = new_cluster(["a", "b"], replica_n=1)
+    holders = {}
+    for h in ("a", "b", "all"):
+        holders[h] = Holder(str(tmp_path / h))
+        holders[h].open()
+        idx = holders[h].create_index("i")
+        idx.create_frame("f")
+        idx.create_frame("src")
+    try:
+        for frame, rows in (("f", range(30)), ("src", (1, 2))):
+            for row in rows:
+                n = (400000 if frame == "src" and row == 1
+                     else 30000 // (row + 1) + 5)
+                cols = np.unique(rng.integers(0, n_slices * SLICE_WIDTH,
+                                              size=n, dtype=np.uint64))
+                for s in range(n_slices):
+                    sc = cols[cols // SLICE_WIDTH == s]
+                    owner = cluster.fragment_nodes("i", s)[0].host
+                    for h in (owner, "all"):
+                        holders[h].frame("i", frame).import_bits(
+                            np.full(len(sc), row, np.uint64), sc)
+        for h in ("a", "b"):
+            holders[h].index("i").set_remote_max_slice(n_slices - 1)
+        peers: dict = {}
+        client = _DirectClient(peers)
+        ex = {h: Executor(holders[h], device=cuda_device, host=h,
+                          cluster=cluster, client=client, **PIN)
+              for h in ("a", "b")}
+        peers.update(ex)
+        cpu = Executor(holders["all"], device="cpu")
+        s1 = "Bitmap(rowID=1, frame=src)"
+        qs = ["Count(Intersect(Bitmap(rowID=0, frame=f),"
+              " Bitmap(rowID=1, frame=f)))",
+              f"Count(Union(Bitmap(rowID=2, frame=f), {s1}))",
+              "TopN(frame=f, n=5)",
+              f"TopN({s1}, frame=f, n=4)",
+              f"TopN({s1}, frame=f, ids=[0, 1, 2, 3, 29])"]
+        before = dict(ck.LAUNCHES)
+        for q in qs:
+            got = ex["a"].execute("i", q)[0]
+            want = cpu.execute("i", q)[0]
+            if isinstance(want, list):
+                got = [(p.id, p.count) for p in got]
+                want = [(p.id, p.count) for p in want]
+            assert got == want, q
+        assert any(host == "b" for host, _ in client.calls)
+        assert ck.LAUNCHES["expr_count_rows"] > before["expr_count_rows"]
+        assert ck.LAUNCHES["topn_block_count"] > before["topn_block_count"]
+        # The peer's Count leg alone: its kernel against its plain version.
+        b_slices = [s for s in range(n_slices)
+                    if cluster.fragment_nodes("i", s)[0].host == "b"]
+        b_cpu = Executor(holders["b"], device="cpu")
+        from pilosa_tpu_torch.executor import ExecOptions
+        for q in qs[:2]:
+            assert ex["b"].execute("i", q, b_slices,
+                                   ExecOptions(remote=True)) == \
+                b_cpu.execute("i", q, b_slices, ExecOptions(remote=True))
+        for e in ex.values():
+            e.close()
+    finally:
+        for h in holders.values():
+            h.close()

@@ -102,7 +102,7 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.plan.planner",
             "pilosa_tpu_torch.cluster",
             "pilosa_tpu_torch.cluster.generations"} | set(
-                LIFECYCLE) <= set(MODULES)
+                LIFECYCLE) | set(CLUSTER) <= set(MODULES)
 
 
 # The query lifecycle's modules, each at the path of its JAX
@@ -123,6 +123,24 @@ LIFECYCLE = ("pilosa_tpu_torch.utils.stats", "pilosa_tpu_torch.obs",
 
 @pytest.mark.parametrize("module", LIFECYCLE)
 def test_lifecycle_module_mirrors_the_jax_path(module):
+    rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
+        ".", os.sep)
+    assert (os.path.exists(os.path.join(REPO, rel + ".py"))
+            or os.path.exists(os.path.join(REPO, rel, "__init__.py")))
+
+
+# The static cluster's modules, each at the path of its JAX counterpart.
+CLUSTER = ("pilosa_tpu_torch.fault", "pilosa_tpu_torch.fault.failpoints",
+           "pilosa_tpu_torch.fault.health", "pilosa_tpu_torch.fault.breaker",
+           "pilosa_tpu_torch.cluster.topology",
+           "pilosa_tpu_torch.cluster.broadcast",
+           "pilosa_tpu_torch.cluster.client",
+           "pilosa_tpu_torch.storage.iterators",
+           "pilosa_tpu_torch.server.syncer")
+
+
+@pytest.mark.parametrize("module", CLUSTER)
+def test_cluster_module_mirrors_the_jax_path(module):
     rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
         ".", os.sep)
     assert (os.path.exists(os.path.join(REPO, rel + ".py"))

@@ -64,15 +64,11 @@ LEFT_OUT = {
     **{name: "obs.capture not ported" for name in (
         "pilosa_capture_bytes_total", "pilosa_capture_dropped_total",
         "pilosa_capture_records_total")},
-    **{name: "one node: cluster/ not ported" for name in (
-        "pilosa_cluster_failover_slices_total",
-        "pilosa_cluster_generation_updates_total",
+    **{name: "resize, the hedged leg, partial results and federation"
+             " not ported" for name in (
         "pilosa_cluster_hedged_requests_total",
-        "pilosa_cluster_peer_health",
         "pilosa_cluster_resize_double_reads_total",
-        "pilosa_cluster_resize_state", "pilosa_cluster_rpc_seconds",
-        "pilosa_executor_cluster_cache_requests_total",
-        "pilosa_executor_topn_pushdown_total",
+        "pilosa_cluster_resize_state",
         "pilosa_resize_slices_moved_total",
         "pilosa_resize_stream_bytes_total",
         "pilosa_query_partial_results_total",
@@ -83,10 +79,7 @@ LEFT_OUT = {
         "pilosa_compile_cache_hits_total",
         "pilosa_compile_cache_misses_total",
         "pilosa_compile_cache_programs_live")},
-    **{name: "fault/ not ported" for name in (
-        "pilosa_fault_breaker_state",
-        "pilosa_fault_breaker_transitions_total",
-        "pilosa_fault_failpoint_triggers_total",
+    **{name: "fault/diskfull.py not ported" for name in (
         "pilosa_storage_enospc_events_total",
         "pilosa_storage_write_ready")},
     **{name: "obs.history not ported" for name in (

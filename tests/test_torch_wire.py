@@ -23,7 +23,13 @@ from pilosa_tpu_torch.proto import internal as tpb
 MESSAGES = ["Attr", "AttrMap", "Bitmap", "Pair", "QueryRequest",
             "QueryResponse", "QueryResult", "ColumnAttrSet",
             "ImportRequest", "ImportResponse", "IndexMeta", "FrameMeta",
-            "FieldMeta", "MaxSlicesResponse", "Cache"]
+            "FieldMeta", "MaxSlicesResponse", "Cache",
+            # the cluster's messages
+            "Bit", "BlockDataRequest", "BlockDataResponse",
+            "CreateSliceMessage", "DeleteIndexMessage",
+            "CreateIndexMessage", "CreateFrameMessage",
+            "DeleteFrameMessage", "Frame", "Index", "NodeStatus",
+            "ClusterStatus"]
 
 _U64_EDGES = [0, 1, 127, 128, 16383, 16384, 2**32 - 1, 2**63 - 1, 2**63,
               2**64 - 1]
@@ -132,6 +138,54 @@ def _spec(name, rng):
                                      for i in range(int(rng.integers(0, 5)))}})
     if name == "Cache":
         return (name, {"IDs": _u64s(rng, int(rng.integers(0, 60)))})
+    if name == "Bit":
+        return (name, {"RowID": _u64s(rng, 1)[0],
+                       "ColumnID": _u64s(rng, 1)[0],
+                       "Timestamp": _i64s(rng, 1)[0]})
+    if name == "BlockDataRequest":
+        return (name, {"Index": _string(rng), "Frame": _string(rng),
+                       "View": _string(rng), "Slice": _u64s(rng, 1)[0],
+                       "Block": _u64s(rng, 1)[0]})
+    if name == "BlockDataResponse":
+        n = int(rng.integers(0, 30))
+        return (name, {"RowIDs": _u64s(rng, n), "ColumnIDs": _u64s(rng, n)})
+    if name == "CreateSliceMessage":
+        return (name, {"Index": _string(rng), "Slice": _u64s(rng, 1)[0],
+                       "IsInverse": bool(rng.integers(0, 2))})
+    if name in ("DeleteIndexMessage",):
+        return (name, {"Index": _string(rng)})
+    if name == "CreateIndexMessage":
+        spec = {"Index": _string(rng)}
+        if rng.integers(0, 2):
+            spec["Meta"] = _spec("IndexMeta", rng)
+        return (name, spec)
+    if name == "CreateFrameMessage":
+        spec = {"Index": _string(rng), "Frame": _string(rng)}
+        if rng.integers(0, 2):
+            spec["Meta"] = _spec("FrameMeta", rng)
+        return (name, spec)
+    if name == "DeleteFrameMessage":
+        return (name, {"Index": _string(rng), "Frame": _string(rng)})
+    if name == "Frame":
+        spec = {"Name": _string(rng)}
+        if rng.integers(0, 2):
+            spec["Meta"] = _spec("FrameMeta", rng)
+        return (name, spec)
+    if name == "Index":
+        spec = {"Name": _string(rng), "MaxSlice": _u64s(rng, 1)[0],
+                "Frames": [_spec("Frame", rng)
+                           for _ in range(int(rng.integers(0, 3)))],
+                "Slices": _u64s(rng, int(rng.integers(0, 8)))}
+        if rng.integers(0, 2):
+            spec["Meta"] = _spec("IndexMeta", rng)
+        return (name, spec)
+    if name == "NodeStatus":
+        return (name, {"Host": _string(rng), "State": _string(rng),
+                       "Indexes": [_spec("Index", rng)
+                                   for _ in range(int(rng.integers(0, 3)))]})
+    if name == "ClusterStatus":
+        return (name, {"Nodes": [_spec("NodeStatus", rng)
+                                 for _ in range(int(rng.integers(0, 3)))]})
     raise KeyError(name)
 
 
@@ -321,3 +375,74 @@ def test_attr_hypothesis(key, i, f, s, b, t):
     check_both_ways(("Attr", {"Key": key, "Type": t, "StringValue": s,
                               "IntValue": i, "BoolValue": b,
                               "FloatValue": f}))
+
+
+# -- the cluster's broadcast envelope and the node-to-node decode -------------
+
+@pytest.mark.parametrize("seed", range(4))
+def test_broadcast_envelopes_equal_jax(seed):
+    """``marshal_message`` gives the JAX package's 1-byte tag + body, and
+    each side unmarshals the other's envelope to equal fields."""
+    from pilosa_tpu.cluster import broadcast as jb
+
+    from pilosa_tpu_torch.cluster import broadcast as tb
+    rng = np.random.default_rng(seed)
+    for name in ("CreateSliceMessage", "CreateIndexMessage",
+                 "DeleteIndexMessage", "CreateFrameMessage",
+                 "DeleteFrameMessage"):
+        spec = _spec(name, rng)
+        want = jb.marshal_message(build(jpb, spec))
+        got = tb.marshal_message(build(tpb, spec))
+        assert got == want
+        cls = getattr(tpb, name)
+        assert canon(tb.unmarshal_message(want), cls) == canon(
+            jb.unmarshal_message(got), cls)
+    qid = _string(rng) + "q"
+    assert tb.marshal_message(tb.CancelQueryMessage(qid)) == \
+        jb.marshal_message(jb.CancelQueryMessage(qid))
+    assert tb.unmarshal_message(jb.marshal_message(
+        jb.CancelQueryMessage(qid))).id == qid
+
+
+def test_query_results_decode_like_jax():
+    """A peer's QueryResponse decodes per call name as the JAX codec
+    decodes it: Bitmap bits and attributes, TopN pairs, counts, changed
+    flags, ValCounts and attribute writes."""
+    from pilosa_tpu.server import codec as jcodec
+
+    from pilosa_tpu_torch.server import codec as tcodec
+    rng = np.random.default_rng(2)
+    W = 1 << 20
+    bits = np.unique(rng.integers(0, 5 * W, size=300, dtype=np.uint64))
+    results = [
+        jpb.QueryResult(Bitmap=jpb.Bitmap(Bits=bits.tolist())),
+        jpb.QueryResult(Pairs=[jpb.Pair(Key=5, Count=9),
+                               jpb.Pair(Key=2**40, Count=1)]),
+        jpb.QueryResult(N=2**40 + 7),
+        jpb.QueryResult(Changed=True),
+        jpb.QueryResult(ValCount=jpb.ValCount(Val=-12, Count=3)),
+        jpb.QueryResult(),
+        jpb.QueryResult(),
+    ]
+    results[0].Bitmap.Attrs.append(jpb.Attr(Key="k", Type=1,
+                                            StringValue="v"))
+    raw = jpb.QueryResponse(Results=results).SerializeToString()
+    names = ["Bitmap", "TopN", "Count", "SetBit", "Sum", "SetRowAttrs",
+             "Union"]
+    got = tcodec.decode_query_results(tpb.QueryResponse.FromString(raw),
+                                      names)
+    want = jcodec.decode_query_results(jpb.QueryResponse.FromString(raw),
+                                       names)
+    assert got[0].bits().tolist() == want[0].bits().tolist()
+    assert got[0].attrs == want[0].attrs == {"k": "v"}
+    assert [(p.id, p.count) for p in got[1]] == \
+        [(p.id, p.count) for p in want[1]]
+    assert got[2:4] == want[2:4]
+    assert (got[4].value, got[4].count) == (want[4].value, want[4].count)
+    assert got[5] is None and want[5] is None
+    assert got[6].count() == want[6].count() == 0
+    req = tcodec.encode_query_request("Count(Bitmap(rowID=1))", [3, 2**33],
+                                      column_attrs=True, remote=True)
+    assert req == jcodec.encode_query_request(
+        "Count(Bitmap(rowID=1))", [3, 2**33], column_attrs=True,
+        remote=True)
