@@ -3262,12 +3262,14 @@ def _node_proc(repo, tmp, i, host, hosts, data_dir, pinned, device,
                extra=()):
     """One node of the cluster: this script's child mode, which runs
     the ``server`` verb's code with the pins (or without) and prints its
-    launch counters and peak device memory at exit."""
+    launch counters and peak device memory at exit (and writes them to
+    ``node{i}.counters`` in ``tmp`` on SIGUSR1)."""
     import subprocess
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = repo
     args = [sys.executable, os.path.abspath(__file__), "--cluster-node",
-            "1" if pinned else "0", "server", "-d", data_dir, "-b", host,
+            "1" if pinned else "0", os.path.join(tmp, f"node{i}.counters"),
+            "server", "-d", data_dir, "-b", host,
             "--cluster.hosts", ",".join(hosts), "--cluster.replicas", "2",
             "--cluster.type", "http", "--cluster.poll-interval", "1s",
             "--cost.dir", os.path.join(tmp, f"cal{i}")] + list(extra)
@@ -3303,23 +3305,46 @@ def _node_up(hosts: list, procs: list, deadline_s: float,
     return time.perf_counter() - t0
 
 
-def _node_stop(proc, host: str) -> dict:
-    """SIGTERM a node; its launch counters, peak device MiB and status
-    from the line it prints at exit."""
+def _node_counters(proc, tmp: str, i: int) -> dict:
+    """A running node's launch counters and peak device MiB so far (its
+    SIGUSR1 snapshot): what a node about to be SIGKILLed ran."""
+    import signal
+    path = os.path.join(tmp, f"node{i}.counters")
+    if os.path.exists(path):
+        os.remove(path)
+    proc.send_signal(signal.SIGUSR1)
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > 10:
+            _fail(f"cluster: node {i} wrote no counters on SIGUSR1")
+        time.sleep(0.02)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _nodes_stop(procs: list, hosts: list) -> list:
+    """SIGTERM every node at once; each one's launch counters and peak
+    device MiB, from the line it prints at exit."""
     import signal
     import subprocess
-    proc.send_signal(signal.SIGTERM)
-    try:
-        out, _ = proc.communicate(timeout=60)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        _fail(f"cluster: node {host} did not stop on SIGTERM")
-    for line in out.decode().splitlines():
-        if line.startswith("cluster-node "):
-            return json.loads(line[len("cluster-node "):])
-    _fail(f"cluster: node {host} printed no counters (rc"
-          f" {proc.returncode})")
+    for proc in procs:
+        proc.send_signal(signal.SIGTERM)
+    lines = []
+    for proc, host in zip(procs, hosts):
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            _fail(f"cluster: node {host} did not stop on SIGTERM")
+        for line in out.decode().splitlines():
+            if line.startswith("cluster-node "):
+                lines.append(json.loads(line[len("cluster-node "):]))
+                break
+        else:
+            _fail(f"cluster: node {host} printed no counters (rc"
+                  f" {proc.returncode})")
+    return lines
 
 
 def _pairs_json(r) -> list:
@@ -3340,18 +3365,25 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
     ``_ref_topn`` of each TopN. Then, from every node as coordinator,
     the eight Count(Intersect) pairs of rows 1-16 of ``c`` in one
     body, ``TopN(frame=f, n=1000)`` (the pushdown) and
-    ``TopN(Bitmap(rowID=seg, frame=f), frame=f, n=50)``, cold and warm;
-    ``n_writes`` SetBits through one coordinator, each read back from
-    both owners of its slice with a Remote query; a SIGKILL of one node
-    and the same reads from a survivor; its restart with a 5 s
-    anti-entropy interval, one replica made to diverge by a Remote
-    SetBit and the seconds until both owners' block checksums agree;
-    and the nodes restarted without the pins, the Count routed by the
-    calibrated cost model, which must take the device leg on every
-    node."""
+    ``TopN(Bitmap(rowID=seg, frame=f), frame=f, n=50)``: cold, warm
+    (cluster result cache hits) and warm after a write to a peer's slice
+    (the map-reduce again); ``n_writes`` SetBits through one
+    coordinator, each read back from both owners of its slice with a
+    Remote query; a SIGKILL of the peer that served the coordinator's
+    pushdown, the same reads from the coordinator (the survivor serves
+    the victim's slices, the breaker opens); no slice re-mapped on any
+    node outside that step. Then every node restarted without the pins,
+    the victim with a 5 s anti-entropy interval: one replica made to
+    diverge by a Remote SetBit and the seconds until both owners' block
+    checksums agree (polled while the victim answers the reads again
+    and the Count is routed by the calibrated cost model, which must
+    take the device leg on every node). Each pinned node's launch counters (the victim's from
+    its snapshot just before the kill) must show the expression count,
+    densify and the TopN block count."""
     import http.client
     import shutil
     import signal
+    import threading
     from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from pilosa_tpu_torch.cluster.topology import new_cluster
@@ -3360,6 +3392,11 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
     from pilosa_tpu_torch.server import codec
 
     t_phase = time.perf_counter()
+    marks: dict = {}  # seconds since the phase began, at each step's end
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t_phase
+
     W = 1 << _ROW_SHIFT
     repo = os.path.dirname(os.path.abspath(__file__))
     rng = np.random.default_rng(seed + 50)
@@ -3370,6 +3407,8 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
               for s in range(n_slices)]
     dirs = [os.path.join(tmp, f"c5node{i}") for i in range(3)]
     idx_of = {h: i for i, h in enumerate(hosts)}
+    not_owned = {h: next(s for s in range(n_slices) if h not in owners[s])
+                 for h in hosts}
 
     # -- data: each slice's fragment files written once, as footered
     # roaring snapshots (a node rebuilds the count caches at open), into
@@ -3399,6 +3438,7 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
     del tasks
     import_s = time.perf_counter() - t0
     load_s = time.perf_counter() - t0
+    mark("data")
 
     def query(host, body, qs="", timeout=300.0):
         status, hdrs, out, ms = _request(host, "POST", f"/index/c5/query{qs}",
@@ -3418,8 +3458,27 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
                   f" the host reference: {str(got)[:200]} !="
                   f" {str(want)[:200]}")
 
+    n_bumps = [0]
+
+    def bump(host):
+        """A SetBit through ``host`` into a slice it does not own (frame
+        ``w``, which no read touches): the peers' generation tokens
+        change, so ``host``'s next read misses its cluster result
+        cache and runs the map-reduce again."""
+        n_bumps[0] += 1
+        query(host, f"SetBit(frame=w, rowID=3, columnID="
+                    f"{not_owned[host] * W + n_bumps[0]})")
+
+    def cache_hits(host) -> float:
+        return _family_sum(_scrape(host),
+                           "pilosa_executor_cluster_cache_requests_total",
+                           outcome="hit")
+
     def read_all(coords, label):
-        """Every query from every coordinator: (cold ms, warm p50 ms)."""
+        """Every query from every coordinator: the cold ms, the warm
+        p50 of ``warm_runs`` repeats (cluster result cache hits: one
+        /generations probe a peer) and the warm p50 of three runs each
+        after a ``bump`` (the map-reduce over warm legs)."""
         out = {}
         for host in coords:
             row = {}
@@ -3432,6 +3491,23 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
                     check(name, host, res, f"{label} warm")
                     warm.append(ms)
                 row[name] = {"cold_ms": cold, "warm_p50_ms": _median(warm)}
+                # The sourced TopN's uncached run repeats its host walk
+                # over 17 K candidates (seconds each): for the phase's
+                # limit its one uncached sample is the first read after
+                # the kill.
+                if name == "topn_src":
+                    continue
+                hits0 = cache_hits(host)
+                uncached = []
+                for _ in range(3):
+                    bump(host)
+                    res, ms, _ = query(host, body)
+                    check(name, host, res, f"{label} uncached")
+                    uncached.append(ms)
+                if cache_hits(host) != hits0:
+                    _fail(f"cluster: {name} from {host} hit the cluster"
+                          f" result cache after a write to a peer")
+                row[name]["uncached_p50_ms"] = _median(uncached)
             out[host] = row
         return out
 
@@ -3440,6 +3516,12 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
         return {peer: _family_sum(samples, "pilosa_cluster_rpc_seconds_count",
                                   peer=peer, kind="query")
                 for peer in hosts if peer != host}
+
+    def failovers(host) -> float:
+        """Slices ``host`` re-mapped onto another replica after a leg
+        failed: a peer's transport, query or device error alike."""
+        return _family_sum(_scrape(host),
+                           "pilosa_cluster_failover_slices_total")
 
     def remote_bits(host, frame, row, slice) -> set:
         body = codec.encode_query_request(
@@ -3453,7 +3535,6 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
         return set(bm.bits().tolist())
 
     procs = [None, None, None]
-    node_lines = []
     try:
         # -- pinned nodes (opening while the references compute), reads
         # from every coordinator -------------------------------------------
@@ -3493,15 +3574,16 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
         del data, fs
         ref_s = time.perf_counter() - t_ref
         up_s = _node_up(hosts, procs, 300, n_slices - 1)
+        mark("up")
         t0 = time.perf_counter()
         reads = read_all(hosts, "pinned")
         reads_s = time.perf_counter() - t0
+        mark("reads")
         # The pushdown's round trips: a write changes the tokens, so the
         # next TopN misses the cluster result cache and runs the
         # pushdown with the warm hint memo.
         coord = hosts[0]
-        slice_remote = next(s for s in range(n_slices)
-                            if coord not in owners[s])
+        slice_remote = not_owned[coord]
         query(coord, f"SetBit(frame=w, rowID=1, columnID="
                      f"{slice_remote * W + 1})")
         before = rpcs(coord)
@@ -3539,38 +3621,107 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
         by_slice: dict = {}
         for c in wcols:
             by_slice.setdefault(c // W, set()).add(c)
-        for s, cols in by_slice.items():
-            for host in owners[s]:
-                missing = cols - remote_bits(host, "w", 7, s)
-                if missing:
-                    _fail(f"cluster: acked SetBits missing on owner"
-                          f" {host} of slice {s}: {sorted(missing)[:5]}")
 
-        # -- failover: SIGKILL one node, read from a survivor --------------
-        victim = 2
+        def missing(task):
+            s, host = task
+            return s, host, by_slice[s] - remote_bits(host, "w", 7, s)
+
+        with ThreadPoolExecutor(8) as rp:
+            for s, host, lost in rp.map(missing, [(s, h) for s in by_slice
+                                                  for h in owners[s]]):
+                if lost:
+                    _fail(f"cluster: acked SetBits missing on owner"
+                          f" {host} of slice {s}: {sorted(lost)[:5]}")
+
+        mark("writes")
+
+        # -- failover: SIGKILL the peer that serves the coordinator's
+        # remote legs, read from the coordinator ---------------------------
+        # No node has re-mapped a slice so far: a peer's device or query
+        # error would have failed over to the other replica unseen.
+        for host in hosts:
+            if failovers(host):
+                _fail(f"cluster: {host} re-mapped slices before the kill")
+        victim_host = max(round_trips, key=round_trips.get)
+        if round_trips[victim_host] <= 0:
+            _fail(f"cluster: no peer served {coord}'s pushdown: "
+                  f"{round_trips}")
+        victim = idx_of[victim_host]
+        survivor = next(h for h in hosts if h not in (coord, victim_host))
+        victim_line = _node_counters(procs[victim], tmp, victim)
+        before = rpcs(coord)
+        breaker: dict = {}
+
+        def watch_breaker():
+            """Seconds from the kill until ``coord``'s breaker for the
+            victim reads open (2)."""
+            while time.perf_counter() - t_kill < 15:
+                if _family_sum(_scrape(coord), "pilosa_fault_breaker_state",
+                               peer=victim_host) == 2:
+                    breaker["open_s"] = time.perf_counter() - t_kill
+                    return
+                time.sleep(0.05)
+
         procs[victim].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        watcher = threading.Thread(target=watch_breaker, daemon=True)
+        watcher.start()
         procs[victim].wait(30)
         procs[victim].stdout.close()
         procs[victim] = None
-        failover = {}
+        kill_reaped_s = time.perf_counter() - t_kill
+        # Each first read after the kill misses the cluster result cache
+        # (the writes above changed its tokens) and fans out: a leg sent
+        # to the victim is refused and re-mapped onto the survivor,
+        # unless a failed max-slice poll (1 s) has already ranked the
+        # survivor first.
+        failover = {"victim": victim_host, "survivor": survivor,
+                    "kill_reaped_s": kill_reaped_s}
         for i, name in enumerate(queries):
             res, ms, _ = query(coord, queries[name][0])
             check(name, coord, res, "after SIGKILL")
             if i == 0:
                 failover["first_ms"] = ms
+                failover["first_failover_slices"] = failovers(coord)
+            failover[f"{name}_first_ms"] = ms
             warm = []
             for _ in range(warm_runs):
                 res, ms, _ = query(coord, queries[name][0])
                 check(name, coord, res, "after SIGKILL warm")
                 warm.append(ms)
             failover[f"{name}_warm_p50_ms"] = _median(warm)
+        after = rpcs(coord)
+        watcher.join()
+        failover["survivor_legs"] = after[survivor] - before[survivor]
+        failover["victim_health"] = _family_sum(
+            _scrape(coord), "pilosa_cluster_peer_health", peer=victim_host)
+        failover["failover_slices"] = failovers(coord)
+        failover["breaker_open_s"] = breaker.get("open_s")
+        if failover["survivor_legs"] <= 0:
+            _fail(f"cluster: the survivor {survivor} served no leg after"
+                  f" the kill: {failover}")
+        if (failover["failover_slices"] <= 0
+                and failover["victim_health"] >= 1.0):
+            _fail(f"cluster: {coord} did not see {victim_host} die:"
+                  f" {failover}")
+        if failover["breaker_open_s"] is None:
+            _fail(f"cluster: {coord}'s breaker for {victim_host} did not"
+                  f" open in 15 s")
+        mark("failover")
+        node_lines = _nodes_stop([p for p in procs if p is not None],
+                                 [h for h in hosts if h != victim_host])
+        node_lines.insert(victim, victim_line)
+        procs = [None, None, None]
+        mark("stopped")
 
-        # -- anti-entropy: restart the victim, make one replica diverge ----
-        procs[victim] = _node_proc(repo, tmp, victim, hosts[victim], hosts,
-                                   dirs[victim], True, device,
-                                   ("--anti-entropy.interval", "5s"))
-        restart_s = _node_up([hosts[victim]], [procs[victim]], 300,
-                             n_slices - 1)
+        # -- every node restarted without the pins, the victim with a 5 s
+        # anti-entropy interval; one replica made to diverge --------------
+        for i in range(3):
+            procs[i] = _node_proc(
+                repo, tmp, i, hosts[i], hosts, dirs[i], False, device,
+                ("--anti-entropy.interval", "5s") if i == victim else ())
+        restart_s = _node_up(hosts, procs, 300, n_slices - 1)
+        mark("restart")
         s_div = next(s for s in range(n_slices)
                      if hosts[victim] in owners[s])
         other = next(h for h in owners[s_div] if h != hosts[victim])
@@ -3589,41 +3740,35 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
                              f"&view=standard&slice={s_div}")
             return json.loads(out)["blocks"] if st == 200 else None
 
-        converge_s = None
-        while time.perf_counter() - t_div < 120:
-            a, b = blocks(other), blocks(hosts[victim])
-            if a is not None and a == b:
-                converge_s = time.perf_counter() - t_div
-                break
-            time.sleep(0.25)
-        if converge_s is None:
-            _fail("cluster: the replicas did not converge in 120 s")
-        for host in owners[s_div]:
-            if col not in remote_bits(host, "w", 9, s_div):
-                _fail(f"cluster: the diverged bit is missing on {host}")
-        # Every node, the restarted one too, answers again.
-        for host in hosts:
-            for name in ("counts", "topn_ids"):
-                res, _, _ = query(host, queries[name][0])
-                check(name, host, res, "after anti-entropy")
-        for i in range(3):
-            line = _node_stop(procs[i], hosts[i])
-            procs[i] = None
-            node_lines.append(line)
+        converged: dict = {}
+
+        def watch_sync():
+            """Seconds from the divergence until both owners' block
+            checksums of the fragment agree (polled in the background
+            while the reads below run)."""
+            while time.perf_counter() - t_div < 120:
+                a, b = blocks(other), blocks(hosts[victim])
+                if a is not None and a == b:
+                    converged["s"] = time.perf_counter() - t_div
+                    return
+                time.sleep(0.25)
+
+        syncw = threading.Thread(target=watch_sync, daemon=True)
+        syncw.start()
+        # The restarted victim answers again, as the coordinator.
+        for name in ("counts", "topn_ids"):
+            res, _, _ = query(victim_host, queries[name][0])
+            check(name, victim_host, res, "after the restart")
+        mark("reads_after_restart")
 
         # -- routed: the calibrated cost model must take the device leg ----
-        for i in range(3):
-            procs[i] = _node_proc(repo, tmp, i, hosts[i], hosts, dirs[i],
-                                  False, device)
-        _node_up(hosts, procs, 300, n_slices - 1)
         routed_q = ("Count(Intersect(Bitmap(rowID=1, frame=c),"
                     " Bitmap(rowID=2, frame=c)))")
-        # Calibration at first use, then a cold leg's second sighting;
-        # a write into a peer's slice before each run makes the cluster
-        # result cache miss, so every run fans out.
-        for k in range(3):
-            query(coord, f"SetBit(frame=w, rowID=2, columnID="
-                         f"{slice_remote * W + 100 + k})")
+        # A cold leg's second sighting at the latest; a write into a
+        # peer's slice before each run makes the cluster result cache
+        # miss, so every run fans out.
+        for _ in range(3):
+            bump(coord)
             st, _, raw, routed_ms = _request(
                 coord, "POST", "/index/c5/query?profile=1",
                 routed_q.encode())
@@ -3636,8 +3781,23 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
         routed = {leg["node"]: leg["devicePrograms"] for leg in legs}
         if len(legs) < 2 or any(v <= 0 for v in routed.values()):
             _fail(f"cluster: the routed Count took a host leg: {routed}")
-        routed_lines = [_node_stop(procs[i], hosts[i]) for i in range(3)]
+        # No slice re-mapped after the restart, on any node.
+        for host in hosts:
+            if failovers(host):
+                _fail(f"cluster: {host} re-mapped slices after the"
+                      f" restart")
+        mark("routed")
+        syncw.join()
+        converge_s = converged.get("s")
+        if converge_s is None:
+            _fail("cluster: the replicas did not converge in 120 s")
+        for host in owners[s_div]:
+            if col not in remote_bits(host, "w", 9, s_div):
+                _fail(f"cluster: the diverged bit is missing on {host}")
+        mark("converged")
+        routed_lines = _nodes_stop(procs, hosts)
         procs = [None, None, None]
+        mark("stopped_unpinned")
     finally:
         for p in procs:
             if p is not None:
@@ -3677,7 +3837,8 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
            "failover": failover, "restart_s": restart_s,
            "converge_s": converge_s, "routed_device_programs": routed,
            "routed_ms": routed_ms, "per_node": nodes,
-           "launches": launches, "card": _card(), "seconds": phase_s}
+           "launches": launches, "marks_s": marks, "card": _card(),
+           "seconds": phase_s}
     _emit(out)
     if device.type == "cuda" and phase_s > 180:
         _fail(f"cluster: the phase took {phase_s:.1f} s, over 180 s")
@@ -3689,7 +3850,9 @@ def _cluster_node(argv: list) -> None:
     code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
     the kernel phases' pins (``_pinned``) and, either way, no warmup (its
     launches would count). At exit it prints its launch counters and
-    peak device MiB on one ``cluster-node {...}`` line."""
+    peak device MiB on one ``cluster-node {...}`` line; on SIGUSR1 it
+    writes them to the file ``argv[1]``."""
+    import signal
     import torch
     if not torch.cuda.is_available() and "--device" not in argv:
         _fail("no CUDA device")
@@ -3697,8 +3860,20 @@ def _cluster_node(argv: list) -> None:
     from pilosa_tpu_torch.cli import commands
     from pilosa_tpu_torch.ops import cuda_kernels as ck
     from pilosa_tpu_torch.server import server as server_mod
-    pinned = argv[0] == "1"
+    pinned, counters_path = argv[0] == "1", argv[1]
     init = server_mod.Server.__init__
+
+    def counters() -> dict:
+        return {"launches": dict(ck.LAUNCHES),
+                "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
+                             if torch.cuda.is_available() else 0.0)}
+
+    def snapshot(signum, frame):
+        with open(counters_path + ".tmp", "w") as f:
+            json.dump(counters(), f)
+        os.replace(counters_path + ".tmp", counters_path)
+
+    signal.signal(signal.SIGUSR1, snapshot)
 
     def pinned_init(self, *a, **kw):
         kw["warmup"] = False
@@ -3707,11 +3882,8 @@ def _cluster_node(argv: list) -> None:
         init(self, *a, **kw)
 
     server_mod.Server.__init__ = pinned_init
-    rc = commands.main(argv[1:])
-    peak = (torch.cuda.max_memory_allocated() / 2**20
-            if torch.cuda.is_available() else 0.0)
-    print("cluster-node " + json.dumps({"launches": dict(ck.LAUNCHES),
-                                        "peak_mib": peak}), flush=True)
+    rc = commands.main(argv[2:])
+    print("cluster-node " + json.dumps(counters()), flush=True)
     sys.exit(rc)
 
 

@@ -169,8 +169,12 @@ _WRITE_CALLS = ("SetBit", "ClearBit", "SetFieldValue", "SetRowAttrs",
 
 # What fails a node leg and re-maps its slices onto replicas: the
 # transport's errors (ClientError, CircuitOpenError, connection errors)
-# and a peer's or this node's query errors. A device error is none of
-# these: it surfaces, as everywhere in the executor.
+# and a peer's or this node's query errors. A device error on this
+# node's own leg is none of these: it surfaces, as everywhere in the
+# executor. A peer's device error answers HTTP 500, which the client
+# raises as ClientError, so that leg re-maps like any failed peer (the
+# JAX package re-maps on every exception); the failover counter
+# (pilosa_cluster_failover_slices_total) is where it shows.
 _LEG_ERRORS = (PilosaError, OSError)
 
 

@@ -1,0 +1,183 @@
+"""The ``import`` and ``export`` verbs of both CLIs, on the CPU.
+
+The JAX CLI (``pilosa_tpu.cli``) drives one ``pilosa_tpu`` node; the
+port's CLI (``pilosa_tpu_torch.cli``) drives three port nodes in this
+process (``--cluster.type http``, replicas 2), so each slice's block
+goes to its two owners and the export reads each slice from one of
+them. The same seeded CSV files go to both:
+
+- bits without timestamps (the native parser's lane) and with them
+  (the per-row parser, which also fills the time views);
+- ``--field`` rows with negative values (the BSI value lane);
+- malformed files, each one error on a known row: both CLIs exit 1
+  with the same error text.
+
+Then every frame's view is exported through each CLI, and the CSV must
+be the same byte for byte.
+"""
+
+import io
+import json
+import socket
+import urllib.request
+
+import numpy as np
+import pytest
+
+from pilosa_tpu.cli import commands as jax_cli
+from pilosa_tpu.server.server import Server as JaxServer
+
+from pilosa_tpu_torch import SLICE_WIDTH
+from pilosa_tpu_torch.cli import commands as port_cli
+from pilosa_tpu_torch.cluster.topology import Cluster, Node
+from pilosa_tpu_torch.server.server import Server as PortServer
+
+N_SLICES = 5
+
+SCHEMA = (
+    ("/index/i", {}),
+    ("/index/i/frame/f", {}),
+    ("/index/i/frame/t", {"options": {"timeQuantum": "YMD"}}),
+    ("/index/i/frame/v", {"options": {"fields": [
+        {"name": "x", "min": -50, "max": 1000}]}}),
+    # The malformed files' frames, which the exports do not read.
+    ("/index/i/frame/m", {"options": {"timeQuantum": "YMD"}}),
+    ("/index/i/frame/n", {"options": {"fields": [
+        {"name": "x", "min": -50, "max": 1000}]}}),
+)
+
+# (file body, the error the import must end with); each file's good rows
+# come first, in the same chunk as the bad one. They go to frames ``m``
+# and ``n``.
+MALFORMED = (
+    ("1,2\n3,4\n5\n", "bad column count on row 3: col=1"),
+    ("1,2\n-3,4\n", "invalid row id on row 2: '-3'"),
+    ("1,2\n3,abc\n", "invalid column id on row 2: 'abc'"),
+    ("1,2\n3,18446744073709551616\n",
+     "invalid column id on row 2: '18446744073709551616'"),
+    ("1,2,2017-01-05T00:00\n3,4,yesterday\n",
+     "invalid timestamp on row 2: 'yesterday'"),
+)
+
+FIELD_MALFORMED = (
+    ("1,-5\n2,3,4\n", "bad column count on row 2: col=3"),
+    ("1,-5\n2,x\n", "invalid value on row 2: 'x'"),
+)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(host, path, body):
+    req = urllib.request.Request(f"http://{host}{path}",
+                                 data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        assert r.status == 200
+
+
+@pytest.fixture(scope="module")
+def servers(tmp_path_factory):
+    """(the JAX node's host, the port nodes' hosts)."""
+    tmp = tmp_path_factory.mktemp("cli_io")
+    js = JaxServer(str(tmp / "jax"), host="127.0.0.1:0",
+                   anti_entropy_interval=0, polling_interval=0)
+    js.open()
+    hosts = [f"127.0.0.1:{_free_port()}" for _ in range(3)]
+    ps = [PortServer(str(tmp / f"port{i}"), host=h, device="cpu",
+                     cluster=Cluster(nodes=[Node(x) for x in hosts],
+                                     replica_n=2),
+                     cluster_type="http", warmup=False,
+                     polling_interval=0, anti_entropy_interval=0)
+          for i, h in enumerate(hosts)]
+    for s in ps:
+        s.open()
+    try:
+        for path, body in SCHEMA:
+            _post(js.host, path, body)
+            _post(hosts[0], path, body)
+        yield js.host, hosts
+    finally:
+        for s in ps:
+            s.close()
+        js.close()
+
+
+def _run(cli, argv):
+    out, err = io.StringIO(), io.StringIO()
+    rc = cli.main(argv, stdout=out, stderr=err)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _write(tmp_path, name, text):
+    path = tmp_path / name
+    path.write_text(text)
+    return str(path)
+
+
+def _csv_files(tmp_path):
+    rng = np.random.default_rng(11)
+    n = 400
+    rows = rng.integers(0, 30, size=n)
+    cols = rng.integers(0, N_SLICES * SLICE_WIDTH, size=n)
+    bits = "".join(f"{r},{c}\n" for r, c in zip(rows, cols))
+    days = rng.integers(1, 28, size=60)
+    ts = "".join(f"{r},{c},2017-01-{d:02d}T{int(h):02d}:00\n"
+                 for r, c, d, h in zip(rows[:60], cols[:60], days,
+                                       rng.integers(0, 24, size=60)))
+    fcols = rng.choice(N_SLICES * SLICE_WIDTH, size=120, replace=False)
+    fvals = rng.integers(-50, 1001, size=120)
+    fields = "".join(f"{c},{v}\n" for c, v in zip(fcols, fvals))
+    assert (fvals < 0).any()
+    return (_write(tmp_path, "bits.csv", bits),
+            _write(tmp_path, "ts.csv", ts),
+            _write(tmp_path, "fields.csv", fields))
+
+
+def test_import_then_export_match_the_jax_cli(servers, tmp_path):
+    jax_host, hosts = servers
+    bits, ts, fields = _csv_files(tmp_path)
+    for cli, host in ((jax_cli, jax_host), (port_cli, hosts[1])):
+        for argv in (["import", "--host", host, "-i", "i", "-f", "f", bits],
+                     ["import", "--host", host, "-i", "i", "-f", "t", ts],
+                     ["import", "--host", host, "-i", "i", "-f", "v",
+                      "--field", "x", fields]):
+            rc, _, err = _run(cli, argv)
+            assert rc == 0, (cli.__name__, argv, err)
+    views = (("f", "standard"), ("t", "standard"), ("t", "standard_2017"),
+             ("t", "standard_201701"), ("t", "standard_20170105"),
+             ("v", "field_x"))
+    for frame, view in views:
+        want = _run(jax_cli, ["export", "--host", jax_host, "-i", "i",
+                              "-f", frame, "--view", view])
+        assert want[0] == 0 and want[1], (frame, view, want[2])
+        # From every port node as the one the CLI asks.
+        for host in hosts:
+            got = _run(port_cli, ["export", "--host", host, "-i", "i",
+                                  "-f", frame, "--view", view])
+            assert got[:2] == want[:2], (frame, view, host)
+
+
+@pytest.mark.parametrize("body,error", MALFORMED)
+def test_malformed_bits_fail_alike(servers, tmp_path, body, error):
+    jax_host, hosts = servers
+    path = _write(tmp_path, "bad.csv", body)
+    for cli, host in ((jax_cli, jax_host), (port_cli, hosts[0])):
+        rc, out, err = _run(cli, ["import", "--host", host, "-i", "i",
+                                  "-f", "m", path])
+        assert rc == 1 and out == ""
+        assert err.splitlines()[-1] == f"error: {error}", cli.__name__
+
+
+@pytest.mark.parametrize("body,error", FIELD_MALFORMED)
+def test_malformed_field_values_fail_alike(servers, tmp_path, body, error):
+    jax_host, hosts = servers
+    path = _write(tmp_path, "bad.csv", body)
+    for cli, host in ((jax_cli, jax_host), (port_cli, hosts[2])):
+        rc, out, err = _run(cli, ["import", "--host", host, "-i", "i",
+                                  "-f", "n", "--field", "x", path])
+        assert rc == 1 and out == ""
+        assert err.splitlines()[-1] == f"error: {error}", cli.__name__
