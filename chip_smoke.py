@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phase cluster|integrity]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs twelve phases and prints one JSON line for each:
+checkout, then runs thirteen phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -132,8 +132,10 @@ checkout, then runs twelve phases and prints one JSON line for each:
    connection (409, then a right Count and a right TopN), and twice at
    once (one 200, one 429 with Retry-After); a ``?trace=1`` Count whose
    trace holds ``mesh_dispatch`` spans and whose ``X-Pilosa-Stats``
-   reports kernel launches; and ``/metrics`` parsed, its request,
-   status and admission samples moved.
+   reports kernel launches; ``/metrics`` parsed, its request, status
+   and admission samples moved; and the tail sampler (on by default):
+   ``/debug/traces`` says ``"tail": true`` and the 504's trace is on
+   the disk ring (``?source=disk&reason=deadline``).
 10. ``durability``: the port's ``server`` verb as a subprocess on the
    card over a fresh directory, seeded by protobuf ``/import`` with
    configuration 4's rows over 256 slices, takes a write storm (8
@@ -161,36 +163,58 @@ checkout, then runs twelve phases and prints one JSON line for each:
    anti-entropy, and the routed Count on the device leg of every node.
    The nodes are this script's child mode (``--cluster-node``), whose
    launch counters come back on their exit lines.
-12. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+12. ``integrity``: storage integrity on three node processes of the
+   port on the card (``phase_integrity``, the same child mode, pinned,
+   replicas 2): configuration 4's ``smoke`` layout at 256 slices
+   written into each owner's directory; a clean start (every
+   coordinator's 16 Count(Bitmap) and 8 Count(Intersect) in one body
+   exact, nothing quarantined, a clean synchronous scrub, timed); bit
+   rot across a restart (5 seeded bytes flipped in every fragment file
+   of one stopped node: its open quarantines, Counts over random slice
+   ranges to all three nodes stay exact with none failed while the
+   repairer re-streams the fragments from the replicas, the quarantine
+   drains in 60 s, the repaired node's own leg answers exactly on its
+   kernels, a second restart is clean); a live scrub (the seeded
+   ``storage.read`` corrupt failpoint: detected, exact answers,
+   drained, a clean further pass); and disk full (``wal.append``
+   ENOSPC: a SetBit answers 507 with Retry-After, ``/debug/vars``
+   shows the latch, the retried SetBit acks once it clears and both
+   owners hold the bit). No slice re-maps in the clean and disk-full
+   steps, and only legs to the corrupted node in the others.
+13. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-The kernel phases (2-8, the reopen of 10 and the cluster's nodes until
-its routed pass) pin every device leg (``_pinned``:
-``mesh_min_slices=1`` and a cost model that vetoes nothing), as the
-tests pin it, so the calibrated routing cannot move their launches to
-the host. Every answer of phases 2-5 and 8 is held to the host roaring
-answer computed from the port's own fragments, every answer of phase 6
-to numpy, of phase 7 to numpy or to words packed on the host, of phases
-9 and 11 to host roaring, and every count of phase 12 to the host
-``popcnt_and``. The kernels' launch counters are set to 0 before phase
-2, before phase 6, before phase 7, before phase 8, before phase 9 and
-before phase 10's reopen, and read after phases 5, 6, 7, 8, 9, 10 and
-12 (each cluster node's from its own process, and every node that owns
-slices must have launched the expression count, densify and the TopN
-block count): every kernel must have launched on that main
-path, the TopN block count in phase 4's device top-k, the TopN block
-count, the expression count and densify in its sourced queries, the
-expression count (every device Count(Range)), its batched entry (every
-Sum) and densify in phase 6, the expression-words kernel, the batched
-count and the TopN block count in phase 7, again in the server phase
-by itself and again after phase 10's reopen, and the op count in
-phase 12. Then it prints the card's name and power limit, the kernel
-table as one JSON object, and as its last line
+The kernel phases (2-8, the reopen of 10, the cluster's nodes until its
+routed pass and the integrity phase's nodes) pin every device leg
+(``_pinned``: ``mesh_min_slices=1`` and a cost model that vetoes
+nothing), as the tests pin it, so the calibrated routing cannot move
+their launches to the host. Every answer of phases 2-5 and 8 is held to
+the host roaring answer computed from the port's own fragments, every
+answer of phase 6 to numpy, of phase 7 to numpy or to words packed on
+the host, of phases 9, 11 and 12 to host roaring or numpy, and every
+count of phase 13 to the host ``popcnt_and``. The kernels' launch
+counters are set to 0 before phase 2, before phase 6, before phase 7,
+before phase 8, before phase 9 and before phase 10's reopen, and read
+after phases 5 to 13 (each cluster node's from its
+own process, and every node that owns slices must have launched the
+expression count, densify and the TopN block count; the integrity
+phase's nodes the expression count and densify, the repaired node again
+after its repair): every kernel must have launched on that main path,
+the TopN block count in phase 4's device top-k, the TopN block count,
+the expression count and densify in its sourced queries, the expression
+count (every device Count(Range)), its batched entry (every Sum) and
+densify in phase 6, the expression-words kernel, the batched count and
+the TopN block count in phase 7, again in the server phase by itself and
+again after phase 10's reopen, and the op count in phase 13. Then it
+prints the card's name and power limit, the kernel table as one JSON
+object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
-prints no result.
+prints no result. ``--phase cluster`` or ``--phase integrity`` builds the
+kernels and runs that phase alone: its line and the card's name, no
+kernel table and no last line.
 """
 
 from __future__ import annotations
@@ -3027,6 +3051,19 @@ def _control_run(data_dir, device, n_requests, t_phase, card, cal_dir,
         _fail(f"control: deadline answered {status} {err!r}")
     deadline = {"status": status, "error": err, "answer_ms": ms,
                 "past_deadline_ms": ms - 100.0, "query_ms": slow_ms}
+    # Tail sampling (on by default): the deadline's trace is kept, and
+    # its record is on the disk ring under the reason "deadline".
+    st_t, _, body_t, _ = _request(host, "GET", "/debug/traces")
+    st_d, _, body_d, _ = _request(
+        host, "GET", "/debug/traces?source=disk&reason=deadline")
+    disk = json.loads(body_d) if st_d == 200 else {}
+    if (st_t != 200 or json.loads(body_t).get("tail") is not True
+            or disk.get("total", 0) < 1):
+        _fail(f"control: the deadline's trace is not on the disk ring:"
+              f" {st_t} {body_t[:200]!r} {st_d} {body_d[:300]!r}")
+    deadline["tail"] = True
+    deadline["disk_kept"] = disk["total"]
+    deadline["disk_ring"] = disk.get("disk")
 
     def in_flight(qid: str, within_s: float = 30.0) -> None:
         t_end = time.perf_counter() + within_s
@@ -3259,7 +3296,7 @@ class _FragSet:
 
 
 def _node_proc(repo, tmp, i, host, hosts, data_dir, pinned, device,
-               extra=()):
+               extra=(), env_extra=None):
     """One node of the cluster: this script's child mode, which runs
     the ``server`` verb's code with the pins (or without) and prints its
     launch counters and peak device memory at exit (and writes them to
@@ -3267,6 +3304,7 @@ def _node_proc(repo, tmp, i, host, hosts, data_dir, pinned, device,
     import subprocess
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = repo
+    env.update(env_extra or {})
     args = [sys.executable, os.path.abspath(__file__), "--cluster-node",
             "1" if pinned else "0", os.path.join(tmp, f"node{i}.counters"),
             "server", "-d", data_dir, "-b", host,
@@ -3281,9 +3319,9 @@ def _node_proc(repo, tmp, i, host, hosts, data_dir, pinned, device,
 
 
 def _node_up(hosts: list, procs: list, deadline_s: float,
-             max_slice: int) -> float:
+             max_slice: int, index: str = "c5") -> float:
     """Seconds until every node answers and knows every slice of
-    ``c5`` (its own fragments, then the peers' max slices from the
+    ``index`` (its own fragments, then the peers' max slices from the
     1 s poll)."""
     import urllib.request
     t0 = time.perf_counter()
@@ -3295,7 +3333,7 @@ def _node_up(hosts: list, procs: list, deadline_s: float,
                 with urllib.request.urlopen(f"http://{host}/slices/max",
                                             timeout=5) as r:
                     if json.loads(r.read())["maxSlices"].get(
-                            "c5", -1) >= max_slice:
+                            index, -1) >= max_slice:
                         break
             except OSError:
                 pass
@@ -3845,6 +3883,459 @@ def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
     return out
 
 
+# -- storage integrity on the static cluster ----------------------------------
+
+def _smoke_rows(rng, n_slices: int):
+    """Configuration 4's ``smoke`` layout (rows 1-8 at 1/64, 9-16 at
+    1/4096), made from ``rng``: (sorted positions of each slice, the
+    columns of each row in each slice)."""
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH as W
+    cols = {r: [] for r in range(1, 17)}
+    positions = []
+    for _ in range(n_slices):
+        parts = []
+        for r in range(1, 17):
+            c = np.unique(rng.integers(0, W, size=W // (64 if r <= 8
+                                                         else 4096),
+                                       dtype=np.uint64))
+            cols[r].append(c)
+            parts.append(np.uint64(r) * np.uint64(W) + c)
+        positions.append(np.concatenate(parts))
+    return positions, cols
+
+
+def phase_integrity(device, seed: int, tmp: str, n_slices: int = 256,
+                    n_flips: int = 5, drain_limit_s: float = 60.0) -> dict:
+    """Storage integrity on three node processes of the port on the card
+    (this script's child mode, pinned, replicas 2, a ``--cost.dir``
+    each, the scrubber unpaced so a pass times the verification alone,
+    the repairer's rescan at 1 s):
+    configuration 4's ``smoke`` layout at ``n_slices`` slices, written
+    into each owner's directory with the port's storage layer and
+    placement, every answer held to a host reference of those bits.
+
+    1. Clean start: every coordinator answers the 16 Count(Bitmap) and 8
+       Count(Intersect) pairs in one body; ``/debug/integrity`` lists
+       nothing; a synchronous scrub finds nothing, over at least the
+       node's owned fragments (its seconds and MiB/s).
+    2. Bit rot across a restart: one node stopped, ``n_flips`` seeded
+       bytes flipped in every fragment file it owns, restarted. Its open
+       quarantines (``/debug/integrity``, the detection counter); a
+       thread sends Counts over random slice ranges (so the coordinators'
+       cluster result caches miss) to all three nodes until the
+       repairer has drained the quarantine — every answer exact, none
+       failed — within ``drain_limit_s``; the repairs counter reaches
+       the quarantined count; the repaired node's own leg over its owned
+       slices (a remote leg, as a coordinator sends it) answers exactly
+       and its expression count and densify launch; a second restart
+       finds nothing quarantined.
+    3. Live scrub: ``storage.read`` ``corrupt(8)*1`` armed on another
+       node over ``/debug/failpoints``; a synchronous scrub reports it,
+       answers stay exact under the same load, the quarantine drains,
+       and a further pass is clean.
+    4. Disk full: ``wal.append`` ``enospc`` armed on the third node; a
+       SetBit into a slice it owns answers 507 with ``Retry-After``,
+       ``/debug/vars``' ``writeReady`` shows the latch; disarmed, the
+       retried SetBit acks once the latch's probe clears it, and both
+       owners read the bit back.
+
+    ``pilosa_cluster_failover_slices_total`` stays 0 on every node in
+    steps 1 and 4; in steps 2-3 only legs sent to the corrupted node
+    re-map (its 503 for a quarantined slice)."""
+    import random
+    import threading
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH as W
+    from pilosa_tpu_torch.cluster.topology import new_cluster
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.proto import internal as pb
+    from pilosa_tpu_torch.server import codec
+
+    t_phase = time.perf_counter()
+    marks: dict = {}
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t_phase
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    itmp = os.path.join(tmp, "integrity")
+    os.makedirs(itmp, exist_ok=True)
+    rng = np.random.default_rng(seed + 60)
+    hosts = [f"127.0.0.1:{_free_port()}" for _ in range(3)]
+    cl = new_cluster(hosts, replica_n=2)
+    owners = [[n.host for n in cl.fragment_nodes("smoke", s)]
+              for s in range(n_slices)]
+    owned = {h: [s for s in range(n_slices) if h in owners[s]]
+             for h in hosts}
+    dirs = [os.path.join(itmp, f"node{i}data") for i in range(3)]
+
+    def frag_path(i, s):
+        return os.path.join(dirs[i], "smoke", "f", "views", "standard",
+                            "fragments", str(s))
+
+    t0 = time.perf_counter()
+    for d in dirs:
+        h = Holder(d)
+        h.open()
+        h.create_index("smoke").create_frame("f") \
+            .create_view_if_not_exists("standard")
+        h.close()
+    positions, cols = _smoke_rows(rng, n_slices)
+    for s in range(n_slices):
+        _c5_write((positions[s], [frag_path(hosts.index(h), s)
+                                  for h in owners[s]]))
+    n_bits = int(sum(len(p) for p in positions))
+    del positions
+    pairs = [(2 * k + 1, 2 * k + 2) for k in range(8)]
+    inter = {p: [len(np.intersect1d(cols[p[0]][s], cols[p[1]][s],
+                                    assume_unique=True))
+                 for s in range(n_slices)] for p in pairs}
+    row_n = {r: [len(c) for c in cols[r]] for r in cols}
+    del cols
+
+    def want_for(slices) -> list:
+        return ([int(sum(row_n[r][s] for s in slices))
+                 for r in range(1, 17)]
+                + [int(sum(inter[p][s] for s in slices)) for p in pairs])
+
+    want = want_for(range(n_slices))
+    body = " ".join(
+        [f"Count(Bitmap(rowID={r}, frame=f))" for r in range(1, 17)]
+        + [f"Count(Intersect(Bitmap(rowID={a}, frame=f),"
+           f" Bitmap(rowID={b}, frame=f)))" for a, b in pairs])
+    data_s = time.perf_counter() - t0
+    mark("data")
+
+    def spawn(i):
+        # The scrubber unpaced (a pass times the verification alone) and
+        # the repairer's rescan at 1 s (default 15 s): an open-time
+        # quarantine waits for the first rescan, so the drain then times
+        # the re-stream and not the cadence.
+        return _node_proc(repo, itmp, i, hosts[i], hosts, dirs[i], True,
+                          device, env_extra={
+                              "PILOSA_SCRUB_PACE": "0s",
+                              "PILOSA_SCRUB_REPAIR_RESCAN": "1s"})
+
+    def query(host, q, qs=""):
+        st, _, out, ms = _request(host, "POST", f"/index/smoke/query{qs}",
+                                  q.encode(), timeout=300)
+        if st != 200:
+            _fail(f"integrity: {host} {q[:60]}: HTTP {st}: {out[:300]!r}")
+        return json.loads(out)["results"], ms
+
+    def get_json(host, path):
+        st, _, out, _ = _request(host, "GET", path)
+        if st != 200:
+            _fail(f"integrity: GET {path} on {host}: {st}")
+        return json.loads(out)
+
+    def post(host, path, payload=b""):
+        st, hd, out, ms = _request(host, "POST", path, payload)
+        if st != 200:
+            _fail(f"integrity: POST {path} on {host}: {st} {out[:200]!r}")
+        return json.loads(out), ms
+
+    def failovers(host, **labels) -> float:
+        return _family_sum(_scrape(host),
+                           "pilosa_cluster_failover_slices_total", **labels)
+
+    def metric(host, family, **labels) -> float:
+        return _family_sum(_scrape(host), family, **labels)
+
+    def only_to(node, label):
+        """Step ``label``'s re-maps: only legs sent to ``node``."""
+        for h in hosts:
+            other = failovers(h) - failovers(h, peer=node)
+            if other:
+                _fail(f"integrity: {h} re-mapped {other} slices of legs"
+                      f" to nodes other than {node} ({label})")
+
+    def drain(host, t_from) -> float:
+        while time.perf_counter() - t_from < drain_limit_s:
+            if not get_json(host, "/debug/integrity")["quarantined"]:
+                return time.perf_counter() - t_from
+            time.sleep(0.25)
+        _fail(f"integrity: the quarantine on {host} did not drain in"
+              f" {drain_limit_s} s: {get_json(host, '/debug/integrity')}")
+
+    lat: dict = {h: {} for h in hosts}
+    violations: list = []
+
+    class Load:
+        """Counts of one of rows 1-8 over a random slice range, to a
+        random node, until stopped; every answer checked."""
+
+        def __init__(self, label, k):
+            self.label, self.stop = label, threading.Event()
+            self.n = 0
+            self.lrng = random.Random(seed + k)
+            self.th = threading.Thread(target=self.run, daemon=True)
+            self.th.start()
+
+        def run(self):
+            while not self.stop.is_set():
+                h = hosts[self.lrng.randrange(3)]
+                r = 1 + self.lrng.randrange(8)
+                span = max(1, min(32, n_slices // 2))
+                lo = self.lrng.randrange(n_slices - span + 1)
+                hi = self.lrng.randrange(lo + span, n_slices + 1)
+                qs = "?slices=" + ",".join(map(str, range(lo, hi)))
+                st, _, out, ms = _request(
+                    h, "POST", f"/index/smoke/query{qs}",
+                    f"Count(Bitmap(rowID={r}, frame=f))".encode(),
+                    timeout=120)
+                got = json.loads(out).get("results") if st == 200 else None
+                exp = [int(sum(row_n[r][lo:hi]))]
+                if got != exp:
+                    violations.append((self.label, h, r, lo, hi, st,
+                                       got, exp, out[:160]))
+                    continue
+                self.n += 1
+                lat[h].setdefault(self.label, []).append(ms)
+
+        def end(self):
+            self.stop.set()
+            self.th.join(180)
+            if violations:
+                _fail(f"integrity: {len(violations)} wrong or failed"
+                      f" answers ({self.label}): {violations[:3]}")
+            if not self.n:
+                _fail(f"integrity: no Count answered ({self.label})")
+            return self.n
+
+    procs = [None, None, None]
+    lines = []
+    try:
+        # -- 1. clean start ---------------------------------------------------
+        t0 = time.perf_counter()
+        for i in range(3):
+            procs[i] = spawn(i)
+        up_s = _node_up(hosts, procs, 300, n_slices - 1, "smoke")
+        mark("spawn")
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(3) as pool:
+            cold = dict(zip(hosts, pool.map(lambda h: query(h, body),
+                                            hosts)))
+        cold_ms = {}
+        for h, (res, cold_ms[h]) in cold.items():
+            if res != want:
+                _fail(f"integrity: {h} clean: {res} != {want}")
+        scrub = {}
+        for i, h in enumerate(hosts):
+            if get_json(h, "/debug/integrity")["quarantined"]:
+                _fail(f"integrity: {h} quarantined at a clean start")
+            out, ms = post(h, "/debug/integrity/scrub?sync=1")
+            if out["corrupt"] != 0 or out["fragments"] < len(owned[h]):
+                _fail(f"integrity: clean scrub on {h}: {out}")
+            mib = sum(os.path.getsize(frag_path(i, s))
+                      for s in owned[h]) / 2**20
+            scrub[h] = {"fragments": out["fragments"],
+                        "blocks": out["blocks"], "mib": mib,
+                        "seconds": out["seconds"], "request_ms": ms,
+                        "mib_per_s": (mib / out["seconds"]
+                                      if out["seconds"] else None)}
+        for h in hosts:
+            if failovers(h):
+                _fail(f"integrity: {h} re-mapped slices at a clean start")
+        mark("clean")
+
+        # -- 2. bit rot across a restart --------------------------------------
+        victim = 1
+        vh = hosts[victim]
+        lines += _nodes_stop([procs[victim]], [vh])
+        procs[victim] = None
+        frng = random.Random(seed + 61)
+        for s in owned[vh]:
+            path = frag_path(victim, s)
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                for _ in range(n_flips):
+                    off = frng.randrange(size)
+                    f.seek(off)
+                    b = f.read(1)[0]
+                    f.seek(off)
+                    f.write(bytes([b ^ (1 << frng.randrange(8))]))
+        t_spawn = time.perf_counter()
+        procs[victim] = spawn(victim)
+        restart_corrupt_s = _node_up([vh], [procs[victim]], 300,
+                                     n_slices - 1, "smoke")
+        t_ready = time.perf_counter()
+        n_q = len(get_json(vh, "/debug/integrity")["quarantined"])
+        detected = metric(vh, "pilosa_storage_corruption_detected_total")
+        if not n_q or detected < 1:
+            _fail(f"integrity: the restart quarantined {n_q} fragments,"
+                  f" detected {detected}")
+        counters0 = _node_counters(procs[victim], itmp, victim)
+        load = Load("quarantine", 62)
+        drained_s = drain(vh, t_ready)
+        load.label = "after"
+        time.sleep(2.0)
+        n_load = load.end()
+        repaired = metric(vh, "pilosa_storage_repairs_total",
+                          outcome="repaired")
+        if repaired < n_q:
+            _fail(f"integrity: {repaired} repairs for {n_q} quarantined")
+        leg = codec.encode_query_request(body, owned[vh], remote=True)
+        st, _, out, leg_ms = _request(vh, "POST", "/index/smoke/query", leg,
+                                      {"Content-Type": _PB, "Accept": _PB})
+        got = (codec.decode_query_results(pb.QueryResponse.FromString(out),
+                                          ["Count"] * len(want))
+               if st == 200 else None)
+        if got != want_for(owned[vh]):
+            _fail(f"integrity: the repaired node's leg: {st} {got}")
+        counters1 = _node_counters(procs[victim], itmp, victim)
+        for k in ("expr_count_rows", "densify"):
+            if counters1["launches"][k] <= counters0["launches"][k]:
+                _fail(f"integrity: {k} did not launch on the repaired"
+                      f" node: {counters0} → {counters1}")
+        only_to(vh, "bit rot")
+        mark("bit_rot")
+        lines += _nodes_stop([procs[victim]], [vh])
+        procs[victim] = None
+        procs[victim] = spawn(victim)
+        restart_clean_s = _node_up([vh], [procs[victim]], 300,
+                                   n_slices - 1, "smoke")
+        if get_json(vh, "/debug/integrity")["quarantined"]:
+            _fail("integrity: a repaired fragment quarantined again at"
+                  " the next restart")
+        res, _ = query(vh, body)
+        if res != want:
+            _fail(f"integrity: after the clean restart: {res} != {want}")
+        mark("clean_restart")
+
+        # -- 3. live scrub ----------------------------------------------------
+        ch = hosts[2]
+        fo0 = {h: failovers(h) - failovers(h, peer=ch) for h in hosts}
+        post(ch, "/debug/failpoints", json.dumps(
+            {"site": "storage.read", "spec": "corrupt(8)*1"}).encode())
+        load = Load("live", 63)
+        t0 = time.perf_counter()
+        out, live_scrub_ms = post(ch, "/debug/integrity/scrub?sync=1")
+        if out["corrupt"] < 1:
+            _fail(f"integrity: the armed scrub found nothing: {out}")
+        live = {"corrupt": out["corrupt"], "scrub_ms": live_scrub_ms,
+                "drained_s": drain(ch, t0)}
+        n_load += load.end()
+        if metric(ch, "pilosa_storage_corruption_detected_total") < 1:
+            _fail("integrity: no detection counted on the scrubbed node")
+        again, _ = post(ch, "/debug/integrity/scrub?sync=1")
+        if again["corrupt"]:
+            _fail(f"integrity: a further scrub found {again}")
+        for h in hosts:
+            res, _ = query(h, body)
+            if res != want:
+                _fail(f"integrity: {h} after the live scrub: {res}")
+            if failovers(h) - failovers(h, peer=ch) != fo0[h]:
+                _fail(f"integrity: {h} re-mapped slices of legs to nodes"
+                      f" other than {ch} (live scrub)")
+        mark("live_scrub")
+
+        # -- 4. disk full -----------------------------------------------------
+        ah = hosts[0]
+        fo0 = {h: failovers(h) for h in hosts}
+        s_w = owned[ah][0]
+        col = s_w * W + 4242
+        setbit = f"SetBit(frame=f, rowID=30, columnID={col})".encode()
+        post(ah, "/debug/failpoints", json.dumps(
+            {"site": "wal.append", "spec": "enospc"}).encode())
+        st, hd, out, ms_507 = _request(ah, "POST", "/index/smoke/query",
+                                       setbit)
+        retry_after = hd.get("Retry-After")
+        if st != 507 or not retry_after:
+            _fail(f"integrity: SetBit under ENOSPC answered {st}"
+                  f" (Retry-After {retry_after!r}): {out[:200]!r}")
+        latch = get_json(ah, "/debug/vars")["writeReady"]
+        if latch["writeReady"] or latch["site"] != "wal.append":
+            _fail(f"integrity: /debug/vars writeReady {latch}")
+        events = metric(ah, "pilosa_storage_enospc_events_total")
+        post(ah, "/debug/failpoints", json.dumps(
+            {"site": "wal.append", "spec": "off"}).encode())
+        t0 = time.perf_counter()
+        statuses = []
+        while True:
+            st, _, out, _ = _request(ah, "POST", "/index/smoke/query",
+                                     setbit)
+            statuses.append(st)
+            if st == 200:
+                break
+            if st != 507 or time.perf_counter() - t0 > 15:
+                _fail(f"integrity: the retried SetBit answered {st}"
+                      f" {out[:200]!r}")
+            time.sleep(0.25)
+        write_ready_s = time.perf_counter() - t0
+        for owner in owners[s_w]:
+            q = codec.encode_query_request("Bitmap(rowID=30, frame=f)",
+                                           [s_w], remote=True)
+            st, _, out, _ = _request(owner, "POST", "/index/smoke/query",
+                                     q, {"Content-Type": _PB,
+                                         "Accept": _PB})
+            bm = codec.decode_query_results(
+                pb.QueryResponse.FromString(out), ["Bitmap"])[0] \
+                if st == 200 else None
+            if bm is None or col not in set(bm.bits().tolist()):
+                _fail(f"integrity: the acked bit is missing on {owner}")
+        if not get_json(ah, "/debug/vars")["writeReady"]["writeReady"]:
+            _fail("integrity: the node stayed write-unready")
+        for h in hosts:
+            if failovers(h) != fo0[h]:
+                _fail(f"integrity: {h} re-mapped slices in the disk-full"
+                      " step")
+        mark("disk_full")
+        lines += _nodes_stop(procs, hosts)
+        procs = [None, None, None]
+        mark("stopped")
+    finally:
+        for p in procs:
+            if p is not None:
+                p.kill()
+                p.communicate()
+    launches: dict = {}
+    for line in lines:
+        for k, v in line["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # lines: the victim's two stops, then the three nodes at the end.
+    peak = {h: lines[2 + i]["peak_mib"] for i, h in enumerate(hosts)}
+    peak[vh] = max(peak[vh], lines[0]["peak_mib"], lines[1]["peak_mib"])
+    for name in ("expr_count_rows", "densify"):
+        if launches.get(name, 0) <= 0:
+            _fail(f"integrity: {name} did not launch on the nodes")
+
+    def p50(h, label):
+        v = lat[h].get(label)
+        return _median(v) if v else None
+
+    phase_s = time.perf_counter() - t_phase
+    out = {"phase": "integrity", "config": "BASELINE configuration 4",
+           "nodes": 3, "replicas": 2, "slices": n_slices, "bits": n_bits,
+           "owned_slices": {h: len(owned[h]) for h in hosts},
+           "data_s": data_s, "spawn_s": up_s, "cold_ms": cold_ms,
+           "scrub": scrub,
+           "restart_to_ready_s": {"corrupted": restart_corrupt_s,
+                                  "clean": restart_clean_s,
+                                  "spawn_to_quarantined_s":
+                                  t_ready - t_spawn},
+           "quarantined": n_q, "detected": detected,
+           "quarantine_to_drained_s": drained_s, "repaired": repaired,
+           "count_p50_ms": {h: {"quarantine": p50(h, "quarantine"),
+                                "after": p50(h, "after"),
+                                "live_scrub": p50(h, "live")}
+                            for h in hosts},
+           "load_answers": n_load, "repaired_leg_ms": leg_ms,
+           "live_scrub": live,
+           "disk_full": {"status": 507, "ms": ms_507,
+                         "retry_after": retry_after, "latch": latch,
+                         "enospc_events": events,
+                         "retries": statuses,
+                         "write_ready_s": write_ready_s},
+           "launches": launches, "peak_mib": peak, "marks_s": marks,
+           "card": _card(), "seconds": phase_s}
+    _emit(out)
+    if device.type == "cuda" and phase_s > 150:
+        _fail(f"integrity: the phase took {phase_s:.1f} s, over 150 s")
+    return out
+
+
 def _cluster_node(argv: list) -> None:
     """Child mode of ``phase_cluster``: one node, the ``server`` verb's
     code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
@@ -3921,6 +4412,10 @@ def main() -> None:
         return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=("cluster", "integrity"),
+                    help="build the kernels and run this one phase"
+                         " alone (its line only: no kernel table, no"
+                         " last line)")
     args = ap.parse_args()
 
     import torch
@@ -3942,6 +4437,12 @@ def main() -> None:
     build.libraries()
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "torch": torch.__version__, "cuda": torch.version.cuda})
+    if args.phase:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            {"cluster": phase_cluster, "integrity": phase_integrity}[
+                args.phase](device, args.seed, tmp)
+        print(f"nvidia-smi: {_card()}", flush=True)
+        return
 
     table = phase_kernels(device, args.seed)
     ck.reset_launches()
@@ -3987,6 +4488,9 @@ def main() -> None:
         # The cluster's nodes are processes of their own: their counters
         # come back on their exit lines.
         for name, n in phase_cluster(device, args.seed, tmp)[
+                "launches"].items():
+            launches[name] += n
+        for name, n in phase_integrity(device, args.seed, tmp)[
                 "launches"].items():
             launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]

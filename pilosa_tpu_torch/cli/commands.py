@@ -8,10 +8,19 @@ Trimmed copy of the JAX package's ``cli/commands.py`` (reference ctl/):
   static cluster: ``--cluster.hosts a,b,c`` (this node's ``--bind``
   among them), ``--cluster.replicas``, ``--cluster.type static|http``
   (``gossip`` is refused until the gossip slice),
-  ``--cluster.poll-interval`` and ``--anti-entropy.interval``;
+  ``--cluster.poll-interval``, ``--anti-entropy.interval`` and
+  ``--trace.tail``; the ``PILOSA_TRACE_*`` and ``PILOSA_SCRUB_*``
+  environment keys set the tail sampler and the storage scrubber and
+  repairer, as in the JAX package;
 - ``import`` (CSV ``row,col[,timestamp]`` bits, or ``column,value``
   with ``--field``) and ``export`` (CSV of every slice), both through
-  the cluster client, to every owner of each slice.
+  the cluster client, to every owner of each slice;
+- ``check`` (offline consistency check of fragment files, ``.cache``
+  sidecars and ``.snapshotting`` leftovers; ``--deep`` is the offline
+  storage scrub over data directories and files) and ``inspect`` (a
+  fragment file's container and checksum summary), whose output is the
+  JAX CLI's byte for byte. ``check --deep`` exits 2 on a blob-tier stub
+  and on ``--archive``, which wait for the tier and backup slices.
 
 The TOML config file and the other verbs wait for later slices.
 """
@@ -21,6 +30,7 @@ from __future__ import annotations
 import argparse
 import csv
 import datetime as dt
+import mmap
 import os
 import signal
 import sys
@@ -43,7 +53,8 @@ def cmd_server(args, stdout, stderr) -> int:
     WAL close); an acked write survives SIGKILL too, through the WAL."""
     from ..server.server import Server
     from ..utils import logger as logger_mod
-    from ..utils.config import QueryConfig
+    from ..utils.config import (QueryConfig, ScrubConfig, TraceConfig,
+                                apply_env, parse_bool)
 
     from ..cluster.topology import Cluster, Node
 
@@ -69,6 +80,10 @@ def cmd_server(args, stdout, stderr) -> int:
         cfg.polling_interval = args.cluster_poll_interval
     if args.anti_entropy_interval is not None:
         cfg.anti_entropy_interval = args.anti_entropy_interval
+    trace, scrub = TraceConfig(), ScrubConfig()
+    apply_env(trace, scrub, os.environ)
+    if args.trace_tail is not None:
+        trace.tail = parse_bool(args.trace_tail)
     if cfg.type == "gossip":
         raise PilosaError("--cluster.type gossip is not available in this"
                           " package yet: use static or http with"
@@ -85,7 +100,8 @@ def cmd_server(args, stdout, stderr) -> int:
                              if args.cost_dir else None),
                     cluster=cluster, cluster_type=cfg.type,
                     polling_interval=cfg.polling_interval,
-                    anti_entropy_interval=cfg.anti_entropy_interval)
+                    anti_entropy_interval=cfg.anti_entropy_interval,
+                    trace_config=trace, scrub_config=scrub)
     server.open()
 
     def stop(signum, frame):
@@ -269,6 +285,178 @@ def cmd_export(args, stdout, stderr) -> int:
     return 0
 
 
+def _mmap_bitmap(path: str):
+    from ..storage import roaring
+    with open(path, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, prot=mmap.PROT_READ)
+    return roaring.Bitmap.unmarshal(mm, mapped=True), mm
+
+
+def _fragment_files(path: str) -> list[str]:
+    """Fragment data files under a data dir (or the path itself when
+    it IS a file): numeric names inside a ``fragments`` directory —
+    the holder layout <index>/<frame>/views/<view>/fragments/<slice>."""
+    if not os.path.isdir(path):
+        return [path]
+    out = []
+    for root, _dirs, files in os.walk(path):
+        if os.path.basename(root) != "fragments":
+            continue
+        for name in sorted(files):
+            if name.isdigit():
+                out.append(os.path.join(root, name))
+    return out
+
+
+def _blob_stubs(path: str) -> list[str]:
+    """``<slice>.blob`` stub files under a data dir — fragments whose
+    bytes live in the JAX package's blob tier."""
+    if not os.path.isdir(path):
+        return [path] if path.endswith(".blob") else []
+    out = []
+    for root, _dirs, files in os.walk(path):
+        if os.path.basename(root) != "fragments":
+            continue
+        for name in sorted(files):
+            if name.endswith(".blob") and name[:-5].isdigit():
+                out.append(os.path.join(root, name))
+    return out
+
+
+def _check_deep(args, stdout, stderr) -> int:
+    """Offline storage scrub (the CLI face of storage.scrub): verify
+    every snapshot footer (per-block crc32 table + whole-body digest)
+    and WAL-tail FNV checksums under the given data dirs / files, one
+    verdict line per fragment; nonzero exit on ANY corruption.
+    ``.corrupt`` aside files (quarantine forensics / pending-repair
+    sentinels) are reported too. A blob-tier stub has no local bytes to
+    verify: that lane waits for the tier slice, and the verb exits 2."""
+    from ..storage import scrub as scrub_mod
+    stubs = [s for path in args.paths for s in _blob_stubs(path)]
+    if stubs:
+        print(f"check --deep: {stubs[0]}: blob-tier fragments are not"
+              " available in this package yet (the tier slice)",
+              file=stderr)
+        return 2
+    rc = 0
+    n = corrupt = vintage = 0
+    for path in args.paths:
+        files = _fragment_files(path)
+        if not files:
+            print(f"{path}: no fragment files found", file=stdout)
+        for f in files:
+            n += 1
+            v = scrub_mod.scrub_file(f)
+            if v.get("corrupt"):
+                corrupt += 1
+                rc = 1
+                print(f"{f}: CORRUPT: {v.get('error')}", file=stdout)
+            else:
+                cov = v.get("coverage")
+                if cov != "full":
+                    vintage += 1
+                extra = ""
+                if v.get("walTornBytes"):
+                    extra = (f", torn tail {v['walTornBytes']}B"
+                             " (trimmed on next open)")
+                print(f"{f}: ok ({cov} coverage,"
+                      f" {v.get('blocks', 0)} blocks,"
+                      f" {v.get('walRecords', 0)} wal records{extra})",
+                      file=stdout)
+            if os.path.exists(f + ".corrupt"):
+                print(f"{f}.corrupt: quarantine forensics present"
+                      f" (fragment pending repair)", file=stdout)
+    print(f"checked {n} fragments: {corrupt} corrupt,"
+          f" {vintage} without footers", file=stdout)
+    return rc
+
+
+def cmd_check(args, stdout, stderr) -> int:
+    """Offline consistency check of fragment files (ctl/check.go:46-113):
+    ``Bitmap.check()`` validates every container kind, the run
+    invariants included. ``--deep`` runs the offline storage scrub
+    (footer + WAL checksums) and accepts whole data DIRS; ``--archive``
+    (a backup archive) waits for the backup slice and exits 2."""
+    from ..proto import internal as pb
+    if args.deep:
+        if args.archive:
+            print("check --deep --archive: backup archives are not"
+                  " available in this package yet (the backup slice)",
+                  file=stderr)
+            return 2
+        return _check_deep(args, stdout, stderr)
+    if not args.paths:
+        print("check: paths required (or --deep --archive)",
+              file=stderr)
+        return 1
+    rc = 0
+    for path in args.paths:
+        if path.endswith(".cache"):
+            try:
+                with open(path, "rb") as f:
+                    pb.Cache.FromString(f.read())
+                print(f"{path}: ok", file=stdout)
+            except pb.DecodeError:
+                # The protobuf runtime's text, as the JAX CLI prints it.
+                print(f"{path}: Error parsing message with type"
+                      " 'internal.Cache'", file=stdout)
+                rc = 1
+            except Exception as e:  # noqa: BLE001 - reported per file
+                print(f"{path}: {e}", file=stdout)
+                rc = 1
+            continue
+        if path.endswith(".snapshotting"):
+            print(f"{path}: snapshot file found (incomplete snapshot)",
+                  file=stdout)
+            continue
+        try:
+            bm, mm = _mmap_bitmap(path)
+            bm.check()
+            bm.unmap()
+            print(f"{path}: ok", file=stdout)
+        except Exception as e:  # noqa: BLE001 - reported per file
+            print(f"{path}: {e}", file=stdout)
+            rc = 1
+    return rc
+
+
+def cmd_inspect(args, stdout, stderr) -> int:
+    """Container stats dump (ctl/inspect.go:48-105) with the per-kind
+    summary (counts, run intervals, resident bytes) and the checksum
+    coverage of the integrity footer."""
+    bm, mm = _mmap_bitmap(args.path)
+    stats = bm.container_stats()
+    print("== Bitmap Info ==", file=stdout)
+    print(f"Containers: {len(bm.containers)}", file=stdout)
+    print(f"Operations: {bm.op_n}", file=stdout)
+    footer = bm.footer
+    if footer is not None:
+        print(f"Checksums: footer v{footer.version}"
+              f" ({footer.block_n} block crc32s,"
+              f" {footer.body_len} body bytes covered)", file=stdout)
+    else:
+        print("Checksums: none (vintage snapshot — scrub blind;"
+              " rewritten with a footer on next snapshot)",
+              file=stdout)
+    print("", file=stdout)
+    print("== Container Types ==", file=stdout)
+    print(f"{'TYPE':>6} {'COUNT':>8} {'INTERVALS':>10} {'BYTES':>10}",
+          file=stdout)
+    for kind in ("array", "bitmap", "run"):
+        ivals = stats["intervals"].get(kind, 0)
+        print(f"{kind:>6} {stats['counts'][kind]:>8}"
+              f" {ivals:>10} {stats['bytes'][kind]:>10}", file=stdout)
+    print("", file=stdout)
+    print("== Containers ==", file=stdout)
+    print(f"{'KEY':>12} {'TYPE':>6} {'N':>8} {'RUNS':>6}", file=stdout)
+    for key, c in zip(bm.keys, bm.containers):
+        n_runs = ((len(c.runs) - 1) >> 1) if c.runs is not None else 0
+        print(f"{int(key):>12} {c.kind():>6} {c.n:>8} {n_runs:>6}",
+              file=stdout)
+    bm.unmap()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .. import __version__
     p = argparse.ArgumentParser(
@@ -324,6 +512,10 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="anti_entropy_interval", type=parse_duration,
                    default=None, metavar="DUR",
                    help="block sync between replica owners (default 10m)")
+    s.add_argument("--trace.tail", dest="trace_tail", default=None,
+                   help="tail-sampled tracing: every query buffers"
+                        " spans; slow/errored/faulted ones persist"
+                        " (default true)")
     s.set_defaults(fn=cmd_server)
 
     def client_cmd(name, help, fn):
@@ -341,6 +533,22 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("paths", nargs="+", help="CSV files ('-' for stdin)")
     c = client_cmd("export", "export a frame's view as CSV", cmd_export)
     c.add_argument("--view", default="standard")
+
+    c = sub.add_parser("check", help="consistency-check fragment files")
+    c.add_argument("paths", nargs="*")
+    c.add_argument("--deep", action="store_true",
+                   help="offline storage scrub: verify snapshot"
+                        " footers (block crc32s + body digest) and"
+                        " WAL-tail checksums; accepts data DIRS;"
+                        " nonzero exit on corruption")
+    c.add_argument("--archive", default="",
+                   help="with --deep: walk an offline backup archive"
+                        " (not available in this package yet)")
+    c.set_defaults(fn=cmd_check)
+
+    c = sub.add_parser("inspect", help="dump container stats of a file")
+    c.add_argument("path")
+    c.set_defaults(fn=cmd_inspect)
     return p
 
 

@@ -167,15 +167,6 @@ MIN_THRESHOLD = 1
 _WRITE_CALLS = ("SetBit", "ClearBit", "SetFieldValue", "SetRowAttrs",
                 "SetColumnAttrs")
 
-# What fails a node leg and re-maps its slices onto replicas: the
-# transport's errors (ClientError, CircuitOpenError, connection errors)
-# and a peer's or this node's query errors. A device error on this
-# node's own leg is none of these: it surfaces, as everywhere in the
-# executor. A peer's device error answers HTTP 500, which the client
-# raises as ClientError, so that leg re-maps like any failed peer (the
-# JAX package re-maps on every exception); the failover counter
-# (pilosa_cluster_failover_slices_total) is where it shows.
-_LEG_ERRORS = (PilosaError, OSError)
 
 
 @dataclass
@@ -449,6 +440,8 @@ class Executor:
         slices = slices or []
         if _has_only_set_row_attrs(query.calls):
             return self._execute_bulk_set_row_attrs(index, query.calls, opt)
+        if opt.remote and slices and needs:
+            self._refuse_quarantined(index, slices)
         plan_rec = None
         if slices and needs:
             query, plan_rec = self._maybe_plan(index, query, slices, opt)
@@ -1710,6 +1703,12 @@ class Executor:
                         for s in slices):
                     raise PilosaError(
                         "Tanimoto Threshold is from 1 to 100 only")
+                if self._fans_out(index, slices, opt):
+                    # The JAX package places the legs before each finds
+                    # the source empty: a slice with no trustworthy copy
+                    # left (a quarantine, no replica) fails the same.
+                    self._slices_by_node(list(self.cluster.nodes), index,
+                                         slices)
                 return []
             if self._compile_device_expr(index, src, []) is None:
                 # Malformed, a Range the host answers (an empty time
@@ -2386,7 +2385,7 @@ class Executor:
         for f in futs:
             try:
                 f.result()
-            except _LEG_ERRORS as e:
+            except Exception as e:  # noqa: BLE001 - collected, re-raised
                 errs.append(e)
         if errs:
             raise errs[0]
@@ -2449,8 +2448,7 @@ class Executor:
             merged = self._topn_pushdown_merge(index, c, legs, opt)
         except (QueryDeadlineError, QueryCancelledError):
             raise
-        except _LEG_ERRORS:
-            # The fan-out path owns failures.
+        except Exception:  # noqa: BLE001 - the fan-out path owns failures
             obs_metrics.TOPN_PUSHDOWN.labels("fallback").inc()
             return None
         obs_metrics.TOPN_PUSHDOWN.labels("merged").inc()
@@ -2519,10 +2517,19 @@ class Executor:
                         r = fut.result()
                     except (QueryDeadlineError, QueryCancelledError):
                         raise
-                    except _LEG_ERRORS as e:  # re-map onto replicas
+                    except Exception as e:  # noqa: BLE001 - re-map
+                        # Any leg failure but the query's own deadline
+                        # or cancel re-maps onto the replicas: a peer's
+                        # transport or query error, and this node's
+                        # own leg too (a device error, a corrupt
+                        # fragment), as in the JAX package.
                         nodes = [x for x in nodes if x is not node]
                         obs_metrics.FAILOVER_SLICES.labels(
                             node.host or "local").inc(len(group))
+                        if ctx is not None:
+                            # Tail sampling: a failover leg is keep-
+                            # worthy evidence (obs.sampler "breaker").
+                            ctx.note_flag("failover")
                         try:
                             submit(nodes, group)
                         except SliceUnavailableError:
@@ -2606,6 +2613,11 @@ class Executor:
         batch, the single-pass TopN, the device top-k, the result cache,
         the planner's proofs). Writes go to every replica owner, so an
         owned slice's local fragment tracks every write."""
+        if self._quarantine_blocks(index, slices):
+            # Storage integrity: a quarantined local copy (corrupt, or
+            # its fresh replacement awaiting repair) never claims a
+            # fast path.
+            return False
         if len(self.cluster.nodes) == 1 and self.cluster.resize is None:
             return True
         allowed = self.cluster.read_allowed
@@ -2619,7 +2631,27 @@ class Executor:
         first where a fault manager orders the owners, as a server's
         does)."""
         return (opt is not None and not opt.remote and bool(slices)
-                and len(self.cluster.nodes) > 1)
+                and (len(self.cluster.nodes) > 1
+                     or self._quarantine_blocks(index, slices)))
+
+    def _quarantine_blocks(self, index: str, slices: list[int]) -> bool:
+        """Does this node hold a quarantined fragment of a slice in
+        ``slices`` (storage.integrity)? One len() check when none is
+        quarantined."""
+        q = getattr(self.holder, "quarantine", None)
+        return (q is not None and len(q) > 0
+                and any(q.slice_blocked(index, s) for s in slices))
+
+    def _refuse_quarantined(self, index: str, slices: list[int]) -> None:
+        """A coordinator's leg over a slice whose local copy is
+        quarantined fails with SliceUnavailableError (the handler's 503),
+        so the coordinator re-maps it onto another replica — the JAX
+        package's leg, whose placement has no node left for it."""
+        if self._quarantine_blocks(index, slices):
+            q = self.holder.quarantine
+            for s in slices:
+                if q.slice_blocked(index, s):
+                    raise SliceUnavailableError(str(s))
 
     def _slices_by_node(self, nodes: list[Node], index: str,
                         slices: list[int]) -> list[tuple[Node, list[int]]]:
@@ -2630,6 +2662,14 @@ class Executor:
         slice with no owner among ``nodes`` raises
         SliceUnavailableError."""
         fault = self.fault
+        # Storage integrity: slices whose LOCAL fragments are
+        # quarantined are not served from this node — skipping the
+        # local owner here IS the transparent read failover (a peer's
+        # own quarantine surfaces as its leg failing, which the re-map
+        # routes around).
+        q = getattr(self.holder, "quarantine", None)
+        if q is not None and not len(q):
+            q = None
         m: dict[int, tuple[Node, list[int]]] = {}
         # PARTITION_N bounds the distinct owner tuples: one ordering
         # each, not one a slice.
@@ -2644,6 +2684,14 @@ class Executor:
                         owners, local=self.host)
                 owners = ordered
             for node in owners:
+                if (q is not None and node.host == self.host
+                        and q.slice_blocked(index, slice)):
+                    ctx = sched_context.current()
+                    if ctx is not None:
+                        # Tail sampling: a corruption-driven failover is
+                        # keep-worthy (obs.sampler "corruption").
+                        ctx.note_flag("corruption")
+                    continue
                 if any(n is node for n in nodes):
                     m.setdefault(id(node), (node, []))[1].append(slice)
                     break
@@ -2710,10 +2758,17 @@ class Executor:
                         r = fut.result()
                     except (QueryDeadlineError, QueryCancelledError):
                         raise
-                    except _LEG_ERRORS as e:  # re-map onto replicas
+                    except Exception as e:  # noqa: BLE001 - re-map
+                        # Any leg failure but the query's own deadline
+                        # or cancel re-maps onto the replicas: a peer's
+                        # transport or query error, and this node's
+                        # own leg too (a device error, a corrupt
+                        # fragment), as in the JAX package.
                         nodes = [n for n in nodes if n is not node]
                         obs_metrics.FAILOVER_SLICES.labels(
                             node.host or "local").inc(len(group))
+                        if ctx is not None:
+                            ctx.note_flag("failover")
                         try:
                             submit(nodes, group)
                         except SliceUnavailableError:
@@ -2839,7 +2894,7 @@ class Executor:
             if ctx is not None:
                 ctx.check()  # the query itself is dead: propagate
             return False  # only the bounded probe expired: recompute
-        except _LEG_ERRORS:  # unreachable peer: recompute
+        except Exception:  # noqa: BLE001 - unreachable peer: recompute
             return False
         finally:
             self._drain(futs, None)

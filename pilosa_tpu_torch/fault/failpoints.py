@@ -11,6 +11,18 @@ The port arms the sites its own modules carry:
 ==================  =========================================================
 ``rpc.send``        cluster/client._do, before a request reaches the wire
 ``rpc.recv``        cluster/client._do, after the response is read
+``wal.append``      storage/wal's leader flush and storage/roaring's plain
+                    op writers, around every op-log write (torn-write
+                    capable: writes a prefix, then fails — crash
+                    mid-append)
+``snapshot.write``  storage/fragment, inside the snapshot tmp-file write
+``ring.write``      obs/diskring segment appends (the tail sampler's
+                    trace store; torn-write capable)
+``storage.read``    storage/fragment, before the data file is read back
+                    (open) and before the scrubber re-reads it —
+                    corrupt-capable: flips real bits in the on-disk
+                    snapshot, so detection → quarantine → repair is
+                    deterministically injectable
 ==================  =========================================================
 
 Arming an unknown site raises: a site without an injection point would
@@ -22,16 +34,22 @@ Spec grammar (one string per site), the JAX package's::
     off                        disarm
     error                      raise FailpointError every hit
     error(0.25)                ... with probability 0.25 (seeded RNG)
-    enospc                     raise FailpointError carrying errno.ENOSPC
+    enospc                     raise FailpointError carrying
+                               errno.ENOSPC — a full disk at this
+                               site (fault.diskfull degradation path)
     enospc(0.25)               ... with probability 0.25
     delay(50ms)                sleep 50 ms, then proceed
     delay(50ms,0.5)            ... with probability 0.5
     torn(7)                    write the first 7 bytes of the record,
-                               then raise (sites passing ``writer`` and
-                               ``data``; the rpc sites pass neither, so
-                               it raises)
-    corrupt / corrupt(3)       parsed as in the JAX package; the rpc
-                               sites carry no file, so it proceeds
+                               then raise (wal.append / sites passing
+                               ``data`` + ``writer``)
+    corrupt                    flip ONE real bit of the site's file
+                               (``writer`` at snapshot.write, ``path``
+                               at storage.read) at a seeded-random
+                               offset, then PROCEED — silent on-disk
+                               corruption, exactly the fault the
+                               integrity footer exists to catch
+    corrupt(3)                 ... flip 3 bits
     partition(hostB)           raise only when the site's ``host``
                                contains "hostB" (one-way partition)
     <mode>*3                   trigger at most 3 times, then auto-disarm
@@ -61,7 +79,8 @@ from ..utils.config import parse_duration
 # one module-attribute read, no call, no allocation.
 ACTIVE: Optional["Failpoints"] = None
 
-SITES = ("rpc.send", "rpc.recv")
+SITES = ("rpc.send", "rpc.recv", "wal.append", "snapshot.write",
+         "ring.write", "storage.read")
 
 
 def env_key(site: str) -> str:
@@ -221,11 +240,13 @@ class Failpoints:
     # -- the injection hook --------------------------------------------------
 
     def hit(self, site: str, host: Optional[str] = None,
-            writer=None, data: Optional[bytes] = None) -> None:
+            writer=None, data: Optional[bytes] = None,
+            path: Optional[str] = None) -> None:
         """Evaluate ``site``. Raises FailpointError when the armed mode
         says so; returns silently otherwise. ``host`` scopes partition
         mode; ``writer``+``data`` let torn mode emit a prefix of the
-        record before failing."""
+        record before failing; ``writer`` (an open file) or ``path``
+        give corrupt mode the bytes to flip."""
         with self._mu:
             fp = self._points.get(site)
             if fp is None:
@@ -258,7 +279,8 @@ class Failpoints:
             raise FailpointError(
                 f"failpoint {site}: torn write after {arg} bytes")
         if mode == "corrupt":
-            # The armed sites carry no file to flip: proceed.
+            self._corrupt(site, writer=writer, path=path,
+                          bits=int(arg or 1))
             return
         if mode == "enospc":
             # The two-arg OSError form sets .errno, so the catching
@@ -273,6 +295,60 @@ class Failpoints:
         raise FailpointError(f"failpoint {site}: injected"
                              + (f" (partition {arg})"
                                 if mode == "partition" else ""))
+
+    def _corrupt(self, site: str, writer, path: Optional[str],
+                 bits: int) -> None:
+        """Flip ``bits`` real bits at seeded-random offsets of the
+        site's file — silent on-disk corruption, the fault the
+        storage-integrity footer (storage.integrity) exists to catch.
+        Proceeds (never raises): the point is that NOTHING fails at
+        the write, exactly like real bit rot. A site with no file (the
+        rpc sites) proceeds untouched."""
+        opened = None
+        fd = None
+        if writer is not None and hasattr(writer, "fileno"):
+            # Snapshot writers are opened "wb" (write-only), so flips
+            # reopen the file read-write by name; a nameless writer
+            # (BytesIO-backed test double) falls through to its fd.
+            try:
+                writer.flush()
+            except (OSError, ValueError):
+                pass
+            name = getattr(writer, "name", None)
+            if isinstance(name, str) and path is None:
+                path = name
+            else:
+                try:
+                    fd = writer.fileno()
+                except (OSError, ValueError):
+                    fd = None
+        if fd is None:
+            if path is None:
+                return
+            try:
+                opened = open(path, "r+b")
+            except OSError:
+                return  # nothing on disk yet: nothing to rot
+            fd = opened.fileno()
+        try:
+            size = os.fstat(fd).st_size
+            if size <= 0:
+                return
+            with self._mu:  # seeded draws stay on the replay schedule
+                flips = [(self._rng.randrange(size),
+                          self._rng.randrange(8))
+                         for _ in range(bits)]
+            for off, bit in flips:
+                b = os.pread(fd, 1, off)
+                if not b:
+                    continue
+                os.pwrite(fd, bytes([b[0] ^ (1 << bit)]), off)
+                _LOG.warning(
+                    "failpoint %s: corrupt flipped bit %d of byte %d"
+                    " (file size %d)", site, bit, off, size)
+        finally:
+            if opened is not None:
+                opened.close()
 
     # -- exposition ----------------------------------------------------------
 

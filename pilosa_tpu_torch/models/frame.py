@@ -105,7 +105,7 @@ class FrameOptions:
 class Frame:
     def __init__(self, path: str, index: str, name: str,
                  options: Optional[FrameOptions] = None,
-                 wal_fsync: str = wal_mod.FSYNC_NONE,
+                 wal_fsync: str = wal_mod.FSYNC_NONE, quarantine=None,
                  on_create_slice=None):
         self.path = path
         self.index = index
@@ -114,6 +114,7 @@ class Frame:
         self.on_create_slice = on_create_slice
         self.options = options or FrameOptions()
         self.wal_fsync = wal_fsync
+        self.quarantine = quarantine  # the holder's QuarantineRegistry
         self.views: dict[str, View] = {}
         self.row_attr_store = AttrStore(os.path.join(path, "attrs"))
         self._mu = threading.RLock()
@@ -307,7 +308,7 @@ class Frame:
                     self.name, name, cache_type=self.options.cache_type,
                     cache_size=self.options.cache_size,
                     row_attr_store=self.row_attr_store,
-                    wal_fsync=self.wal_fsync,
+                    wal_fsync=self.wal_fsync, quarantine=self.quarantine,
                     on_create_slice=self._announce_slice(name))
 
     def _announce_slice(self, view_name: str):

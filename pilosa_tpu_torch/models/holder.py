@@ -3,8 +3,10 @@
 Trimmed copy of the JAX package's ``models/holder.py`` (reference
 holder.go): index CRUD, Index/Frame/View/Fragment navigation
 (holder.go:177-322) and the schema summary (holder.go:154-171). It opens
-a data directory the JAX package wrote and closed. Quarantine, tiering
-and the cache-flush loop wait for later slices.
+a data directory the JAX package wrote and closed. The holder owns the
+storage-integrity QuarantineRegistry (storage.integrity) and passes it
+down to every fragment, as the JAX holder does. Tiering and the
+cache-flush loop wait for later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 
 from ..errors import IndexExistsError, PilosaError, validate_name
 from ..storage import wal as wal_mod
+from ..storage.integrity import QuarantineRegistry
 from .index import Index, IndexOptions
 
 
@@ -25,6 +28,10 @@ class Holder:
         # The fragments' WAL fsync policy (storage.wal): "none", "group"
         # or "always".
         self.wal_fsync = wal_mod.check_fsync_policy(wal_fsync)
+        # Storage integrity: the node-wide registry of quarantined
+        # fragments — the executor's read path consults it, the
+        # repairer drains it.
+        self.quarantine = QuarantineRegistry()
         self.indexes: dict[str, Index] = {}
         # fn(index, slice, inverse), set by a cluster server: a new
         # fragment past a view's max slice announces the slice to peers.
@@ -45,6 +52,7 @@ class Holder:
                 except PilosaError:  # not an index directory
                     continue
                 idx = Index(full, entry, wal_fsync=self.wal_fsync,
+                            quarantine=self.quarantine,
                             on_create_slice=self._announce_slice)
                 idx.open()
                 self.indexes[entry] = idx
@@ -87,7 +95,7 @@ class Holder:
     def _create_index(self, name: str, options) -> Index:
         validate_name(name)
         idx = Index(self.index_path(name), name, options=options,
-                    wal_fsync=self.wal_fsync,
+                    wal_fsync=self.wal_fsync, quarantine=self.quarantine,
                     on_create_slice=self._announce_slice)
         idx.open()
         self.indexes[name] = idx

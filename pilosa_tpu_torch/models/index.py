@@ -46,7 +46,7 @@ class IndexOptions:
 class Index:
     def __init__(self, path: str, name: str,
                  options: Optional[IndexOptions] = None,
-                 wal_fsync: str = wal_mod.FSYNC_NONE,
+                 wal_fsync: str = wal_mod.FSYNC_NONE, quarantine=None,
                  on_create_slice=None):
         validate_name(name)
         self.path = path
@@ -60,6 +60,7 @@ class Index:
         self.remote_max_inverse_slice = 0
         self.options = options or IndexOptions()
         self.wal_fsync = wal_fsync
+        self.quarantine = quarantine  # the holder's QuarantineRegistry
         self.frames: dict[str, Frame] = {}
         self.column_attr_store = AttrStore(os.path.join(path, ".data"))
         self._mu = threading.RLock()
@@ -80,6 +81,7 @@ class Index:
                 if os.path.isdir(os.path.join(self.path, entry)):
                     frame = Frame(self.frame_path(entry), self.name, entry,
                                   wal_fsync=self.wal_fsync,
+                                  quarantine=self.quarantine,
                                   on_create_slice=self._announce())
                     frame.open()
                     self.frames[entry] = frame
@@ -183,6 +185,7 @@ class Index:
             raise PilosaError(f"invalid cache type: {options.cache_type!r}")
         frame = Frame(self.frame_path(name), self.name, name,
                       options=options, wal_fsync=self.wal_fsync,
+                      quarantine=self.quarantine,
                       on_create_slice=self._announce())
         frame.open()
         self.frames[name] = frame

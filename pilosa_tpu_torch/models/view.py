@@ -50,6 +50,7 @@ class View:
                  cache_type: str = cache_mod.DEFAULT_CACHE_TYPE,
                  cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
                  row_attr_store=None, wal_fsync: str = wal_mod.FSYNC_NONE,
+                 quarantine=None,
                  on_create_slice=None):
         self.path = path
         self.index = index
@@ -62,6 +63,7 @@ class View:
         self.cache_size = cache_size
         self.row_attr_store = row_attr_store
         self.wal_fsync = wal_fsync
+        self.quarantine = quarantine  # the holder's QuarantineRegistry
         self.fragments: dict[int, Fragment] = {}
         self._mu = threading.RLock()
 
@@ -95,7 +97,7 @@ class View:
                         self.name, slice, cache_type=self.cache_type,
                         cache_size=self.cache_size,
                         row_attr_store=self.row_attr_store,
-                        wal_fsync=self.wal_fsync)
+                        wal_fsync=self.wal_fsync, quarantine=self.quarantine)
 
     # -- fragments
 

@@ -479,6 +479,11 @@ TRACES_KEPT = _DEFAULT.counter(
     "head/requested/watchdog/anomaly — docs/OBSERVABILITY.md"
     " keep-reason catalogue)",
     labels=("reason",))
+TRACE_DISK_RECORDS = _DEFAULT.counter(
+    "pilosa_trace_disk_records_total",
+    "Kept traces persisted to the on-disk segment ring, by outcome"
+    " (written / dropped)",
+    labels=("outcome",))
 LABEL_OVERFLOW = _DEFAULT.counter(
     "pilosa_metrics_label_overflow_total",
     "New label sets collapsed into a family's _overflow_ bucket by the"
@@ -604,6 +609,44 @@ TOPN_PUSHDOWN = _DEFAULT.counter(
     " merged per the two-phase semantics) or fallback (pushdown"
     " failed; the fan-out path answered)",
     labels=("outcome",))
+
+# Storage integrity (storage.integrity / storage.scrub / server.repair)
+# and disk-full degradation (fault.diskfull).
+STORAGE_SCRUB_BLOCKS = _DEFAULT.counter(
+    "pilosa_storage_scrub_blocks_total",
+    "Container blocks whose crc32 was re-verified against the snapshot"
+    " footer, by source (scrub = the background pass, read = the lazy"
+    " first-read check after an open)",
+    labels=("source",))
+STORAGE_CORRUPTION = _DEFAULT.counter(
+    "pilosa_storage_corruption_detected_total",
+    "On-disk corruption detections (checksum mismatch or unparseable"
+    " snapshot), by detection site (open / read / scrub)",
+    labels=("site",))
+STORAGE_QUARANTINED = _DEFAULT.counter(
+    "pilosa_storage_quarantined_fragments_total",
+    "Fragments newly quarantined after a corruption detection (reads"
+    " fail over to a replica; writes keep WAL-buffering)")
+STORAGE_QUARANTINED_LIVE = _DEFAULT.gauge(
+    "pilosa_storage_quarantined_fragments_live",
+    "Fragments currently quarantined on this node (awaiting replica"
+    " repair, or unrepairable with no healthy replica)")
+STORAGE_REPAIRS = _DEFAULT.counter(
+    "pilosa_storage_repairs_total",
+    "Automatic replica re-stream repairs of quarantined fragments, by"
+    " outcome (repaired / failed / no_replica)",
+    labels=("outcome",))
+STORAGE_ENOSPC = _DEFAULT.counter(
+    "pilosa_storage_enospc_events_total",
+    "ENOSPC hits at durable-write sites (wal.append /"
+    " snapshot.write), by site — each flips the node write-unready"
+    " until a probe write succeeds",
+    labels=("site",))
+STORAGE_WRITE_READY = _DEFAULT.gauge(
+    "pilosa_storage_write_ready",
+    "1 while durable writes are accepted; 0 while the node is"
+    " write-unready after ENOSPC (writes answer 507, reads keep"
+    " serving, auto-recovers on a successful probe write)")
 
 
 # -- legacy StatsClient bridge ------------------------------------------------

@@ -13,9 +13,11 @@ https://ui.perfetto.dev — each thread renders as a track).
 Overhead contract: the *keep-everything* mode is OFF by default
 (``?trace=1`` opts in per request), and a QueryContext whose ``trace``
 is None allocates nothing — ``span_current()`` returns a shared no-op
-context manager after two attribute reads. The JAX package's remote-leg
-span stitching (``X-Pilosa-Trace-Spans``) rides along unused until the
-cluster slice, and its tail sampler waits for obs.sampler.
+context manager after two attribute reads. With the tail sampler wired
+(obs.sampler, a server's default) every query gets the span buffer and
+the keep decision runs at query end (``Tracer.keep(trace, reason)``); a
+coordinator's legs piggyback their spans back as
+``X-Pilosa-Trace-Spans`` for stitching.
 """
 
 from __future__ import annotations

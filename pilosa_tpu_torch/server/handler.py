@@ -13,8 +13,12 @@ A query keeps parse → execute → commit barrier → encode: a query holding
 a write call, every ``/import`` and every field import answers 200 only
 once ``storage.wal.barrier_all()`` has put its WAL records in the OS
 (the JAX package's ack contract). A failed barrier answers 507 with
-``Retry-After`` when the disk is full, 500 otherwise. ``?plan=1`` on
-the query route plans the query without executing it (EXPLAIN).
+``Retry-After`` when the disk is full, 500 otherwise; while the node is
+write-unready after ENOSPC (fault.diskfull) every write answers 507
+with ``Retry-After`` before it executes, and reads keep serving.
+``?plan=1`` on the query route plans the query without executing it
+(EXPLAIN). A read over a slice that no trustworthy copy can serve (the
+local one quarantined, no replica left) answers 503.
 
 The query lifecycle is the JAX handler's (handler.py:1628-1860, one
 node): each query gets its lane (read or write), a QueryContext with its
@@ -23,15 +27,20 @@ id (``X-Pilosa-Query-Id`` when the client names it), its deadline
 default) and its tenant (``X-Pilosa-Tenant``, else the index); a cost
 ledger (``X-Pilosa-Stats`` on every answer, the cost tree and the plan
 under ``?profile=1``); the tenant's kill policy; a trace when the
-tracer is on or ``?trace=1`` asks; registration for ``/debug/queries``;
-and an admission slot — 429 with ``Retry-After`` under overload. A
-deadline answers 504, a cancel 409, a cost-policy kill 402, with the
-JAX texts. The import and schema routes take a write or admin slot.
-Routes: ``/metrics``, ``/debug/vars``, ``/debug/queries``,
+tracer is on or ``?trace=1`` asks, and with the tail sampler wired
+(obs.sampler, the server default) a span buffer on every query and the
+keep decision at its end; registration for ``/debug/queries``; and an
+admission slot — 429 with ``Retry-After`` under overload. A deadline
+answers 504, a cancel 409, a cost-policy kill 402, with the JAX texts.
+The import and schema routes take a write or admin slot. Routes:
+``/metrics``, ``/debug/vars``, ``/debug/queries``,
 ``/debug/queries/slow``, ``DELETE /debug/queries/{qid}``,
-``/debug/traces`` (``?source=disk`` lists nothing: the tail sampler's
-disk ring is not ported), ``/debug/traces/summary``,
-``/debug/traces/{qid}``, ``/debug/tenants`` and ``/debug/plans``.
+``/debug/traces`` (``?source=disk`` pages the sampler's disk ring),
+``/debug/traces/summary``, ``/debug/traces/{qid}`` (a miss in the ring
+falls back to the disk ring), ``/debug/tenants``, ``/debug/plans``,
+``/debug/integrity`` (quarantined fragments, footer coverage, scrub and
+repair state) and ``POST /debug/integrity/scrub`` (``?sync=1`` runs a
+pass inline).
 
 The cluster's routes (handler.py:374, :414-428 of the JAX package):
 ``/hosts`` and ``/status`` list the cluster's nodes (``/status`` each
@@ -44,7 +53,8 @@ the cost tree for the coordinator to stitch; ``/import`` and
 frame creation and deletion broadcast their message to the peers;
 ``/fragment/nodes``, ``/fragment/blocks``, ``/fragment/block/data`` and
 ``POST /fragment/import`` serve anti-entropy, ``GET``/``POST
-/fragment/data`` a fragment's tar stream; ``/generations`` the
+/fragment/data`` a fragment's tar stream (the reads answer 409 for a
+quarantined fragment, whose copy must not feed a peer); ``/generations`` the
 cluster result cache's probe; ``POST /messages`` takes a peer's
 broadcast; ``/debug/topology`` shows the placement and
 ``/debug/failpoints`` arms the fault sites. The backup, resize, pod,
@@ -56,7 +66,6 @@ from __future__ import annotations
 
 import contextlib
 import datetime as dt
-import errno
 import io
 import json
 import re
@@ -69,11 +78,13 @@ import numpy as np
 from .. import SLICE_WIDTH, __version__
 from ..errors import (FrameExistsError, IndexExistsError, PilosaError,
                       QueryCancelledError, QueryDeadlineError,
-                      QueryKilledError, validate_label)
+                      QueryKilledError, SliceUnavailableError,
+                      validate_label)
 from ..cluster import generations as gens_mod
 from ..cluster.broadcast import (NOP_BROADCASTER, CancelQueryMessage,
                                  unmarshal_message)
 from ..executor import _WRITE_CALLS, ExecOptions
+from ..fault import diskfull as fault_diskfull
 from ..fault import failpoints as fault_failpoints
 from ..models.frame import Field, FrameOptions
 from ..models.index import IndexOptions
@@ -84,6 +95,7 @@ from ..parallel import residency
 from ..pql import parser as pql
 from ..proto import internal as pb
 from ..proto import rawimport
+from ..sched import context as sched_context
 from ..sched import (KILL_POLICY, KILLED_BY_HEADER, LANE_ADMIN, LANE_READ,
                      LANE_WRITE, AdmissionFullError, QueryContext,
                      QueryRegistry)
@@ -204,11 +216,9 @@ _STATUS_TEXT = {200: "OK", 400: "Bad Request",
                 409: "Conflict", 415: "Unsupported Media Type",
                 429: "Too Many Requests",
                 500: "Internal Server Error",
+                503: "Service Unavailable",
                 504: "Gateway Timeout",
                 507: "Insufficient Storage"}
-
-# Retry-After of a 507 (the JAX package's fault.diskfull RETRY_AFTER_S).
-RETRY_AFTER_S = 2
 
 
 class Handler:
@@ -222,7 +232,8 @@ class Handler:
                  warmup=None, default_timeout_s: float = 0.0,
                  tracer=None, stats=None, accounting: bool = True,
                  tenants=None, cluster=None, broadcaster=None,
-                 status_handler=None):
+                 status_handler=None, sampler=None, scrubber=None,
+                 repairer=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
@@ -250,6 +261,15 @@ class Handler:
             else obs_trace.Tracer(enabled=False)
         self.stats = stats
         self.accounting = accounting
+        # Tail sampling (obs.sampler): when wired, EVERY query buffers
+        # spans and the keep decision runs at query end; kept traces
+        # persist to its disk ring.
+        self.sampler = sampler
+        # Storage integrity (storage.scrub / server.repair) behind
+        # /debug/integrity; None (bare handlers) serves the holder's
+        # quarantine registry alone.
+        self.scrubber = scrubber
+        self.repairer = repairer
         # (method, regex, handler, admission lane)
         self._routes: list[tuple] = []
         self._add_routes()
@@ -296,6 +316,9 @@ class Handler:
         r("GET", "/debug/topology", self._handle_debug_topology)
         r("GET", "/debug/failpoints", self._handle_debug_failpoints)
         r("POST", "/debug/failpoints", self._handle_post_failpoints)
+        r("GET", "/debug/integrity", self._handle_debug_integrity)
+        r("POST", "/debug/integrity/scrub",
+          self._handle_post_integrity_scrub)
         r("GET", "/debug/tenants", self._handle_debug_tenants)
         r("GET", "/debug/queries", self._handle_debug_queries)
         r("GET", "/debug/queries/slow", self._handle_debug_slow_queries)
@@ -650,7 +673,9 @@ class Handler:
         bare handlers). AdmissionFullError maps to 429 with the
         controller's Retry-After estimate; a deadline that expires while
         queued maps like any other expiry (504) — the query never held
-        a slot."""
+        a slot. A write while the node is write-unready answers 507
+        first (``_check_writable``)."""
+        self._check_writable(lane)
         if self.admission is None:
             return None
         try:
@@ -669,6 +694,23 @@ class Handler:
             raise HTTPError(
                 429, f"too many requests: {e}",
                 headers=[("Retry-After", str(int(e.retry_after_s)))])
+
+    def _check_writable(self, lane: str) -> None:
+        """Disk-full graceful degradation (fault.diskfull): while the
+        node is write-unready after ENOSPC, writes answer 507 +
+        Retry-After INSTEAD of being admitted into a doomed WAL append —
+        reads and admin keep serving. The throttled probe inside
+        write_ready() is also the auto-recovery path."""
+        if lane != LANE_WRITE:
+            return
+        if fault_diskfull.write_ready():
+            return
+        st = fault_diskfull.default()
+        raise HTTPError(
+            507, "insufficient storage: node is write-unready after"
+                 " ENOSPC (reads still serving; retry after space"
+                 " frees)",
+            headers=[("Retry-After", str(st.retry_after_s()))])
 
     @contextlib.contextmanager
     def _admitted(self, lane: str, tenant: str = ""):
@@ -747,10 +789,14 @@ class Handler:
             self.tenants.install(ctx)
         trace = None
         # A coordinator asks its leg to trace itself (X-Pilosa-Trace);
-        # the leg's spans ride back on the answer for stitching.
-        if (self.tracer.enabled or req.query.get("trace") == "1"
-                or (remote and req.environ.get(
-                    "HTTP_X_PILOSA_TRACE", "") == "1")):
+        # the leg's spans ride back on the answer for stitching. With
+        # tail sampling wired, EVERY query buffers spans and the keep
+        # decision runs at query end instead.
+        trace_requested = (
+            self.tracer.enabled or req.query.get("trace") == "1"
+            or (remote and req.environ.get(
+                "HTTP_X_PILOSA_TRACE", "") == "1"))
+        if trace_requested or self.sampler is not None:
             trace = self.tracer.start(ctx, node=self.host)
             trace.add_span("parse", parse_wall, parse_s)
         # Query latency label set: one call name when the query is
@@ -798,10 +844,12 @@ class Handler:
             if lane == LANE_WRITE:
                 # Commit barrier before the ack: every mutation this
                 # query applied has its WAL record in the OS (fsynced
-                # per the fsync policy) when the response goes out.
-                with ctx.stage("commit"):
+                # per the fsync policy) when the response goes out. Bound
+                # as the thread's query, so a wal.append failpoint hit
+                # in THIS barrier flags its context for the sampler.
+                with ctx.stage("commit"), sched_context.use(ctx):
                     storage_wal.barrier_all()
-        except HTTPError as e:  # 429 from _admit
+        except HTTPError as e:  # 429 / 507 from _admit
             err = e
             raise
         except QueryDeadlineError as e:
@@ -818,17 +866,26 @@ class Handler:
             err = e
             return error_resp(409, str(e), headers=_resp_headers())
         except storage_wal.WalError as e:
-            # A barrier that failed on a full disk is retryable: 507 +
-            # Retry-After. Any other WAL failure stays a 500.
+            # A barrier that failed on a full disk (fault.diskfull has
+            # already flipped the node write-unready at the WAL site) is
+            # retryable: 507 + Retry-After. Any other WAL failure stays
+            # a 500.
             err = e
-            if getattr(e.__cause__, "errno", None) == errno.ENOSPC:
+            if not fault_diskfull.write_ready(probe=False):
                 hs = _resp_headers()
-                hs.append(("Retry-After", str(RETRY_AFTER_S)))
+                hs.append(("Retry-After", str(
+                    fault_diskfull.default().retry_after_s())))
                 return error_resp(
                     507, f"insufficient storage: write not durable ({e})",
                     headers=hs)
             self.logger.printf("query commit barrier failed: %s", e)
             return error_resp(500, str(e), headers=_resp_headers())
+        except SliceUnavailableError as e:
+            # No reachable (or trustworthy — storage quarantine) copy of
+            # a touched slice anywhere: a retryable 503, not a 400.
+            err = e
+            return error_resp(503, f"slice unavailable: {e}",
+                              headers=_resp_headers())
         except PilosaError as e:
             err = e
             return error_resp(400, str(e), headers=_resp_headers())
@@ -841,7 +898,8 @@ class Handler:
             if slot is not None:
                 slot.release()
             self._finish_query(ctx, err, trace, call_label, query_str,
-                               req.query.get("trace") == "1")
+                               req.query.get("trace") == "1",
+                               trace_requested and remote)
 
         # Optional column-attribute join (handler.go:208-227).
         attr_sets = []
@@ -880,8 +938,10 @@ class Handler:
         if isinstance(err, QueryCancelledError):
             return 409
         if (isinstance(err, storage_wal.WalError)
-                and getattr(err.__cause__, "errno", None) == errno.ENOSPC):
+                and not fault_diskfull.write_ready(probe=False)):
             return 507
+        if isinstance(err, SliceUnavailableError):
+            return 503
         if isinstance(err, PilosaError):
             return 400
         if err is not None:
@@ -889,11 +949,13 @@ class Handler:
         return 200
 
     def _finish_query(self, ctx, err, trace, call_label: str,
-                      query_str: str, trace_asked: bool) -> None:
-        """Query end: keep the trace (when the tracer is on or
-        ``?trace=1`` asked), feed the plan store, finish the registry
-        entry, and record the latency, outcome and chargeback metrics —
-        for every outcome, 429/504/409 included."""
+                      query_str: str, trace_asked: bool,
+                      remote_asked: bool = False) -> None:
+        """Query end: the keep decision (the tail sampler's, or an
+        explicit ask: the tracer on, ``?trace=1``, a coordinator-asked
+        leg when no sampler runs here), feed the plan store, finish the
+        registry entry, and record the latency, outcome and chargeback
+        metrics — for every outcome, 429/504/409 included."""
         status = self._status_of(err)
         if trace is not None:
             if ctx.cost is not None:
@@ -906,10 +968,26 @@ class Handler:
                 tags.update(ctx.plan.decision_summary())
                 trace.add_span("query_plan", ctx.started_wall, 0.0,
                                tags=tags)
-            reason = trace.keep_reason or None
-            if reason is None and (self.tracer.enabled or trace_asked):
+            reason = None
+            if self.sampler is not None:
+                reason = self.sampler.decide(ctx, err=err, status=status)
+            # Explicit keeps: the tracer on and ?trace=1 always; a
+            # coordinator-asked leg only when no sampler runs here —
+            # with tail sampling on, every leg carries the header, and
+            # the peer's own tail decision keeps the interesting legs.
+            if reason is None and (
+                    self.tracer.enabled or trace_asked
+                    or (remote_asked and self.sampler is None)):
                 reason = "requested"
-                if not self.tracer.keep(trace, reason=reason):
+            if trace.keep_reason:
+                reason = trace.keep_reason  # already kept mid-flight
+            elif reason is not None:
+                # keep() claims atomically: a racing force-keep wins and
+                # its reason is reported instead.
+                if self.tracer.keep(trace, reason=reason):
+                    if self.sampler is not None:
+                        self.sampler.persist(trace, reason, ctx=ctx)
+                else:
                     reason = trace.keep_reason or reason
             ctx.trace_kept = reason is not None
             ctx.keep_reason = reason or ""
@@ -976,9 +1054,9 @@ class Handler:
     def _handle_debug_tenants(self, req: Request) -> Response:
         """The multi-tenant operator view: per tenant — policy and
         effective weight, penalty-box state, in-flight / queued / served
-        / shed / killed. ``writeReady`` is the JAX block's shape: the
-        port has no write-ready latch (a full disk answers 507 per
-        write), so it always reads ready."""
+        / shed / killed. The ``writeReady`` block (fault.diskfull) rides
+        along, since a write-unready node sheds every tenant's
+        writes."""
         rows: dict[str, dict] = {}
 
         def row(name: str) -> dict:
@@ -1004,14 +1082,16 @@ class Handler:
                     r.setdefault("shed", 0)
         return Response.json({
             "tenants": rows,
-            "writeReady": {"writeReady": True, "since": None, "site": None,
-                           "dir": None, "events": {}, "recoveries": 0},
+            "writeReady": fault_diskfull.default().snapshot(),
         })
 
     def _handle_debug_traces(self, req: Request) -> Response:
-        """The in-memory ring (newest first); ``?reason=`` filters,
-        ``?limit=N&offset=M`` page. ``?source=disk`` lists the tail
-        sampler's disk ring, which the port does not keep: empty."""
+        """The in-memory ring by default; ``?source=disk`` lists the
+        PERSISTED kept traces (the tail sampler's segment ring, which
+        survives restarts), ``?reason=<keep-reason>`` filters either
+        source, ``?limit=N&offset=M`` page through the listing (newest
+        first, default limit 100)."""
+        from ..obs import sampler as obs_sampler
         reason = req.query.get("reason", "")
         try:
             limit = max(1, int(req.query.get("limit", "100")))
@@ -1019,32 +1099,70 @@ class Handler:
         except ValueError:
             raise HTTPError(400, "invalid limit/offset")
         if req.query.get("source") == "disk":
-            return Response.json({"enabled": self.tracer.enabled,
-                                  "source": "disk", "traces": [],
-                                  "offset": offset, "limit": limit,
-                                  "total": 0})
+            disk = self.sampler.disk if self.sampler is not None \
+                else None
+            traces: list[dict] = []
+            matched = 0
+            if disk is not None:
+                for record in disk.scan():
+                    if reason and record.get("reason") != reason:
+                        continue
+                    matched += 1
+                    if matched <= offset:
+                        continue
+                    if len(traces) < limit:
+                        # Keep counting past the page: ``total`` tells
+                        # the pager whether another page exists.
+                        traces.append(obs_sampler.record_summary(record))
+            out = {"enabled": self.tracer.enabled, "source": "disk",
+                   "traces": traces, "offset": offset, "limit": limit,
+                   "total": matched}
+            if disk is not None:
+                out["disk"] = disk.stats()
+            return Response.json(out)
         traces = self.tracer.traces()
         if reason:
             traces = [t for t in traces if t.get("reason") == reason]
         return Response.json({"enabled": self.tracer.enabled,
-                              "tail": False,
+                              "tail": self.sampler is not None,
                               "offset": offset, "limit": limit,
                               "total": len(traces),
                               "traces": traces[offset:offset + limit]})
 
     def _handle_debug_traces_summary(self, req: Request) -> Response:
-        """Keep-reason roll-up of the in-memory ring (the disk ring is
-        not kept)."""
+        """Keep-reason roll-up over both stores: kept traces per reason
+        in the in-memory ring and in the on-disk segment ring."""
         ring: dict[str, int] = {}
         for t in self.tracer.traces():
             r = t.get("reason") or "unkept"
             ring[r] = ring.get(r, 0) + 1
-        return Response.json({"ring": ring, "disk": {}})
+        disk_counts: dict[str, int] = {}
+        out: dict = {"ring": ring, "disk": disk_counts}
+        disk = self.sampler.disk if self.sampler is not None else None
+        if disk is not None:
+            for record in disk.scan():
+                r = str(record.get("reason") or "unknown")
+                disk_counts[r] = disk_counts.get(r, 0) + 1
+            out["diskStats"] = disk.stats()
+        return Response.json(out)
 
     def _handle_debug_trace(self, req: Request) -> Response:
         """One trace as Chrome trace-event JSON (open in perfetto);
-        ``?format=spans`` returns the raw span list instead."""
-        trace = self.tracer.get(req.vars["qid"])
+        ``?format=spans`` returns the raw span list instead. A miss in
+        the in-memory ring falls back to the tail sampler's disk ring
+        (``?source=disk`` goes straight there), so a persisted trace
+        stays addressable after a restart."""
+        trace = None
+        if req.query.get("source") != "disk":
+            trace = self.tracer.get(req.vars["qid"])
+        if trace is None and self.sampler is not None \
+                and self.sampler.disk is not None:
+            from ..obs import sampler as obs_sampler
+            qid = req.vars["qid"]
+            for record in self.sampler.disk.scan():
+                if record.get("id") == qid:
+                    trace = obs_sampler.record_to_trace(record)
+                    break
         if trace is None:
             raise HTTPError(404, "trace not found")
         if req.query.get("format") == "spans":
@@ -1059,6 +1177,10 @@ class Handler:
         snap = dict(self.stats.snapshot()
                     if hasattr(self.stats, "snapshot") else {})
         snap["deviceBlockCache"] = residency.device_cache().snapshot()
+        # The disk-full latch (fault.diskfull), also under
+        # /debug/tenants: whether writes are admitted, since when and at
+        # which site they stopped, and the recoveries.
+        snap["writeReady"] = fault_diskfull.default().snapshot()
         vetoes = getattr(self.executor, "cost_vetoes", None)
         if vetoes is not None:
             snap["costModelVetoes"] = vetoes
@@ -1279,10 +1401,22 @@ class Handler:
                               for n in self.cluster.fragment_nodes(
                                   index, slice)])
 
+    @staticmethod
+    def _refuse_quarantined(frag) -> None:
+        """Storage integrity: a quarantined fragment's copy (corrupt, or
+        the fresh near-empty replacement awaiting repair) must not feed
+        a peer's anti-entropy vote or repair — 409 so remote consumers
+        skip this node and sweep again after repair. The local repairer
+        bypasses HTTP (server.repair's in-process target)."""
+        if frag is not None and getattr(frag, "quarantined", False):
+            raise HTTPError(409, "fragment quarantined: "
+                                 + frag.quarantine_reason)
+
     def _handle_fragment_blocks(self, req: Request) -> Response:
         frag = self._fragment_from_query(req)
         if frag is None:
             raise HTTPError(404, "fragment not found")
+        self._refuse_quarantined(frag)
         return Response.json({"blocks": codec.blocks_to_json(frag.blocks())})
 
     def _handle_fragment_block_data(self, req: Request) -> Response:
@@ -1291,6 +1425,7 @@ class Handler:
                                     breq.Slice)
         if frag is None:
             raise HTTPError(404, "fragment not found")
+        self._refuse_quarantined(frag)
         ps = frag.block_data(breq.Block)
         return Response.proto(pb.BlockDataResponse(
             RowIDs=ps.row_ids, ColumnIDs=ps.column_ids))
@@ -1302,6 +1437,7 @@ class Handler:
         frag = self._fragment_from_query(req)
         if frag is None:
             raise HTTPError(404, "fragment not found")
+        self._refuse_quarantined(frag)
         spool = tempfile.SpooledTemporaryFile(max_size=8 << 20)
         frag.write_to(spool)
         spool.seek(0)
@@ -1410,6 +1546,41 @@ class Handler:
             "replicaN": cl.replica_n,
             "nodes": [n.host for n in cl.nodes], "resize": None,
             "indexes": indexes})
+
+    def _handle_debug_integrity(self, req: Request) -> Response:
+        """Storage-integrity state: quarantined fragments (what, why,
+        since when), scrub pass progress and totals, repair totals, and
+        the footer coverage summary (how many open fragments carry
+        checksums — vintage files read fine but scrub blind)."""
+        covered = vintage = 0
+        for frag in self.holder.iter_fragments():
+            storage = getattr(frag, "storage", None)
+            if storage is not None and getattr(storage, "footer",
+                                               None) is not None:
+                covered += 1
+            else:
+                vintage += 1
+        registry = getattr(self.holder, "quarantine", None)
+        out: dict = {
+            "quarantined": registry.entries() if registry is not None
+            else [],
+            "coverage": {"footered": covered, "vintage": vintage}}
+        if self.scrubber is not None:
+            out["scrub"] = self.scrubber.state()
+        if self.repairer is not None:
+            out["repair"] = self.repairer.state()
+        return Response.json(out)
+
+    def _handle_post_integrity_scrub(self, req: Request) -> Response:
+        """Trigger an immediate scrub pass. ``?sync=1`` runs the pass
+        inline and returns its summary; the default just wakes the
+        background thread."""
+        if self.scrubber is None:
+            raise HTTPError(503, "no scrubber on this node")
+        if req.query.get("sync") == "1":
+            return Response.json(self.scrubber.pass_once())
+        self.scrubber.trigger()
+        return Response.json({"triggered": True})
 
     def _handle_debug_failpoints(self, req: Request) -> Response:
         """The armed failpoints and the seed that replays them."""

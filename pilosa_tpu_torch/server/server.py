@@ -41,14 +41,28 @@ receives (``receive_message``), announces a fragment past a view's max
 slice to its peers (CreateSliceMessage), and runs three loops while the
 cluster has peers: the max-slice poll (``polling_interval``), the
 half-open breaker probes, and anti-entropy (``anti_entropy_interval``,
-server.syncer.HolderSyncer). Gossip, resize, the cache flush loop,
-scrub, tiering and backup wait for the slices that port them.
+server.syncer.HolderSyncer).
+
+Storage integrity and tail sampling (the JAX server's wiring,
+server.py:212-218, :409-450): ``scrub_config`` builds the background
+scrubber (storage.scrub: a paced re-verification of every open
+fragment's file against its checksums, on by default every 10 minutes)
+and the repairer (server.repair: woken by each new quarantine, it
+re-streams the fragment from a replica), both started at open and
+stopped before the holder closes. ``trace_config.tail`` (on by default)
+gives every query a span buffer and keeps the interesting ones to a
+segment ring under ``<data_dir>/traces`` (obs.sampler, obs.diskring).
+While the node is write-unready after ENOSPC (fault.diskfull) the
+pipelined lane declines write runs, so each request answers its own
+507. Gossip, resize, the cache flush loop, tiering and backup wait for
+the slices that port them.
 """
 
 from __future__ import annotations
 
 import errno
 import json
+import os
 import threading
 
 from typing import Optional
@@ -70,7 +84,9 @@ from ..models.index import IndexOptions
 from ..models.view import VIEW_INVERSE
 from ..obs import accounting as obs_accounting
 from ..obs import metrics as obs_metrics
+from ..obs.diskring import SegmentRing
 from ..obs.metrics import RegistryStatsClient, default_registry
+from ..obs.sampler import TailSampler
 from ..obs.trace import Tracer
 from ..pql import parser as pql
 from ..pql.ast import Query
@@ -79,15 +95,17 @@ from ..sched import (LANE_READ, LANE_WRITE, AdmissionController,
                      TenantRegistry)
 from ..sched.warmup import Warmup
 from ..storage import wal as storage_wal
+from ..storage.scrub import Scrubber
 from ..utils import logger as logger_mod
 from ..proto import internal as pb
 from ..utils.config import (DEFAULT_ANTI_ENTROPY_INTERVAL,
                             DEFAULT_POLLING_INTERVAL, QueryConfig,
-                            TenantsConfig, TraceConfig)
+                            ScrubConfig, TenantsConfig, TraceConfig)
 from ..utils.stats import ExpvarStatsClient, MultiStatsClient
 from . import codec
 from .handler import Handler, _local_status
 from .httpd import HTTPServer
+from .repair import Repairer
 from .syncer import HolderSyncer
 
 DEFAULT_PORT = 10101
@@ -105,7 +123,8 @@ class Server:
                  cluster=None, cluster_type: str = "static",
                  polling_interval: float = DEFAULT_POLLING_INTERVAL,
                  anti_entropy_interval: float
-                 = DEFAULT_ANTI_ENTROPY_INTERVAL):
+                 = DEFAULT_ANTI_ENTROPY_INTERVAL,
+                 scrub_config: Optional[ScrubConfig] = None):
         self.data_dir = data_dir
         self.host = host
         # Placement: the static cluster, or (None) this node alone,
@@ -156,6 +175,12 @@ class Server:
             stats=self.stats, logger=logger)
         self.warmup_enabled = warmup
         self.warmup: Optional[Warmup] = None
+        # Storage integrity (storage.scrub / server.repair) and tail
+        # sampling (obs.sampler): built in open(), under the data dir.
+        self.scrub_config = scrub_config or ScrubConfig()
+        self.scrubber: Optional[Scrubber] = None
+        self.repairer: Optional[Repairer] = None
+        self.sampler: Optional[TailSampler] = None
 
     # -- lifecycle (server.go:89-180) ----------------------------------------
 
@@ -190,6 +215,26 @@ class Server:
                                      **self.executor_options)
             if self.warmup_enabled:
                 self.warmup = Warmup(self.executor, logger=self.logger)
+            if self.trace_config.tail:
+                self.sampler = TailSampler(
+                    disk=SegmentRing(
+                        os.path.join(self.holder.path, "traces"),
+                        segment_bytes=self.trace_config.disk_segment_bytes,
+                        max_segments=self.trace_config.disk_segments),
+                    head_n=self.trace_config.head_n,
+                    slow_floor_s=self.trace_config.slow_floor,
+                    admission=self.admission)
+            if self.scrub_config.enabled:
+                self.scrubber = Scrubber(
+                    self.holder, interval_s=self.scrub_config.interval,
+                    pace_s=self.scrub_config.pace, logger=self.logger)
+            if self.scrub_config.repair:
+                # Wires itself to the registry's on_quarantine hook.
+                self.repairer = Repairer(
+                    self.holder, self.cluster, self.host,
+                    client_factory=self._client_factory, fault=self.fault,
+                    rescan_s=self.scrub_config.repair_rescan,
+                    logger=self.logger)
             self.handler = Handler(
                 self.holder, self.executor, host=self.host,
                 logger=self.logger, admission=self.admission,
@@ -197,7 +242,8 @@ class Server:
                 default_timeout_s=self.query_config.default_timeout,
                 tracer=self.tracer, stats=self.stats,
                 tenants=self.tenants, cluster=self.cluster,
-                status_handler=self)
+                status_handler=self, sampler=self.sampler,
+                scrubber=self.scrubber, repairer=self.repairer)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
@@ -212,6 +258,9 @@ class Server:
             self.handler.host = self.host
             self.executor.host = self.host
             self.fault.node = self.host
+            if self.repairer is not None:
+                # Its self-identity picks the in-process stream target.
+                self.repairer.host = self.host
             if own_cluster:
                 self.cluster.nodes[0].host = self.host
         if self.cluster_type == "http":
@@ -223,6 +272,10 @@ class Server:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="httpd")
         self._thread.start()
+        if self.scrubber is not None:
+            self.scrubber.start()
+        if self.repairer is not None:
+            self.repairer.start()
         if len(self.cluster.nodes) > 1:
             for fn, interval, name in (
                     (self.poll_max_slices, self.polling_interval,
@@ -253,6 +306,14 @@ class Server:
         for t in self._loops:
             t.join(timeout=10)
         self._loops = []
+        # Scrub and repair stop before the holder closes: a mid-pass
+        # verify or re-stream must not race the fragments' close.
+        if self.repairer is not None:
+            self.repairer.stop()
+        if self.scrubber is not None:
+            self.scrubber.stop()
+        if self.sampler is not None and self.sampler.disk is not None:
+            self.sampler.disk.close()
         if self.executor is not None:
             self.executor.close()
         with self._clients_mu:
@@ -423,6 +484,12 @@ class Server:
             return None  # the bulk attribute path applies out of order
         lane = (LANE_WRITE if any(c.name in _WRITE_CALLS for c in calls)
                 else LANE_READ)
+        if lane == LANE_WRITE:
+            from ..fault import diskfull as fault_diskfull
+            if not fault_diskfull.write_ready():
+                # Write-unready after ENOSPC: decline the batch so
+                # per-request dispatch answers the proper 507s.
+                return None
         try:
             slot = self.admission.acquire(lane, tenant=index)
         except AdmissionFullError:

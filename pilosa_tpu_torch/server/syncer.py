@@ -7,15 +7,24 @@ attribute diffs from peers by 100-id block checksums; for each owned
 pulls differing blocks, runs the majority-consensus MergeBlock
 (fragment.merge_block), applies local diffs, and pushes each peer's
 diffs back as SetBit/ClearBit PQL. Peers behind an open circuit are
-skipped for the pass. The resize streamer (FragmentStreamer) waits for
-the resize slice; without a resize every slice is read-authoritative
-and none is moving.
+skipped for the pass, and a quarantined local fragment does not vote
+(storage.integrity: the repairer owns it until it clears).
+
+``FragmentStreamer`` is the JAX package's directed block-diff stream,
+source to target through the additive ``/fragment/import`` lane; the
+port's repairer (server.repair) re-streams a quarantined fragment with
+it. Its resize face (the ``resize.stream`` failpoint, the progress
+metric) waits for the resize slice; without a resize every slice is
+read-authoritative and none is moving.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional
+
+import numpy as np
 
 from .. import SLICE_WIDTH
 from ..cluster.client import Client, ClientError
@@ -138,6 +147,14 @@ class HolderSyncer:
             raise FrameNotFoundError(frame)
         v = f.create_view_if_not_exists(view)
         frag = v.create_fragment_if_not_exists(slice)
+        if frag.quarantined:
+            # Storage integrity: a quarantined local copy must not VOTE
+            # in the consensus merge — a majority with a corrupt (or
+            # freshly reset, near-empty) voter could push ClearBits of
+            # acked writes to healthy replicas. The repairer owns this
+            # fragment; anti-entropy resumes on the sweep after it
+            # clears.
+            return
         FragmentSyncer(frag, self.host, self.cluster, self.closing,
                        self.client_factory, logger=self.logger,
                        fault=self.fault).sync_fragment()
@@ -180,6 +197,8 @@ class FragmentSyncer:
         """Compare per-block checksums across the replica set; merge any
         differing block (fragment.go:1322-1399)."""
         f = self.fragment
+        if getattr(f, "quarantined", False):
+            return  # must not vote (see HolderSyncer.sync_fragment)
         nodes = self._replica_peers(
             self.cluster.fragment_nodes(f.index, f.slice))
         if len(nodes) <= 1:
@@ -293,3 +312,61 @@ class FragmentSyncer:
                 # already landed.
                 self.logger.printf("sync: push-back to %s failed: %s",
                                    client.host, e)
+
+
+class FragmentStreamer:
+    """Directed fragment stream, source to target: the FragmentSyncer
+    block-diff protocol (per-block SHA1 checksums via GET
+    /fragment/blocks, changed-block pulls via the block-data wire), but
+    instead of the consensus merge it pushes SETS ONLY through the
+    additive ``POST /fragment/import`` lane. Sets only, because a bit
+    present on the target but not on the source can only be a write
+    racing the diff read — clearing it would drop an acked write; and
+    additive, because a whole-fragment replace would clobber those
+    writes. The push is idempotent (re-adding set bits is a no-op), so a
+    torn stream recovers by re-running the diff."""
+
+    def __init__(self, client_factory=Client, logger=logger_mod.NOP,
+                 fault=None, pace_s: float = 0.0):
+        self.client_factory = client_factory
+        self.logger = logger
+        self.fault = fault
+        self.pace_s = pace_s  # sleep between block pushes
+
+    def stream_fragment(self, index: str, frame: str, view: str,
+                        slice: int, source_host: str,
+                        target_host: str) -> tuple[int, int]:
+        """One fragment source to target; returns (bits, bytes) pushed.
+        Zero bits pushed on a re-run is the convergence signal the
+        diff-until-clean loops key on."""
+        src = self.client_factory(source_host)
+        tgt = self.client_factory(target_host)
+        try:
+            src_blocks = src.fragment_blocks(index, frame, view, slice,
+                                             host=source_host)
+        except FragmentNotFoundError:
+            return (0, 0)  # nothing at the source: nothing to move
+        try:
+            tgt_blocks = dict(tgt.fragment_blocks(index, frame, view,
+                                                  slice, host=target_host))
+        except FragmentNotFoundError:
+            tgt_blocks = {}
+        bits = nbytes = 0
+        for block_id, checksum in src_blocks:
+            if tgt_blocks.get(block_id) == checksum:
+                continue
+            rows, cols = src.block_data(index, frame, view, slice,
+                                        block_id, host=source_host)
+            if not len(rows):
+                continue
+            positions = np.unique(
+                np.asarray(rows, dtype=np.uint64) * np.uint64(SLICE_WIDTH)
+                + np.asarray(cols, dtype=np.uint64)
+                % np.uint64(SLICE_WIDTH))
+            tgt.fragment_import(index, frame, view, slice, positions,
+                                host=target_host)
+            bits += len(positions)
+            nbytes += len(positions) * 8
+            if self.pace_s:
+                time.sleep(self.pace_s)
+        return (bits, nbytes)

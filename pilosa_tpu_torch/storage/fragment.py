@@ -40,11 +40,25 @@ SHA1 block checksums of 100-row blocks and the majority merge, the JAX
 package's bytes and semantics; a merge's local diff goes through the
 WAL'd batch lane.
 
-Left out of the copy: tiering, quarantine and verify-on-read, scrub,
-the failpoints and stats, and the incremental
-per-row count map (a write recounts its rows). Bits written are charged
-to the current query's cost ledger (obs.accounting) at the three sites
-the JAX package charges them.
+Storage integrity (the JAX package's, storage.integrity): a data file
+whose footer, header or body contradicts its checksums at open — or no
+longer parses — QUARANTINES the fragment instead of failing the open.
+The file moves aside to ``<path>.corrupt`` (forensics, and the sentinel
+that re-quarantines at the next open until a repair removes it), a fresh
+empty snapshot takes its place so writes keep buffering through the WAL,
+and the holder's QuarantineRegistry tells the executor to serve the
+slice from a replica. The first read after an open re-checks every
+container block's crc against the footer (``_verify_on_read``);
+``verify_on_disk`` is the scrubber's pass (storage.scrub) and
+``reset_for_repair`` / ``clear_quarantine`` the repairer's
+(server.repair). The ``storage.read`` and ``snapshot.write`` failpoints
+sit where the JAX package has them, and a snapshot that fails with
+ENOSPC flips the node write-unready (fault.diskfull).
+
+Left out of the copy: tiering, the stats, and the incremental per-row
+count map (a write recounts its rows). Bits written are charged to the
+current query's cost ledger (obs.accounting) at the three sites the JAX
+package charges them.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import heapq
+import logging
 import math
 import mmap
 import os
@@ -62,15 +77,20 @@ from typing import Optional
 import numpy as np
 
 from .. import SLICE_WIDTH
+from ..fault import failpoints as _fp
 from ..obs import accounting as _accounting
+from ..obs import metrics as obs_metrics
 from ..parallel.residency import DeviceRowCache
 from ..proto import internal as pb
 from ..utils import arrays as arrays_mod
 from . import cache as cache_mod
+from . import integrity as integrity_mod
 from . import roaring
 from . import wal as wal_mod
 from .bitmap import Bitmap
 from .cache import Pair
+
+_LOG = logging.getLogger("pilosa_tpu_torch.storage")
 
 # Number of operations before a snapshot rewrite (the JAX package's
 # default; reference fragment.go:63-65). Tests lower it on the module.
@@ -142,7 +162,8 @@ class Fragment:
     def __init__(self, path: str, index: str, frame: str, view: str,
                  slice: int, cache_type: str = cache_mod.DEFAULT_CACHE_TYPE,
                  cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
-                 row_attr_store=None, wal_fsync: str = wal_mod.FSYNC_NONE):
+                 row_attr_store=None, wal_fsync: str = wal_mod.FSYNC_NONE,
+                 quarantine=None):
         self.path = path
         self.index = index
         self.frame = frame
@@ -152,6 +173,15 @@ class Fragment:
         self.cache_size = cache_size
         self.row_attr_store = row_attr_store
         self.wal_fsync = wal_fsync
+        # Storage integrity (storage.integrity): the holder-level
+        # quarantine registry (None for bare library fragments), the
+        # quarantine flag gating the READ path, and the lazy first-read
+        # verification latch (armed on every open of a footered
+        # snapshot; one attr check on the read hot path).
+        self.quarantine = quarantine
+        self.quarantined = False
+        self.quarantine_reason = ""
+        self._verify_pending = False
         self.storage: Optional[roaring.Bitmap] = None
         self.cache = None                       # rank/lru count cache
         self._cache_flushed = None              # last flush_cache blob
@@ -202,16 +232,52 @@ class Fragment:
             native_ext.load()
             self.cache = cache_mod.new_cache(self.cache_type,
                                              self.cache_size)
-            self._open_storage(verify=True)
+            self._open_storage_quarantining(verify=True)
+            if not self.quarantined and os.path.exists(
+                    self.path + ".corrupt"):
+                # A prior quarantine replaced the data file with a fresh
+                # one and the process died before the repair completed:
+                # the aside file is the crash-safe sentinel. Without it
+                # a restart would serve the near-empty replacement as
+                # authoritative. The repairer removes the sentinel when
+                # the replica re-stream verifies clean.
+                self._set_quarantined(
+                    "pending repair (restart before repair completed)",
+                    site="open")
             self._open_cache()
             self._open = True
+
+    def _open_storage_quarantining(self, verify: bool = False) -> None:
+        """_open_storage, but a file whose bytes contradict their
+        checksums (or no longer parse at all) QUARANTINES the fragment
+        instead of failing the open: the corrupt file moves aside
+        (``<path>.corrupt``, for forensics and ``check --deep``), a
+        fresh empty snapshot takes its place so writes keep buffering
+        through the WAL, reads fail over to a replica (the executor
+        consults the registry), and the repairer re-streams the
+        content (server.repair)."""
+        try:
+            self._open_storage(verify=verify)
+        except (ValueError, integrity_mod.CorruptionError) as e:
+            self._close_storage()
+            try:
+                os.replace(self.path, self.path + ".corrupt")
+            except FileNotFoundError:
+                pass
+            self._open_storage()
+            self._set_quarantined(f"open: {e}", site="open")
 
     def _open_storage(self, verify: bool = False) -> None:
         # Open (creating) the data file, flock it, seed an empty file
         # with a footered empty snapshot, map, replay snapshot + op-log,
         # then attach the WAL as the op writer (reference
         # fragment.go:179-234). buffering=0: the WAL's leader write
-        # reaches the OS in one syscall.
+        # reaches the OS in one syscall. The ``storage.read`` failpoint
+        # is the deterministic injection site for on-disk corruption
+        # (corrupt mode flips real bits in the file before it is read
+        # back).
+        if _fp.ACTIVE is not None:
+            _fp.ACTIVE.hit("storage.read", path=self.path)
         self._file = open(self.path, "a+b", buffering=0)
         try:
             fcntl.flock(self._file.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
@@ -239,6 +305,10 @@ class Fragment:
                                    prot=mmap.PROT_READ)
             self.storage = roaring.Bitmap.unmarshal(self._mmap, mapped=True,
                                                     verify_body=verify)
+        # Arm the lazy per-block verification: the first READ after an
+        # open re-checks every container block's crc against the mmap;
+        # until then only the footer and header crcs have been checked.
+        self._verify_pending = self.storage.footer is not None
         self._wal = wal_mod.GroupCommitWal(self._file, self.wal_fsync)
         self.storage.op_writer = self._wal
 
@@ -317,6 +387,145 @@ class Fragment:
                 return
         self._cache_complete = False
 
+    # -- storage integrity (storage.integrity) -------------------------------
+
+    def _set_quarantined(self, reason: str, site: str) -> None:
+        """Mark this fragment's local copy untrustworthy: the executor
+        stops serving its slice locally (reads fail over to a replica),
+        anti-entropy stops letting it vote, and the repairer re-streams
+        it from a replica. Writes keep applying (WAL-buffered) — they
+        also fan out to every replica owner, so the repaired copy
+        includes them."""
+        obs_metrics.STORAGE_CORRUPTION.labels(site).inc()
+        self.quarantined = True
+        self.quarantine_reason = reason
+        # Tail sampling: the query that tripped over the corruption is
+        # keep-worthy evidence (obs.sampler reason "corruption").
+        from ..sched import context as sched_context
+        ctx = sched_context.current()
+        if ctx is not None:
+            ctx.note_flag("corruption")
+        if self.quarantine is not None:
+            if self.quarantine.add(self, reason):
+                obs_metrics.STORAGE_QUARANTINED.inc()
+            obs_metrics.STORAGE_QUARANTINED_LIVE.set(len(self.quarantine))
+        else:
+            obs_metrics.STORAGE_QUARANTINED.inc()
+
+    def clear_quarantine(self) -> None:
+        """Repair complete: the local copy is trustworthy again. The
+        ``.corrupt`` aside file goes too — it doubles as the crash-safe
+        quarantine sentinel (see open()), so leaving it would
+        re-quarantine a REPAIRED fragment at the next restart."""
+        try:
+            os.remove(self.path + ".corrupt")
+        except FileNotFoundError:
+            pass
+        except OSError as e:
+            _LOG.warning(
+                "fragment: could not remove quarantine sentinel"
+                " %s.corrupt (%s) — the fragment will re-quarantine"
+                " at the next restart until it is removed",
+                self.path, e)
+        self.quarantined = False
+        self.quarantine_reason = ""
+        if self.quarantine is not None:
+            self.quarantine.remove(self)
+            obs_metrics.STORAGE_QUARANTINED_LIVE.set(len(self.quarantine))
+
+    def _verify_on_read(self) -> None:
+        """Lazy per-block verification on the FIRST read after an open:
+        one crc pass over the container blocks against the footer
+        table, then free. A mismatch quarantines and raises — the
+        executor re-maps the slice onto a healthy replica (the same
+        machinery as a failed remote leg)."""
+        if not self._verify_pending:
+            return
+        self._verify_pending = False
+        info = getattr(self.storage, "footer", None)
+        mm = self._mmap
+        if info is None or mm is None:
+            return
+        bad = integrity_mod.verify_blocks(mm, info)
+        obs_metrics.STORAGE_SCRUB_BLOCKS.labels("read").inc(info.block_n)
+        if bad:
+            self._set_quarantined(
+                f"container block crc mismatch (blocks {bad[:4]},"
+                f" {len(bad)} total)", site="read")
+            raise integrity_mod.CorruptionError(
+                f"fragment {self.index}/{self.frame}/{self.view}/"
+                f"{self.slice}: {len(bad)} container blocks fail crc")
+
+    def verify_on_disk(self) -> dict:
+        """Re-read the data FILE and verify footer + blocks + WAL tail
+        — the scrubber's per-fragment pass (storage.scrub). Opens its
+        own fd (an os.replace swap pins the old inode, so the read is a
+        consistent append-only prefix), sizes it under the fragment lock
+        after a commit barrier, and quarantines on any corruption
+        verdict."""
+        from . import scrub as scrub_mod
+        try:
+            self.wal_barrier()
+        except wal_mod.WalError:
+            pass  # torn pending tail: the flushed prefix still verifies
+        if _fp.ACTIVE is not None:
+            # The scrub leg's deterministic corruption injection site.
+            _fp.ACTIVE.hit("storage.read", path=self.path)
+        try:
+            f = open(self.path, "rb")
+        except OSError as e:
+            return {"error": f"unreadable: {e}", "coverage": "none"}
+        try:
+            with self._mu:
+                size = os.fstat(f.fileno()).st_size
+            mm = mmap.mmap(f.fileno(), 0, prot=mmap.PROT_READ)
+            try:
+                mv = memoryview(mm)
+                try:
+                    verdict = scrub_mod.scrub_buffer(mv[:size])
+                finally:
+                    del mv
+            finally:
+                mm.close()
+        finally:
+            f.close()
+        if verdict.get("corrupt"):
+            self._set_quarantined(
+                f"scrub: {verdict.get('error', 'checksum mismatch')}",
+                site="scrub")
+        return verdict
+
+    def reset_for_repair(self) -> None:
+        """Drop the suspect local state ahead of a replica re-stream
+        (server.repair): the data file moves aside to ``.corrupt``, a
+        fresh footered empty snapshot takes its place, and every derived
+        cache resets. Writes racing this land in the fresh WAL; reads
+        stay quarantined until the repairer verifies the streamed copy
+        and clears the flag. Lock order: _snap_mu (waits out any
+        background snapshot worker) then _mu."""
+        with self._snap_mu, self._mu:
+            if not self._open:
+                return
+            self._close_storage()
+            try:
+                aside = self.path + ".corrupt"
+                if os.path.exists(aside):
+                    # An open-time quarantine already moved the original
+                    # corrupt bytes aside; keep THAT forensics file.
+                    os.remove(self.path)
+                else:
+                    os.replace(self.path, aside)
+            except FileNotFoundError:
+                pass
+            self._open_storage()
+            self._epoch += 1
+            self.row_cache.clear()
+            self.device.invalidate_all()
+            self._src_counts.clear()
+            self._cache_complete = False
+            self.cache = cache_mod.new_cache(self.cache_type,
+                                             self.cache_size)
+
     def close(self) -> None:
         # _snap_mu first (lock order): waits out any background
         # snapshot and blocks new ones for the whole close.
@@ -381,10 +590,25 @@ class Fragment:
     def _snapshot_locked(self) -> None:
         with self._mu:
             tmp = self.path + ".snapshotting"
-            with open(tmp, "wb") as f:
-                self.storage.write_to(f, footer=True)
-                f.flush()
-                os.fsync(f.fileno())
+            try:
+                with open(tmp, "wb") as f:
+                    self.storage.write_to(f, footer=True)
+                    # The hit sits AFTER the body write so corrupt mode
+                    # can flip real bits in the just-written snapshot
+                    # (error/torn/enospc leave the tmp file discarded
+                    # and the old file the record).
+                    if _fp.ACTIVE is not None:
+                        _fp.ACTIVE.hit("snapshot.write", writer=f)
+                    f.flush()
+                    os.fsync(f.fileno())
+            except OSError as e:
+                # A full disk flips the node write-unready
+                # (fault.diskfull: writes answer 507, reads keep
+                # serving) before the failure propagates; the old
+                # snapshot + WAL stays the file of record.
+                from ..fault import diskfull as _diskfull
+                _diskfull.note_if_enospc(e, "snapshot.write", self.path)
+                raise
             self._swap_data_file(tmp, new_op_n=0)
 
     def _swap_data_file(self, tmp: str, new_op_n: int) -> None:
@@ -400,7 +624,10 @@ class Fragment:
         if self._snapshot_n % _REMAP_EVERY == 0:
             self._close_storage()
             os.replace(tmp, self.path)
-            self._open_storage()
+            # Quarantining reopen: a snapshot that landed corrupt
+            # (failpoint corrupt mode, bit rot in the write path)
+            # degrades to quarantine + repair, not a broken fragment.
+            self._open_storage_quarantining()
             return
         self.storage.op_writer = None
         os.replace(tmp, self.path)
@@ -409,7 +636,7 @@ class Fragment:
             fcntl.flock(new_file.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
         except BaseException:
             self._close_storage()
-            self._open_storage()
+            self._open_storage_quarantining()
             return
         old_file, self._file = self._file, new_file
         self._mmap = None
@@ -460,6 +687,12 @@ class Fragment:
                     # runs with NO fragment lock held; writers keep
                     # appending to the old file's WAL.
                     roaring.write_frozen(frozen, f, footer=True)
+                    # Crash-mid-snapshot injection: a fault here leaves
+                    # a partial tmp file that is never swapped in.
+                    # Corrupt mode flips real bits in the written body,
+                    # which the open-time and scrub checks catch.
+                    if _fp.ACTIVE is not None:
+                        _fp.ACTIVE.hit("snapshot.write", writer=f)
                     f.flush()
                     os.fsync(f.fileno())
                     with self._mu:
@@ -476,11 +709,14 @@ class Fragment:
                         os.fsync(f.fileno())
                         self._swap_data_file(
                             tmp, new_op_n=len(tail) // roaring.OP_SIZE)
-            except OSError:
+            except OSError as e:
                 # Pre-swap IO failure: op_writer was never detached, the
                 # old snapshot+WAL remains the file of record, and the
-                # next MAX_OP_N trigger retries.
-                pass
+                # next MAX_OP_N trigger retries. ENOSPC also flips the
+                # node write-unready (fault.diskfull), so the retry
+                # pressure stops at the HTTP layer with 507s.
+                from ..fault import diskfull as _diskfull
+                _diskfull.note_if_enospc(e, "snapshot.write", self.path)
         finally:
             self._snap_mu.release()
 
@@ -529,6 +765,7 @@ class Fragment:
         column ids (reference fragment.go:338-367), through the row
         cache."""
         with self._mu:
+            self._verify_on_read()
             cached = self.row_cache.fetch(row_id)
             if cached is not None:
                 return cached
@@ -548,6 +785,7 @@ class Fragment:
         cache pass False to avoid churning it."""
         from ..ops.packed import pack_storage_row
         with self._mu:
+            self._verify_on_read()
             if cached:
                 out[:] = self.device.host_row_words(self.storage, row_id)
             else:
@@ -572,6 +810,7 @@ class Fragment:
         if not row_ids:
             return np.empty(0, dtype=np.uint64)
         with self._mu:
+            self._verify_on_read()
             w = np.uint64(SLICE_WIDTH)
             ids = np.unique(np.asarray(row_ids, dtype=np.uint64))
             # A row covers SLICE_WIDTH / 65536 consecutive container keys.
@@ -953,6 +1192,7 @@ class Fragment:
         lock — the extraction feeding device uploads (ops.packed)."""
         from ..ops import packed
         with self._mu:
+            self._verify_on_read()
             return packed.sparse_row_words(self.storage, row_id)
 
     def positions(self) -> np.ndarray:
@@ -1131,6 +1371,7 @@ class Fragment:
         (reference fragment.go:490-625; same semantics, batched counts)."""
         opt = opt or TopOptions()
         with self._mu:
+            self._verify_on_read()
             # Array fast path for the plain TopN(frame, n) shape: the
             # first n rank-cache entries with count ≥ max(threshold, 1),
             # which the heap replay below computes identically.

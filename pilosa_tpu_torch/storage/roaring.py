@@ -46,8 +46,9 @@ All set algebra is vectorized (numpy or the optional C++ kernel lib in
 ``pilosa_tpu_torch.native``); the same dense-word orientation is what packs
 straight onto the card (see pilosa_tpu_torch.ops.packed).
 
-Copied from the JAX package's ``storage/roaring.py``; the failpoint
-hooks are left out, and every path that runs without them is kept.
+Copied from the JAX package's ``storage/roaring.py``, with its
+``wal.append`` failpoint site on plain op writers (the group-commit
+WAL carries its own at the leader flush).
 Every container set-algebra op is counted by operand kinds and charged
 to the current query's cost ledger (``_bump``, obs.accounting). Op records go to the group-commit WAL
 (storage.wal) and point mutations take the one-crossing mutate
@@ -64,6 +65,7 @@ from typing import Callable, Iterator as TIterator, Optional
 
 import numpy as np
 
+from ..fault import failpoints as _fp
 from ..obs import accounting as _accounting
 from . import integrity as _integrity
 from . import native
@@ -75,11 +77,14 @@ from ..utils.arrays import searchsorted_membership, sort_dedupe
 def _wal_write(writer, blob: bytes) -> None:
     """Every op-log append funnels through here. A group-commit WAL
     (storage.wal.GroupCommitWal — the fragment's op writer) buffers the
-    records; its LEADER flush is where bytes reach the file. Plain
-    file-like writers (tests attaching BytesIO) write directly."""
+    records; its LEADER flush is where bytes reach the file, so the
+    ``wal.append`` failpoint fires there. Plain file-like writers
+    (tests attaching BytesIO) keep the per-append injection + write."""
     if type(writer) is _wal_mod.GroupCommitWal:
         writer.append(blob)
         return
+    if _fp.ACTIVE is not None:
+        _fp.ACTIVE.hit("wal.append", writer=writer, data=blob)
     writer.write(blob)
 
 # --- constants (match reference wire format) ---------------------------------

@@ -39,9 +39,12 @@ fails does the log fail-stop until the next snapshot swap hands it a
 fresh file. A real crash (no truncate) leaves a torn tail that reopen
 trims to the last complete record — never past an acked one.
 
-Left out of the copy: the ``wal.append`` failpoint, the WAL archive
-sink (backup), the disk-full latch, the flusher health report and the
-WAL metrics. None of them changes what is durable or when.
+The leader flush carries the ``wal.append`` failpoint (fault.failpoints:
+a torn batch, an injected error or ENOSPC), and a leader write that
+fails with ENOSPC flips the node write-unready (fault.diskfull) while a
+successful one clears it. Left out of the copy: the WAL archive sink
+(backup), the flusher health report and the WAL metrics. None of them
+changes what is durable or when.
 """
 
 from __future__ import annotations
@@ -50,6 +53,9 @@ import os
 import threading
 import time
 from typing import Optional
+
+from ..fault import diskfull as _diskfull
+from ..fault import failpoints as _fp
 
 OP_SIZE = 13  # one op record (storage.roaring.OP_SIZE; kept in sync)
 
@@ -192,11 +198,22 @@ class GroupCommitWal:
         recovered = False
         try:
             if batch:
+                if _fp.ACTIVE is not None:
+                    # The torn-write injection point: a crash mid group
+                    # commit tears the GROUPED batch at an arbitrary
+                    # byte offset, not one record.
+                    _fp.ACTIVE.hit("wal.append", writer=file, data=batch)
                 file.write(batch)
             if sync and not self.closed:
                 os.fsync(file.fileno())
         except BaseException as e:  # noqa: BLE001 — must wake waiters
             err = e
+            # A full disk is a NODE condition, not this WAL's: flip the
+            # process write-unready (fault.diskfull) so the serving
+            # layer answers 507 + Retry-After. The batch stays pending
+            # either way — recovery retries it cleanly.
+            _diskfull.note_if_enospc(e, "wal.append",
+                                     getattr(file, "name", None))
             try:
                 # An arbitrary prefix of the batch may be on disk; cut
                 # the file back to the durable prefix so retries (and
@@ -205,6 +222,11 @@ class GroupCommitWal:
                 recovered = True
             except Exception:  # noqa: BLE001 — fail-stop until the swap
                 recovered = False
+        else:
+            if batch:
+                # A durable write succeeded: the cheapest recovery
+                # signal when the node was write-unready.
+                _diskfull.note_write_ok()
         with self._mu:
             self._leader = False
             if err is None:
@@ -244,12 +266,18 @@ class GroupCommitWal:
         with self._mu:
             self._file = file
             self._fail = None
-            self._base = (file.seek(0, os.SEEK_END)
-                          if file is not None else 0)
             if clear_pending:
                 self._pending.clear()
                 self._seq_flushed = self._seq_appended
                 self._seq_synced = self._seq_appended
+            # seq s lives at byte _base + s of the NEW file: its end is
+            # where the next flushed record goes. (The JAX package sets
+            # _base to the file's size here, so a failed leader write
+            # after a snapshot swap truncates to size + every sequence
+            # byte ever flushed — a hole of zeros that fails the WAL's
+            # checksums at the next open.)
+            self._base = ((file.seek(0, os.SEEK_END) if file is not None
+                           else 0) - self._seq_flushed)
             if file is None:
                 self._registered = False
                 _deregister_dirty(self)
@@ -260,6 +288,8 @@ class GroupCommitWal:
             self._cond.notify_all()  # release any blocked followers
             self._registered = False
             _deregister_dirty(self)
+            with _dirty_mu:
+                _failed.discard(self)
 
 
 # -- process-wide dirty registry + barrier ------------------------------------
@@ -271,6 +301,13 @@ class GroupCommitWal:
 
 _dirty_mu = threading.Lock()
 _dirty: set = set()
+# WALs whose background flush failed: the flusher stops retrying them
+# (a full disk would fail every window), but barrier_all() still flushes
+# them, so an ack never goes out while a record it covers sits pending.
+# (The JAX package drops such a WAL from its barrier too, so a write
+# that appends nothing new — a retried SetBit answering false — acks
+# with its record still in userspace.)
+_failed: set = set()
 _flusher: Optional[threading.Thread] = None
 _flusher_wake = threading.Event()
 
@@ -294,15 +331,18 @@ def _deregister_dirty(wal: GroupCommitWal) -> None:
 
 def barrier_all() -> None:
     """Flush every dirty WAL at its configured durability level — the
-    serving layer's pre-ack commit barrier."""
+    serving layer's pre-ack commit barrier — and every WAL whose
+    background flush failed."""
     with _dirty_mu:
-        wals = list(_dirty)
+        wals = list(_dirty | _failed)
     for wal in wals:
         try:
             wal.barrier()
         except WalError:
             if not wal.closed:
                 raise
+        with _dirty_mu:
+            _failed.discard(wal)
 
 
 def _flush_loop() -> None:
@@ -330,10 +370,13 @@ def _flush_loop() -> None:
                 # Drop it from the dirty set so the loop doesn't retry
                 # a failing disk every window — but clear _registered
                 # with it, so the owner's NEXT append re-registers and
-                # its barrier surfaces the error.
+                # its barrier surfaces the error. The next barrier_all
+                # retries it either way (_failed).
                 with wal._mu:
                     wal._registered = False
-                    _deregister_dirty(wal)
+                    with _dirty_mu:
+                        _dirty.discard(wal)
+                        _failed.add(wal)
         # Re-arm while anything stays dirty (a flush that early-returns
         # because a batch formed mid-write leaves records pending with
         # no new registration event to wake us); exit when clean.

@@ -2,12 +2,15 @@
 and tracing.
 
 The part of the JAX package's ``utils/config.py`` (reference config.go)
-that a one-node ``Server`` takes for the sched and obs subsystems: the
-Go-style duration parser behind ``?timeout=``, the mandatory ``default``
-tenant and the ``[tenants]`` table's validation, and the ``[query]``,
-``[tenants]``, ``[trace]`` and ``[cluster]`` sections as dataclasses
-with the JAX package's defaults. The TOML loader, the environment and
-flag overlays and the other sections wait for the operator slice.
+that a ``Server`` takes for the sched, obs, cluster and storage-integrity
+subsystems: the Go-style duration parser behind ``?timeout=``, the
+mandatory ``default`` tenant and the ``[tenants]`` table's validation,
+the ``[query]``, ``[tenants]``, ``[trace]``, ``[scrub]`` and
+``[cluster]`` sections as dataclasses with the JAX package's defaults,
+and the ``PILOSA_TRACE_*`` / ``PILOSA_SCRUB_*`` environment keys that
+the JAX ``load()`` reads for the ``[trace]`` and ``[scrub]`` sections
+(``apply_env``). The TOML loader and the other sections' overlays wait
+for the operator slice.
 """
 
 from __future__ import annotations
@@ -132,13 +135,83 @@ class TenantsConfig:
 
 @dataclass
 class TraceConfig:
-    """[trace] section (obs.trace): ``enabled`` keeps EVERY query's
-    trace (off by default; ``?trace=1`` opts in per request either
-    way); ``max_traces``/``max_spans`` bound the per-node ring. The JAX
-    package's tail-sampling knobs wait for obs.sampler."""
+    """[trace] section (obs subsystem): ``enabled`` keeps EVERY
+    query's trace (off by default; ``?trace=1`` opts in per request
+    either way); ``max_traces``/``max_spans`` bound the per-node ring.
+
+    Tail sampling (on by default): ``tail`` gives every query the span
+    buffer and keeps the interesting ones at query end (slow / errored /
+    deadline / cancelled / partial / shed / breaker / failpoint /
+    1-in-``head_n`` head sample); ``slow_floor`` floors the
+    histogram-derived slow threshold. Kept traces persist to a disk
+    segment ring under the data dir bounded by ``disk_segment_bytes`` ×
+    ``disk_segments``, browsable via /debug/traces?source=disk."""
     enabled: bool = False
     max_traces: int = 64
     max_spans: int = 512
+    tail: bool = True
+    head_n: int = 1000
+    slow_floor: float = 0.1
+    disk_segment_bytes: int = 1 << 20
+    disk_segments: int = 8
+
+
+@dataclass
+class ScrubConfig:
+    """[scrub] section (storage.scrub): the background storage-
+    integrity scrubber. ``interval`` is the pause between passes;
+    ``pace`` the sleep between fragments WITHIN a pass (serving
+    traffic owns the disk — the scrub breathes); ``repair`` gates the
+    automatic replica re-stream of quarantined fragments
+    (server.repair); ``repair_rescan`` its rescan/retry cadence."""
+    enabled: bool = True
+    interval: float = 600.0
+    pace: float = 0.01
+    repair: bool = True
+    repair_rescan: float = 15.0
+
+
+def parse_bool(v) -> bool:
+    """The JAX config's boolean reading: "0", "false", "no", "off" and
+    "" are false, anything else true."""
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() not in ("0", "false", "no", "off", "")
+
+
+def apply_env(trace: TraceConfig, scrub: ScrubConfig,
+              env: dict) -> None:
+    """Overlay the ``PILOSA_TRACE_*`` and ``PILOSA_SCRUB_*`` keys of
+    ``env`` onto the two sections, as the JAX package's ``load()`` does
+    (a key that is absent or empty leaves the default)."""
+    if env.get("PILOSA_TRACE_ENABLED"):
+        trace.enabled = parse_bool(env["PILOSA_TRACE_ENABLED"])
+    if env.get("PILOSA_TRACE_MAX_TRACES"):
+        trace.max_traces = int(env["PILOSA_TRACE_MAX_TRACES"])
+    if env.get("PILOSA_TRACE_MAX_SPANS"):
+        trace.max_spans = int(env["PILOSA_TRACE_MAX_SPANS"])
+    if env.get("PILOSA_TRACE_TAIL"):
+        trace.tail = parse_bool(env["PILOSA_TRACE_TAIL"])
+    if env.get("PILOSA_TRACE_HEAD_N"):
+        trace.head_n = int(env["PILOSA_TRACE_HEAD_N"])
+    if env.get("PILOSA_TRACE_SLOW_FLOOR"):
+        trace.slow_floor = parse_duration(env["PILOSA_TRACE_SLOW_FLOOR"])
+    if env.get("PILOSA_TRACE_DISK_SEGMENT_BYTES"):
+        trace.disk_segment_bytes = int(
+            env["PILOSA_TRACE_DISK_SEGMENT_BYTES"])
+    if env.get("PILOSA_TRACE_DISK_SEGMENTS"):
+        trace.disk_segments = int(env["PILOSA_TRACE_DISK_SEGMENTS"])
+    if env.get("PILOSA_SCRUB_ENABLED"):
+        scrub.enabled = parse_bool(env["PILOSA_SCRUB_ENABLED"])
+    if env.get("PILOSA_SCRUB_INTERVAL"):
+        scrub.interval = parse_duration(env["PILOSA_SCRUB_INTERVAL"])
+    if env.get("PILOSA_SCRUB_PACE"):
+        scrub.pace = parse_duration(env["PILOSA_SCRUB_PACE"])
+    if env.get("PILOSA_SCRUB_REPAIR"):
+        scrub.repair = parse_bool(env["PILOSA_SCRUB_REPAIR"])
+    if env.get("PILOSA_SCRUB_REPAIR_RESCAN"):
+        scrub.repair_rescan = parse_duration(
+            env["PILOSA_SCRUB_REPAIR_RESCAN"])
 
 
 # Cluster defaults (reference server.go:33-37 and the JAX package's

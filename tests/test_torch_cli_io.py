@@ -181,3 +181,103 @@ def test_malformed_field_values_fail_alike(servers, tmp_path, body, error):
                                   "-f", "n", "--field", "x", path])
         assert rc == 1 and out == ""
         assert err.splitlines()[-1] == f"error: {error}", cli.__name__
+
+
+# -- check and inspect (the offline face of the scrub) ------------------------
+
+def _footered(roar, n, seed, footer=True, runs=False):
+    import io as io_mod
+    rng = np.random.default_rng(seed)
+    b = roar.Bitmap()
+    b.add_many(rng.choice(4 * SLICE_WIDTH, size=n, replace=False)
+               .astype(np.uint64))
+    if runs:
+        b.add_many(np.arange(70000, 140000, dtype=np.uint64))
+        b.optimize()
+    if not footer:
+        return b.marshal()
+    buf = io_mod.BytesIO()
+    b.write_to(buf, footer=True)
+    return buf.getvalue()
+
+
+@pytest.fixture
+def check_tree(tmp_path):
+    """A data-dir shaped tree: clean, rotten, vintage, run-container and
+    op-log files, a torn WAL tail, a ``.corrupt`` aside file, a
+    ``.cache`` sidecar (good and garbage) and a ``.snapshotting``
+    leftover."""
+    from pilosa_tpu_torch.storage import roaring as troar
+    d = tmp_path / "data" / "i" / "f" / "views" / "standard" / "fragments"
+    d.mkdir(parents=True)
+    (d / "0").write_bytes(_footered(troar, 300, 1))
+    bad = bytearray(_footered(troar, 300, 2))
+    bad[len(bad) // 2] ^= 0x01
+    (d / "1").write_bytes(bytes(bad))
+    (d / "2").write_bytes(_footered(troar, 300, 3, footer=False))
+    ops = _footered(troar, 100, 4) + b"".join(
+        troar.Op(troar.OP_ADD, 5 + i).marshal() for i in range(4))
+    (d / "3").write_bytes(ops + b"\x00\x01")
+    (d / "4").write_bytes(_footered(troar, 50, 5, runs=True))
+    (d / "1.corrupt").write_bytes(bytes(bad))
+    from pilosa_tpu_torch.proto import internal as pb
+    (d / "0.cache").write_bytes(pb.Cache(IDs=[1, 5, 9])
+                                .SerializeToString())
+    (d / "2.cache").write_bytes(b"\xff\xff\xff")
+    (d / "3.snapshotting").write_bytes(b"partial")
+    return tmp_path / "data", d
+
+
+def _both_cli(argv):
+    out = []
+    for mod in (jax_cli, port_cli):
+        so, se = io.StringIO(), io.StringIO()
+        try:
+            rc = mod.main(argv, stdout=so, stderr=se)
+        except Exception as e:  # noqa: BLE001 - compared across CLIs
+            rc = (type(e).__name__, str(e))
+        out.append((rc, so.getvalue(), se.getvalue()))
+    assert out[0] == out[1], argv
+    return out[1]
+
+
+@pytest.mark.parametrize("which", ["dir", "clean", "rotten", "vintage",
+                                   "torn", "runs"])
+def test_check_deep_matches_jax(check_tree, which):
+    data, d = check_tree
+    path = {"dir": data, "clean": d / "0", "rotten": d / "1",
+            "vintage": d / "2", "torn": d / "3", "runs": d / "4"}[which]
+    rc, out, _err = _both_cli(["check", "--deep", str(path)])
+    assert rc == (1 if which in ("dir", "rotten") else 0)
+    assert out.endswith("without footers\n")
+
+
+@pytest.mark.parametrize("which", ["0", "1", "2", "4", "0.cache",
+                                   "2.cache", "3.snapshotting"])
+def test_check_matches_jax(check_tree, which):
+    _data, d = check_tree
+    _both_cli(["check", str(d / which)])
+
+
+def test_check_without_paths_matches_jax():
+    rc, _out, err = _both_cli(["check"])
+    assert rc == 1 and err
+
+
+@pytest.mark.parametrize("which", ["0", "1", "2", "3", "4"])
+def test_inspect_matches_jax(check_tree, which):
+    _data, d = check_tree
+    _both_cli(["inspect", str(d / which)])
+
+
+def test_check_deep_unported_faces_exit_2(check_tree, tmp_path):
+    data, d = check_tree
+    so, se = io.StringIO(), io.StringIO()
+    assert port_cli.main(["check", "--deep", "--archive", "dir:/x",
+                          str(data)], stdout=so, stderr=se) == 2
+    assert "backup slice" in se.getvalue() and not so.getvalue()
+    (d / "7.blob").write_text("{}")
+    so, se = io.StringIO(), io.StringIO()
+    assert port_cli.main(["check", "--deep", str(data)], stdout=so,
+                         stderr=se) == 2
+    assert "tier slice" in se.getvalue() and not so.getvalue()

@@ -372,3 +372,113 @@ def test_cluster_cache_hit_validate_invalidate(tmp_path):
         return out, client.calls
     answer, calls = _both(tmp_path, case)
     assert [c[0] for c in calls].count("probe") >= 2
+
+
+# -- a failed leg of the coordinator's own ------------------------------------
+
+def _own_leg_case(pkg, h, raise_on_device=None):
+    """Three nodes, replicas 2: the coordinator ``local`` owns some of
+    the eight slices; its peers answer each leg with the exact count of
+    the slices they were given (one bit a slice). On the port the
+    coordinator's own leg runs the device count, pinned, and
+    ``raise_on_device`` (when given) replaces the device count with a
+    function that raises."""
+    for s in range(8):
+        must_set(h, "i", "general", 10, s * SLICE_WIDTH + 3)
+    cluster = pkg.top.new_cluster(["local", "peer1", "peer2"], replica_n=2)
+    client = FakeClient(pkg, lambda pkg, node, index, query, slices:
+                        [len(slices)])
+    kw = {}
+    if pkg is TORCH:
+        from pilosa_tpu_torch.parallel import costmodel
+        kw = dict(mesh_min_slices=1, cost_model=costmodel.pinned(0.0))
+    e = _executor(pkg, h, host="local", cluster=cluster, client=client,
+                  **kw)
+    local = [s for s in range(8)
+             if cluster.fragment_nodes("i", s)[0].host == "local"]
+    return e, client, local
+
+
+def test_own_device_leg_error_remaps_onto_replicas(tmp_path, monkeypatch):
+    """A device error on the coordinator's own leg re-maps that leg's
+    slices onto the other replica owners, as the JAX cluster does on any
+    leg error, and the failover counter counts them."""
+    q = "Count(Bitmap(rowID=10, frame=general))"
+    h = JAX.Holder(str(tmp_path / "jax"))
+    h.open()
+    try:
+        e, _client, _local = _own_leg_case(JAX, h)
+        want = e.execute("i", q)
+    finally:
+        h.close()
+
+    def broken(*a, **kw):
+        raise RuntimeError("device fault: illegal memory access")
+
+    monkeypatch.setattr(texec.mesh_mod, "count_expr_sharded", broken)
+    h = TORCH.Holder(str(tmp_path / "torch"))
+    h.open()
+    try:
+        e, client, local = _own_leg_case(TORCH, h)
+        assert local, "the coordinator owns a first replica"
+        ctr = tmetrics.FAILOVER_SLICES.labels("local")
+        before = ctr.value
+        got = e.execute("i", q)
+        assert ctr.value - before == len(local)
+        served = sorted(s for call in client.calls for s in call[3])
+        assert served == list(range(8))
+    finally:
+        h.close()
+    assert got == want == [8]
+
+
+@pytest.mark.parametrize("err", ["deadline", "cancel"])
+def test_own_leg_deadline_and_cancel_still_surface(tmp_path, monkeypatch,
+                                                   err):
+    """The query's own deadline or cancel on the coordinator's leg is
+    never re-mapped: it surfaces, and the handler answers 504 / 409."""
+    from pilosa_tpu_torch.errors import (QueryCancelledError,
+                                         QueryDeadlineError)
+    from pilosa_tpu_torch.server.handler import Handler
+    exc = (QueryDeadlineError("query deadline exceeded")
+           if err == "deadline" else QueryCancelledError("cancelled"))
+
+    def dying(*a, **kw):
+        raise exc
+
+    monkeypatch.setattr(texec.mesh_mod, "count_expr_sharded", dying)
+    h = TORCH.Holder(str(tmp_path / "torch"))
+    h.open()
+    try:
+        e, client, local = _own_leg_case(TORCH, h)
+        ctr = tmetrics.FAILOVER_SLICES.labels("local")
+        before = ctr.value
+        with pytest.raises(type(exc)) as ei:
+            e.execute("i", "Count(Bitmap(rowID=10, frame=general))")
+        assert ctr.value == before
+    finally:
+        h.close()
+    assert Handler._status_of(ei.value) == (504 if err == "deadline"
+                                            else 409)
+
+
+def test_own_device_error_surfaces_without_a_replica(tmp_path,
+                                                     monkeypatch):
+    """With no other replica to re-map onto (one node), the device error
+    surfaces: the leg never falls back to the host."""
+    def broken(*a, **kw):
+        raise RuntimeError("device fault: illegal memory access")
+
+    monkeypatch.setattr(texec.mesh_mod, "count_expr_sharded", broken)
+    from pilosa_tpu_torch.parallel import costmodel
+    h = TORCH.Holder(str(tmp_path / "torch"))
+    h.open()
+    try:
+        for s in range(4):
+            must_set(h, "i", "general", 10, s * SLICE_WIDTH + 3)
+        e = _executor(TORCH, h, mesh_min_slices=1,
+                      cost_model=costmodel.pinned(0.0))
+        with pytest.raises(RuntimeError, match="device fault"):
+            e.execute("i", "Count(Bitmap(rowID=10, frame=general))")
+    finally:
+        h.close()

@@ -890,3 +890,60 @@ def test_two_executor_cluster_on_the_card(cuda_device, tmp_path):
     finally:
         for h in holders.values():
             h.close()
+
+
+def test_quarantined_slice_leg_runs_on_the_replica_card(cuda_device,
+                                                        tmp_path):
+    """Two port executors on the card, replicas 2 (each holds every
+    slice): with one of the coordinator's fragments quarantined, that
+    slice's leg goes to the replica, whose kernels answer it — the same
+    counts as the CPU executor, the expression count launching on the
+    replica — and a leg asked of the quarantined copy is refused."""
+    from pilosa_tpu_torch.cluster.topology import new_cluster
+    from pilosa_tpu_torch.errors import SliceUnavailableError
+    from pilosa_tpu_torch.executor import ExecOptions
+    rng = np.random.default_rng(23)
+    n_slices = 4
+    cluster = new_cluster(["a", "b"], replica_n=2)
+    holders = {}
+    for h in ("a", "b", "all"):
+        holders[h] = Holder(str(tmp_path / h))
+        holders[h].open()
+        holders[h].create_index("i").create_frame("f")
+    try:
+        for row in range(4):
+            cols = np.unique(rng.integers(0, n_slices * SLICE_WIDTH,
+                                          size=50000 // (row + 1),
+                                          dtype=np.uint64))
+            for h in holders.values():
+                h.frame("i", "f").import_bits(
+                    np.full(len(cols), row, np.uint64), cols)
+        peers: dict = {}
+        client = _DirectClient(peers)
+        ex = {h: Executor(holders[h], device=cuda_device, host=h,
+                          cluster=cluster, client=client, **PIN)
+              for h in ("a", "b")}
+        peers.update(ex)
+        cpu = Executor(holders["all"], device="cpu")
+        frag = holders["a"].fragment("i", "f", "standard", 2)
+        frag._set_quarantined("test corruption", site="scrub")
+        qs = ["Count(Intersect(Bitmap(rowID=0, frame=f),"
+              " Bitmap(rowID=1, frame=f)))",
+              "Count(Union(Bitmap(rowID=2, frame=f),"
+              " Bitmap(rowID=3, frame=f)))"]
+        for q in qs:
+            before = ck.LAUNCHES["expr_count_rows"]
+            calls = len(client.calls)
+            assert ex["a"].execute("i", q) == cpu.execute("i", q), q
+            assert [c[0] for c in client.calls[calls:]] == ["b"]
+            assert ck.LAUNCHES["expr_count_rows"] > before
+            assert ex["b"].execute("i", q, [2], ExecOptions(remote=True)) \
+                == cpu.execute("i", q, [2])
+        with pytest.raises(SliceUnavailableError):
+            ex["a"].execute("i", qs[0], [2], ExecOptions(remote=True))
+        frag.clear_quarantine()
+        for e in ex.values():
+            e.close()
+    finally:
+        for h in holders.values():
+            h.close()

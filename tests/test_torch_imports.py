@@ -102,7 +102,7 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.plan.planner",
             "pilosa_tpu_torch.cluster",
             "pilosa_tpu_torch.cluster.generations"} | set(
-                LIFECYCLE) | set(CLUSTER) <= set(MODULES)
+                LIFECYCLE) | set(CLUSTER) | set(INTEGRITY) <= set(MODULES)
 
 
 # The query lifecycle's modules, each at the path of its JAX
@@ -145,3 +145,20 @@ def test_cluster_module_mirrors_the_jax_path(module):
         ".", os.sep)
     assert (os.path.exists(os.path.join(REPO, rel + ".py"))
             or os.path.exists(os.path.join(REPO, rel, "__init__.py")))
+
+
+# Storage integrity, disk-full degradation and tail sampling, each at
+# the path of its JAX counterpart.
+INTEGRITY = ("pilosa_tpu_torch.storage.integrity",
+             "pilosa_tpu_torch.storage.scrub",
+             "pilosa_tpu_torch.server.repair",
+             "pilosa_tpu_torch.fault.diskfull",
+             "pilosa_tpu_torch.obs.sampler",
+             "pilosa_tpu_torch.obs.diskring")
+
+
+@pytest.mark.parametrize("module", INTEGRITY)
+def test_integrity_module_mirrors_the_jax_path(module):
+    rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
+        ".", os.sep)
+    assert os.path.exists(os.path.join(REPO, rel + ".py"))

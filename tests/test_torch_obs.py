@@ -79,9 +79,6 @@ LEFT_OUT = {
         "pilosa_compile_cache_hits_total",
         "pilosa_compile_cache_misses_total",
         "pilosa_compile_cache_programs_live")},
-    **{name: "fault/diskfull.py not ported" for name in (
-        "pilosa_storage_enospc_events_total",
-        "pilosa_storage_write_ready")},
     **{name: "obs.history not ported" for name in (
         "pilosa_history_disk_records_total", "pilosa_history_samples_total",
         "pilosa_history_series_dropped_total",
@@ -99,12 +96,6 @@ LEFT_OUT = {
     **{name: "obs.slo not ported" for name in (
         "pilosa_slo_burn_rate_ratio", "pilosa_slo_latency_objective_seconds",
         "pilosa_tenant_slo_burn_rate_ratio")},
-    **{name: "storage.scrub and quarantine not ported" for name in (
-        "pilosa_storage_corruption_detected_total",
-        "pilosa_storage_quarantined_fragments_live",
-        "pilosa_storage_quarantined_fragments_total",
-        "pilosa_storage_repairs_total",
-        "pilosa_storage_scrub_blocks_total")},
     "pilosa_tenant_cache_bytes": "no per-tenant result-cache share",
     **{name: "tier/ not ported" for name in (
         "pilosa_tier_blob_transfers_total", "pilosa_tier_block_faults_total",
@@ -113,7 +104,6 @@ LEFT_OUT = {
         "pilosa_tier_fragment_touches_total",
         "pilosa_tier_fragments_resident", "pilosa_tier_prefetch_total",
         "pilosa_tier_promotions_total")},
-    "pilosa_trace_disk_records_total": "obs.diskring not ported",
     **{name: "the WAL's metrics are not ported" for name in (
         "pilosa_wal_fsync_calls_total", "pilosa_wal_group_commit_batch_size",
         "pilosa_wal_group_commit_flush_seconds")},

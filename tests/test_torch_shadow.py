@@ -28,6 +28,7 @@ recorded: a port 400 cannot pass unseen.
 """
 
 import shutil
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -296,6 +297,73 @@ def test_port_answers_the_captured_workload(tmp_path):
         assert out["writes_replayed"] == len(writes)
         assert out["mismatches"] == 0, out["dumps"][:2]
         assert out["reads_compared"] == len(reads)
+    finally:
+        ps.close()
+        js.close()
+
+
+def test_port_answers_alike_over_a_corrupted_fragment(tmp_path):
+    """One fragment of the directory is corrupted on disk before either
+    server opens it. Both quarantine the same fragment at open (the same
+    ``/debug/integrity`` entry, the same ``.corrupt`` bytes) and answer
+    the workload's requests alike: the same status and body for every
+    write and every read — a read over the quarantined slice is a 503
+    in both — and, for reads over the other slices, the same 200s."""
+    import json
+
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    jh = JaxHolder(str(jax_dir))
+    jh.open()
+    _fill_jax(jh, np.random.default_rng(606))
+    jh.close()
+    rel = "d/f/views/standard/fragments/1"
+    raw = bytearray((jax_dir / rel).read_bytes())
+    raw[len(raw) // 2] ^= 0x10
+    (jax_dir / rel).write_bytes(bytes(raw))
+    shutil.copytree(jax_dir, port_dir)
+
+    js = JaxServer(str(jax_dir), host="127.0.0.1:0",
+                   anti_entropy_interval=0, polling_interval=0)
+    js.open()
+    ps = PortServer(str(port_dir), host="127.0.0.1:0", device="cpu")
+
+    def call(host, path, body):
+        req = urllib.request.Request(f"http://{host}{path}", data=body,
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        ps.open()
+        entries = []
+        for host in (js.host, ps.host):
+            with urllib.request.urlopen(f"http://{host}/debug/integrity",
+                                        timeout=30) as r:
+                entries.append([{k: v for k, v in e.items()
+                                 if k not in ("since", "path")}
+                                for e in json.loads(r.read())
+                                ["quarantined"]])
+        assert entries[0] == entries[1]
+        assert [(e["frame"], e["slice"]) for e in entries[1]] == [("f", 1)]
+        assert ((port_dir / (rel + ".corrupt")).read_bytes()
+                == (jax_dir / (rel + ".corrupt")).read_bytes())
+        others = ",".join(str(s) for s in range(N_SLICES) if s != 1)
+        statuses = set()
+        steps = [p for k, p in _workload(np.random.default_rng(607))
+                 if k == "query"]
+        for pql in steps[:120]:
+            paths = ["/index/d/query"]
+            if not pql.startswith(("Set", "Clear")):
+                paths.append(f"/index/d/query?slices={others}")
+            for path in paths:
+                got = [call(h, path, pql.encode())
+                       for h in (js.host, ps.host)]
+                assert got[0] == got[1], (path, pql)
+                statuses.add((path == "/index/d/query", got[1][0]))
+        assert {(True, 503), (True, 200), (False, 200)} <= statuses
     finally:
         ps.close()
         js.close()
