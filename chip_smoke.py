@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--phase cluster|integrity]
+    python3 chip_smoke.py [--seed N] [--phase cluster|integrity|gossip]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs thirteen phases and prints one JSON line for each:
+checkout, then runs fourteen phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -181,40 +181,54 @@ checkout, then runs thirteen phases and prints one JSON line for each:
    shows the latch, the retried SetBit acks once it clears and both
    owners hold the bit). No slice re-maps in the clean and disk-full
    steps, and only legs to the corrupted node in the others.
-13. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+13. ``gossip``: gossip membership on three node processes of the port
+   on the card (``phase_gossip``, the same child mode, pinned, replicas
+   2), each started from a TOML file with ``server -c FILE`` alone:
+   gossip on its own internal port, seeded from node 0's, an HMAC
+   secret; configuration 4's ``smoke`` layout at 256 slices. Ready
+   (every ``/health`` 200 with ``3 nodes UP``), a frame created on node
+   0 reaching the others over gossip and counted exactly, the Counts
+   and two TopNs from every coordinator cold and warm, a SIGKILL of the
+   peer that served node 0's legs (each survivor's seconds until its
+   membership marks it DOWN, its breaker open for "gossip dead" at that
+   moment, ``/health`` 503 naming it, node 0's reads exact again with
+   the first Count's ms), and its restart from the same file (the
+   seconds until all three are ready again, its reads exact).
+14. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
 The kernel phases (2-8, the reopen of 10, the cluster's nodes until its
-routed pass and the integrity phase's nodes) pin every device leg
+routed pass and the integrity and gossip phases' nodes) pin every
+device leg
 (``_pinned``: ``mesh_min_slices=1`` and a cost model that vetoes
 nothing), as the tests pin it, so the calibrated routing cannot move
 their launches to the host. Every answer of phases 2-5 and 8 is held to
 the host roaring answer computed from the port's own fragments, every
 answer of phase 6 to numpy, of phase 7 to numpy or to words packed on
-the host, of phases 9, 11 and 12 to host roaring or numpy, and every
-count of phase 13 to the host ``popcnt_and``. The kernels' launch
+the host, of phases 9, 11, 12 and 13 to host roaring or numpy, and every
+count of phase 14 to the host ``popcnt_and``. The kernels' launch
 counters are set to 0 before phase 2, before phase 6, before phase 7,
 before phase 8, before phase 9 and before phase 10's reopen, and read
-after phases 5 to 13 (each cluster node's from its
+after phases 5 to 14 (each cluster node's from its
 own process, and every node that owns slices must have launched the
 expression count, densify and the TopN block count; the integrity
 phase's nodes the expression count and densify, the repaired node again
-after its repair): every kernel must have launched on that main path,
+after its repair; each gossip node of its first life all three): every kernel must have launched on that main path,
 the TopN block count in phase 4's device top-k, the TopN block count,
 the expression count and densify in its sourced queries, the expression
 count (every device Count(Range)), its batched entry (every Sum) and
 densify in phase 6, the expression-words kernel, the batched count and
 the TopN block count in phase 7, again in the server phase by itself and
-again after phase 10's reopen, and the op count in phase 13. Then it
+again after phase 10's reopen, and the op count in phase 14. Then it
 prints the card's name and power limit, the kernel table as one JSON
 object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
-prints no result. ``--phase cluster`` or ``--phase integrity`` builds the
-kernels and runs that phase alone: its line and the card's name, no
-kernel table and no last line.
+prints no result. ``--phase cluster``, ``--phase integrity`` or
+``--phase gossip`` builds the kernels and runs that phase alone: its
+line and the card's name, no kernel table and no last line.
 """
 
 from __future__ import annotations
@@ -4336,6 +4350,384 @@ def phase_integrity(device, seed: int, tmp: str, n_slices: int = 256,
     return out
 
 
+def _gossip_toml(path: str, data_dir: str, host: str, hosts: list,
+                 internal_port: int, seed: str, secret: str) -> None:
+    """One node's TOML configuration for ``phase_gossip``: gossip
+    membership on ``internal_port`` (seeded from ``seed`` unless empty),
+    the HMAC ``secret`` and the placement over ``hosts`` with replicas 2.
+    The max-slice poll is at 5 minutes: the gossip push/pull carries the
+    peers' max slices, and no request of this node reaches a dead peer
+    before its membership declares it dead."""
+    hosts_toml = ", ".join(f'"{h}"' for h in hosts)
+    with open(path, "w") as f:
+        f.write(f"""data-dir = "{data_dir}"
+host = "{host}"
+
+[cluster]
+replicas = 2
+type = "gossip"
+hosts = [{hosts_toml}]
+polling-interval = "5m"
+internal-port = "{internal_port}"
+gossip-seed = "{seed}"
+gossip-secret = "{secret}"
+""")
+
+
+def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
+                 warm_runs: int = 5, up_limit_s: float = 120.0) -> dict:
+    """Gossip membership on three node processes of the port on the card
+    (this script's child mode, pinned), each started from a TOML file
+    this phase writes (``server -c FILE`` and nothing else on the card):
+    ``cluster.type = "gossip"``, an internal port each, nodes 1 and 2
+    seeded from node 0's, an HMAC secret, the placement over the three
+    HTTP hosts with replicas 2. Configuration 4's ``smoke`` layout at
+    ``n_slices`` slices (16 rows, rows 1-8 at 1/64, 9-16 at 1/4096) is
+    written into each owner's directory with the port's storage layer
+    and placement; every answer is held to a host reference of those
+    bits.
+
+    1. Ready: the seconds from spawn until every ``/health`` answers 200
+       with its gossip check ``3 nodes UP`` (and every node knows every
+       slice).
+    2. Schema over gossip: frame ``g`` created on node 0, the seconds
+       until nodes 1 and 2 list it; bits imported to it through node 1
+       (to every owner) and counted exactly on node 2.
+    3. Reads: from each node as coordinator, the 16 Count(Bitmap) and 8
+       Count(Intersect) in one body, ``TopN(frame=f, n=50)`` and the
+       sourced ``TopN(Bitmap(rowID=1, frame=f), frame=f, n=50)`` (the
+       TopN block count on every owner's refetch leg), cold and warm.
+    4. Death: the peer that served the most of node 0's legs is
+       SIGKILLed (its launch counters read just before). Each survivor's
+       seconds until its ``/status`` marks it DOWN; at that moment the
+       survivor's breaker for it must be open for the reason "gossip
+       dead", then its ``/health`` 503 with ``down: <victim>``. Node 0's
+       reads again, exact, with the first Count's ms, the survivor's
+       legs and the re-mapped slices.
+    5. Rejoin: the victim restarted from its file; the seconds until all
+       three ``/health`` answer 200 again; its reads exact.
+    6. Kernels: each node of the first life (the victim's snapshot)
+       launched the expression count, densify and the TopN block
+       count."""
+    import signal
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH as W
+    from pilosa_tpu_torch.cluster.client import Client
+    from pilosa_tpu_torch.cluster.topology import new_cluster
+    from pilosa_tpu_torch.models.holder import Holder
+
+    t_phase = time.perf_counter()
+    marks: dict = {}
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t_phase
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    gtmp = os.path.join(tmp, "gossip")
+    os.makedirs(gtmp, exist_ok=True)
+    rng = np.random.default_rng(seed + 70)
+    hosts = [f"127.0.0.1:{_free_port()}" for _ in range(3)]
+    gports = [_free_port() for _ in range(3)]
+    cl = new_cluster(hosts, replica_n=2)
+    owners = [[n.host for n in cl.fragment_nodes("smoke", s)]
+              for s in range(n_slices)]
+    dirs = [os.path.join(gtmp, f"node{i}data") for i in range(3)]
+    tomls = [os.path.join(gtmp, f"node{i}.toml") for i in range(3)]
+    for i in range(3):
+        _gossip_toml(tomls[i], dirs[i], hosts[i], hosts, gports[i],
+                     f"127.0.0.1:{gports[0]}" if i else "", "smoke-gossip")
+
+    def frag_path(i, s):
+        return os.path.join(dirs[i], "smoke", "f", "views", "standard",
+                            "fragments", str(s))
+
+    t0 = time.perf_counter()
+    for d in dirs:
+        h = Holder(d)
+        h.open()
+        h.create_index("smoke").create_frame("f") \
+            .create_view_if_not_exists("standard")
+        h.close()
+    positions, cols = _smoke_rows(rng, n_slices)
+    for s in range(n_slices):
+        _c5_write((positions[s], [frag_path(hosts.index(h), s)
+                                  for h in owners[s]]))
+    n_bits = int(sum(len(p) for p in positions))
+    del positions
+    pairs = [(2 * k + 1, 2 * k + 2) for k in range(8)]
+    row_total = {r: int(sum(len(c) for c in cols[r])) for r in cols}
+    want = ([row_total[r] for r in range(1, 17)]
+            + [int(sum(len(np.intersect1d(cols[a][s], cols[b][s],
+                                          assume_unique=True))
+                       for s in range(n_slices))) for a, b in pairs])
+    src = {r: int(sum(len(np.intersect1d(cols[1][s], cols[r][s],
+                                         assume_unique=True))
+                      for s in range(n_slices))) for r in cols}
+    del cols
+    body = " ".join(
+        [f"Count(Bitmap(rowID={r}, frame=f))" for r in range(1, 17)]
+        + [f"Count(Intersect(Bitmap(rowID={a}, frame=f),"
+           f" Bitmap(rowID={b}, frame=f)))" for a, b in pairs])
+    # TopN's reference: n = 50 keeps every row of every slice, so the
+    # answer is each row's exact total, count descending, id ascending.
+    reads = {
+        "count": (body, want),
+        "topn": ("TopN(frame=f, n=50)",
+                 sorted(row_total.items(), key=lambda p: (-p[1], p[0]))),
+        "topn_src": ("TopN(Bitmap(rowID=1, frame=f), frame=f, n=50)",
+                     sorted(((r, c) for r, c in src.items() if c),
+                            key=lambda p: (-p[1], p[0]))),
+    }
+    data_s = time.perf_counter() - t0
+    mark("data")
+
+    def spawn(i):
+        args = [sys.executable, os.path.abspath(__file__),
+                "--cluster-node", "1",
+                os.path.join(gtmp, f"node{i}.counters"),
+                "server", "-c", tomls[i]]
+        if device.type == "cpu":
+            args += ["--device", "cpu"]
+        import subprocess
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        log = open(os.path.join(gtmp, f"node{i}.log"), "ab")
+        return subprocess.Popen(args, cwd=repo, env=env,
+                                stdout=subprocess.PIPE, stderr=log)
+
+    def get_json(host, path, ok=(200,)):
+        st, _, out, _ = _request(host, "GET", path, timeout=30)
+        if st not in ok:
+            _fail(f"gossip: GET {path} on {host}: {st} {out[:200]!r}")
+        return st, json.loads(out)
+
+    def health(host):
+        try:
+            return get_json(host, "/health", ok=(200, 503))
+        except OSError:
+            return None, None
+
+    def ready(targets, procs_, t_from):
+        """Seconds from ``t_from`` until every target's /health is 200
+        with ``3 nodes UP`` and it knows every slice of ``smoke``."""
+        while True:
+            for p in procs_:
+                if p is not None and p.poll() is not None:
+                    _fail(f"gossip: a node exited with {p.returncode}")
+            done = True
+            for h in targets:
+                st, out = health(h)
+                if (st != 200 or out["checks"]["gossip"]["detail"]
+                        != "3 nodes UP"):
+                    done = False
+                    break
+                if get_json(h, "/slices/max")[1]["maxSlices"].get(
+                        "smoke", -1) < n_slices - 1:
+                    done = False
+                    break
+            if done:
+                return time.perf_counter() - t_from
+            if time.perf_counter() - t_from > up_limit_s:
+                _fail(f"gossip: not ready in {up_limit_s} s:"
+                      f" {[health(h) for h in targets]}")
+            time.sleep(0.1)
+
+    def query(host, q):
+        st, _, out, ms = _request(host, "POST", "/index/smoke/query",
+                                  q.encode(), timeout=300)
+        if st != 200:
+            _fail(f"gossip: {host} {q[:60]}: HTTP {st}: {out[:300]!r}")
+        return json.loads(out)["results"], ms
+
+    def check(name, host, label):
+        q, w = reads[name]
+        res, ms = query(host, q)
+        got = res if name == "count" else _pairs_json(res[0])
+        if got != w:
+            _fail(f"gossip: {name} from {host} ({label}): {got} != {w}")
+        return ms
+
+    def rpcs(host) -> dict:
+        samples = _scrape(host)
+        return {peer: _family_sum(samples,
+                                  "pilosa_cluster_rpc_seconds_count",
+                                  peer=peer, kind="query")
+                for peer in hosts if peer != host}
+
+    def failovers(host) -> float:
+        return _family_sum(_scrape(host),
+                           "pilosa_cluster_failover_slices_total")
+
+    procs = [None, None, None]
+    lines: list = []
+    try:
+        # -- 1. ready ---------------------------------------------------------
+        # The seed first: a node whose join finds no seed listening
+        # stays alone (the periodic push/pull targets known members).
+        t0 = time.perf_counter()
+        procs[0] = spawn(0)
+        _wait_up(hosts[0], procs[0], up_limit_s)
+        procs[1:] = [spawn(1), spawn(2)]
+        ready_s = ready(hosts, procs, t0)
+        mark("ready")
+
+        # -- 2. schema over gossip -------------------------------------------
+        t0 = time.perf_counter()
+        st, _, out, _ = _request(hosts[0], "POST", "/index/smoke/frame/g",
+                                 b"{}")
+        if st != 200:
+            _fail(f"gossip: create frame g: {st} {out[:200]!r}")
+        schema_s = {}
+        while len(schema_s) < 2:
+            for h in hosts[1:]:
+                if h in schema_s:
+                    continue
+                frames = [f["name"] for ix in get_json(h, "/schema")[1][
+                    "indexes"] if ix["name"] == "smoke"
+                    for f in ix.get("frames", [])]
+                if "g" in frames:
+                    schema_s[h] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 30:
+                _fail(f"gossip: frame g not on {hosts[1:]} in 30 s")
+            time.sleep(0.02)
+        g_rows = rng.integers(1, 5, size=200_000).astype(np.uint64)
+        g_cols = rng.integers(0, n_slices * W, size=200_000).astype(
+            np.uint64)
+        c = Client(hosts[1])
+        try:
+            c.import_arrays("smoke", "g", g_rows, g_cols)
+        finally:
+            c.close()
+        g_want = [len(np.unique(g_cols[g_rows == r])) for r in range(1, 5)]
+        g_got, _ = query(hosts[2], " ".join(
+            f"Count(Bitmap(rowID={r}, frame=g))" for r in range(1, 5)))
+        if g_got != g_want:
+            _fail(f"gossip: frame g counted on {hosts[2]}: {g_got} !="
+                  f" {g_want}")
+        mark("schema")
+
+        # -- 3. reads from every coordinator ---------------------------------
+        rpcs0 = rpcs(hosts[0])
+        lat: dict = {}
+        for h in hosts:
+            row = lat[h] = {}
+            for name in reads:
+                cold = check(name, h, "cold")
+                warm = [check(name, h, "warm") for _ in range(warm_runs)]
+                row[name] = {"cold_ms": cold, "warm_p50_ms": _median(warm)}
+        legs = {p: v - rpcs0[p] for p, v in rpcs(hosts[0]).items()}
+        victim_host = max(legs, key=legs.get)
+        if legs[victim_host] <= 0:
+            _fail(f"gossip: no peer served {hosts[0]}'s legs: {legs}")
+        for h in hosts:
+            if failovers(h):
+                _fail(f"gossip: {h} re-mapped slices before the kill")
+        mark("reads")
+
+        # -- 4. death ---------------------------------------------------------
+        victim = hosts.index(victim_host)
+        survivors = [h for h in hosts if h != victim_host]
+        other = next(h for h in survivors if h != hosts[0])
+        victim_line = _node_counters(procs[victim], gtmp, victim)
+        before = rpcs(hosts[0])
+        procs[victim].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        procs[victim].wait(30)
+        procs[victim].stdout.close()
+        procs[victim] = None
+        dead_s, breaker_at_dead = {}, {}
+        while len(dead_s) < 2:
+            for h in survivors:
+                if h in dead_s:
+                    continue
+                out = get_json(h, "/status")[1]
+                state = {n["host"]: n["state"]
+                         for n in out["status"]["nodes"]}
+                if state.get(victim_host) == "DOWN":
+                    dead_s[h] = time.perf_counter() - t_kill
+                    breaker_at_dead[h] = {
+                        "gossip": out["fault"]["peers"].get(
+                            victim_host, {}).get("gossip"),
+                        **out["fault"]["breakers"].get(victim_host, {})}
+            if time.perf_counter() - t_kill > 60:
+                _fail(f"gossip: {victim_host} not marked dead in 60 s:"
+                      f" {dead_s}")
+            time.sleep(0.02)
+        for h, b in breaker_at_dead.items():
+            if (b.get("gossip") != "dead" or b.get("state") != "open"
+                    or b.get("reason") != "gossip dead"):
+                _fail(f"gossip: {h}'s breaker for {victim_host} when its"
+                      f" membership marked it dead: {b}")
+        health_dead = {}
+        for h in survivors:
+            st, out = health(h)
+            detail = out["checks"]["gossip"] if out else None
+            if st != 503 or detail != {"ok": False,
+                                       "detail": f"down: {victim_host}"}:
+                _fail(f"gossip: {h}'s /health after the death: {st}"
+                      f" {out}")
+            health_dead[h] = detail
+        breaker_gauge = {h: _family_sum(_scrape(h),
+                                        "pilosa_fault_breaker_state",
+                                        peer=victim_host)
+                         for h in survivors}
+        after_kill = {}
+        for name in reads:
+            after_kill[name + "_first_ms"] = check(name, hosts[0],
+                                                   "after the death")
+        after = rpcs(hosts[0])
+        after_kill["other_legs"] = after[other] - before[other]
+        after_kill["failover_slices"] = failovers(hosts[0])
+        if after_kill["other_legs"] <= 0:
+            _fail(f"gossip: {other} served none of the victim's slices"
+                  f" for {hosts[0]}: {after_kill}")
+        mark("death")
+
+        # -- 5. rejoin --------------------------------------------------------
+        t0 = time.perf_counter()
+        procs[victim] = spawn(victim)
+        rejoin_s = ready(hosts, procs, t0)
+        rejoin_ms = {name: check(name, victim_host, "after the rejoin")
+                     for name in reads}
+        mark("rejoin")
+        lines = _nodes_stop([p for p in procs], hosts)
+        procs = [None, None, None]
+        mark("stopped")
+    finally:
+        for p in procs:
+            if p is not None:
+                p.kill()
+                p.communicate()
+
+    # -- 6. kernels: each node's first life ------------------------------
+    first_life = list(lines)
+    first_life[victim] = victim_line
+    need = ("expr_count_rows", "densify", "topn_block_count")
+    for h, line in zip(hosts, first_life):
+        for k in need:
+            if line["launches"].get(k, 0) <= 0:
+                _fail(f"gossip: {k} did not launch on {h}: {line}")
+    launches: dict = {}
+    for line in lines + [victim_line]:
+        for k, v in line["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    peak = {h: max(line["peak_mib"] for line in (lines[i],) + (
+        (victim_line,) if i == victim else ())) for i, h in enumerate(hosts)}
+    phase_s = time.perf_counter() - t_phase
+    out = {"phase": "gossip", "config": "BASELINE configuration 4",
+           "nodes": 3, "replicas": 2, "slices": n_slices, "bits": n_bits,
+           "data_s": data_s, "ready_s": ready_s, "schema_s": schema_s,
+           "reads": lat, "victim": victim_host, "legs_before": legs,
+           "dead_s": dead_s, "breaker_at_dead": breaker_at_dead,
+           "health_after_death": health_dead,
+           "breaker_gauge": breaker_gauge, "after_death": after_kill,
+           "rejoin_s": rejoin_s, "rejoin_ms": rejoin_ms,
+           "launches": launches, "peak_mib": peak, "marks_s": marks,
+           "card": _card(), "seconds": phase_s}
+    _emit(out)
+    return out
+
+
 def _cluster_node(argv: list) -> None:
     """Child mode of ``phase_cluster``: one node, the ``server`` verb's
     code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
@@ -4412,7 +4804,7 @@ def main() -> None:
         return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("cluster", "integrity"),
+    ap.add_argument("--phase", choices=("cluster", "integrity", "gossip"),
                     help="build the kernels and run this one phase"
                          " alone (its line only: no kernel table, no"
                          " last line)")
@@ -4439,8 +4831,8 @@ def main() -> None:
            "torch": torch.__version__, "cuda": torch.version.cuda})
     if args.phase:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            {"cluster": phase_cluster, "integrity": phase_integrity}[
-                args.phase](device, args.seed, tmp)
+            {"cluster": phase_cluster, "integrity": phase_integrity,
+             "gossip": phase_gossip}[args.phase](device, args.seed, tmp)
         print(f"nvidia-smi: {_card()}", flush=True)
         return
 
@@ -4491,6 +4883,9 @@ def main() -> None:
                 "launches"].items():
             launches[name] += n
         for name, n in phase_integrity(device, args.seed, tmp)[
+                "launches"].items():
+            launches[name] += n
+        for name, n in phase_gossip(device, args.seed, tmp)[
                 "launches"].items():
             launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]

@@ -1,7 +1,7 @@
 """CLI entry point: ``python -m pilosa_tpu_torch.cli <verb>``.
 
-Reference: cmd/ (cobra wiring) + ctl/ (command logic). The port's verbs
-so far: server, import and export.
+Reference: cmd/ (cobra wiring) + ctl/ (command logic). The verbs are
+listed in ``commands.py``.
 """
 
 import sys

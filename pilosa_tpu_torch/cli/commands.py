@@ -1,28 +1,42 @@
 """Command logic of the port's CLI.
 
-Trimmed copy of the JAX package's ``cli/commands.py`` (reference ctl/):
+Copy of the JAX package's ``cli/commands.py`` (reference ctl/), 10 of
+its 13 verbs, each with the JAX CLI's output byte for byte:
 
-- ``server`` with ``-d/--data-dir``, ``-b/--bind``, ``--device``, the
-  admission bounds (``--query.concurrency``, ``--query.queue-depth``),
-  ``--cost.dir`` (where the cost model's calibration is kept), and the
-  static cluster: ``--cluster.hosts a,b,c`` (this node's ``--bind``
-  among them), ``--cluster.replicas``, ``--cluster.type static|http``
-  (``gossip`` is refused until the gossip slice),
-  ``--cluster.poll-interval``, ``--anti-entropy.interval`` and
-  ``--trace.tail``; the ``PILOSA_TRACE_*`` and ``PILOSA_SCRUB_*``
-  environment keys set the tail sampler and the storage scrubber and
-  repairer, as in the JAX package;
+- ``server``: the TOML config file (``-c``) under the ``PILOSA_*``
+  environment under the flags (``load_server_config``), with the JAX
+  verb's flags for what this package runs — ``--log-path``,
+  ``--tenants``, the ``--query.*`` bounds and caches, the cluster
+  (``--cluster.hosts``, ``--cluster.type static|http|gossip``, the
+  gossip port, seed and HMAC secret, ``--cluster.poll-interval``,
+  ``--cluster.gen-staleness``), ``--anti-entropy.interval``, the
+  ``--trace.*`` and ``--metrics.*`` switches and the switches of the
+  subsystems still to port — plus ``--device`` (the card unless
+  ``cpu``) and ``--cost.dir`` (where the cost model's calibration is
+  kept). An explicit switch-on of a subsystem this package does not
+  run yet, where the JAX default leaves it off (``[tier] enabled =
+  true``, a ``[backup] archive``, capture's ``mode = "full"``), exits
+  2 naming its slice; one on by default in the JAX package is noted
+  once in the log. ``gen-staleness`` is kept and has nothing to bound:
+  every hit of the coordinator's cluster cache is validated by a probe;
 - ``import`` (CSV ``row,col[,timestamp]`` bits, or ``column,value``
   with ``--field``) and ``export`` (CSV of every slice), both through
   the cluster client, to every owner of each slice;
+- ``backup -o`` and ``restore -i/-f INPUT``: the frame-view tar of
+  every slice of a view (client.backup_to / restore_from). Their
+  archive faces (``--mode``, ``--list``, ``--gc``, ``--archive``) exit
+  2 naming the backup slice;
+- ``sort`` (CSV rows in fragment bit order, ctl/sort.go), ``bench``
+  (random SetBits through HTTP, ctl/bench.go) and ``config`` (the
+  default configuration as TOML);
 - ``check`` (offline consistency check of fragment files, ``.cache``
   sidecars and ``.snapshotting`` leftovers; ``--deep`` is the offline
   storage scrub over data directories and files) and ``inspect`` (a
-  fragment file's container and checksum summary), whose output is the
-  JAX CLI's byte for byte. ``check --deep`` exits 2 on a blob-tier stub
-  and on ``--archive``, which wait for the tier and backup slices.
+  fragment file's container and checksum summary). ``check --deep``
+  exits 2 on a blob-tier stub and on ``--archive``, which wait for the
+  tier and backup slices.
 
-The TOML config file and the other verbs wait for later slices.
+``replay``, ``resize`` and ``top`` wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ import csv
 import datetime as dt
 import mmap
 import os
+import random
 import signal
 import sys
 import time
@@ -40,9 +55,79 @@ from typing import Optional
 import numpy as np
 
 from ..errors import TIME_FORMAT, PilosaError
-from ..utils.config import CLUSTER_TYPES, ClusterConfig, parse_duration
+from ..utils.config import CLUSTER_TYPES, parse_duration
 
 IMPORT_BUFFER_SIZE = 10_000_000  # bits per import batch (ctl/import.go:58)
+
+
+def load_server_config(args, env=None):
+    """Config for the server verb with flags > env > file priority
+    (reference cmd/root.go:99-153 viper merge; flags cmd/server.go:88-104):
+    ``load`` applies defaults ← file ← env, explicit flags overlay last."""
+    from ..utils import config as config_mod
+    from ..utils.config import parse_bool, parse_tenants
+
+    cfg = config_mod.load(args.config or "", env=env)
+    if args.data_dir:
+        cfg.data_dir = args.data_dir
+    if args.bind:
+        cfg.host = args.bind
+    if args.plugins_path:
+        cfg.plugins_path = args.plugins_path
+    if args.log_path:
+        cfg.log_path = args.log_path
+    if args.cluster_hosts:
+        cfg.cluster.hosts = [h.strip() for h in
+                             args.cluster_hosts.split(",") if h.strip()]
+    if args.cluster_internal_hosts:
+        cfg.cluster.internal_hosts = [
+            h.strip() for h in args.cluster_internal_hosts.split(",")
+            if h.strip()]
+    if args.cluster_replicas is not None:
+        cfg.cluster.replica_n = args.cluster_replicas
+    if args.cluster_type:
+        cfg.cluster.type = args.cluster_type
+    if args.cluster_internal_port:
+        cfg.cluster.internal_port = args.cluster_internal_port
+    if args.cluster_gossip_seed:
+        cfg.cluster.gossip_seed = args.cluster_gossip_seed
+    if args.cluster_gossip_secret:
+        cfg.cluster.gossip_secret = args.cluster_gossip_secret
+    if args.cluster_poll_interval is not None:
+        cfg.cluster.polling_interval = args.cluster_poll_interval
+    if args.anti_entropy_interval is not None:
+        cfg.anti_entropy_interval = args.anti_entropy_interval
+    for attr in ("concurrency", "queue_depth", "default_timeout",
+                 "slow_threshold", "result_cache_entries",
+                 "result_cache_bits", "cluster_cache_entries"):
+        value = getattr(args, f"query_{attr}")
+        if value is not None:
+            setattr(cfg.query, attr, value)
+    if args.tenants:
+        cfg.tenants.table = parse_tenants(args.tenants)
+    if args.cluster_gen_staleness is not None:
+        cfg.cluster.gen_staleness = args.cluster_gen_staleness
+    for section, attr in (("metrics", "enabled"), ("trace", "enabled"),
+                          ("trace", "tail"), ("blackbox", "enabled"),
+                          ("watchdog", "enabled"), ("metrics", "accounting"),
+                          ("history", "enabled"), ("sentinel", "enabled"),
+                          ("profile", "continuous")):
+        value = getattr(args, f"{section}_{attr}")
+        if value is not None:
+            setattr(getattr(cfg, section), attr, parse_bool(value))
+    if args.metrics_runtime_interval is not None:
+        cfg.metrics.runtime_interval = args.metrics_runtime_interval
+    if args.trace_max_traces is not None:
+        cfg.trace.max_traces = args.trace_max_traces
+    if args.sentinel_manifest:
+        cfg.sentinel.manifest = args.sentinel_manifest
+    if args.profile_hz is not None:
+        cfg.profile.hz = args.profile_hz
+    if args.slo_objective is not None:
+        cfg.slo.objective = args.slo_objective
+    if args.slo_target is not None:
+        cfg.slo.target = args.slo_target
+    return cfg
 
 
 def cmd_server(args, stdout, stderr) -> int:
@@ -51,57 +136,51 @@ def cmd_server(args, stdout, stderr) -> int:
     cpu`` is given; without a card the verb prints the error and exits
     non-zero. Both signals close the server cleanly (barrier, snapshot,
     WAL close); an acked write survives SIGKILL too, through the WAL."""
-    from ..server.server import Server
-    from ..utils import logger as logger_mod
-    from ..utils.config import (QueryConfig, ScrubConfig, TraceConfig,
-                                apply_env, parse_bool)
-
     from ..cluster.topology import Cluster, Node
+    from ..server.server import Server
+    from ..utils import config as config_mod
+    from ..utils import logger as logger_mod
 
-    logger = logger_mod.Logger(stderr)
-    query = QueryConfig()
-    for attr in ("concurrency", "queue_depth"):
-        value = getattr(args, f"query_{attr}")
-        if value is not None:
-            setattr(query, attr, value)
-    cfg = ClusterConfig()
-    if args.cluster_hosts:
-        cfg.hosts = [h.strip() for h in args.cluster_hosts.split(",")
-                     if h.strip()]
-    if args.cluster_internal_hosts:
-        cfg.internal_hosts = [h.strip() for h in
-                              args.cluster_internal_hosts.split(",")
-                              if h.strip()]
-    if args.cluster_replicas is not None:
-        cfg.replica_n = args.cluster_replicas
-    if args.cluster_type:
-        cfg.type = args.cluster_type
-    if args.cluster_poll_interval is not None:
-        cfg.polling_interval = args.cluster_poll_interval
-    if args.anti_entropy_interval is not None:
-        cfg.anti_entropy_interval = args.anti_entropy_interval
-    trace, scrub = TraceConfig(), ScrubConfig()
-    apply_env(trace, scrub, os.environ)
-    if args.trace_tail is not None:
-        trace.tail = parse_bool(args.trace_tail)
-    if cfg.type == "gossip":
-        raise PilosaError("--cluster.type gossip is not available in this"
-                          " package yet: use static or http with"
-                          " --cluster.hosts")
+    cfg = load_server_config(args)
+    refused, waiting = config_mod.unported_switch_ons(cfg)
+    if refused:
+        for msg in refused:
+            print(f"error: {msg}", file=stderr)
+        return 2
+    if cfg.log_path:
+        logger = logger_mod.Logger.open(os.path.expanduser(cfg.log_path))
+    else:
+        logger = logger_mod.Logger(stderr)
+    if waiting:
+        logger.printf("not running yet: %s", "; ".join(waiting))
     cluster = None
-    if cfg.hosts:
-        internal = cfg.internal_hosts or [""] * len(cfg.hosts)
-        cluster = Cluster(nodes=[Node(h, internal_host=ih)
-                                 for h, ih in zip(cfg.hosts, internal)],
-                          replica_n=cfg.replica_n)
-    server = Server(os.path.expanduser(args.data_dir), host=args.bind,
-                    device=args.device, logger=logger, query_config=query,
+    if cfg.cluster.hosts:
+        internal = cfg.cluster.internal_hosts or [""] * len(
+            cfg.cluster.hosts)
+        cluster = Cluster(nodes=[Node(h, internal_host=ih) for h, ih
+                                 in zip(cfg.cluster.hosts, internal)],
+                          replica_n=cfg.cluster.replica_n)
+    if cfg.cluster.type == "gossip":
+        from ..cluster.gossip import GossipNodeSet
+        bind_host = cfg.host.rpartition(":")[0] or "localhost"
+        gossip_set = GossipNodeSet(
+            cfg.host, gossip_host=f"{bind_host}:{cfg.cluster.internal_port}",
+            seeds=[cfg.cluster.gossip_seed] if cfg.cluster.gossip_seed
+            else [],
+            secret_key=cfg.cluster.gossip_secret or None, logger=logger)
+        if cluster is None:
+            cluster = Cluster(nodes=[Node(cfg.host)])
+        cluster.node_set = gossip_set
+    server = Server(os.path.expanduser(cfg.data_dir), host=cfg.host,
+                    device=args.device, logger=logger,
+                    query_config=cfg.query, tenants_config=cfg.tenants,
                     cal_dir=(os.path.expanduser(args.cost_dir)
                              if args.cost_dir else None),
-                    cluster=cluster, cluster_type=cfg.type,
-                    polling_interval=cfg.polling_interval,
+                    cluster=cluster, cluster_type=cfg.cluster.type,
+                    polling_interval=cfg.cluster.polling_interval,
                     anti_entropy_interval=cfg.anti_entropy_interval,
-                    trace_config=trace, scrub_config=scrub)
+                    trace_config=cfg.trace, scrub_config=cfg.scrub,
+                    metrics_config=cfg.metrics, fault_config=cfg.fault)
     server.open()
 
     def stop(signum, frame):
@@ -109,7 +188,7 @@ def cmd_server(args, stdout, stderr) -> int:
 
     signal.signal(signal.SIGTERM, stop)
     print(f"pilosa-tpu serving at http://{server.host} "
-          f"(data: {args.data_dir})", file=stdout, flush=True)
+          f"(data: {cfg.data_dir})", file=stdout, flush=True)
     try:
         while True:
             time.sleep(1)
@@ -282,6 +361,116 @@ def cmd_export(args, stdout, stderr) -> int:
                                  args.view, slice)
     finally:
         client.close()
+    return 0
+
+
+def _archive_face(verb: str, face: str, stderr) -> int:
+    print(f"{verb} {face}: cluster backup archives are not available in"
+          " this package yet (item 7, the backup slice)", file=stderr)
+    return 2
+
+
+def cmd_backup(args, stdout, stderr) -> int:
+    """The frame-view tar dump (-i/-f/-o, ctl/backup.go): every slice of
+    the view, each from one of its owners, as one tar entry named by
+    the slice id. The archive faces (--mode, --list, --gc) wait for the
+    backup slice and exit 2."""
+    for face, on in (("--list", args.list), ("--gc", args.gc),
+                     ("--mode", args.mode)):
+        if on:
+            return _archive_face("backup", face, stderr)
+    if not (args.index and args.frame and args.output):
+        print("backup: either --mode (cluster archive backup),"
+              " --archive with --list/--gc, or -i/-f/-o (frame-view"
+              " tar)", file=stderr)
+        return 1
+    from ..cluster.client import Client
+    client = Client(args.host)
+    try:
+        with open(args.output, "wb") as f:
+            client.backup_to(f, args.index, args.frame, args.view)
+    finally:
+        client.close()
+    return 0
+
+
+def cmd_restore(args, stdout, stderr) -> int:
+    """The frame-view tar restore (-i/-f INPUT, ctl/restore.go): each
+    slice entry of a ``backup -o`` tar to every owner of the slice. The
+    archive restore (--archive) waits for the backup slice and exits
+    2."""
+    if args.archive:
+        return _archive_face("restore", "--archive", stderr)
+    if not (args.index and args.frame and args.input):
+        print("restore: either --archive (archive restore) or"
+              " -i/-f INPUT (frame-view tar)", file=stderr)
+        return 1
+    from ..cluster.client import Client
+    client = Client(args.host)
+    try:
+        with open(args.input, "rb") as f:
+            client.restore_from(f, args.index, args.frame, args.view)
+    finally:
+        client.close()
+    return 0
+
+
+def cmd_sort(args, stdout, stderr) -> int:
+    """CSV rows sorted by fragment bit position (ctl/sort.go:49-106). The
+    key (slice, row*W + col%W) is lexicographic (slice, row, col%W),
+    which lexsort computes without the u64 overflow of row*W."""
+    from .. import SLICE_WIDTH
+    with open(args.path, newline="") as f:
+        chunks = list(_parse_csv_arrays(f, IMPORT_BUFFER_SIZE))
+    if not chunks:
+        return 0
+    rows = np.concatenate([c[0] for c in chunks])
+    cols = np.concatenate([c[1] for c in chunks])
+    ts = np.concatenate([c[2] if c[2] is not None
+                         else np.zeros(len(c[0]), dtype=np.int64)
+                         for c in chunks])
+    w = np.uint64(SLICE_WIDTH)
+    order = np.lexsort((cols % w, rows, cols // w))
+    for i in order:
+        if ts[i]:
+            t = dt.datetime.fromtimestamp(ts[i] / 1e9, dt.timezone.utc)
+            stdout.write(f"{rows[i]},{cols[i]},"
+                         f"{t.strftime(TIME_FORMAT)}\n")
+        else:
+            stdout.write(f"{rows[i]},{cols[i]}\n")
+    return 0
+
+
+def cmd_bench(args, stdout, stderr) -> int:
+    """Random SetBit throughput through the full HTTP stack
+    (ctl/bench.go:53-102): the JAX CLI's seeded rows and columns."""
+    from ..cluster.client import Client
+    if args.op != "set-bit":
+        print(f"unknown bench op: {args.op!r}", file=stderr)
+        return 1
+    client = Client(args.host)
+    max_row_id, max_column_id = 1000, 100000
+    rng = random.Random(0)
+    try:
+        start = time.perf_counter()
+        for _ in range(args.n):
+            row = rng.randrange(max_row_id)
+            col = rng.randrange(max_column_id)
+            client.execute_query(
+                None, args.index,
+                f'SetBit(rowID={row}, frame="{args.frame}",'
+                f' columnID={col})', remote=False)
+        elapsed = time.perf_counter() - start
+    finally:
+        client.close()
+    print(f"Executed {args.n} operations in {elapsed:.3f}s "
+          f"({args.n / elapsed:0.3f} op/sec)", file=stdout)
+    return 0
+
+
+def cmd_config(args, stdout, stderr) -> int:
+    from ..utils.config import Config
+    stdout.write(Config().to_toml())
     return 0
 
 
@@ -467,14 +656,44 @@ def build_parser() -> argparse.ArgumentParser:
                    version=f"pilosa-tpu-torch {__version__}")
     sub = p.add_subparsers(dest="command", required=True)
 
+    # The server flag surface (reference cmd/server.go:88-104).
     s = sub.add_parser("server", help="run a pilosa-tpu-torch node")
-    s.add_argument("-d", "--data-dir", default="~/.pilosa")
-    s.add_argument("-b", "--bind", default="localhost:10101",
+    s.add_argument("-d", "--data-dir", default="")
+    s.add_argument("-b", "--bind", default="",
                    help="host:port to listen on (default localhost:10101)")
+    s.add_argument("-c", "--config", default="", help="TOML config file")
     s.add_argument("--device", default=None,
                    help="torch device of the executor (default the card,"
                         " cuda:0; 'cpu' runs every kernel's plain version"
                         " on the host)")
+    s.add_argument("--cost.dir", dest="cost_dir", default="",
+                   metavar="DIR",
+                   help="directory that keeps the cost model's"
+                        " calibration of this host and card (default:"
+                        " measured at first device use, not kept)")
+    s.add_argument("--log-path", dest="log_path", default="",
+                   help="log file path (default stderr)")
+    s.add_argument("--cluster.replicas", dest="cluster_replicas",
+                   type=int, default=None, metavar="N",
+                   help="number of hosts each piece of data is stored on")
+    s.add_argument("--cluster.hosts", dest="cluster_hosts", default="",
+                   help="comma-separated list of hosts in cluster")
+    s.add_argument("--cluster.internal-hosts",
+                   dest="cluster_internal_hosts", default="",
+                   help="comma-separated internal-communication hosts")
+    s.add_argument("--cluster.type", dest="cluster_type", default="",
+                   choices=CLUSTER_TYPES,
+                   help="cluster membership backend")
+    s.add_argument("--cluster.internal-port", dest="cluster_internal_port",
+                   default="", help="internal state-sharing (gossip) port")
+    s.add_argument("--cluster.gossip-secret", dest="cluster_gossip_secret",
+                   default="", help="shared HMAC key authenticating gossip"
+                   " frames (unset = unauthenticated)")
+    s.add_argument("--cluster.gossip-seed", dest="cluster_gossip_seed",
+                   default="", help="host:port to seed gossip membership")
+    s.add_argument("--cluster.poll-interval", dest="cluster_poll_interval",
+                   type=parse_duration, default=None, metavar="DUR",
+                   help="max-slice polling interval (e.g. 60s)")
     s.add_argument("--query.concurrency", dest="query_concurrency",
                    type=int, default=None, metavar="N",
                    help="max queries executing concurrently"
@@ -483,46 +702,116 @@ def build_parser() -> argparse.ArgumentParser:
                    type=int, default=None, metavar="N",
                    help="max queries waiting for a slot before the"
                         " server answers 429 (default 64)")
-    s.add_argument("--cost.dir", dest="cost_dir", default="",
-                   metavar="DIR",
-                   help="directory that keeps the cost model's"
-                        " calibration of this host and card (default:"
-                        " measured at first device use, not kept)")
-    s.add_argument("--cluster.hosts", dest="cluster_hosts", default="",
-                   metavar="H1,H2,...",
-                   help="static cluster membership (this node's --bind"
-                        " among them)")
-    s.add_argument("--cluster.internal-hosts",
-                   dest="cluster_internal_hosts", default="",
-                   metavar="H1,H2,...",
-                   help="internal host of each --cluster.hosts entry,"
-                        " where broadcasts go (default: the host)")
-    s.add_argument("--cluster.replicas", dest="cluster_replicas",
-                   type=int, default=None, metavar="N",
-                   help="replicas of each slice (default 1)")
-    s.add_argument("--cluster.type", dest="cluster_type", default="",
-                   choices=CLUSTER_TYPES,
-                   help="static (no schema broadcasts) or http (POST them"
-                        " to every peer); gossip is not available yet")
-    s.add_argument("--cluster.poll-interval",
-                   dest="cluster_poll_interval", type=parse_duration,
+    s.add_argument("--query.default-timeout",
+                   dest="query_default_timeout", type=parse_duration,
                    default=None, metavar="DUR",
-                   help="max-slice poll of the peers (default 60s)")
-    s.add_argument("--anti-entropy.interval",
-                   dest="anti_entropy_interval", type=parse_duration,
+                   help="deadline applied to queries that carry no"
+                        " ?timeout= or X-Pilosa-Deadline (0 = none)")
+    s.add_argument("--query.slow-threshold",
+                   dest="query_slow_threshold", type=parse_duration,
                    default=None, metavar="DUR",
-                   help="block sync between replica owners (default 10m)")
-    s.add_argument("--trace.tail", dest="trace_tail", default=None,
+                   help="log queries slower than this with per-stage"
+                        " timings (0 = disabled)")
+    s.add_argument("--query.result-cache-entries",
+                   dest="query_result_cache_entries", type=int,
+                   default=None, metavar="N",
+                   help="materialized-result residency cache entry"
+                        " bound (0 disables, default 8)")
+    s.add_argument("--query.result-cache-bits",
+                   dest="query_result_cache_bits", type=int,
+                   default=None, metavar="N",
+                   help="materialized-result residency cache total"
+                        " cached-bit bound (default 33554432)")
+    s.add_argument("--query.cluster-cache-entries",
+                   dest="query_cluster_cache_entries", type=int,
+                   default=None, metavar="N",
+                   help="coordinator hot-query result cache entry"
+                        " bound (0 disables, default 64)")
+    s.add_argument("--tenants", dest="tenants", default="",
+                   metavar="SPEC",
+                   help="per-tenant QoS table, compact form:"
+                        " 'default:weight=4,concurrency=8;"
+                        "bulk:weight=1,max-wall=2s' — same keys as"
+                        " the [tenants] TOML table (a 'default'"
+                        " entry is required)")
+    s.add_argument("--cluster.gen-staleness",
+                   dest="cluster_gen_staleness", type=parse_duration,
+                   default=None, metavar="DUR",
+                   help="generation-map staleness bound for"
+                        " remote-slice cache keys (default 2s)")
+    s.add_argument("--anti-entropy.interval", dest="anti_entropy_interval",
+                   type=parse_duration, default=None, metavar="DUR",
+                   help="anti-entropy sweep interval (e.g. 10m)")
+    s.add_argument("--metrics.enabled", dest="metrics_enabled",
+                   default=None, metavar="BOOL",
+                   help="serve Prometheus /metrics + feed the registry"
+                        " from every stats call site (default true)")
+    s.add_argument("--metrics.runtime-interval",
+                   dest="metrics_runtime_interval", type=parse_duration,
+                   default=None, metavar="DUR",
+                   help="runtime collector sampling interval"
+                        " (default 10s)")
+    s.add_argument("--trace.enabled", dest="trace_enabled",
+                   default=None, metavar="BOOL",
+                   help="trace every query (default false; any single"
+                        " request can opt in with ?trace=1)")
+    s.add_argument("--trace.tail", dest="trace_tail",
+                   default=None,
                    help="tail-sampled tracing: every query buffers"
                         " spans; slow/errored/faulted ones persist"
                         " (default true)")
+    s.add_argument("--blackbox.enabled", dest="blackbox_enabled",
+                   default=None,
+                   help="blackbox flight recorder (default true)")
+    s.add_argument("--history.enabled", dest="history_enabled",
+                   default=None,
+                   help="on-disk metric history under the data dir"
+                        " (default true)")
+    s.add_argument("--sentinel.enabled", dest="sentinel_enabled",
+                   default=None,
+                   help="regression sentinel over the metric history"
+                        " (default true)")
+    s.add_argument("--sentinel.manifest", dest="sentinel_manifest",
+                   default="", metavar="PATH",
+                   help="benchmarks/MANIFEST.json whose committed"
+                        " envelope live latencies must stay inside")
+    s.add_argument("--watchdog.enabled", dest="watchdog_enabled",
+                   default=None,
+                   help="stall watchdog (default true)")
+    s.add_argument("--trace.max-traces", dest="trace_max_traces",
+                   type=int, default=None, metavar="N",
+                   help="recent traces kept per node for /debug/traces"
+                        " (default 64)")
+    s.add_argument("--metrics.accounting", dest="metrics_accounting",
+                   default=None, metavar="BOOL",
+                   help="per-query cost ledgers (?profile=1,"
+                        " X-Pilosa-Stats; default true)")
+    s.add_argument("--profile.continuous", dest="profile_continuous",
+                   default=None, metavar="BOOL",
+                   help="always-on low-Hz wall profiler behind"
+                        " /debug/pprof/flame (default true)")
+    s.add_argument("--profile.hz", dest="profile_hz", type=float,
+                   default=None, metavar="HZ",
+                   help="continuous-profiler sampling rate"
+                        " (default 10)")
+    s.add_argument("--slo.objective", dest="slo_objective",
+                   type=parse_duration, default=None, metavar="DUR",
+                   help="latency objective for burn-rate gauges"
+                        " (default 250ms)")
+    s.add_argument("--slo.target", dest="slo_target", type=float,
+                   default=None, metavar="FRACTION",
+                   help="fraction of queries that must meet the"
+                        " objective (default 0.99)")
+    s.add_argument("--plugins.path", dest="plugins_path", default="",
+                   help="path to plugin directory (accepted but inert, "
+                        "as in the reference at this vintage)")
     s.set_defaults(fn=cmd_server)
 
-    def client_cmd(name, help, fn):
+    def client_cmd(name, help, fn, **extra):
         c = sub.add_parser(name, help=help)
         c.add_argument("--host", default="localhost:10101")
-        c.add_argument("-i", "--index", required=True)
-        c.add_argument("-f", "--frame", required=True)
+        c.add_argument("-i", "--index", required=extra.get("index", True))
+        c.add_argument("-f", "--frame", required=extra.get("frame", True))
         c.set_defaults(fn=fn)
         return c
 
@@ -533,6 +822,58 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("paths", nargs="+", help="CSV files ('-' for stdin)")
     c = client_cmd("export", "export a frame's view as CSV", cmd_export)
     c.add_argument("--view", default="standard")
+
+    c = client_cmd("backup", "cluster backup into the archive, or a"
+                             " frame-view tar dump", cmd_backup,
+                   index=False, frame=False)
+    c.add_argument("--view", default="standard")
+    c.add_argument("-o", "--output", default="",
+                   help="frame-view tar mode: output file")
+    c.add_argument("--mode", default="", choices=["full", "incremental"],
+                   help="cluster archive backup (not available in this"
+                        " package yet)")
+    c.add_argument("--wait", action="store_true",
+                   help="with --mode: poll until the backup settles")
+    c.add_argument("--archive", default="",
+                   help="offline archive spec (dir:/path) for"
+                        " --list/--gc")
+    c.add_argument("--list", action="store_true",
+                   help="list committed backups in --archive")
+    c.add_argument("--gc", action="store_true",
+                   help="run archive retention GC against --archive")
+    c.add_argument("--keep", type=int, default=2, metavar="N",
+                   help="GC: full backups to keep (default 2, min 1)")
+    c.add_argument("--dry-run", action="store_true",
+                   help="GC: print the plan, delete nothing")
+    c.add_argument("--sweep-orphans", action="store_true",
+                   help="GC: also delete pool objects no committed"
+                        " manifest references")
+
+    c = client_cmd("restore", "restore from the backup archive, or a"
+                              " frame-view tar", cmd_restore,
+                   index=False, frame=False)
+    c.add_argument("--view", default="standard")
+    c.add_argument("input", nargs="?", default="",
+                   help="frame-view tar mode: input file")
+    c.add_argument("--archive", default="",
+                   help="archive spec (dir:/path): restore the cluster"
+                        " at --host from it (not available in this"
+                        " package yet)")
+    c.add_argument("--id", default="",
+                   help="restore this backup id (default: newest"
+                        " usable)")
+    c.add_argument("--to-timestamp", dest="to_timestamp",
+                   type=float, default=None, metavar="EPOCH",
+                   help="point-in-time cut: replay archived WAL only"
+                        " up to this unix timestamp")
+    c.add_argument("--verify", default="",
+                   help="after restoring, replay this captured-"
+                        "workload records file and compare result"
+                        " digests")
+
+    c = sub.add_parser("sort", help="sort CSV by fragment position")
+    c.add_argument("path")
+    c.set_defaults(fn=cmd_sort)
 
     c = sub.add_parser("check", help="consistency-check fragment files")
     c.add_argument("paths", nargs="*")
@@ -549,6 +890,14 @@ def build_parser() -> argparse.ArgumentParser:
     c = sub.add_parser("inspect", help="dump container stats of a file")
     c.add_argument("path")
     c.set_defaults(fn=cmd_inspect)
+
+    c = client_cmd("bench", "run benchmarks against a server", cmd_bench)
+    c.add_argument("--op", default="", help="benchmark operation"
+                                            " (set-bit)")
+    c.add_argument("-n", type=int, default=0, help="operation count")
+
+    c = sub.add_parser("config", help="print default configuration")
+    c.set_defaults(fn=cmd_config)
     return p
 
 

@@ -5,7 +5,10 @@ the remote query legs (executor.go:1001-1083), the schema and
 max-slice reads, slice-grouped bulk imports to every owner
 (client.go:304-389, the raw-array lanes first), the CSV export with
 owner failover, anti-entropy block sync (client.go:798-886), attribute
-diffs (client.go:889-974), broadcast envelopes and query cancel.
+diffs (client.go:889-974), broadcast envelopes and query cancel, and
+the frame-view tar backup and restore over the ``/fragment/data`` stream
+(client.go:463-695): ``backup_slice``, ``restore_slice``, ``backup_to``,
+``restore_from`` and ``restore_frame``.
 
 Every request goes through ``_do``: a keep-alive connection pool per
 host, one transparent retry for idempotent requests on a stale pooled
@@ -16,8 +19,8 @@ clamped to a query's remaining budget, so a dead peer costs one timeout
 and the breaker opens after the threshold. The generation, cost and
 trace headers the JAX server and client exchange ride the query legs.
 
-The backup/restore methods and the fleet-observability helpers wait for
-the slices that port their modules.
+The fleet-observability helpers wait for the slice that ports their
+modules.
 """
 
 from __future__ import annotations
@@ -498,6 +501,12 @@ class Client:
         status, raw = self._do("GET", path)
         return json.loads(self._ok(status, raw, "max slices"))["maxSlices"]
 
+    def frame_views(self, index: str, frame: str) -> list[str]:
+        status, raw = self._do("GET",
+                               f"/index/{index}/frame/{frame}/views")
+        return json.loads(self._ok(status, raw, "frame views"))\
+            .get("views", [])
+
     def create_index(self, index: str, options: Optional[dict] = None
                      ) -> None:
         body = json.dumps({"options": options or {}}).encode()
@@ -892,6 +901,124 @@ class Client:
         buf = _io.StringIO()
         self.export_csv_to(buf, index, frame, view, slice)
         return buf.getvalue()
+
+    # -- backup / restore (client.go:463-695) --------------------------------
+
+    def backup_slice(self, index: str, frame: str, view: str, slice: int):
+        """One slice's fragment tar as a seekable bounded spool (the
+        caller closes it); None if the slice doesn't exist yet
+        (client.go:541-580). The body downloads inside the per-owner
+        loop so a node dying mid-transfer fails over to a replica."""
+        import shutil
+        import tempfile
+        nodes = self.fragment_nodes(index, slice)
+        random.shuffle(nodes)
+        last_err: Optional[Exception] = None
+        for node in nodes:
+            try:
+                rd = self._do_stream(
+                    f"/fragment/data?index={index}&frame={frame}"
+                    f"&view={view}&slice={slice}", host=node["host"])
+            except ClientError as e:
+                last_err = e
+                continue
+            try:
+                if rd.status == 404:
+                    return None
+                if rd.status != 200:
+                    last_err = ClientError(
+                        f"backup slice: status={rd.status}")
+                    continue
+                spool = tempfile.SpooledTemporaryFile(
+                    max_size=self._SPOOL_MAX)
+                try:
+                    shutil.copyfileobj(rd, spool, 1 << 20)
+                except (http.client.HTTPException, OSError) as e:
+                    spool.close()
+                    last_err = ClientError(
+                        f"backup slice from {node['host']}: {e}")
+                    continue
+                spool.seek(0)
+                return spool
+            finally:
+                rd.close()
+        if last_err:
+            raise last_err
+        return None
+
+    def restore_slice(self, index: str, frame: str, view: str, slice: int,
+                      data) -> None:
+        """POST one slice tar (bytes or a sized file-like) to this host."""
+        headers = {"Content-Type": "application/octet-stream"}
+        if not isinstance(data, bytes):
+            # An explicit length keeps http.client from chunking, which
+            # the WSGI server does not decode.
+            pos = data.tell()
+            data.seek(0, 2)
+            headers["Content-Length"] = str(data.tell() - pos)
+            data.seek(pos)
+        status, raw = self._do(
+            "POST", f"/fragment/data?index={index}&frame={frame}"
+                    f"&view={view}&slice={slice}", data, headers)
+        self._ok(status, raw, "restore slice")
+
+    def backup_to(self, w, index: str, frame: str, view: str) -> None:
+        """Stream every slice of (index, frame, view) into a tar whose
+        entries are named by slice id (client.go:463-529). Slices spool
+        through bounded temp files (tar headers need the size upfront);
+        peak memory stays at the spool cap, not the slice size."""
+        import tarfile
+        tw = tarfile.open(fileobj=w, mode="w|")
+        max_slice = self.max_slices().get(index, 0)
+        for slice in range(max_slice + 1):
+            spool = self.backup_slice(index, frame, view, slice)
+            if spool is None:
+                continue
+            with spool:
+                spool.seek(0, 2)
+                size = spool.tell()
+                spool.seek(0)
+                info = tarfile.TarInfo(str(slice))
+                info.size = size
+                info.mode = 0o666
+                tw.addfile(info, spool)
+        tw.close()
+
+    def restore_from(self, r, index: str, frame: str, view: str) -> None:
+        """Restore a backup_to tar: push each slice entry to every owner
+        (client.go:583-674). Entries spool through a bounded temp file
+        (each goes to multiple owners, so the source must be re-readable)
+        and POST as streaming bodies."""
+        import shutil
+        import tarfile
+        import tempfile
+        tr = tarfile.open(fileobj=r, mode="r|")
+        for info in tr:
+            if not info.name.isdigit():
+                raise ClientError(f"invalid backup entry: {info.name}")
+            slice = int(info.name)
+            src = tr.extractfile(info)
+            with tempfile.SpooledTemporaryFile(
+                    max_size=self._SPOOL_MAX) as spool:
+                shutil.copyfileobj(src, spool, 1 << 20)
+                for node in self.fragment_nodes(index, slice):
+                    spool.seek(0)
+                    status, raw = self._do(
+                        "POST", f"/fragment/data?index={index}"
+                                f"&frame={frame}&view={view}"
+                                f"&slice={slice}", spool,
+                        {"Content-Type": "application/octet-stream",
+                         "Content-Length": str(info.size)},
+                        host=node["host"])
+                    self._ok(status, raw, f"restore slice {slice}")
+
+    def restore_frame(self, host: str, index: str, frame: str) -> None:
+        """Ask this node to pull a frame from a remote cluster host
+        (client.go:677-695 → POST /index/{i}/frame/{f}/restore)."""
+        status, raw = self._do(
+            "POST", f"/index/{index}/frame/{frame}/restore?host={host}",
+            b"")
+        self._ok(status, raw, "restore frame")
 
     # -- anti-entropy (client.go:798-974) ------------------------------------
 

@@ -16,6 +16,9 @@ The port arms the sites its own modules carry:
                     capable: writes a prefix, then fails — crash
                     mid-append)
 ``snapshot.write``  storage/fragment, inside the snapshot tmp-file write
+``gossip.deliver``  cluster/gossip, before a received broadcast envelope
+                    is handed to the server (an error drops it: the
+                    envelope is lost in transit)
 ``ring.write``      obs/diskring segment appends (the tail sampler's
                     trace store; torn-write capable)
 ``storage.read``    storage/fragment, before the data file is read back
@@ -80,7 +83,7 @@ from ..utils.config import parse_duration
 ACTIVE: Optional["Failpoints"] = None
 
 SITES = ("rpc.send", "rpc.recv", "wal.append", "snapshot.write",
-         "ring.write", "storage.read")
+         "gossip.deliver", "ring.write", "storage.read")
 
 
 def env_key(site: str) -> str:

@@ -5,8 +5,9 @@ holder.go): index CRUD, Index/Frame/View/Fragment navigation
 (holder.go:177-322) and the schema summary (holder.go:154-171). It opens
 a data directory the JAX package wrote and closed. The holder owns the
 storage-integrity QuarantineRegistry (storage.integrity) and passes it
-down to every fragment, as the JAX holder does. Tiering and the
-cache-flush loop wait for later slices.
+down to every fragment, as the JAX holder does, and ``flush_caches``
+writes every fragment's ``.cache`` sidecar (the server calls it every
+60 s, holder.go:31). Tiering waits for a later slice.
 """
 
 from __future__ import annotations
@@ -154,6 +155,15 @@ class Holder:
     def max_slices(self) -> dict[str, int]:
         return {name: idx.max_slice()
                 for name, idx in self.indexes.items()}
+
+    def flush_caches(self) -> None:
+        """Flush all fragment TopN caches (holder.go:324-358)."""
+        with self._mu:
+            for idx in self.indexes.values():
+                for frame in idx.frames.values():
+                    for view in frame.views.values():
+                        for frag in view.fragments.values():
+                            frag.flush_cache()
 
     def max_inverse_slices(self) -> dict[str, int]:
         return {name: idx.max_inverse_slice()

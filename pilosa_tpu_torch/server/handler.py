@@ -57,9 +57,13 @@ frame creation and deletion broadcast their message to the peers;
 quarantined fragment, whose copy must not feed a peer); ``/generations`` the
 cluster result cache's probe; ``POST /messages`` takes a peer's
 broadcast; ``/debug/topology`` shows the placement and
-``/debug/failpoints`` arms the fault sites. The backup, resize, pod,
-federation and web-console routes, partial results and workload capture
-wait for the slices that port them.
+``/debug/failpoints`` arms the fault sites. ``GET /health`` is the
+readiness probe (obs.slo.HealthChecker: 200 or 503 with the JAX
+checks), and ``POST /index/{index}/frame/{frame}/restore?host=`` pulls
+every slice of a frame that this node owns, each view, from a remote
+host's ``/fragment/data`` (handler.go:1180-1266). The archive backup,
+resize, pod, federation and web-console routes, partial results and
+workload capture wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -233,7 +237,7 @@ class Handler:
                  tracer=None, stats=None, accounting: bool = True,
                  tenants=None, cluster=None, broadcaster=None,
                  status_handler=None, sampler=None, scrubber=None,
-                 repairer=None):
+                 repairer=None, client_factory=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
@@ -270,6 +274,10 @@ class Handler:
         # quarantine registry alone.
         self.scrubber = scrubber
         self.repairer = repairer
+        # host -> cluster.client.Client, for the restore route's pulls.
+        self.client_factory = client_factory
+        # Readiness checks behind GET /health, built at the first probe.
+        self._health = None
         # (method, regex, handler, admission lane)
         self._routes: list[tuple] = []
         self._add_routes()
@@ -299,6 +307,8 @@ class Handler:
         r("DELETE", "/index/{index}/frame/{frame}",
           self._handle_delete_frame, lane=LANE_ADMIN)
         r("POST", "/index/{index}/query", self._handle_post_query)
+        r("POST", "/index/{index}/frame/{frame}/restore",
+          self._handle_post_frame_restore, lane=LANE_ADMIN)
         r("POST", "/index/{index}/frame/{frame}/attr/diff",
           self._handle_frame_attr_diff)
         r("PATCH", "/index/{index}/frame/{frame}/time-quantum",
@@ -332,6 +342,7 @@ class Handler:
         r("GET", "/debug/vars", self._handle_expvar)
         r("GET", "/debug/plans", self._handle_debug_plans)
         r("GET", "/metrics", self._handle_metrics)
+        r("GET", "/health", self._handle_health)
         r("GET", "/export", self._handle_get_export)
         r("GET", "/fragment/block/data", self._handle_fragment_block_data)
         r("GET", "/fragment/blocks", self._handle_fragment_blocks)
@@ -440,9 +451,11 @@ class Handler:
                           "frames": [{"name": f.Name} for f in ix.Frames]}
                          for ix in ns.Indexes]}
             for ns in cs.Nodes]}}
-        if self.cluster is not None and len(self.cluster.nodes) > 1:
+        fault = getattr(self.status_handler, "fault", None)
+        if (fault is not None and self.cluster is not None
+                and len(self.cluster.nodes) > 1):
             # Peer health and breakers, the JAX server's fault block.
-            out["fault"] = self.status_handler.fault.snapshot()
+            out["fault"] = fault.snapshot()
         if self.warmup is not None:
             # Cold-start warmup state (sched.warmup), the JAX block.
             out["warmup"] = self.warmup.to_json()
@@ -1614,6 +1627,54 @@ class Handler:
             self.logger.printf("failpoint %s: %s (seed %d)", site,
                                spec or "off", reg.seed)
         return Response.json(reg.snapshot())
+
+    def _handle_health(self, req: Request) -> Response:
+        """READINESS (not liveness): 200 only when this node can serve —
+        holder open, gossip converged, admission not saturated, data
+        directory writable, no unreplicated quarantine, writes
+        accepted. ``/version`` stays the liveness probe."""
+        from ..obs.slo import HealthChecker
+        if self._health is None:
+            self._health = HealthChecker(holder=self.holder,
+                                         cluster=self.cluster,
+                                         admission=self.admission,
+                                         host=self.host)
+        ready, checks = self._health.check()
+        return Response.json(
+            {"status": "ok" if ready else "unhealthy", "checks": checks},
+            status=200 if ready else 503)
+
+    def _handle_post_frame_restore(self, req: Request) -> Response:
+        """Pull every owned slice of a frame, each view, from a remote
+        cluster host (handler.go:1180-1266)."""
+        index_name, frame_name = req.vars["index"], req.vars["frame"]
+        host = req.query.get("host")
+        if not host:
+            raise HTTPError(400, "host required")
+        if self.client_factory is None:
+            raise HTTPError(500, "no client factory configured")
+        client = self.client_factory(host)
+        max_slices = client.max_slices()
+        frame = self.holder.frame(index_name, frame_name)
+        if frame is None:
+            raise HTTPError(404, "frame not found")
+        views = client.frame_views(index_name, frame_name)
+        for slice in range(max_slices.get(index_name, 0) + 1):
+            if self.cluster is not None and not self.cluster.owns_fragment(
+                    self.host, index_name, slice):
+                continue
+            for view_name in views:
+                view = frame.create_view_if_not_exists(view_name)
+                frag = view.create_fragment_if_not_exists(slice)
+                rd = client.backup_slice(index_name, frame_name, view_name,
+                                         slice)
+                if rd is None:
+                    continue
+                try:
+                    frag.read_from(rd)
+                finally:
+                    rd.close()
+        return Response.json({})
 
     def _handle_get_export(self, req: Request) -> Response:
         if req.accept != "text/csv":

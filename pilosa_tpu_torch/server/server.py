@@ -54,8 +54,24 @@ gives every query a span buffer and keeps the interesting ones to a
 segment ring under ``<data_dir>/traces`` (obs.sampler, obs.diskring).
 While the node is write-unready after ENOSPC (fault.diskfull) the
 pipelined lane declines write runs, so each request answers its own
-507. Gossip, resize, the cache flush loop, tiering and backup wait for
-the slices that port them.
+507. Every ``CACHE_FLUSH_INTERVAL`` (60 s, holder.go:31) a loop writes
+every fragment's ``.cache`` sidecar, so a SIGKILL loses at most that
+much of the ranked caches.
+
+Gossip (the JAX server's wiring, server.py:620-631, :895-898): with
+``cluster_type`` "gossip" the cluster's ``node_set`` is a
+``cluster.gossip.GossipNodeSet``. It is the broadcaster, and at open the
+server attaches itself as its receiver and status handler
+(``receive_message``, ``local_status``, ``handle_remote_status``, the
+``build_state`` piggyback), then opens the membership. Each membership
+transition goes to the fault layer (``note_gossip``): a dead rumor
+force-opens the peer's breaker, so its slices fail over to the other
+replica before a query pays a refused connection, and ``/status`` and
+``/health`` report the membership's states. ``metrics_config`` (the
+registry feed and the cost ledger) and ``fault_config`` (the breaker
+settings and the configured failpoints) are the ``[metrics]`` and
+``[fault]`` sections. Resize, tiering and backup wait for the slices
+that port them.
 """
 
 from __future__ import annotations
@@ -63,6 +79,7 @@ from __future__ import annotations
 import errno
 import json
 import os
+import platform
 import threading
 
 from typing import Optional
@@ -78,6 +95,7 @@ from ..errors import (PilosaError, QueryCancelledError,
                       QueryDeadlineError)
 from ..executor import _WRITE_CALLS, ExecOptions, Executor
 from ..fault import FaultManager
+from ..fault import failpoints as fault_failpoints
 from ..models.frame import FrameOptions
 from ..models.holder import Holder
 from ..models.index import IndexOptions
@@ -99,8 +117,9 @@ from ..storage.scrub import Scrubber
 from ..utils import logger as logger_mod
 from ..proto import internal as pb
 from ..utils.config import (DEFAULT_ANTI_ENTROPY_INTERVAL,
-                            DEFAULT_POLLING_INTERVAL, QueryConfig,
-                            ScrubConfig, TenantsConfig, TraceConfig)
+                            DEFAULT_POLLING_INTERVAL, FaultConfig,
+                            MetricsConfig, QueryConfig, ScrubConfig,
+                            TenantsConfig, TraceConfig)
 from ..utils.stats import ExpvarStatsClient, MultiStatsClient
 from . import codec
 from .handler import Handler, _local_status
@@ -109,6 +128,16 @@ from .repair import Repairer
 from .syncer import HolderSyncer
 
 DEFAULT_PORT = 10101
+CACHE_FLUSH_INTERVAL = 60.0             # holder.go:31
+
+
+def build_info() -> dict:
+    """Build identity, the four keys of the JAX package's
+    ``obs.runtime.build_info`` as that function reports them in a
+    process that has not loaded jax."""
+    from .. import __version__
+    return {"version": __version__, "python": platform.python_version(),
+            "jax": "unloaded", "backend": "unloaded"}
 
 
 class Server:
@@ -124,7 +153,9 @@ class Server:
                  polling_interval: float = DEFAULT_POLLING_INTERVAL,
                  anti_entropy_interval: float
                  = DEFAULT_ANTI_ENTROPY_INTERVAL,
-                 scrub_config: Optional[ScrubConfig] = None):
+                 scrub_config: Optional[ScrubConfig] = None,
+                 metrics_config: Optional[MetricsConfig] = None,
+                 fault_config: Optional[FaultConfig] = None):
         self.data_dir = data_dir
         self.host = host
         # Placement: the static cluster, or (None) this node alone,
@@ -135,6 +166,9 @@ class Server:
         self.anti_entropy_interval = anti_entropy_interval
         self.broadcaster = NOP_BROADCASTER
         self.fault: Optional[FaultManager] = None
+        self.fault_config = fault_config or FaultConfig()
+        # Build identities of the peers, from the gossip push/pull.
+        self.peer_builds: dict[str, dict] = {}
         self.gens = GenerationMap()
         self._clients: dict[str, Client] = {}
         self._clients_mu = threading.Lock()
@@ -155,8 +189,11 @@ class Server:
         # Observability: the expvar collector behind /debug/vars, its
         # call sites fed into the /metrics registry too.
         self.trace_config = trace_config or TraceConfig()
+        self.metrics_config = metrics_config or MetricsConfig()
         self.stats = MultiStatsClient(
-            [ExpvarStatsClient(), RegistryStatsClient(default_registry())])
+            [ExpvarStatsClient()]
+            + ([RegistryStatsClient(default_registry())]
+               if self.metrics_config.enabled else []))
         self.tracer = Tracer(enabled=self.trace_config.enabled,
                              max_traces=self.trace_config.max_traces,
                              max_spans=self.trace_config.max_spans)
@@ -203,16 +240,34 @@ class Server:
         elif self.cluster.node_by_host(self.host) is None:
             raise PilosaError(f"host {self.host} is not a member of the"
                               " cluster")
-        self.fault = FaultManager(node=self.host)
+        if self.cluster_type == "gossip" and self.cluster.node_set is None:
+            raise PilosaError("cluster type gossip needs the cluster's"
+                              " gossip node set")
+        fc = self.fault_config
+        if fc.enabled:
+            self.fault = FaultManager(
+                breaker_threshold=fc.breaker_threshold,
+                backoff_base_s=fc.breaker_backoff,
+                backoff_cap_s=fc.breaker_backoff_cap, node=self.host)
+        if fc.seed:
+            fault_failpoints.seed_default(fc.seed)
+        for site, spec in fc.failpoints.items():
+            fault_failpoints.arm(site, spec)
+            self.logger.printf("failpoint armed: %s = %s (seed %d)", site,
+                               spec, fault_failpoints.default().seed)
         self.holder = Holder(self.data_dir, wal_fsync=self.wal_fsync)
         try:
             self.holder.open()
-            self.executor = Executor(self.holder, device=device,
-                                     cal_dir=self.cal_dir,
-                                     host=self.host, cluster=self.cluster,
-                                     client=_RoutingClient(self),
-                                     fault=self.fault, gens=self.gens,
-                                     **self.executor_options)
+            qc = self.query_config
+            self.executor = Executor(
+                self.holder, device=device, cal_dir=self.cal_dir,
+                host=self.host, cluster=self.cluster,
+                client=_RoutingClient(self), fault=self.fault,
+                gens=self.gens,
+                **{"result_cache_entries": qc.result_cache_entries,
+                   "result_cache_bits": qc.result_cache_bits,
+                   **self.executor_options})
+            self.executor.CLUSTER_CACHE_ENTRIES = qc.cluster_cache_entries
             if self.warmup_enabled:
                 self.warmup = Warmup(self.executor, logger=self.logger)
             if self.trace_config.tail:
@@ -243,7 +298,9 @@ class Server:
                 tracer=self.tracer, stats=self.stats,
                 tenants=self.tenants, cluster=self.cluster,
                 status_handler=self, sampler=self.sampler,
-                scrubber=self.scrubber, repairer=self.repairer)
+                scrubber=self.scrubber, repairer=self.repairer,
+                accounting=self.metrics_config.accounting,
+                client_factory=self._client_factory)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
@@ -253,20 +310,39 @@ class Server:
             raise
         # Re-resolve the port for ":0" binds (server.go:98-106).
         actual_port = self._httpd.server_address[1]
+        ns = self.cluster.node_set
         if actual_port != port:
-            self.host = f"{bind_host}:{actual_port}"
+            new_host = f"{bind_host}:{actual_port}"
+            for n in self.cluster.nodes:
+                if n.host == self.host:
+                    n.host = new_host
+            # Gossip members are named by their HTTP host.
+            if ns is not None and getattr(ns, "host", None) == self.host:
+                ns.host = new_host
+            self.host = new_host
             self.handler.host = self.host
             self.executor.host = self.host
-            self.fault.node = self.host
+            if self.fault is not None:
+                self.fault.node = self.host
+                self.fault.health.node = self.host
+                self.fault.breakers.node = self.host
             if self.repairer is not None:
                 # Its self-identity picks the in-process stream target.
                 self.repairer.host = self.host
-            if own_cluster:
-                self.cluster.nodes[0].host = self.host
         if self.cluster_type == "http":
             self.broadcaster = HTTPBroadcaster(self)
-            self.handler.broadcaster = self.broadcaster
+        elif self.cluster_type == "gossip":
+            self.broadcaster = ns
+        self.handler.broadcaster = self.broadcaster
         self.holder.on_create_slice = self._on_create_slice
+        if ns is not None:
+            # Receiver first, then membership open: the join's push/pull
+            # needs the status handler (server.go:118,123). Liveness
+            # feeds the fault layer.
+            ns.start(self)
+            if hasattr(ns, "on_state_change"):
+                ns.on_state_change = self._on_peer_state
+            ns.open()
         if self.warmup is not None:
             self.warmup.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
@@ -276,6 +352,13 @@ class Server:
             self.scrubber.start()
         if self.repairer is not None:
             self.repairer.start()
+        t = threading.Thread(target=self._loop,
+                             args=(CACHE_FLUSH_INTERVAL,
+                                   self.holder.flush_caches,
+                                   "holder cache flush"),
+                             daemon=True, name="cache flush")
+        t.start()
+        self._loops.append(t)
         if len(self.cluster.nodes) > 1:
             for fn, interval, name in (
                     (self.poll_max_slices, self.polling_interval,
@@ -284,7 +367,8 @@ class Server:
                      "breaker probe"),
                     (self.sync_holder, self.anti_entropy_interval,
                      "anti-entropy")):
-                if interval <= 0:
+                if interval <= 0 or (fn == self.probe_open_breakers
+                                     and self.fault is None):
                     continue  # 0 turns a loop off, as in the JAX server
                 t = threading.Thread(target=self._loop,
                                      args=(interval, fn, name),
@@ -303,6 +387,8 @@ class Server:
             self._httpd.server_close()
             self._thread.join(timeout=10)
             self._httpd = None
+        if self.cluster is not None and self.cluster.node_set is not None:
+            self.cluster.node_set.close()
         for t in self._loops:
             t.join(timeout=10)
         self._loops = []
@@ -434,17 +520,78 @@ class Server:
 
     def cluster_status(self) -> pb.ClusterStatus:
         """Every node's NodeStatus (server.go:325-351): this node's
-        live, a peer's from the shared schema and placement, DOWN while
-        its circuit is open."""
+        live. With gossip a peer's is its last status merge and its
+        state the membership's; otherwise a peer's is computed from the
+        shared schema and placement, DOWN while its circuit is open."""
+        if self.cluster.node_set is not None:
+            states = self.cluster.node_states()
+            nodes = []
+            for n in self.cluster.nodes:
+                if n.host == self.host:
+                    nodes.append(self.local_status())
+                    continue
+                nodes.append(pb.NodeStatus(
+                    Host=n.host, State=states.get(n.host, NODE_STATE_DOWN),
+                    Indexes=(list(n.status.Indexes)
+                             if n.status is not None else [])))
+            return pb.ClusterStatus(Nodes=nodes)
         nodes = []
         for n in self.cluster.nodes:
             ns = _local_status(self.holder, n.host, self.cluster)
-            if n.host != self.host and not self.fault.would_allow(n.host):
+            if (n.host != self.host and self.fault is not None
+                    and not self.fault.would_allow(n.host)):
                 ns.State = NODE_STATE_DOWN
             else:
                 ns.State = NODE_STATE_UP
             nodes.append(ns)
         return pb.ClusterStatus(Nodes=nodes)
+
+    # -- gossip: StatusHandler and the membership callback -------------------
+
+    def local_status(self) -> pb.NodeStatus:
+        """This node's state as the gossip push/pull carries it: schema
+        with metas and the slices this node owns (server.go:306-323)."""
+        return _local_status(self.holder, self.host, self.cluster)
+
+    def handle_remote_status(self, status: pb.NodeStatus) -> None:
+        """Merge a peer's schema and owned-slice knowledge into ours
+        (server.go:353-387 mergeRemoteStatus)."""
+        node = self.cluster.node_by_host(status.Host)
+        if node is not None:
+            node.set_status(status)
+        for idx_info in status.Indexes:
+            idx = self.holder.create_index_if_not_exists(
+                idx_info.Name,
+                IndexOptions.decode(idx_info.Meta or pb.IndexMeta()))
+            remote_max = max([idx_info.MaxSlice] +
+                             [int(s) for s in idx_info.Slices])
+            idx.set_remote_max_slice(remote_max)
+            for frame_info in idx_info.Frames:
+                idx.create_frame_if_not_exists(
+                    frame_info.Name,
+                    FrameOptions.decode(frame_info.Meta or pb.FrameMeta()))
+
+    def build_wire_state(self) -> dict:
+        """The push/pull's build piggyback: this node's identity, so a
+        mixed fleet's version skew is visible from any member."""
+        return {"host": self.host, **build_info()}
+
+    def apply_build_wire_state(self, d: dict) -> None:
+        try:
+            host = str(d.get("host", ""))
+        except (TypeError, ValueError):
+            return
+        if not host or host == self.host:
+            return
+        self.peer_builds[host] = {
+            k: str(d.get(k, "")) for k in ("version", "python", "jax",
+                                           "backend")}
+
+    def _on_peer_state(self, host: str, state: str) -> None:
+        """Gossip membership callback → fault layer (the gossip states
+        are health's liveness vocabulary)."""
+        if self.fault is not None:
+            self.fault.note_gossip(host, state)
 
     # -- the pipelined query batch lane (the JAX server's _query_batcher) ----
 

@@ -13,12 +13,20 @@ them. The same seeded CSV files go to both:
   with the same error text.
 
 Then every frame's view is exported through each CLI, and the CSV must
-be the same byte for byte.
+be the same byte for byte. ``sort`` prints the JAX CLI's bytes over
+seeded CSVs with and without timestamps; ``bench`` prints the JAX line
+format and sets the JAX CLI's bits; ``backup -o`` from the port cluster
+and from the JAX node hold equal members (the same slices, positions
+and cache ids), and each CLI's ``restore`` of the other's tar gives the
+same Counts; the restore route pulls a frame from a JAX host and from a
+port host. ``check`` and ``inspect`` match the JAX CLI over a seeded
+data-directory tree.
 """
 
 import io
 import json
 import socket
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -281,3 +289,166 @@ def test_check_deep_unported_faces_exit_2(check_tree, tmp_path):
     assert port_cli.main(["check", "--deep", str(data)], stdout=so,
                          stderr=se) == 2
     assert "tier slice" in se.getvalue() and not so.getvalue()
+
+
+# -- sort, bench, and the frame-view tar of backup and restore ---------------
+
+def _sort_csv(tmp_path, timestamps: bool, seed: int) -> str:
+    rng = np.random.default_rng(seed)
+    n = 300
+    rows = rng.integers(0, 40, size=n)
+    cols = rng.integers(0, N_SLICES * SLICE_WIDTH, size=n)
+    lines = []
+    for k, (r, c) in enumerate(zip(rows, cols)):
+        if timestamps and k % 3:
+            lines.append(f"{r},{c},2017-0{1 + k % 9}-1{k % 10}T0{k % 10}:00")
+        else:
+            lines.append(f"{r},{c}")
+    return _write(tmp_path, f"sort{seed}.csv", "\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("timestamps", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sort_matches_jax(tmp_path, timestamps, seed):
+    rc, out, _ = _both_cli(["sort", _sort_csv(tmp_path, timestamps, seed)])
+    assert rc == 0 and len(out.splitlines()) == 300
+
+
+def _counts(host, frame, rows=range(40)):
+    body = " ".join(f"Count(Bitmap(rowID={r}, frame={frame}))"
+                    for r in rows)
+    req = urllib.request.Request(f"http://{host}/index/i/query",
+                                 data=body.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())["results"]
+
+
+def test_bench_sets_the_jax_bits(servers):
+    import re
+    jax_host, hosts = servers
+    for host in (jax_host, hosts[0]):
+        _post(host, "/index/i/frame/bench", {})
+    want = _run(jax_cli, ["bench", "--host", jax_host, "-i", "i",
+                          "-f", "bench", "--op", "set-bit", "-n", "60"])
+    got = _run(port_cli, ["bench", "--host", hosts[2], "-i", "i",
+                          "-f", "bench", "--op", "set-bit", "-n", "60"])
+    line = re.compile(r"^Executed 60 operations in \d+\.\d{3}s"
+                      r" \(\d+\.\d{3} op/sec\)\n$")
+    for rc, out, err in (want, got):
+        assert rc == 0 and line.match(out) and not err
+    assert _counts(hosts[0], "bench", range(1000)) == _counts(
+        jax_host, "bench", range(1000))
+    assert _run(port_cli, ["bench", "--host", hosts[0], "-i", "i", "-f",
+                           "bench", "--op", "clear"]) == _run(
+        jax_cli, ["bench", "--host", jax_host, "-i", "i", "-f", "bench",
+                  "--op", "clear"])
+
+
+def _tar_members(path) -> dict:
+    """{slice: (positions, cache ids)} of a ``backup -o`` tar."""
+    import tarfile
+    from pilosa_tpu_torch.proto import internal as tpb
+    from pilosa_tpu_torch.storage import roaring as troar
+    out = {}
+    with tarfile.open(path) as outer:
+        for info in outer.getmembers():
+            inner = tarfile.open(fileobj=outer.extractfile(info))
+            data = inner.extractfile("data").read()
+            cache = inner.extractfile("cache").read()
+            bm = troar.Bitmap.unmarshal(data)
+            out[info.name] = (bm.all_positions().tolist(),
+                              list(tpb.Cache.FromString(cache).IDs))
+    return out
+
+
+def test_backup_and_restore_tar_match_the_jax_cli(servers, tmp_path):
+    jax_host, hosts = servers
+    rng = np.random.default_rng(21)
+    rows = rng.integers(0, 40, size=3000)
+    cols = rng.integers(0, N_SLICES * SLICE_WIDTH, size=3000)
+    bits = _write(tmp_path, "bk.csv",
+                  "".join(f"{r},{c}\n" for r, c in zip(rows, cols)))
+    for frame in ("bk", "rs"):
+        _post(jax_host, f"/index/i/frame/{frame}", {})
+        _post(hosts[0], f"/index/i/frame/{frame}", {})
+    for cli, host in ((jax_cli, jax_host), (port_cli, hosts[1])):
+        assert _run(cli, ["import", "--host", host, "-i", "i", "-f", "bk",
+                          bits])[0] == 0
+    tars = {}
+    for name, cli, host in (("jax", jax_cli, jax_host),
+                            ("port", port_cli, hosts[2])):
+        tars[name] = str(tmp_path / f"{name}.tar")
+        assert _run(cli, ["backup", "--host", host, "-i", "i", "-f", "bk",
+                          "-o", tars[name]]) == (0, "", "")
+    members = _tar_members(tars["port"])
+    assert members == _tar_members(tars["jax"])
+    assert sorted(members) == [str(s) for s in range(N_SLICES)]
+    # Each CLI restores the other's tar into an empty frame.
+    assert _run(port_cli, ["restore", "--host", hosts[0], "-i", "i", "-f",
+                           "rs", tars["jax"]]) == (0, "", "")
+    assert _run(jax_cli, ["restore", "--host", jax_host, "-i", "i", "-f",
+                          "rs", tars["port"]]) == (0, "", "")
+    want = _counts(jax_host, "bk")
+    assert sum(want) > 0
+    assert _counts(jax_host, "rs") == want
+    for host in hosts:
+        assert _counts(host, "rs") == want
+        assert _counts(host, "bk") == want
+
+
+def test_backup_restore_usage_and_archive_faces(servers, tmp_path):
+    jax_host, hosts = servers
+    for verb in ("backup", "restore"):
+        got = _run(port_cli, [verb, "--host", hosts[0]])
+        assert got == _run(jax_cli, [verb, "--host", jax_host])
+        assert got[0] == 1
+    for argv in (["backup", "--mode", "full"], ["backup", "--list"],
+                 ["backup", "--gc"], ["restore", "--archive", "dir:/x"]):
+        rc, out, err = _run(port_cli, argv + ["--host", hosts[0]])
+        assert rc == 2 and not out
+        assert "(item 7, the backup slice)" in err
+
+
+def test_restore_route_pulls_from_jax_and_port_hosts(servers, tmp_path):
+    """``POST /index/i/frame/{f}/restore?host=`` on every port node pulls
+    the slices it owns from a JAX node, and from a port node outside the
+    cluster; the cluster then answers the source's Counts."""
+    from pilosa_tpu_torch.cluster.client import Client
+    jax_host, hosts = servers
+    solo = PortServer(str(tmp_path / "solo"), host="127.0.0.1:0",
+                      device="cpu", warmup=False)
+    solo.open()
+    try:
+        _post(solo.host, "/index/i", {})
+        rng = np.random.default_rng(33)
+        for frame, src in (("rj", jax_host), ("rp", solo.host)):
+            _post(src, f"/index/i/frame/{frame}", {})
+            _post(hosts[0], f"/index/i/frame/{frame}", {})
+            c = Client(src)
+            c.import_arrays("i", frame,
+                            rng.integers(0, 40, size=2000).astype(np.uint64),
+                            rng.integers(0, N_SLICES * SLICE_WIDTH,
+                                         size=2000).astype(np.uint64))
+            c.close()
+            for host in hosts:
+                c = Client(host)
+                c.restore_frame(src, "i", frame)
+                c.close()
+            want = _counts(src, frame)
+            assert sum(want) > 0
+            for host in hosts:
+                assert _counts(host, frame) == want, (frame, host)
+        status, _ = _req_status(hosts[0], "/index/i/frame/rj/restore")
+        assert status == 400
+    finally:
+        solo.close()
+
+
+def _req_status(host, path):
+    req = urllib.request.Request(f"http://{host}{path}", data=b"",
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()

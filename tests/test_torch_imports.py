@@ -102,7 +102,8 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.plan.planner",
             "pilosa_tpu_torch.cluster",
             "pilosa_tpu_torch.cluster.generations"} | set(
-                LIFECYCLE) | set(CLUSTER) | set(INTEGRITY) <= set(MODULES)
+                LIFECYCLE) | set(CLUSTER) | set(INTEGRITY) | set(
+                    OPERATOR) <= set(MODULES)
 
 
 # The query lifecycle's modules, each at the path of its JAX
@@ -159,6 +160,19 @@ INTEGRITY = ("pilosa_tpu_torch.storage.integrity",
 
 @pytest.mark.parametrize("module", INTEGRITY)
 def test_integrity_module_mirrors_the_jax_path(module):
+    rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
+        ".", os.sep)
+    assert os.path.exists(os.path.join(REPO, rel + ".py"))
+
+
+# Gossip membership, readiness and the configuration, each at the path of
+# its JAX counterpart.
+OPERATOR = ("pilosa_tpu_torch.cluster.gossip", "pilosa_tpu_torch.obs.slo",
+            "pilosa_tpu_torch.utils.config")
+
+
+@pytest.mark.parametrize("module", OPERATOR)
+def test_operator_module_mirrors_the_jax_path(module):
     rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
         ".", os.sep)
     assert os.path.exists(os.path.join(REPO, rel + ".py"))

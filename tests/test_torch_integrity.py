@@ -692,10 +692,9 @@ def test_env_keys_match_the_jax_loader():
            "PILOSA_TRACE_MAX_SPANS": "99"}
     for e in ({}, env):
         want = jcfg.load("", env=e)
-        trace, scrub = tcfg.TraceConfig(), tcfg.ScrubConfig()
-        tcfg.apply_env(trace, scrub, e)
-        assert vars(scrub) == vars(want.scrub)
-        assert vars(trace) == vars(want.trace)
+        got = tcfg.load("", env=e)
+        assert vars(got.scrub) == vars(want.scrub)
+        assert vars(got.trace) == vars(want.trace)
 
 
 def test_barrier_flushes_a_wal_whose_background_flush_failed(tmp_path,

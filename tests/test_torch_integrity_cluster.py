@@ -119,6 +119,23 @@ class _Cluster:
               f"node {name}")
         return self.hosts[name]
 
+    def wait_breakers_closed(self):
+        """A peer's max-slice poll against a node still starting opens
+        its circuit breaker: wait until the probes have closed every
+        breaker between running nodes, so no request fails fast on a
+        node that is up."""
+        up = {self.hosts[n] for n in self.procs}
+
+        def closed():
+            for host in up:
+                brk = _get_json(host, "/status").get("fault", {}).get(
+                    "breakers", {})
+                if any(b["state"] != "closed" for peer, b in brk.items()
+                       if peer in up):
+                    return False
+            return True
+        _wait(closed, 60, "the breakers to close")
+
     def kill(self, name):
         p = self.procs.pop(name)
         p.send_signal(signal.SIGKILL)
@@ -151,6 +168,7 @@ def seeded(tmp_path_factory):
     try:
         for n in "abc":
             c.spawn(n)
+        c.wait_breakers_closed()
         host_a = c.hosts["a"]
         _post(host_a, "/index/sc", b"{}")
         _post(host_a, "/index/sc/frame/f", b"{}")
@@ -268,6 +286,7 @@ def test_bit_rot_across_a_restart_quarantines_and_repairs(seeded):
 
 def test_live_scrub_detects_and_repairs_without_a_restart(seeded):
     c, model = seeded
+    c.wait_breakers_closed()  # after the restarts of the test before
     hosts = list(c.hosts.values())
     host_c = c.hosts["c"]
     assert not _get_json(host_c, "/debug/integrity")["quarantined"]

@@ -367,3 +367,82 @@ def test_port_answers_alike_over_a_corrupted_fragment(tmp_path):
     finally:
         ps.close()
         js.close()
+
+
+def test_port_cluster_answers_the_captured_workload(tmp_path):
+    """The same captured workload at the coordinator of three port nodes
+    (``cluster_type="http"``, replicas 2, in this process): each node
+    opens a copy of the seeded directory (a non-owner's copy is never
+    read), queries go to the coordinator, which forwards every write to
+    the slice's owners, and ``/import`` and field-import bodies to every
+    owner of their slice, as the cluster client sends them. Zero
+    mismatches against the JAX server, every captured read compared."""
+    from pilosa_tpu_torch.cluster.topology import Cluster, Node
+    from podenv import free_port
+
+    jax_dir = tmp_path / "jax"
+    jh = JaxHolder(str(jax_dir))
+    jh.open()
+    _fill_jax(jh, np.random.default_rng(606))
+    jh.close()
+    hosts = [f"127.0.0.1:{free_port()}" for _ in range(3)]
+    nodes = []
+    for i, h in enumerate(hosts):
+        shutil.copytree(jax_dir, tmp_path / f"port{i}")
+        nodes.append(PortServer(
+            str(tmp_path / f"port{i}"), host=h, device="cpu", warmup=False,
+            cluster=Cluster(nodes=[Node(x) for x in hosts], replica_n=2),
+            cluster_type="http", polling_interval=0,
+            anti_entropy_interval=0))
+    cluster = nodes[0].cluster
+    js = JaxServer(str(jax_dir), host="127.0.0.1:0",
+                   anti_entropy_interval=0, polling_interval=0,
+                   capture_config=CaptureConfig(mode="full"))
+    js.open()
+    coord = hosts[0]
+    proto = {"Content-Type": "application/x-protobuf",
+             "Accept": "application/x-protobuf"}
+    try:
+        for n in nodes:
+            n.open()
+        for host in (js.host, coord):
+            for path, body in (
+                    ("/index/d/frame/bsi", b'{"options": {"fields": [{"name":'
+                                           b' "amt", "min": -100, "max":'
+                                           b' 5000}]}}'),
+                    ("/index/d/frame/tq", b'{"options": {"timeQuantum": "YMD",'
+                                          b' "inverseEnabled": true}}')):
+                assert _post(host, path, body)[0] == 200
+        steps = _workload(np.random.default_rng(607))
+        for kind, payload in steps:
+            if kind in ("import", "field_import"):
+                path, msg = (("/import", jax_pb.ImportRequest)
+                             if kind == "import" else
+                             ("/index/d/frame/bsi/field/amt/import",
+                              jax_pb.ImportValueRequest))
+                assert _post(js.host, path, payload, proto)[0] == 200
+                slice_ = msg.FromString(payload).Slice
+                for owner in cluster.fragment_nodes("d", slice_):
+                    assert _post(owner.host, path, payload,
+                                 proto)[0] == 200
+                continue
+            if kind == "query_opts":
+                pql, suffix, headers = payload
+            else:
+                pql, suffix, headers = payload, "", None
+            for host in (js.host, coord):
+                status, _ = _post(host, "/index/d/query" + suffix,
+                                  pql.encode(), headers)
+                assert status == 200, (host, pql)
+        records = obs_replay.fetch_records(js.host, limit=100000)
+        queries = [r for r in records if r.get("kind") == "query"]
+        reads = [r for r in queries if r.get("lane") == "read"]
+        writes = [r for r in queries if r.get("lane") != "read"]
+        out = obs_replay.shadow(records, js.host, coord, senders=1)
+        assert out["writes_replayed"] == len(writes)
+        assert out["mismatches"] == 0, out["dumps"][:2]
+        assert out["reads_compared"] == len(reads) > 100
+    finally:
+        for n in nodes:
+            n.close()
+        js.close()
