@@ -193,7 +193,15 @@ checkout, then runs fourteen phases and prints one JSON line for each:
    membership marks it DOWN, its breaker open for "gossip dead" at that
    moment, ``/health`` 503 naming it, node 0's reads exact again with
    the first Count's ms), and its restart from the same file (the
-   seconds until all three are ready again, its reads exact).
+   seconds until all three are ready again, its reads exact). Each
+   node's file arms hedged reads at 50 ms: ``/metrics/cluster`` and
+   ``/debug/cluster`` federate the three nodes after the reads; before
+   the kill, 8 fresh Counts from node 0 come back exact, through their
+   hedges, while the peer serving its legs is SIGSTOPped; after it, with
+   the other peer partitioned by an ``rpc.send`` failpoint, a Count
+   answers 400 without ``?partial=1`` and with it 200, listing exactly
+   the slices node 0 does not own in ``X-Pilosa-Partial``, and
+   ``/metrics/cluster`` answers 503, or 200 naming both peers.
 14. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
@@ -2843,8 +2851,13 @@ def _scrape(host: str) -> dict:
     status, _, body, _ = _request(host, "GET", "/metrics")
     if status != 200:
         _fail(f"control: /metrics answered {status}")
+    return _samples(body.decode())
+
+
+def _samples(text: str) -> dict:
+    """A 0.0.4 exposition parsed into {sample name with labels: value}."""
     out = {}
-    for line in body.decode().splitlines():
+    for line in text.splitlines():
         if not line or line.startswith("#"):
             continue
         name, sep, value = line.rpartition(" ")
@@ -4350,6 +4363,14 @@ def phase_integrity(device, seed: int, tmp: str, n_slices: int = 256,
     return out
 
 
+GOSSIP_HEDGE = "50ms"     # the gossip phase's [fault] hedge floor
+# Longest SIGSTOP of the hedge step, well under the failure detector's
+# ~14 s to DOWN. The hedge legs land on the replica whose slabs for
+# those slices are cold: all 8 Counts took 1.9-2.4 s on an NVIDIA H100
+# 80GB HBM3 at 700 W, too near a 3 s bound.
+GOSSIP_STOP_S = 6.0
+
+
 def _gossip_toml(path: str, data_dir: str, host: str, hosts: list,
                  internal_port: int, seed: str, secret: str) -> None:
     """One node's TOML configuration for ``phase_gossip``: gossip
@@ -4357,7 +4378,8 @@ def _gossip_toml(path: str, data_dir: str, host: str, hosts: list,
     the HMAC ``secret`` and the placement over ``hosts`` with replicas 2.
     The max-slice poll is at 5 minutes: the gossip push/pull carries the
     peers' max slices, and no request of this node reaches a dead peer
-    before its membership declares it dead."""
+    before its membership declares it dead. Hedged reads are armed at a
+    50 ms floor (``[fault] hedge``)."""
     hosts_toml = ", ".join(f'"{h}"' for h in hosts)
     with open(path, "w") as f:
         f.write(f"""data-dir = "{data_dir}"
@@ -4371,6 +4393,9 @@ polling-interval = "5m"
 internal-port = "{internal_port}"
 gossip-seed = "{seed}"
 gossip-secret = "{secret}"
+
+[fault]
+hedge = "{GOSSIP_HEDGE}"
 """)
 
 
@@ -4381,7 +4406,7 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
     this phase writes (``server -c FILE`` and nothing else on the card):
     ``cluster.type = "gossip"``, an internal port each, nodes 1 and 2
     seeded from node 0's, an HMAC secret, the placement over the three
-    HTTP hosts with replicas 2. Configuration 4's ``smoke`` layout at
+    HTTP hosts with replicas 2, hedged reads at a 50 ms floor. Configuration 4's ``smoke`` layout at
     ``n_slices`` slices (16 rows, rows 1-8 at 1/64, 9-16 at 1/4096) is
     written into each owner's directory with the port's storage layer
     and placement; every answer is held to a host reference of those
@@ -4397,16 +4422,45 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
        Count(Intersect) in one body, ``TopN(frame=f, n=50)`` and the
        sourced ``TopN(Bitmap(rowID=1, frame=f), frame=f, n=50)`` (the
        TopN block count on every owner's refetch leg), cold and warm.
-    4. Death: the peer that served the most of node 0's legs is
-       SIGKILLed (its launch counters read just before). Each survivor's
-       seconds until its ``/status`` marks it DOWN; at that moment the
-       survivor's breaker for it must be open for the reason "gossip
-       dead", then its ``/health`` 503 with ``down: <victim>``. Node 0's
-       reads again, exact, with the first Count's ms, the survivor's
-       legs and the re-mapped slices.
-    5. Rejoin: the victim restarted from its file; the seconds until all
+       The victim-to-be is the peer that served the most of node 0's
+       legs; the other peer is the "other".
+    4. Federation: node 0's ``/metrics/cluster`` answers 200 with
+       ``X-Pilosa-Federated-Nodes: 3`` and its merged
+       ``pilosa_query_requests_total`` lies between the sum of the three
+       nodes' own ``/metrics`` scraped just before and just after;
+       ``/debug/cluster`` has the three blocks, one epoch and
+       ``versionSkew: false``.
+    5. Hedge: 8 Count(Intersect) over pairs not asked before (so the
+       cluster result cache has no entry whose validation would probe
+       the stopped peer) from node 0, one after another (the unstopped
+       uncached p50). The peer that served those legs (replicas are
+       consecutive nodes of the placement, so one peer is first on
+       every slice node 0 does not own) is SIGSTOPped for at most ``GOSSIP_STOP_S`` (under the detector's
+       ~14 s to DOWN) and 8 more such Counts go at once: each exact,
+       each back before the SIGCONT, node 0's ``hedge_won`` up, the
+       other peer (which serves the hedge legs) having launched the
+       expression count meanwhile, and neither node 0 nor it marking the
+       stopped peer DOWN. The delay is the larger of the hedge floor and
+       node 0's latency tail of the stopped peer, read just before.
+    6. Death: the victim-to-be is SIGKILLed (its launch counters read
+       just before). Each survivor's seconds until its ``/status`` marks
+       it DOWN; at that moment the survivor's breaker for it must be
+       open for the reason "gossip dead", then its ``/health`` 503 with
+       ``down: <victim>``. Node 0's reads again, exact, with the first
+       Count's ms, the survivor's legs and the re-mapped slices.
+    7. Partial: node 0's ``rpc.send`` failpoint armed to partition the
+       other peer (``POST /debug/failpoints``), so no owner of the
+       slices node 0 does not own is reachable. A Count(Intersect) over
+       a fresh pair fails without ``?partial=1`` (400: the client error
+       of the last replica tried, in both packages) and answers 200 with
+       it, ``X-Pilosa-Partial`` exactly those slices from the placement
+       and the count the host reference over node 0's slices;
+       ``/metrics/cluster`` answers 503, and 200 under ``?partial=1``
+       with ``X-Pilosa-Partial-Nodes`` naming both peers. Disarmed; node
+       0's breaker for the other peer closes again.
+    8. Rejoin: the victim restarted from its file; the seconds until all
        three ``/health`` answer 200 again; its reads exact.
-    6. Kernels: each node of the first life (the victim's snapshot)
+    9. Kernels: each node of the first life (the victim's snapshot)
        launched the expression count, densify and the TopN block
        count."""
     import signal
@@ -4463,6 +4517,15 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
     src = {r: int(sum(len(np.intersect1d(cols[1][s], cols[r][s],
                                          assume_unique=True))
                       for s in range(n_slices))) for r in cols}
+    # Pairs that step 3 does not ask, for the hedge step (16 drawn) and
+    # the partial step (two dense rows): each pair's count in each slice.
+    fresh = [(a, b) for a in range(1, 17) for b in range(a + 1, 17)
+             if (a, b) not in pairs and (a, b) != (1, 3)]
+    fresh = [fresh[int(k)] for k in rng.choice(len(fresh), size=16,
+                                                replace=False)] + [(1, 3)]
+    fresh_counts = {p: np.array([len(np.intersect1d(
+        cols[p[0]][s], cols[p[1]][s], assume_unique=True))
+        for s in range(n_slices)]) for p in fresh}
     del cols
     body = " ".join(
         [f"Count(Bitmap(rowID={r}, frame=f))" for r in range(1, 17)]
@@ -4558,6 +4621,28 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
         return _family_sum(_scrape(host),
                            "pilosa_cluster_failover_slices_total")
 
+    def hedged(host) -> dict:
+        samples = _scrape(host)
+        return {o: _family_sum(samples,
+                               "pilosa_cluster_hedged_requests_total",
+                               outcome=o)
+                for o in ("fired", "primary_won", "hedge_won")}
+
+    def fresh_q(p):
+        return (f"Count(Intersect(Bitmap(rowID={p[0]}, frame=f),"
+                f" Bitmap(rowID={p[1]}, frame=f)))")
+
+    def fresh_check(p, st, body, label):
+        want_p = int(fresh_counts[p].sum())
+        got = json.loads(body)["results"] if st == 200 else None
+        if got != [want_p]:
+            _fail(f"gossip: {label} {p}: HTTP {st} {got} != [{want_p}]"
+                  f" {body[:200]!r}")
+
+    def requests_total() -> float:
+        return sum(_family_sum(_scrape(h), "pilosa_query_requests_total")
+                   for h in hosts)
+
     procs = [None, None, None]
     lines: list = []
     try:
@@ -4622,12 +4707,126 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
         for h in hosts:
             if failovers(h):
                 _fail(f"gossip: {h} re-mapped slices before the kill")
-        mark("reads")
-
-        # -- 4. death ---------------------------------------------------------
         victim = hosts.index(victim_host)
         survivors = [h for h in hosts if h != victim_host]
         other = next(h for h in survivors if h != hosts[0])
+        mark("reads")
+
+        # -- 4. federation ----------------------------------------------------
+        sum_before = requests_total()
+        st, hs, out, fed_ms = _request(hosts[0], "GET", "/metrics/cluster",
+                                       timeout=30)
+        sum_after = requests_total()
+        merged = (_family_sum(_samples(out.decode()),
+                              "pilosa_query_requests_total")
+                  if st == 200 else None)
+        if (st != 200 or hs.get("X-Pilosa-Federated-Nodes") != "3"
+                or not sum_before <= merged <= sum_after):
+            _fail(f"gossip: /metrics/cluster: {st}"
+                  f" {hs.get('X-Pilosa-Federated-Nodes')} merged {merged}"
+                  f" not in [{sum_before}, {sum_after}]")
+        st, hs, out, roll_ms = _request(hosts[0], "GET", "/debug/cluster",
+                                        timeout=30)
+        roll = json.loads(out) if st == 200 else {}
+        epochs = {b.get("epoch") for b in roll.get("nodes", {}).values()}
+        if (st != 200 or sorted(roll["nodes"]) != sorted(hosts)
+                or len(epochs) != 1 or roll["versionSkew"] is not False):
+            _fail(f"gossip: /debug/cluster: {st} {out[:300]!r}")
+        federation = {"metrics_cluster_ms": fed_ms,
+                      "debug_cluster_ms": roll_ms, "federated_nodes": 3,
+                      "requests_total": [sum_before, merged, sum_after],
+                      "epochs": sorted(epochs)}
+        mark("federation")
+
+        # -- 5. hedge ---------------------------------------------------------
+        base_ms = []
+        rpcs_base = rpcs(hosts[0])
+        for p in fresh[:8]:
+            st, _, out, ms = _request(hosts[0], "POST", "/index/smoke/query",
+                                      fresh_q(p).encode(), timeout=60)
+            fresh_check(p, st, out, "unstopped Count")
+            base_ms.append(ms)
+        base_legs = {h: v - rpcs_base[h] for h, v in rpcs(hosts[0]).items()}
+        # The peer node 0 sends these legs to is stopped; the other one
+        # serves the hedges.
+        stop_host = max(base_legs, key=base_legs.get)
+        serve_host = next(h for h in base_legs if h != stop_host)
+        if base_legs[stop_host] <= 0:
+            _fail(f"gossip: no leg left {hosts[0]} for the fresh Counts:"
+                  f" {base_legs}")
+        o, sv = hosts.index(stop_host), hosts.index(serve_host)
+        fault0 = get_json(hosts[0], "/status")[1]["fault"]
+        floor_ms = fault0["hedgeS"] * 1e3
+        tail_ms = fault0["peers"].get(stop_host, {}).get("latencyTailMs",
+                                                         0.0)
+        hedged0 = hedged(hosts[0])
+        served0 = _node_counters(procs[sv], gtmp, sv)["launches"]
+        rpcs_stop = rpcs(hosts[0])[stop_host]
+        from concurrent.futures import ThreadPoolExecutor
+        from concurrent.futures import wait as fwait
+        tp = ThreadPoolExecutor(8)
+        procs[o].send_signal(signal.SIGSTOP)
+        t_stop = time.perf_counter()
+        try:
+            futs = {tp.submit(_request, hosts[0], "POST",
+                              "/index/smoke/query", fresh_q(p).encode(),
+                              None, 60): p for p in fresh[8:16]}
+            done, pending = fwait(futs, timeout=GOSSIP_STOP_S)
+            back_s = time.perf_counter() - t_stop
+        finally:
+            procs[o].send_signal(signal.SIGCONT)
+            stopped_s = time.perf_counter() - t_stop
+            tp.shutdown(wait=True)
+        if pending:
+            _fail(f"gossip: {len(pending)} of 8 Counts not back within"
+                  f" {GOSSIP_STOP_S} s of the SIGSTOP of {stop_host}")
+        hedged_ms = []
+        for fut, p in futs.items():
+            st, _, out, ms = fut.result()
+            fresh_check(p, st, out, "hedged Count")
+            hedged_ms.append(ms)
+        hedged1 = hedged(hosts[0])
+        served1 = _node_counters(procs[sv], gtmp, sv)["launches"]
+        # The abandoned primaries answer once the peer runs again: wait
+        # for them, so that none is still in flight at a later SIGKILL
+        # of that peer (its reset connections would feed the breaker).
+        fired = int(hedged1["fired"] - hedged0["fired"])
+        t0 = time.perf_counter()
+        while rpcs(hosts[0])[stop_host] - rpcs_stop < fired:
+            if time.perf_counter() - t0 > 30:
+                _fail(f"gossip: the {fired} hedged primaries to"
+                      f" {stop_host} did not finish in 30 s after the"
+                      f" SIGCONT")
+            time.sleep(0.02)
+        primaries_s = time.perf_counter() - t0
+        seen = {}
+        for h in (hosts[0], serve_host):
+            st_json = get_json(h, "/status")[1]
+            seen[h] = {n["host"]: n["state"]
+                       for n in st_json["status"]["nodes"]}.get(stop_host)
+            if seen[h] == "DOWN":
+                _fail(f"gossip: {h} marked {stop_host} DOWN during a"
+                      f" {stopped_s:.2f} s SIGSTOP")
+        won = hedged1["hedge_won"] - hedged0["hedge_won"]
+        served = (served1.get("expr_count_rows", 0)
+                  - served0.get("expr_count_rows", 0))
+        if won <= 0 or served <= 0:
+            _fail(f"gossip: hedge: hedge_won +{won}, {serve_host}'s"
+                  f" expression count +{served} ({hedged0} -> {hedged1})")
+        hedge = {"stopped": stop_host, "served": serve_host,
+                 "unstopped_legs": base_legs, "hedge_floor_ms": floor_ms,
+                 "latency_tail_ms": tail_ms,
+                 "delay_ms": max(floor_ms, tail_ms),
+                 "unstopped_p50_ms": _median(base_ms),
+                 "unstopped_ms": base_ms, "hedged_ms": sorted(hedged_ms),
+                 "all_back_s": back_s, "stopped_s": stopped_s,
+                 "outcomes": {k: hedged1[k] - hedged0[k] for k in hedged1},
+                 "server_expr_count_launches": served,
+                 "primaries_done_s": primaries_s,
+                 "state_seen": seen}
+        mark("hedge")
+
+        # -- 6. death ---------------------------------------------------------
         victim_line = _node_counters(procs[victim], gtmp, victim)
         before = rpcs(hosts[0])
         procs[victim].send_signal(signal.SIGKILL)
@@ -4683,7 +4882,58 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
                   f" for {hosts[0]}: {after_kill}")
         mark("death")
 
-        # -- 5. rejoin --------------------------------------------------------
+        # -- 7. partial -------------------------------------------------------
+        def arm(spec):
+            st, _, out, _ = _request(
+                hosts[0], "POST", "/debug/failpoints",
+                json.dumps({"site": "rpc.send", "spec": spec}).encode())
+            if st != 200:
+                _fail(f"gossip: arm rpc.send={spec}: {st} {out[:200]!r}")
+
+        arm(f"partition({other})")
+        p = fresh[16]
+        q = fresh_q(p).encode()
+        st_strict, hs_strict, out_strict, strict_ms = _request(
+            hosts[0], "POST", "/index/smoke/query", q, timeout=60)
+        st, hs, out, partial_ms = _request(
+            hosts[0], "POST", "/index/smoke/query?partial=1", q, timeout=60)
+        kept = [s for s in range(n_slices) if hosts[0] in owners[s]]
+        lost = [s for s in range(n_slices) if hosts[0] not in owners[s]]
+        want_p = int(fresh_counts[p][kept].sum())
+        got = json.loads(out)["results"] if st == 200 else None
+        if (st_strict != 400 or "X-Pilosa-Partial" in hs_strict
+                or st != 200 or got != [want_p]
+                or hs.get("X-Pilosa-Partial") != ",".join(map(str, lost))):
+            _fail(f"gossip: partial Count: strict {st_strict}"
+                  f" {out_strict[:200]!r}; partial {st} {got} != [{want_p}]"
+                  f" header {hs.get('X-Pilosa-Partial')!r}")
+        st_fed, _, out_fed, _ = _request(hosts[0], "GET", "/metrics/cluster",
+                                         timeout=30)
+        st_fp, hs_fp, _, fed_partial_ms = _request(
+            hosts[0], "GET", "/metrics/cluster?partial=1", timeout=30)
+        gone = ",".join(sorted([victim_host, other]))
+        if (st_fed != 503 or st_fp != 200
+                or hs_fp.get("X-Pilosa-Partial-Nodes") != gone
+                or hs_fp.get("X-Pilosa-Federated-Nodes") != "1"):
+            _fail(f"gossip: /metrics/cluster with {gone} unreachable:"
+                  f" {st_fed} {out_fed[:200]!r}; partial {st_fp} {hs_fp}")
+        arm("off")
+        t0 = time.perf_counter()
+        while get_json(hosts[0], "/status")[1]["fault"]["breakers"].get(
+                other, {}).get("state", "closed") != "closed":
+            if time.perf_counter() - t0 > 30:
+                _fail(f"gossip: {hosts[0]}'s breaker for {other} still"
+                      f" open 30 s after the disarm")
+            time.sleep(0.05)
+        partial = {"strict_status": st_strict, "strict_ms": strict_ms,
+                   "partial_ms": partial_ms, "missing_slices": len(lost),
+                   "count": want_p, "metrics_cluster_strict": st_fed,
+                   "metrics_cluster_partial_ms": fed_partial_ms,
+                   "partial_nodes": gone,
+                   "breaker_closed_s": time.perf_counter() - t0}
+        mark("partial")
+
+        # -- 8. rejoin --------------------------------------------------------
         t0 = time.perf_counter()
         procs[victim] = spawn(victim)
         rejoin_s = ready(hosts, procs, t0)
@@ -4699,7 +4949,7 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
                 p.kill()
                 p.communicate()
 
-    # -- 6. kernels: each node's first life ------------------------------
+    # -- 9. kernels: each node's first life ------------------------------
     first_life = list(lines)
     first_life[victim] = victim_line
     need = ("expr_count_rows", "densify", "topn_block_count")
@@ -4718,6 +4968,7 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
            "nodes": 3, "replicas": 2, "slices": n_slices, "bits": n_bits,
            "data_s": data_s, "ready_s": ready_s, "schema_s": schema_s,
            "reads": lat, "victim": victim_host, "legs_before": legs,
+           "federation": federation, "hedge": hedge, "partial": partial,
            "dead_s": dead_s, "breaker_at_dead": breaker_at_dead,
            "health_after_death": health_dead,
            "breaker_gauge": breaker_gauge, "after_death": after_kill,

@@ -12,8 +12,9 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   ``--cluster.gen-staleness``), ``--anti-entropy.interval``, the
   ``--trace.*`` and ``--metrics.*`` switches and the switches of the
   subsystems still to port — plus ``--device`` (the card unless
-  ``cpu``) and ``--cost.dir`` (where the cost model's calibration is
-  kept). An explicit switch-on of a subsystem this package does not
+  ``cpu``), ``--cost.dir`` (where the cost model's calibration is
+  kept) and ``--fault.hedge`` (the hedged-read floor, which the JAX verb
+  takes from ``[fault] hedge`` and ``PILOSA_FAULT_HEDGE`` only). An explicit switch-on of a subsystem this package does not
   run yet, where the JAX default leaves it off (``[tier] enabled =
   true``, a ``[backup] archive``, capture's ``mode = "full"``), exits
   2 naming its slice; one on by default in the JAX package is noted
@@ -117,6 +118,8 @@ def load_server_config(args, env=None):
             setattr(getattr(cfg, section), attr, parse_bool(value))
     if args.metrics_runtime_interval is not None:
         cfg.metrics.runtime_interval = args.metrics_runtime_interval
+    if args.fault_hedge is not None:
+        cfg.fault.hedge = args.fault_hedge
     if args.trace_max_traces is not None:
         cfg.trace.max_traces = args.trace_max_traces
     if args.sentinel_manifest:
@@ -751,6 +754,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None, metavar="DUR",
                    help="runtime collector sampling interval"
                         " (default 10s)")
+    s.add_argument("--fault.hedge", dest="fault_hedge",
+                   type=parse_duration, default=None, metavar="DUR",
+                   help="hedged-read floor: a second replica leg fires"
+                        " when the first exceeds max(DUR, the peer's"
+                        " latency tail) (default 0, off)")
     s.add_argument("--trace.enabled", dest="trace_enabled",
                    default=None, metavar="BOOL",
                    help="trace every query (default false; any single"

@@ -490,6 +490,27 @@ class Client:
             self.gens.apply(host or self.host, index, tokens)
         return tokens
 
+    # -- fleet observability (obs.federate) ----------------------------------
+
+    def metrics_text(self, host: Optional[str] = None,
+                     deadline_s: Optional[float] = None) -> str:
+        """GET /metrics: one peer's Prometheus exposition — the
+        federation scrape leg (/metrics/cluster). ``deadline_s`` is
+        the per-peer scrape budget; the breaker consult in _do makes a
+        dead peer fail this fast instead of paying the timeout."""
+        status, raw = self._do("GET", "/metrics", host=host,
+                               deadline_s=deadline_s)
+        return self._ok(status, raw, "metrics scrape").decode()
+
+    def debug_cluster_local(self, host: Optional[str] = None,
+                            deadline_s: Optional[float] = None) -> dict:
+        """GET /debug/cluster?local=1: one peer's local debug block
+        (build, epoch, breakers, WAL health, resize phase) — the
+        /debug/cluster fan-out leg."""
+        status, raw = self._do("GET", "/debug/cluster?local=1",
+                               host=host, deadline_s=deadline_s)
+        return json.loads(self._ok(status, raw, "debug cluster"))
+
     # -- schema / slices (client.go:63-136) ----------------------------------
 
     def schema(self) -> list[dict]:

@@ -117,8 +117,19 @@ batch, the single-pass TopN, the device top-k, the bitmap-result cache
 and the planner's proofs — run when this node owns every slice a query
 touches (``_owns_all_slices``). The JAX package's environment gates
 are class constants here (their defaults), which tests override
-through the constructor; the resize double read, the hedged leg and
-the pod wait for later slices.
+through the constructor; the resize double read and the pod wait for
+later slices.
+
+With a hedge floor on the fault manager (``[fault] hedge``) a remote
+read leg — a map-reduce leg or a TopN pushdown leg — that has not
+answered within the larger of the floor and the peer's latency tail is
+raced by the same slices at the other replica owners
+(``_exec_remote_hedged``, on a pool tier of its own): the first side to
+answer wins, and only its generation tokens reach the map. Writes never
+hedge. ``ExecOptions(partial=True)`` (``?partial=1``) skips the slices
+no reachable replica owns instead of failing, noting them in
+``missing_slices``; the cluster result cache and the TopN pushdown
+decline such a read.
 """
 
 from __future__ import annotations
@@ -175,9 +186,16 @@ class ExecOptions:
     slices only, never forwarded). ``ctx`` carries the query's
     lifecycle state (sched.context.QueryContext: deadline budget,
     cancel flag, cost ledger, trace); None (internal callers) means
-    unbounded."""
+    unbounded.
+
+    ``partial`` (the ``?partial=1`` degraded-read contract): slices with
+    NO reachable replica are skipped instead of failing the whole
+    query; their ids accumulate in ``missing_slices`` (the handler
+    reports them as the ``X-Pilosa-Partial`` response header)."""
     remote: bool = False
     ctx: Optional[object] = None
+    partial: bool = False
+    missing_slices: Optional[list] = None
 
 
 def _has_only_set_row_attrs(calls: list[Call]) -> bool:
@@ -309,7 +327,7 @@ class Executor:
         self.client = client
         self.fault = fault
         self.gens = gens
-        self._pool_obj: Optional[ThreadPoolExecutor] = None
+        self._pools: dict[str, ThreadPoolExecutor] = {}
         self._pool_mu = threading.Lock()
         # Cost-based planner (plan.planner), consulted once per read
         # query; on by default as in the JAX package. Its placement
@@ -363,19 +381,27 @@ class Executor:
         self._topn_hint_memo: OrderedDict[tuple, tuple] = OrderedDict()
 
     def close(self) -> None:
-        """Stop the node-leg worker pool."""
+        """Stop the worker pools."""
         with self._pool_mu:
-            pool, self._pool_obj = self._pool_obj, None
-        if pool is not None:
+            pools, self._pools = list(self._pools.values()), {}
+        for pool in pools:
             pool.shutdown(wait=False, cancel_futures=True)
 
-    def _pool(self) -> ThreadPoolExecutor:
+    def _pool(self, tier: str = "leg") -> ThreadPoolExecutor:
+        """The worker pool of a tier: ``leg`` runs node legs and the
+        probes; ``hedge`` runs a hedged leg's primary and its hedges.
+        A leg-tier worker parks on its hedge-tier futures, so the hedge
+        tier is its own and twice the size: sharing one tier, hedges
+        would queue behind the very primaries they race (and a queued
+        primary's wait would expire on queue delay alone, firing
+        spurious hedges under load)."""
         with self._pool_mu:
-            if self._pool_obj is None:
-                self._pool_obj = ThreadPoolExecutor(
-                    max_workers=self._MAX_WORKERS,
-                    thread_name_prefix="pilosa-leg")
-            return self._pool_obj
+            pool = self._pools.get(tier)
+            if pool is None:
+                size = self._MAX_WORKERS * (2 if tier == "hedge" else 1)
+                pool = self._pools[tier] = ThreadPoolExecutor(
+                    max_workers=size, thread_name_prefix=f"pilosa-{tier}")
+            return pool
 
     def execute_partial(self, index: str, query,
                         slices: Optional[list[int]] = None,
@@ -2435,8 +2461,8 @@ class Executor:
         but the query's own deadline or cancel falls back to the fan-out
         path (None): reads are idempotent, so a spent pushdown is only
         spent work, never a wrong answer."""
-        if (not self.TOPN_PUSHDOWN or self.client is None or not slices
-                or len(self.cluster.nodes) < 2
+        if (not self.TOPN_PUSHDOWN or opt.partial or self.client is None
+                or not slices or len(self.cluster.nodes) < 2
                 or not getattr(self.client, "generation_aware", False)):
             return None
         (frame_name, _n, field, row_ids, _thresh, filters,
@@ -2547,13 +2573,23 @@ class Executor:
                             group: list[int], opt: ExecOptions) -> dict:
         """One node's exact partial: a remote leg forwards ``c_pd`` (the
         call with the ``pushdown`` marker and the hints); a leg re-mapped
-        onto this node runs the same semantics in-process."""
+        onto this node runs the same semantics in-process. Hedging
+        composes: the race duplicates the leg at the surviving replicas
+        (an in-process one computes the exact partial), and only the
+        winner's partial and generation tokens count."""
         with sched_context.use(opt.ctx):
             if opt.ctx is not None:
                 opt.ctx.check()
             if node.host == self.host:
                 return _topn_to_dict(
                     self._topn_exact_partial(index, c_pd, group))
+            hedge_s = (self.fault.hedge_delay_s(node.host)
+                       if self.fault is not None else None)
+            if hedge_s:
+                return _topn_to_dict(self._exec_remote_hedged(
+                    node, index, c_pd, group, opt,
+                    lambda sl: self._topn_exact_partial(index, c_pd, sl),
+                    _topn_merge_reduce, hedge_s))
             rs = self._exec_remote(node, index, Query([c_pd]), group, opt)
             return _topn_to_dict(rs[0] if rs else None)
 
@@ -2654,13 +2690,16 @@ class Executor:
                     raise SliceUnavailableError(str(s))
 
     def _slices_by_node(self, nodes: list[Node], index: str,
-                        slices: list[int]) -> list[tuple[Node, list[int]]]:
+                        slices: list[int],
+                        missing: Optional[list] = None
+                        ) -> list[tuple[Node, list[int]]]:
         """Group ``slices`` by the replica owner that serves each. With a
         fault manager the owners come in health order, this node first
         and open circuits sunk to the end, so the first query after a
         peer dies pays one timeout and the next ones route around it. A
         slice with no owner among ``nodes`` raises
-        SliceUnavailableError."""
+        SliceUnavailableError, or with ``missing`` (partial mode) is
+        appended there."""
         fault = self.fault
         # Storage integrity: slices whose LOCAL fragments are
         # quarantined are not served from this node — skipping the
@@ -2696,6 +2735,9 @@ class Executor:
                     m.setdefault(id(node), (node, []))[1].append(slice)
                     break
             else:
+                if missing is not None:
+                    missing.append(slice)
+                    continue
                 raise SliceUnavailableError(str(slice))
         return list(m.values())
 
@@ -2729,7 +2771,9 @@ class Executor:
         remote query for a peer's — each leg's result folded by
         ``reduce_fn`` as it completes. A failed leg's slices re-map onto
         the surviving replicas; the last error raises when none is left.
-        The query's own deadline or cancel is never re-mapped."""
+        The query's own deadline or cancel is never re-mapped. With
+        ``opt.partial`` a slice no replica can serve is skipped and
+        noted in ``opt.missing_slices`` instead."""
         if not slices:
             return None
         nodes = list(self.cluster.nodes)
@@ -2740,14 +2784,32 @@ class Executor:
         futures: dict = {}
         result = None
         processed = 0
+        # Degraded reads (?partial=1): slices with no reachable replica
+        # land here instead of failing the query.
+        missing: Optional[list] = None
+        if opt.partial:
+            if opt.missing_slices is None:
+                opt.missing_slices = []
+            missing = opt.missing_slices
 
         def submit(nodes, slices):
-            for node, group in self._slices_by_node(nodes, index, slices):
+            nonlocal processed
+            before = len(missing) if missing is not None else 0
+            for node, group in self._slices_by_node(nodes, index, slices,
+                                                    missing=missing):
                 fut = pool.submit(self._mapper_node, node, index, c, group,
-                                  opt, local_fn)
+                                  opt, local_fn, reduce_fn)
                 futures[fut] = (node, group)
                 if ctx is not None:
                     ctx.add_leg(node.host, len(group))
+            if missing is not None and len(missing) > before:
+                if ctx is not None:
+                    # Tail sampling: a degraded answer is keep-worthy
+                    # (obs.sampler "partial").
+                    ctx.note_flag("partial")
+                # Unservable slices count toward completion: that is
+                # what "partial" means.
+                processed += len(missing) - before
 
         try:
             submit(nodes, slices)
@@ -2781,7 +2843,8 @@ class Executor:
         return result
 
     def _mapper_node(self, node: Node, index: str, c: Call,
-                     slices: list[int], opt: ExecOptions, local_fn):
+                     slices: list[int], opt: ExecOptions, local_fn,
+                     reduce_fn):
         # The query context is bound to the worker thread, so the device
         # dispatch and the residency packing check it.
         with sched_context.use(opt.ctx):
@@ -2789,21 +2852,136 @@ class Executor:
                 opt.ctx.check()
             if node.host == self.host:
                 return local_fn(slices)
+            hedge_s = (self.fault.hedge_delay_s(node.host)
+                       if self.fault is not None else None)
+            if hedge_s:
+                return self._exec_remote_hedged(node, index, c, slices,
+                                                opt, local_fn, reduce_fn,
+                                                hedge_s)
             results = self._exec_remote(node, index, Query([c]), slices,
                                         opt)
             return results[0] if results else None
 
+    def _exec_remote_hedged(self, node: Node, index: str, c: Call,
+                            slices: list[int], opt: ExecOptions, local_fn,
+                            reduce_fn, hedge_s: float):
+        """Tail-tolerant remote leg (``[fault] hedge``): fire the
+        primary replica's RPC; if it has not answered within ``hedge_s``
+        (the larger of the configured floor and the peer's p95-ish
+        latency), fire the SAME slices at the other replica owners and
+        take whichever side completes first — the loser is cancelled if
+        unstarted and abandoned otherwise (its socket timeout stays
+        bounded by the query budget). Map-reduce legs are pure reads
+        (writes never come here), so a duplicated leg is only spent
+        work. A hedge that loses the race is never re-raised; if BOTH
+        sides fail the primary's error surfaces and the outer re-map
+        takes over. The query's own deadline or cancel always surfaces.
+
+        Each side collects its piggybacked generation tokens privately
+        and ONLY the winner's merge into the coordinator map: a loser
+        that straggles in with older state must never overwrite what
+        the winner reported. A hedge leg on this node runs
+        ``local_fn``; several hedge groups fold by ``reduce_fn``."""
+        pool = self._pool("hedge")
+        query = Query([c])
+        ctx = opt.ctx
+        primary_gens: list = []
+
+        def primary_leg():
+            with sched_context.use(ctx):
+                rs = self._exec_remote(node, index, query, slices, opt,
+                                       gens_out=primary_gens)
+            return rs[0] if rs else None
+
+        primary = pool.submit(primary_leg)
+        done, _ = wait([primary], timeout=hedge_s)
+        if done:
+            res = primary.result()
+            self._apply_remote_gens(primary_gens)
+            return res
+        others = [n for n in self.cluster.nodes if n is not node]
+        try:
+            groups = self._slices_by_node(others, index, slices)
+        except SliceUnavailableError:
+            groups = []
+        if not groups:
+            res = primary.result()
+            self._apply_remote_gens(primary_gens)
+            return res
+        obs_metrics.HEDGED_REQUESTS.labels("fired").inc()
+        hedge_gens: list = []
+
+        def hedge_leg(n2: Node, sl: list[int]):
+            with sched_context.use(ctx):
+                if n2.host == self.host:
+                    return local_fn(sl)
+                rs = self._exec_remote(n2, index, query, sl, opt,
+                                       gens_out=hedge_gens)
+            return rs[0] if rs else None
+
+        hedges = [pool.submit(hedge_leg, n2, sl) for n2, sl in groups]
+        primary_err = None
+        primary_res = hedge_res = None
+        primary_done = hedge_done = hedge_ok = False
+        while True:
+            if ctx is not None:
+                ctx.check()
+            # Consume completed sides BEFORE blocking: a hedge that
+            # finished while we were submitting wins at once.
+            if not primary_done and primary.done():
+                primary_done = True
+                try:
+                    primary_res = primary.result()
+                except (QueryDeadlineError, QueryCancelledError):
+                    raise
+                except Exception as e:  # noqa: BLE001 - hedges cover
+                    primary_err = e
+            if not hedge_done and all(f.done() for f in hedges):
+                hedge_done = True
+                try:
+                    r = None
+                    for f in hedges:
+                        r = reduce_fn(r, f.result())
+                    hedge_res, hedge_ok = r, True
+                except (QueryDeadlineError, QueryCancelledError):
+                    raise
+                except Exception:  # noqa: BLE001 - primary covers
+                    pass
+            if primary_done and primary_err is None:
+                obs_metrics.HEDGED_REQUESTS.labels("primary_won").inc()
+                for f in hedges:
+                    f.cancel()
+                self._apply_remote_gens(primary_gens)
+                return primary_res
+            if hedge_ok:
+                obs_metrics.HEDGED_REQUESTS.labels("hedge_won").inc()
+                primary.cancel()
+                self._apply_remote_gens(hedge_gens)
+                return hedge_res
+            if primary_done and hedge_done:
+                raise primary_err
+            wait([f for f in (primary, *hedges) if not f.done()],
+                 timeout=self._CTX_POLL_S if ctx is not None else None,
+                 return_when=FIRST_COMPLETED)
+
     def _exec_remote(self, node: Node, index: str, query: Query,
-                     slices: Optional[list[int]], opt: ExecOptions) -> list:
+                     slices: Optional[list[int]], opt: ExecOptions,
+                     gens_out: Optional[list] = None) -> list:
         """One remote leg: ``query`` with ``Remote`` set over
         ``slices``. The peer inherits the remaining budget and the query
         id (a cluster cancel finds its leg), and the client clamps its
         socket timeouts to the budget; scripted fakes without
-        ``deadline_aware`` get the plain call."""
+        ``deadline_aware`` get the plain call. ``gens_out`` (hedged legs)
+        takes custody of the answer's generation tokens instead of
+        letting the client apply them."""
         if self.client is None:
             raise SliceUnavailableError(
                 f"no client to reach remote node {node.host}")
         ctx = opt.ctx
+        kwargs = {}
+        if gens_out is not None and getattr(self.client,
+                                            "generation_aware", False):
+            kwargs["gens_out"] = gens_out
         t0 = time.perf_counter()
         try:
             if ctx is not None and getattr(self.client, "deadline_aware",
@@ -2811,13 +2989,21 @@ class Executor:
                 ctx.check()
                 return self.client.execute_query(
                     node, index, str(query), slices, remote=True,
-                    deadline_s=ctx.remaining(), query_id=ctx.id)
+                    deadline_s=ctx.remaining(), query_id=ctx.id, **kwargs)
             return self.client.execute_query(node, index, str(query),
-                                             slices, remote=True)
+                                             slices, remote=True, **kwargs)
         finally:
             obs_metrics.RPC_SECONDS.labels(
                 peer=node.host, kind="query").observe(
                     time.perf_counter() - t0)
+
+    def _apply_remote_gens(self, gens_list: list) -> None:
+        """Apply a deferred (peer, payload) token list — the winning
+        hedge side's — to the coordinator generation map."""
+        if self.gens is None:
+            return
+        for peer, payload in gens_list:
+            self.gens.apply_wire(peer, payload)
 
     # -- the coordinator's cluster result cache (cluster.generations) --------
 
@@ -2833,7 +3019,7 @@ class Executor:
         if (self.CLUSTER_CACHE_ENTRIES <= 0 or self.gens is None
                 or self.client is None
                 or not hasattr(self.client, "generations")
-                or opt.remote or not slices
+                or opt.remote or opt.partial or not slices
                 or len(self.cluster.nodes) < 2
                 or self.cluster.resize is not None):
             return None

@@ -39,6 +39,7 @@ class FaultManager:
     def __init__(self, breaker_threshold: int = 3,
                  backoff_base_s: float = 0.5,
                  backoff_cap_s: float = 30.0,
+                 hedge_s: float = 0.0,
                  node: str = "", rng=None):
         self.node = node
         self.health = PeerHealth(node=node)
@@ -46,6 +47,11 @@ class FaultManager:
                                      backoff_base_s=backoff_base_s,
                                      backoff_cap_s=backoff_cap_s,
                                      node=node, rng=rng)
+        # Hedged-read floor (seconds); 0 disables hedging. The actual
+        # per-peer trigger is max(floor, the peer's p95-ish latency
+        # estimate), so a configured 30 ms floor hedges a peer whose
+        # EWMA tail says 200 ms at 200 ms, not 30.
+        self.hedge_s = hedge_s
 
     # -- feeds ---------------------------------------------------------------
 
@@ -133,6 +139,13 @@ class FaultManager:
                 if st["state"] != STATE_CLOSED
                 and self.breakers.would_allow(host)]
 
+    def hedge_delay_s(self, host: str) -> Optional[float]:
+        """Seconds to wait on ``host`` before firing a hedge leg, or
+        None when hedging is off."""
+        if self.hedge_s <= 0 or host == self.node:
+            return None
+        return max(self.hedge_s, self.health.latency_tail(host))
+
     # -- exposition ----------------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -142,6 +155,7 @@ class FaultManager:
         out = {
             "peers": self.health.snapshot(),
             "breakers": self.breakers.snapshot(),
+            "hedgeS": self.hedge_s,
         }
         if fp.ACTIVE is not None:
             out["failpoints"] = fp.ACTIVE.snapshot()

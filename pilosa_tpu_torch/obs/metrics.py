@@ -469,6 +469,30 @@ ROARING_OPS = _DEFAULT.counter(
     "Roaring container set-algebra operations, by op and operand"
     " container kinds",
     labels=("op", "kind"))
+ROARING_CONTAINERS = _DEFAULT.gauge(
+    "pilosa_roaring_containers_live",
+    "Live roaring containers across open fragments, by kind"
+    " (array/bitmap/run) — the container-mix shift to runs as a gauge",
+    labels=("kind",))
+ROARING_CONTAINER_BYTES = _DEFAULT.gauge(
+    "pilosa_roaring_container_bytes",
+    "Resident bytes held by live roaring containers, by kind — run"
+    " containers shrinking this is the HBM-headroom payoff ramp",
+    labels=("kind",))
+# Declared for the JAX family set; the JAX package increments it nowhere
+# either (the slow-query log counts in the stats pipeline).
+SLOW_QUERIES = _DEFAULT.counter(
+    "pilosa_query_slow_total",
+    "Queries slower than the configured slow-query threshold")
+RUNTIME_THREADS = _DEFAULT.gauge(
+    "pilosa_runtime_threads_live",
+    "Live interpreter threads", labels=("state",))
+HOLDER_FRAGMENTS = _DEFAULT.gauge(
+    "pilosa_holder_fragments_open",
+    "Open fragments across all indexes")
+HOLDER_CACHE_ENTRIES = _DEFAULT.gauge(
+    "pilosa_holder_cache_entries",
+    "Row-cache entries across all open fragments")
 RESIDENCY_BYTES = _DEFAULT.gauge(
     "pilosa_residency_hbm_bytes",
     "Device residency cache HBM", labels=("kind",))
@@ -609,6 +633,22 @@ TOPN_PUSHDOWN = _DEFAULT.counter(
     " merged per the two-phase semantics) or fallback (pushdown"
     " failed; the fan-out path answered)",
     labels=("outcome",))
+
+HEDGED_REQUESTS = _DEFAULT.counter(
+    "pilosa_cluster_hedged_requests_total",
+    "Hedged-read outcomes: fired (second leg launched), primary_won,"
+    " hedge_won",
+    labels=("outcome",))
+PARTIAL_RESULTS = _DEFAULT.counter(
+    "pilosa_query_partial_results_total",
+    "Queries answered degraded (?partial=1) with at least one"
+    " unreachable slice skipped")
+FEDERATION_SCRAPES = _DEFAULT.counter(
+    "pilosa_federation_scrapes_total",
+    "Cluster-federation fan-out legs (/metrics/cluster,"
+    " /debug/cluster, history scope=cluster), by peer and outcome —"
+    " error legs are the partial-result denominator",
+    labels=("peer", "outcome"))
 
 # Storage integrity (storage.integrity / storage.scrub / server.repair)
 # and disk-full degradation (fault.diskfull).

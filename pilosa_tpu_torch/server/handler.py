@@ -61,9 +61,20 @@ broadcast; ``/debug/topology`` shows the placement and
 readiness probe (obs.slo.HealthChecker: 200 or 503 with the JAX
 checks), and ``POST /index/{index}/frame/{frame}/restore?host=`` pulls
 every slice of a frame that this node owns, each view, from a remote
-host's ``/fragment/data`` (handler.go:1180-1266). The archive backup,
-resize, pod, federation and web-console routes, partial results and
-workload capture wait for the slices that port them.
+host's ``/fragment/data`` (handler.go:1180-1266).
+
+A coordinator's query with ``?partial=1`` skips the slices no reachable
+replica owns and answers 200 with ``X-Pilosa-Partial`` listing them
+(sorted; a forwarded leg answers strictly). ``/status`` carries the
+``build`` block and the runtime collector's ``runtime`` block.
+``GET /metrics/cluster`` federates every node's ``/metrics`` (counters
+and histograms summed, gauges labeled by ``node``) and ``GET
+/debug/cluster`` every node's debug block with a version-skew verdict
+(``?local=1``: this node's block); an unreachable peer fails either with
+503 unless ``?partial=1``, which answers the rest and names the missing
+nodes in ``X-Pilosa-Partial-Nodes`` (obs.federate). The archive backup,
+resize, pod and web-console routes and workload capture wait for the
+slices that port them.
 """
 
 from __future__ import annotations
@@ -93,7 +104,9 @@ from ..fault import failpoints as fault_failpoints
 from ..models.frame import Field, FrameOptions
 from ..models.index import IndexOptions
 from ..obs import accounting as obs_accounting
+from ..obs import federate as obs_federate
 from ..obs import metrics as obs_metrics
+from ..obs import runtime as obs_runtime
 from ..obs import trace as obs_trace
 from ..parallel import residency
 from ..pql import parser as pql
@@ -103,7 +116,6 @@ from ..sched import context as sched_context
 from ..sched import (KILL_POLICY, KILLED_BY_HEADER, LANE_ADMIN, LANE_READ,
                      LANE_WRITE, AdmissionFullError, QueryContext,
                      QueryRegistry)
-from ..storage import roaring
 from ..storage import wal as storage_wal
 from ..storage.attrs import diff_blocks
 from ..storage.bitmap import Bitmap
@@ -237,7 +249,8 @@ class Handler:
                  tracer=None, stats=None, accounting: bool = True,
                  tenants=None, cluster=None, broadcaster=None,
                  status_handler=None, sampler=None, scrubber=None,
-                 repairer=None, client_factory=None):
+                 repairer=None, client_factory=None, runtime=None,
+                 federator=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
@@ -276,6 +289,11 @@ class Handler:
         self.repairer = repairer
         # host -> cluster.client.Client, for the restore route's pulls.
         self.client_factory = client_factory
+        # The runtime collector behind /status's runtime block, and the
+        # federator behind /metrics/cluster and /debug/cluster (a bare
+        # handler keeps a peerless one).
+        self.runtime = runtime
+        self.federator = federator or obs_federate.Federator(host)
         # Readiness checks behind GET /health, built at the first probe.
         self._health = None
         # (method, regex, handler, admission lane)
@@ -342,6 +360,8 @@ class Handler:
         r("GET", "/debug/vars", self._handle_expvar)
         r("GET", "/debug/plans", self._handle_debug_plans)
         r("GET", "/metrics", self._handle_metrics)
+        r("GET", "/metrics/cluster", self._handle_metrics_cluster)
+        r("GET", "/debug/cluster", self._handle_debug_cluster)
         r("GET", "/health", self._handle_health)
         r("GET", "/export", self._handle_get_export)
         r("GET", "/fragment/block/data", self._handle_fragment_block_data)
@@ -456,9 +476,14 @@ class Handler:
                 and len(self.cluster.nodes) > 1):
             # Peer health and breakers, the JAX server's fault block.
             out["fault"] = fault.snapshot()
+        # Build identity, and the runtime collector's sample (holder,
+        # residency and container sizes), the JAX server's blocks.
+        out["build"] = obs_runtime.build_info()
         if self.warmup is not None:
             # Cold-start warmup state (sched.warmup), the JAX block.
             out["warmup"] = self.warmup.to_json()
+        if self.runtime is not None:
+            out["runtime"] = self.runtime.snapshot()
         return Response.json(out)
 
     def _handle_get_schema(self, req: Request) -> Response:
@@ -842,6 +867,14 @@ class Handler:
         # /debug/queries and cancellable while it waits.
         slot = None
         err: Optional[BaseException] = None
+        # Degraded reads (?partial=1): slices with no reachable replica
+        # are skipped and reported in X-Pilosa-Partial instead of
+        # failing the whole query. Coordinator-only: a forwarded leg
+        # answers strictly so its coordinator decides the degradation.
+        exec_opt = ExecOptions(
+            remote=remote, ctx=ctx,
+            partial=req.query.get("partial") == "1" and not remote,
+            missing_slices=[])
         self.registry.register(ctx)
         try:
             # A coordinator's leg was admitted once, at its coordinator:
@@ -852,8 +885,7 @@ class Handler:
             ctx.state = "running"
             with ctx.stage("execute"):
                 results = self.executor.execute(
-                    index_name, query, slices or None,
-                    ExecOptions(remote=remote, ctx=ctx))
+                    index_name, query, slices or None, exec_opt)
             if lane == LANE_WRITE:
                 # Commit barrier before the ack: every mutation this
                 # query applied has its WAL record in the OS (fsynced
@@ -912,7 +944,8 @@ class Handler:
                 slot.release()
             self._finish_query(ctx, err, trace, call_label, query_str,
                                req.query.get("trace") == "1",
-                               trace_requested and remote)
+                               trace_requested and remote,
+                               partial=bool(exec_opt.missing_slices))
 
         # Optional column-attribute join (handler.go:208-227).
         attr_sets = []
@@ -926,6 +959,12 @@ class Handler:
                 if attrs:
                     attr_sets.append((id, attrs))
         headers = _resp_headers()
+        if exec_opt.missing_slices:
+            # The degraded-result contract: the client SEES which slices
+            # are missing from these results.
+            headers.append(("X-Pilosa-Partial", ",".join(
+                str(s) for s in sorted(exec_opt.missing_slices))))
+            obs_metrics.PARTIAL_RESULTS.inc()
         with ctx.stage("encode"):
             if proto_out:
                 return Response.proto(
@@ -963,7 +1002,8 @@ class Handler:
 
     def _finish_query(self, ctx, err, trace, call_label: str,
                       query_str: str, trace_asked: bool,
-                      remote_asked: bool = False) -> None:
+                      remote_asked: bool = False,
+                      partial: bool = False) -> None:
         """Query end: the keep decision (the tail sampler's, or an
         explicit ask: the tracer on, ``?trace=1``, a coordinator-asked
         leg when no sampler runs here), feed the plan store, finish the
@@ -983,7 +1023,8 @@ class Handler:
                                tags=tags)
             reason = None
             if self.sampler is not None:
-                reason = self.sampler.decide(ctx, err=err, status=status)
+                reason = self.sampler.decide(ctx, err=err, status=status,
+                                             partial=partial)
             # Explicit keeps: the tracer on and ?trace=1 always; a
             # coordinator-asked leg only when no sampler runs here —
             # with tail sampling on, every leg carries the header, and
@@ -1227,17 +1268,111 @@ class Handler:
         """Prometheus text exposition of the process registry (0.0.4,
         or OpenMetrics with exemplars when the scraper asks). The cheap
         gauges and the roaring op counters refresh at scrape time."""
-        self._refresh_scrape_gauges()
         if "application/openmetrics-text" in req.accept:
+            self._refresh_scrape_gauges()
             body = obs_metrics.default_registry().render(
                 openmetrics=True).encode()
             return Response(
                 200, body,
                 "application/openmetrics-text; version=1.0.0;"
                 " charset=utf-8")
-        return Response(200,
-                        obs_metrics.default_registry().render().encode(),
+        return Response(200, self._local_metrics_text().encode(),
                         "text/plain; version=0.0.4; charset=utf-8")
+
+    def _local_metrics_text(self) -> str:
+        """The local 0.0.4 exposition exactly as /metrics serves it —
+        also the body the /metrics/cluster local leg merges."""
+        self._refresh_scrape_gauges()
+        return obs_metrics.default_registry().render()
+
+    # -- fleet observability (obs.federate) ----------------------------------
+
+    def _partial_or_503(self, req: Request, missing: list[str],
+                        headers: list) -> None:
+        """The federation partial contract: unreachable peers fail the
+        request unless ``?partial=1``, in which case the merged answer
+        is served and the missing nodes ride
+        ``X-Pilosa-Partial-Nodes``."""
+        if not missing:
+            return
+        if req.query.get("partial") != "1":
+            raise HTTPError(
+                503, "federation incomplete; unreachable nodes: "
+                     + ",".join(missing)
+                     + " (retry with ?partial=1 for a marked partial"
+                       " rollup)")
+        headers.append(("X-Pilosa-Partial-Nodes", ",".join(missing)))
+
+    def _handle_metrics_cluster(self, req: Request) -> Response:
+        """Cluster-wide Prometheus exposition: ONE bounded parallel
+        scrape of every peer's /metrics (pooled clients — an open
+        breaker fails a dead peer's leg fast), merged at query time:
+        counters sum, histograms merge, gauges stay per-node labeled
+        ``{node}``."""
+        fed = self.federator
+
+        def fetch(host: str) -> dict:
+            client = fed.client_for(host)
+            return obs_federate.parse_exposition(
+                client.metrics_text(host=host,
+                                    deadline_s=fed.peer_timeout_s))
+
+        results, missing = fed.fan_out(
+            fetch,
+            lambda: obs_federate.parse_exposition(
+                self._local_metrics_text()))
+        headers: list = []
+        self._partial_or_503(req, missing, headers)
+        body = obs_federate.render_merged(
+            obs_federate.merge_node_families(results)).encode()
+        headers.append(("X-Pilosa-Federated-Nodes", str(len(results))))
+        return Response(200, body,
+                        "text/plain; version=0.0.4; charset=utf-8",
+                        headers=headers)
+
+    def _handle_debug_cluster(self, req: Request) -> Response:
+        """The fleet rollup: every node's local debug block (build
+        info, placement epoch, breaker states, WAL flusher health,
+        resize phase), plus a version-skew verdict. ``?local=1`` answers
+        just this node's block (the leg the coordinator fans out)."""
+        state_fn = getattr(self.status_handler, "local_debug_state",
+                           None)
+
+        def local() -> dict:
+            if state_fn is not None:
+                return state_fn()
+            return {"host": self.host, "build": obs_runtime.build_info()}
+
+        if req.query.get("local") == "1":
+            return Response.json(local())
+        fed = self.federator
+
+        def fetch(host: str) -> dict:
+            client = fed.client_for(host)
+            return client.debug_cluster_local(
+                host=host, deadline_s=fed.peer_timeout_s)
+
+        results, missing = fed.fan_out(fetch, local)
+        headers: list = []
+        self._partial_or_503(req, missing, headers)
+        versions: dict[str, str] = {}
+        for host, block in results.items():
+            versions[host] = str(
+                (block.get("build") or {}).get("version", ""))
+        # Gossip-learned builds cover nodes a scrape can't reach (the
+        # rolling-restart window where skew matters most).
+        local_block = results.get(self.host) or {}
+        for host, build in (local_block.get("gossipBuilds")
+                            or {}).items():
+            versions.setdefault(host, str(build.get("version", "")))
+        distinct = {v for v in versions.values() if v}
+        return Response.json(
+            {"coordinator": self.host,
+             "nodes": results,
+             "missing": missing,
+             "versions": versions,
+             "versionSkew": len(distinct) > 1},
+            headers=headers)
 
     def _refresh_scrape_gauges(self) -> None:
         if self.admission is not None:
@@ -1256,13 +1391,8 @@ class Handler:
                     obs_metrics.TENANT_INFLIGHT.labels(t).set(0)
             for tenant, n in now.items():
                 obs_metrics.TENANT_INFLIGHT.labels(tenant).set(n)
-        for (op, kind), n in roaring.op_counts().items():
-            if n:
-                obs_metrics.ROARING_OPS.labels(op, kind).set_total(n)
-        snap = residency.device_cache().snapshot()
-        obs_metrics.RESIDENCY_BYTES.labels("used").set(snap["usedBytes"])
-        obs_metrics.RESIDENCY_BYTES.labels("budget").set(
-            snap["budgetBytes"])
+        obs_runtime.roaring_ops_sample()
+        obs_runtime.residency_sample()
 
     # -- attr diff (anti-entropy) --------------------------------------------
 

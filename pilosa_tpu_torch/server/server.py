@@ -70,8 +70,13 @@ replica before a query pays a refused connection, and ``/status`` and
 ``/health`` report the membership's states. ``metrics_config`` (the
 registry feed and the cost ledger) and ``fault_config`` (the breaker
 settings and the configured failpoints) are the ``[metrics]`` and
-``[fault]`` sections. Resize, tiering and backup wait for the slices
-that port them.
+``[fault]`` sections; ``[fault] hedge`` arms the executor's hedged
+reads. With metrics on, the runtime collector (obs.runtime) samples the
+holder, residency and thread gauges every ``runtime_interval`` and feeds
+``/status``; the federator (obs.federate, bounded by ``[metrics]
+federate-timeout`` and ``federate-fanout``) serves ``/metrics/cluster``
+and ``/debug/cluster`` from this node's ``local_debug_state`` and its
+peers'. Resize, tiering and backup wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -79,7 +84,6 @@ from __future__ import annotations
 import errno
 import json
 import os
-import platform
 import threading
 
 from typing import Optional
@@ -92,7 +96,7 @@ from ..cluster.generations import GenerationMap
 from ..cluster.topology import NODE_STATE_DOWN, NODE_STATE_UP, new_cluster
 from ..device import resolve_device
 from ..errors import (PilosaError, QueryCancelledError,
-                      QueryDeadlineError)
+                      QueryDeadlineError, SliceUnavailableError)
 from ..executor import _WRITE_CALLS, ExecOptions, Executor
 from ..fault import FaultManager
 from ..fault import failpoints as fault_failpoints
@@ -103,7 +107,9 @@ from ..models.view import VIEW_INVERSE
 from ..obs import accounting as obs_accounting
 from ..obs import metrics as obs_metrics
 from ..obs.diskring import SegmentRing
+from ..obs.federate import Federator
 from ..obs.metrics import RegistryStatsClient, default_registry
+from ..obs.runtime import RuntimeCollector, build_info
 from ..obs.sampler import TailSampler
 from ..obs.trace import Tracer
 from ..pql import parser as pql
@@ -129,15 +135,6 @@ from .syncer import HolderSyncer
 
 DEFAULT_PORT = 10101
 CACHE_FLUSH_INTERVAL = 60.0             # holder.go:31
-
-
-def build_info() -> dict:
-    """Build identity, the four keys of the JAX package's
-    ``obs.runtime.build_info`` as that function reports them in a
-    process that has not loaded jax."""
-    from .. import __version__
-    return {"version": __version__, "python": platform.python_version(),
-            "jax": "unloaded", "backend": "unloaded"}
 
 
 class Server:
@@ -218,6 +215,10 @@ class Server:
         self.scrubber: Optional[Scrubber] = None
         self.repairer: Optional[Repairer] = None
         self.sampler: Optional[TailSampler] = None
+        # The runtime collector (obs.runtime) and the federator behind
+        # /metrics/cluster and /debug/cluster (obs.federate).
+        self.runtime: Optional[RuntimeCollector] = None
+        self.federator: Optional[Federator] = None
 
     # -- lifecycle (server.go:89-180) ----------------------------------------
 
@@ -248,7 +249,8 @@ class Server:
             self.fault = FaultManager(
                 breaker_threshold=fc.breaker_threshold,
                 backoff_base_s=fc.breaker_backoff,
-                backoff_cap_s=fc.breaker_backoff_cap, node=self.host)
+                backoff_cap_s=fc.breaker_backoff_cap,
+                hedge_s=fc.hedge, node=self.host)
         if fc.seed:
             fault_failpoints.seed_default(fc.seed)
         for site, spec in fc.failpoints.items():
@@ -290,6 +292,16 @@ class Server:
                     client_factory=self._client_factory, fault=self.fault,
                     rescan_s=self.scrub_config.repair_rescan,
                     logger=self.logger)
+            if self.metrics_config.enabled:
+                self.runtime = RuntimeCollector(
+                    holder=self.holder, executor=self.executor,
+                    admission=self.admission,
+                    interval_s=self.metrics_config.runtime_interval)
+            self.federator = Federator(
+                self.host, cluster=self.cluster,
+                client_for=self.client_for,
+                peer_timeout_s=self.metrics_config.federate_timeout,
+                fanout=self.metrics_config.federate_fanout)
             self.handler = Handler(
                 self.holder, self.executor, host=self.host,
                 logger=self.logger, admission=self.admission,
@@ -300,7 +312,8 @@ class Server:
                 status_handler=self, sampler=self.sampler,
                 scrubber=self.scrubber, repairer=self.repairer,
                 accounting=self.metrics_config.accounting,
-                client_factory=self._client_factory)
+                client_factory=self._client_factory,
+                runtime=self.runtime, federator=self.federator)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
@@ -322,6 +335,7 @@ class Server:
             self.host = new_host
             self.handler.host = self.host
             self.executor.host = self.host
+            self.federator.host = self.host
             if self.fault is not None:
                 self.fault.node = self.host
                 self.fault.health.node = self.host
@@ -345,6 +359,8 @@ class Server:
             ns.open()
         if self.warmup is not None:
             self.warmup.start()
+        if self.runtime is not None:
+            self.runtime.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="httpd")
         self._thread.start()
@@ -389,6 +405,8 @@ class Server:
             self._httpd = None
         if self.cluster is not None and self.cluster.node_set is not None:
             self.cluster.node_set.close()
+        if self.runtime is not None:
+            self.runtime.stop()
         for t in self._loops:
             t.join(timeout=10)
         self._loops = []
@@ -571,6 +589,37 @@ class Server:
                     frame_info.Name,
                     FrameOptions.decode(frame_info.Meta or pb.FrameMeta()))
 
+    # -- fleet observability (obs.federate) ----------------------------------
+
+    def local_debug_state(self) -> dict:
+        """This node's block of the ``/debug/cluster`` rollup: build
+        identity, placement epoch, admission shape, WAL flusher health,
+        quarantine size, breaker states, holder sizes, resize phase and
+        the peers' builds learned by gossip. Deliberately light: a
+        fleet-wide fan-out must stay cheap on every leg."""
+        out: dict = {"host": self.host,
+                     "build": build_info(),
+                     "epoch": self.cluster.epoch,
+                     "admission": self.admission.snapshot(),
+                     "wal": storage_wal.flusher_health(),
+                     "quarantined": len(self.holder.quarantine)}
+        if self.fault is not None:
+            out["fault"] = self.fault.snapshot()
+        if self.runtime is not None:
+            rt = self.runtime.snapshot()
+            if rt.get("holder") is not None:
+                out["holder"] = rt["holder"]
+            if rt.get("deviceBlockCache"):
+                out["deviceBlockCache"] = rt["deviceBlockCache"]
+        rs = self.cluster.resize
+        out["resize"] = {"phase": (rs.phase if rs is not None
+                                   else "idle"),
+                         "inFlight": rs.to_wire()
+                         if rs is not None else None}
+        if self.peer_builds:
+            out["gossipBuilds"] = dict(self.peer_builds)
+        return out
+
     def build_wire_state(self) -> dict:
         """The push/pull's build piggyback: this node's identity, so a
         mixed fleet's version skew is visible from any member."""
@@ -729,10 +778,8 @@ class Server:
             rs = self.executor.execute(index, q)
             if q.write_calls():
                 storage_wal.barrier_all()  # commit before the ack
-        except PilosaError as e:
-            return _error_payload(e, 400)
-        except Exception as e:  # noqa: BLE001 - surfaced as a 500
-            return _error_payload(e, 500)
+        except Exception as e:  # noqa: BLE001 - surfaced in the payload
+            return _error_payload(e, _error_status(e))
         return _ok_payload(rs)
 
 
@@ -747,10 +794,10 @@ class _RoutingClient:
         self.server = server
 
     def execute_query(self, node, index, query, slices, remote,
-                      deadline_s=None, query_id=None):
+                      deadline_s=None, query_id=None, gens_out=None):
         return self.server.client_for(node.host).execute_query(
             node, index, query, slices, remote=remote,
-            deadline_s=deadline_s, query_id=query_id)
+            deadline_s=deadline_s, query_id=query_id, gens_out=gens_out)
 
     def generations(self, index, slices=None, host=None,
                     deadline_s=None):
@@ -798,11 +845,15 @@ def _ok_payload(results: list) -> bytes:
 
 
 def _error_status(err: Exception) -> int:
-    """The status sequential dispatch answers for ``err``."""
+    """The status sequential dispatch answers for ``err``: a slice no
+    trustworthy copy can serve is the handler's 503 here too (the JAX
+    server's batch lane answers it 400)."""
     if isinstance(err, QueryDeadlineError):
         return 504
     if isinstance(err, QueryCancelledError):
         return 409
+    if isinstance(err, SliceUnavailableError):
+        return 503
     if isinstance(err, PilosaError):
         return 400
     return 500
@@ -811,4 +862,6 @@ def _error_status(err: Exception) -> int:
 def _error_payload(err: Exception, status: int) -> tuple[int, bytes]:
     """A non-200 batch-lane entry: the HTTP front frames a plain bytes
     entry as a 200, so an error carries its status."""
-    return status, (json.dumps({"error": str(err)}) + "\n").encode()
+    msg = (f"slice unavailable: {err}"
+           if isinstance(err, SliceUnavailableError) else str(err))
+    return status, (json.dumps({"error": msg}) + "\n").encode()

@@ -1219,6 +1219,19 @@ class Fragment:
         self._total_bits = (self._epoch, n)
         return n
 
+    def container_stats(self) -> dict:
+        """Per-kind container counts/resident bytes/run intervals
+        (roaring.Bitmap.container_stats), cached per mutation epoch —
+        the runtime collector samples every open fragment on its
+        cadence, and the walk is O(containers)."""
+        hit = getattr(self, "_container_stats", None)
+        if hit is not None and hit[0] == self._epoch:
+            return hit[1]
+        with self._mu:
+            stats = self.storage.container_stats()
+        self._container_stats = (self._epoch, stats)
+        return stats
+
     def present_rows(self):
         """Sorted row ids holding >=1 bit, cached per mutation epoch —
         lets the TopN ids-refetch skip row_count for candidates with no

@@ -308,14 +308,19 @@ _dirty: set = set()
 # that appends nothing new — a retried SetBit answering false — acks
 # with its record still in userspace.)
 _failed: set = set()
+# First moment each WAL went dirty (for flusher_health's dirty ages).
+_dirty_since: dict = {}
 _flusher: Optional[threading.Thread] = None
 _flusher_wake = threading.Event()
+# Flusher heartbeat: stamped at the top of every flusher pass.
+_flusher_beat = 0.0
 
 
 def _register_dirty(wal: GroupCommitWal) -> None:
     global _flusher
     with _dirty_mu:
         _dirty.add(wal)
+        _dirty_since.setdefault(wal, time.monotonic())
         if _flusher is None:
             _flusher = threading.Thread(target=_flush_loop,
                                         name="wal-group-flusher",
@@ -327,6 +332,35 @@ def _register_dirty(wal: GroupCommitWal) -> None:
 def _deregister_dirty(wal: GroupCommitWal) -> None:
     with _dirty_mu:
         _dirty.discard(wal)
+        _dirty_since.pop(wal, None)
+
+
+def flusher_health() -> dict:
+    """The WAL flusher's vital signs (the ``wal`` block of
+    ``/debug/cluster``): the dirty set with per-WAL pending bytes and
+    dirty age (worst first), the oldest dirty age, and the heartbeat
+    age."""
+    now = time.monotonic()
+    with _dirty_mu:
+        items = [(w, t) for w, t in _dirty_since.items() if w in _dirty]
+        beat = _flusher_beat
+    wals = []
+    for w, t in items:
+        try:
+            pending = w.pending_bytes()
+        except Exception:  # noqa: BLE001 - a wedged WAL must still report
+            pending = -1
+        wals.append({"file": getattr(w._file, "name", None) or "?",
+                     "pendingBytes": pending,
+                     "dirtyAgeS": round(now - t, 4)})
+    wals.sort(key=lambda e: -e["dirtyAgeS"])
+    return {
+        "dirtyWals": len(wals),
+        "oldestDirtyAgeS": wals[0]["dirtyAgeS"] if wals else 0.0,
+        "flusherBeatAgeS": (round(now - beat, 4) if beat else None),
+        "windowS": WINDOW_S,
+        "wals": wals[:8],
+    }
 
 
 def barrier_all() -> None:
@@ -351,12 +385,13 @@ def _flush_loop() -> None:
     thread ends once no WAL is dirty; the next registration starts a
     new one (both decided under ``_dirty_mu``, so a registration never
     finds a flusher that is about to exit)."""
-    global _flusher
+    global _flusher, _flusher_beat
     while True:
         _flusher_wake.wait()
         _flusher_wake.clear()
         time.sleep(WINDOW_S)
         with _dirty_mu:
+            _flusher_beat = time.monotonic()
             wals = list(_dirty)
         for wal in wals:
             if wal.closed:
@@ -376,6 +411,7 @@ def _flush_loop() -> None:
                     wal._registered = False
                     with _dirty_mu:
                         _dirty.discard(wal)
+                        _dirty_since.pop(wal, None)
                         _failed.add(wal)
         # Re-arm while anything stays dirty (a flush that early-returns
         # because a batch formed mid-write leaves records pending with

@@ -64,15 +64,11 @@ LEFT_OUT = {
     **{name: "obs.capture not ported" for name in (
         "pilosa_capture_bytes_total", "pilosa_capture_dropped_total",
         "pilosa_capture_records_total")},
-    **{name: "resize, the hedged leg, partial results and federation"
-             " not ported" for name in (
-        "pilosa_cluster_hedged_requests_total",
+    **{name: "resize not ported" for name in (
         "pilosa_cluster_resize_double_reads_total",
         "pilosa_cluster_resize_state",
         "pilosa_resize_slices_moved_total",
-        "pilosa_resize_stream_bytes_total",
-        "pilosa_query_partial_results_total",
-        "pilosa_federation_scrapes_total")},
+        "pilosa_resize_stream_bytes_total")},
     **{name: "no XLA programs: the kernel build is charged per query as"
              " compileMs in the cost ledger" for name in (
         "pilosa_compile_cache_build_seconds_total",
@@ -83,10 +79,6 @@ LEFT_OUT = {
         "pilosa_history_disk_records_total", "pilosa_history_samples_total",
         "pilosa_history_series_dropped_total",
         "pilosa_history_series_live")},
-    **{name: "obs.runtime (the background collector) not ported" for name in (
-        "pilosa_holder_cache_entries", "pilosa_holder_fragments_open",
-        "pilosa_roaring_container_bytes", "pilosa_roaring_containers_live",
-        "pilosa_runtime_threads_live", "pilosa_query_slow_total")},
     **{name: "the pipelined import stages are not ported" for name in (
         "pilosa_import_pipeline_depth", "pilosa_import_stage_seconds")},
     "pilosa_profile_samples_total": "obs.profile not ported",

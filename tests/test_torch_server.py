@@ -359,9 +359,12 @@ def test_server_socket_and_pipelining(server):
         {"host": server.host, "state": "UP", "indexes": [
             {"name": "i", "maxSlice": 1, "slices": [0, 1],
              "frames": [{"name": "f"}]}]}]}
-    # The JAX warmup block: no kernel to warm on the CPU.
-    assert set(got) == {"status", "warmup"}
+    # The JAX build, warmup and runtime blocks: no kernel to warm on
+    # the CPU; the collector counts the two fragments written above.
+    assert set(got) == {"status", "build", "warmup", "runtime"}
     assert got["warmup"]["state"] == "disabled"
+    assert got["build"]["jax"] == "unloaded"
+    assert got["runtime"]["holder"]["fragments"] == 2
     assert json.loads(http(server, "GET", "/hosts")[1]) == [
         {"host": server.host, "internalHost": ""}]
     # Three requests pipelined on one connection, answered in order.

@@ -60,6 +60,13 @@ def _post(host, path, body, headers=None, timeout=60):
         return r.status, r.read()
 
 
+def _post_headers(host, path, body):
+    req = urllib.request.Request(f"http://{host}{path}", data=body,
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read(), dict(r.headers)
+
+
 def _rand_tree(rng, depth):
     if depth == 0 or rng.random() < 0.35:
         frame = rng.choice(["f", "fs", "fr", "src"])
@@ -190,12 +197,14 @@ def _workload(rng):
 
 def _lifecycle_requests(rng):
     """Requests with the query lifecycle's options: a generous
-    ``?timeout=``, ``?profile=1`` and a named tenant
+    ``?timeout=``, ``?profile=1``, a degraded read (``?partial=1``,
+    whole while every node is up) and a named tenant
     (``X-Pilosa-Tenant``), on reads and on a write."""
     tenant = {"X-Pilosa-Tenant": "acme"}
     steps = []
     for suffix, headers in (("?timeout=30s", {}), ("?profile=1", {}),
-                            ("", tenant), ("?timeout=1m&profile=1", tenant)):
+                            ("?partial=1", {}), ("", tenant),
+                            ("?timeout=1m&profile=1", tenant)):
         steps.append(("query_opts", (f"Count({_rand_tree(rng, 3)})",
                                      suffix, headers)))
         steps.append(("query_opts", ('TopN(Bitmap(rowID=1, frame="src"),'
@@ -434,6 +443,14 @@ def test_port_cluster_answers_the_captured_workload(tmp_path):
                 status, _ = _post(host, "/index/d/query" + suffix,
                                   pql.encode(), headers)
                 assert status == 200, (host, pql)
+        # A degraded read with every node up is whole: 200, no
+        # X-Pilosa-Partial, the JAX server's answer.
+        got = [_post_headers(h, "/index/d/query?partial=1",
+                             b'Count(Bitmap(rowID=1, frame="f"))'
+                             b' TopN(frame="f", n=5)')
+               for h in (js.host, coord)]
+        assert got[0][:2] == got[1][:2] and got[1][0] == 200
+        assert not any("X-Pilosa-Partial" in hs for _, _, hs in got)
         records = obs_replay.fetch_records(js.host, limit=100000)
         queries = [r for r in records if r.get("kind") == "query"]
         reads = [r for r in queries if r.get("lane") == "read"]

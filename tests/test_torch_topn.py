@@ -382,8 +382,10 @@ def test_executor_module_has_no_device_fallback():
     cluster's, as in the JAX package: a failed leg re-maps onto another
     replica (which runs on its own card) and is counted, a failed
     pushdown hands the query to the fan-out, a broadcast re-raises the
-    first error and a failed cache probe recomputes — none of them
-    computes on the host in place of the device."""
+    first error, a failed cache probe recomputes and a hedge race's
+    failed side leaves the answer to the other replicas (the primary's
+    error surfaces when both sides fail) — none of them computes on the
+    host in place of the device."""
     import inspect
     allowed = {
         "execute_partial": ("return results, e",),
@@ -393,6 +395,7 @@ def test_executor_module_has_no_device_fallback():
         "_topn_distributed": ('TOPN_PUSHDOWN.labels("fallback")',),
         "_broadcast_call": ("raise errs[0]",),
         "_cluster_cache_validate": ("return False",),
+        "_exec_remote_hedged": ("raise primary_err",),
     }
     for name, fn in inspect.getmembers(TorchExecutor, inspect.isfunction):
         src = inspect.getsource(fn)
