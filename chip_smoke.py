@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--phase cluster|integrity|gossip]
+    python3 chip_smoke.py [--seed N]
+                          [--phase cluster|integrity|gossip|operator]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs fourteen phases and prints one JSON line for each:
+checkout, then runs fifteen phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -71,7 +72,7 @@ checkout, then runs fourteen phases and prints one JSON line for each:
    256 slices with field ``amount`` of ``b4/v`` in [-10^6, 10^6]
    (depth 21, 4,194,304 values, 704 MiB of plane slabs on the card),
    Count(Range) of each operator and both clamps, Sum plain and
-   filtered, Min and Max; time views of ``tv/t`` (YMDH, ~2 M
+   filtered, Min and Max; time views of ``tv/t`` (YMDH, ~1 M
    timestamped bits through protobuf ``/import`` over 10 slices) under
    Range Counts whose covers mix Y, M, D and H views; ``tv/inv``'s
    inverse view under ``Bitmap(columnID=...)`` and a Count of two
@@ -138,7 +139,7 @@ checkout, then runs fourteen phases and prints one JSON line for each:
    the disk ring (``?source=disk&reason=deadline``).
 10. ``durability``: the port's ``server`` verb as a subprocess on the
    card over a fresh directory, seeded by protobuf ``/import`` with
-   configuration 4's rows over 256 slices, takes a write storm (8
+   configuration 4's rows over 256 slices, takes a 6 s write storm (8
    threads of SetBit/ClearBit queries; after a quarter of it 2 threads
    of 65,536-bit ``/import`` batches and one thread that drives slice 0
    past MAX_OP_N so that background snapshots swap its WAL) and is
@@ -202,40 +203,63 @@ checkout, then runs fourteen phases and prints one JSON line for each:
    answers 400 without ``?partial=1`` and with it 200, listing exactly
    the slices node 0 does not own in ``X-Pilosa-Partial``, and
    ``/metrics/cluster`` answers 503, or 200 naming both peers.
-14. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+14. ``operator``: the operator surface on three port servers (this
+   script's child mode, pinned; ``phase_operator``) over configuration
+   4's ``smoke`` layout at 256 slices, written into three directories
+   before any traffic: A on the card with tenants ``wide`` and
+   ``quiet``, one fair dispatch slot and ``[capture] mode = "full"``, B
+   on the CPU (every kernel's plain version), C on the card. A wide
+   tenant's 8 threads of Counts beside a quiet tenant's single Counts
+   and a sourced TopN, every answer exact against the host (the fair
+   queue's dispatches and waits, the quiet p50); A's capture exported
+   (a record for every request, a digest on each) and replayed by the
+   ``replay --records F --shadow B C`` verb: rc 0, no mismatch, every
+   captured read compared, and C's expression count, densify and TopN
+   block count launched during the replay; ``/debug/pprof/profile``
+   under load, the query latency in ``/debug/metrics/history`` after
+   two collector ticks, ``/debug/sentinel``; the ``mesh.dispatch``
+   failpoint as a 2.5 s delay under a Count with ``?timeout=1s`` (the
+   watchdog trips ``stuck_query``, ``/debug/blackbox`` lists its dump,
+   ``/debug/pprof/flame`` holds the captured stuck query's stacks), an
+   exact Count after the disarm, and one more dump at A's SIGTERM. Each
+   step's ms is on the line.
+15. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
 The kernel phases (2-8, the reopen of 10, the cluster's nodes until its
-routed pass and the integrity and gossip phases' nodes) pin every
+routed pass and the integrity, gossip and operator phases' nodes) pin every
 device leg
 (``_pinned``: ``mesh_min_slices=1`` and a cost model that vetoes
 nothing), as the tests pin it, so the calibrated routing cannot move
 their launches to the host. Every answer of phases 2-5 and 8 is held to
 the host roaring answer computed from the port's own fragments, every
 answer of phase 6 to numpy, of phase 7 to numpy or to words packed on
-the host, of phases 9, 11, 12 and 13 to host roaring or numpy, and every
-count of phase 14 to the host ``popcnt_and``. The kernels' launch
+the host, of phases 9, 11, 12, 13 and 14 to host roaring or numpy, and
+every count of phase 15 to the host ``popcnt_and``. The kernels' launch
 counters are set to 0 before phase 2, before phase 6, before phase 7,
 before phase 8, before phase 9 and before phase 10's reopen, and read
-after phases 5 to 14 (each cluster node's from its
+after phases 5 to 15 (each cluster node's from its
 own process, and every node that owns slices must have launched the
 expression count, densify and the TopN block count; the integrity
 phase's nodes the expression count and densify, the repaired node again
-after its repair; each gossip node of its first life all three): every kernel must have launched on that main path,
+after its repair; each gossip node of its first life all three; the
+operator phase's card nodes all three): every kernel must have
+launched on that main path,
 the TopN block count in phase 4's device top-k, the TopN block count,
 the expression count and densify in its sourced queries, the expression
 count (every device Count(Range)), its batched entry (every Sum) and
 densify in phase 6, the expression-words kernel, the batched count and
 the TopN block count in phase 7, again in the server phase by itself and
-again after phase 10's reopen, and the op count in phase 14. Then it
+again after phase 10's reopen, and the op count in phase 15. Then it
 prints the card's name and power limit, the kernel table as one JSON
 object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
-prints no result. ``--phase cluster``, ``--phase integrity`` or
-``--phase gossip`` builds the kernels and runs that phase alone: its
+prints no result. ``--phase cluster``, ``--phase integrity``,
+``--phase gossip`` or ``--phase operator`` builds the kernels and runs
+that phase alone: its
 line and the card's name, no kernel table and no last line.
 """
 
@@ -1637,7 +1661,7 @@ def _fields_bsi_queries(vals):
 
 
 def phase_fields(holder, device, seed: int, n_slices: int = 256,
-                 n_time_slices: int = 10, time_bits: int = 2_000_000,
+                 n_time_slices: int = 10, time_bits: int = 1_000_000,
                  n_rows: int = 100, n_days: int = 24) -> tuple:
     """BSI integer fields, time views and the inverse view through
     ``Executor.execute`` on the card, every answer held to a numpy
@@ -1656,7 +1680,7 @@ def phase_fields(holder, device, seed: int, n_slices: int = 256,
       the same bound. Each of those kernel answers is also held to its
       plain version on the same slabs.
     - Index ``tv``, frame ``t`` (timeQuantum YMDH, 100 rows, 10 slices):
-      ~2 M timestamped bits over ``n_days`` days of 2017 (two hours a
+      ~1 M timestamped bits over ``n_days`` days of 2017 (two hours a
       day, at minute 0 or 30: 96 distinct timestamps) through protobuf ``/import`` with Timestamps (the port's
       handler, in process) and 50 timestamped SetBit calls;
       Count(Range(...)) over windows whose covers mix Y, M, D and H
@@ -2468,7 +2492,7 @@ def _oplog_bytes(path: str) -> tuple[int, int]:
 
 
 def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
-                     storm_s: float = 20.0) -> dict:
+                     storm_s: float = 6.0) -> dict:
     """Acked writes survive SIGKILL on the card. The port's ``server``
     verb runs as a subprocess on the card over a fresh directory,
     seeded by protobuf ``/import`` with BASELINE configuration 4's rows
@@ -4979,6 +5003,487 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
     return out
 
 
+def _operator_toml(path: str, capture: bool, tenants: bool) -> None:
+    """The operator phase's node config: the runtime collector and the
+    metric history at a 500 ms cadence, the watchdog at 100 ms with a
+    500 ms deadline grace, workload capture (``full`` when ``capture``)
+    and a tenant table (a wide and a quiet tenant) when ``tenants``. The
+    blackbox, the sentinel, the continuous profiler (10 Hz) and the
+    rest keep their defaults (on)."""
+    text = ('[metrics]\nruntime-interval = "500ms"\n'
+            '[history]\nresolutions = "500ms:400,5s:100,1m:60"\n'
+            '[watchdog]\ninterval = "100ms"\ndeadline-grace = "500ms"\n'
+            f'[capture]\nmode = "{"full" if capture else "off"}"\n')
+    if tenants:
+        text += ('[tenants.default]\nweight = 1\n'
+                 '[tenants.wide]\nweight = 1\n'
+                 '[tenants.quiet]\nweight = 4\n')
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def phase_operator(device, seed: int, tmp: str, n_slices: int = 256,
+                   n_wide: int = 8, wide_rounds: int = 2,
+                   n_quiet: int = 4, fair_slots: int = 1) -> dict:
+    """The operator surface on three port servers (this script's child
+    mode, pinned): configuration 4's ``smoke`` layout at ``n_slices``
+    slices written into three directories before any traffic, every
+    answer held to a host reference of those bits. Server A (the card)
+    runs with tenants ``wide`` and ``quiet`` (weights 1 and 4), the fair
+    dispatch queue at ``fair_slots`` slots and ``[capture] mode =
+    "full"``; the blackbox, the watchdog, the history, the sentinel and
+    the continuous profiler keep their defaults (on), at the cadences of
+    ``_operator_toml``. B (``--device cpu``, every kernel's plain
+    version) and C (the card) open the other two copies meanwhile.
+
+    1. Traffic with tenants: the quiet tenant counts the 16 rows one at
+       a time (their slabs load), then ``n_wide`` threads of the wide
+       tenant send ``wide_rounds`` Counts each (Intersect, Union and
+       Difference of row pairs) while the quiet tenant sends
+       ``n_quiet`` single-row Counts and a sourced TopN over listed ids,
+       one at a time (the burst again, at most three in all, until the
+       queue has seen a wait); every answer equals the host's. The
+       queue's dispatches and waits and the quiet tenant's p50 are
+       printed (no latency asserted).
+    2. Capture and shadow replay: A's ``/debug/capture/records`` holds
+       one record for every request, each 200 with a digest; the
+       ``replay --records F --shadow B C`` verb (a subprocess) exits 0
+       with no mismatch and every captured read compared, and C's
+       launch counters show the expression count, densify and the TopN
+       block count launched during the replay.
+    3. Profiler, history, sentinel: ``/debug/pprof/profile?seconds=1``
+       (under load) returns collapsed stacks; after two collector ticks
+       ``/debug/metrics/history`` holds the query-latency series;
+       ``/debug/sentinel`` answers.
+    4. Watchdog and blackbox: ``mesh.dispatch`` armed as a 2.5 s delay
+       (once) under a Count with ``?timeout=1s``: the watchdog trips
+       ``stuck_query`` (its counter and ``/status``) and
+       ``/debug/blackbox`` lists a ``watchdog:stuck_query`` dump; the
+       stuck query is in the capture and ``/debug/pprof/flame?query=``
+       its id holds its stacks; after the disarm a Count answers
+       exactly; A's SIGTERM leaves one more dump (``sigterm``)."""
+    import signal
+    import subprocess
+    import threading
+    import numpy as np
+    from pilosa_tpu_torch.models.holder import Holder
+
+    t_phase = time.perf_counter()
+    marks: dict = {}
+    step_ms: dict = {}
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t_phase
+        # On stderr as it happens: a failed run still shows its steps.
+        print(f"operator: {step} at {marks[step]:.1f} s", file=sys.stderr,
+              flush=True)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    otmp = os.path.join(tmp, "operator")
+    os.makedirs(otmp, exist_ok=True)
+    rng = np.random.default_rng(seed + 90)
+    names = ("a", "b", "c")
+    dirs = {n: os.path.join(otmp, f"{n}data") for n in names}
+
+    # -- data: three copies, written before any traffic ----------------------
+    t0 = time.perf_counter()
+    for d in dirs.values():
+        h = Holder(d)
+        h.open()
+        h.create_index("smoke").create_frame("f") \
+            .create_view_if_not_exists("standard")
+        h.close()
+    positions, cols = _smoke_rows(rng, n_slices)
+    n_bits = int(sum(len(p) for p in positions))
+    for s in range(n_slices):
+        _c5_write((positions[s], [os.path.join(
+            dirs[n], "smoke", "f", "views", "standard", "fragments",
+            str(s)) for n in names]))
+    del positions
+    row_n = {r: int(sum(len(c) for c in cols[r])) for r in cols}
+    pairs = [(1, r) for r in range(2, 17)]
+    while len(pairs) < 24:
+        a, b = (int(x) for x in rng.choice(np.arange(2, 17), 2,
+                                           replace=False))
+        if (a, b) not in pairs:
+            pairs.append((a, b))
+    stuck_pair, after_pair = (9, 10), (11, 12)
+    inter = {p: int(sum(len(np.intersect1d(cols[p[0]][s], cols[p[1]][s],
+                                           assume_unique=True))
+                        for s in range(n_slices)))
+             for p in pairs + [stuck_pair, after_pair]}
+    del cols
+
+    def pair_q(op, a, b):
+        return (f"Count({op}(Bitmap(rowID={a}, frame=f),"
+                f" Bitmap(rowID={b}, frame=f)))")
+
+    def pair_want(op, a, b):
+        i = inter[(a, b)]
+        return {"Intersect": i, "Union": row_n[a] + row_n[b] - i,
+                "Difference": row_n[a] - i}[op]
+
+    # Four ids: the baseline's plain TopN block count on the CPU reads
+    # every listed row's 256 slices.
+    ids = list(range(2, 6))
+    topn_q = (f"TopN(Bitmap(rowID=1, frame=f), frame=f, ids={ids})")
+    topn_want = sorted(([r, inter[(1, r)]] for r in ids
+                        if inter[(1, r)]), key=lambda p: (-p[1], p[0]))
+    data_s = time.perf_counter() - t0
+    mark("data")
+
+    # -- the three servers ----------------------------------------------------
+    hosts = {n: f"127.0.0.1:{_free_port()}" for n in names}
+    procs: dict = {}
+
+    def spawn(n):
+        cfg = os.path.join(otmp, f"{n}.toml")
+        _operator_toml(cfg, capture=(n == "a"), tenants=(n == "a"))
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        if n == "a":
+            # The replay's nodes keep the default slots: one slot would
+            # serialize B's plain counts on the CPU.
+            env["PILOSA_MESH_FAIR_SLOTS"] = str(fair_slots)
+        if device.type == "cpu":
+            # A rehearsal's CPU nodes share the host's cores: each of
+            # their concurrent requests must not take them all.
+            env["OMP_NUM_THREADS"] = "2"
+        args = [sys.executable, os.path.abspath(__file__), "--cluster-node",
+                "1", os.path.join(otmp, f"node{n}.counters"), "server",
+                "-c", cfg, "-d", dirs[n], "-b", hosts[n],
+                "--cost.dir", os.path.join(otmp, f"cal{n}")]
+        if n == "b" or device.type == "cpu":
+            args += ["--device", "cpu"]
+        log = open(os.path.join(otmp, f"node{n}.log"), "ab")
+        return subprocess.Popen(args, cwd=repo, env=env,
+                                stdout=subprocess.PIPE, stderr=log)
+
+    def counters(n) -> dict:
+        path = os.path.join(otmp, f"node{n}.counters")
+        if os.path.exists(path):
+            os.remove(path)
+        procs[n].send_signal(signal.SIGUSR1)
+        t1 = time.perf_counter()
+        while not os.path.exists(path):
+            if time.perf_counter() - t1 > 10:
+                _fail(f"operator: node {n} wrote no counters on SIGUSR1")
+            time.sleep(0.02)
+        with open(path) as f:
+            return json.load(f)["launches"]
+
+    def query(n, q, qs="", headers=None, want_status=200):
+        st, hd, out, ms = _request(hosts[n], "POST",
+                                   f"/index/smoke/query{qs}", q.encode(),
+                                   headers=headers, timeout=300)
+        if want_status is not None and st != want_status:
+            _fail(f"operator: {n} {q[:60]}: HTTP {st}: {out[:300]!r}")
+        return (json.loads(out) if st == 200 else None), ms, st, hd
+
+    def get(n, path, raw=False):
+        st, hd, out, _ = _request(hosts[n], "GET", path, timeout=60)
+        if st != 200:
+            _fail(f"operator: GET {path} on {n}: HTTP {st}: {out[:200]!r}")
+        return (out, hd) if raw else json.loads(out)
+
+    try:
+        t0 = time.perf_counter()
+        for n in names:
+            procs[n] = spawn(n)
+        ready_s = _node_up([hosts[n] for n in names],
+                           [procs[n] for n in names], 240.0,
+                           n_slices - 1, index="smoke")
+        mark("ready")
+
+        # -- 1. traffic with tenants ------------------------------------------
+        t0 = time.perf_counter()
+        wrong: list = []
+        sent = [0]
+        sent_mu = threading.Lock()
+        wide_jobs = [(op, a, b) for a, b in pairs
+                     for op in ("Intersect", "Union", "Difference")]
+        rng.shuffle(wide_jobs)
+
+        wide_ms: list = []
+
+        def wide(k):
+            for j in range(wide_rounds):
+                op, a, b = wide_jobs[(k * wide_rounds + j) % len(wide_jobs)]
+                st, _, out, ms = _request(
+                    hosts["a"], "POST", "/index/smoke/query",
+                    pair_q(op, a, b).encode(),
+                    headers={"X-Pilosa-Tenant": "wide"}, timeout=300)
+                with sent_mu:
+                    sent[0] += 1
+                    wide_ms.append(ms)
+                got = json.loads(out)["results"][0] if st == 200 else st
+                if got != pair_want(op, a, b):
+                    wrong.append((op, a, b, got))
+
+        def quiet_count(r):
+            res, ms, _, _ = query("a", f"Count(Bitmap(rowID={r}, frame=f))",
+                                  headers={"X-Pilosa-Tenant": "quiet"})
+            with sent_mu:
+                sent[0] += 1
+            if res["results"][0] != row_n[r]:
+                wrong.append(("Bitmap", r, res["results"][0], row_n[r]))
+            return ms
+
+        # The quiet tenant's first pass loads the 16 rows, one at a time
+        # (concurrent cold requests for one row would each build its
+        # slab: parallel.residency builds outside its lock).
+        t1 = time.perf_counter()
+        cold_ms = [quiet_count(r) for r in range(1, 17)]
+        cold_s = time.perf_counter() - t1
+        quiet_ms: list = []
+        for burst in range(3):
+            threads = [threading.Thread(target=wide, args=(k,))
+                       for k in range(n_wide)]
+            for t in threads:
+                t.start()
+            for j in range(n_quiet):
+                quiet_ms.append(quiet_count(1 + j % 16))
+            if burst == 0:
+                res, topn_ms, _, _ = query(
+                    "a", topn_q, headers={"X-Pilosa-Tenant": "quiet"})
+                with sent_mu:
+                    sent[0] += 1
+                got_topn = [[p["id"], p["count"]]
+                            for p in res["results"][0]]
+                if got_topn != topn_want:
+                    wrong.append(("TopN", got_topn, topn_want))
+            for t in threads:
+                t.join()
+            # One slot and 8 wide threads make waits near certain; a
+            # burst with none is sent again (at most three in all).
+            # /status carries the collector's last sample (500 ms).
+            time.sleep(0.6)
+            if (get("a", "/status")["runtime"].get("fairDispatch")
+                    or {}).get("waits"):
+                break
+        if wrong:
+            _fail(f"operator: traffic answers differ from the host: "
+                  f"{wrong[:3]}")
+        fair = get("a", "/status")["runtime"].get("fairDispatch")
+        if not fair or fair["slots"] != fair_slots:
+            _fail(f"operator: no fair dispatch queue in /status: {fair}")
+        if device.type == "cuda" and not fair["waits"]:
+            _fail(f"operator: the fair queue saw no wait: {fair}")
+        traffic = {"requests": sent[0], "wide_threads": n_wide,
+                   "bursts": burst + 1, "fair_dispatch": fair,
+                   "cold_rows_s": cold_s, "cold_max_ms": max(cold_ms),
+                   "quiet_p50_ms": _median(quiet_ms),
+                   "quiet_max_ms": max(quiet_ms),
+                   "wide_p50_ms": _median(wide_ms),
+                   "wide_max_ms": max(wide_ms), "topn_ms": topn_ms}
+        print(f"operator: traffic {json.dumps(traffic)}", file=sys.stderr,
+              flush=True)
+        step_ms["traffic"] = (time.perf_counter() - t0) * 1e3
+        mark("traffic")
+
+        # -- 2. capture and shadow replay -------------------------------------
+        t0 = time.perf_counter()
+        records: list = []
+        since = 0
+        while True:
+            page = get("a", f"/debug/capture/records?since={since}"
+                            "&limit=1000")
+            records += page["records"]
+            if not page["records"]:
+                break
+            since = page["next"]
+        queries = [r for r in records if r.get("kind") == "query"]
+        if len(queries) != sent[0] or len(records) != sent[0]:
+            _fail(f"operator: {len(records)} capture records for"
+                  f" {sent[0]} requests")
+        bad = [r for r in queries if r["status"] != 200
+               or len(r.get("digest", "")) != 16]
+        if bad:
+            _fail(f"operator: capture records without a digest: {bad[:2]}")
+        rec_path = os.path.join(otmp, "records.jsonl")
+        with open(rec_path, "w") as f:
+            for r in records:
+                f.write(json.dumps(r) + "\n")
+        before_c = counters("c")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        # One read at a time: the baseline's plain counts on the CPU then
+        # take every core (concurrent ones contend for memory bandwidth).
+        rp = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "replay",
+             "--records", rec_path, "--shadow", hosts["b"], hosts["c"],
+             "--senders", "1"], cwd=repo, env=env, capture_output=True,
+            text=True, timeout=600)
+        try:
+            summary = json.loads(rp.stdout)
+        except ValueError:
+            summary = None
+        reads = [r for r in queries if r["lane"] == "read"]
+        if (rp.returncode != 0 or summary is None
+                or summary["mismatches"]
+                or summary["reads_compared"] != len(reads)):
+            _fail(f"operator: replay --shadow rc {rp.returncode},"
+                  f" {len(reads)} captured reads: {rp.stdout[-1500:]}"
+                  f" {rp.stderr[-600:]}")
+        after_c = counters("c")
+        replay_launches = {k: after_c.get(k, 0) - before_c.get(k, 0)
+                           for k in after_c}
+        for k in ("expr_count_rows", "densify", "topn_block_count"):
+            if replay_launches.get(k, 0) <= 0:
+                _fail(f"operator: {k} did not launch on the candidate"
+                      f" during the replay: {replay_launches}")
+        shadow = {"records": len(records),
+                  "reads_compared": summary["reads_compared"],
+                  "writes_replayed": summary["writes_replayed"],
+                  "mismatches": summary["mismatches"],
+                  "candidate_launches": replay_launches}
+        step_ms["replay"] = (time.perf_counter() - t0) * 1e3
+        mark("replay")
+
+        # -- 3. profiler, history, sentinel -----------------------------------
+        t0 = time.perf_counter()
+        halt = threading.Event()
+
+        def load():
+            k = 0
+            while not halt.is_set():
+                op, a, b = wide_jobs[k % len(wide_jobs)]
+                _request(hosts["a"], "POST", "/index/smoke/query",
+                         pair_q(op, a, b).encode(), timeout=300)
+                k += 1
+
+        lt = threading.Thread(target=load)
+        lt.start()
+        try:
+            prof, _ = get("a", "/debug/pprof/profile?seconds=1", raw=True)
+        finally:
+            halt.set()
+            lt.join()
+        prof_lines = prof.decode().splitlines()
+        if (not prof_lines or not prof_lines[0].startswith("# cpu profile")
+                or len(prof_lines) < 2):
+            _fail(f"operator: /debug/pprof/profile: {prof[:300]!r}")
+        time.sleep(1.2)  # two collector ticks at 500 ms
+        hist = get("a", "/debug/metrics/history?family="
+                        "pilosa_query_duration_seconds&window=60s")
+        series = [s for s in hist.get("series") or []
+                  if s.get("points")]
+        if not any(s["name"].startswith("pilosa_query_duration_seconds:")
+                   for s in series):
+            _fail(f"operator: no query-latency history: {hist!s:.300}")
+        sentinel = get("a", "/debug/sentinel")
+        if not sentinel.get("enabled"):
+            _fail(f"operator: /debug/sentinel: {sentinel}")
+        observe = {"profile_lines": len(prof_lines) - 1,
+                   "history_series": len(series),
+                   "history_points": sum(len(s["points"]) for s in series),
+                   "sentinel_checks": sentinel.get("checks")}
+        step_ms["observe"] = (time.perf_counter() - t0) * 1e3
+        mark("observe")
+
+        # -- 4. watchdog and blackbox -----------------------------------------
+        t0 = time.perf_counter()
+        st, _, out, _ = _request(hosts["a"], "POST", "/debug/failpoints",
+                                 json.dumps({"site": "mesh.dispatch",
+                                             "spec": "delay(2500ms)*1"}
+                                            ).encode())
+        if st != 200:
+            _fail(f"operator: arming mesh.dispatch: {st} {out[:200]!r}")
+        _, stuck_ms, stuck_st, _ = query(
+            "a", pair_q("Intersect", *stuck_pair), qs="?timeout=1s",
+            headers={"X-Pilosa-Query-Id": "operator-stuck"},
+            want_status=None)
+        st, _, out, _ = _request(hosts["a"], "POST", "/debug/failpoints",
+                                 json.dumps({"site": "mesh.dispatch",
+                                             "spec": "off"}).encode())
+        if st != 200:
+            _fail(f"operator: disarming mesh.dispatch: {st}")
+        status = get("a", "/status")
+        trips = status.get("watchdog", {}).get("trips", 0)
+        bb = get("a", "/debug/blackbox")
+        stuck_dumps = [d for d in bb.get("dumps", [])
+                       if d.endswith("-watchdog_stuck_query.json")]
+        samples = _samples(get("a", "/metrics", raw=True)[0].decode())
+        trip_metric = _family_sum(samples, "pilosa_watchdog_trips_total",
+                                  cause="stuck_query")
+        if not trips or not stuck_dumps or trip_metric < 1:
+            _fail(f"operator: the watchdog did not trip stuck_query"
+                  f" (trips {trips}, dumps {bb.get('dumps')}, metric"
+                  f" {trip_metric}, the query {stuck_st} in"
+                  f" {stuck_ms:.0f} ms)")
+        res, after_ms, _, _ = query("a", pair_q("Intersect", *after_pair))
+        if res["results"][0] != inter[after_pair]:
+            _fail(f"operator: Count after the disarm {res['results']}"
+                  f" != {inter[after_pair]}")
+        # The stuck query is a captured one: its record and its stacks
+        # (a card Count of a few ms falls between the 100 Hz samples;
+        # this one held its dispatch for 2.5 s).
+        tail = get("a", f"/debug/capture/records?since={since}")
+        if not any(r.get("qid") == "operator-stuck"
+                   for r in tail["records"]):
+            _fail(f"operator: the stuck query was not captured: {tail}")
+        flame_stuck, _ = get("a", "/debug/pprof/flame?query=operator-stuck",
+                             raw=True)
+        flame_stacks = len(flame_stuck.decode().splitlines()) - 1
+        if flame_stacks < 1:
+            _fail("operator: /debug/pprof/flame holds no sample of the"
+                  f" captured query: {flame_stuck[:300]!r}")
+        a_launches = None
+        n_before = len([f for f in os.listdir(os.path.join(
+            dirs["a"], "blackbox")) if f.startswith("dump-")])
+        a_line = _nodes_stop([procs["a"]], [hosts["a"]])[0]
+        procs["a"] = None
+        a_launches = a_line["launches"]
+        dumps_after = sorted(f for f in os.listdir(os.path.join(
+            dirs["a"], "blackbox")) if f.startswith("dump-"))
+        if (len(dumps_after) != n_before + 1
+                or not dumps_after[-1].endswith("-sigterm.json")):
+            _fail(f"operator: SIGTERM left no dump: {dumps_after}")
+        watchdog = {"stuck_status": stuck_st, "stuck_ms": stuck_ms,
+                    "trips": trips, "dump": stuck_dumps[0],
+                    "flame_stacks": flame_stacks,
+                    "after_disarm_ms": after_ms,
+                    "sigterm_dump": dumps_after[-1]}
+        step_ms["watchdog"] = (time.perf_counter() - t0) * 1e3
+        mark("watchdog")
+        lines = _nodes_stop([procs["b"], procs["c"]],
+                            [hosts["b"], hosts["c"]])
+        procs["b"] = procs["c"] = None
+        mark("stopped")
+    except SystemExit:
+        # A failed step: the nodes' log tails beside the failure.
+        for n in names:
+            try:
+                with open(os.path.join(otmp, f"node{n}.log"), "rb") as f:
+                    tail = f.read()[-3000:].decode(errors="replace")
+            except OSError:
+                continue
+            print(f"operator: node {n} log tail:\n{tail}", file=sys.stderr,
+                  flush=True)
+        raise
+    finally:
+        for p in procs.values():
+            if p is not None:
+                p.kill()
+                p.communicate()
+
+    launches: dict = {}
+    for line in (a_launches, lines[1]["launches"]):
+        for k, v in line.items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("expr_count_rows", "densify", "topn_block_count"):
+        if a_launches.get(k, 0) <= 0:
+            _fail(f"operator: {k} did not launch on server A: {a_launches}")
+    out = {"phase": "operator", "config": "BASELINE configuration 4",
+           "slices": n_slices, "bits": n_bits, "data_s": data_s,
+           "ready_s": ready_s, "traffic": traffic, "shadow": shadow,
+           "observe": observe, "watchdog": watchdog, "step_ms": step_ms,
+           "launches": launches, "marks_s": marks, "card": _card(),
+           "seconds": time.perf_counter() - t_phase}
+    _emit(out)
+    return out
+
+
 def _cluster_node(argv: list) -> None:
     """Child mode of ``phase_cluster``: one node, the ``server`` verb's
     code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
@@ -5055,7 +5560,8 @@ def main() -> None:
         return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("cluster", "integrity", "gossip"),
+    ap.add_argument("--phase", choices=("cluster", "integrity", "gossip",
+                                        "operator"),
                     help="build the kernels and run this one phase"
                          " alone (its line only: no kernel table, no"
                          " last line)")
@@ -5083,7 +5589,8 @@ def main() -> None:
     if args.phase:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             {"cluster": phase_cluster, "integrity": phase_integrity,
-             "gossip": phase_gossip}[args.phase](device, args.seed, tmp)
+             "gossip": phase_gossip, "operator": phase_operator}[
+                 args.phase](device, args.seed, tmp)
         print(f"nvidia-smi: {_card()}", flush=True)
         return
 
@@ -5137,6 +5644,9 @@ def main() -> None:
                 "launches"].items():
             launches[name] += n
         for name, n in phase_gossip(device, args.seed, tmp)[
+                "launches"].items():
+            launches[name] += n
+        for name, n in phase_operator(device, args.seed, tmp)[
                 "launches"].items():
             launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]

@@ -1,6 +1,6 @@
 """Command logic of the port's CLI.
 
-Copy of the JAX package's ``cli/commands.py`` (reference ctl/), 10 of
+Copy of the JAX package's ``cli/commands.py`` (reference ctl/), 12 of
 its 13 verbs, each with the JAX CLI's output byte for byte:
 
 - ``server``: the TOML config file (``-c``) under the ``PILOSA_*``
@@ -10,16 +10,19 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   (``--cluster.hosts``, ``--cluster.type static|http|gossip``, the
   gossip port, seed and HMAC secret, ``--cluster.poll-interval``,
   ``--cluster.gen-staleness``), ``--anti-entropy.interval``, the
-  ``--trace.*`` and ``--metrics.*`` switches and the switches of the
-  subsystems still to port — plus ``--device`` (the card unless
-  ``cpu``), ``--cost.dir`` (where the cost model's calibration is
+  ``--trace.*`` and ``--metrics.*`` switches, the operator surface's
+  switches (blackbox, watchdog, history, sentinel, the continuous
+  profiler, SLO) and ``--profile.cpu``/``--profile.cpu-time`` (a
+  sampled host CPU profile written to a file) — plus ``--device`` (the
+  card unless ``cpu``), ``--cost.dir`` (where the cost model's calibration is
   kept) and ``--fault.hedge`` (the hedged-read floor, which the JAX verb
-  takes from ``[fault] hedge`` and ``PILOSA_FAULT_HEDGE`` only). An explicit switch-on of a subsystem this package does not
-  run yet, where the JAX default leaves it off (``[tier] enabled =
-  true``, a ``[backup] archive``, capture's ``mode = "full"``), exits
-  2 naming its slice; one on by default in the JAX package is noted
-  once in the log. ``gen-staleness`` is kept and has nothing to bound:
-  every hit of the coordinator's cluster cache is validated by a probe;
+  takes from ``[fault] hedge`` and ``PILOSA_FAULT_HEDGE`` only). An
+  explicit switch-on of a subsystem this package does not run yet
+  (``[tier] enabled = true`` or a blob store, a ``[backup] archive``)
+  exits 2 naming its slice. SIGTERM dumps the flight recorder (when
+  on), then closes the server as SIGINT does. ``gen-staleness`` is kept
+  and has nothing to bound: every hit of the coordinator's cluster
+  cache is validated by a probe;
 - ``import`` (CSV ``row,col[,timestamp]`` bits, or ``column,value``
   with ``--field``) and ``export`` (CSV of every slice), both through
   the cluster client, to every owner of each slice;
@@ -37,7 +40,11 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   exits 2 on a blob-tier stub and on ``--archive``, which wait for the
   tier and backup slices.
 
-``replay``, ``resize`` and ``top`` wait for the slices that port them.
+- ``replay`` (obs.replay: re-issue a captured workload, or
+  ``--shadow BASELINE CANDIDATE`` to compare result digests) and
+  ``top`` (cli.top: the live fleet dashboard).
+
+``resize`` waits for the slice that ports it.
 """
 
 from __future__ import annotations
@@ -145,7 +152,7 @@ def cmd_server(args, stdout, stderr) -> int:
     from ..utils import logger as logger_mod
 
     cfg = load_server_config(args)
-    refused, waiting = config_mod.unported_switch_ons(cfg)
+    refused = config_mod.unported_switch_ons(cfg)
     if refused:
         for msg in refused:
             print(f"error: {msg}", file=stderr)
@@ -154,8 +161,6 @@ def cmd_server(args, stdout, stderr) -> int:
         logger = logger_mod.Logger.open(os.path.expanduser(cfg.log_path))
     else:
         logger = logger_mod.Logger(stderr)
-    if waiting:
-        logger.printf("not running yet: %s", "; ".join(waiting))
     cluster = None
     if cfg.cluster.hosts:
         internal = cfg.cluster.internal_hosts or [""] * len(
@@ -183,13 +188,27 @@ def cmd_server(args, stdout, stderr) -> int:
                     polling_interval=cfg.cluster.polling_interval,
                     anti_entropy_interval=cfg.anti_entropy_interval,
                     trace_config=cfg.trace, scrub_config=cfg.scrub,
-                    metrics_config=cfg.metrics, fault_config=cfg.fault)
-    server.open()
+                    metrics_config=cfg.metrics, fault_config=cfg.fault,
+                    profile_config=cfg.profile, slo_config=cfg.slo,
+                    blackbox_config=cfg.blackbox,
+                    watchdog_config=cfg.watchdog,
+                    history_config=cfg.history,
+                    sentinel_config=cfg.sentinel,
+                    capture_config=cfg.capture)
 
     def stop(signum, frame):
         raise KeyboardInterrupt
 
+    # Installed before open: the flight recorder's SIGTERM hook chains
+    # to it, so a SIGTERM dumps the recorder and then closes cleanly.
     signal.signal(signal.SIGTERM, stop)
+    server.open()
+    profiler = None
+    if args.profile_cpu:
+        from ..utils.profiling import CPUProfiler
+        profiler = CPUProfiler(args.profile_cpu,
+                               duration=args.profile_cpu_time)
+        profiler.start()
     print(f"pilosa-tpu serving at http://{server.host} "
           f"(data: {cfg.data_dir})", file=stdout, flush=True)
     try:
@@ -197,6 +216,8 @@ def cmd_server(args, stdout, stderr) -> int:
             time.sleep(1)
     except KeyboardInterrupt:
         print("shutting down", file=stderr)
+        if profiler is not None:
+            profiler.stop()
         server.close()
         logger.close()
     return 0
@@ -468,6 +489,47 @@ def cmd_bench(args, stdout, stderr) -> int:
         client.close()
     print(f"Executed {args.n} operations in {elapsed:.3f}s "
           f"({args.n / elapsed:0.3f} op/sec)", file=stdout)
+    return 0
+
+
+def cmd_replay(args, stdout, stderr) -> int:
+    """Re-issue a captured workload: records come from a file
+    (--records) or a live cluster-merged export (--from / --host),
+    replay preserves arrival gaps scaled by --rate xN, and --shadow
+    BASELINE CANDIDATE switches to the digest-comparing differential
+    mode (rc 1 on any mismatch)."""
+    import json as json_mod
+
+    from ..obs import replay as obs_replay
+
+    if args.records:
+        records = obs_replay.load_records(args.records)
+    else:
+        source = args.from_host or args.host
+        records = obs_replay.fetch_records(source, cluster=True)
+    if not records:
+        print("no capture records to replay", file=stderr)
+        return 1
+    rate = args.rate.lstrip("xX") or "1"
+    try:
+        rate = float(rate)
+    except ValueError:
+        print(f"invalid --rate: {args.rate!r}", file=stderr)
+        return 1
+    if args.shadow:
+        out = obs_replay.shadow(records, args.shadow[0], args.shadow[1],
+                                senders=args.senders)
+    else:
+        out = obs_replay.replay(records, args.host, rate=rate,
+                                processes=args.processes,
+                                senders=args.senders)
+    body = json_mod.dumps(out, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(body + "\n")
+    print(body, file=stdout)
+    if args.shadow and out["mismatches"]:
+        return 1
     return 0
 
 
@@ -810,9 +872,16 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None, metavar="FRACTION",
                    help="fraction of queries that must meet the"
                         " objective (default 0.99)")
+    # Profiling flags (reference cmd/server.go:47-62,99-100).
+    s.add_argument("--profile.cpu", dest="profile_cpu", default="",
+                   metavar="PATH",
+                   help="write a sampled CPU profile to PATH")
     s.add_argument("--plugins.path", dest="plugins_path", default="",
                    help="path to plugin directory (accepted but inert, "
                         "as in the reference at this vintage)")
+    s.add_argument("--profile.cpu-time", dest="profile_cpu_time",
+                   type=parse_duration, default=30.0, metavar="DUR",
+                   help="duration of the CPU profile (default 30s)")
     s.set_defaults(fn=cmd_server)
 
     def client_cmd(name, help, fn, **extra):
@@ -903,6 +972,50 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--op", default="", help="benchmark operation"
                                             " (set-bit)")
     c.add_argument("-n", type=int, default=0, help="operation count")
+
+    c = sub.add_parser(
+        "top", help="live fleet dashboard over the federation"
+                    " endpoints")
+    c.add_argument("--host", default="localhost:10101",
+                   help="any cluster member (it federates the fleet)")
+    c.add_argument("--interval", type=parse_duration, default=2.0,
+                   metavar="DUR", help="poll interval (default 2s)")
+    c.add_argument("--window", default="10m", metavar="DUR",
+                   help="history window for the sparkline"
+                        " (default 10m)")
+    c.add_argument("--once", action="store_true",
+                   help="render one frame and exit (scripts, tests)")
+    from .top import cmd_top
+    c.set_defaults(fn=cmd_top)
+
+    c = sub.add_parser(
+        "replay", help="re-issue a captured workload against a"
+                       " cluster")
+    c.add_argument("--host", default="localhost:10101",
+                   help="replay target (also the default capture"
+                        " export source)")
+    c.add_argument("--records", default="",
+                   help="records file (JSONL or a saved"
+                        " /debug/capture/records response); default:"
+                        " export live from --from")
+    c.add_argument("--from", dest="from_host", default="",
+                   help="export the capture stream from this node"
+                        " (cluster-merged) instead of a file;"
+                        " defaults to --host")
+    c.add_argument("--rate", default="x1", metavar="xN",
+                   help="arrival-gap compression (x1 = recorded rate,"
+                        " x10 = 10x faster)")
+    c.add_argument("--processes", type=int, default=1,
+                   help="sender processes (open-loop shards)")
+    c.add_argument("--senders", type=int, default=32,
+                   help="sender threads per process")
+    c.add_argument("--shadow", nargs=2,
+                   metavar=("BASELINE", "CANDIDATE"),
+                   help="differential replay: writes to both in"
+                        " order, reads compared by result digest")
+    c.add_argument("--out", default="",
+                   help="write the summary JSON here as well")
+    c.set_defaults(fn=cmd_replay)
 
     c = sub.add_parser("config", help="print default configuration")
     c.set_defaults(fn=cmd_config)

@@ -511,6 +511,37 @@ class Client:
                                host=host, deadline_s=deadline_s)
         return json.loads(self._ok(status, raw, "debug cluster"))
 
+    def metrics_history(self, family: str = "", label: str = "",
+                        window: str = "", step: str = "",
+                        host: Optional[str] = None,
+                        deadline_s: Optional[float] = None) -> dict:
+        """GET /debug/metrics/history: one peer's metric-history
+        series — the scope=cluster federation leg."""
+        from urllib.parse import urlencode
+        params = {k: v for k, v in (("family", family),
+                                    ("label", label),
+                                    ("window", window),
+                                    ("step", step)) if v}
+        path = "/debug/metrics/history"
+        if params:
+            path += "?" + urlencode(params)
+        status, raw = self._do("GET", path, host=host,
+                               deadline_s=deadline_s)
+        return json.loads(self._ok(status, raw, "metrics history"))
+
+    def capture_records(self, since: int = 0, limit: int = 500,
+                        host: Optional[str] = None,
+                        deadline_s: Optional[float] = None) -> dict:
+        """GET /debug/capture/records: one peer's local capture page
+        (obs.capture) — the scope=cluster federation leg, and the
+        replay's export transport."""
+        from urllib.parse import urlencode
+        path = ("/debug/capture/records?"
+                + urlencode({"since": since, "limit": limit}))
+        status, raw = self._do("GET", path, host=host,
+                               deadline_s=deadline_s)
+        return json.loads(self._ok(status, raw, "capture records"))
+
     # -- schema / slices (client.go:63-136) ----------------------------------
 
     def schema(self) -> list[dict]:

@@ -196,3 +196,10 @@ class GenerationMap:
                 if best is None or ts > best[2]:
                     best = (peer, toks, ts)
         return best
+
+    def snapshot(self) -> dict:
+        """Peers and slice entries held (the flight recorder's
+        ``generations`` block)."""
+        with self._mu:
+            return {"peers": len(self._peers),
+                    "entries": sum(len(m) for m in self._peers.values())}

@@ -687,6 +687,29 @@ class Executor:
         with self._bitmap_results_mu:
             self._bitmap_results.clear()
 
+    def tenant_cache_usage(self) -> dict:
+        """Per-tenant cache residency for /debug/tenants and the
+        ``pilosa_tenant_cache_bytes`` scrape refresh: result-cache bits
+        (reported as bytes, bits/8) and cluster-cache entry counts,
+        keyed by tenant (= index), as the JAX executor reports them."""
+        out: dict[str, dict] = {}
+        with self._bitmap_results_mu:
+            for k, (_, bits) in self._bitmap_results.items():
+                ent = out.setdefault(k[0], {"resultEntries": 0,
+                                            "resultBits": 0,
+                                            "clusterEntries": 0})
+                ent["resultEntries"] += 1
+                ent["resultBits"] += bits
+        with self._cluster_cache_mu:
+            for k in self._cluster_cache:
+                ent = out.setdefault(k[0], {"resultEntries": 0,
+                                            "resultBits": 0,
+                                            "clusterEntries": 0})
+                ent["clusterEntries"] += 1
+        for ent in out.values():
+            ent["bytes"] = ent["resultBits"] // 8
+        return out
+
     def _bitmap_result_key(self, index: str, c: Call, slices: list[int],
                            compiled_out: Optional[list] = None):
         """Cache key of a top-level Union/Intersect/Difference, or None

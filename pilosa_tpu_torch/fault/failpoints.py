@@ -19,8 +19,12 @@ The port arms the sites its own modules carry:
 ``gossip.deliver``  cluster/gossip, before a received broadcast envelope
                     is handed to the server (an error drops it: the
                     envelope is lost in transit)
-``ring.write``      obs/diskring segment appends (the tail sampler's
-                    trace store; torn-write capable)
+``mesh.dispatch``   parallel/mesh._dispatch, before each kernel launch
+                    (an injected delay holds the query inside its
+                    device dispatch, the watchdog's stuck_query case)
+``ring.write``      obs/diskring segment appends (the tail sampler's,
+                    blackbox's, history's and capture's rings;
+                    torn-write capable)
 ``storage.read``    storage/fragment, before the data file is read back
                     (open) and before the scrubber re-reads it —
                     corrupt-capable: flips real bits in the on-disk
@@ -83,7 +87,7 @@ from ..utils.config import parse_duration
 ACTIVE: Optional["Failpoints"] = None
 
 SITES = ("rpc.send", "rpc.recv", "wal.append", "snapshot.write",
-         "gossip.deliver", "ring.write", "storage.read")
+         "gossip.deliver", "mesh.dispatch", "ring.write", "storage.read")
 
 
 def env_key(site: str) -> str:

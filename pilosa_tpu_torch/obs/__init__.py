@@ -12,6 +12,15 @@ cost accounting.
   device bytes, kernel build seconds; ``X-Pilosa-Stats`` and the
   ``?profile=1`` cost tree.
 
-Copies of the JAX package's ``obs/`` modules; its samplers, history,
-sentinel, capture, watchdog and federation wait for a later slice.
+- the operator surface: ``obs.sampler`` and ``obs.diskring`` (tail
+  sampling onto a crash-safe disk ring), ``obs.runtime`` (the periodic
+  collector), ``obs.federate`` (the fleet view), ``obs.profile`` (the
+  continuous host profiler), ``obs.slo`` (burn rates and readiness),
+  ``obs.history`` (the on-disk metric history), ``obs.blackbox`` (the
+  flight recorder), ``obs.watchdog`` (stall detectors),
+  ``obs.sentinel`` (regression findings over the history),
+  ``obs.capture`` and ``obs.replay`` (workload capture, replay and the
+  shadow diff).
+
+Copies of the JAX package's ``obs/`` modules.
 """

@@ -18,8 +18,9 @@ registry; a fleet question fans out when it is asked:
 Partial semantics follow the ``?partial=1`` contract: without it, an
 unreachable peer fails the whole request (503); with it, the merge
 serves what answered and names the missing nodes in
-``X-Pilosa-Partial-Nodes``. The JAX package's third fan-out,
-``/debug/metrics/history?scope=cluster``, waits for obs.history.
+``X-Pilosa-Partial-Nodes``. The third fan-out,
+``/debug/metrics/history?scope=cluster`` (and the capture export's
+``?scope=cluster``), goes through the same ``fan_out``.
 """
 
 from __future__ import annotations

@@ -9,10 +9,9 @@ sites (utils/stats.py) into the ``pilosa_stats_*`` namespace.
 
 Every family the port emits is declared here at import, with the JAX
 package's name, type, labels and help text. The JAX families that no
-event of the port raises (the cluster, tiering, backup, history,
-sentinel, capture, watchdog, SLO and fault subsystems, the XLA
-compile-cache counters, the WAL and runtime-collector gauges) are left
-out; ``tests/test_torch_obs.py`` lists each by name with its reason.
+event of the port raises (resize, tiering, backup, the XLA compile-cache
+counters and the build-info gauge, whose labels name jax) are left out;
+``tests/test_torch_obs.py`` lists each by name with its reason.
 Naming convention (enforced at registration):
 ``pilosa_<subsystem>_<noun>_<unit>`` — lowercase snake case, at least
 three segments after ``pilosa``; counters end in ``_total``.
@@ -687,6 +686,126 @@ STORAGE_WRITE_READY = _DEFAULT.gauge(
     "1 while durable writes are accepted; 0 while the node is"
     " write-unready after ENOSPC (writes answer 507, reads keep"
     " serving, auto-recovers on a successful probe write)")
+
+# -- the operator surface: obs.watchdog, obs.blackbox, obs.slo, obs.profile
+WATCHDOG_TRIPS = _DEFAULT.counter(
+    "pilosa_watchdog_trips_total",
+    "Stall-watchdog trips, by cause (wal_flusher / stuck_query /"
+    " gossip_silence / admission_stall)",
+    labels=("cause",))
+BLACKBOX_SNAPSHOTS = _DEFAULT.counter(
+    "pilosa_blackbox_snapshots_total",
+    "Flight-recorder whole-system snapshots taken, by trigger",
+    labels=("trigger",))
+BLACKBOX_DUMPS = _DEFAULT.counter(
+    "pilosa_blackbox_dumps_total",
+    "Flight-recorder full dumps written, by cause (sigterm / fatal /"
+    " watchdog / api)",
+    labels=("cause",))
+SLO_BURN_RATE = _DEFAULT.gauge(
+    "pilosa_slo_burn_rate_ratio",
+    "Latency-objective error-budget burn rate over a rolling window"
+    " (1.0 = budget burns exactly at the sustainable rate)",
+    labels=("window",))
+SLO_OBJECTIVE = _DEFAULT.gauge(
+    "pilosa_slo_latency_objective_seconds",
+    "The configured latency objective the burn rate is computed"
+    " against")
+PROFILE_SAMPLES = _DEFAULT.counter(
+    "pilosa_profile_samples_total",
+    "Continuous-profiler sampling ticks taken")
+TENANT_CACHE_BYTES = _DEFAULT.gauge(
+    "pilosa_tenant_cache_bytes",
+    "Result-cache residency held per tenant (result-residency bits/8"
+    " + coordinator cluster-cache entries) under the per-tenant"
+    " cache quota",
+    labels=("tenant",), max_label_sets=_TENANT_LABEL_SETS)
+TENANT_SLO_BURN = _DEFAULT.gauge(
+    "pilosa_tenant_slo_burn_rate_ratio",
+    "Per-tenant latency-objective error-budget burn rate over a"
+    " rolling window (1.0 = sustainable) — the quiet tenant's"
+    " isolation guarantee is stated against this",
+    labels=("tenant", "window"),
+    max_label_sets=4 * _TENANT_LABEL_SETS)
+
+# -- the write path: WAL group commit and the import stages
+WAL_GROUP_BATCH_SIZE = _DEFAULT.histogram(
+    "pilosa_wal_group_commit_batch_size",
+    "Op records covered by one WAL group-commit leader flush — the"
+    " syscall/fsync amortization factor of the write path",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096,
+             16384, 65536))
+WAL_GROUP_FLUSH_SECONDS = _DEFAULT.histogram(
+    "pilosa_wal_group_commit_flush_seconds",
+    "Wall seconds one WAL group-commit leader flush took (write +"
+    " fsync per policy)")
+WAL_FSYNCS = _DEFAULT.counter(
+    "pilosa_wal_fsync_calls_total",
+    "fsync() calls issued by WAL group-commit leader flushes — the"
+    " denominator the group-commit amortization is measured against")
+IMPORT_STAGE_SECONDS = _DEFAULT.histogram(
+    "pilosa_import_stage_seconds",
+    "Wire-import handler stage timings: decode (wire to arrays),"
+    " apply (fragment mutation), snapshot (storage rewrite) — the"
+    " decode-vs-apply serialization recorded as a metric",
+    labels=("stage",))
+IMPORT_PIPELINE_DEPTH = _DEFAULT.gauge(
+    "pilosa_import_pipeline_depth",
+    "Wire-import blocks currently in their apply stage across all"
+    " fragments — >1 means decode of later blocks is overlapping"
+    " earlier applies (the pipelined import path)")
+
+# -- metric history and the regression sentinel (obs.history, obs.sentinel)
+HISTORY_SAMPLES = _DEFAULT.counter(
+    "pilosa_history_samples_total",
+    "Metric-history sampling passes over the registry (obs.history —"
+    " one pass per runtime-collector tick)")
+HISTORY_SERIES_LIVE = _DEFAULT.gauge(
+    "pilosa_history_series_live",
+    "Series held in the on-disk metric history's in-memory rings"
+    " (bounded by the per-process series cap)")
+HISTORY_SERIES_DROPPED = _DEFAULT.counter(
+    "pilosa_history_series_dropped_total",
+    "New series the metric history refused past its series cap — a"
+    " nonzero value means some families' label growth outran the"
+    " retention budget")
+HISTORY_DISK_RECORDS = _DEFAULT.counter(
+    "pilosa_history_disk_records_total",
+    "Metric-history tick records persisted to the per-resolution"
+    " segment rings, by outcome (written / dropped)",
+    labels=("outcome",))
+SENTINEL_FINDINGS = _DEFAULT.counter(
+    "pilosa_sentinel_findings_total",
+    "Regression-sentinel findings raised, by watched metric and"
+    " direction (up = regressed slower/hotter, down = cliff): a"
+    " robust-z anomaly against the trailing baseline or a breach of"
+    " the committed MANIFEST envelope (obs.sentinel;"
+    " docs/OBSERVABILITY.md rule catalogue)",
+    labels=("metric", "direction"))
+SENTINEL_ACTIVE = _DEFAULT.gauge(
+    "pilosa_sentinel_findings_active",
+    "1 while a sentinel finding's condition still holds on the most"
+    " recent evaluation, 0 once it recovers, by watched metric and"
+    " direction",
+    labels=("metric", "direction"))
+SENTINEL_CHECKS = _DEFAULT.counter(
+    "pilosa_sentinel_checks_total",
+    "Regression-sentinel evaluation passes (every rule, every pass)")
+
+# -- workload capture (obs.capture)
+CAPTURE_RECORDS = _DEFAULT.counter(
+    "pilosa_capture_records_total",
+    "Workload-capture records appended to the on-disk capture ring,"
+    " by kind (query / import)",
+    labels=("kind",))
+CAPTURE_DROPPED = _DEFAULT.counter(
+    "pilosa_capture_dropped_total",
+    "Capture records lost, by reason (io = the ring append failed)",
+    labels=("reason",))
+CAPTURE_BYTES = _DEFAULT.counter(
+    "pilosa_capture_bytes_total",
+    "Framed record bytes appended to the capture ring, by kind",
+    labels=("kind",))
 
 
 # -- legacy StatsClient bridge ------------------------------------------------

@@ -15,19 +15,23 @@ behavior but have no natural increment site:
   (storage.roaring.op_counts);
 - thread activity: live threads, and on-CPU threads (a thread whose
   innermost frame is not an idle wait);
-- admission controller depth/in-flight.
+- admission controller depth/in-flight;
+- the fair dispatch queue's slots, waits and dispatches
+  (parallel.mesh.fair_dispatch_state), as ``fairDispatch``;
+- the SLO burn-rate trackers (obs.slo), the continuous profiler's
+  summary (obs.profile) and one metric-history sampling pass
+  (obs.history) per tick, through the hooks of the JAX package.
 
 Everything lands twice: as gauges/counters in the metrics registry and
 as the ``runtime`` JSON block in ``/status``. The JAX package's compile
-cache block has no counterpart (the port builds no XLA programs), and
-its ``slo``, ``profiler`` and ``history`` hooks stay None until the
-port has those modules.
+cache block has no counterpart (the port builds no XLA programs); the
+fair queue's state, which the JAX package reports inside that block,
+stands at the top of the ``runtime`` block here.
 """
 
 from __future__ import annotations
 
 import platform
-import sys
 import threading
 import time
 from typing import Optional
@@ -35,17 +39,6 @@ from typing import Optional
 from . import metrics as obs_metrics
 
 DEFAULT_INTERVAL_S = 10.0
-
-# Innermost frames of a thread that is parked, not running (the JAX
-# package's utils.profiling idle-leaf filter).
-_IDLE_LEAVES = {
-    ("threading.py", "wait"),
-    ("threading.py", "_wait_for_tstate_lock"),
-    ("threading.py", "join"),
-    ("selectors.py", "select"),
-    ("socketserver.py", "serve_forever"),
-    ("connection.py", "poll"),
-}
 
 
 def build_info() -> dict:
@@ -59,28 +52,23 @@ def build_info() -> dict:
             "jax": "unloaded", "backend": "unloaded"}
 
 
-def _on_cpu_threads() -> int:
-    n = 0
-    for frame in sys._current_frames().values():
-        code = frame.f_code
-        if (code.co_filename.rsplit("/", 1)[-1],
-                code.co_name) not in _IDLE_LEAVES:
-            n += 1
-    return n
-
-
 class RuntimeCollector:
     def __init__(self, holder=None, executor=None, admission=None,
                  registry=None, interval_s: float = DEFAULT_INTERVAL_S,
-                 slo=None, profiler=None, history=None):
+                 slo=None, profiler=None, history=None,
+                 tenant_slo=None):
         self.holder = holder
         self.executor = executor
         self.admission = admission
-        # SLO burn-rate trackers, the continuous profiler and the
-        # metric history: the JAX package's hooks, None until the port
-        # has those modules.
+        # SLO burn-rate trackers (obs.slo.SLOTracker and the per-tenant
+        # TenantSLOTracker) and the continuous profiler (obs.profile),
+        # summarized on this cadence so /status carries them.
         self.slo = slo
+        self.tenant_slo = tenant_slo
         self.profiler = profiler
+        # Metric history (obs.history): one registry-wide sampling pass
+        # per tick, after the gauges above refresh, so each tick's rings
+        # see this tick's sizes.
         self.history = history
         self.registry = registry or obs_metrics.default_registry()
         self.interval_s = interval_s
@@ -98,7 +86,8 @@ class RuntimeCollector:
         self._thread.start()
 
     def stop(self) -> None:
-        """Stop and join, so no collect runs past the holder's close."""
+        """Stop and join, so no collect runs past the holder's close
+        (nor writes a history segment past the history's close)."""
         self._stop.set()
         thread = self._thread
         if thread is not None \
@@ -124,6 +113,10 @@ class RuntimeCollector:
         snap["threads"] = self._thread_sample()
         snap["deviceBlockCache"] = residency_sample()
         snap["roaringOps"] = roaring_ops_sample()
+        from ..parallel import mesh as mesh_mod
+        fair = mesh_mod.fair_dispatch_state()
+        if fair is not None:
+            snap["fairDispatch"] = fair
         if self.admission is not None:
             adm = self.admission.snapshot()
             snap["admission"] = adm
@@ -138,6 +131,11 @@ class RuntimeCollector:
         if self.slo is not None:
             try:
                 snap["slo"] = self.slo.record()
+            except Exception:  # noqa: BLE001 - visibility only
+                pass
+        if self.tenant_slo is not None:
+            try:
+                snap["tenantSlo"] = self.tenant_slo.record()
             except Exception:  # noqa: BLE001 - visibility only
                 pass
         if self.profiler is not None:
@@ -210,8 +208,12 @@ class RuntimeCollector:
         return out
 
     def _thread_sample(self) -> dict:
+        from ..utils import profiling
         live = threading.active_count()
-        on_cpu = _on_cpu_threads()
+        try:
+            on_cpu = len(profiling.collect_sample(include_idle=False))
+        except Exception:  # noqa: BLE001 - interpreter-internal API
+            on_cpu = 0
         obs_metrics.RUNTIME_THREADS.labels("live").set(live)
         obs_metrics.RUNTIME_THREADS.labels("on_cpu").set(on_cpu)
         return {"live": live, "onCpu": on_cpu}

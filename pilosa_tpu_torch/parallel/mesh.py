@@ -18,9 +18,12 @@ leaf slab i, ``(op, a, b)`` combines subtrees with and/or/xor/andnot.
 Functions that upload take the ``torch.device`` explicitly; the
 resident forms run where their tensors lie.
 
-Every dispatch entry passes ``_dispatch``: the query's deadline and
+Every dispatch entry passes ``_dispatch``: one slot of the fair
+dispatch queue when the server installed it (``FairDispatchQueue``
+below, the JAX package's mesh.py:80-190), the query's deadline and
 cancel check (sched.context.check_current — a check falls before the
-launch; a launched kernel runs to its end), one device program and its
+launch; a launched kernel runs to its end), the ``mesh.dispatch``
+failpoint, one device program and its
 operand bytes on the query's cost ledger (obs.accounting), and a
 ``mesh_dispatch`` trace span tagged with the entry's kind (the JAX
 package's kinds). A launch is asynchronous, so the span covers launch
@@ -31,11 +34,15 @@ alone (``timing="launch"``).
 
 from __future__ import annotations
 
+import heapq
+import os
+import threading
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from ..fault import failpoints as _failpoints
 from ..obs import accounting as _accounting
 from ..obs import trace as obs_trace
 from ..ops import cuda_kernels
@@ -54,18 +61,170 @@ TOPN_BLOCK_BYTES = 256 << 20
 FETCHES = {"host": 0}
 
 
+# -- per-tenant device-queue fairness ----------------------------------------
+# Admission (sched.admission) strides tenants at the HTTP front door, but
+# one admitted query fans out many device dispatches; below admission
+# every dispatch would race FIFO for the card, so a wide tenant's fan-out
+# could monopolize it against a quiet tenant's single launch. The queue
+# is a bounded slot pool at the dispatch boundary where, under
+# contention, waiters are admitted in stride order over their tenants'
+# effective admission weights (sched.tenants). Uncontended cost is one
+# lock acquire; the server installs it at open (install_fair_dispatch),
+# and PILOSA_MESH_FAIR=0 removes it.
+
+class FairDispatchQueue:
+    """Stride-scheduled slot pool for device dispatches.
+
+    Each tenant carries a virtual ``pass``; enqueueing advances it by
+    ``1/weight`` and waiters wake lowest-pass-first, so over any
+    contended window tenants hold slots in proportion to their
+    weights regardless of how many dispatches each has queued. A new
+    (or long-idle) tenant starts at the global pass frontier — it
+    cannot bank credit, only compete fairly from now on."""
+
+    def __init__(self, slots: int, weight_fn=None):
+        self.slots = max(1, int(slots))
+        self.weight_fn = weight_fn
+        self._mu = threading.Lock()
+        self._in_flight = 0
+        # Heap entries are [pass, seq, Event, cancelled]; list order
+        # compares (pass, seq) — seq is unique, the Event never
+        # participates. ``cancelled`` marks a waiter that gave up
+        # (query killed while queued); release() skips it.
+        self._heap: list[list] = []
+        self._seq = 0
+        self._tenant_pass: dict[str, float] = {}
+        self._global_pass = 0.0
+        self._dispatches = 0
+        self._waits = 0
+
+    def _stride(self, tenant: str) -> float:
+        weight = 1.0
+        fn = self.weight_fn
+        if fn is not None:
+            try:
+                weight = float(fn(tenant))
+            except Exception:  # noqa: BLE001 - fairness is advisory
+                weight = 1.0
+        return 1.0 / max(weight, 1e-3)
+
+    def acquire(self, tenant: str) -> None:
+        with self._mu:
+            self._dispatches += 1
+            if self._in_flight < self.slots and not self._heap:
+                self._in_flight += 1
+                return
+            self._waits += 1
+            p = max(self._tenant_pass.get(tenant, 0.0),
+                    self._global_pass) + self._stride(tenant)
+            self._tenant_pass[tenant] = p
+            self._seq += 1
+            entry = [p, self._seq, threading.Event(), False]
+            heapq.heappush(self._heap, entry)
+        ev = entry[2]
+        while not ev.wait(0.05):
+            # Keep the query's cancellation, kill and deadline checks
+            # live while queued: a killed query must not hold its place.
+            try:
+                sched_context.check_current()
+            except BaseException:
+                with self._mu:
+                    if not ev.is_set():
+                        entry[3] = True
+                        raise
+                # Woken concurrently with the cancel: we own a slot —
+                # hand it on before propagating.
+                self.release()
+                raise
+
+    def release(self) -> None:
+        with self._mu:
+            while self._heap:
+                _p, _seq, ev, cancelled = heapq.heappop(self._heap)
+                if cancelled:
+                    continue
+                self._global_pass = _p
+                ev.set()  # the slot transfers: _in_flight is unchanged
+                return
+            self._in_flight -= 1
+
+    def state(self) -> dict:
+        with self._mu:
+            return {"slots": self.slots,
+                    "inFlight": self._in_flight,
+                    "queued": sum(1 for e in self._heap if not e[3]),
+                    "dispatches": self._dispatches,
+                    "waits": self._waits}
+
+
+_FAIR: "FairDispatchQueue | None" = None
+_FAIR_DEPTH = threading.local()
+DEFAULT_FAIR_SLOTS = 8
+
+
+def install_fair_dispatch(weight_fn=None, slots: int = 0) -> None:
+    """Arm per-tenant dispatch fairness (server open). ``weight_fn(tenant)
+    -> float`` is typically ``TenantRegistry.effective_weight``.
+    PILOSA_MESH_FAIR=0 vetoes (raw FIFO dispatch);
+    PILOSA_MESH_FAIR_SLOTS overrides the slot count."""
+    global _FAIR
+    if os.environ.get("PILOSA_MESH_FAIR", "") == "0":
+        _FAIR = None
+        return
+    if not slots:
+        try:
+            slots = int(os.environ.get("PILOSA_MESH_FAIR_SLOTS", "")
+                        or DEFAULT_FAIR_SLOTS)
+        except ValueError:
+            slots = DEFAULT_FAIR_SLOTS
+    _FAIR = FairDispatchQueue(slots, weight_fn)
+
+
+def uninstall_fair_dispatch() -> None:
+    global _FAIR
+    _FAIR = None
+
+
+def fair_dispatch_state() -> "dict | None":
+    q = _FAIR
+    return q.state() if q is not None else None
+
+
+@contextmanager
+def _fair_slot():
+    """Hold one fair slot for the dispatch. Reentrant per thread (an
+    entry that calls another holds one slot for both), and a straight
+    pass-through until install_fair_dispatch arms the queue."""
+    q = _FAIR
+    if q is None or getattr(_FAIR_DEPTH, "d", 0):
+        yield
+        return
+    ctx = sched_context.current()
+    tenant = (getattr(ctx, "tenant", "") or "") if ctx else ""
+    q.acquire(tenant or "default")
+    _FAIR_DEPTH.d = 1
+    try:
+        yield
+    finally:
+        _FAIR_DEPTH.d = 0
+        q.release()
+
+
 @contextmanager
 def _dispatch(kind: str, operands, timing: str = "launch+fetch", **tags):
     """The gate and the bookkeeping of one device dispatch (see the
     module docstring)."""
-    sched_context.check_current()
-    cost = _accounting.current_cost()
-    if cost is not None:
-        cost.note_device_dispatch(
-            sum(t.numel() * t.element_size() for t in operands))
-    with obs_trace.span_current("mesh_dispatch", kind=kind, timing=timing,
-                                **tags):
-        yield
+    with _fair_slot():
+        sched_context.check_current()
+        if _failpoints.ACTIVE is not None:
+            _failpoints.ACTIVE.hit("mesh.dispatch")
+        cost = _accounting.current_cost()
+        if cost is not None:
+            cost.note_device_dispatch(
+                sum(t.numel() * t.element_size() for t in operands))
+        with obs_trace.span_current("mesh_dispatch", kind=kind,
+                                    timing=timing, **tags):
+            yield
 
 
 def _fetch(t: torch.Tensor) -> list:

@@ -72,9 +72,22 @@ and histograms summed, gauges labeled by ``node``) and ``GET
 /debug/cluster`` every node's debug block with a version-skew verdict
 (``?local=1``: this node's block); an unreachable peer fails either with
 503 unless ``?partial=1``, which answers the rest and names the missing
-nodes in ``X-Pilosa-Partial-Nodes`` (obs.federate). The archive backup,
-resize, pod and web-console routes and workload capture wait for the
-slices that port them.
+nodes in ``X-Pilosa-Partial-Nodes`` (obs.federate).
+
+The operator surface (the JAX handler's, handler.py:337-411): ``/`` and
+``/assets/{file}`` serve the web console (server.webui); the seven
+``/debug/pprof*`` routes the host profiler (utils.profiling, and the
+continuous profiler's folded stacks at ``/debug/pprof/flame``);
+``/debug/blackbox`` and ``POST /debug/blackbox/dump`` the flight
+recorder with the watchdog's trip record; ``/debug/metrics/history``
+(``?scope=cluster`` through obs.federate) the on-disk metric history;
+``/debug/sentinel`` the regression sentinel; ``/debug/capture`` and
+``/debug/capture/records`` (``?since=``, ``?scope=cluster``) workload
+capture. Every successful coordinator query answers with
+``X-Pilosa-Result-Digest`` and, with capture on, appends one record
+(imports append one per ack). ``/import`` passes the process-wide apply
+gate (``pilosa_import_pipeline_depth``). The archive backup, tier,
+resize and pod routes wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -83,7 +96,10 @@ import contextlib
 import datetime as dt
 import io
 import json
+import math
+import os
 import re
+import threading
 import time
 from typing import Callable, Optional
 from urllib.parse import parse_qs
@@ -104,8 +120,10 @@ from ..fault import failpoints as fault_failpoints
 from ..models.frame import Field, FrameOptions
 from ..models.index import IndexOptions
 from ..obs import accounting as obs_accounting
+from ..obs import capture as obs_capture
 from ..obs import federate as obs_federate
 from ..obs import metrics as obs_metrics
+from ..obs import profile as obs_profile
 from ..obs import runtime as obs_runtime
 from ..obs import trace as obs_trace
 from ..parallel import residency
@@ -120,10 +138,11 @@ from ..storage import wal as storage_wal
 from ..storage.attrs import diff_blocks
 from ..storage.bitmap import Bitmap
 from ..utils import logger as logger_mod
+from ..utils import profiling
 from ..utils import timequantum as tq
 from ..utils.config import parse_duration
 from ..utils.streams import CappedReader
-from . import codec
+from . import codec, webui
 
 _PROTOBUF = "application/x-protobuf"
 
@@ -237,6 +256,17 @@ _STATUS_TEXT = {200: "OK", 400: "Bad Request",
                 507: "Insufficient Storage"}
 
 
+# Import apply lanes (the JAX handler's gate): how many /import handlers
+# may be in their apply stage at once, process-wide. The apply is mostly
+# GIL-holding Python and numpy, so unbounded concurrent applies convoy
+# on the GIL; decode, wire and WAL of other blocks overlap an apply, and
+# the gate never blocks them. ``pilosa_import_pipeline_depth`` counts
+# handlers in the stage (applying and gate-queued).
+_APPLY_LANES = max(1, int(os.environ.get(
+    "PILOSA_TPU_IMPORT_APPLY_LANES", "1") or 1))
+_APPLY_GATE = threading.BoundedSemaphore(_APPLY_LANES)
+
+
 class Handler:
     """Router + handlers over one holder and its executor (any object
     with ``execute(index, query, slices)``). ``host`` is the node's
@@ -250,7 +280,9 @@ class Handler:
                  tenants=None, cluster=None, broadcaster=None,
                  status_handler=None, sampler=None, scrubber=None,
                  repairer=None, client_factory=None, runtime=None,
-                 federator=None):
+                 federator=None, profiler=None, blackbox=None,
+                 watchdog=None, history=None, sentinel=None,
+                 tenant_slo=None, capture=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
@@ -294,6 +326,22 @@ class Handler:
         # handler keeps a peerless one).
         self.runtime = runtime
         self.federator = federator or obs_federate.Federator(host)
+        # The operator surface: the continuous profiler behind
+        # /debug/pprof/flame (the module default is not started, so a
+        # bare handler serves an empty ring), the flight recorder and
+        # the stall watchdog behind /debug/blackbox*, the metric history
+        # and the regression sentinel behind /debug/metrics/history and
+        # /debug/sentinel, the per-tenant SLO burn behind /debug/tenants,
+        # and workload capture behind /debug/capture* (None: a disabled
+        # status, nothing captured).
+        self.profiler = profiler if profiler is not None \
+            else obs_profile.get_profiler()
+        self.blackbox = blackbox
+        self.watchdog = watchdog
+        self.history = history
+        self.sentinel = sentinel
+        self.tenant_slo = tenant_slo
+        self.capture = capture
         # Readiness checks behind GET /health, built at the first probe.
         self._health = None
         # (method, regex, handler, admission lane)
@@ -313,6 +361,8 @@ class Handler:
     def _add_routes(self) -> None:
         # Route table (reference handler.go:82-120), one-node routes.
         r = self._route
+        r("GET", "/", self._handle_webui)
+        r("GET", "/assets/{file}", self._handle_asset)
         r("GET", "/index", self._handle_get_schema)
         r("GET", "/index/{index}", self._handle_get_index)
         r("POST", "/index/{index}", self._handle_post_index,
@@ -357,6 +407,21 @@ class Handler:
         r("GET", "/debug/traces/summary",
           self._handle_debug_traces_summary)
         r("GET", "/debug/traces/{qid}", self._handle_debug_trace)
+        r("GET", "/debug/blackbox", self._handle_debug_blackbox)
+        r("POST", "/debug/blackbox/dump",
+          self._handle_post_blackbox_dump)
+        r("GET", "/debug/capture", self._handle_debug_capture)
+        r("GET", "/debug/capture/records",
+          self._handle_debug_capture_records)
+        r("GET", "/debug/metrics/history", self._handle_metrics_history)
+        r("GET", "/debug/sentinel", self._handle_debug_sentinel)
+        r("GET", "/debug/pprof", self._handle_pprof_index)
+        r("GET", "/debug/pprof/", self._handle_pprof_index)
+        r("GET", "/debug/pprof/profile", self._handle_pprof_profile)
+        r("GET", "/debug/pprof/threads", self._handle_pprof_threads)
+        r("GET", "/debug/pprof/heap", self._handle_pprof_heap)
+        r("POST", "/debug/pprof/heap", self._handle_pprof_heap_post)
+        r("GET", "/debug/pprof/flame", self._handle_pprof_flame)
         r("GET", "/debug/vars", self._handle_expvar)
         r("GET", "/debug/plans", self._handle_debug_plans)
         r("GET", "/metrics", self._handle_metrics)
@@ -441,6 +506,18 @@ class Handler:
 
     # -- meta ----------------------------------------------------------------
 
+    def _handle_webui(self, req: Request) -> Response:
+        # The embedded console (reference webui/, handler.go:132-145).
+        return Response(200, webui.page_bytes(), "text/html; charset=utf-8")
+
+    def _handle_asset(self, req: Request) -> Response:
+        # Its static assets (reference handler.go:84 /assets/{file}).
+        got = webui.asset(req.vars["file"])
+        if got is None:
+            raise HTTPError(404, "asset not found")
+        body, ctype = got
+        return Response(200, body, ctype)
+
     def _handle_get_version(self, req: Request) -> Response:
         return Response.json({"version": self.version})
 
@@ -484,6 +561,8 @@ class Handler:
             out["warmup"] = self.warmup.to_json()
         if self.runtime is not None:
             out["runtime"] = self.runtime.snapshot()
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.snapshot()
         return Response.json(out)
 
     def _handle_get_schema(self, req: Request) -> Response:
@@ -861,12 +940,17 @@ class Handler:
                 if remote:
                     hs.append((obs_accounting.COST_HEADER,
                                ctx.cost.wire_json(dict(ctx.stages))))
+            if ctx.result_digest:
+                # The canonical result digest (obs.capture), set at query
+                # end on success only.
+                hs.append((obs_capture.DIGEST_HEADER, ctx.result_digest))
             return hs
 
         # Register BEFORE admission so a queued query is visible at
         # /debug/queries and cancellable while it waits.
         slot = None
         err: Optional[BaseException] = None
+        results = None
         # Degraded reads (?partial=1): slices with no reachable replica
         # are skipped and reported in X-Pilosa-Partial instead of
         # failing the whole query. Coordinator-only: a forwarded leg
@@ -945,7 +1029,8 @@ class Handler:
             self._finish_query(ctx, err, trace, call_label, query_str,
                                req.query.get("trace") == "1",
                                trace_requested and remote,
-                               partial=bool(exec_opt.missing_slices))
+                               partial=bool(exec_opt.missing_slices),
+                               results=results, req=req)
 
         # Optional column-attribute join (handler.go:208-227).
         attr_sets = []
@@ -1003,12 +1088,14 @@ class Handler:
     def _finish_query(self, ctx, err, trace, call_label: str,
                       query_str: str, trace_asked: bool,
                       remote_asked: bool = False,
-                      partial: bool = False) -> None:
+                      partial: bool = False, results=None,
+                      req: Optional[Request] = None) -> None:
         """Query end: the keep decision (the tail sampler's, or an
         explicit ask: the tracer on, ``?trace=1``, a coordinator-asked
-        leg when no sampler runs here), feed the plan store, finish the
-        registry entry, and record the latency, outcome and chargeback
-        metrics — for every outcome, 429/504/409 included."""
+        leg when no sampler runs here), feed the plan store, the result
+        digest and the capture record, finish the registry entry, and
+        record the latency, outcome and chargeback metrics — for every
+        outcome, 429/504/409 included."""
         status = self._status_of(err)
         if trace is not None:
             if ctx.cost is not None:
@@ -1057,6 +1144,34 @@ class Handler:
             self.executor.plan_store.record(
                 ctx.plan.fingerprint, ctx.plan.to_tree, ctx.elapsed(),
                 pql=query_str, est_rows=est, actual_rows=actual)
+        # The canonical result digest (obs.capture): the value of
+        # X-Pilosa-Result-Digest and the shadow diff's comparison key.
+        # Coordinator only (a leg's partial results are not an answer)
+        # and success only.
+        if err is None and not ctx.remote and results is not None:
+            try:
+                ctx.result_digest = obs_capture.result_digest(
+                    [codec.result_to_json(r) for r in results])
+            except Exception:  # noqa: BLE001 - observability only
+                pass
+        # Workload capture: the replayable record, appended before the
+        # registry's finish so the slow-log entry links the capture id.
+        cap = self.capture
+        if (cap is not None and cap.enabled and not ctx.remote
+                and cap.should_capture(ctx.lane)):
+            opts = {}
+            query = req.query if req is not None else {}
+            if query.get("timeout"):
+                opts["timeout"] = query["timeout"]
+            if query.get("partial") == "1":
+                opts["partial"] = True
+            ctx.capture_id = cap.add(
+                "query", query_str, ctx.index, ctx.tenant, ctx.lane,
+                ctx.id, status, ctx.elapsed(), digest=ctx.result_digest,
+                plan=(ctx.plan.fingerprint if ctx.plan is not None
+                      else ""),
+                opts=opts or None, wall=ctx.started_wall,
+                mono=ctx.started)
         self.registry.finish(ctx, error=err)
         labels = (call_label, ctx.lane, str(status))
         # The latency observation carries the query id as an
@@ -1081,6 +1196,215 @@ class Handler:
                 if amount:
                     obs_metrics.TENANT_COST_UNITS.labels(
                         tlabel, resource).inc(amount)
+
+    # -- profiling (reference handler.go:30,99 mounts net/http/pprof) --------
+
+    def _handle_pprof_index(self, req: Request) -> Response:
+        return Response(
+            200, b"profile: sampled CPU profile (?seconds=N, default 5)\n"
+                 b"threads: stack dump of all live threads\n"
+                 b"flame: continuous-profiler folded stacks"
+                 b" (?query=<id> filters to one query;"
+                 b" speedscope/flamegraph.pl-loadable)\n"
+                 b"heap: tracemalloc allocation sites (?n=N, default"
+                 b" 30); GET is read-only, POST ?op=start|stop"
+                 b" arms/disarms\n",
+            "text/plain; charset=utf-8")
+
+    def _handle_pprof_heap(self, req: Request) -> Response:
+        """Read-only heap report; arming and disarming tracemalloc
+        mutate interpreter-wide state, so they live on POST."""
+        try:
+            top_n = int(req.query.get("n", "30"))
+        except ValueError:
+            raise HTTPError(400, "invalid n")
+        return Response(200, profiling.heap_report(
+            max(1, min(top_n, 500))).encode(), "text/plain; charset=utf-8")
+
+    def _handle_pprof_heap_post(self, req: Request) -> Response:
+        """Arm or disarm tracemalloc: POST ?op=start | ?op=stop."""
+        op = req.query.get("op", "start")
+        if op == "start":
+            body = profiling.heap_start()
+        elif op == "stop":
+            body = profiling.heap_stop()
+        else:
+            raise HTTPError(400, f"invalid op: {op} (start|stop)")
+        return Response(200, body.encode(), "text/plain; charset=utf-8")
+
+    def _handle_pprof_flame(self, req: Request) -> Response:
+        """Continuous-profiler export: collapsed stacks over the bounded
+        sample ring; ``?query=<id>`` keeps the samples tagged with that
+        query, ``?since=<dur>`` the recent ones."""
+        since_s = 0.0
+        if req.query.get("since"):
+            try:
+                since_s = parse_duration(req.query["since"])
+            except ValueError:
+                raise HTTPError(400, "invalid since")
+        body = self.profiler.flame(query=req.query.get("query", ""),
+                                   since_s=since_s)
+        return Response(200, body.encode(), "text/plain; charset=utf-8")
+
+    def _handle_pprof_profile(self, req: Request) -> Response:
+        try:
+            seconds = float(req.query.get("seconds", "5"))
+        except ValueError:
+            raise HTTPError(400, "invalid seconds")
+        if not math.isfinite(seconds):
+            raise HTTPError(400, "invalid seconds")
+        seconds = min(max(seconds, 0.1), 120.0)
+        return Response(200, profiling.sample_profile(seconds).encode(),
+                        "text/plain; charset=utf-8")
+
+    def _handle_pprof_threads(self, req: Request) -> Response:
+        return Response(200, profiling.thread_dump().encode(),
+                        "text/plain; charset=utf-8")
+
+    # -- the flight recorder, history, sentinel and capture ------------------
+
+    def _handle_debug_blackbox(self, req: Request) -> Response:
+        """Flight-recorder state: ring and dump stats, the most recent
+        snapshots (``?limit=N``, default 8) and the watchdog's trip
+        record."""
+        try:
+            limit = max(0, int(req.query.get("limit", "8")))
+        except ValueError:
+            raise HTTPError(400, "invalid limit")
+        out: dict = {"enabled": self.blackbox is not None}
+        if self.blackbox is not None:
+            out.update(self.blackbox.stats())
+            snaps = []
+            if limit:
+                for rec in self.blackbox.ring.scan():
+                    snaps.append(rec)
+                    if len(snaps) >= limit:
+                        break
+            out["recent"] = snaps
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.snapshot()
+        return Response.json(out)
+
+    def _handle_post_blackbox_dump(self, req: Request) -> Response:
+        """Force a full flight-recorder dump (cause ``api``)."""
+        if self.blackbox is None:
+            raise HTTPError(404, "no blackbox recorder")
+        path = self.blackbox.dump("api")
+        if path is None:
+            raise HTTPError(500, "blackbox dump failed")
+        return Response.json({"dumped": path})
+
+    def _handle_metrics_history(self, req: Request) -> Response:
+        """The on-disk metric history as JSON series: ``?family=``
+        selects a family (and its derived ``:p50``/``:p99``/``:rate``
+        forms), ``?label=k=v[,k=v]`` filters, ``?window=``/``?step=``
+        pick the trailing window and resolution hint; ``?scope=cluster``
+        asks every node and attributes each series to its node."""
+        family = req.query.get("family", "")
+        window_s, step_s = 3600.0, 0.0
+        try:
+            if req.query.get("window"):
+                window_s = parse_duration(req.query["window"])
+            if req.query.get("step"):
+                step_s = parse_duration(req.query["step"])
+        except ValueError:
+            raise HTTPError(400, "invalid window/step")
+        label_filter: dict = {}
+        for pair in (req.query.get("label") or "").split(","):
+            if not pair:
+                continue
+            k, sep, v = pair.partition("=")
+            if not sep:
+                raise HTTPError(400, f"invalid label filter: {pair!r}")
+            label_filter[k] = v
+
+        def local() -> dict:
+            if self.history is None:
+                return {"family": family, "series": [],
+                        "enabled": False}
+            return self.history.series(
+                family, label_filter or None, window_s, step_s)
+
+        if req.query.get("scope") != "cluster":
+            out = local()
+            out.setdefault("enabled", self.history is not None)
+            return Response.json(out)
+        fed = self.federator
+
+        def fetch(host: str) -> dict:
+            return fed.client_for(host).metrics_history(
+                family=family, label=req.query.get("label", ""),
+                window=req.query.get("window", ""),
+                step=req.query.get("step", ""), host=host,
+                deadline_s=fed.peer_timeout_s)
+
+        results, missing = fed.fan_out(fetch, local)
+        headers: list = []
+        self._partial_or_503(req, missing, headers)
+        series = []
+        for host in sorted(results):
+            for s in results[host].get("series") or []:
+                series.append({**s, "node": host})
+        return Response.json(
+            {"family": family, "scope": "cluster",
+             "windowS": window_s, "missing": missing,
+             "series": series},
+            headers=headers)
+
+    def _handle_debug_sentinel(self, req: Request) -> Response:
+        """The regression sentinel's recent findings, active conditions
+        and rule thresholds."""
+        out: dict = {"enabled": self.sentinel is not None}
+        if self.sentinel is not None:
+            out.update(self.sentinel.snapshot())
+        return Response.json(out)
+
+    def _handle_debug_capture(self, req: Request) -> Response:
+        """Workload-capture status: mode, sampling, redaction, cursor
+        and the ring's byte accounting (disabled without a store)."""
+        cap = self.capture
+        if cap is None:
+            return Response.json({"enabled": False, "mode": "off"})
+        out = cap.status()
+        out["enabled"] = cap.enabled
+        return Response.json(out)
+
+    def _handle_debug_capture_records(self, req: Request) -> Response:
+        """Paged capture export: ``?since=<seq>`` (exclusive cursor) and
+        ``?limit=`` page the local ring oldest-first, ``next`` is the
+        next page's cursor; ``?scope=cluster`` merges every node's
+        stream by arrival wall-clock (obs.capture.merge_streams)."""
+        try:
+            since = int(req.query.get("since", "0"))
+            limit = int(req.query.get("limit", "500"))
+        except ValueError:
+            raise HTTPError(400, "invalid since/limit")
+
+        def local() -> dict:
+            cap = self.capture
+            recs = cap.export(since=since, limit=limit) \
+                if cap is not None else []
+            return {"node": self.host, "records": recs,
+                    "next": recs[-1]["seq"] if recs else since}
+
+        if req.query.get("scope") != "cluster":
+            return Response.json(local())
+        fed = self.federator
+
+        def fetch(host: str) -> dict:
+            return fed.client_for(host).capture_records(
+                since=since, limit=limit, host=host,
+                deadline_s=fed.peer_timeout_s)
+
+        results, missing = fed.fan_out(fetch, local)
+        headers: list = []
+        self._partial_or_503(req, missing, headers)
+        merged = obs_capture.merge_streams(
+            [r.get("records") or [] for r in results.values()])
+        return Response.json(
+            {"scope": "cluster", "records": merged,
+             "nodes": sorted(results), "missing": missing},
+            headers=headers)
 
     # -- lifecycle and observability routes -----------------------------------
 
@@ -1134,6 +1458,13 @@ class Handler:
                     r["inPenaltyBox"] = score > 0.0
                     r.setdefault("killed", 0)
                     r.setdefault("shed", 0)
+        usage_fn = getattr(self.executor, "tenant_cache_usage", None)
+        if callable(usage_fn):
+            for name, snap in usage_fn().items():
+                row(name)["cache"] = snap
+        if self.tenant_slo is not None:
+            for name, snap in self.tenant_slo.last().items():
+                row(name)["slo"] = snap
         return Response.json({
             "tenants": rows,
             "writeReady": fault_diskfull.default().snapshot(),
@@ -1391,6 +1722,17 @@ class Handler:
                     obs_metrics.TENANT_INFLIGHT.labels(t).set(0)
             for tenant, n in now.items():
                 obs_metrics.TENANT_INFLIGHT.labels(tenant).set(n)
+        usage_fn = getattr(self.executor, "tenant_cache_usage", None)
+        if callable(usage_fn):
+            usage = usage_fn()
+            for labels, _child in \
+                    obs_metrics.TENANT_CACHE_BYTES._label_dicts():
+                t = labels.get("tenant", "")
+                if t and t not in usage:
+                    obs_metrics.TENANT_CACHE_BYTES.labels(t).set(0)
+            for tenant, ent in usage.items():
+                obs_metrics.TENANT_CACHE_BYTES.labels(tenant).set(
+                    ent.get("bytes", 0))
         obs_runtime.roaring_ops_sample()
         obs_runtime.residency_sample()
 
@@ -1431,18 +1773,22 @@ class Handler:
                 and req.accept == rawimport.CONTENT_TYPE):
             raise HTTPError(406, "Not acceptable")
         positions = None
+        body = req.body()
+        decode_t0 = time.perf_counter()
         if req.content_type == rawimport.CONTENT_TYPE:
             try:
                 (index_name, frame_name, slice, rows, cols,
-                 ts_ns, positions) = rawimport.decode(req.body())
+                 ts_ns, positions) = rawimport.decode(body)
             except ValueError as e:
                 raise HTTPError(400, str(e))
         else:
-            ireq = pb.ImportRequest.FromString(req.body())
+            ireq = pb.ImportRequest.FromString(body)
             index_name, frame_name, slice = \
                 ireq.Index, ireq.Frame, ireq.Slice
             rows, cols = ireq.RowIDs, ireq.ColumnIDs
             ts_ns = ireq.Timestamps if len(ireq.Timestamps) else None
+        decode_s = time.perf_counter() - decode_t0
+        obs_metrics.IMPORT_STAGE_SECONDS.labels("decode").observe(decode_s)
         if positions is not None:
             # The positions form: sorted-unique is the client's
             # contract, held with one vectorised pass.
@@ -1474,25 +1820,53 @@ class Handler:
             rows = positions // w
             cols = np.uint64(slice) * w + positions % w
             positions = None
-        if positions is not None:
-            # A writable copy: the decoded array is a view of the
-            # request body.
-            frame.import_slice_positions(slice, np.array(positions))
-        else:
-            frame.import_bits(rows, cols, timestamps)
+        n_bits = len(positions) if positions is not None else len(rows)
+        apply_t0 = time.perf_counter()
+        # Pipeline depth: /import handlers in their apply stage (> 1:
+        # a later block's decode overlapped this apply).
+        obs_metrics.IMPORT_PIPELINE_DEPTH.inc()
+        try:
+            with _APPLY_GATE:
+                if positions is not None:
+                    # A writable copy: the decoded array is a view of
+                    # the request body.
+                    frame.import_slice_positions(slice,
+                                                 np.array(positions))
+                else:
+                    frame.import_bits(rows, cols, timestamps)
+        finally:
+            obs_metrics.IMPORT_PIPELINE_DEPTH.inc(-1)
+        apply_s = time.perf_counter() - apply_t0
+        obs_metrics.IMPORT_STAGE_SECONDS.labels("apply").observe(apply_s)
         # Commit barrier before the 200: the import lanes barrier their
         # own fragment's WAL; this covers every fragment the request
         # touched (time views and the inverse transpose included),
         # coalesced with concurrent imports' barriers.
         storage_wal.barrier_all()
-        obs_metrics.IMPORT_BITS.labels("bits").inc(
-            len(positions) if positions is not None else len(rows))
-        # The ack carries the written slice's fresh generation tokens:
-        # an importing coordinator's cached results for it invalidate
-        # on the ack itself.
+        obs_metrics.IMPORT_BITS.labels("bits").inc(n_bits)
+        # Workload capture: an import ack is a state mutation a replay
+        # must know of, so it records in every mode but off.
+        cap = self.capture
+        if cap is not None and cap.enabled \
+                and cap.should_capture(LANE_WRITE):
+            tenant = (req.environ.get("HTTP_X_PILOSA_TENANT", "")
+                      or index_name)
+            cap.add("import", "", index_name, tenant, LANE_WRITE, "",
+                    200, decode_s + apply_s, bits=n_bits,
+                    slice=int(slice), frame=frame_name)
+        # The decode and apply times and the wire and bit volumes ride
+        # the answer; so do the written slice's fresh generation tokens,
+        # which invalidate an importing coordinator's cached results on
+        # the ack itself.
+        hs = [(obs_accounting.STATS_HEADER, json.dumps(
+            {"decodeMs": round(decode_s * 1e3, 3),
+             "applyMs": round(apply_s * 1e3, 3),
+             "wireBytes": len(body), "bits": n_bits},
+            separators=(",", ":")))]
         gh = self._generations_header(index_name, [slice])
-        return Response.proto(pb.ImportResponse(),
-                              headers=[gh] if gh is not None else [])
+        if gh is not None:
+            hs.append(gh)
+        return Response.proto(pb.ImportResponse(), headers=hs)
 
     # -- cluster: ownership, fragment sync, generations, messages ------------
 

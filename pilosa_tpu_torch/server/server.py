@@ -76,7 +76,23 @@ holder, residency and thread gauges every ``runtime_interval`` and feeds
 ``/status``; the federator (obs.federate, bounded by ``[metrics]
 federate-timeout`` and ``federate-fanout``) serves ``/metrics/cluster``
 and ``/debug/cluster`` from this node's ``local_debug_state`` and its
-peers'. Resize, tiering and backup wait for the slices that port them.
+peers'.
+
+The operator surface (the JAX server's open, server.py:378-675), each
+section a config object: the continuous profiler (``profile_config``,
+started at open when ``continuous``), the SLO burn trackers
+(``slo_config``; with metrics on), the on-disk metric history under
+``<data>/history`` (``history_config``; sampled on the runtime
+collector's tick), the flight recorder under ``<data>/blackbox``
+(``blackbox_config``; its SIGTERM and thread-excepthook dump triggers
+are installed once per process), the stall watchdog
+(``watchdog_config``; its resize, tier and backup inputs are None, as in
+a JAX server that runs none of them), the regression sentinel
+(``sentinel_config``; a manifest only from ``[sentinel] manifest``),
+workload capture under ``<data>/capture`` (``capture_config``) and the
+fair dispatch queue below admission (parallel.mesh, installed at open
+with the tenants' effective weights). Resize, tiering and backup wait
+for the slices that port them.
 """
 
 from __future__ import annotations
@@ -105,13 +121,21 @@ from ..models.holder import Holder
 from ..models.index import IndexOptions
 from ..models.view import VIEW_INVERSE
 from ..obs import accounting as obs_accounting
+from ..obs import blackbox as obs_blackbox
 from ..obs import metrics as obs_metrics
+from ..obs.capture import CaptureStore
 from ..obs.diskring import SegmentRing
 from ..obs.federate import Federator
+from ..obs.history import MetricHistory
 from ..obs.metrics import RegistryStatsClient, default_registry
+from ..obs.profile import ContinuousProfiler
 from ..obs.runtime import RuntimeCollector, build_info
 from ..obs.sampler import TailSampler
+from ..obs.sentinel import Sentinel
+from ..obs.slo import SLOTracker, TenantSLOTracker
 from ..obs.trace import Tracer
+from ..obs.watchdog import Watchdog
+from ..parallel import mesh as mesh_mod
 from ..pql import parser as pql
 from ..pql.ast import Query
 from ..sched import (LANE_READ, LANE_WRITE, AdmissionController,
@@ -123,9 +147,13 @@ from ..storage.scrub import Scrubber
 from ..utils import logger as logger_mod
 from ..proto import internal as pb
 from ..utils.config import (DEFAULT_ANTI_ENTROPY_INTERVAL,
-                            DEFAULT_POLLING_INTERVAL, FaultConfig,
-                            MetricsConfig, QueryConfig, ScrubConfig,
-                            TenantsConfig, TraceConfig)
+                            DEFAULT_POLLING_INTERVAL, BlackboxConfig,
+                            CaptureConfig, FaultConfig, HistoryConfig,
+                            MetricsConfig, ProfileConfig, QueryConfig,
+                            ScrubConfig, SentinelConfig, SLOConfig,
+                            TenantsConfig, TraceConfig, WatchdogConfig,
+                            parse_resolutions)
+from ..utils.profiling import thread_dump
 from ..utils.stats import ExpvarStatsClient, MultiStatsClient
 from . import codec
 from .handler import Handler, _local_status
@@ -152,7 +180,14 @@ class Server:
                  = DEFAULT_ANTI_ENTROPY_INTERVAL,
                  scrub_config: Optional[ScrubConfig] = None,
                  metrics_config: Optional[MetricsConfig] = None,
-                 fault_config: Optional[FaultConfig] = None):
+                 fault_config: Optional[FaultConfig] = None,
+                 profile_config: Optional[ProfileConfig] = None,
+                 slo_config: Optional[SLOConfig] = None,
+                 blackbox_config: Optional[BlackboxConfig] = None,
+                 watchdog_config: Optional[WatchdogConfig] = None,
+                 history_config: Optional[HistoryConfig] = None,
+                 sentinel_config: Optional[SentinelConfig] = None,
+                 capture_config: Optional[CaptureConfig] = None):
         self.data_dir = data_dir
         self.host = host
         # Placement: the static cluster, or (None) this node alone,
@@ -219,6 +254,32 @@ class Server:
         # /metrics/cluster and /debug/cluster (obs.federate).
         self.runtime: Optional[RuntimeCollector] = None
         self.federator: Optional[Federator] = None
+        # The operator surface (module docstring): the continuous
+        # profiler and the SLO trackers are built here, the disk-backed
+        # parts (history, blackbox, capture) and the loops over them
+        # (watchdog, sentinel) in open().
+        self.profile_config = profile_config or ProfileConfig()
+        self.profiler = ContinuousProfiler(
+            hz=self.profile_config.hz, ring=self.profile_config.ring)
+        self.slo_config = slo_config or SLOConfig()
+        self.slo: Optional[SLOTracker] = None
+        self.tenant_slo: Optional[TenantSLOTracker] = None
+        if self.metrics_config.enabled:
+            self.slo = SLOTracker(objective_s=self.slo_config.objective,
+                                  target=self.slo_config.target)
+            self.tenant_slo = TenantSLOTracker(
+                objective_s=self.slo_config.objective,
+                target=self.slo_config.target)
+        self.blackbox_config = blackbox_config or BlackboxConfig()
+        self.watchdog_config = watchdog_config or WatchdogConfig()
+        self.history_config = history_config or HistoryConfig()
+        self.sentinel_config = sentinel_config or SentinelConfig()
+        self.capture_config = capture_config or CaptureConfig()
+        self.blackbox: Optional[obs_blackbox.Blackbox] = None
+        self.watchdog: Optional[Watchdog] = None
+        self.history: Optional[MetricHistory] = None
+        self.sentinel: Optional[Sentinel] = None
+        self.capture: Optional[CaptureStore] = None
 
     # -- lifecycle (server.go:89-180) ----------------------------------------
 
@@ -292,16 +353,27 @@ class Server:
                     client_factory=self._client_factory, fault=self.fault,
                     rescan_s=self.scrub_config.repair_rescan,
                     logger=self.logger)
+            hc = self.history_config
+            if self.metrics_config.enabled and hc.enabled:
+                self.history = MetricHistory(
+                    os.path.join(self.holder.path, "history"),
+                    resolutions=parse_resolutions(hc.resolutions),
+                    max_series=hc.max_series,
+                    segment_bytes=hc.segment_bytes,
+                    max_segments=hc.segments)
             if self.metrics_config.enabled:
                 self.runtime = RuntimeCollector(
                     holder=self.holder, executor=self.executor,
                     admission=self.admission,
-                    interval_s=self.metrics_config.runtime_interval)
+                    interval_s=self.metrics_config.runtime_interval,
+                    slo=self.slo, tenant_slo=self.tenant_slo,
+                    profiler=self.profiler, history=self.history)
             self.federator = Federator(
                 self.host, cluster=self.cluster,
                 client_for=self.client_for,
                 peer_timeout_s=self.metrics_config.federate_timeout,
                 fanout=self.metrics_config.federate_fanout)
+            self._open_operator_surface()
             self.handler = Handler(
                 self.holder, self.executor, host=self.host,
                 logger=self.logger, admission=self.admission,
@@ -313,11 +385,16 @@ class Server:
                 scrubber=self.scrubber, repairer=self.repairer,
                 accounting=self.metrics_config.accounting,
                 client_factory=self._client_factory,
-                runtime=self.runtime, federator=self.federator)
+                runtime=self.runtime, federator=self.federator,
+                profiler=self.profiler, blackbox=self.blackbox,
+                watchdog=self.watchdog, history=self.history,
+                sentinel=self.sentinel, tenant_slo=self.tenant_slo,
+                capture=self.capture)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
         except BaseException:
+            self._close_operator_surface()
             self.holder.close()  # a port in use, an unreadable index
             self.holder = None
             raise
@@ -343,6 +420,11 @@ class Server:
             if self.repairer is not None:
                 # Its self-identity picks the in-process stream target.
                 self.repairer.host = self.host
+            # Capture records and blackbox snapshots name the serving
+            # node; merged multi-node exports disambiguate on it.
+            self.capture.node = self.host
+            if self.blackbox is not None:
+                self.blackbox.node = self.host
         if self.cluster_type == "http":
             self.broadcaster = HTTPBroadcaster(self)
         elif self.cluster_type == "gossip":
@@ -361,6 +443,8 @@ class Server:
             self.warmup.start()
         if self.runtime is not None:
             self.runtime.start()
+        if self.profile_config.continuous:
+            self.profiler.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="httpd")
         self._thread.start()
@@ -391,11 +475,144 @@ class Server:
                                      daemon=True, name=name)
                 t.start()
                 self._loops.append(t)
+        # Device-queue fairness below admission: dispatch slots stride
+        # over the same penalty-boxed tenant weights admission uses.
+        mesh_mod.install_fair_dispatch(self.tenants.effective_weight)
         self.logger.printf("listening as http://%s on %s", self.host,
                            device)
 
+    def _open_operator_surface(self) -> None:
+        """The flight recorder, the watchdog, the sentinel and the
+        capture store, in the JAX server's order (its history and the
+        runtime collector's hooks come before)."""
+        bc = self.blackbox_config
+        if bc.enabled:
+            self.blackbox = obs_blackbox.Blackbox(
+                os.path.join(self.holder.path, "blackbox"),
+                state_fn=self._blackbox_state, interval_s=bc.interval,
+                segment_bytes=bc.segment_bytes, max_segments=bc.segments,
+                max_dumps=bc.dumps, node=self.host, logger=self.logger)
+            self.blackbox.start()
+            obs_blackbox.install_process_hooks()
+        wc = self.watchdog_config
+        if wc.enabled:
+            self.watchdog = Watchdog(
+                registry=self.query_registry, admission=self.admission,
+                tracer=self.tracer, sampler=self.sampler,
+                blackbox=self.blackbox, gossip_age_fn=self._gossip_age,
+                resize_progress_fn=None, backup_progress_fn=None,
+                scrub_progress_fn=(self.scrubber.stall_age
+                                   if self.scrubber is not None
+                                   else None),
+                tier_progress_fn=None,
+                interval_s=wc.interval, wal_stall_s=wc.wal_stall,
+                deadline_grace_s=wc.deadline_grace,
+                gossip_silence_s=wc.gossip_silence,
+                queue_stall_s=wc.queue_stall,
+                resize_stall_s=wc.resize_stall,
+                scrub_stall_s=wc.scrub_stall, tier_stall_s=wc.tier_stall,
+                backup_stall_s=wc.backup_stall, retrip_s=wc.retrip,
+                logger=self.logger)
+            self.watchdog.start()
+        sc = self.sentinel_config
+        if sc.enabled and self.history is not None:
+            self.sentinel = Sentinel(
+                self.history, registry=self.query_registry,
+                tracer=self.tracer, sampler=self.sampler,
+                blackbox=self.blackbox, interval_s=sc.interval,
+                window_s=sc.window, baseline_s=sc.baseline,
+                zscore=sc.zscore, min_points=sc.min_points,
+                min_ratio=sc.min_ratio, retrip_s=sc.retrip,
+                manifest_path=sc.manifest,
+                manifest_tolerance=sc.manifest_tolerance,
+                logger=self.logger)
+            self.sentinel.start()
+        cc = self.capture_config
+        self.capture = CaptureStore(
+            os.path.join(self.holder.path, "capture"), mode=cc.mode,
+            sample_n=cc.sample_n, segment_bytes=cc.segment_bytes,
+            max_segments=cc.segments,
+            redact_tenants={t.strip() for t in cc.redact.split(",")
+                            if t.strip()},
+            node=self.host)
+
+    def _close_operator_surface(self) -> None:
+        """Stop what _open_operator_surface started and close the
+        metric history (idempotent; the runtime collector, which samples
+        the history, stops first)."""
+        if self.sentinel is not None:
+            self.sentinel.stop()
+            self.sentinel = None
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
+        if self.blackbox is not None:
+            self.blackbox.stop()
+            self.blackbox = None
+        if self.capture is not None:
+            self.capture.close()
+            self.capture = None
+        if self.history is not None:
+            self.history.close()
+            self.history = None
+
+    def _gossip_age(self) -> Optional[float]:
+        """Seconds of membership silence for the watchdog, or None
+        when not observable (static membership, a single node)."""
+        ns = self.cluster.node_set if self.cluster is not None else None
+        if ns is None or not hasattr(ns, "last_activity_age"):
+            return None
+        return ns.last_activity_age()
+
+    def _blackbox_state(self) -> dict:
+        """One whole-system snapshot for the flight recorder: queues,
+        breakers, generation knowledge, the WAL dirty set and flusher
+        heartbeat, the runtime sample, recent slow queries, the
+        integrity state and a thread dump (the JAX server's blocks; its
+        resize block holds the epoch alone, and tier and backup have
+        none)."""
+        out: dict = {"host": self.host,
+                     "admission": self.admission.snapshot(),
+                     "wal": storage_wal.flusher_health()}
+        if self.fault is not None:
+            out["fault"] = self.fault.snapshot()
+        out["generations"] = self.gens.snapshot()
+        reg = self.query_registry
+        out["queries"] = {"active": reg.active()[:32],
+                          "slow": reg.slow_queries()[-8:]}
+        if self.runtime is not None:
+            out["runtime"] = self.runtime.snapshot()
+        if self.executor is not None:
+            out["executor"] = {
+                "deviceFallbacks": getattr(self.executor,
+                                           "device_fallbacks", 0),
+                "costModelVetoes": getattr(self.executor,
+                                           "cost_vetoes", 0)}
+            planner = getattr(self.executor, "planner", None)
+            if planner is not None:
+                out["planner"] = planner.snapshot()
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.snapshot()
+        rs = self.cluster.resize
+        out["resize"] = {"epoch": self.cluster.epoch,
+                         "inFlight": rs.to_wire() if rs is not None
+                         else None}
+        integrity: dict = {
+            "quarantined": self.holder.quarantine.entries()[:32]}
+        if self.scrubber is not None:
+            integrity["scrub"] = self.scrubber.state()
+        if self.repairer is not None:
+            integrity["repair"] = self.repairer.state()
+        out["integrity"] = integrity
+        try:
+            out["threads"] = thread_dump()[:20000]
+        except Exception:  # noqa: BLE001 - interpreter-internal API
+            pass
+        return out
+
     def close(self) -> None:
         self._closing.set()
+        mesh_mod.uninstall_fair_dispatch()
         if self.warmup is not None:
             self.warmup.stop()
             self.warmup.wait(60)
@@ -416,8 +633,10 @@ class Server:
             self.repairer.stop()
         if self.scrubber is not None:
             self.scrubber.stop()
+        self._close_operator_surface()
         if self.sampler is not None and self.sampler.disk is not None:
             self.sampler.disk.close()
+        self.profiler.stop()
         if self.executor is not None:
             self.executor.close()
         with self._clients_mu:

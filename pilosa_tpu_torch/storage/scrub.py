@@ -159,8 +159,10 @@ class Scrubber:
         # IO) and the first finisher would blank _pass_started while
         # the other still runs.
         self._pass_mu = threading.Lock()
-        # Pass progress (/debug/integrity reads state()).
+        # Pass progress (/debug/integrity reads state(), the watchdog's
+        # scrub_stall detector stall_age()).
         self._pass_started: Optional[float] = None
+        self._last_progress = 0.0
         self._passes = 0
         self._fragments_scrubbed = 0
         self._blocks_verified = 0
@@ -212,6 +214,7 @@ class Scrubber:
         t0 = time.monotonic()
         with self._mu:
             self._pass_started = t0
+            self._last_progress = t0
         scrubbed = blocks = corrupt = 0
         try:
             for frag in self.holder.iter_fragments():
@@ -242,6 +245,8 @@ class Scrubber:
                             cb(frag)
                         except Exception:  # noqa: BLE001 - advisory
                             pass
+                with self._mu:
+                    self._last_progress = time.monotonic()
                 if self.pace_s:
                     # Pacing: serving traffic owns the disk; the scrub
                     # breathes between fragments.
@@ -261,6 +266,14 @@ class Scrubber:
                 "corrupt": corrupt, "seconds": round(now - t0, 3)}
 
     # -- exposition ----------------------------------------------------------
+
+    def stall_age(self) -> Optional[float]:
+        """Seconds since an in-flight pass last made progress, or None
+        when no pass is running (the watchdog's scrub_stall input)."""
+        with self._mu:
+            if self._pass_started is None:
+                return None
+            return time.monotonic() - self._last_progress
 
     def state(self) -> dict:
         with self._mu:

@@ -42,9 +42,11 @@ trims to the last complete record — never past an acked one.
 The leader flush carries the ``wal.append`` failpoint (fault.failpoints:
 a torn batch, an injected error or ENOSPC), and a leader write that
 fails with ENOSPC flips the node write-unready (fault.diskfull) while a
-successful one clears it. Left out of the copy: the WAL archive sink
-(backup), the flusher health report and the WAL metrics. None of them
-changes what is durable or when.
+successful one clears it. Each leader flush feeds the JAX package's
+three WAL families (``pilosa_wal_group_commit_batch_size``,
+``pilosa_wal_group_commit_flush_seconds``, ``pilosa_wal_fsync_calls_total``).
+Left out of the copy: the WAL archive sink (backup), which changes
+nothing of what is durable or when.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from typing import Optional
 
 from ..fault import diskfull as _diskfull
 from ..fault import failpoints as _fp
+from ..obs import metrics as obs_metrics
 
 OP_SIZE = 13  # one op record (storage.roaring.OP_SIZE; kept in sync)
 
@@ -196,6 +199,7 @@ class GroupCommitWal:
             file = self._file
         err: Optional[BaseException] = None
         recovered = False
+        ft0 = time.perf_counter()
         try:
             if batch:
                 if _fp.ACTIVE is not None:
@@ -206,6 +210,7 @@ class GroupCommitWal:
                 file.write(batch)
             if sync and not self.closed:
                 os.fsync(file.fileno())
+                obs_metrics.WAL_FSYNCS.inc()
         except BaseException as e:  # noqa: BLE001 — must wake waiters
             err = e
             # A full disk is a NODE condition, not this WAL's: flip the
@@ -227,6 +232,7 @@ class GroupCommitWal:
                 # A durable write succeeded: the cheapest recovery
                 # signal when the node was write-unready.
                 _diskfull.note_write_ok()
+        el = time.perf_counter() - ft0
         with self._mu:
             self._leader = False
             if err is None:
@@ -234,6 +240,10 @@ class GroupCommitWal:
                 self._seq_flushed = flushed_before + len(batch)
                 if sync:
                     self._seq_synced = self._seq_flushed
+                if batch:
+                    obs_metrics.WAL_GROUP_BATCH_SIZE.observe(
+                        len(batch) // OP_SIZE)
+                    obs_metrics.WAL_GROUP_FLUSH_SECONDS.observe(el)
             elif not recovered:
                 self._fail = err
             self._cond.notify_all()

@@ -1177,43 +1177,20 @@ def load(path: str = "", env: dict | None = None) -> Config:
 
 
 # The subsystems of the JAX package that this package does not run yet:
-# (section, on, refused, the slice of ROADMAP.md's queue 1 that brings
-# it). ``refused`` is a switch-on beyond the JAX default (which leaves
-# it off); ``on`` without it is a default-on subsystem a node starts
-# without.
+# (section, switched on, the slice of ROADMAP.md's queue 1 that brings
+# it). The JAX default leaves both off.
 UNPORTED = (
-    ("blackbox", lambda c: c.blackbox.enabled, lambda c: False,
-     "item 5, the blackbox"),
-    ("watchdog", lambda c: c.watchdog.enabled, lambda c: False,
-     "item 5, the watchdog"),
-    ("history", lambda c: c.history.enabled, lambda c: False,
-     "item 5, the metric history"),
-    ("sentinel", lambda c: c.sentinel.enabled,
-     lambda c: bool(c.sentinel.manifest), "item 5, the sentinel"),
-    ("profile", lambda c: c.profile.continuous, lambda c: False,
-     "item 5, the continuous profiler"),
-    ("capture", lambda c: c.capture.mode != "off",
-     lambda c: c.capture.mode not in ("off", "sampled"),
-     "item 5, workload capture"),
     ("tier", lambda c: c.tier.enabled or bool(c.tier.blob),
-     lambda c: c.tier.enabled or bool(c.tier.blob),
      "item 6, the tier slice"),
     ("backup", lambda c: bool(c.backup.archive),
-     lambda c: bool(c.backup.archive), "item 7, the backup slice"),
+     "item 7, the backup slice"),
 )
 
 
-def unported_switch_ons(cfg: Config) -> tuple[list[str], list[str]]:
-    """(refused, waiting) over the unported subsystems: those ``cfg``
-    turns on where the JAX default leaves them off (``[tier] enabled =
-    true``, a ``[backup] archive``, capture's ``mode = "full"``, a
-    sentinel manifest), and those on by default, which a node starts
-    without; one message each, naming its slice."""
-    refused, waiting = [], []
-    for section, on, refuse, slice_name in UNPORTED:
-        if refuse(cfg):
-            refused.append(f"[{section}] is not available in this"
-                           f" package yet ({slice_name})")
-        elif on(cfg):
-            waiting.append(f"[{section}] waits for {slice_name}")
-    return refused, waiting
+def unported_switch_ons(cfg: Config) -> list[str]:
+    """One message for each unported subsystem ``cfg`` switches on
+    (``[tier] enabled = true`` or a blob store, a ``[backup] archive``),
+    naming its slice; the server verb refuses to start on any."""
+    return [f"[{section}] is not available in this package yet"
+            f" ({slice_name})"
+            for section, on, slice_name in UNPORTED if on(cfg)]

@@ -15,6 +15,12 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import json
+import os
+import signal
+import subprocess
+import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -24,6 +30,8 @@ from pilosa_tpu.utils import config as jcfg
 
 from pilosa_tpu_torch.cli import commands as port_cli
 from pilosa_tpu_torch.utils import config as tcfg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 DURS = ("250ms", "1s", "0.5s", "90s", "2m", "1h30m", "10m")
 
@@ -275,9 +283,19 @@ SWITCH_ONS = (
     ("[tier]\nenabled = true\n", [], {}, "item 6, the tier slice"),
     ("[tier]\nblob = \"dir\"\n", [], {}, "item 6, the tier slice"),
     ("[backup]\narchive = \"dir:/x\"\n", [], {}, "item 7, the backup slice"),
-    ("[capture]\nmode = \"full\"\n", [], {}, "item 5, workload capture"),
-    ("", ["--sentinel.manifest", "m.json"], {}, "item 5, the sentinel"),
+    ("", [], {"PILOSA_BACKUP_ARCHIVE": "dir:/x"}, "item 7, the backup slice"),
+    ("", [], {"PILOSA_TIER_BLOB": "dir"}, "item 6, the tier slice"),
     ("", [], {"PILOSA_TIER_ENABLED": "1"}, "item 6, the tier slice"),
+)
+
+# Switch-ons of the operator surface, which the port now runs: the
+# server starts (it exited 2 before the operator slice).
+PORTED_SWITCH_ONS = (
+    ("[capture]\nmode = \"full\"\n", []),
+    ("", ["--sentinel.manifest", "m.json"]),
+    ("[blackbox]\nenabled = true\n[watchdog]\nenabled = true\n"
+     "[history]\nenabled = true\n[profile]\ncontinuous = true\n", []),
+    ("", ["--profile.cpu", "cpu.prof", "--profile.cpu-time", "200ms"]),
 )
 
 
@@ -298,12 +316,51 @@ def test_unported_switch_on_exits_2(tmp_path, monkeypatch, case):
 
 
 def test_default_on_subsystems_are_noted_not_refused():
-    refused, waiting = tcfg.unported_switch_ons(tcfg.Config())
-    assert refused == []
-    assert [w.split("]")[0][1:] for w in waiting] == [
-        "blackbox", "watchdog", "history", "sentinel", "profile",
-        "capture"]
-    cfg = tcfg.load("", env={"PILOSA_CAPTURE_MODE": "off",
-                             "PILOSA_BLACKBOX_ENABLED": "false"})
-    refused, waiting = tcfg.unported_switch_ons(cfg)
-    assert refused == [] and len(waiting) == 4
+    """The JAX defaults switch on nothing the port lacks: only tier and
+    backup are still unported, and both are off by default."""
+    assert [u[0] for u in tcfg.UNPORTED] == ["tier", "backup"]
+    assert tcfg.unported_switch_ons(tcfg.Config()) == []
+    cfg = tcfg.load("", env={"PILOSA_CAPTURE_MODE": "full",
+                             "PILOSA_BLACKBOX_ENABLED": "true"})
+    assert tcfg.unported_switch_ons(cfg) == []
+
+
+@pytest.mark.parametrize("case", range(len(PORTED_SWITCH_ONS)))
+def test_operator_switch_on_starts(tmp_path, case):
+    """Capture's full mode, a sentinel manifest, the default-on
+    operator sections and ``--profile.cpu`` start the ``server`` verb:
+    it serves, answers the sections' routes and exits 0 on SIGINT."""
+    text, flags = PORTED_SWITCH_ONS[case]
+    path = tmp_path / "on.toml"
+    path.write_text(text)
+    data = tmp_path / "data"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-c",
+         str(path), "--device", "cpu", "-d", str(data), "-b",
+         "127.0.0.1:0"] + flags, cwd=str(tmp_path), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("pilosa-tpu serving at http://"), (
+            line + proc.stderr.read())
+        host = line.split("http://", 1)[1].split()[0]
+        for route in ("/debug/capture", "/debug/sentinel",
+                      "/debug/blackbox", "/debug/metrics/history"):
+            with urllib.request.urlopen(f"http://{host}{route}",
+                                        timeout=10) as r:
+                assert r.status == 200
+                body = json.loads(r.read())
+            assert "enabled" in body
+        with urllib.request.urlopen(f"http://{host}/debug/capture",
+                                    timeout=10) as r:
+            assert json.loads(r.read())["mode"] == (
+                "full" if case == 0 else "sampled")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        proc.communicate(timeout=60)
+    assert proc.returncode == 0
+    if "--profile.cpu" in flags:
+        # The sampled host profile, written when its time ran out.
+        assert (tmp_path / "cpu.prof").read_text().startswith(
+            "# cpu profile (wall-clock sampler")

@@ -328,3 +328,42 @@ def test_metrics_settings_reach_the_federator(tmp_path):
         assert st == 200 and hs["X-Pilosa-Federated-Nodes"] == "1"
     finally:
         s.close()
+
+
+def test_port_cluster_history_and_capture_fan_out(port_cluster):
+    """``/debug/metrics/history?scope=cluster`` and
+    ``/debug/capture/records?scope=cluster`` fan out through the
+    federator: every node's series with its node named, every node's
+    capture records merged by arrival; a dead node answers 503 unless
+    ``?partial=1``."""
+    hosts, servers = port_cluster
+    _seed_reads(hosts[0])
+    _seed_reads(hosts[1])
+    t0 = time.time()
+    for h, s in zip(hosts, servers):
+        _req(h, "GET", "/metrics")  # the scrape sets the admission gauges
+        s.history.sample(now=t0)
+    path = ("/debug/metrics/history?scope=cluster&window=10m"
+            "&family=pilosa_admission_inflight_queries")
+    st, hs, body = _req(hosts[0], "GET", path)
+    assert st == 200, body
+    got = json.loads(body)
+    assert got["scope"] == "cluster" and got["missing"] == []
+    assert sorted({s["node"] for s in got["series"]}) == sorted(hosts)
+    st, _, body = _req(hosts[2], "GET",
+                       "/debug/capture/records?scope=cluster")
+    merged = json.loads(body)
+    assert st == 200 and merged["nodes"] == sorted(hosts)
+    # Writes are captured by default (sampled mode) at the coordinator
+    # that took them: the two seeding nodes' SetBits.
+    assert sorted({r["node"] for r in merged["records"]}) == sorted(
+        hosts[:2])
+    stamps = [r["t"] for r in merged["records"]]
+    assert stamps == sorted(stamps)
+    servers[2].close()
+    servers[2]._test_closed = True
+    for p in (path, "/debug/capture/records?scope=cluster"):
+        st, _, body = _req(hosts[0], "GET", p)
+        assert st == 503 and hosts[2].encode() in body, p
+        st, hs, _ = _req(hosts[0], "GET", p + "&partial=1")
+        assert st == 200 and hs["X-Pilosa-Partial-Nodes"] == hosts[2], p

@@ -103,7 +103,7 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.cluster",
             "pilosa_tpu_torch.cluster.generations"} | set(
                 LIFECYCLE) | set(CLUSTER) | set(INTEGRITY) | set(
-                    OPERATOR) <= set(MODULES)
+                    OPERATOR) | set(SURFACE) <= set(MODULES)
 
 
 # The query lifecycle's modules, each at the path of its JAX
@@ -173,6 +173,25 @@ OPERATOR = ("pilosa_tpu_torch.cluster.gossip", "pilosa_tpu_torch.obs.slo",
 
 @pytest.mark.parametrize("module", OPERATOR)
 def test_operator_module_mirrors_the_jax_path(module):
+    rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
+        ".", os.sep)
+    assert os.path.exists(os.path.join(REPO, rel + ".py"))
+
+
+# The operator surface (workload capture and replay, the profiler, the
+# flight recorder, the watchdog, the metric history, the sentinel, statsd,
+# ``top`` and the web console), each at the path of its JAX counterpart.
+SURFACE = ("pilosa_tpu_torch.obs.capture", "pilosa_tpu_torch.obs.replay",
+           "pilosa_tpu_torch.obs.profile", "pilosa_tpu_torch.obs.history",
+           "pilosa_tpu_torch.obs.blackbox", "pilosa_tpu_torch.obs.watchdog",
+           "pilosa_tpu_torch.obs.sentinel",
+           "pilosa_tpu_torch.utils.profiling",
+           "pilosa_tpu_torch.utils.statsd", "pilosa_tpu_torch.cli.top",
+           "pilosa_tpu_torch.server.webui")
+
+
+@pytest.mark.parametrize("module", SURFACE)
+def test_surface_module_mirrors_the_jax_path(module):
     rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
         ".", os.sep)
     assert os.path.exists(os.path.join(REPO, rel + ".py"))

@@ -724,3 +724,34 @@ def test_barrier_flushes_a_wal_whose_background_flush_failed(tmp_path,
             fp.disarm_all()
             g.close()
     assert outs == [13, 0]
+
+
+def test_scrub_verify_survives_a_pinned_map(tmp_path, monkeypatch):
+    """A view into the scrubbed map that outlives ``scrub_buffer`` (a
+    stack sampler holding the returned frame, as the continuous profiler
+    does for a moment) leaves the port's ``verify_on_disk`` verdict
+    standing; the JAX package's close raises BufferError there, and its
+    scrubber skips the fragment as unverifiable (found, not copied)."""
+    pinned = []
+    got = {}
+    for name, _fp, frag_mod, int_mod, *_ in PKGS:
+        f, _ = _make_fragment(frag_mod, int_mod, tmp_path / name)
+        scrub_mod = jscrub if frag_mod is jfrag else tscrub
+        real = scrub_mod.scrub_buffer
+
+        def pinning(buf, real=real):
+            pinned.append(np.frombuffer(buf, dtype=np.uint8))
+            return real(buf)
+
+        monkeypatch.setattr(scrub_mod, "scrub_buffer", pinning)
+        try:
+            got[name] = f.verify_on_disk()
+        except BufferError as e:
+            got[name] = e
+        finally:
+            pinned.clear()
+            monkeypatch.setattr(scrub_mod, "scrub_buffer", real)
+            f.close()
+    assert isinstance(got["jax"], BufferError)
+    assert got["torch"]["corrupt"] is False
+    assert got["torch"]["coverage"] == "full" and got["torch"]["blocks"] > 0

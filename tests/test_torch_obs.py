@@ -58,12 +58,7 @@ LEFT_OUT = {
         "pilosa_backup_fragments_total", "pilosa_backup_objects_total",
         "pilosa_backup_state_info", "pilosa_backup_wal_records_total",
         "pilosa_backup_wal_segments_total")},
-    **{name: "obs.blackbox not ported" for name in (
-        "pilosa_blackbox_dumps_total", "pilosa_blackbox_snapshots_total")},
     "pilosa_build_info": "its labels name jax, which the port lacks",
-    **{name: "obs.capture not ported" for name in (
-        "pilosa_capture_bytes_total", "pilosa_capture_dropped_total",
-        "pilosa_capture_records_total")},
     **{name: "resize not ported" for name in (
         "pilosa_cluster_resize_double_reads_total",
         "pilosa_cluster_resize_state",
@@ -75,20 +70,6 @@ LEFT_OUT = {
         "pilosa_compile_cache_hits_total",
         "pilosa_compile_cache_misses_total",
         "pilosa_compile_cache_programs_live")},
-    **{name: "obs.history not ported" for name in (
-        "pilosa_history_disk_records_total", "pilosa_history_samples_total",
-        "pilosa_history_series_dropped_total",
-        "pilosa_history_series_live")},
-    **{name: "the pipelined import stages are not ported" for name in (
-        "pilosa_import_pipeline_depth", "pilosa_import_stage_seconds")},
-    "pilosa_profile_samples_total": "obs.profile not ported",
-    **{name: "obs.sentinel not ported" for name in (
-        "pilosa_sentinel_checks_total", "pilosa_sentinel_findings_active",
-        "pilosa_sentinel_findings_total")},
-    **{name: "obs.slo not ported" for name in (
-        "pilosa_slo_burn_rate_ratio", "pilosa_slo_latency_objective_seconds",
-        "pilosa_tenant_slo_burn_rate_ratio")},
-    "pilosa_tenant_cache_bytes": "no per-tenant result-cache share",
     **{name: "tier/ not ported" for name in (
         "pilosa_tier_blob_transfers_total", "pilosa_tier_block_faults_total",
         "pilosa_tier_bytes_resident", "pilosa_tier_demotions_total",
@@ -96,10 +77,6 @@ LEFT_OUT = {
         "pilosa_tier_fragment_touches_total",
         "pilosa_tier_fragments_resident", "pilosa_tier_prefetch_total",
         "pilosa_tier_promotions_total")},
-    **{name: "the WAL's metrics are not ported" for name in (
-        "pilosa_wal_fsync_calls_total", "pilosa_wal_group_commit_batch_size",
-        "pilosa_wal_group_commit_flush_seconds")},
-    "pilosa_watchdog_trips_total": "obs.watchdog not ported",
 }
 
 
@@ -504,3 +481,75 @@ def test_debug_routes(handlers):
     assert got[1]["Content-Type"] == want[1]["Content-Type"]
     assert b'pilosa_query_requests_total{call="Count",lane="read",' \
            b'status="200"}' in got[2]
+
+
+def _hist_count(fam, **labels) -> int:
+    return sum(child.snapshot()[2] for lbl, child in fam._label_dicts()
+               if all(lbl.get(k) == v for k, v in labels.items()))
+
+
+def test_write_path_families_move_alike(handlers):
+    """The WAL's three families, the import stages and the apply gate's
+    depth, and the per-tenant cache share move alike in both packages:
+    a SetBit's commit barrier is one group-commit leader flush, a
+    protobuf ``/import`` observes its decode and apply stages and
+    leaves the depth at 0 (its answer's ``X-Pilosa-Stats`` has the JAX
+    keys), and a cached Union shows the same bytes for its tenant."""
+    from pilosa_tpu.proto import internal_pb2 as jpb
+    mods = (jax_metrics, metrics)
+    before = [(_hist_count(m.WAL_GROUP_BATCH_SIZE),
+               _hist_count(m.WAL_GROUP_FLUSH_SECONDS),
+               _hist_count(m.IMPORT_STAGE_SECONDS, stage="decode"),
+               _hist_count(m.IMPORT_STAGE_SECONDS, stage="apply"))
+              for m in mods]
+    for st, _, _ in _both(handlers, "POST", "/index/i/query",
+                          "SetBit(frame=f, rowID=7, columnID=9)"):
+        assert st == 200
+    body = jpb.ImportRequest(Index="i", Frame="f", Slice=0,
+                             RowIDs=[8, 8, 9],
+                             ColumnIDs=[1, 2, 3]).SerializeToString()
+    got = []
+    for h in handlers:
+        environ = {"REQUEST_METHOD": "POST", "PATH_INFO": "/import",
+                   "QUERY_STRING": "", "CONTENT_LENGTH": str(len(body)),
+                   "CONTENT_TYPE": "application/x-protobuf",
+                   "HTTP_ACCEPT": "application/x-protobuf",
+                   "wsgi.input": io.BytesIO(body)}
+        out = {}
+
+        def start_response(status, hdrs, out=out):
+            out["status"] = int(status.split()[0])
+            out["headers"] = dict(hdrs)
+
+        b"".join(h(environ, start_response))
+        got.append((out["status"], out["headers"]))
+    assert [g[0] for g in got] == [200, 200]
+    stats = [json.loads(g[1]["X-Pilosa-Stats"]) for g in got]
+    assert set(stats[1]) == set(stats[0])
+    assert stats[1]["bits"] == stats[0]["bits"] == 3
+    after = [(_hist_count(m.WAL_GROUP_BATCH_SIZE),
+              _hist_count(m.WAL_GROUP_FLUSH_SECONDS),
+              _hist_count(m.IMPORT_STAGE_SECONDS, stage="decode"),
+              _hist_count(m.IMPORT_STAGE_SECONDS, stage="apply"))
+             for m in mods]
+    for b, a in zip(before, after):
+        assert a[0] > b[0] and a[1] > b[1]
+        assert a[2] == b[2] + 1 and a[3] == b[3] + 1
+    assert [m.IMPORT_PIPELINE_DEPTH.value for m in mods] == [0, 0]
+    union = "Union(Bitmap(rowID=0, frame=f), Bitmap(rowID=1, frame=f))"
+    for _ in range(2):
+        assert [g[0] for g in _both(handlers, "POST", "/index/i/query",
+                                    union)] == [200, 200]
+    shares = []
+    for h, m in zip(handlers, mods):
+        st, _, out = call(h, "GET", "/metrics")
+        assert st == 200
+        line = [ln for ln in out.decode().splitlines()
+                if ln.startswith('pilosa_tenant_cache_bytes{tenant="i"}')]
+        shares.append(line)
+        usage = h.executor.tenant_cache_usage()
+        assert usage["i"]["bytes"] > 0
+    assert shares[1] == shares[0] and shares[1]
+    rows = [json.loads(call(h, "GET", "/debug/tenants")[2])["tenants"]
+            for h in handlers]
+    assert rows[1]["i"]["cache"] == rows[0]["i"]["cache"]

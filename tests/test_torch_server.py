@@ -359,12 +359,16 @@ def test_server_socket_and_pipelining(server):
         {"host": server.host, "state": "UP", "indexes": [
             {"name": "i", "maxSlice": 1, "slices": [0, 1],
              "frames": [{"name": "f"}]}]}]}
-    # The JAX build, warmup and runtime blocks: no kernel to warm on
-    # the CPU; the collector counts the two fragments written above.
-    assert set(got) == {"status", "build", "warmup", "runtime"}
+    # The JAX build, warmup, runtime and watchdog blocks: no kernel to
+    # warm on the CPU; the collector counts the two fragments written
+    # above and carries the operator hooks; the watchdog runs by default.
+    assert set(got) == {"status", "build", "warmup", "runtime", "watchdog"}
     assert got["warmup"]["state"] == "disabled"
     assert got["build"]["jax"] == "unloaded"
     assert got["runtime"]["holder"]["fragments"] == 2
+    assert {"slo", "tenantSlo", "profiler", "history",
+            "fairDispatch"} <= set(got["runtime"])
+    assert got["watchdog"]["trips"] == 0
     assert json.loads(http(server, "GET", "/hosts")[1]) == [
         {"host": server.host, "internalHost": ""}]
     # Three requests pipelined on one connection, answered in order.

@@ -25,6 +25,11 @@ then every read, whose result digests must match.
 ``shadow`` drops every pair where either side is not 200, so the test
 also requires that it compared exactly as many reads as the capture
 recorded: a port 400 cannot pass unseen.
+
+The other direction: the port server captures the same workload itself
+(``CaptureConfig(mode="full")`` of ``pilosa_tpu_torch``), and the
+port's own ``obs.replay.shadow`` replays the port's records against the
+JAX server as the baseline and the port server as the candidate.
 """
 
 import shutil
@@ -41,8 +46,10 @@ from pilosa_tpu.proto import internal_pb2 as jax_pb
 from pilosa_tpu.server.server import Server as JaxServer
 from pilosa_tpu.utils.config import CaptureConfig
 
+from pilosa_tpu_torch.obs import replay as port_replay
 from pilosa_tpu_torch.parallel import residency
 from pilosa_tpu_torch.server.server import Server as PortServer
+from pilosa_tpu_torch.utils.config import CaptureConfig as PortCaptureConfig
 
 from test_torch_topn import FORMS, N_ROWS, N_SLICES, _fill_jax
 
@@ -462,4 +469,65 @@ def test_port_cluster_answers_the_captured_workload(tmp_path):
     finally:
         for n in nodes:
             n.close()
+        js.close()
+
+
+def test_jax_answers_the_port_captured_workload(tmp_path):
+    """The port captures the workload; the port's replay shadows it
+    with the JAX server as the baseline: every write replayed, every
+    captured read compared, no mismatch, and the port's capture holds
+    one record for every query sent, a digest on each."""
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    jh = JaxHolder(str(jax_dir))
+    jh.open()
+    _fill_jax(jh, np.random.default_rng(606))
+    jh.close()
+    shutil.copytree(jax_dir, port_dir)
+    js = JaxServer(str(jax_dir), host="127.0.0.1:0",
+                   anti_entropy_interval=0, polling_interval=0)
+    js.open()
+    ps = PortServer(str(port_dir), host="127.0.0.1:0", device="cpu",
+                    capture_config=PortCaptureConfig(mode="full"))
+    try:
+        ps.open()
+        steps = _workload(np.random.default_rng(607))
+        proto = {"Content-Type": "application/x-protobuf",
+                 "Accept": "application/x-protobuf"}
+        for host in (js.host, ps.host):
+            for path, body in (
+                    ("/index/d/frame/bsi", b'{"options": {"fields": [{"name":'
+                                           b' "amt", "min": -100, "max":'
+                                           b' 5000}]}}'),
+                    ("/index/d/frame/tq", b'{"options": {"timeQuantum": "YMD",'
+                                          b' "inverseEnabled": true}}')):
+                assert _post(host, path, body)[0] == 200
+        for kind, payload in steps:
+            for host in (js.host, ps.host):
+                if kind == "import":
+                    assert _post(host, "/import", payload, proto)[0] == 200
+                elif kind == "field_import":
+                    assert _post(host, "/index/d/frame/bsi/field/amt/import",
+                                 payload, proto)[0] == 200
+                elif kind == "query_opts":
+                    pql, suffix, headers = payload
+                    assert _post(host, "/index/d/query" + suffix,
+                                 pql.encode(), headers)[0] == 200
+                else:
+                    assert _post(host, "/index/d/query",
+                                 payload.encode())[0] == 200
+        records = port_replay.fetch_records(ps.host, limit=100000)
+        queries = [r for r in records if r.get("kind") == "query"]
+        reads = [r for r in queries if r.get("lane") == "read"]
+        writes = [r for r in queries if r.get("lane") != "read"]
+        assert len(queries) == sum(1 for k, _ in steps
+                                   if k in ("query", "query_opts"))
+        assert sum(1 for r in records if r.get("kind") == "import") == sum(
+            1 for k, _ in steps if k == "import")
+        assert all(len(r["digest"]) == 16 for r in queries)
+        out = port_replay.shadow(records, js.host, ps.host, senders=1)
+        assert out["writes_replayed"] == len(writes)
+        assert out["mismatches"] == 0, out["dumps"][:2]
+        assert out["reads_compared"] == len(reads)
+    finally:
+        ps.close()
         js.close()
