@@ -1,10 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
-                          [--phase cluster|integrity|gossip|operator]
+                          [--phase cluster|integrity|gossip|operator|resize]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs fifteen phases and prints one JSON line for each:
+checkout, then runs sixteen phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -139,8 +139,8 @@ checkout, then runs fifteen phases and prints one JSON line for each:
    the disk ring (``?source=disk&reason=deadline``).
 10. ``durability``: the port's ``server`` verb as a subprocess on the
    card over a fresh directory, seeded by protobuf ``/import`` with
-   configuration 4's rows over 256 slices, takes a 6 s write storm (8
-   threads of SetBit/ClearBit queries; after a quarter of it 2 threads
+   configuration 4's rows over 128 slices (cut from 256 for the script's time), takes a
+   6 s write storm (8 threads of SetBit/ClearBit queries; after a quarter of it 2 threads
    of 65,536-bit ``/import`` batches and one thread that drives slice 0
    past MAX_OP_N so that background snapshots swap its WAL) and is
    killed with SIGKILL.
@@ -156,8 +156,9 @@ checkout, then runs fifteen phases and prints one JSON line for each:
    the card's name and power limit.
 11. ``cluster``: BASELINE configuration 5 as a static cluster of three
    node processes of the port on the card (``phase_cluster``): index
-   ``c5`` at 256 slices (cut from 954) with 1,000,000 Zipf(1.1) row
-   ids, replicas 2; the data written into each owner's directory with
+   ``c5`` at 64 slices (cut from 954 for the script's time; 2^24 bits,
+   the density of the earlier 256-slice cut) with 1,000,000 Zipf(1.1)
+   row ids, replicas 2; the data written into each owner's directory with
    the port's storage layer and placement; Counts and three TopNs from
    every coordinator held to the host references, 1,000 SetBits read
    back from both owners, a SIGKILL and the same reads, a restart with
@@ -166,7 +167,7 @@ checkout, then runs fifteen phases and prints one JSON line for each:
    launch counters come back on their exit lines.
 12. ``integrity``: storage integrity on three node processes of the
    port on the card (``phase_integrity``, the same child mode, pinned,
-   replicas 2): configuration 4's ``smoke`` layout at 256 slices
+   replicas 2): configuration 4's ``smoke`` layout at 128 slices
    written into each owner's directory; a clean start (every
    coordinator's 16 Count(Bitmap) and 8 Count(Intersect) in one body
    exact, nothing quarantined, a clean synchronous scrub, timed); bit
@@ -186,7 +187,8 @@ checkout, then runs fifteen phases and prints one JSON line for each:
    on the card (``phase_gossip``, the same child mode, pinned, replicas
    2), each started from a TOML file with ``server -c FILE`` alone:
    gossip on its own internal port, seeded from node 0's, an HMAC
-   secret; configuration 4's ``smoke`` layout at 256 slices. Ready
+   secret; configuration 4's ``smoke`` layout at 128 slices (cut from
+   256 for the script's time). Ready
    (every ``/health`` 200 with ``3 nodes UP``), a frame created on node
    0 reaching the others over gossip and counted exactly, the Counts
    and two TopNs from every coordinator cold and warm, a SIGKILL of the
@@ -205,7 +207,8 @@ checkout, then runs fifteen phases and prints one JSON line for each:
    ``/metrics/cluster`` answers 503, or 200 naming both peers.
 14. ``operator``: the operator surface on three port servers (this
    script's child mode, pinned; ``phase_operator``) over configuration
-   4's ``smoke`` layout at 256 slices, written into three directories
+   4's ``smoke`` layout at 128 slices (cut from 256 for the script's time), written into
+   three directories
    before any traffic: A on the card with tenants ``wide`` and
    ``quiet``, one fair dispatch slot and ``[capture] mode = "full"``, B
    on the CPU (every kernel's plain version), C on the card. A wide
@@ -223,42 +226,61 @@ checkout, then runs fifteen phases and prints one JSON line for each:
    ``/debug/pprof/flame`` holds the captured stuck query's stacks), an
    exact Count after the disarm, and one more dump at A's SIGTERM. Each
    step's ms is on the line.
-15. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+15. ``resize``: online cluster resize on four node processes of the
+   port on the card (``phase_resize``, the same child mode, pinned,
+   replicas 2, each from a TOML file with gossip): configuration 4's
+   ``smoke`` layout at 256 slices in the three-node placement, the
+   fourth node booted knowing that membership. Grow 3→4 with the
+   ``resize`` verb (``--add ... --wait``) and shrink 4→3 with ``POST
+   /cluster/resize {"remove": ...}``, each under a load of single Counts
+   and SetBits into moving slices from every node, every answer exact
+   and none failed; after each, every node's epoch and membership, the
+   reads of the gossip phase exact from every member, the written rows
+   converged on every owner, and node 0's watchdog without a
+   ``resize_stall`` trip; after the grow, node 3 restarted comes back at
+   epoch 1 and its expression count and densify launched on its moved
+   slices. Each protocol phase's seconds, the slices moved, MB streamed
+   and MB/s, the stream passes, the double reads by winner and the
+   Count p50 before and during are on the line.
+16. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
 The kernel phases (2-8, the reopen of 10, the cluster's nodes until its
-routed pass and the integrity, gossip and operator phases' nodes) pin every
+routed pass and the integrity, gossip, operator and resize phases'
+nodes) pin every
 device leg
 (``_pinned``: ``mesh_min_slices=1`` and a cost model that vetoes
 nothing), as the tests pin it, so the calibrated routing cannot move
 their launches to the host. Every answer of phases 2-5 and 8 is held to
 the host roaring answer computed from the port's own fragments, every
 answer of phase 6 to numpy, of phase 7 to numpy or to words packed on
-the host, of phases 9, 11, 12, 13 and 14 to host roaring or numpy, and
-every count of phase 15 to the host ``popcnt_and``. The kernels' launch
+the host, of phases 9, 11, 12, 13, 14 and 15 to host roaring or numpy,
+and every count of phase 16 to the host ``popcnt_and``. The kernels' launch
 counters are set to 0 before phase 2, before phase 6, before phase 7,
 before phase 8, before phase 9 and before phase 10's reopen, and read
-after phases 5 to 15 (each cluster node's from its
+after phases 5 to 16 (each cluster node's from its
 own process, and every node that owns slices must have launched the
 expression count, densify and the TopN block count; the integrity
 phase's nodes the expression count and densify, the repaired node again
 after its repair; each gossip node of its first life all three; the
-operator phase's card nodes all three): every kernel must have
+operator phase's card nodes all three; the resize phase's joiner the
+expression count and densify on its moved slices): every kernel must have
 launched on that main path,
 the TopN block count in phase 4's device top-k, the TopN block count,
 the expression count and densify in its sourced queries, the expression
 count (every device Count(Range)), its batched entry (every Sum) and
 densify in phase 6, the expression-words kernel, the batched count and
 the TopN block count in phase 7, again in the server phase by itself and
-again after phase 10's reopen, and the op count in phase 15. Then it
+again after phase 10's reopen, and the op count in phase 16. Then it
 prints the card's name and power limit, the kernel table as one JSON
 object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
 prints no result. ``--phase cluster``, ``--phase integrity``,
-``--phase gossip`` or ``--phase operator`` builds the kernels and runs
+``--phase gossip``, ``--phase operator`` or ``--phase resize`` builds
+the kernels and runs
 that phase alone: its
 line and the card's name, no kernel table and no last line.
 """
@@ -2491,13 +2513,13 @@ def _oplog_bytes(path: str) -> tuple[int, int]:
     return len(data) - start, start
 
 
-def phase_durability(device, seed: int, tmp: str, n_slices: int = 256,
+def phase_durability(device, seed: int, tmp: str, n_slices: int = 128,
                      storm_s: float = 6.0) -> dict:
     """Acked writes survive SIGKILL on the card. The port's ``server``
     verb runs as a subprocess on the card over a fresh directory,
     seeded by protobuf ``/import`` with BASELINE configuration 4's rows
-    (1-8 at 1/64, 9-16 at 1/4096 over 256 slices). A write storm of
-    ``storm_s`` seconds follows, every stream from ``seed``: 8 client
+    (1-8 at 1/64, 9-16 at 1/4096 over ``n_slices`` slices). A write
+    storm of ``storm_s`` seconds follows, every stream from ``seed``: 8 client
     threads of SetBit/ClearBit queries (rows 100-179) throughout, and
     after its first quarter (the ack latency of each window is printed)
     2 threads of 65,536-bit protobuf ``/import`` batches over random
@@ -3440,8 +3462,8 @@ def _pairs_json(r) -> list:
     return [(p["id"], p["count"]) for p in r]
 
 
-def phase_cluster(device, seed: int, tmp: str, n_slices: int = 256,
-                  n_rows: int = 1_000_000, total_bits: int = 1 << 26,
+def phase_cluster(device, seed: int, tmp: str, n_slices: int = 64,
+                  n_rows: int = 1_000_000, total_bits: int = 1 << 24,
                   n_writes: int = 1000, warm_runs: int = 5) -> dict:
     """BASELINE configuration 5 (a cluster TopN over 1 B columns ×
     1 M rows) on one card as three node processes of the port (the
@@ -3956,7 +3978,7 @@ def _smoke_rows(rng, n_slices: int):
     return positions, cols
 
 
-def phase_integrity(device, seed: int, tmp: str, n_slices: int = 256,
+def phase_integrity(device, seed: int, tmp: str, n_slices: int = 128,
                     n_flips: int = 5, drain_limit_s: float = 60.0) -> dict:
     """Storage integrity on three node processes of the port on the card
     (this script's child mode, pinned, replicas 2, a ``--cost.dir``
@@ -4423,7 +4445,7 @@ hedge = "{GOSSIP_HEDGE}"
 """)
 
 
-def phase_gossip(device, seed: int, tmp: str, n_slices: int = 256,
+def phase_gossip(device, seed: int, tmp: str, n_slices: int = 128,
                  warm_runs: int = 5, up_limit_s: float = 120.0) -> dict:
     """Gossip membership on three node processes of the port on the card
     (this script's child mode, pinned), each started from a TOML file
@@ -5022,7 +5044,7 @@ def _operator_toml(path: str, capture: bool, tenants: bool) -> None:
         f.write(text)
 
 
-def phase_operator(device, seed: int, tmp: str, n_slices: int = 256,
+def phase_operator(device, seed: int, tmp: str, n_slices: int = 128,
                    n_wide: int = 8, wide_rounds: int = 2,
                    n_quiet: int = 4, fair_slots: int = 1) -> dict:
     """The operator surface on three port servers (this script's child
@@ -5124,7 +5146,7 @@ def phase_operator(device, seed: int, tmp: str, n_slices: int = 256,
                 "Difference": row_n[a] - i}[op]
 
     # Four ids: the baseline's plain TopN block count on the CPU reads
-    # every listed row's 256 slices.
+    # every listed row's slices.
     ids = list(range(2, 6))
     topn_q = (f"TopN(Bitmap(rowID=1, frame=f), frame=f, ids={ids})")
     topn_want = sorted(([r, inter[(1, r)]] for r in ids
@@ -5484,6 +5506,534 @@ def phase_operator(device, seed: int, tmp: str, n_slices: int = 256,
     return out
 
 
+RESIZE_SECRET = "smoke-resize"  # the resize phase's gossip HMAC key
+
+
+def phase_resize(device, seed: int, tmp: str, n_slices: int = 256,
+                 up_limit_s: float = 180.0, pre_load_s: float = 2.0,
+                 settle_limit_s: float = 400.0) -> dict:
+    """Online resize of a gossip cluster of port nodes on the card: grow
+    3→4, then shrink 4→3, each under live Counts and SetBits.
+
+    Four node processes of this script's child mode (pinned), each
+    started from a TOML file (``server -c FILE``): ``cluster.type =
+    "gossip"``, replicas 2, the placement over nodes 0-2, nodes 1-3
+    seeded from node 0's internal port. Node 3 boots knowing that current
+    membership: it owns nothing until the grow adds it. Configuration 4's
+    ``smoke`` layout at ``n_slices`` slices (16 rows, rows 1-8 at 1/64,
+    9-16 at 1/4096) is written into the owners' directories for the
+    three-node placement; every answer is held to a host reference of
+    those bits.
+
+    1. Ready: every node answers and knows every slice; frame ``w`` (the
+       load's writes) created on node 0 reaches every node over gossip.
+    2. Before: from each node as coordinator, the 16 Count(Bitmap) and 8
+       Count(Intersect) in one body, ``TopN(frame=f, n=50)`` and the
+       sourced TopN, exact.
+    3. Grow 3→4 with the ``resize`` verb (``--add node3 --wait``) on
+       node 0, while a load runs from every node as coordinator: one
+       reader sending single Counts over all slices (moving and not),
+       each exact, and two writers each sending SetBits of its own row
+       of ``w`` into moving slices and reading the row's Count back,
+       exact against its acked SetBits (each of the three threads one
+       request after another, 20 ms apart). Recorded: each protocol phase's
+       seconds (polled), slices moved, MB streamed and MB/s, stream
+       passes, double reads by winner, the load's Count p50 before and
+       during, wrong answers and failed requests (both must be 0).
+    4. After the grow: every node at epoch 1 with four members and no
+       resize; node 3 SIGTERMed and restarted from its file (whose
+       membership is the old one) comes back at epoch 1; every read of
+       step 2 exact from all four nodes; the writers' rows counted alike
+       from every node and every moving slice's ``w`` fragment with the
+       same block checksums on both its owners; node 3's expression
+       count and densify launch counters rose over its first life (it
+       served moved slices on the card); node 0's watchdog tripped no
+       ``resize_stall``.
+    5. Shrink 4→3: ``POST /cluster/resize {"remove": node1}`` on node 0
+       under the same load, with the same checks; epoch 2 and three
+       members. Node 1 stopped, the reads stay exact from nodes 0, 2
+       and 3."""
+    import threading
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH as W
+    from pilosa_tpu_torch.cluster.topology import movement, new_cluster
+    from pilosa_tpu_torch.models.holder import Holder
+
+    t_phase = time.perf_counter()
+    marks: dict = {}
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t_phase
+        print(f"resize: {step} at {marks[step]:.1f} s", file=sys.stderr,
+              flush=True)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rtmp = os.path.join(tmp, "resize")
+    os.makedirs(rtmp, exist_ok=True)
+    rng = np.random.default_rng(seed + 90)
+    hosts = [f"127.0.0.1:{_free_port()}" for _ in range(4)]
+    gports = [_free_port() for _ in range(4)]
+    old = hosts[:3]
+    cl = new_cluster(old, replica_n=2)
+    owners = [[n.host for n in cl.fragment_nodes("smoke", s)]
+              for s in range(n_slices)]
+    dirs = [os.path.join(rtmp, f"node{i}data") for i in range(4)]
+    tomls = [os.path.join(rtmp, f"node{i}.toml") for i in range(4)]
+    for i in range(4):
+        _gossip_toml(tomls[i], dirs[i], hosts[i], old, gports[i],
+                     f"127.0.0.1:{gports[0]}" if i else "", RESIZE_SECRET)
+
+    t0 = time.perf_counter()
+    for d in dirs:
+        h = Holder(d)
+        h.open()
+        h.create_index("smoke").create_frame("f") \
+            .create_view_if_not_exists("standard")
+        h.close()
+    positions, cols = _smoke_rows(rng, n_slices)
+    for s in range(n_slices):
+        _c5_write((positions[s], [
+            os.path.join(dirs[hosts.index(h)], "smoke", "f", "views",
+                         "standard", "fragments", str(s))
+            for h in owners[s]]))
+    n_bits = int(sum(len(p) for p in positions))
+    del positions
+    pairs = [(2 * k + 1, 2 * k + 2) for k in range(8)]
+    row_total = {r: int(sum(len(c) for c in cols[r])) for r in cols}
+    pair_total = {p: int(sum(len(np.intersect1d(
+        cols[p[0]][s], cols[p[1]][s], assume_unique=True))
+        for s in range(n_slices))) for p in pairs}
+    src = {r: int(sum(len(np.intersect1d(cols[1][s], cols[r][s],
+                                         assume_unique=True))
+                      for s in range(n_slices))) for r in cols}
+    del cols
+    singles = ([(f"Count(Bitmap(rowID={r}, frame=f))", row_total[r])
+                for r in range(1, 17)]
+               + [(f"Count(Intersect(Bitmap(rowID={a}, frame=f),"
+                   f" Bitmap(rowID={b}, frame=f)))", pair_total[(a, b)])
+                  for a, b in pairs])
+    reads = {
+        "count": (" ".join(q for q, _ in singles), [w for _, w in singles]),
+        "topn": ("TopN(frame=f, n=50)",
+                 sorted(row_total.items(), key=lambda p: (-p[1], p[0]))),
+        "topn_src": ("TopN(Bitmap(rowID=1, frame=f), frame=f, n=50)",
+                     sorted(((r, c) for r, c in src.items() if c),
+                            key=lambda p: (-p[1], p[0]))),
+    }
+    data_s = time.perf_counter() - t0
+    mark("data")
+
+    def spawn(i):
+        import subprocess
+        args = [sys.executable, os.path.abspath(__file__),
+                "--cluster-node", "1",
+                os.path.join(rtmp, f"node{i}.counters"),
+                "server", "-c", tomls[i]]
+        if device.type == "cpu":
+            args += ["--device", "cpu"]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        if device.type == "cpu":
+            # CPU rehearsal: the plain versions' intra-op threads of
+            # four nodes would oversubscribe the cores.
+            env["OMP_NUM_THREADS"] = "2"
+        log = open(os.path.join(rtmp, f"node{i}.log"), "ab")
+        return subprocess.Popen(args, cwd=repo, env=env,
+                                stdout=subprocess.PIPE, stderr=log)
+
+    def get_json(host, path):
+        st, _, out, _ = _request(host, "GET", path, timeout=30)
+        if st != 200:
+            _fail(f"resize: GET {path} on {host}: {st} {out[:200]!r}")
+        return json.loads(out)
+
+    def knows_all(host):
+        try:
+            return get_json(host, "/slices/max")["maxSlices"].get(
+                "smoke", -1) >= n_slices - 1
+        except OSError:
+            return False
+
+    def wait_ready(targets, t_from):
+        while not all(knows_all(h) for h in targets):
+            for i, p in enumerate(procs):
+                if p is not None and p.poll() is not None:
+                    _fail(f"resize: node {i} exited with {p.returncode}")
+            if time.perf_counter() - t_from > up_limit_s:
+                _fail(f"resize: not ready in {up_limit_s} s")
+            time.sleep(0.1)
+        return time.perf_counter() - t_from
+
+    def query(host, q):
+        st, _, out, ms = _request(host, "POST", "/index/smoke/query",
+                                  q.encode(), timeout=300)
+        if st != 200:
+            _fail(f"resize: {host} {q[:60]}: HTTP {st}: {out[:300]!r}")
+        return json.loads(out)["results"], ms
+
+    def check_reads(targets, label):
+        """The reads of step 2 from each target in turn (one at a time:
+        concurrent first reads of cold rows each build the rows' slabs,
+        ROADMAP §2)."""
+        ms = {}
+        for h in targets:
+            for name, (q, want) in reads.items():
+                res, ms[f"{hosts.index(h)}:{name}"] = query(h, q)
+                got = res if name == "count" else _pairs_json(res[0])
+                if got != want:
+                    _fail(f"resize: {name} from {h} ({label}): {got} !="
+                          f" {want}")
+        return ms
+
+    def topology(h):
+        return get_json(h, "/debug/topology")
+
+    def double_reads(targets) -> dict:
+        out = {"source": 0.0, "target": 0.0}
+        for h in targets:
+            samples = _scrape(h)
+            for w in out:
+                out[w] += _family_sum(
+                    samples, "pilosa_cluster_resize_double_reads_total",
+                    winner=w)
+        return out
+
+    # -- the load: one reader and two writers, every node a coordinator --
+    load = {"stop": threading.Event(), "coords": list(hosts),
+            "moving": [], "wrong": [], "failed": [], "lat": []}
+    acked = {1: set(), 2: set()}
+
+    def reader():
+        k = 0
+        while not load["stop"].is_set():
+            q, want = singles[k % len(singles)]
+            coords = load["coords"]
+            host = coords[k % len(coords)]
+            k += 1
+            try:
+                st, _, out, ms = _request(host, "POST",
+                                          "/index/smoke/query", q.encode(),
+                                          timeout=120)
+            except OSError as e:
+                load["failed"].append((host, q, repr(e)))
+                continue
+            if st != 200:
+                load["failed"].append((host, q, st, out[:200]))
+                continue
+            got = json.loads(out)["results"][0]
+            if got != want:
+                load["wrong"].append((host, q, got, want))
+            load["lat"].append((time.perf_counter(), ms))
+            time.sleep(0.02)
+
+    def writer(row, wseed):
+        wrng = np.random.default_rng(wseed)
+        k = row
+        while not load["stop"].is_set():
+            moving = load["moving"]
+            coords = load["coords"]
+            s = moving[int(wrng.integers(len(moving)))]
+            col = s * W + int(wrng.integers(W))
+            q = f"SetBit(rowID={row}, frame=w, columnID={col})"
+            host = coords[k % len(coords)]
+            k += 1
+            try:
+                st, _, out, _ = _request(host, "POST", "/index/smoke/query",
+                                         q.encode(), timeout=120)
+                if st != 200:
+                    load["failed"].append((host, q, st, out[:200]))
+                    continue
+                acked[row].add(col)
+                host = coords[k % len(coords)]
+                q = f"Count(Bitmap(rowID={row}, frame=w))"
+                st, _, out, _ = _request(host, "POST", "/index/smoke/query",
+                                         q.encode(), timeout=120)
+            except OSError as e:
+                load["failed"].append((host, q, repr(e)))
+                continue
+            if st != 200:
+                load["failed"].append((host, q, st, out[:200]))
+                continue
+            got = json.loads(out)["results"][0]
+            if got != len(acked[row]):
+                load["wrong"].append((host, q, got, len(acked[row])))
+            time.sleep(0.02)
+
+    def load_start(coords, moving):
+        load["stop"].clear()
+        load["coords"] = list(coords)
+        load["moving"] = list(moving)
+        threads = [threading.Thread(target=reader, daemon=True)] + [
+            threading.Thread(target=writer, args=(r, seed + 900 + r),
+                             daemon=True) for r in acked]
+        for t in threads:
+            t.start()
+        return threads
+
+    def load_stop(threads):
+        load["stop"].set()
+        for t in threads:
+            t.join(120)
+            if t.is_alive():
+                _fail("resize: a load thread did not stop in 120 s")
+        if load["wrong"] or load["failed"]:
+            _fail(f"resize: {len(load['wrong'])} wrong answers"
+                  f" {load['wrong'][:3]}, {len(load['failed'])} failed"
+                  f" requests {load['failed'][:3]}")
+
+    def p50_between(t_a, t_b):
+        ms = [m for t, m in load["lat"] if t_a <= t < t_b]
+        return (_median(ms) if ms else None), len(ms)
+
+    def moving_slices(a, b):
+        mv = movement(a, b, cl.partition_n, 2)
+        return [s for s in range(n_slices)
+                if cl.partition("smoke", s) in mv]
+
+    def run_step(label, coord, start, members, coords, moving):
+        """One resize under the load: its op, the protocol phases'
+        seconds, the double reads and the Count p50s."""
+        threads = load_start(coords, moving)
+        time.sleep(pre_load_s)
+        dr0 = double_reads(coords)
+        t_start = time.perf_counter()
+        waiter = start()
+        seen = {}
+        op = None
+        while True:
+            st, _, out, _ = _request(coord, "GET", "/cluster/resize",
+                                     timeout=30)
+            op = json.loads(out).get("op") if st == 200 else None
+            if op:
+                seen.setdefault(op["phase"], time.perf_counter() - t_start)
+                if op["phase"] in ("done", "aborted"):
+                    break
+            if time.perf_counter() - t_start > settle_limit_s:
+                _fail(f"resize: {label} not settled in {settle_limit_s} s:"
+                      f" {op}")
+            time.sleep(0.05)
+        t_end = time.perf_counter()
+        verb = waiter() if waiter is not None else None
+        dr1 = double_reads(coords)
+        load_stop(threads)
+        if op["phase"] != "done":
+            _fail(f"resize: {label} ended {op['phase']}: {op}")
+        order = ["preparing", "streaming", "flipping", "draining",
+                 "finalizing", "done"]
+        at = [(p, seen[p]) for p in order if p in seen]
+        phase_s = {p: at[k + 1][1] - t for k, (p, t) in enumerate(at[:-1])}
+        stream_s = phase_s.get("streaming", 0.0) + phase_s.get("draining",
+                                                               0.0)
+        before = p50_between(t_start - pre_load_s, t_start)
+        during = p50_between(t_start, t_end)
+        for h in members:
+            topo = topology(h)
+            if (topo["epoch"] != epoch_want[label]
+                    or sorted(topo["nodes"]) != sorted(members_want[label])
+                    or topo["resize"] is not None):
+                _fail(f"resize: {h} after the {label}: epoch"
+                      f" {topo['epoch']} nodes {topo['nodes']} resize"
+                      f" {topo['resize']}")
+        return {"seconds": t_end - t_start, "phases_s": phase_s,
+                "seen_at_s": seen, "slices_moved": op["slicesMoved"],
+                "moving_slices": len(moving),
+                "mb_streamed": op["bytesStreamed"] / 1e6,
+                "mb_per_s": (op["bytesStreamed"] / 1e6 / stream_s
+                             if stream_s else None),
+                "stream_passes": op["streamPasses"],
+                "double_reads": {w: dr1[w] - dr0[w] for w in dr1},
+                "count_p50_ms_before": before[0],
+                "count_p50_ms_during": during[0],
+                "counts_before": before[1], "counts_during": during[1],
+                "writes_acked": {r: len(c) for r, c in acked.items()},
+                "wrong": len(load["wrong"]),
+                "failed": len(load["failed"]), "verb": verb}
+
+    def converged(targets, moving, members):
+        """The writers' rows alike from every node, and each moving
+        slice's ``w`` fragment with one block checksum set on all its
+        owners."""
+        for h in targets:
+            for r, c in acked.items():
+                got, _ = query(h, f"Count(Bitmap(rowID={r}, frame=w))")
+                if got != [len(c)]:
+                    _fail(f"resize: row {r} of w on {h}: {got} !="
+                          f" [{len(c)}]")
+        from concurrent.futures import ThreadPoolExecutor
+        placed = new_cluster(members, replica_n=2)
+        written = sorted({c // W for cs in acked.values() for c in cs}
+                         & set(moving))
+
+        def blocks(s):
+            sums = set()
+            for n in placed.fragment_nodes("smoke", s):
+                st, _, out, _ = _request(
+                    n.host, "GET", f"/fragment/blocks?index=smoke&frame=w"
+                    f"&view=standard&slice={s}", timeout=30)
+                if st != 200:
+                    return f"w/{s} on {n.host}: {st} {out[:200]!r}"
+                sums.add(json.dumps(json.loads(out)["blocks"],
+                                    sort_keys=True))
+            return None if len(sums) == 1 else (
+                f"w/{s} differs between its owners")
+
+        # Checksum reads only (no slab is built): all at once.
+        with ThreadPoolExecutor(8) as tp:
+            bad = [e for e in tp.map(blocks, written) if e]
+        if bad:
+            _fail(f"resize: {bad[:3]}")
+        return len(written)
+
+    def stall_trips(h):
+        wd = get_json(h, "/status").get("watchdog") or {}
+        return ("resize_stall" in wd.get("lastTrip", {}),
+                _family_sum(_scrape(h), "pilosa_watchdog_trips_total",
+                            cause="resize_stall"))
+
+    procs = [None, None, None, None]
+    lines = []
+    node3_first = node1_line = None
+    try:
+        # -- 1. ready ---------------------------------------------------------
+        t0 = time.perf_counter()
+        procs[0] = spawn(0)
+        _wait_up(hosts[0], procs[0], up_limit_s)
+        for i in (1, 2, 3):
+            procs[i] = spawn(i)
+        ready_s = wait_ready(hosts, t0)
+        st, _, out, _ = _request(hosts[0], "POST", "/index/smoke/frame/w",
+                                 b"{}")
+        if st != 200:
+            _fail(f"resize: create frame w: {st} {out[:200]!r}")
+        while not all(any(f["name"] == "w" for ix in get_json(
+                h, "/schema")["indexes"] if ix["name"] == "smoke"
+                for f in ix.get("frames", [])) for h in hosts):
+            if time.perf_counter() - t0 > up_limit_s:
+                _fail("resize: frame w did not reach every node")
+            time.sleep(0.05)
+        mark("ready")
+
+        # -- 2. before --------------------------------------------------------
+        before_ms = check_reads(hosts, "before")
+        node3_before = _node_counters(procs[3], rtmp, 3)["launches"]
+        mark("before")
+
+        # -- 3. grow 3 -> 4 (the resize verb) -------------------------------
+        epoch_want = {"grow": 1, "shrink": 2}
+        members_want = {"grow": hosts,
+                        "shrink": [hosts[0], hosts[2], hosts[3]]}
+        grow_moving = moving_slices(old, hosts)
+
+        def start_grow():
+            import subprocess
+            env = {k: v for k, v in os.environ.items()
+                   if k != "PYTHONPATH"}
+            env["PYTHONPATH"] = repo
+            p = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch.cli", "resize",
+                 "--host", hosts[0], "--add", hosts[3], "--wait"],
+                cwd=repo, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE)
+
+            def wait():
+                out, err = p.communicate(timeout=120)
+                last = out.decode().strip().splitlines()[-1:]
+                if p.returncode != 0:
+                    _fail(f"resize: the resize verb exited"
+                          f" {p.returncode}: {out[-500:]!r} {err[-500:]!r}")
+                return {"rc": p.returncode, "last_line": last}
+            return wait
+
+        grow = run_step("grow", hosts[0], start_grow, hosts, hosts,
+                        grow_moving)
+        mark("grow")
+
+        # -- 4. after the grow ------------------------------------------------
+        node3_first = _nodes_stop([procs[3]], [hosts[3]])[0]
+        procs[3] = None
+        t0 = time.perf_counter()
+        procs[3] = spawn(3)
+        _wait_up(hosts[3], procs[3], up_limit_s)
+        topo3 = topology(hosts[3])
+        if topo3["epoch"] != 1 or sorted(topo3["nodes"]) != sorted(hosts):
+            _fail(f"resize: node 3 restarted at epoch {topo3['epoch']}"
+                  f" with {topo3['nodes']}")
+        restart_s = wait_ready([hosts[3]], t0)
+        after_grow_ms = check_reads(hosts, "after the grow")
+        w_slices = converged(hosts, grow_moving, hosts)
+        rose = {k: node3_first["launches"].get(k, 0) - node3_before.get(
+            k, 0) for k in ("expr_count_rows", "densify")}
+        if min(rose.values()) <= 0:
+            _fail(f"resize: node 3 launched no moved-slice kernels: {rose}")
+        stall = stall_trips(hosts[0])
+        if stall[0] or stall[1]:
+            _fail(f"resize: node 0's watchdog tripped resize_stall: {stall}")
+        grow.update({"node3_restart_s": restart_s,
+                     "node3_launches_rose": rose,
+                     "w_slices_checked": w_slices,
+                     "after_ms": after_grow_ms})
+        mark("after_grow")
+
+        # -- 5. shrink 4 -> 3 (POST /cluster/resize) --------------------------
+        shrink_members = members_want["shrink"]
+        shrink_moving = moving_slices(hosts, shrink_members)
+
+        def start_shrink():
+            st, _, out, _ = _request(
+                hosts[0], "POST", "/cluster/resize",
+                json.dumps({"remove": hosts[1]}).encode(), timeout=30)
+            if st != 202:
+                _fail(f"resize: POST remove: {st} {out[:300]!r}")
+            return None
+
+        shrink = run_step("shrink", hosts[0], start_shrink, hosts, hosts,
+                          shrink_moving)
+        node1_line = _nodes_stop([procs[1]], [hosts[1]])[0]
+        procs[1] = None
+        after_shrink_ms = check_reads(shrink_members, "after the shrink")
+        shrink["w_slices_checked"] = converged(shrink_members,
+                                               shrink_moving,
+                                               shrink_members)
+        stall = stall_trips(hosts[0])
+        if stall[0] or stall[1]:
+            _fail(f"resize: node 0's watchdog tripped resize_stall: {stall}")
+        shrink["after_ms"] = after_shrink_ms
+        mark("shrink")
+        lines = _nodes_stop([procs[i] for i in (0, 2, 3)],
+                            [hosts[i] for i in (0, 2, 3)])
+        procs = [None, None, None, None]
+        mark("stopped")
+    except SystemExit:
+        for i in range(4):
+            try:
+                with open(os.path.join(rtmp, f"node{i}.log"), "rb") as f:
+                    tail = f.read()[-3000:].decode(errors="replace")
+            except OSError:
+                continue
+            print(f"resize: node {i} log tail:\n{tail}", file=sys.stderr,
+                  flush=True)
+        raise
+    finally:
+        load["stop"].set()
+        for p in procs:
+            if p is not None:
+                p.kill()
+                p.communicate()
+
+    launches: dict = {}
+    for line in lines + [node3_first, node1_line]:
+        for k, v in line["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out = {"phase": "resize", "config": "BASELINE configuration 4",
+           "nodes": "3->4->3", "replicas": 2, "slices": n_slices,
+           "bits": n_bits, "data_s": data_s, "ready_s": ready_s,
+           "before_ms": before_ms, "grow": grow, "shrink": shrink,
+           "launches": launches, "marks_s": marks, "card": _card(),
+           "seconds": time.perf_counter() - t_phase}
+    _emit(out)
+    return out
+
+
 def _cluster_node(argv: list) -> None:
     """Child mode of ``phase_cluster``: one node, the ``server`` verb's
     code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
@@ -5561,7 +6111,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=("cluster", "integrity", "gossip",
-                                        "operator"),
+                                        "operator", "resize"),
                     help="build the kernels and run this one phase"
                          " alone (its line only: no kernel table, no"
                          " last line)")
@@ -5589,7 +6139,8 @@ def main() -> None:
     if args.phase:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             {"cluster": phase_cluster, "integrity": phase_integrity,
-             "gossip": phase_gossip, "operator": phase_operator}[
+             "gossip": phase_gossip, "operator": phase_operator,
+             "resize": phase_resize}[
                  args.phase](device, args.seed, tmp)
         print(f"nvidia-smi: {_card()}", flush=True)
         return
@@ -5647,6 +6198,9 @@ def main() -> None:
                 "launches"].items():
             launches[name] += n
         for name, n in phase_operator(device, args.seed, tmp)[
+                "launches"].items():
+            launches[name] += n
+        for name, n in phase_resize(device, args.seed, tmp)[
                 "launches"].items():
             launches[name] += n
     before_bench = ck.LAUNCHES["op_count_rows"]

@@ -44,7 +44,10 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   ``--shadow BASELINE CANDIDATE`` to compare result digests) and
   ``top`` (cli.top: the live fleet dashboard).
 
-``resize`` waits for the slice that ports it.
+- ``resize`` (the operator face of the online resize: ``--add``,
+  ``--remove`` or ``--hosts`` starts one on ``--host``, which
+  coordinates; ``--abort``, ``--status``; ``--wait`` polls until it
+  settles and exits 0 on done, 1 on aborted).
 """
 
 from __future__ import annotations
@@ -194,7 +197,9 @@ def cmd_server(args, stdout, stderr) -> int:
                     watchdog_config=cfg.watchdog,
                     history_config=cfg.history,
                     sentinel_config=cfg.sentinel,
-                    capture_config=cfg.capture)
+                    capture_config=cfg.capture,
+                    resize_pace_s=cfg.cluster.resize_pace,
+                    resize_grace_s=cfg.cluster.resize_grace)
 
     def stop(signum, frame):
         raise KeyboardInterrupt
@@ -625,6 +630,79 @@ def _check_deep(args, stdout, stderr) -> int:
     return rc
 
 
+def cmd_resize(args, stdout, stderr) -> int:
+    """Operator face of the online resize (docs/CLUSTER_RESIZE.md):
+    POST /cluster/resize on any member to start/abort, GET to watch."""
+    import json as json_mod
+    import urllib.request
+
+    def get_status():
+        with urllib.request.urlopen(
+                f"http://{args.host}/cluster/resize", timeout=10) as r:
+            return json_mod.loads(r.read())
+
+    def post(body: dict):
+        req = urllib.request.Request(
+            f"http://{args.host}/cluster/resize",
+            data=json_mod.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json_mod.loads(r.read())
+
+    if args.status:
+        print(json_mod.dumps(get_status(), indent=1), file=stdout)
+        return 0
+    if args.abort:
+        print(json_mod.dumps(post({"abort": True}), indent=1),
+              file=stdout)
+        return 0
+    body: dict = {}
+    if args.hosts:
+        body["hosts"] = [h.strip() for h in args.hosts.split(",")
+                         if h.strip()]
+    elif args.add:
+        body["add"] = args.add
+    elif args.remove:
+        body["remove"] = args.remove
+    else:
+        print("resize: one of --add/--remove/--hosts/--abort/--status"
+              " required", file=stderr)
+        return 1
+    status = post(body)
+    print(json_mod.dumps(status, indent=1), file=stdout)
+    if not args.wait:
+        return 0
+    rid = (status.get("op") or {}).get("id") or status.get("id")
+    # Transient poll failures (a node busy streaming, a coordinator
+    # restart mid-recovery) keep waiting; only a sustained outage or
+    # the overall deadline gives up. An absent op is NOT terminal —
+    # journal recovery re-registers it.
+    deadline = time.time() + 1800
+    misses = 0
+    while time.time() < deadline:
+        time.sleep(0.5)
+        try:
+            s = get_status()
+        except Exception as e:  # noqa: BLE001 - transient poll error
+            misses += 1
+            if misses >= 60:
+                print(f"resize {rid}: status unreachable: {e}",
+                      file=stderr)
+                return 1
+            continue
+        misses = 0
+        op = s.get("op") or {}
+        phase = op.get("phase", "")
+        print(f"resize {rid}: {phase or '(pending)'} "
+              f"(slices={op.get('slicesMoved', 0)},"
+              f" bytes={op.get('bytesStreamed', 0)})", file=stdout,
+              flush=True)
+        if phase in ("done", "aborted"):
+            return 0 if phase == "done" else 1
+    print(f"resize {rid}: wait timed out", file=stderr)
+    return 1
+
+
 def cmd_check(args, stdout, stderr) -> int:
     """Offline consistency check of fragment files (ctl/check.go:46-113):
     ``Bitmap.check()`` validates every container kind, the run
@@ -987,6 +1065,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render one frame and exit (scripts, tests)")
     from .top import cmd_top
     c.set_defaults(fn=cmd_top)
+
+    c = sub.add_parser(
+        "resize", help="drive / inspect an elastic cluster resize")
+    c.add_argument("--host", default="localhost:10101",
+                   help="any current cluster member (it coordinates)")
+    c.add_argument("--add", default="",
+                   help="host:port joining the cluster")
+    c.add_argument("--remove", default="",
+                   help="host:port leaving the cluster")
+    c.add_argument("--hosts", default="",
+                   help="explicit target membership (comma-separated;"
+                        " overrides --add/--remove)")
+    c.add_argument("--abort", action="store_true",
+                   help="abort the in-flight resize")
+    c.add_argument("--status", action="store_true",
+                   help="print resize status and exit")
+    c.add_argument("--wait", action="store_true",
+                   help="poll until the resize settles")
+    c.set_defaults(fn=cmd_resize)
 
     c = sub.add_parser(
         "replay", help="re-issue a captured workload against a"

@@ -3,14 +3,14 @@
 Copy of the JAX package's ``cluster/broadcast.py`` (reference
 broadcast.go + httpbroadcast/messenger.go). The control plane carries
 the reference's five message kinds (create-slice/index/frame,
-delete-index/frame) plus the query-cancel message as a 1-byte type tag
-+ protobuf envelope (broadcast.go:109-166), byte for byte the JAX
-package's, so a JAX node and a port node read each other's messages.
+delete-index/frame) plus the query-cancel and resize control messages
+as a 1-byte type tag + body envelope (broadcast.go:109-166), byte for
+byte the JAX package's, so a JAX node and a port node read each other's
+messages.
 Backends: ``static`` (fixed node list, no messaging) and ``http``
 (direct POST of the envelope to each peer's ``/messages``). The data
 plane (queries, imports, block sync) never rides this channel — it is
-protobuf-over-HTTP via cluster.client. The resize control message waits
-for the resize slice.
+protobuf-over-HTTP via cluster.client.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ MESSAGE_TYPE_DELETE_INDEX = 3
 MESSAGE_TYPE_CREATE_FRAME = 4
 MESSAGE_TYPE_DELETE_FRAME = 5
 MESSAGE_TYPE_CANCEL_QUERY = 6
+MESSAGE_TYPE_RESIZE = 7
 
 
 class CancelQueryMessage:
@@ -53,6 +54,57 @@ class CancelQueryMessage:
         return f"CancelQueryMessage(id={self.id!r})"
 
 
+class ResizeMessage:
+    """Elastic-resize control message (cluster.resize;
+    docs/CLUSTER_RESIZE.md): one wire form for every phase of the
+    protocol — ``prepare`` installs the in-flight state (union writes,
+    read fencing), ``flip`` switches placement epoch-atomically,
+    ``finalize`` drops the union, ``abort`` backs out to the old
+    epoch. The body is compact JSON riding the same 1-byte-tag
+    envelope as the protobuf control messages (the CancelQueryMessage
+    duck-typing pattern), so it travels over every broadcaster backend
+    (static direct-POST, http, gossip) unchanged. The coordinator
+    sends phases as DIRECT per-node POSTs of this envelope to
+    ``/messages`` (each node's 200 is its ack) and re-broadcasts them
+    async over gossip for stragglers."""
+
+    __slots__ = ("id", "phase", "epoch", "old_hosts", "new_hosts",
+                 "coordinator")
+
+    def __init__(self, id: str = "", phase: str = "", epoch: int = 0,
+                 old_hosts=None, new_hosts=None, coordinator: str = ""):
+        self.id = id
+        self.phase = phase            # prepare | flip | finalize | abort
+        self.epoch = epoch            # the epoch the resize starts FROM
+        self.old_hosts = list(old_hosts or [])
+        self.new_hosts = list(new_hosts or [])
+        self.coordinator = coordinator
+
+    def SerializeToString(self) -> bytes:  # noqa: N802 - protobuf parity
+        import json
+        return json.dumps(
+            {"id": self.id, "phase": self.phase, "epoch": self.epoch,
+             "old": self.old_hosts, "new": self.new_hosts,
+             "coordinator": self.coordinator},
+            separators=(",", ":")).encode()
+
+    @classmethod
+    def FromString(cls, raw: bytes) -> "ResizeMessage":  # noqa: N802
+        import json
+        d = json.loads(raw.decode())
+        return cls(id=str(d.get("id", "")),
+                   phase=str(d.get("phase", "")),
+                   epoch=int(d.get("epoch", 0)),
+                   old_hosts=d.get("old") or [],
+                   new_hosts=d.get("new") or [],
+                   coordinator=str(d.get("coordinator", "")))
+
+    def __repr__(self) -> str:
+        return (f"ResizeMessage(id={self.id!r}, phase={self.phase!r},"
+                f" epoch={self.epoch}, old={self.old_hosts},"
+                f" new={self.new_hosts})")
+
+
 _TYPE_BY_CLASS = {
     pb.CreateSliceMessage: MESSAGE_TYPE_CREATE_SLICE,
     pb.CreateIndexMessage: MESSAGE_TYPE_CREATE_INDEX,
@@ -60,6 +112,7 @@ _TYPE_BY_CLASS = {
     pb.CreateFrameMessage: MESSAGE_TYPE_CREATE_FRAME,
     pb.DeleteFrameMessage: MESSAGE_TYPE_DELETE_FRAME,
     CancelQueryMessage: MESSAGE_TYPE_CANCEL_QUERY,
+    ResizeMessage: MESSAGE_TYPE_RESIZE,
 }
 _CLASS_BY_TYPE = {v: k for k, v in _TYPE_BY_CLASS.items()}
 

@@ -183,6 +183,14 @@ class GenerationMap:
         index, tokens = decoded
         return self.apply(peer, index, tokens)
 
+    def tokens(self, peer: str, index: str, slice: int):
+        """The freshest-known token dict of (peer, index, slice), or
+        None (the resize double read's newest-token check)."""
+        with self._mu:
+            m = self._peers.get(peer)
+            ent = m.get((index, slice)) if m else None
+        return ent[0] if ent is not None else None
+
     def newest(self, index: str, slice: int):
         """(peer, tokens, ts) with the newest knowledge of (index,
         slice) across peers, or None."""

@@ -34,11 +34,11 @@ behavior directly on sockets — a deliberately small SWIM variant:
   a timestamp too); unauthenticated or tampered frames are dropped before
   parsing.
 
-The push/pull piggybacks: ``build_state`` (the handler's
-``build_wire_state``, each node's build identity) is sent and applied.
-``resize_state`` is neither sent nor applied until the resize slice: a
-JAX peer's ``resize_state`` is skipped, as the JAX gossip skips it for a
-handler without ``apply_resize_wire_state``.
+The push/pull piggybacks, both sent and applied as the JAX gossip
+does: ``resize_state`` (the handler's ``resize_wire_state``: the
+placement epoch and the in-flight and last settled resize, so a node
+that missed a resize control send converges) and ``build_state`` (the
+handler's ``build_wire_state``, each node's build identity).
 
 Membership is a host-side concern; the device holds only bitmap data.
 """
@@ -687,6 +687,16 @@ class GossipNodeSet:
                                    " %s", e)
         out = {"t": "pushpull", "members": members,
                "status_pb": status_b64}
+        # Elastic-resize convergence (cluster.resize): the placement
+        # epoch + in-flight/last-settled resize ride the push/pull, so
+        # a node that missed the coordinator's control sends
+        # (partitioned, restarted) converges within one exchange.
+        if self._handler is not None and hasattr(
+                self._handler, "resize_wire_state"):
+            try:
+                out["resize_state"] = self._handler.resize_wire_state()
+            except Exception:  # noqa: BLE001 - piggyback best-effort
+                pass
         # Build identity (obs.runtime.build_info): rides every
         # push/pull so version skew across a mixed-version fleet is
         # visible from any member during a rolling restart
@@ -707,6 +717,13 @@ class GossipNodeSet:
                 self._merge_member(Member.from_wire(w))
             except (KeyError, ValueError):
                 continue
+        rz = state.get("resize_state")
+        if rz and self._handler is not None and hasattr(
+                self._handler, "apply_resize_wire_state"):
+            try:
+                self._handler.apply_resize_wire_state(rz)
+            except Exception as e:  # noqa: BLE001 - merge best-effort
+                self.logger.printf("gossip: resize merge error: %s", e)
         bd = state.get("build_state")
         if bd and self._handler is not None and hasattr(
                 self._handler, "apply_build_wire_state"):

@@ -9,16 +9,32 @@ and deterministic — every node computes the same owner set with no
 coordination — and bit for bit the JAX package's, so a port node and a
 JAX node agree on every slice's owners.
 
-Elastic resize waits for a later slice. ``Cluster`` carries its data as
-in the JAX package — the placement ``epoch``, the in-flight
-``ResizeState`` (always None here) and the ``movement`` set math — so
-``read_nodes``/``read_allowed`` keep the JAX read-authority contract,
-which without a resize is plain placement.
+Elastic resize (docs/CLUSTER_RESIZE.md): placement is versioned by an
+integer **epoch**; an in-flight resize installs a ``ResizeState`` that
+makes ownership math epoch-aware in three regimes:
+
+- ``migrating`` (pre-flip): the CURRENT (old) placement is the read
+  authority; writes fan to the union of old and new owners of every
+  moving partition, so the target copies stay write-synchronized while
+  the streamer backfills their base data.
+- ``draining`` (post-flip): ``nodes``/``epoch`` have switched to the
+  target membership in one atomic step; reads route by the new
+  placement (old owners stay read-valid — everyone still union-writes
+  until finalize); writes keep fanning to the union so a node that has
+  not yet processed the flip cannot strand a write.
+- finalized: resize state clears; for a short grace window the
+  previous epoch's owners keep ACCEPTING writes (never serving reads)
+  so straggler coordinators' union-writes don't bounce.
+
+The movement set is computable from the jump-hash delta alone
+(``movement()``): growing n→n+1 relocates ~1/(n+1) of partitions and
+never moves one between two surviving old owners.
 """
 
 from __future__ import annotations
 
 import struct
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -194,11 +210,17 @@ class Cluster:
     replica_n: int = DEFAULT_REPLICA_N
     node_set: Optional[object] = None  # membership backend (broadcast.py)
     hasher: object = None              # override for tests
-    # Placement epoch (part of the cluster result cache's key) and the
-    # in-flight ResizeState or None; without the resize slice both
-    # keep their initial values.
+    # Placement epoch: bumped atomically by flip_epoch so every
+    # ownership consumer switches math in one step. ``resize`` is the
+    # in-flight ResizeState or None (the hot-path check is one attr
+    # read). ``_prev`` keeps the previous epoch's owners write-
+    # accepting for a grace window after finalize.
     epoch: int = 0
     resize: Optional[ResizeState] = field(default=None, compare=False)
+    _prev: Optional[tuple] = field(default=None, compare=False,
+                                   repr=False)
+    _mu: threading.Lock = field(default_factory=threading.Lock,
+                                compare=False, repr=False)
 
     def node_by_host(self, host: str) -> Optional[Node]:
         for n in self.nodes:
@@ -281,10 +303,108 @@ class Cluster:
         return rs.phase, mv[0], mv[1]
 
     def owns_fragment(self, host: str, index: str, slice: int) -> bool:
-        """Write-accepting ownership: ``host`` is an owner of the
-        slice. Read-path gates use read_allowed, never this."""
-        return any(n.host == host
-                   for n in self.fragment_nodes(index, slice))
+        """Write-accepting ownership: the resize union, plus (post-
+        finalize) the previous epoch's owners inside the grace window —
+        a straggler coordinator's union-write must not bounce off the
+        old owner with a 412. Read-path gates use read_allowed, never
+        this."""
+        if any(n.host == host
+               for n in self.fragment_nodes(index, slice)):
+            return True
+        prev = self._prev
+        if prev is not None:
+            deadline, old_hosts, _epoch = prev
+            if time.monotonic() < deadline:
+                p = self.partition(index, slice)
+                return host in owner_hosts(old_hosts, p, self.replica_n,
+                                           self.hasher)
+            # Expired: clear under the lock, and only the tuple we
+            # read — an unsynchronized None could clobber a grace
+            # window a concurrent finalize just installed.
+            with self._mu:
+                if self._prev is prev:
+                    self._prev = None
+        return False
+
+    # -- resize lifecycle (driven by ResizeMessage broadcasts) ---------------
+
+    def install_resize(self, resize_id: str,
+                       new_hosts: list[str]) -> ResizeState:
+        """The prepare step: atomically install the in-flight state.
+        Idempotent for the same id; a different in-flight id raises
+        (one resize at a time, cluster-wide)."""
+        with self._mu:
+            rs = self.resize
+            if rs is not None:
+                if rs.id == resize_id:
+                    return rs
+                raise ValueError(
+                    f"resize {rs.id} already in flight (phase"
+                    f" {rs.phase}); cannot install {resize_id}")
+            old_hosts = [n.host for n in self.nodes]
+            by_host = {n.host: n for n in self.nodes}
+            target_nodes = [by_host.get(h) or Node(h)
+                            for h in new_hosts]
+            rs = ResizeState(
+                resize_id, self.epoch, old_hosts, new_hosts,
+                target_nodes, list(self.nodes),
+                movement(old_hosts, new_hosts, self.partition_n,
+                         self.replica_n, self.hasher))
+            self.resize = rs
+            return rs
+
+    def flip_epoch(self, resize_id: str) -> bool:
+        """The epoch-atomic switch: nodes/epoch move to the target
+        membership and the resize enters draining, all under one lock
+        — every subsequent placement consult on this node uses the new
+        math. Returns True when this call performed the flip (False =
+        already flipped). Raises if no matching resize is installed
+        (the caller installs from the flip message first — it carries
+        everything needed)."""
+        with self._mu:
+            rs = self.resize
+            if rs is None or rs.id != resize_id:
+                raise ValueError(f"no resize {resize_id} installed")
+            if rs.phase == RESIZE_DRAINING:
+                return False
+            self.nodes = list(rs.target_nodes)
+            self.epoch = rs.epoch_from + 1
+            rs.phase = RESIZE_DRAINING
+            rs._rebuild_extra()
+            return True
+
+    def finalize_resize(self, resize_id: str,
+                        grace_s: float = 30.0) -> bool:
+        """Drop the union: single-path writes resume; old owners keep
+        write-accepting (never read-serving) for ``grace_s``."""
+        with self._mu:
+            rs = self.resize
+            if rs is None or rs.id != resize_id:
+                return False
+            if rs.phase != RESIZE_DRAINING:
+                # Finalize without flip = protocol violation upstream.
+                raise ValueError(
+                    f"resize {resize_id} not flipped (phase {rs.phase})")
+            self.resize = None
+            self._prev = (time.monotonic() + grace_s,
+                          list(rs.old_hosts), rs.epoch_from)
+            return True
+
+    def abort_resize(self, resize_id: str) -> bool:
+        """Back out to the old epoch. Pre-flip this only clears state;
+        post-flip (a node that flipped before the coordinator decided
+        to abort) it reverts nodes/epoch — safe because every node
+        union-writes until finalize, so the old copies never missed a
+        write."""
+        with self._mu:
+            rs = self.resize
+            if rs is None or rs.id != resize_id:
+                return False
+            if rs.phase == RESIZE_DRAINING:
+                self.nodes = list(rs.old_nodes)
+                self.epoch = rs.epoch_from
+            self.resize = None
+            return True
 
     def owns_slices(self, index: str, max_slice: int, host: str
                     ) -> list[int]:

@@ -117,8 +117,15 @@ batch, the single-pass TopN, the device top-k, the bitmap-result cache
 and the planner's proofs — run when this node owns every slice a query
 touches (``_owns_all_slices``). The JAX package's environment gates
 are class constants here (their defaults), which tests override
-through the constructor; the resize double read and the pod wait for
-later slices.
+through the constructor; the pod waits for a later slice.
+
+During an elastic resize (cluster.resize) writes fan to the union of
+the old and new owners of a moving slice (``Cluster.fragment_nodes``),
+reads of a moving slice in the migrating phase go out as DOUBLE READS
+(``_exec_double_read``: the old owners authoritative, the fenced new
+owner the fallback that can only answer once it has flipped), both
+result caches decline, and ``on_resize_change`` drops the entries a
+flip moved — the JAX executor's rules (executor.py:3824-4064).
 
 With a hedge floor on the fault manager (``[fault] hedge``) a remote
 read leg — a map-reduce leg or a TopN pushdown leg — that has not
@@ -146,7 +153,8 @@ import numpy as np
 
 from . import SLICE_WIDTH
 from .cluster import generations as gens_mod
-from .cluster.topology import Cluster, Node, new_cluster
+from .cluster.topology import (RESIZE_MIGRATING, Cluster, Node,
+                               new_cluster)
 from .device import resolve_device
 from .errors import (TIME_FORMAT, FrameNotFoundError, IndexNotFoundError,
                      PilosaError, QueryCancelledError, QueryDeadlineError,
@@ -729,6 +737,11 @@ class Executor:
             return None
         if compiled_out is not None:
             compiled_out.append((expr, leaves))
+        if self.cluster.resize is not None:
+            # In-flight resize: moving slices' serving peers are in
+            # flux (double reads, mid-flip ownership) — uncached until
+            # the epoch settles.
+            return None
         if not self._owns_all_slices(index, slices):
             # A slice this node does not hold has no local generation:
             # uncached (the JAX package keys it on the peer's tokens).
@@ -741,7 +754,32 @@ class Executor:
                 f = self.holder.fragment(index, frame, view, s)
                 gens.append((f.device.uid, f.device.generation)
                             if f is not None else (0, 0))
-        return (index, expr, tuple(leaves), tuple(slices), tuple(gens))
+        # Epoch in the key: a slice that moved in a resize is served
+        # by a different peer afterwards — entries keyed under the old
+        # epoch's owners must never match post-flip lookups.
+        return (index, expr, tuple(leaves), tuple(slices), tuple(gens),
+                self.cluster.epoch)
+
+    def on_resize_change(self, moved_fn=None) -> None:
+        """Called on every resize transition this node observes
+        (prepare / flip / finalize / abort — server.receive_message).
+        Given ``moved_fn(index, slice) -> bool``, drops every
+        bitmap-result and cluster-cache entry touching a moved slice:
+        a moved slice served by a new peer with a fresh uid must never
+        validate a stale entry (the epoch in both keys is the
+        backstop, this is the eager flush). The JAX executor also
+        clears its write fast lane's fragment cache here; the port has
+        no such lane."""
+        if moved_fn is None:
+            return
+        with self._bitmap_results_mu:
+            for key in [k for k in self._bitmap_results
+                        if any(moved_fn(k[0], s) for s in k[3])]:
+                self._bitmap_results.pop(key, None)
+        with self._cluster_cache_mu:
+            for key in [k for k in self._cluster_cache
+                        if any(moved_fn(k[0], s) for s in k[2])]:
+                self._cluster_cache.pop(key, None)
 
     def _result_cache_put(self, key: tuple, bm: Bitmap) -> None:
         """Keep ``bm`` under ``key`` unless it holds more bits than the
@@ -2688,9 +2726,22 @@ class Executor:
         cluster, unless it is a coordinator's leg (``remote``): the
         placement decides which node serves each slice (this node
         first where a fault manager orders the owners, as a server's
-        does)."""
+        does).
+
+        A coordinator's leg during a resize meets the server-side read
+        fence: a slice this node may not serve yet (a stream target's
+        incomplete copy before the flip) raises SliceUnavailableError,
+        as the JAX executor's ``_slices_by_node`` does for a leg — which
+        is what lets a double read take a successful target leg as
+        proof the target flipped."""
+        if (opt is not None and opt.remote
+                and self.cluster.resize is not None):
+            for s in slices:
+                if not self.cluster.read_allowed(self.host, index, s):
+                    raise SliceUnavailableError(str(s))
         return (opt is not None and not opt.remote and bool(slices)
                 and (len(self.cluster.nodes) > 1
+                     or self.cluster.resize is not None
                      or self._quarantine_blocks(index, slices)))
 
     def _quarantine_blocks(self, index: str, slices: list[int]) -> bool:
@@ -2764,6 +2815,174 @@ class Executor:
                 raise SliceUnavailableError(str(slice))
         return list(m.values())
 
+    # -- elastic-resize double reads (cluster.resize) ------------------------
+
+    def _resize_moving_groups(self, index: str, slices: list[int]):
+        """``{(old_hosts, new_hosts): [slices]}`` for the slices of
+        ``slices`` sitting in MIGRATING partitions of an in-flight
+        resize, or None when there are none (the hot-path answer —
+        one attr read when no resize is in flight)."""
+        cl = self.cluster
+        if cl.resize is None:
+            return None
+        groups: dict[tuple, list[int]] = {}
+        for s in slices:
+            mv = cl.moving_slice(index, s)
+            if mv is None or mv[0] != RESIZE_MIGRATING:
+                continue
+            groups.setdefault((mv[1], mv[2]), []).append(s)
+        return groups or None
+
+    def _double_read_side(self, hosts, index: str, c: Call,
+                          slices: list[int], opt: ExecOptions, local_fn,
+                          gens_out: list):
+        """One side of a double read: try each candidate owner in turn
+        (this node's leg runs ``local_fn``, remote legs forward with
+        private token custody). Raises the last error when every
+        candidate failed."""
+        cl = self.cluster
+        last: Optional[Exception] = None
+        ordered = list(hosts)
+        if self.fault is not None and len(ordered) > 1:
+            ordered = sorted(
+                ordered,
+                key=lambda h: 0 if (h == self.host
+                                    or self.fault.would_allow(h))
+                else 1)
+        for host in ordered:
+            try:
+                if host == self.host:
+                    # The read-authority fence applies to the local leg
+                    # exactly as _slices_by_node applies it to remote
+                    # ones: a mid-migration target must not serve its
+                    # incomplete copy, even to itself.
+                    if not all(cl.read_allowed(host, index, s)
+                               for s in slices):
+                        raise SliceUnavailableError(
+                            f"{host} not read-authoritative for"
+                            f" {slices}")
+                    with sched_context.use(opt.ctx):
+                        return local_fn(slices)
+                node = cl.node_by_host(host) or Node(host)
+                rs = self._exec_remote(node, index, Query([c]), slices,
+                                       opt, gens_out=gens_out)
+                return rs[0] if rs else None
+            except (QueryDeadlineError, QueryCancelledError):
+                raise
+            except Exception as e:  # noqa: BLE001 - next candidate
+                last = e
+        raise last if last is not None else SliceUnavailableError(
+            str(slices))
+
+    def _target_tokens_newest(self, index: str, slices: list[int],
+                              gens_list: list) -> bool:
+        """The double read's newest-token-wins check: before the TARGET
+        side's answer is accepted, its piggybacked (uid, gen) tokens
+        must be at least as new as the map's freshest knowledge of each
+        slice — a straggling or rolled-back target (same uid, LOWER
+        generation than previously observed) can never win. A fresh
+        uid (reopened fragment) reads as newest: its on-disk state is
+        the durable acked state."""
+        if self.gens is None:
+            return True
+        fresh: dict[int, dict] = {}
+        peers: dict[int, str] = {}
+        for peer, payload in gens_list:
+            decoded = gens_mod.decode_wire(payload)
+            if decoded is None:
+                continue
+            idx, tokens = decoded
+            if idx != index:
+                continue
+            for s, toks in tokens.items():
+                fresh[s] = toks
+                peers[s] = peer
+        for s in slices:
+            toks = fresh.get(s)
+            if toks is None:
+                continue  # target reported nothing: nothing to refute
+            known = self.gens.tokens(peers.get(s, ""), index, s)
+            if not known:
+                continue
+            for fk, (uid, gen) in known.items():
+                got = toks.get(fk)
+                if got is not None and got[0] == uid and got[1] < gen:
+                    return False
+        return True
+
+    def _exec_double_read(self, index: str, c: Call, slices: list[int],
+                          old_hosts, new_hosts, opt: ExecOptions,
+                          local_fn):
+        """A moving slice group's fan-out during the MIGRATING phase of
+        an elastic resize (docs/CLUSTER_RESIZE.md): both owner sides
+        are queried concurrently —
+
+        - the OLD side is authoritative pre-flip (its copy has every
+          bit; the stream target's may not) and wins whenever it
+          answers;
+        - the NEW side can only answer after it has flipped (the
+          read-authority fence in _slices_by_node makes a mid-migration
+          target refuse the leg), so a successful target answer is
+          proof the epoch advanced under this query. It wins only when
+          the old side failed AND its piggybacked generation tokens
+          are the newest the coordinator map has seen for every slice.
+
+        Token custody follows the hedged-read discipline: each side
+        collects privately; ONLY the winner's tokens merge into the
+        coordinator map. A side never hedges: its failover is the next
+        candidate of its own owner list, as in the JAX executor."""
+        pool = self._pool("hedge")
+        gens_old: list = []
+        gens_new: list = []
+        f_old = pool.submit(self._double_read_side, old_hosts, index, c,
+                            slices, opt, local_fn, gens_old)
+        f_new = pool.submit(self._double_read_side, new_hosts, index, c,
+                            slices, opt, local_fn, gens_new)
+        ctx = opt.ctx
+        settled = False
+        try:
+            while not f_old.done():
+                if ctx is not None:
+                    ctx.check()
+                wait([f_old], timeout=(self._CTX_POLL_S
+                                       if ctx is not None else None))
+            settled = True
+        finally:
+            if not settled:
+                # The query died (deadline, cancel) while the old side
+                # ran: neither side's answer is wanted any more.
+                f_old.cancel()
+                f_new.cancel()
+        try:
+            result = f_old.result()
+        except (QueryDeadlineError, QueryCancelledError):
+            f_new.cancel()
+            raise
+        except Exception as old_err:  # noqa: BLE001 - target may win
+            try:
+                while not f_new.done():
+                    if ctx is not None:
+                        ctx.check()
+                    wait([f_new],
+                         timeout=(self._CTX_POLL_S
+                                  if ctx is not None else None))
+                result = f_new.result()
+            except (QueryDeadlineError, QueryCancelledError):
+                raise
+            except Exception:  # noqa: BLE001 - both sides dead
+                raise old_err
+            if not self._target_tokens_newest(index, slices, gens_new):
+                raise old_err
+            obs_metrics.RESIZE_DOUBLE_READS.labels("target").inc()
+            self._apply_remote_gens(gens_new)
+            return result
+        obs_metrics.RESIZE_DOUBLE_READS.labels("source").inc()
+        self._apply_remote_gens(gens_old)
+        # The losing target leg is abandoned, not awaited: its socket
+        # timeouts are budget-clamped and its tokens never merge.
+        f_new.cancel()
+        return result
+
     def _wait_legs(self, futures: dict, ctx) -> set:
         """The legs done so far, waking every _CTX_POLL_S for the
         query's deadline and cancel."""
@@ -2818,6 +3037,26 @@ class Executor:
         def submit(nodes, slices):
             nonlocal processed
             before = len(missing) if missing is not None else 0
+            # Elastic resize, migrating phase: moving slices fan out as
+            # DOUBLE-READ legs (old owner authoritative, new owner the
+            # fenced fallback) instead of riding the normal grouping —
+            # health ordering must never route a read to a target whose
+            # copy is still streaming. The sentinel node None marks
+            # these futures: their failover lives inside the leg, so
+            # the outer re-map must not retry them.
+            if not opt.remote and self.cluster.resize is not None:
+                groups = self._resize_moving_groups(index, slices)
+                if groups:
+                    moved = set()
+                    for (old_hosts, new_hosts), group in groups.items():
+                        moved.update(group)
+                        fut = pool.submit(
+                            self._exec_double_read, index, c, group,
+                            old_hosts, new_hosts, opt, local_fn)
+                        futures[fut] = (None, group)
+                        if ctx is not None:
+                            ctx.add_leg("double-read", len(group))
+                    slices = [s for s in slices if s not in moved]
             for node, group in self._slices_by_node(nodes, index, slices,
                                                     missing=missing):
                 fut = pool.submit(self._mapper_node, node, index, c, group,
@@ -2844,6 +3083,21 @@ class Executor:
                     except (QueryDeadlineError, QueryCancelledError):
                         raise
                     except Exception as e:  # noqa: BLE001 - re-map
+                        if node is None:
+                            # A double-read leg already exhausted both
+                            # sides of the migration (old owners AND
+                            # the fenced new owner) — there is no
+                            # further replica to re-map onto. Partial
+                            # mode keeps its contract: the slices are
+                            # reported missing instead of failing the
+                            # query.
+                            if missing is not None:
+                                missing.extend(group)
+                                processed += len(group)
+                                if ctx is not None:
+                                    ctx.note_flag("partial")
+                                continue
+                            raise
                         # Any leg failure but the query's own deadline
                         # or cancel re-maps onto the replicas: a peer's
                         # transport or query error, and this node's

@@ -25,6 +25,11 @@ The port arms the sites its own modules carry:
 ``ring.write``      obs/diskring segment appends (the tail sampler's,
                     blackbox's, history's and capture's rings;
                     torn-write capable)
+``resize.stream``   server/syncer FragmentStreamer block pushes during
+                    an elastic resize (torn-write capable: a PREFIX of
+                    the block's positions lands on the target, then the
+                    stream fails — the idempotent block re-diff must
+                    converge); partition mode scopes by target host
 ``storage.read``    storage/fragment, before the data file is read back
                     (open) and before the scrubber re-reads it —
                     corrupt-capable: flips real bits in the on-disk
@@ -87,7 +92,8 @@ from ..utils.config import parse_duration
 ACTIVE: Optional["Failpoints"] = None
 
 SITES = ("rpc.send", "rpc.recv", "wal.append", "snapshot.write",
-         "gossip.deliver", "mesh.dispatch", "ring.write", "storage.read")
+         "gossip.deliver", "mesh.dispatch", "ring.write",
+         "resize.stream", "storage.read")
 
 
 def env_key(site: str) -> str:

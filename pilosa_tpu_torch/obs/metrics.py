@@ -9,7 +9,7 @@ sites (utils/stats.py) into the ``pilosa_stats_*`` namespace.
 
 Every family the port emits is declared here at import, with the JAX
 package's name, type, labels and help text. The JAX families that no
-event of the port raises (resize, tiering, backup, the XLA compile-cache
+event of the port raises (tiering, backup, the XLA compile-cache
 counters and the build-info gauge, whose labels name jax) are left out;
 ``tests/test_torch_obs.py`` lists each by name with its reason.
 Naming convention (enforced at registration):
@@ -632,6 +632,30 @@ TOPN_PUSHDOWN = _DEFAULT.counter(
     " merged per the two-phase semantics) or fallback (pushdown"
     " failed; the fan-out path answered)",
     labels=("outcome",))
+RESIZE_STATE = _DEFAULT.gauge(
+    "pilosa_cluster_resize_state",
+    "Elastic-resize state on this node: 1 on the current phase label"
+    " (idle / preparing / streaming / migrating / flipping / draining /"
+    " finalizing / done / aborted), 0 elsewhere — the cluster_ prefix"
+    " carries the naming convention's subsystem segment"
+    " (docs/CLUSTER_RESIZE.md)",
+    labels=("phase",))
+RESIZE_SLICES_MOVED = _DEFAULT.counter(
+    "pilosa_resize_slices_moved_total",
+    "Moving (index, slice) groups whose fragments finished streaming"
+    " to their new owner during an elastic resize")
+RESIZE_STREAM_BYTES = _DEFAULT.counter(
+    "pilosa_resize_stream_bytes_total",
+    "Position bytes pushed source→target by the resize fragment"
+    " streamer (the migration wire cost — run-shaped fragments ride"
+    " their compact container form)")
+RESIZE_DOUBLE_READS = _DEFAULT.counter(
+    "pilosa_cluster_resize_double_reads_total",
+    "Moving-slice double-read legs during a resize, by winner: source"
+    " (old owner answered — the authoritative pre-flip copy) or"
+    " target (old side failed; the new owner's post-flip answer won"
+    " with the newest generation tokens)",
+    labels=("winner",))
 
 HEDGED_REQUESTS = _DEFAULT.counter(
     "pilosa_cluster_hedged_requests_total",

@@ -86,8 +86,19 @@ recorder with the watchdog's trip record; ``/debug/metrics/history``
 capture. Every successful coordinator query answers with
 ``X-Pilosa-Result-Digest`` and, with capture on, appends one record
 (imports append one per ack). ``/import`` passes the process-wide apply
-gate (``pilosa_import_pipeline_depth``). The archive backup, tier,
-resize and pod routes wait for the slices that port them.
+gate (``pilosa_import_pipeline_depth``).
+
+Elastic resize (the JAX handler's, handler.py:2440-2500):
+``GET /cluster/resize`` shows the epoch, the installed in-flight state
+and this node's coordinator op; ``POST /cluster/resize`` starts one with
+this node as coordinator (``{"hosts": [...]}``, ``{"add": h}`` or
+``{"remove": h}``; 202) or aborts it (``{"abort": true}``; 409 when
+none is in flight), and answers 503 on a node without a coordinator. A
+``ResizeMessage`` arrives through ``POST /messages``; ``/debug/topology``
+shows the in-flight resize and each index's moving slices; ``POST
+/fragment/import`` accepts a slice this node owns in either epoch of an
+in-flight resize or, after a finalize, for the grace window. The archive
+backup, tier and pod routes wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -391,6 +402,9 @@ class Handler:
           self._handle_post_field_import, lane=LANE_WRITE)
         r("PATCH", "/index/{index}/time-quantum",
           self._handle_patch_index_time_quantum, lane=LANE_ADMIN)
+        r("GET", "/cluster/resize", self._handle_get_cluster_resize)
+        r("POST", "/cluster/resize", self._handle_post_cluster_resize,
+          lane=LANE_ADMIN)
         r("GET", "/debug/topology", self._handle_debug_topology)
         r("GET", "/debug/failpoints", self._handle_debug_failpoints)
         r("POST", "/debug/failpoints", self._handle_post_failpoints)
@@ -2005,7 +2019,7 @@ class Handler:
             # A writable sorted copy of the request buffer's view.
             frag.import_positions(np.sort(positions).astype(np.uint64))
         storage_wal.barrier_all()
-        obs_metrics.IMPORT_BITS.labels("fragment").inc(len(positions))
+        obs_metrics.IMPORT_BITS.labels("resizeStream").inc(len(positions))
         gh = self._generations_header(index_name, [slice])
         return Response.json({"accepted": int(len(positions))},
                              headers=[gh] if gh is not None else [])
@@ -2042,26 +2056,88 @@ class Handler:
         self.status_handler.receive_message(msg)
         return Response.json({})
 
+    # -- elastic resize (cluster.resize; docs/CLUSTER_RESIZE.md) -------------
+
+    def _resize_server(self):
+        """The Server behind the resize control surface; bare test
+        handlers (no status_handler / no start_resize) answer 503."""
+        s = self.status_handler
+        if s is None or not hasattr(s, "start_resize"):
+            raise HTTPError(503, "no resize coordinator on this node")
+        return s
+
+    def _handle_get_cluster_resize(self, req: Request) -> Response:
+        out: dict = {"epoch": self.cluster.epoch
+                     if self.cluster is not None else 0}
+        rs = self.cluster.resize if self.cluster is not None else None
+        out["installed"] = rs.to_wire() if rs is not None else None
+        s = self.status_handler
+        op = getattr(s, "resize_op", None)
+        out["op"] = op.status() if op is not None else None
+        return Response.json(out)
+
+    def _handle_post_cluster_resize(self, req: Request) -> Response:
+        """Start (or abort) an online resize with THIS node as
+        coordinator. Body: {"hosts": [target membership]} |
+        {"add": "h:p"} | {"remove": "h:p"} | {"abort": true}."""
+        server = self._resize_server()
+        body = req.json()
+        if body.get("abort"):
+            status = server.abort_resize()
+            if status is None:
+                raise HTTPError(409, "no resize in flight")
+            return Response.json({"op": status})
+        current = [n.host for n in self.cluster.nodes]
+        if body.get("hosts"):
+            target = [str(h) for h in body["hosts"]]
+        elif body.get("add"):
+            h = str(body["add"])
+            if h in current:
+                raise HTTPError(400, f"{h} already a member")
+            target = current + [h]
+        elif body.get("remove"):
+            h = str(body["remove"])
+            if h not in current:
+                raise HTTPError(400, f"{h} not a member")
+            if len(current) == 1:
+                raise HTTPError(400, "cannot remove the last node")
+            target = [x for x in current if x != h]
+        else:
+            raise HTTPError(400, "hosts, add, remove, or abort"
+                                 " required")
+        try:
+            coord = server.start_resize(target)
+        except PilosaError as e:
+            raise HTTPError(409, str(e))
+        return Response.json({"op": coord.status()}, status=202)
+
     def _handle_debug_topology(self, req: Request) -> Response:
-        """Placement: the epoch, the members and each index's owners a
-        slice."""
+        """Placement: the epoch, the members, each index's owners a
+        slice and the in-flight resize with its moving slices."""
         cl = self.cluster
         if cl is None:
             return Response.json({"epoch": 0, "nodes": [], "indexes": {},
                                   "resize": None})
+        rs = cl.resize
         indexes = {}
         for name in sorted(self.holder.indexes):
             idx = self.holder.indexes[name]
             hi = max(idx.max_slice(), idx.max_inverse_slice())
-            indexes[name] = {
-                "maxSlice": idx.max_slice(),
-                "owners": {str(s): [n.host for n in
-                                    cl.fragment_nodes(name, s)]
-                           for s in range(hi + 1)}}
+            owners = {}
+            moving = []
+            for s in range(hi + 1):
+                owners[str(s)] = [n.host for n in cl.fragment_nodes(name, s)]
+                if cl.moving_slice(name, s) is not None:
+                    moving.append(s)
+            entry: dict = {"maxSlice": idx.max_slice(), "owners": owners}
+            if moving:
+                entry["movingSlices"] = moving
+            indexes[name] = entry
         return Response.json({
             "epoch": cl.epoch, "partitionN": cl.partition_n,
             "replicaN": cl.replica_n,
-            "nodes": [n.host for n in cl.nodes], "resize": None,
+            "nodes": [n.host for n in cl.nodes],
+            "resize": rs.to_wire() if rs is not None else None,
             "indexes": indexes})
 
     def _handle_debug_integrity(self, req: Request) -> Response:

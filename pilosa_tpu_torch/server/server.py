@@ -31,11 +31,12 @@ model's calibration (none: not persisted); ``executor_options`` are
 further Executor arguments.
 
 The static cluster (the JAX server's wiring, server.go:182-300):
-``cluster`` is the placement (``cluster.topology.Cluster``, this node's
-``host`` among its nodes; one node when None). The server builds the
-node's FaultManager, its generation map, one keep-alive Client a peer
-(``client_for``) and the executor's routing transport over them, and the
-broadcaster (``cluster_type`` "http": schema messages POSTed to every
+``cluster`` is the placement (``cluster.topology.Cluster``; one node
+when None). A node whose ``host`` is not among its nodes is a resize's
+join candidate: it owns nothing until a resize adds it. The server builds
+the node's FaultManager, its generation map, one keep-alive Client a
+peer (``client_for``) and the executor's routing transport over them, and
+the broadcaster (``cluster_type`` "http": schema messages POSTed to every
 peer's ``/messages``; "static": none). It applies the broadcasts it
 receives (``receive_message``), announces a fragment past a view's max
 slice to its peers (CreateSliceMessage), and runs three loops while the
@@ -86,13 +87,28 @@ started at open when ``continuous``), the SLO burn trackers
 collector's tick), the flight recorder under ``<data>/blackbox``
 (``blackbox_config``; its SIGTERM and thread-excepthook dump triggers
 are installed once per process), the stall watchdog
-(``watchdog_config``; its resize, tier and backup inputs are None, as in
-a JAX server that runs none of them), the regression sentinel
+(``watchdog_config``; its resize input is ``_resize_progress``, its
+tier and backup inputs are None, as in a JAX server that runs neither),
+the regression sentinel
 (``sentinel_config``; a manifest only from ``[sentinel] manifest``),
 workload capture under ``<data>/capture`` (``capture_config``) and the
 fair dispatch queue below admission (parallel.mesh, installed at open
-with the tenants' effective weights). Resize, tiering and backup wait
-for the slices that port them.
+with the tenants' effective weights). Tiering and backup wait for the
+slices that port them.
+
+Elastic resize (the JAX server's wiring, server.py:902-1325;
+docs/CLUSTER_RESIZE.md): ``start_resize`` makes this node the
+coordinator of an online resize (cluster.resize.ResizeCoordinator on a
+thread, ``resize_pace_s`` between streamed blocks), ``abort_resize``
+backs one out, and ``_apply_resize_message`` is one node's side of the
+protocol (prepare / flip / finalize / abort, every phase idempotent).
+The placement epoch and membership persist in ``<data>/epoch.json`` at
+every transition and are restored at open; an in-flight journal
+(``<data>/resize.json``) is recovered at open on a thread — a pre-flip
+resize aborts, a post-flip one rolls forward. After a finalize the old
+owners keep accepting writes for ``resize_grace_s``. The gossip
+push/pull carries ``resize_wire_state`` so a node that missed a control
+send converges.
 """
 
 from __future__ import annotations
@@ -105,11 +121,13 @@ import threading
 from typing import Optional
 
 from .. import SLICE_WIDTH
+from ..cluster import resize as resize_mod
 from ..cluster.broadcast import (NOP_BROADCASTER, CancelQueryMessage,
-                                 HTTPBroadcaster)
+                                 HTTPBroadcaster, ResizeMessage)
 from ..cluster.client import Client
 from ..cluster.generations import GenerationMap
-from ..cluster.topology import NODE_STATE_DOWN, NODE_STATE_UP, new_cluster
+from ..cluster.topology import (NODE_STATE_DOWN, NODE_STATE_UP, Node,
+                                new_cluster)
 from ..device import resolve_device
 from ..errors import (PilosaError, QueryCancelledError,
                       QueryDeadlineError, SliceUnavailableError)
@@ -187,7 +205,9 @@ class Server:
                  watchdog_config: Optional[WatchdogConfig] = None,
                  history_config: Optional[HistoryConfig] = None,
                  sentinel_config: Optional[SentinelConfig] = None,
-                 capture_config: Optional[CaptureConfig] = None):
+                 capture_config: Optional[CaptureConfig] = None,
+                 resize_pace_s: float = 0.0,
+                 resize_grace_s: float = 30.0):
         self.data_dir = data_dir
         self.host = host
         # Placement: the static cluster, or (None) this node alone,
@@ -206,6 +226,18 @@ class Server:
         self._clients_mu = threading.Lock()
         self._closing = threading.Event()
         self._loops: list[threading.Thread] = []
+        # Background tasks that outlive no request and are not joined at
+        # close (the resize coordinator, journal recovery).
+        self._threads: list[threading.Thread] = []
+        # Elastic resize (cluster.resize; docs/CLUSTER_RESIZE.md):
+        # this node's in-flight coordinator op (None unless THIS node
+        # is driving a resize), the post-finalize write-accept grace,
+        # and the last settled resize for gossip catch-up.
+        self.resize_pace_s = resize_pace_s
+        self.resize_grace_s = resize_grace_s
+        self.resize_op = None
+        self._resize_mu = threading.Lock()
+        self._last_resize: Optional[dict] = None
         self.device = device
         self.wal_fsync = wal_fsync
         self.logger = logger
@@ -299,9 +331,6 @@ class Server:
         own_cluster = self.cluster is None
         if own_cluster:
             self.cluster = new_cluster([self.host])
-        elif self.cluster.node_by_host(self.host) is None:
-            raise PilosaError(f"host {self.host} is not a member of the"
-                              " cluster")
         if self.cluster_type == "gossip" and self.cluster.node_set is None:
             raise PilosaError("cluster type gossip needs the cluster's"
                               " gossip node set")
@@ -321,6 +350,12 @@ class Server:
         self.holder = Holder(self.data_dir, wal_fsync=self.wal_fsync)
         try:
             self.holder.open()
+            # Placement-epoch durability (cluster.resize): a node that
+            # lived through resizes must not boot back at epoch 0 with
+            # the configured (stale) membership — restore the last
+            # persisted (epoch, hosts) pair before anything consults
+            # placement.
+            self._load_epoch()
             qc = self.query_config
             self.executor = Executor(
                 self.holder, device=device, cal_dir=self.cal_dir,
@@ -439,6 +474,14 @@ class Server:
             if hasattr(ns, "on_state_change"):
                 ns.on_state_change = self._on_peer_state
             ns.open()
+        # Resize journal recovery: an in-flight resize whose coordinator
+        # (us) crashed either aborts back to the old epoch (pre-flip) or
+        # rolls forward (post-flip). Runs on a background thread with
+        # the cluster up — peers must be reachable for the control
+        # sends, and boot must not block on them.
+        _rj = resize_mod.ResizeJournal.for_data_dir(self.holder.path)
+        if _rj.load() and _rj.in_flight():
+            self._spawn(self._recover_resize, "resize-recover")
         if self.warmup is not None:
             self.warmup.start()
         if self.runtime is not None:
@@ -500,7 +543,8 @@ class Server:
                 registry=self.query_registry, admission=self.admission,
                 tracer=self.tracer, sampler=self.sampler,
                 blackbox=self.blackbox, gossip_age_fn=self._gossip_age,
-                resize_progress_fn=None, backup_progress_fn=None,
+                resize_progress_fn=self._resize_progress,
+                backup_progress_fn=None,
                 scrub_progress_fn=(self.scrubber.stall_age
                                    if self.scrubber is not None
                                    else None),
@@ -568,9 +612,8 @@ class Server:
         """One whole-system snapshot for the flight recorder: queues,
         breakers, generation knowledge, the WAL dirty set and flusher
         heartbeat, the runtime sample, recent slow queries, the
-        integrity state and a thread dump (the JAX server's blocks; its
-        resize block holds the epoch alone, and tier and backup have
-        none)."""
+        integrity state, the resize block and a thread dump (the JAX
+        server's blocks; tier and backup have none)."""
         out: dict = {"host": self.host,
                      "admission": self.admission.snapshot(),
                      "wal": storage_wal.flusher_health()}
@@ -593,10 +636,15 @@ class Server:
                 out["planner"] = planner.snapshot()
         if self.watchdog is not None:
             out["watchdog"] = self.watchdog.snapshot()
+        # Elastic resize state: phase, movement progress, epoch — the
+        # one thing a mid-migration incident retro always asks first.
         rs = self.cluster.resize
-        out["resize"] = {"epoch": self.cluster.epoch,
-                         "inFlight": rs.to_wire() if rs is not None
-                         else None}
+        resize_block: dict = {"epoch": self.cluster.epoch,
+                              "inFlight": rs.to_wire()
+                              if rs is not None else None}
+        if self.resize_op is not None:
+            resize_block["op"] = self.resize_op.status()
+        out["resize"] = resize_block
         integrity: dict = {
             "quarantined": self.holder.quarantine.entries()[:32]}
         if self.scrubber is not None:
@@ -612,6 +660,10 @@ class Server:
 
     def close(self) -> None:
         self._closing.set()
+        if self.resize_op is not None:
+            # Cooperative stop; an in-flight journal is recovered (or
+            # aborted) on the next open.
+            self.resize_op.cancel()
         mesh_mod.uninstall_fair_dispatch()
         if self.warmup is not None:
             self.warmup.stop()
@@ -649,6 +701,11 @@ class Server:
             self.holder = None
 
     # -- cluster (server.go:182-440) -----------------------------------------
+
+    def _spawn(self, fn, name: str) -> None:
+        t = threading.Thread(target=fn, name=f"pilosa-{name}", daemon=True)
+        t.start()
+        self._threads.append(t)
 
     def client_for(self, host: str) -> Client:
         """The shared keep-alive Client of a peer, fault- and
@@ -746,6 +803,12 @@ class Server:
             idx = self.holder.index(m.Index)
             if idx is not None:
                 idx.delete_frame(m.Frame)
+        elif isinstance(m, ResizeMessage):
+            # Elastic resize control plane (cluster.resize): prepare /
+            # flip / finalize / abort, delivered as direct acked POSTs
+            # by the coordinator and replayed via gossip for
+            # stragglers.
+            self._apply_resize_message(m)
         elif isinstance(m, CancelQueryMessage):
             n = self.query_registry.cancel_local(
                 m.id, reason="cancelled cluster-wide")
@@ -808,6 +871,357 @@ class Server:
                     frame_info.Name,
                     FrameOptions.decode(frame_info.Meta or pb.FrameMeta()))
 
+    # -- elastic resize (cluster.resize; docs/CLUSTER_RESIZE.md) -------------
+
+    def start_resize(self, target_hosts: list[str]):
+        """Begin an online resize to ``target_hosts`` with THIS node
+        as coordinator; returns the ResizeCoordinator (already running
+        on a background thread). One at a time — cluster-wide, the
+        prepare install enforces it; locally, this guard does."""
+        with self._resize_mu:
+            op = self.resize_op
+            # A just-constructed coordinator sits in IDLE until its
+            # thread reaches the first phase — IDLE with no finish
+            # time IS in flight, or two rapid POSTs would both pass
+            # the guard and share one journal.
+            if op is not None and not (
+                    op.phase in (resize_mod.PHASE_DONE,
+                                 resize_mod.PHASE_ABORTED)
+                    or op.finished_at):
+                raise PilosaError(
+                    f"resize {op.id} already in flight"
+                    f" (phase {op.phase})")
+            if self.cluster.resize is not None:
+                raise PilosaError(
+                    f"resize {self.cluster.resize.id} already"
+                    f" installed cluster-wide")
+            # Journal recovery may still be rolling a prior resize
+            # forward on its background thread (it registers itself
+            # as resize_op only once it runs) — an in-flight journal
+            # refuses new resizes outright so two coordinators can
+            # never interleave writes to it. The one settle-able
+            # state: an ABORT whose broadcast never reached a (since
+            # dead) peer — re-send it now; if every node acks, the
+            # old resize is settled and the new one may start.
+            _rj = resize_mod.ResizeJournal.for_data_dir(
+                self.holder.path)
+            if _rj.load() and _rj.in_flight():
+                if _rj.state.get("phase") == resize_mod.PHASE_ABORTED:
+                    stale = resize_mod.ResizeCoordinator(
+                        self, _rj.state.get("new") or [],
+                        resize_id=str(_rj.state.get("id")),
+                        journal=_rj, logger=self.logger)
+                    stale.old_hosts = _rj.state.get("old") or []
+                    stale.abort(reason="settling unacked abort before"
+                                       " a new resize")
+                    _rj.load()
+                if _rj.in_flight():
+                    raise PilosaError(
+                        f"resize {_rj.state.get('id')} still settling"
+                        f" (journal phase {_rj.state.get('phase')})")
+            coord = resize_mod.ResizeCoordinator(
+                self, target_hosts, pace_s=self.resize_pace_s,
+                grace_s=self.resize_grace_s, logger=self.logger)
+            self.resize_op = coord
+        self._spawn(coord.run, f"resize-{coord.id}")
+        return coord
+
+    def abort_resize(self) -> Optional[dict]:
+        """Operator abort: back the in-flight resize out to the old
+        epoch. Works from the coordinator (aborts its op) or any node
+        that merely has the state installed (broadcasts abort on the
+        coordinator's behalf)."""
+        op = self.resize_op
+        if op is not None and op.phase not in (
+                resize_mod.PHASE_DONE, resize_mod.PHASE_ABORTED):
+            op.abort(reason="operator abort")
+            return op.status()
+        rs = self.cluster.resize
+        if rs is None:
+            return None
+        coord = resize_mod.ResizeCoordinator(
+            self, rs.new_hosts, resize_id=rs.id, logger=self.logger)
+        coord.old_hosts = list(rs.old_hosts)
+        # Seed the journal with the full membership BEFORE the abort
+        # lands in it: if the abort broadcast can't reach every node
+        # and this node restarts, recovery must be able to re-send it
+        # to the right hosts (an id-less abort record re-sends to
+        # nobody yet marks itself acked).
+        coord.journal.write(id=rs.id, epochFrom=rs.epoch_from,
+                            old=list(rs.old_hosts),
+                            new=list(rs.new_hosts),
+                            coordinator=self.host)
+        coord.abort(reason="operator abort (non-coordinator)")
+        return coord.status()
+
+    def _recover_resize(self) -> None:
+        try:
+            status = resize_mod.recover(self, logger=self.logger)
+            if status is not None:
+                self.logger.printf("resize recovery finished: %s",
+                                   status.get("phase"))
+        except Exception as e:  # noqa: BLE001 - recovery best-effort
+            self.logger.printf("resize recovery failed: %s", e)
+
+    def _resize_progress(self):
+        """Watchdog hook (obs.watchdog cause ``resize_stall``):
+        (phase, seconds-without-progress) while this node coordinates
+        an active resize, else None."""
+        op = self.resize_op
+        if op is None:
+            return None
+        if op.phase in (resize_mod.PHASE_IDLE, resize_mod.PHASE_DONE,
+                        resize_mod.PHASE_ABORTED):
+            return None
+        import time as time_mod
+        return op.phase, time_mod.monotonic() - op.last_progress
+
+    def _epoch_path(self) -> str:
+        return os.path.join(self.holder.path, "epoch.json")
+
+    def _save_epoch(self) -> None:
+        """Persist (epoch, membership) on every epoch transition —
+        without it a restarted node resets to epoch 0 with its
+        boot-config membership, silently mis-placing every slice and
+        refusing every future resize's prepare."""
+        try:
+            tmp = self._epoch_path() + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"epoch": self.cluster.epoch,
+                           "hosts": [n.host
+                                     for n in self.cluster.nodes]}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._epoch_path())
+        except OSError as e:
+            self.logger.printf("epoch persist failed: %s", e)
+
+    def _load_epoch(self) -> None:
+        try:
+            with open(self._epoch_path()) as f:
+                d = json.load(f)
+            epoch = int(d.get("epoch", 0))
+            hosts = [str(h) for h in (d.get("hosts") or [])]
+        except (OSError, ValueError, TypeError):
+            return
+        if epoch <= self.cluster.epoch or not hosts:
+            return
+        if self.host.endswith(":0"):
+            # A ":0" bind re-resolves its port after this point, so
+            # the persisted membership names a port this node no
+            # longer answers on and cannot be stitched back — skip
+            # adoption (ephemeral-port servers are test harness
+            # territory; production binds are stable).
+            return
+        self.cluster.nodes = [Node(h) for h in hosts]
+        self.cluster.epoch = epoch
+        self.logger.printf(
+            "restored placement epoch %d (%d members) from %s",
+            epoch, len(hosts), self._epoch_path())
+
+    def _moved_fn(self, moving: dict):
+        """``moved(index, slice) -> bool`` over a captured moving-
+        partition map — the executor's eager cache flush on a flip."""
+        parts = frozenset(moving)
+        partition = self.cluster.partition
+
+        def moved(index: str, slice: int) -> bool:
+            return partition(index, slice) in parts
+        return moved
+
+    def _apply_resize_message(self, m: ResizeMessage) -> None:
+        """One node's side of the resize protocol. Every phase is
+        idempotent — the coordinator retries control sends, and the
+        gossip catch-up path replays them — and a node that missed
+        earlier phases reconstructs them from the message itself (it
+        carries the full old/new membership)."""
+        cl = self.cluster
+        ex = self.executor
+
+        def _install() -> bool:
+            if cl.resize is not None:
+                if cl.resize.id != m.id:
+                    raise PilosaError(
+                        f"resize {cl.resize.id} already in flight;"
+                        f" refusing {m.id}")
+                return True
+            last = self._last_resize
+            if last is not None and last.get("id") == m.id:
+                # This id already settled here (aborted or done): a
+                # straggling control send racing the abort broadcast
+                # — or a gossip replay — must never re-install it.
+                return False
+            if cl.epoch > m.epoch:
+                # AHEAD of the message: a resize minted against a
+                # past epoch (e.g. a coordinator that restarted
+                # before converging). A silent 200 would fake the
+                # all-ack while this node never installs — refuse
+                # loudly; legitimate replays of SETTLED resizes were
+                # already absorbed by the _last_resize guard above.
+                raise PilosaError(
+                    f"resize {m.id} minted at epoch {m.epoch} but"
+                    f" this node is at {cl.epoch}")
+            if cl.epoch < m.epoch:
+                # This node is BEHIND (restarted at epoch 0 / missed
+                # flips). A silent 200 here would count as the all-ack
+                # the union-write guarantee rests on while the node
+                # keeps routing writes old-placement-only — the
+                # coordinator must see a FAILURE and retry until the
+                # gossip catch-up brings the node forward (or abort).
+                raise PilosaError(
+                    f"node at placement epoch {cl.epoch}, resize"
+                    f" {m.id} expects {m.epoch} — catching up")
+            cl.install_resize(m.id, m.new_hosts)
+            resize_mod.set_state_gauge("migrating")
+            if ex is not None:
+                ex.on_resize_change()
+            self.logger.printf(
+                "resize %s: installed (epoch %d, %s -> %s)", m.id,
+                m.epoch, m.old_hosts, m.new_hosts)
+            return True
+
+        if m.phase == "prepare":
+            _install()
+            return
+        if m.phase == "flip":
+            if cl.epoch == m.epoch + 1:
+                return  # already flipped (retry / catch-up replay)
+            if not _install():
+                return
+            rs = cl.resize
+            if rs is None or rs.id != m.id:
+                return  # aborted concurrently on another thread
+            moving = dict(rs.moving)
+            try:
+                flipped = cl.flip_epoch(m.id)
+            except ValueError:
+                return  # abort raced the flip: settled-id guard holds
+            if flipped:
+                self._save_epoch()
+                resize_mod.set_state_gauge(resize_mod.PHASE_DRAINING)
+                if ex is not None:
+                    ex.on_resize_change(self._moved_fn(moving))
+                self.logger.printf(
+                    "resize %s: FLIPPED to epoch %d (%d moving"
+                    " partitions)", m.id, cl.epoch, len(moving))
+            return
+        if m.phase == "finalize":
+            if cl.resize is None and cl.epoch == m.epoch:
+                # Missed prepare AND flip (restart/partition): replay
+                # both from this message, then finalize below.
+                if not _install():
+                    return
+            rs = cl.resize
+            if rs is not None and rs.id == m.id:
+                moving = dict(rs.moving)
+                from ..cluster.topology import RESIZE_DRAINING
+                try:
+                    if rs.phase != RESIZE_DRAINING:
+                        cl.flip_epoch(m.id)
+                        if ex is not None:
+                            ex.on_resize_change(self._moved_fn(moving))
+                    cl.finalize_resize(m.id,
+                                       grace_s=self.resize_grace_s)
+                except ValueError:
+                    return  # abort raced this application
+                self._save_epoch()
+                resize_mod.set_state_gauge(resize_mod.PHASE_IDLE)
+                if ex is not None:
+                    ex.on_resize_change()
+                self._last_resize = {
+                    "id": m.id, "outcome": "done",
+                    "epochFrom": m.epoch, "old": m.old_hosts,
+                    "new": m.new_hosts}
+                self.logger.printf("resize %s: finalized (epoch %d)",
+                                   m.id, cl.epoch)
+            return
+        if m.phase == "abort":
+            # A live coordinator op for this id (an abort initiated
+            # through ANOTHER node) must stop driving the protocol —
+            # its later phases would otherwise be silently absorbed
+            # by every node's settled-id guard and the journal would
+            # record 'done' for a resize the cluster aborted.
+            op = self.resize_op
+            if op is not None and op.id == m.id:
+                op.cancel()
+            rs = cl.resize
+            moving = dict(rs.moving) if rs is not None else {}
+            aborted = cl.abort_resize(m.id)
+            # Record the settled outcome even when nothing was
+            # installed here (a node that missed prepare): a
+            # straggling prepare/flip for this id must never install
+            # it afterwards.
+            self._last_resize = {
+                "id": m.id, "outcome": "aborted",
+                "epochFrom": m.epoch, "old": m.old_hosts,
+                "new": m.new_hosts}
+            if aborted:
+                self._save_epoch()  # covers a post-flip revert
+                resize_mod.set_state_gauge(resize_mod.PHASE_IDLE)
+                if ex is not None:
+                    ex.on_resize_change(self._moved_fn(moving))
+                self.logger.printf("resize %s: aborted (epoch stays"
+                                   " %d)", m.id, cl.epoch)
+            return
+        raise PilosaError(f"unknown resize phase: {m.phase!r}")
+
+    # -- gossip piggyback: epoch/resize convergence --------------------------
+
+    def resize_wire_state(self) -> dict:
+        """Rides the gossip push/pull full-state exchange so a node
+        that missed resize control sends (partitioned, restarted)
+        converges on the cluster's placement epoch within one
+        anti-entropy period."""
+        out: dict = {"epoch": self.cluster.epoch}
+        rs = self.cluster.resize
+        if rs is not None:
+            out["resize"] = rs.to_wire()
+        if self._last_resize is not None:
+            out["last"] = dict(self._last_resize)
+        return out
+
+    def apply_resize_wire_state(self, d: dict) -> None:
+        """Converge toward a peer's epoch/resize knowledge. Only ever
+        moves FORWARD (install → flip → finalize, or abort of the
+        exact in-flight id) — a peer that is itself behind can never
+        drag us back."""
+        try:
+            peer_epoch = int(d.get("epoch", 0))
+        except (TypeError, ValueError):
+            return
+        cl = self.cluster
+        rz = d.get("resize")
+        last = d.get("last")
+
+        def msg(phase: str, src: dict) -> ResizeMessage:
+            return ResizeMessage(
+                id=str(src.get("id", "")), phase=phase,
+                epoch=int(src.get("epochFrom", peer_epoch - 1)),
+                old_hosts=src.get("old") or [],
+                new_hosts=src.get("new") or [])
+        try:
+            if (cl.resize is not None and rz is None and last
+                    and last.get("id") == cl.resize.id):
+                # The resize WE still carry has settled at the peer.
+                if last.get("outcome") == "aborted":
+                    self._apply_resize_message(msg("abort", last))
+                elif last.get("outcome") == "done":
+                    self._apply_resize_message(msg("finalize", last))
+                return
+            if rz is not None:
+                if (rz.get("phase") == "draining"
+                        and peer_epoch == cl.epoch + 1):
+                    self._apply_resize_message(msg("flip", rz))
+                elif (peer_epoch == cl.epoch and cl.resize is None):
+                    self._apply_resize_message(msg("prepare", rz))
+                return
+            if peer_epoch > cl.epoch and last and int(
+                    last.get("epochFrom", -1)) == cl.epoch:
+                # Peer finalized a resize we never heard of at all.
+                self._apply_resize_message(msg("finalize", last))
+        except Exception as e:  # noqa: BLE001 - convergence best-effort
+            self.logger.printf("resize gossip catch-up skipped: %s", e)
+
     # -- fleet observability (obs.federate) ----------------------------------
 
     def local_debug_state(self) -> dict:
@@ -835,6 +1249,8 @@ class Server:
                                    else "idle"),
                          "inFlight": rs.to_wire()
                          if rs is not None else None}
+        if self.resize_op is not None:
+            out["resize"]["op"] = self.resize_op.status()
         if self.peer_builds:
             out["gossipBuilds"] = dict(self.peer_builds)
         return out

@@ -1,7 +1,8 @@
 """Anti-entropy: checksum-driven repair of attributes and fragments.
 
 Copy of the JAX package's ``server/syncer.py`` (reference
-holder.go:364-562 HolderSyncer + fragment.go:1301-1481 FragmentSyncer). Walks the whole schema; for each index/frame it pulls
+holder.go:364-562 HolderSyncer + fragment.go:1301-1481 FragmentSyncer).
+Walks the whole schema; for each index/frame it pulls
 attribute diffs from peers by 100-id block checksums; for each owned
 (view, slice) it compares 100-row SHA1 block checksums across replicas,
 pulls differing blocks, runs the majority-consensus MergeBlock
@@ -11,17 +12,16 @@ skipped for the pass, and a quarantined local fragment does not vote
 (storage.integrity: the repairer owns it until it clears).
 
 ``FragmentStreamer`` is the JAX package's directed block-diff stream,
-source to target through the additive ``/fragment/import`` lane; the
-port's repairer (server.repair) re-streams a quarantined fragment with
-it. Its resize face (the ``resize.stream`` failpoint, the progress
-metric) waits for the resize slice; without a resize every slice is
-read-authoritative and none is moving.
+source to target through the additive ``/fragment/import`` lane: the
+resize coordinator (cluster.resize) moves slices with it, paced and
+with a per-block progress callback and the ``resize.stream`` failpoint,
+and the repairer (server.repair) re-streams a quarantined fragment with
+it. Anti-entropy leaves a moving slice to the streamer.
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -29,6 +29,7 @@ import numpy as np
 from .. import SLICE_WIDTH
 from ..cluster.client import Client, ClientError
 from ..errors import FragmentNotFoundError, FrameNotFoundError
+from ..fault import failpoints as _fp
 from ..models.view import VIEW_STANDARD
 from ..storage.fragment import PairSet
 from ..utils import logger as logger_mod
@@ -86,10 +87,26 @@ class HolderSyncer:
                     continue
                 max_slice = self.holder.index(di["name"]).max_slice()
                 for slice in range(max_slice + 1):
-                    # Only the owners of a slice vote on it (READ
-                    # authority, the JAX package's gate).
+                    # READ authority, not the write-accept union: an
+                    # old owner inside the post-resize grace window
+                    # still owns_fragment a moved slice, but its
+                    # frozen copy must never VOTE in the consensus
+                    # merge — majority with a stale voter can push
+                    # ClearBits of acked writes or resurrect cleared
+                    # bits (the class of the executor's cache
+                    # gates).
                     if not self.cluster.read_allowed(
                             self.host, di["name"], slice):
+                        continue
+                    # Elastic resize: a moving slice's target copy is
+                    # legitimately incomplete mid-migration — feeding
+                    # it into the majority-consensus merge could push
+                    # CLEARS of not-yet-streamed bits back to the
+                    # source. The resize streamer owns these fragments
+                    # until the flip settles; anti-entropy resumes on
+                    # the next sweep after finalize.
+                    if self.cluster.moving_slice(di["name"],
+                                                 slice) is not None:
                         continue
                     if self.is_closing():
                         return
@@ -148,12 +165,12 @@ class HolderSyncer:
         v = f.create_view_if_not_exists(view)
         frag = v.create_fragment_if_not_exists(slice)
         if frag.quarantined:
-            # Storage integrity: a quarantined local copy must not VOTE
-            # in the consensus merge — a majority with a corrupt (or
-            # freshly reset, near-empty) voter could push ClearBits of
-            # acked writes to healthy replicas. The repairer owns this
-            # fragment; anti-entropy resumes on the sweep after it
-            # clears.
+            # Storage integrity: a quarantined local copy must not
+            # VOTE in the consensus merge — majority with a corrupt
+            # (or freshly-reset, near-empty) voter could push
+            # ClearBits of acked writes to healthy replicas. The
+            # repairer owns this fragment; anti-entropy resumes on
+            # the sweep after it clears.
             return
         FragmentSyncer(frag, self.host, self.cluster, self.closing,
                        self.client_factory, logger=self.logger,
@@ -314,31 +331,91 @@ class FragmentSyncer:
                                    client.host, e)
 
 
+class _PrefixPush:
+    """Torn-stream adapter for the ``resize.stream`` failpoint: torn
+    mode hands this "writer" a byte PREFIX of the block's encoded u64
+    positions; we push the whole positions that fit in it, so a torn
+    injection leaves a genuine partial block on the target — exactly
+    the state a crashed stream leaves — which the idempotent re-diff
+    must then converge."""
+
+    def __init__(self, push_fn, positions: np.ndarray):
+        self.push_fn = push_fn
+        self.positions = positions
+
+    def write(self, data: bytes) -> None:
+        n = len(data) // 8
+        if n > 0:
+            self.push_fn(self.positions[:n])
+
+
 class FragmentStreamer:
-    """Directed fragment stream, source to target: the FragmentSyncer
-    block-diff protocol (per-block SHA1 checksums via GET
-    /fragment/blocks, changed-block pulls via the block-data wire), but
-    instead of the consensus merge it pushes SETS ONLY through the
-    additive ``POST /fragment/import`` lane. Sets only, because a bit
-    present on the target but not on the source can only be a write
-    racing the diff read — clearing it would drop an acked write; and
-    additive, because a whole-fragment replace would clobber those
-    writes. The push is idempotent (re-adding set bits is a no-op), so a
-    torn stream recovers by re-running the diff."""
+    """Directed fragment migration for elastic resize
+    (docs/CLUSTER_RESIZE.md): reuses the FragmentSyncer block-diff
+    protocol (per-block SHA1 checksums via GET /fragment/blocks,
+    changed-block pulls via the block-data wire), but instead of the
+    consensus merge it pushes SETS-ONLY source→target through the
+    additive ``POST /fragment/import`` lane:
+
+    - sets-only because during migration every ClearBit double-writes
+      to both copies (a bit absent on the source is already absent on
+      the target), while a bit present on the target but not yet on
+      the source can only be an in-flight double-write racing the diff
+      read — clearing it would drop an acked write;
+    - additive import (never the replace-style /fragment/data restore)
+      because concurrent double-writes land between the diff read and
+      the push, and a whole-fragment replace would clobber them;
+    - per-block pushes bound memory, give the ``resize.stream``
+      failpoint its injection granularity (error / delay / torn /
+      partition-by-target-host), and let the pacing hook breathe
+      between blocks.
+
+    The push is idempotent (re-adding set bits is a no-op), so a torn
+    or crashed stream recovers by simply re-running the diff.
+    """
 
     def __init__(self, client_factory=Client, logger=logger_mod.NOP,
-                 fault=None, pace_s: float = 0.0):
+                 fault=None, pace_s: float = 0.0, on_block=None):
         self.client_factory = client_factory
         self.logger = logger
+        # fault.FaultManager: the stream defers to the breaker state —
+        # a target (or source) behind an open circuit pauses the
+        # migration instead of hammering a struggling peer (the PR-5
+        # health/breaker machinery paces the stream).
         self.fault = fault
-        self.pace_s = pace_s  # sleep between block pushes
+        self.pace_s = pace_s
+        # on_block(bits, nbytes): per-BLOCK progress callback — the
+        # resize coordinator feeds its status/watchdog heartbeat from
+        # it, so a long fragment's progress is visible while it
+        # streams, not only after.
+        self.on_block = on_block
+        self.bits_pushed = 0
+        self.bytes_pushed = 0
+
+    def wait_allowed(self, host: str, closing=None,
+                     timeout_s: float = 30.0) -> bool:
+        """Block until the peer's circuit allows traffic (half-open
+        probe windows count), up to ``timeout_s``."""
+        if self.fault is None:
+            return True
+        deadline = None
+        import time as _time
+        while not self.fault.would_allow(host):
+            if deadline is None:
+                deadline = _time.monotonic() + timeout_s
+            elif _time.monotonic() > deadline:
+                return False
+            if closing is not None and closing.is_set():
+                return False
+            _time.sleep(0.1)
+        return True
 
     def stream_fragment(self, index: str, frame: str, view: str,
                         slice: int, source_host: str,
                         target_host: str) -> tuple[int, int]:
-        """One fragment source to target; returns (bits, bytes) pushed.
+        """One fragment source→target; returns (bits, bytes) pushed.
         Zero bits pushed on a re-run is the convergence signal the
-        diff-until-clean loops key on."""
+        coordinator's diff-until-clean loop keys on."""
         src = self.client_factory(source_host)
         tgt = self.client_factory(target_host)
         try:
@@ -348,7 +425,8 @@ class FragmentStreamer:
             return (0, 0)  # nothing at the source: nothing to move
         try:
             tgt_blocks = dict(tgt.fragment_blocks(index, frame, view,
-                                                  slice, host=target_host))
+                                                  slice,
+                                                  host=target_host))
         except FragmentNotFoundError:
             tgt_blocks = {}
         bits = nbytes = 0
@@ -360,13 +438,33 @@ class FragmentStreamer:
             if not len(rows):
                 continue
             positions = np.unique(
-                np.asarray(rows, dtype=np.uint64) * np.uint64(SLICE_WIDTH)
+                np.asarray(rows, dtype=np.uint64)
+                * np.uint64(SLICE_WIDTH)
                 + np.asarray(cols, dtype=np.uint64)
                 % np.uint64(SLICE_WIDTH))
-            tgt.fragment_import(index, frame, view, slice, positions,
-                                host=target_host)
-            bits += len(positions)
-            nbytes += len(positions) * 8
+
+            def push(p, _tgt=tgt, _host=target_host):
+                _tgt.fragment_import(index, frame, view, slice, p,
+                                     host=_host)
+
+            if _fp.ACTIVE is not None:
+                # Torn mode pushes a PREFIX of this block, then raises
+                # — the mid-stream crash shape.
+                _fp.ACTIVE.hit("resize.stream", host=target_host,
+                               writer=_PrefixPush(push, positions),
+                               data=positions.tobytes())
+            push(positions)
+            block_bits = len(positions)
+            block_bytes = block_bits * 8
+            bits += block_bits
+            nbytes += block_bytes
+            self.bits_pushed += block_bits
+            self.bytes_pushed += block_bytes
+            from ..obs import metrics as obs_metrics
+            obs_metrics.RESIZE_STREAM_BYTES.inc(block_bytes)
+            if self.on_block is not None:
+                self.on_block(block_bits, block_bytes)
             if self.pace_s:
-                time.sleep(self.pace_s)
+                import time as _time
+                _time.sleep(self.pace_s)
         return (bits, nbytes)

@@ -69,7 +69,7 @@ def test_seeded_hit_sequences_equal_jax(seed, spec):
 def test_unknown_site_raises():
     reg = tfp.Failpoints(seed=1)
     with pytest.raises(ValueError):
-        reg.arm("resize.stream", "error")
+        reg.arm("tier.fault", "error")
     assert set(tfp.SITES) <= set(jfp.SITES)
 
 

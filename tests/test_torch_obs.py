@@ -59,11 +59,6 @@ LEFT_OUT = {
         "pilosa_backup_state_info", "pilosa_backup_wal_records_total",
         "pilosa_backup_wal_segments_total")},
     "pilosa_build_info": "its labels name jax, which the port lacks",
-    **{name: "resize not ported" for name in (
-        "pilosa_cluster_resize_double_reads_total",
-        "pilosa_cluster_resize_state",
-        "pilosa_resize_slices_moved_total",
-        "pilosa_resize_stream_bytes_total")},
     **{name: "no XLA programs: the kernel build is charged per query as"
              " compileMs in the cost ledger" for name in (
         "pilosa_compile_cache_build_seconds_total",
