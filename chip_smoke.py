@@ -247,6 +247,15 @@ checkout, then runs sixteen phases and prints one JSON line for each:
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
+Phases 1 and 16 run alone on the card. Phases 11-15 run one after
+another in a child process of this script (``--node-phases``) that
+starts after phase 1, while phases 2-10 run here: the two halves share
+the card and the host, so their host-clocked times (loads, cold and
+warm query ms, a node's start) are taken beside each other's work; the
+kernel table's times come from phase 1 alone. The child's lines are
+printed after phase 10's, and each phase line's end, in seconds from
+the script's start, goes to the standard error.
+
 The kernel phases (2-8, the reopen of 10, the cluster's nodes until its
 routed pass and the integrity, gossip, operator and resize phases'
 nodes) pin every
@@ -309,8 +318,14 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.time()  # the script's start; a child mode takes its parent's
+
+
 def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+    if "phase" in obj:
+        print(f"chip_smoke: {obj['phase']} line at"
+              f" {time.time() - _T0:.1f} s", file=sys.stderr, flush=True)
 
 
 def _pinned() -> dict:
@@ -6104,14 +6119,131 @@ def phase_bench(device) -> dict:
     return line
 
 
+def _local_phases(device, seed: int, tmp: str) -> dict:
+    """Phases 2-10 in this process; their launch counters summed."""
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+    data_dir = os.path.join(tmp, "data")
+    holder = Holder(data_dir)
+    holder.open()
+    phase_count(holder, device, seed)
+    _, ids200 = phase_topn(holder, device, seed)
+    _, topn1000 = phase_topn1000(holder, device, seed)
+    phase_planner(holder, device)
+    launches = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    _, fields = phase_fields(holder, device, seed)
+    for name in ("expr_count_rows", "densify"):
+        if ck.LAUNCHES[name] <= 0:
+            _fail(f"{name}: no launch in the fields phase")
+    for name, n in ck.LAUNCHES.items():
+        launches[name] += n
+    ck.reset_launches()
+    _, batch_served = phase_batch(holder, device, seed)
+    for name in ("expr_words", "expr_count_batch", "topn_block_count"):
+        if ck.LAUNCHES[name] <= 0:
+            _fail(f"{name}: no launch in the batch phase")
+    for name, n in ck.LAUNCHES.items():
+        launches[name] += n
+    holder.close()
+    ck.reset_launches()
+    phase_server(data_dir, device, seed, ids200, topn1000,
+                 fields + batch_served)
+    for name, n in ck.LAUNCHES.items():
+        launches[name] += n
+    ck.reset_launches()
+    phase_control(data_dir, device, seed, tmp)
+    for name, n in ck.LAUNCHES.items():
+        launches[name] += n
+    # Nothing reads the earlier phases' directory again: free its
+    # disk for the durability storm's WAL.
+    shutil.rmtree(data_dir)
+    phase_durability(device, seed, tmp)
+    for name, n in ck.LAUNCHES.items():
+        launches[name] += n
+    return launches
+
+
+# Phases 11-15 in their order: each alone with ``--phase``, all of them
+# in the ``--node-phases`` child of the whole run.
+NODE_PHASES = {"cluster": phase_cluster, "integrity": phase_integrity,
+               "gossip": phase_gossip, "operator": phase_operator,
+               "resize": phase_resize}
+
+
+def _node_phases(argv: list) -> None:
+    """Child mode of the whole run: phases 11-15 one after another, in
+    one temporary directory of their own; ``argv`` is the file that gets
+    their nodes' launch counters summed, the seed and the parent's start
+    (``time.time()``). A SIGTERM ends it through each phase's own
+    teardown, which stops that phase's nodes."""
+    import signal
+    import torch
+    global _T0
+    if not torch.cuda.is_available():
+        _fail("no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pilosa_tpu_torch.device import resolve_device
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(1))
+    out_path, seed, _T0 = argv[0], int(argv[1]), float(argv[2])
+    device = resolve_device()
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for phase in NODE_PHASES.values():
+            for k, n in phase(device, seed, tmp)["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(launches, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def _node_phases_start(tmp: str, seed: int):
+    """Starts ``--node-phases`` with its standard output in ``tmp``."""
+    import subprocess
+    with open(os.path.join(tmp, "node_phases.out"), "wb") as out:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--node-phases",
+             os.path.join(tmp, "node_phases.json"), str(seed), repr(_T0)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out)
+
+
+def _node_phases_join(proc, tmp: str) -> dict:
+    """Waits for the child, prints its phase lines and returns its
+    nodes' launch counters; fails if it failed."""
+    rc = proc.wait()
+    with open(os.path.join(tmp, "node_phases.out")) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if rc != 0:
+        _fail(f"the node phases exited with {rc}")
+    with open(os.path.join(tmp, "node_phases.json")) as f:
+        return json.load(f)
+
+
+def _node_phases_stop(proc) -> None:
+    """SIGTERM a child still running (its phases stop their nodes),
+    then SIGKILL it if it outlives two minutes."""
+    import subprocess
+    if proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
 def main() -> None:
     if len(sys.argv) > 1 and sys.argv[1] == "--cluster-node":
         _cluster_node(sys.argv[2:])
         return
+    if len(sys.argv) > 1 and sys.argv[1] == "--node-phases":
+        _node_phases(sys.argv[2:])
+        return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("cluster", "integrity", "gossip",
-                                        "operator", "resize"),
+    ap.add_argument("--phase", choices=tuple(NODE_PHASES),
                     help="build the kernels and run this one phase"
                          " alone (its line only: no kernel table, no"
                          " last line)")
@@ -6124,7 +6256,6 @@ def main() -> None:
     try:
         from pilosa_tpu_torch import bench
         from pilosa_tpu_torch.device import resolve_device
-        from pilosa_tpu_torch.models.holder import Holder
         from pilosa_tpu_torch.ops import build
         from pilosa_tpu_torch.ops import cuda_kernels as ck
     except ImportError as e:
@@ -6138,71 +6269,20 @@ def main() -> None:
            "torch": torch.__version__, "cuda": torch.version.cuda})
     if args.phase:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            {"cluster": phase_cluster, "integrity": phase_integrity,
-             "gossip": phase_gossip, "operator": phase_operator,
-             "resize": phase_resize}[
-                 args.phase](device, args.seed, tmp)
+            NODE_PHASES[args.phase](device, args.seed, tmp)
         print(f"nvidia-smi: {_card()}", flush=True)
         return
 
     table = phase_kernels(device, args.seed)
     ck.reset_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        data_dir = os.path.join(tmp, "data")
-        holder = Holder(data_dir)
-        holder.open()
-        phase_count(holder, device, args.seed)
-        _, ids200 = phase_topn(holder, device, args.seed)
-        _, topn1000 = phase_topn1000(holder, device, args.seed)
-        phase_planner(holder, device)
-        launches = dict(ck.LAUNCHES)
-        ck.reset_launches()
-        _, fields = phase_fields(holder, device, args.seed)
-        for name in ("expr_count_rows", "densify"):
-            if ck.LAUNCHES[name] <= 0:
-                _fail(f"{name}: no launch in the fields phase")
-        for name, n in ck.LAUNCHES.items():
-            launches[name] += n
-        ck.reset_launches()
-        _, batch_served = phase_batch(holder, device, args.seed)
-        for name in ("expr_words", "expr_count_batch", "topn_block_count"):
-            if ck.LAUNCHES[name] <= 0:
-                _fail(f"{name}: no launch in the batch phase")
-        for name, n in ck.LAUNCHES.items():
-            launches[name] += n
-        holder.close()
-        ck.reset_launches()
-        phase_server(data_dir, device, args.seed, ids200, topn1000,
-                     fields + batch_served)
-        for name, n in ck.LAUNCHES.items():
-            launches[name] += n
-        ck.reset_launches()
-        phase_control(data_dir, device, args.seed, tmp)
-        for name, n in ck.LAUNCHES.items():
-            launches[name] += n
-        # Nothing reads the earlier phases' directory again: free its
-        # disk for the durability storm's WAL.
-        shutil.rmtree(data_dir)
-        phase_durability(device, args.seed, tmp)
-        for name, n in ck.LAUNCHES.items():
-            launches[name] += n
-        # The cluster's nodes are processes of their own: their counters
-        # come back on their exit lines.
-        for name, n in phase_cluster(device, args.seed, tmp)[
-                "launches"].items():
-            launches[name] += n
-        for name, n in phase_integrity(device, args.seed, tmp)[
-                "launches"].items():
-            launches[name] += n
-        for name, n in phase_gossip(device, args.seed, tmp)[
-                "launches"].items():
-            launches[name] += n
-        for name, n in phase_operator(device, args.seed, tmp)[
-                "launches"].items():
-            launches[name] += n
-        for name, n in phase_resize(device, args.seed, tmp)[
-                "launches"].items():
-            launches[name] += n
+        nodes = _node_phases_start(tmp, args.seed)
+        try:
+            launches = _local_phases(device, args.seed, tmp)
+            for name, n in _node_phases_join(nodes, tmp).items():
+                launches[name] += n
+        finally:
+            _node_phases_stop(nodes)
     before_bench = ck.LAUNCHES["op_count_rows"]
     phase_bench(device)
     if ck.LAUNCHES["op_count_rows"] <= before_bench:
