@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
-                          [--phase cluster|integrity|gossip|operator|resize]
+                          [--phase cluster|integrity|gossip|operator|resize|
+                                   tier]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs sixteen phases and prints one JSON line for each:
+checkout, then runs seventeen phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -242,12 +243,32 @@ checkout, then runs sixteen phases and prints one JSON line for each:
    slices. Each protocol phase's seconds, the slices moved, MB streamed
    and MB/s, the stream passes, the double reads by winner and the
    Count p50 before and during are on the line.
-16. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+16. ``tier``: tiered storage on one port server on the card
+   (``phase_tier``, the same child mode, pinned, the ``server`` verb from
+   a TOML file with ``[tier] enabled``, ``blob = "dir"``, ``idle`` 1 ms,
+   ``blob-idle`` 2 s and the loop at one hour, each pass driven by
+   ``GET /debug/tier?pass=1``): configuration 4's ``smoke`` layout at
+   32 slices (a blob push puts each of a fragment's 256 container
+   blocks as an object with two fsyncs: ~1 s a fragment on the card's
+   host). Warm Counts and TopNs (their p50s); every fragment
+   demoted, the first Count after it (ms, block faults, densify and the
+   expression count launched); every fragment pushed to the blob store
+   (MB, MB/s, only stubs left on local disk), the first Count from it
+   (ms, fetches, fetch MB/s) and the TopNs, which promote fully, in the
+   hot order with the TopN block count launched; a push, a restart (to
+   ready s) and a first Count that fetches from the stubs; a failed
+   fetch (``tier.fetch``) answering 500, 503 and, with ``?partial=1``,
+   200 naming the slice, healed by the next pass; a rotten cold block
+   (``tier.fault`` corrupt) quarantined with no answer wrong; and
+   ``check --deep`` over the stopped node's directory at 0 with a
+   blob-tier verdict for every stub. Every answer equals the hot one
+   and the host reference; wrong and failed answers are 0.
+17. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Phases 1 and 16 run alone on the card. Phases 11-15 run one after
+Phases 1 and 17 run alone on the card. Phases 11-16 run one after
 another in a child process of this script (``--node-phases``) that
 starts after phase 1, while phases 2-10 run here: the two halves share
 the card and the host, so their host-clocked times (loads, cold and
@@ -265,30 +286,33 @@ nothing), as the tests pin it, so the calibrated routing cannot move
 their launches to the host. Every answer of phases 2-5 and 8 is held to
 the host roaring answer computed from the port's own fragments, every
 answer of phase 6 to numpy, of phase 7 to numpy or to words packed on
-the host, of phases 9, 11, 12, 13, 14 and 15 to host roaring or numpy,
-and every count of phase 16 to the host ``popcnt_and``. The kernels' launch
+the host, of phases 9, 11, 12, 13, 14, 15 and 16 to host roaring or numpy,
+and every count of phase 17 to the host ``popcnt_and``. The kernels' launch
 counters are set to 0 before phase 2, before phase 6, before phase 7,
 before phase 8, before phase 9 and before phase 10's reopen, and read
-after phases 5 to 16 (each cluster node's from its
+after phases 5 to 17 (each cluster node's from its
 own process, and every node that owns slices must have launched the
 expression count, densify and the TopN block count; the integrity
 phase's nodes the expression count and densify, the repaired node again
 after its repair; each gossip node of its first life all three; the
 operator phase's card nodes all three; the resize phase's joiner the
-expression count and densify on its moved slices): every kernel must have
+expression count and densify on its moved slices; the tier phase's node
+the expression count and densify on demoted and on fetched slices and
+the TopN block count after the fetch): every kernel must have
 launched on that main path,
 the TopN block count in phase 4's device top-k, the TopN block count,
 the expression count and densify in its sourced queries, the expression
 count (every device Count(Range)), its batched entry (every Sum) and
 densify in phase 6, the expression-words kernel, the batched count and
 the TopN block count in phase 7, again in the server phase by itself and
-again after phase 10's reopen, and the op count in phase 16. Then it
+again after phase 10's reopen, and the op count in phase 17. Then it
 prints the card's name and power limit, the kernel table as one JSON
 object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
 prints no result. ``--phase cluster``, ``--phase integrity``,
-``--phase gossip``, ``--phase operator`` or ``--phase resize`` builds
+``--phase gossip``, ``--phase operator``, ``--phase resize`` or
+``--phase tier`` builds
 the kernels and runs
 that phase alone: its
 line and the card's name, no kernel table and no last line.
@@ -4505,8 +4529,10 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 128,
        node 0's latency tail of the stopped peer, read just before.
     6. Death: the victim-to-be is SIGKILLed (its launch counters read
        just before). Each survivor's seconds until its ``/status`` marks
-       it DOWN; at that moment the survivor's breaker for it must be
-       open for the reason "gossip dead", then its ``/health`` 503 with
+       it DOWN; its breaker for it must then be open for the reason
+       "gossip dead" once the membership's state-change callback has run
+       (read for at most 2 s after DOWN; the lag is on the line as
+       ``breaker_lag_ms``), then its ``/health`` 503 with
        ``down: <victim>``. Node 0's reads again, exact, with the first
        Count's ms, the survivor's legs and the re-mapped slices.
     7. Partial: node 0's ``rpc.send`` failpoint armed to partition the
@@ -4895,20 +4921,34 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 128,
         procs[victim].wait(30)
         procs[victim].stdout.close()
         procs[victim] = None
-        dead_s, breaker_at_dead = {}, {}
-        while len(dead_s) < 2:
+        dead_s, breaker_at_dead, breaker_lag_ms = {}, {}, {}
+
+        def opened(b):
+            return (b.get("gossip") == "dead" and b.get("state") == "open"
+                    and b.get("reason") == "gossip dead")
+
+        while len(breaker_at_dead) < 2:
             for h in survivors:
-                if h in dead_s:
+                if h in breaker_at_dead:
                     continue
                 out = get_json(h, "/status")[1]
                 state = {n["host"]: n["state"]
                          for n in out["status"]["nodes"]}
-                if state.get(victim_host) == "DOWN":
-                    dead_s[h] = time.perf_counter() - t_kill
-                    breaker_at_dead[h] = {
-                        "gossip": out["fault"]["peers"].get(
-                            victim_host, {}).get("gossip"),
-                        **out["fault"]["breakers"].get(victim_host, {})}
+                b = {"gossip": out["fault"]["peers"].get(
+                         victim_host, {}).get("gossip"),
+                     **out["fault"]["breakers"].get(victim_host, {})}
+                now = time.perf_counter()
+                if h not in dead_s and state.get(victim_host) == "DOWN":
+                    dead_s[h] = now - t_kill
+                # The membership table shows DOWN a moment before its
+                # state-change callback reaches the fault layer (the
+                # callback runs after the table's lock is released):
+                # the breaker is read until it shows the death, for at
+                # most 2 s after DOWN.
+                if h in dead_s and (opened(b)
+                                    or now - t_kill - dead_s[h] > 2.0):
+                    breaker_at_dead[h] = b
+                    breaker_lag_ms[h] = (now - t_kill - dead_s[h]) * 1e3
             if time.perf_counter() - t_kill > 60:
                 _fail(f"gossip: {victim_host} not marked dead in 60 s:"
                       f" {dead_s}")
@@ -5031,6 +5071,7 @@ def phase_gossip(device, seed: int, tmp: str, n_slices: int = 128,
            "reads": lat, "victim": victim_host, "legs_before": legs,
            "federation": federation, "hedge": hedge, "partial": partial,
            "dead_s": dead_s, "breaker_at_dead": breaker_at_dead,
+           "breaker_lag_ms": breaker_lag_ms,
            "health_after_death": health_dead,
            "breaker_gauge": breaker_gauge, "after_death": after_kill,
            "rejoin_s": rejoin_s, "rejoin_ms": rejoin_ms,
@@ -6049,6 +6090,441 @@ def phase_resize(device, seed: int, tmp: str, n_slices: int = 256,
     return out
 
 
+TIER_BLOB_IDLE_S = 2.0  # the tier phase's [tier] blob-idle
+
+
+def _tier_toml(path: str) -> None:
+    """The tier phase's node config: the tier manager with the local-dir
+    blob store, its loop at one hour (the phase drives each pass through
+    ``GET /debug/tier?pass=1``), ``idle`` at 1 ms and ``blob-idle`` at
+    ``TIER_BLOB_IDLE_S``: a pass demotes every fragment not read in the
+    last millisecond and pushes every cold one not read for that long."""
+    with open(path, "w") as f:
+        f.write('[tier]\nenabled = true\nblob = "dir"\nidle = "1ms"\n'
+                f'blob-idle = "{TIER_BLOB_IDLE_S:g}s"\ninterval = "1h"\n'
+                'pace = "0s"\n')
+
+
+def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
+    """Tiered storage on one port server on the card (this script's
+    child mode, pinned, the ``server`` verb from ``_tier_toml``'s file):
+    configuration 4's ``smoke`` layout at ``n_slices`` slices, every
+    answer held to a host reference of those bits and to the answer the
+    node gave hot at the start.
+
+    1. Warm: two Counts (a dense row ∩ a sparse row, two dense rows), a
+       plain ``TopN(frame=f, n=8)`` and a sourced TopN over listed ids,
+       cold once and then five times each (p50).
+    2. Cold: a pass demotes every fragment (``/debug/tier`` shows none
+       hot, none pushed); the first Count after it (ms, block faults,
+       the node's densify and expression-count launches) and a second.
+    3. Blob: after ``blob-idle`` a pass pushes every fragment (MB, MB/s;
+       only ``.blob`` stubs left beside the fragments); the first Count
+       from the blob tier (ms, fetches, fetch MB/s from
+       ``pilosa_tier_fault_wait_seconds``); the two TopNs, which promote
+       fully, in the hot order, and the TopN block count launches.
+    4. Restart: a pass pushes everything again, the node restarts (to
+       ready s) with only stubs, and its first Count (all slices but the
+       last) fetches from them, exact.
+    5. A failed fetch: ``tier.fetch`` armed as ``partition(fetch)``; a
+       Count over the last slice (still blob) answers 500, then 503 (the
+       slice is blocked), and with ``?partial=1`` 200 naming the slice;
+       disarmed, the next pass unblocks it and the Count is exact.
+    6. A rotten cold block: index ``rot`` (one fragment) demoted, then
+       ``tier.fault`` armed as ``corrupt*1``: its Count fails and the
+       fragment is quarantined (``/debug/integrity``), no answer wrong;
+       the index is deleted.
+    7. After a last push the node stops and ``check --deep`` over its
+       data directory exits 0 with a blob-tier verdict for every stub."""
+    import signal
+    import subprocess
+    import numpy as np
+    from pilosa_tpu_torch.models.holder import Holder
+
+    t_phase = time.perf_counter()
+    marks: dict = {}
+
+    def mark(step, detail=None):
+        marks[step] = time.perf_counter() - t_phase
+        print(f"tier: {step} at {marks[step]:.1f} s"
+              + (f" {json.dumps(detail)}" if detail else ""),
+              file=sys.stderr, flush=True)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ttmp = os.path.join(tmp, "tier")
+    os.makedirs(ttmp, exist_ok=True)
+    rng = np.random.default_rng(seed + 110)
+    data = os.path.join(ttmp, "data")
+    frag_dir = os.path.join(data, "smoke", "f", "views", "standard",
+                            "fragments")
+
+    # -- data, and the host references ----------------------------------------
+    t0 = time.perf_counter()
+    h = Holder(data)
+    h.open()
+    h.create_index("smoke").create_frame("f") \
+        .create_view_if_not_exists("standard")
+    h.close()
+    positions, cols = _smoke_rows(rng, n_slices)
+    n_bits = int(sum(len(p) for p in positions))
+    for s in range(n_slices):
+        _c5_write((positions[s], [os.path.join(frag_dir, str(s))]))
+    del positions
+    row_n = {r: int(sum(len(c) for c in cols[r])) for r in cols}
+
+    def inter(a, b, slices=range(n_slices)):
+        return int(sum(len(np.intersect1d(cols[a][s], cols[b][s],
+                                          assume_unique=True))
+                       for s in slices))
+
+    pairs = ((1, 9), (2, 3))
+    last = n_slices - 1
+    count_qs = [f"Count(Intersect(Bitmap(rowID={a}, frame=f),"
+                f" Bitmap(rowID={b}, frame=f)))" for a, b in pairs]
+    count_wants = [[inter(a, b)] for a, b in pairs]
+    head_want = [inter(1, 9, range(last))]
+    last_want = [inter(1, 9, [last])]
+    ids = [2, 3, 4, 5]
+    topn_q = "TopN(frame=f, n=8)"
+    topn_want = sorted(((r, row_n[r]) for r in range(1, 9)),
+                       key=lambda p: (-p[1], p[0]))
+    src_q = f"TopN(Bitmap(rowID=1, frame=f), frame=f, ids={ids})"
+    src_want = sorted(((r, inter(1, r)) for r in ids if inter(1, r)),
+                      key=lambda p: (-p[1], p[0]))
+    del cols
+    data_s = time.perf_counter() - t0
+    mark("data")
+
+    host = f"127.0.0.1:{_free_port()}"
+    cfg = os.path.join(ttmp, "node.toml")
+    _tier_toml(cfg)
+    counters_path = os.path.join(ttmp, "node.counters")
+    proc = [None]
+    wrong: list = []
+    failed: list = []
+    lives: list = []
+    touched = [0.0]
+
+    def spawn():
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        args = [sys.executable, os.path.abspath(__file__), "--cluster-node",
+                "1", counters_path, "server", "-c", cfg, "-d", data, "-b",
+                host, "--cost.dir", os.path.join(ttmp, "cal")]
+        if device.type == "cpu":
+            args += ["--device", "cpu"]
+        log = open(os.path.join(ttmp, "node.log"), "ab")
+        return subprocess.Popen(args, cwd=repo, env=env,
+                                stdout=subprocess.PIPE, stderr=log)
+
+    def counters() -> dict:
+        if os.path.exists(counters_path):
+            os.remove(counters_path)
+        proc[0].send_signal(signal.SIGUSR1)
+        t1 = time.perf_counter()
+        while not os.path.exists(counters_path):
+            if time.perf_counter() - t1 > 10:
+                _fail("tier: the node wrote no counters on SIGUSR1")
+            time.sleep(0.02)
+        with open(counters_path) as f:
+            return json.load(f)["launches"]
+
+    def query(q, want=None, qs="", index="smoke", label=""):
+        """One read that must answer 200 (else it counts as failed) and,
+        with ``want``, exactly (else wrong); it stamps the fragments'
+        last touch."""
+        st, hd, out, ms = _request(host, "POST", f"/index/{index}/query{qs}",
+                                   q.encode(), timeout=300)
+        touched[0] = time.perf_counter()
+        if st != 200:
+            failed.append((label, q[:60], st, out[:200]))
+            return None, ms
+        res = json.loads(out)["results"]
+        if want is not None:
+            got = ([_pairs_json(r) for r in res] if q.startswith("TopN")
+                   else res)
+            if got != want:
+                wrong.append((label, q[:60], got, want))
+        return res, ms
+
+    def raw(method, path, body=b""):
+        st, hd, out, ms = _request(host, method, path, body, timeout=300)
+        if method != "POST" or "/query" not in path:
+            if st != 200:
+                _fail(f"tier: {method} {path}: HTTP {st}: {out[:200]!r}")
+        return st, hd, out, ms
+
+    def tier(qs=""):
+        return json.loads(raw("GET", f"/debug/tier{qs}")[2])
+
+    def tier_pass():
+        """One manager pass; (its summary, seconds, the state after)."""
+        t1 = time.perf_counter()
+        summary = tier("?pass=1")["pass"]
+        return summary, time.perf_counter() - t1, tier()
+
+    def idle_until_pushable():
+        # blob-idle since the last read that reached a fragment.
+        wait = touched[0] + TIER_BLOB_IDLE_S + 0.2 - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+
+    def failpoint(site, spec):
+        raw("POST", "/debug/failpoints",
+            json.dumps({"site": site, "spec": spec}).encode())
+
+    def metric(family, **labels) -> float:
+        return _family_sum(_scrape(host), family, **labels)
+
+    def stop() -> dict:
+        line = _nodes_stop([proc[0]], [host])[0]
+        proc[0] = None
+        lives.append(line["launches"])
+        return line
+
+    def delta(c1, c0, name):
+        return c1.get(name, 0) - c0.get(name, 0)
+
+    try:
+        # -- 1. warm ------------------------------------------------------------
+        t0 = time.perf_counter()
+        proc[0] = spawn()
+        ready_s = _node_up([host], [proc[0]], 240.0, last, index="smoke")
+        mark("ready")
+        hot = {}
+        warm_ms = {}
+        for q, want in (list(zip(count_qs, count_wants))
+                        + [(topn_q, [topn_want]), (src_q, [src_want])]):
+            res, cold_ms = query(q, want, label="warm")
+            hot[q] = res
+            warm_ms[q] = {"cold_ms": cold_ms, "p50_ms": _median(
+                [query(q, want, label="warm")[1] for _ in range(5)])}
+        mark("warm")
+
+        # -- 2. cold --------------------------------------------------------------
+        # A read of an empty row through every fragment stamps them all
+        # now, so this pass demotes (idle 1 ms) and pushes none
+        # (blob-idle).
+        query("Bitmap(rowID=1000, frame=f)", label="touch")
+        time.sleep(0.01)
+        summary, demote_s, st = tier_pass()
+        tiers = st["tiers"]
+        if (tiers["hot"]["fragments"] or tiers["blob"]["fragments"]
+                or tiers["cold"]["fragments"] != n_slices):
+            _fail(f"tier: the demotion pass left {tiers} ({summary})")
+        c0, f0 = counters(), metric("pilosa_tier_block_faults_total",
+                                    outcome="ok")
+        _, cold_first_ms = query(count_qs[0], count_wants[0], label="cold")
+        c1, f1 = counters(), metric("pilosa_tier_block_faults_total",
+                                    outcome="ok")
+        _, cold_second_ms = query(count_qs[0], count_wants[0], label="cold")
+        cold = {"demote_pass_s": demote_s, "demoted": summary["demoted"],
+                "first_count_ms": cold_first_ms,
+                "second_count_ms": cold_second_ms,
+                "block_faults": f1 - f0,
+                "densify": delta(c1, c0, "densify"),
+                "expr_count_rows": delta(c1, c0, "expr_count_rows")}
+        if cold["densify"] <= 0 or cold["expr_count_rows"] <= 0:
+            _fail(f"tier: the first Count after the demotion launched"
+                  f" no densify or expression count: {cold}")
+        mark("cold", cold)
+
+        # -- 3. blob --------------------------------------------------------------
+        idle_until_pushable()
+        summary, push_s, st = tier_pass()
+        tiers = st["tiers"]
+        if tiers["blob"]["fragments"] != n_slices:
+            _fail(f"tier: the push pass left {tiers} ({summary})")
+        left = sorted(os.listdir(frag_dir))
+        if left != sorted(f"{s}.blob" for s in range(n_slices)):
+            _fail(f"tier: beside the stubs on local disk: {left[:8]}")
+        push_mb = tiers["blob"]["bytes"] / 1e6
+        c0 = counters()
+        f0 = metric("pilosa_tier_blob_transfers_total", direction="fetch",
+                    outcome="ok")
+        w0 = metric("pilosa_tier_fault_wait_seconds_sum")
+        _, blob_first_ms = query(count_qs[0], count_wants[0], label="blob")
+        fetches = metric("pilosa_tier_blob_transfers_total",
+                         direction="fetch", outcome="ok") - f0
+        fetch_s = metric("pilosa_tier_fault_wait_seconds_sum") - w0
+        c1 = counters()
+        topn_ms = {}
+        for q, want in ((topn_q, topn_want), (src_q, src_want)):
+            res, topn_ms[q] = query(q, [want], label="blob topn")
+            if res is not None and res != hot[q]:
+                wrong.append(("blob topn order", q, res, hot[q]))
+        c2 = counters()
+        promoted = tier()["tiers"]
+        blob = {"push_pass_s": push_s, "pushed": summary["pushed"],
+                "push_mb": push_mb, "push_mb_per_s": push_mb / push_s,
+                "first_count_ms": blob_first_ms, "fetches": fetches,
+                "fetch_and_fault_s": fetch_s,
+                "fetch_mb_per_s": push_mb / fetch_s if fetch_s else None,
+                "densify": delta(c1, c0, "densify"),
+                "expr_count_rows": delta(c1, c0, "expr_count_rows"),
+                "topn_ms": list(topn_ms.values()),
+                "topn_block_count": delta(c2, c1, "topn_block_count"),
+                "hot_after_topn": promoted["hot"]["fragments"]}
+        if fetches != n_slices or blob["densify"] <= 0 \
+                or blob["expr_count_rows"] <= 0:
+            _fail(f"tier: the first Count from the blob tier: {blob}")
+        if blob["topn_block_count"] <= 0 or \
+                blob["hot_after_topn"] != n_slices:
+            _fail(f"tier: the TopNs after the fetch: {blob}")
+        mark("blob", blob)
+
+        # -- 4. restart ---------------------------------------------------------
+        idle_until_pushable()
+        summary, push2_s, st = tier_pass()
+        if st["tiers"]["blob"]["fragments"] != n_slices:
+            _fail(f"tier: the second push left {st['tiers']}")
+        stop()
+        t0 = time.perf_counter()
+        proc[0] = spawn()
+        ready2_s = _node_up([host], [proc[0]], 240.0, last, index="smoke")
+        after = tier()["tiers"]
+        if after["blob"]["fragments"] != n_slices:
+            _fail(f"tier: the restarted node opened {after}")
+        f0 = metric("pilosa_tier_blob_transfers_total", direction="fetch",
+                    outcome="ok")
+        head = "?slices=" + ",".join(map(str, range(last)))
+        _, restart_first_ms = query(count_qs[0], [head_want[0]], qs=head,
+                                    label="restart")
+        restart = {"push_pass_s": push2_s, "pushed": summary["pushed"],
+                   "ready_s": ready2_s, "first_count_ms": restart_first_ms,
+                   "fetches": metric("pilosa_tier_blob_transfers_total",
+                                     direction="fetch", outcome="ok") - f0}
+        if restart["fetches"] != last:
+            _fail(f"tier: the first Count after the restart: {restart}")
+        mark("restart", restart)
+
+        # -- 5. a failed fetch --------------------------------------------------
+        one = f"?slices={last}"
+        failpoint("tier.fetch", "partition(fetch)")
+        strict = raw("POST", f"/index/smoke/query{one}",
+                     count_qs[0].encode())
+        again = raw("POST", f"/index/smoke/query{one}",
+                    count_qs[0].encode())
+        blocked_state = tier()["blocked"]
+        partial = raw("POST", f"/index/smoke/query{one}&partial=1",
+                      count_qs[0].encode())
+        failpoint("tier.fetch", "off")
+        summary, _, st = tier_pass()
+        _, healed_ms = query(count_qs[0], last_want, qs=one, label="healed")
+        blocked = {"strict_status": strict[0], "again_status": again[0],
+                   "blocked_slices": sorted(b["slice"]
+                                            for b in blocked_state),
+                   "partial_status": partial[0],
+                   "partial_slices": partial[1].get("X-Pilosa-Partial"),
+                   "partial_results": json.loads(partial[2]).get(
+                       "results"),
+                   "retried": summary["retried"],
+                   "blocked_after": len(st["blocked"]),
+                   "healed_ms": healed_ms}
+        if (strict[0] != 500 or again[0] != 503
+                or blocked["blocked_slices"] != [last]
+                or partial[0] != 200
+                or blocked["partial_slices"] != str(last)
+                or blocked["partial_results"] != [0]
+                or blocked["retried"] < 1 or blocked["blocked_after"]):
+            _fail(f"tier: the failed fetch did not degrade and heal as"
+                  f" the JAX server does: {blocked}")
+        mark("blocked", blocked)
+
+        # -- 6. a rotten cold block ---------------------------------------------
+        raw("POST", "/index/rot", b"{}")
+        raw("POST", "/index/rot/frame/f", b"{}")
+        rot_cols = sorted(set(int(c) for c in rng.integers(
+            0, 1 << 20, size=3000)))
+        st_w = raw("POST", "/index/rot/query", "\n".join(
+            f"SetBit(rowID=1, frame=f, columnID={c})"
+            for c in rot_cols).encode())[0]
+        if st_w != 200:
+            _fail(f"tier: the rot index's SetBits answered {st_w}")
+        # The first pass tracks the new fragment; a read then stamps it,
+        # so the second demotes it (idle 1 ms) and pushes none of it
+        # (blob-idle), however long the first took.
+        tier_pass()
+        query("Bitmap(rowID=2, frame=f)", index="rot", label="touch")
+        time.sleep(0.01)
+        tier_pass()
+        cold_rot = [e for e in tier("?entries=1&tier=cold")["entries"]
+                    if e["index"] == "rot"]
+        if len(cold_rot) != 1:
+            _fail(f"tier: the rot fragment is not cold: {cold_rot}")
+        failpoint("tier.fault", "corrupt*1")
+        rq = "Count(Bitmap(rowID=1, frame=f))"
+        rot1 = raw("POST", "/index/rot/query", rq.encode())
+        rot2 = raw("POST", "/index/rot/query", rq.encode())
+        failpoint("tier.fault", "off")
+        quarantined = [e for e in json.loads(raw(
+            "GET", "/debug/integrity")[2])["quarantined"]
+            if e.get("index") == "rot"]
+        for st_r in (rot1, rot2):
+            if st_r[0] == 200 and json.loads(st_r[2])["results"] != [
+                    len(rot_cols)]:
+                wrong.append(("rot", json.loads(st_r[2])))
+        corrupt = {"first_status": rot1[0], "again_status": rot2[0],
+                   "quarantined": len(quarantined)}
+        if rot1[0] == 200 or rot2[0] == 200 or len(quarantined) != 1:
+            _fail(f"tier: the rotten cold block was served: {corrupt}")
+        raw("DELETE", "/index/rot")
+        mark("corrupt", corrupt)
+
+        # -- 7. check --deep ----------------------------------------------------
+        idle_until_pushable()
+        _, _, st = tier_pass()
+        if st["tiers"]["blob"]["fragments"] != n_slices:
+            _fail(f"tier: the last push left {st['tiers']}")
+        stop()
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        t1 = time.perf_counter()
+        chk = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli",
+                              "check", "--deep", data], cwd=repo, env=env,
+                             capture_output=True, text=True, timeout=600)
+        verdicts = chk.stdout.count("ok (blob tier,")
+        check = {"rc": chk.returncode, "blob_verdicts": verdicts,
+                 "seconds": time.perf_counter() - t1,
+                 "last_line": chk.stdout.strip().splitlines()[-1:]}
+        if chk.returncode != 0 or verdicts != n_slices:
+            _fail(f"tier: check --deep: {check} {chk.stdout[-600:]!r}"
+                  f" {chk.stderr[-600:]!r}")
+        mark("check", check)
+    except SystemExit:
+        try:
+            with open(os.path.join(ttmp, "node.log"), "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            print(f"tier: node log tail:\n{tail}", file=sys.stderr,
+                  flush=True)
+        except OSError:
+            pass
+        raise
+    finally:
+        if proc[0] is not None:
+            proc[0].kill()
+            proc[0].communicate()
+
+    if wrong or failed:
+        _fail(f"tier: {len(wrong)} wrong and {len(failed)} failed answers:"
+              f" {(wrong + failed)[:3]}")
+    launches: dict = {}
+    for line in lives:
+        for k, v in line.items():
+            launches[k] = launches.get(k, 0) + v
+    out = {"phase": "tier", "config": "BASELINE configuration 4",
+           "slices": n_slices, "bits": n_bits, "data_s": data_s,
+           "ready_s": ready_s,
+           "warm": {q[:40]: v for q, v in warm_ms.items()},
+           "cold": cold, "blob": blob, "restart": restart,
+           "blocked": blocked, "corrupt": corrupt, "check": check,
+           "wrong": len(wrong), "failed": len(failed),
+           "launches": launches, "marks_s": marks, "card": _card(),
+           "seconds": time.perf_counter() - t_phase}
+    _emit(out)
+    return out
+
+
 def _cluster_node(argv: list) -> None:
     """Child mode of ``phase_cluster``: one node, the ``server`` verb's
     code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
@@ -6164,15 +6640,15 @@ def _local_phases(device, seed: int, tmp: str) -> dict:
     return launches
 
 
-# Phases 11-15 in their order: each alone with ``--phase``, all of them
+# Phases 11-16 in their order: each alone with ``--phase``, all of them
 # in the ``--node-phases`` child of the whole run.
 NODE_PHASES = {"cluster": phase_cluster, "integrity": phase_integrity,
                "gossip": phase_gossip, "operator": phase_operator,
-               "resize": phase_resize}
+               "resize": phase_resize, "tier": phase_tier}
 
 
 def _node_phases(argv: list) -> None:
-    """Child mode of the whole run: phases 11-15 one after another, in
+    """Child mode of the whole run: phases 11-16 one after another, in
     one temporary directory of their own; ``argv`` is the file that gets
     their nodes' launch counters summed, the seed and the parent's start
     (``time.time()``). A SIGTERM ends it through each phase's own

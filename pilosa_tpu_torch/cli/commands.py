@@ -12,15 +12,15 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   ``--cluster.gen-staleness``), ``--anti-entropy.interval``, the
   ``--trace.*`` and ``--metrics.*`` switches, the operator surface's
   switches (blackbox, watchdog, history, sentinel, the continuous
-  profiler, SLO) and ``--profile.cpu``/``--profile.cpu-time`` (a
-  sampled host CPU profile written to a file) — plus ``--device`` (the
+  profiler, SLO), the ``[tier]`` section (the tier manager and its blob
+  store) and ``--profile.cpu``/``--profile.cpu-time`` (a sampled host
+  CPU profile written to a file) — plus ``--device`` (the
   card unless ``cpu``), ``--cost.dir`` (where the cost model's calibration is
   kept) and ``--fault.hedge`` (the hedged-read floor, which the JAX verb
   takes from ``[fault] hedge`` and ``PILOSA_FAULT_HEDGE`` only). An
-  explicit switch-on of a subsystem this package does not run yet
-  (``[tier] enabled = true`` or a blob store, a ``[backup] archive``)
-  exits 2 naming its slice. SIGTERM dumps the flight recorder (when
-  on), then closes the server as SIGINT does. ``gen-staleness`` is kept
+  explicit switch-on of a subsystem this package does not run yet (a
+  ``[backup] archive``) exits 2 naming its slice. SIGTERM dumps the
+  flight recorder (when on), then closes the server as SIGINT does. ``gen-staleness`` is kept
   and has nothing to bound: every hit of the coordinator's cluster
   cache is validated by a probe;
 - ``import`` (CSV ``row,col[,timestamp]`` bits, or ``column,value``
@@ -37,8 +37,9 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   sidecars and ``.snapshotting`` leftovers; ``--deep`` is the offline
   storage scrub over data directories and files) and ``inspect`` (a
   fragment file's container and checksum summary). ``check --deep``
-  exits 2 on a blob-tier stub and on ``--archive``, which wait for the
-  tier and backup slices.
+  verifies each blob-tier stub's objects against the manifest crcs and
+  the reassembled footer digest; ``--archive`` exits 2, waiting for the
+  backup slice.
 
 - ``replay`` (obs.replay: re-issue a captured workload, or
   ``--shadow BASELINE CANDIDATE`` to compare result digests) and
@@ -197,7 +198,7 @@ def cmd_server(args, stdout, stderr) -> int:
                     watchdog_config=cfg.watchdog,
                     history_config=cfg.history,
                     sentinel_config=cfg.sentinel,
-                    capture_config=cfg.capture,
+                    capture_config=cfg.capture, tier_config=cfg.tier,
                     resize_pace_s=cfg.cluster.resize_pace,
                     resize_grace_s=cfg.cluster.resize_grace)
 
@@ -569,7 +570,7 @@ def _fragment_files(path: str) -> list[str]:
 
 def _blob_stubs(path: str) -> list[str]:
     """``<slice>.blob`` stub files under a data dir — fragments whose
-    bytes live in the JAX package's blob tier."""
+    bytes live in the blob tier (tier)."""
     if not os.path.isdir(path):
         return [path] if path.endswith(".blob") else []
     out = []
@@ -582,26 +583,50 @@ def _blob_stubs(path: str) -> list[str]:
     return out
 
 
+def _blob_store_for(stub_path: str):
+    """The blob store a stub's objects live in: the PILOSA_TIER_BLOB /
+    PILOSA_TIER_COLD_DIR settings when present (the knobs the server
+    reads), else the default layout — a ``_tier/blob`` dir under an
+    ancestor of the stub (the data dir). None when none is found."""
+    from ..tier import blob as blob_mod
+    spec = os.environ.get("PILOSA_TIER_BLOB", "")
+    cold = os.environ.get("PILOSA_TIER_COLD_DIR", "")
+    if spec.startswith("dir:"):
+        return blob_mod.LocalDirBlobStore(spec[len("dir:"):])
+    if cold and os.path.isdir(os.path.join(cold, "blob")):
+        return blob_mod.LocalDirBlobStore(os.path.join(cold, "blob"))
+    probe = os.path.dirname(os.path.abspath(stub_path))
+    for _ in range(8):
+        root = os.path.join(probe, "_tier", "blob")
+        if os.path.isdir(root):
+            return blob_mod.LocalDirBlobStore(root)
+        parent = os.path.dirname(probe)
+        if parent == probe:
+            break
+        probe = parent
+    return None
+
+
 def _check_deep(args, stdout, stderr) -> int:
     """Offline storage scrub (the CLI face of storage.scrub): verify
     every snapshot footer (per-block crc32 table + whole-body digest)
     and WAL-tail FNV checksums under the given data dirs / files, one
     verdict line per fragment; nonzero exit on ANY corruption.
     ``.corrupt`` aside files (quarantine forensics / pending-repair
-    sentinels) are reported too. A blob-tier stub has no local bytes to
-    verify: that lane waits for the tier slice, and the verb exits 2."""
+    sentinels) are reported too. Blob-tier stubs (``<slice>.blob``) are
+    walked as well: each fragment's blob objects verify against the
+    manifest crcs and the reassembled footer digest — cold-tier files
+    are ordinary footered snapshots and take the normal lane."""
+    import json as _json
+
     from ..storage import scrub as scrub_mod
-    stubs = [s for path in args.paths for s in _blob_stubs(path)]
-    if stubs:
-        print(f"check --deep: {stubs[0]}: blob-tier fragments are not"
-              " available in this package yet (the tier slice)",
-              file=stderr)
-        return 2
+    from ..tier import blob as blob_mod
     rc = 0
     n = corrupt = vintage = 0
     for path in args.paths:
         files = _fragment_files(path)
-        if not files:
+        stubs = _blob_stubs(path)
+        if not files and not stubs:
             print(f"{path}: no fragment files found", file=stdout)
         for f in files:
             n += 1
@@ -625,6 +650,35 @@ def _check_deep(args, stdout, stderr) -> int:
             if os.path.exists(f + ".corrupt"):
                 print(f"{f}.corrupt: quarantine forensics present"
                       f" (fragment pending repair)", file=stdout)
+        for s in stubs:
+            n += 1
+            try:
+                with open(s, "r", encoding="utf-8") as fh:
+                    stub = _json.load(fh)
+                prefix = stub["prefix"]
+            except (OSError, ValueError, KeyError) as e:
+                corrupt += 1
+                rc = 1
+                print(f"{s}: CORRUPT: unreadable blob stub: {e}",
+                      file=stdout)
+                continue
+            store = _blob_store_for(s)
+            if store is None:
+                # A stub without a reachable store (a moved dir): report
+                # it, never guess at a verdict.
+                print(f"{s}: blob stub ({stub.get('size', '?')}B at"
+                      f" {prefix}; no local blob store found —"
+                      f" skipped)", file=stdout)
+                continue
+            v = blob_mod.verify_fragment(store, prefix)
+            if v.get("corrupt"):
+                corrupt += 1
+                rc = 1
+                print(f"{s}: CORRUPT (blob {prefix}):"
+                      f" {v.get('error')}", file=stdout)
+            else:
+                print(f"{s}: ok (blob tier, {v.get('blocks', 0)}"
+                      f" blocks at {prefix})", file=stdout)
     print(f"checked {n} fragments: {corrupt} corrupt,"
           f" {vintage} without footers", file=stdout)
     return rc

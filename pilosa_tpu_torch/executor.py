@@ -115,9 +115,15 @@ coordinator's cluster result cache while every peer's generation
 tokens validate (``/generations``). The one-node fast paths — the fused
 batch, the single-pass TopN, the device top-k, the bitmap-result cache
 and the planner's proofs — run when this node owns every slice a query
-touches (``_owns_all_slices``). The JAX package's environment gates
-are class constants here (their defaults), which tests override
-through the constructor; the pod waits for a later slice.
+touches (``_owns_all_slices``). A slice whose local fragment is
+quarantined, or blob-tier with a failing fetch (the tier manager's
+blocked set), claims no fast path: the read goes through the placement,
+which skips this node for it (a one-node server answers 503, or with
+``?partial=1`` names the slice), as in the JAX package. A TopN's
+rank-array pass promotes a cold or blob fragment first. The JAX
+package's environment gates are class constants here (their defaults),
+which tests override through the constructor; the pod waits for a later
+slice.
 
 During an elastic resize (cluster.resize) writes fan to the union of
 the old and new owners of a moving slice (``Cluster.fragment_nodes``),
@@ -2091,6 +2097,12 @@ class Executor:
                     # cache.get() reads fresh entries — only the LRU
                     # cache's arrays are equivalent to get().
                     return NotImplemented
+                if frag.tier_state != "hot":
+                    # TopN ranks through the count cache, which demotion
+                    # dropped: a cold or blob fragment promotes fully
+                    # (reloading the cache) before its arrays mean
+                    # anything — fragment.top's contract.
+                    frag.promote(trigger="read")
                 with frag._mu:
                     frag.cache.invalidate()
                     ids, counts = frag.cache.top_arrays()
@@ -2746,21 +2758,32 @@ class Executor:
 
     def _quarantine_blocks(self, index: str, slices: list[int]) -> bool:
         """Does this node hold a quarantined fragment of a slice in
-        ``slices`` (storage.integrity)? One len() check when none is
-        quarantined."""
+        ``slices`` (storage.integrity), or a blob-tier fragment whose
+        fetch keeps failing (the tier manager's blocked set)? Neither
+        has local bytes to trust. One len() check each when none is."""
         q = getattr(self.holder, "quarantine", None)
-        return (q is not None and len(q) > 0
-                and any(q.slice_blocked(index, s) for s in slices))
+        tier = getattr(self.holder, "tier", None)
+        if ((q is None or not len(q))
+                and (tier is None or not tier._blocked_slices)):
+            return False
+        return any(self._local_blocked(index, s) for s in slices)
+
+    def _local_blocked(self, index: str, slice: int) -> bool:
+        q = getattr(self.holder, "quarantine", None)
+        if q is not None and len(q) and q.slice_blocked(index, slice):
+            return True
+        tier_blocked = getattr(self.holder, "tier_blocked", None)
+        return tier_blocked is not None and tier_blocked(index, slice)
 
     def _refuse_quarantined(self, index: str, slices: list[int]) -> None:
         """A coordinator's leg over a slice whose local copy is
-        quarantined fails with SliceUnavailableError (the handler's 503),
-        so the coordinator re-maps it onto another replica — the JAX
-        package's leg, whose placement has no node left for it."""
+        quarantined or tier-blocked fails with SliceUnavailableError (the
+        handler's 503), so the coordinator re-maps it onto another
+        replica — the JAX package's leg, whose placement has no node
+        left for it."""
         if self._quarantine_blocks(index, slices):
-            q = self.holder.quarantine
             for s in slices:
-                if q.slice_blocked(index, s):
+                if self._local_blocked(index, s):
                     raise SliceUnavailableError(str(s))
 
     def _slices_by_node(self, nodes: list[Node], index: str,
@@ -2783,6 +2806,11 @@ class Executor:
         q = getattr(self.holder, "quarantine", None)
         if q is not None and not len(q):
             q = None
+        # Tiered storage: the same skip for slices whose blob-tier
+        # fragments cannot be fetched back — no local bytes exist.
+        tier = getattr(self.holder, "tier", None)
+        if tier is not None and not tier._blocked_slices:
+            tier = None
         m: dict[int, tuple[Node, list[int]]] = {}
         # PARTITION_N bounds the distinct owner tuples: one ordering
         # each, not one a slice.
@@ -2804,6 +2832,9 @@ class Executor:
                         # Tail sampling: a corruption-driven failover is
                         # keep-worthy (obs.sampler "corruption").
                         ctx.note_flag("corruption")
+                    continue
+                if (tier is not None and node.host == self.host
+                        and tier.slice_blocked(index, slice)):
                     continue
                 if any(n is node for n in nodes):
                     m.setdefault(id(node), (node, []))[1].append(slice)

@@ -35,6 +35,14 @@ The port arms the sites its own modules carry:
                     corrupt-capable: flips real bits in the on-disk
                     snapshot, so detection → quarantine → repair is
                     deterministically injectable
+``tier.fault``      storage/fragment, before a cold fragment's container
+                    blocks are faulted in (tier) — corrupt-capable: flips
+                    real bits inside the block about to be verified, so
+                    the per-block crc check at fault time catches it
+``tier.fetch``      tier/manager blob-tier transfers (push and fetch) —
+                    error, delay and corrupt make a failed cold fetch and
+                    a torn promotion injectable; partition mode scopes by
+                    direction (``push`` / ``fetch``)
 ==================  =========================================================
 
 Arming an unknown site raises: a site without an injection point would
@@ -93,7 +101,7 @@ ACTIVE: Optional["Failpoints"] = None
 
 SITES = ("rpc.send", "rpc.recv", "wal.append", "snapshot.write",
          "gossip.deliver", "mesh.dispatch", "ring.write",
-         "resize.stream", "storage.read")
+         "resize.stream", "storage.read", "tier.fault", "tier.fetch")
 
 
 def env_key(site: str) -> str:
@@ -254,12 +262,16 @@ class Failpoints:
 
     def hit(self, site: str, host: Optional[str] = None,
             writer=None, data: Optional[bytes] = None,
-            path: Optional[str] = None) -> None:
+            path: Optional[str] = None,
+            span: Optional[tuple] = None) -> None:
         """Evaluate ``site``. Raises FailpointError when the armed mode
         says so; returns silently otherwise. ``host`` scopes partition
         mode; ``writer``+``data`` let torn mode emit a prefix of the
         record before failing; ``writer`` (an open file) or ``path``
-        give corrupt mode the bytes to flip."""
+        give corrupt mode the bytes to flip. ``span`` (offset, length)
+        confines corrupt flips to the byte range the caller is about to
+        verify, so detection is deterministic rather than a draw
+        against the whole file."""
         with self._mu:
             fp = self._points.get(site)
             if fp is None:
@@ -293,7 +305,7 @@ class Failpoints:
                 f"failpoint {site}: torn write after {arg} bytes")
         if mode == "corrupt":
             self._corrupt(site, writer=writer, path=path,
-                          bits=int(arg or 1))
+                          bits=int(arg or 1), span=span)
             return
         if mode == "enospc":
             # The two-arg OSError form sets .errno, so the catching
@@ -310,7 +322,7 @@ class Failpoints:
                                 if mode == "partition" else ""))
 
     def _corrupt(self, site: str, writer, path: Optional[str],
-                 bits: int) -> None:
+                 bits: int, span: Optional[tuple] = None) -> None:
         """Flip ``bits`` real bits at seeded-random offsets of the
         site's file — silent on-disk corruption, the fault the
         storage-integrity footer (storage.integrity) exists to catch.
@@ -347,8 +359,12 @@ class Failpoints:
             size = os.fstat(fd).st_size
             if size <= 0:
                 return
+            base, extent = 0, size
+            if span is not None:
+                base = max(0, min(int(span[0]), size - 1))
+                extent = max(1, min(int(span[1]), size - base))
             with self._mu:  # seeded draws stay on the replay schedule
-                flips = [(self._rng.randrange(size),
+                flips = [(base + self._rng.randrange(extent),
                           self._rng.randrange(8))
                          for _ in range(bits)]
             for off, bit in flips:

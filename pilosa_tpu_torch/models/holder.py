@@ -33,6 +33,11 @@ class Holder:
         # fragments — the executor's read path consults it, the
         # repairer drains it.
         self.quarantine = QuarantineRegistry()
+        # Tiered storage (tier): the TierManager when the [tier] config
+        # enables it (server.open wires it), else None. The executor
+        # consults tier_blocked alongside the quarantine registry when
+        # deciding whether to serve a slice locally.
+        self.tier = None
         self.indexes: dict[str, Index] = {}
         # fn(index, slice, inverse), set by a cluster server: a new
         # fragment past a view's max slice announces the slice to peers.
@@ -115,6 +120,14 @@ class Holder:
     def fragment(self, index: str, frame: str, view: str, slice: int):
         v = self.view(index, frame, view)
         return v.fragment(slice) if v else None
+
+    def tier_blocked(self, index: str, slice: int) -> bool:
+        """True when a blob-tier fragment of (index, slice) cannot be
+        fetched back from the blob store — reads must not be served
+        locally (the tier-side analogue of quarantine.slice_blocked;
+        the executor consults both)."""
+        tier = self.tier
+        return tier is not None and tier.slice_blocked(index, slice)
 
     def iter_fragments(self) -> list:
         """A point-in-time list of every open fragment."""

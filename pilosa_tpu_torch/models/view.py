@@ -80,7 +80,15 @@ class View:
         with self._mu:
             os.makedirs(self.fragments_path, exist_ok=True)
             for entry in sorted(os.listdir(self.fragments_path)):
-                if not entry.isdigit() or int(entry) in self.fragments:
+                if entry.endswith(".blob") and entry[:-5].isdigit():
+                    # Blob-tier stub (tier): the data file left local
+                    # disk, but the fragment stays discoverable —
+                    # Fragment.open recognizes the stub and opens in the
+                    # blob state.
+                    entry = entry[:-5]
+                elif not entry.isdigit():
+                    continue
+                if int(entry) in self.fragments:
                     continue
                 frag = self._new_fragment(int(entry))
                 frag.open()

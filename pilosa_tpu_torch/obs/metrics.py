@@ -711,6 +711,61 @@ STORAGE_WRITE_READY = _DEFAULT.gauge(
     " write-unready after ENOSPC (writes answer 507, reads keep"
     " serving, auto-recovers on a successful probe write)")
 
+# -- tiered storage (the tier working-set manager) ----------------------------
+TIER_FRAGMENTS = _DEFAULT.gauge(
+    "pilosa_tier_fragments_resident",
+    "Fragments per residency tier on this node (hot = fully mmap-"
+    "resident with caches, cold = metadata-only with unfaulted"
+    " container blocks, blob = bytes live only in the blob store)",
+    labels=("tier",))
+TIER_BYTES = _DEFAULT.gauge(
+    "pilosa_tier_bytes_resident",
+    "Data bytes per residency tier on this node — resident counts"
+    " hot fragments plus the faulted blocks of cold ones; the"
+    " watermark eviction loop works against this gauge's resident"
+    " label",
+    labels=("tier",))
+TIER_FAULTS = _DEFAULT.counter(
+    "pilosa_tier_block_faults_total",
+    "Container blocks faulted into residency on first read of a cold"
+    " fragment, by outcome (ok / corrupt — a corrupt fault"
+    " quarantines exactly like a failed lazy read verify)",
+    labels=("outcome",))
+TIER_DEMOTIONS = _DEFAULT.counter(
+    "pilosa_tier_demotions_total",
+    "Fragment demotions out of the resident set, by reason"
+    " (watermark = eviction pressure, idle = idle-age sweep,"
+    " blob = pushed to the blob tier)",
+    labels=("reason",))
+TIER_PROMOTIONS = _DEFAULT.counter(
+    "pilosa_tier_promotions_total",
+    "Fragment promotions back toward residency, by trigger (read ="
+    " a query faulted it, prefetch = the history-driven prefetcher,"
+    " write = a mutation landed on a cold fragment)",
+    labels=("trigger",))
+TIER_PREFETCH = _DEFAULT.counter(
+    "pilosa_tier_prefetch_total",
+    "History-driven prefetch decisions, by outcome (promoted /"
+    " skipped_busy / skipped_budget / error)",
+    labels=("outcome",))
+TIER_FETCHES = _DEFAULT.counter(
+    "pilosa_tier_blob_transfers_total",
+    "Blob-tier transfers, by direction (push / fetch) and outcome"
+    " (ok / error / corrupt — corrupt means the fetched bytes failed"
+    " footer verification at admission and were discarded)",
+    labels=("direction", "outcome"))
+TIER_FAULT_SECONDS = _DEFAULT.histogram(
+    "pilosa_tier_fault_wait_seconds",
+    "Latency of faulting the blocks one read touched on a cold"
+    " fragment (crc verification included; blob fetch included when"
+    " the fragment had left local disk)")
+TIER_TOUCH = _DEFAULT.counter(
+    "pilosa_tier_fragment_touches_total",
+    "Read-path touches per (tenant, index, slice) — sampled into the"
+    " on-disk metric history, where yesterday's rates drive the"
+    " prefetcher's prediction of tomorrow's hot set",
+    labels=("tenant", "index", "slice"), max_label_sets=512)
+
 # -- the operator surface: obs.watchdog, obs.blackbox, obs.slo, obs.profile
 WATCHDOG_TRIPS = _DEFAULT.counter(
     "pilosa_watchdog_trips_total",

@@ -44,9 +44,10 @@ so far are exactly the evidence), and triggers a blackbox dump naming
 the cause. Per-cause re-trips are rate-limited (``retrip_s``) so a
 persistent wedge produces a dump per window, not per tick.
 
-Copy of the JAX package's ``obs/watchdog.py``, with every detector. This
-package runs no resize, tier or backup yet: the server passes None for
-those three inputs, as a JAX server that runs none of them does.
+Copy of the JAX package's ``obs/watchdog.py``, with every detector. The
+server feeds the resize input from its coordinator's progress and the
+tier input from the tier manager's ``stall_age``; this package runs no
+backup yet, so that input is None, as in a JAX server that runs none.
 """
 
 from __future__ import annotations

@@ -38,8 +38,9 @@ reuses its plan after an epoch-validation sweep over the exact facts
 the plan's proofs rest on.
 
 The planner metrics (``pilosa_planner_*``) and the misestimate stream
-(``observe_misestimate``) are the JAX package's. Left out of the copy:
-the blackbox snapshot and the tiered-storage estimate guard.
+(``observe_misestimate``) are the JAX package's. Estimation never
+faults a cold or blob fragment in: its estimate stays inexact, as in the
+JAX package. Left out of the copy: the blackbox snapshot.
 """
 
 from __future__ import annotations
@@ -526,6 +527,11 @@ class Planner:
                 if frag.cache is not None:
                     n = int(frag.cache.get(row_id))
                 if n <= 0:
+                    if frag.tier_state != "hot":
+                        # Never fault a cold fragment in to plan a
+                        # query: the estimate stays open.
+                        exact = False
+                        continue
                     n = int(frag.row_count(row_id))
             except Exception:
                 exact = False

@@ -97,8 +97,13 @@ none is in flight), and answers 503 on a node without a coordinator. A
 ``ResizeMessage`` arrives through ``POST /messages``; ``/debug/topology``
 shows the in-flight resize and each index's moving slices; ``POST
 /fragment/import`` accepts a slice this node owns in either epoch of an
-in-flight resize or, after a finalize, for the grace window. The archive
-backup, tier and pod routes wait for the slices that port them.
+in-flight resize or, after a finalize, for the grace window.
+
+Tiered storage (the JAX handler's, handler.py:1491-1506): ``GET
+/debug/tier`` shows the tier manager's state (``{"enabled": false}``
+without one), ``?pass=1`` runs one pass inline and ``?entries=1`` lists
+the ledger (``&tier=cold`` filters it). The archive backup and pod
+routes wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -293,7 +298,7 @@ class Handler:
                  repairer=None, client_factory=None, runtime=None,
                  federator=None, profiler=None, blackbox=None,
                  watchdog=None, history=None, sentinel=None,
-                 tenant_slo=None, capture=None):
+                 tenant_slo=None, capture=None, tier=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
@@ -353,6 +358,9 @@ class Handler:
         self.sentinel = sentinel
         self.tenant_slo = tenant_slo
         self.capture = capture
+        # Tiered storage (tier) behind /debug/tier; None (tiering off,
+        # bare handlers) serves a disabled stub.
+        self.tier = tier
         # Readiness checks behind GET /health, built at the first probe.
         self._health = None
         # (method, regex, handler, admission lane)
@@ -411,6 +419,7 @@ class Handler:
         r("GET", "/debug/integrity", self._handle_debug_integrity)
         r("POST", "/debug/integrity/scrub",
           self._handle_post_integrity_scrub)
+        r("GET", "/debug/tier", self._handle_debug_tier)
         r("GET", "/debug/tenants", self._handle_debug_tenants)
         r("GET", "/debug/queries", self._handle_debug_queries)
         r("GET", "/debug/queries/slow", self._handle_debug_slow_queries)
@@ -2139,6 +2148,23 @@ class Handler:
             "nodes": [n.host for n in cl.nodes],
             "resize": rs.to_wire() if rs is not None else None,
             "indexes": indexes})
+
+    def _handle_debug_tier(self, req: Request) -> Response:
+        """Tiered-storage state (tier): per-tier fragment and byte
+        counts, resident bytes against the budget and watermarks,
+        per-tenant residency, transition totals, blocked cold fetches
+        and the blob store summary. ``?entries=1`` appends the
+        per-fragment ledger (``&tier=cold`` filters it); ``?pass=1``
+        runs one manager pass inline and includes its summary."""
+        if self.tier is None:
+            return Response.json({"enabled": False})
+        out = self.tier.state()
+        if req.query.get("pass") == "1":
+            out["pass"] = self.tier.pass_once()
+        if req.query.get("entries") == "1":
+            out["entries"] = self.tier.entries(
+                req.query.get("tier", ""))[:1024]
+        return Response.json(out)
 
     def _handle_debug_integrity(self, req: Request) -> Response:
         """Storage-integrity state: quarantined fragments (what, why,

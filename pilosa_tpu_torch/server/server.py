@@ -87,14 +87,25 @@ started at open when ``continuous``), the SLO burn trackers
 collector's tick), the flight recorder under ``<data>/blackbox``
 (``blackbox_config``; its SIGTERM and thread-excepthook dump triggers
 are installed once per process), the stall watchdog
-(``watchdog_config``; its resize input is ``_resize_progress``, its
-tier and backup inputs are None, as in a JAX server that runs neither),
+(``watchdog_config``; its resize input is ``_resize_progress``, its tier
+input the tier manager's ``stall_age``, its backup input None, as in a
+JAX server that runs no backup),
 the regression sentinel
 (``sentinel_config``; a manifest only from ``[sentinel] manifest``),
 workload capture under ``<data>/capture`` (``capture_config``) and the
 fair dispatch queue below admission (parallel.mesh, installed at open
-with the tenants' effective weights). Tiering and backup wait for the
-slices that port them.
+with the tenants' effective weights). Backup waits for the slice that
+ports it.
+
+Tiered storage (the JAX server's wiring, server.py:452-479): with
+``tier_config.enabled`` open() builds the TierManager (tier.manager)
+over the holder — cold dir ``<data>/_tier`` unless ``[tier] cold-dir``
+names one, the blob store from ``[tier] blob``, the tenants' cache
+shares, the metric history's touch rates for the prefetcher, admission
+as its busy signal — hooks the fragments already open (``sync``), and
+starts its loops with the others; close() stops it before the holder
+closes. ``/debug/tier`` (server.handler) shows it and ``?pass=1`` runs
+one pass.
 
 Elastic resize (the JAX server's wiring, server.py:902-1325;
 docs/CLUSTER_RESIZE.md): ``start_resize`` makes this node the
@@ -162,6 +173,7 @@ from ..sched import (LANE_READ, LANE_WRITE, AdmissionController,
 from ..sched.warmup import Warmup
 from ..storage import wal as storage_wal
 from ..storage.scrub import Scrubber
+from ..tier.manager import TierManager
 from ..utils import logger as logger_mod
 from ..proto import internal as pb
 from ..utils.config import (DEFAULT_ANTI_ENTROPY_INTERVAL,
@@ -169,8 +181,8 @@ from ..utils.config import (DEFAULT_ANTI_ENTROPY_INTERVAL,
                             CaptureConfig, FaultConfig, HistoryConfig,
                             MetricsConfig, ProfileConfig, QueryConfig,
                             ScrubConfig, SentinelConfig, SLOConfig,
-                            TenantsConfig, TraceConfig, WatchdogConfig,
-                            parse_resolutions)
+                            TenantsConfig, TierConfig, TraceConfig,
+                            WatchdogConfig, parse_resolutions)
 from ..utils.profiling import thread_dump
 from ..utils.stats import ExpvarStatsClient, MultiStatsClient
 from . import codec
@@ -206,6 +218,7 @@ class Server:
                  history_config: Optional[HistoryConfig] = None,
                  sentinel_config: Optional[SentinelConfig] = None,
                  capture_config: Optional[CaptureConfig] = None,
+                 tier_config: Optional[TierConfig] = None,
                  resize_pace_s: float = 0.0,
                  resize_grace_s: float = 30.0):
         self.data_dir = data_dir
@@ -282,6 +295,10 @@ class Server:
         self.scrubber: Optional[Scrubber] = None
         self.repairer: Optional[Repairer] = None
         self.sampler: Optional[TailSampler] = None
+        # Tiered storage (tier): the working-set manager, built in open()
+        # when [tier] enables it.
+        self.tier_config = tier_config or TierConfig()
+        self.tier: Optional[TierManager] = None
         # The runtime collector (obs.runtime) and the federator behind
         # /metrics/cluster and /debug/cluster (obs.federate).
         self.runtime: Optional[RuntimeCollector] = None
@@ -396,6 +413,7 @@ class Server:
                     max_series=hc.max_series,
                     segment_bytes=hc.segment_bytes,
                     max_segments=hc.segments)
+            self._open_tier()
             if self.metrics_config.enabled:
                 self.runtime = RuntimeCollector(
                     holder=self.holder, executor=self.executor,
@@ -424,12 +442,13 @@ class Server:
                 profiler=self.profiler, blackbox=self.blackbox,
                 watchdog=self.watchdog, history=self.history,
                 sentinel=self.sentinel, tenant_slo=self.tenant_slo,
-                capture=self.capture)
+                capture=self.capture, tier=self.tier)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
         except BaseException:
             self._close_operator_surface()
+            self.holder.tier = self.tier = None
             self.holder.close()  # a port in use, an unreadable index
             self.holder = None
             raise
@@ -495,6 +514,8 @@ class Server:
             self.scrubber.start()
         if self.repairer is not None:
             self.repairer.start()
+        if self.tier is not None:
+            self.tier.start()
         t = threading.Thread(target=self._loop,
                              args=(CACHE_FLUSH_INTERVAL,
                                    self.holder.flush_caches,
@@ -524,6 +545,32 @@ class Server:
         self.logger.printf("listening as http://%s on %s", self.host,
                            device)
 
+    def _open_tier(self) -> None:
+        """The tiered-storage working-set manager (tier.manager):
+        demotion, eviction and blob loops over the residency ledger,
+        honoring the tenants' cache shares, with the prefetcher ranking
+        cold fragments by the metric history's touch rates. Its loops
+        start at the end of open() with the others."""
+        tc = self.tier_config
+        if not tc.enabled:
+            return
+        self.tier = TierManager(
+            self.holder, resident_budget=tc.resident_budget,
+            high_watermark=tc.high_watermark,
+            low_watermark=tc.low_watermark, idle_s=tc.idle,
+            blob_idle_s=tc.blob_idle,
+            cold_dir=tc.cold_dir or os.path.join(self.holder.path,
+                                                 "_tier"),
+            blob=tc.blob, interval_s=tc.interval,
+            prefetch_interval_s=tc.prefetch_interval, pace_s=tc.pace,
+            tenants=self.tenants, history=self.history,
+            busy_fn=lambda: self.admission.in_flight() > 0,
+            logger=self.logger)
+        self.holder.tier = self.tier
+        # Fragments already open get their manager hook now; later
+        # opens are picked up by the next pass's sync.
+        self.tier.sync()
+
     def _open_operator_surface(self) -> None:
         """The flight recorder, the watchdog, the sentinel and the
         capture store, in the JAX server's order (its history and the
@@ -548,7 +595,8 @@ class Server:
                 scrub_progress_fn=(self.scrubber.stall_age
                                    if self.scrubber is not None
                                    else None),
-                tier_progress_fn=None,
+                tier_progress_fn=(self.tier.stall_age
+                                  if self.tier is not None else None),
                 interval_s=wc.interval, wal_stall_s=wc.wal_stall,
                 deadline_grace_s=wc.deadline_grace,
                 gossip_silence_s=wc.gossip_silence,
@@ -612,8 +660,8 @@ class Server:
         """One whole-system snapshot for the flight recorder: queues,
         breakers, generation knowledge, the WAL dirty set and flusher
         heartbeat, the runtime sample, recent slow queries, the
-        integrity state, the resize block and a thread dump (the JAX
-        server's blocks; tier and backup have none)."""
+        integrity state, the resize block, the tier state and a thread
+        dump (the JAX server's blocks; backup has none)."""
         out: dict = {"host": self.host,
                      "admission": self.admission.snapshot(),
                      "wal": storage_wal.flusher_health()}
@@ -652,6 +700,10 @@ class Server:
         if self.repairer is not None:
             integrity["repair"] = self.repairer.state()
         out["integrity"] = integrity
+        # Tiered storage: residency counts, watermarks, blocked cold
+        # fetches — where the working set lived when it happened.
+        if self.tier is not None:
+            out["tier"] = self.tier.state()
         try:
             out["threads"] = thread_dump()[:20000]
         except Exception:  # noqa: BLE001 - interpreter-internal API
@@ -685,6 +737,10 @@ class Server:
             self.repairer.stop()
         if self.scrubber is not None:
             self.scrubber.stop()
+        # The tier manager before the holder closes: a mid-pass
+        # demotion must not race the fragments' close (stop joins it).
+        if self.tier is not None:
+            self.tier.stop()
         self._close_operator_surface()
         if self.sampler is not None and self.sampler.disk is not None:
             self.sampler.disk.close()

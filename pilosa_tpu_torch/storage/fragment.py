@@ -55,8 +55,22 @@ container block's crc against the footer (``_verify_on_read``);
 sit where the JAX package has them, and a snapshot that fails with
 ENOSPC flips the node write-unready (fault.diskfull).
 
-Left out of the copy: tiering, the stats, and the incremental per-row
-count map (a write recounts its rows). Bits written are charged to the
+Tiered storage (the JAX package's, tier): a fragment is hot, cold or
+blob (``tier_state``). ``demote_cold`` folds the op-log into a fresh
+footered snapshot and reopens it metadata-only; every read route then
+passes the tier gate (``_tier_gate``), which faults in exactly the
+container blocks of the rows it touches — each verified against the
+footer's crc table, a mismatch quarantines — and promotes fully for
+whole-fragment reads and writes. A blob fragment holds only its
+``<path>.blob`` stub; the gate fetches the file back through the tier
+manager (a failed fetch raises ColdFetchError: the slice is blocked and
+the read degrades, never guesses). Where the JAX fragment reads a cold
+or blob fragment ungated (the anti-entropy blocks, the tar stream, the
+export positions) or keeps a stale tier state across a restore, this
+copy gates or resets (ROADMAP fault 3.16).
+
+Left out of the copy: the stats, and the incremental per-row count map
+(a write recounts its rows). Bits written are charged to the
 current query's cost ledger (obs.accounting) at the three sites the JAX
 package charges them.
 """
@@ -71,6 +85,8 @@ import math
 import mmap
 import os
 import threading
+import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -182,6 +198,15 @@ class Fragment:
         self.quarantined = False
         self.quarantine_reason = ""
         self._verify_pending = False
+        # Tiered storage (tier): the TierManager hook (None for bare
+        # library fragments), the residency state ("hot" | "cold" |
+        # "blob") and — while cold — the container-block indices not yet
+        # faulted in. Cold fragments hold their whole checksummed file
+        # on local disk and reads fault exactly the blocks they touch;
+        # blob fragments hold only a ``<path>.blob`` stub.
+        self.tier = None
+        self.tier_state = "hot"
+        self._cold_pending: Optional[set] = None
         self.storage: Optional[roaring.Bitmap] = None
         self.cache = None                       # rank/lru count cache
         self._cache_flushed = None              # last flush_cache blob
@@ -232,6 +257,26 @@ class Fragment:
             native_ext.load()
             self.cache = cache_mod.new_cache(self.cache_type,
                                              self.cache_size)
+            stub = self.path + ".blob"
+            if os.path.exists(stub):
+                if os.path.exists(self.path):
+                    # A crash between a blob fetch's replace and the
+                    # stub's removal: the data file wins — it was
+                    # verified before the replace, a re-fetch could
+                    # fail. Drop the stale stub and open normally.
+                    try:
+                        os.remove(stub)
+                    except OSError:
+                        pass
+                else:
+                    # Blob-tier fragment: no local bytes, no storage.
+                    # The first gated read fetches and verifies the file
+                    # back through the tier manager; an ungated read
+                    # fails loudly (storage is None), never guesses.
+                    self.tier_state = "blob"
+                    self.storage = None
+                    self._open = True
+                    return
             self._open_storage_quarantining(verify=True)
             if not self.quarantined and os.path.exists(
                     self.path + ".corrupt"):
@@ -377,15 +422,27 @@ class Fragment:
         if cached == total:
             self._cache_complete = True
             return
-        if total <= _POSITIONS_CACHE_BITS:
-            present = self.present_rows()
-            if present is not None:
-                for rid, cnt in zip(present.tolist(),
-                                    self._row_counts_of(present).tolist()):
-                    self.cache.bulk_add(rid, cnt)
-                self._cache_complete = True
-                return
-        self._cache_complete = False
+        # The present rows come from the container key table (a row
+        # spans whole containers), so no fragment is too big to repair:
+        # the JAX package repairs only up to _POSITIONS_CACHE_BITS, and a
+        # bigger fragment whose sidecar is gone — every fragment fetched
+        # back from the blob tier — ranks an empty cache there (ROADMAP
+        # fault 3.16).
+        present = self._present_rows_from_keys()
+        for rid, cnt in zip(present.tolist(),
+                            self._row_counts_of(present).tolist()):
+            self.cache.bulk_add(rid, cnt)
+        self._cache_complete = True
+
+    def _present_rows_from_keys(self) -> np.ndarray:
+        """Sorted ids of the rows holding at least one bit, from the
+        container table alone."""
+        keys = self.storage._keys_np()
+        if not len(keys):
+            return np.empty(0, dtype=np.uint64)
+        conts = self.storage.containers
+        live = np.fromiter((c.n > 0 for c in conts), bool, len(keys))
+        return np.unique(keys[live] >> _ROW_KEY_SHIFT)
 
     # -- storage integrity (storage.integrity) -------------------------------
 
@@ -455,6 +512,255 @@ class Fragment:
             raise integrity_mod.CorruptionError(
                 f"fragment {self.index}/{self.frame}/{self.view}/"
                 f"{self.slice}: {len(bad)} container blocks fail crc")
+
+    # -- tiered storage (tier) ------------------------------------------------
+
+    def demote_cold(self) -> int:
+        """Demote this fragment to the cold tier: WAL barrier, fold any
+        op-log tail into a fresh checksummed snapshot, flush the TopN
+        cache sidecar, then reopen metadata-only — header parsed, footer
+        attached, no container block read or verified. Returns the cold
+        file's size (0: demotion did not apply — already cold,
+        quarantined, a torn WAL, or a footerless file). OSError (ENOSPC
+        mid-snapshot) propagates: the old file stays the record and the
+        fragment stays hot."""
+        with self._snap_mu:
+            with self._mu:
+                if (not self._open or self.quarantined
+                        or self.tier_state != "hot"
+                        or self.storage is None):
+                    return 0
+                try:
+                    self.wal_barrier()
+                except wal_mod.WalError:
+                    return 0  # a torn pending tail: not a clean point
+                if self.storage.op_n > 0 or self.storage.footer is None:
+                    # The cold format is the footered snapshot format.
+                    self._snapshot_locked()
+                self.flush_cache()
+                self._close_storage()
+                self._open_storage_quarantining()
+                if self.quarantined:
+                    return 0
+                info = getattr(self.storage, "footer", None)
+                if info is None or info.offsets is None:
+                    return 0  # stay hot: nothing to fault against
+                # The per-block fault supersedes the whole-file
+                # first-read verify: each block's crc is checked as it
+                # faults in.
+                self._verify_pending = False
+                self._cold_pending = set(range(info.block_n))
+                self.tier_state = "cold"
+                self._drop_derived()
+                return os.path.getsize(self.path)
+
+    def _drop_derived(self) -> None:
+        """Drop every cache derived from the fragment's bits (caller
+        holds _mu): the epoch moves, so the epoch-keyed caches miss, and
+        the device generation moves, so no device slab, bitmap result or
+        cluster result keyed on it is served again. The count cache
+        becomes an empty placeholder until promotion reloads it."""
+        self._epoch += 1
+        self.row_cache.clear()
+        self.device.invalidate_all()
+        self._src_counts.clear()
+        self._positions = None
+        self._present_rows = None
+        self._total_bits = None
+        self._blocks = None
+        self._cache_complete = False
+        self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
+
+    def tier_rechill(self) -> bool:
+        """Reset a cold fragment's fault set (watermark eviction of a
+        cold scan's residency): every block goes back to unfaulted and
+        re-verifies at its next touch. No file I/O."""
+        with self._mu:
+            if self.tier_state != "cold" or self.storage is None:
+                return False
+            info = getattr(self.storage, "footer", None)
+            if info is None:
+                return False
+            self._cold_pending = set(range(info.block_n))
+            self.row_cache.clear()
+            self.device.invalidate_all()
+            self._positions = None
+            self._present_rows = None
+            return True
+
+    def promote(self, trigger: str = "prefetch") -> None:
+        """Fully promote to hot (prefetcher, a TopN, an operator). Blob
+        fragments fetch first; cold ones fault every remaining block
+        (each crc-verified) and reload the TopN cache."""
+        with self._mu:
+            if not self._open or self.tier_state == "hot":
+                return
+            if self.tier_state == "blob":
+                self._tier_fetch_locked()
+            self._tier_promote_locked(trigger)
+
+    def _gate(self, **kw) -> None:
+        """The tier gate of a read or write route (caller holds _mu):
+        one attribute check when tiering is off and the fragment hot."""
+        if self.tier is not None or self.tier_state != "hot":
+            self._tier_gate(**kw)
+
+    def _gate_whole(self) -> None:
+        """The gate of a whole-fragment read outside a query's row reads
+        (an export, anti-entropy, a stream; caller holds _mu): a cold or
+        blob fragment promotes, a hot one's ledger entry is left as it
+        was, so these routes do not keep it from idling out."""
+        if self.tier_state != "hot":
+            self._tier_gate(full=True)
+
+    def _tier_gate(self, row_id=None, row_ids=None, full=False,
+                   write=False) -> None:
+        """Hot: stamp the ledger. Blob: fetch the file back
+        (ColdFetchError on failure — the executor degrades, never
+        guesses). Cold: fault exactly the container blocks of the
+        touched rows; whole-fragment reads and writes promote fully."""
+        st = self.tier_state
+        if st != "hot":
+            if st == "blob":
+                self._tier_fetch_locked()
+            if full or (row_id is None and row_ids is None):
+                self._tier_promote_locked("write" if write else "read")
+            else:
+                idxs = self._tier_blocks_for(
+                    [row_id] if row_ids is None else row_ids)
+                self._fault_blocks_locked(idxs)
+                if not self._cold_pending:
+                    self._tier_promote_locked("read")
+        if self.tier is not None:
+            self.tier.on_access(self)
+
+    def _tier_blocks_for(self, row_ids) -> list[int]:
+        """Pending container-block indices covering ``row_ids``. Block i
+        of the footer table is container i in key order, and a row spans
+        SLICE_WIDTH / 65536 consecutive container keys: two binary
+        searches a row over the sorted key array, no container read."""
+        pending = self._cold_pending
+        if not pending:
+            return []
+        keys = self.storage._keys_np()
+        rows = np.minimum(np.asarray(row_ids, dtype=np.uint64).ravel(),
+                          np.uint64(1 << 59))
+        lo = np.searchsorted(keys, rows << _ROW_KEY_SHIFT, side="left")
+        hi = np.searchsorted(keys, (rows + np.uint64(1)) << _ROW_KEY_SHIFT,
+                             side="left")
+        out: set = set()
+        for a, b in zip(lo.tolist(), hi.tolist()):
+            out.update(i for i in range(a, b) if i in pending)
+        return sorted(out)
+
+    def _fault_blocks_locked(self, idxs) -> None:
+        """Fault container blocks in: verify each block's bytes against
+        the footer's crc table, then mark it resident. A mismatch
+        quarantines (the contract of _verify_on_read): bit rot that
+        happened while the fragment slept cannot reach a result."""
+        if not idxs:
+            return
+        t0 = time.perf_counter()
+        info = self.storage.footer
+        offs, sizes, crcs = info.offsets, info.sizes, info.crcs
+        if _fp.ACTIVE is not None:
+            # Corrupt mode flips real bits in the file, which the
+            # read-only shared map sees, so the crc check below is the
+            # real detection path. The span confines the flips to a
+            # block this fault verifies.
+            first = idxs[0]
+            _fp.ACTIVE.hit("tier.fault", path=self.path,
+                           span=(int(offs[first]), int(sizes[first])))
+        mv = memoryview(self._mmap)
+        bad: list[int] = []
+        nbytes = 0
+        try:
+            for i in idxs:
+                off, size = int(offs[i]), int(sizes[i])
+                if (zlib.crc32(mv[off:off + size]) & 0xFFFFFFFF) \
+                        != int(crcs[i]):
+                    bad.append(i)
+                nbytes += size
+        finally:
+            del mv
+        obs_metrics.STORAGE_SCRUB_BLOCKS.labels("read").inc(len(idxs))
+        if bad:
+            obs_metrics.TIER_FAULTS.labels("corrupt").inc()
+            self._set_quarantined(
+                f"cold block fault crc mismatch (blocks {bad[:4]},"
+                f" {len(bad)} total)", site="read")
+            raise integrity_mod.CorruptionError(
+                f"fragment {self.index}/{self.frame}/{self.view}/"
+                f"{self.slice}: {len(bad)} cold blocks fail crc on"
+                f" fault-in")
+        self._cold_pending.difference_update(idxs)
+        obs_metrics.TIER_FAULTS.labels("ok").inc()
+        obs_metrics.TIER_FAULT_SECONDS.observe(time.perf_counter() - t0)
+        if self.tier is not None:
+            self.tier.note_fault(self, nbytes)
+
+    def _tier_promote_locked(self, trigger: str) -> None:
+        """Finish promotion to hot (caller holds _mu): fault whatever is
+        still pending, then reload the TopN count cache from its sidecar
+        — top() on a promoted fragment ranks exactly like one that never
+        left."""
+        pending = self._cold_pending
+        if pending:
+            self._fault_blocks_locked(sorted(pending))
+        self._cold_pending = None
+        self.tier_state = "hot"
+        self._open_cache()
+        obs_metrics.TIER_PROMOTIONS.labels(trigger).inc()
+        if self.tier is not None:
+            try:
+                size = os.path.getsize(self.path)
+            except OSError:
+                size = 0
+            self.tier.note_promoted(self, size, trigger)
+
+    def _tier_fetch_locked(self) -> None:
+        """Bring a blob-tier fragment's file back onto local disk (caller
+        holds _mu): the manager fetches and verifies the reassembled
+        file, this reopens it metadata-only in the cold tier (the read
+        that triggered it then faults just the blocks it needs). No
+        manager: ColdFetchError."""
+        from ..tier.manager import ColdFetchError
+        if self.tier is None:
+            raise ColdFetchError(
+                f"fragment {self.index}/{self.frame}/{self.view}/"
+                f"{self.slice}: blob-tier but no tier manager")
+        self.tier.fetch_blob(self)
+        self._open_storage_quarantining()
+        if self.quarantined:
+            raise integrity_mod.CorruptionError(
+                f"fragment {self.index}/{self.frame}/{self.view}/"
+                f"{self.slice}: fetched blob data failed verification")
+        info = getattr(self.storage, "footer", None)
+        self._verify_pending = False
+        self.tier_state = "cold"
+        self._cold_pending = (set(range(info.block_n))
+                              if info is not None
+                              and info.offsets is not None else set())
+        try:
+            size = os.path.getsize(self.path)
+        except OSError:
+            size = 0
+        self.tier.note_fetched(self, size)
+
+    def _reset_tier_locked(self) -> None:
+        """The local file was replaced whole (a restore, a repair): it
+        is the record now, hot. A blob stub left behind would make the
+        next read fetch the old bytes over it, and a cold fault set
+        would index the old file's blocks (the JAX package keeps both,
+        ROADMAP fault 3.16)."""
+        if self.tier_state == "hot":
+            return
+        try:
+            os.remove(self.path + ".blob")
+        except FileNotFoundError:
+            pass
+        self._cold_pending = None
+        self.tier_state = "hot"
 
     def verify_on_disk(self) -> dict:
         """Re-read the data FILE and verify footer + blocks + WAL tail
@@ -527,6 +833,7 @@ class Fragment:
             except FileNotFoundError:
                 pass
             self._open_storage()
+            self._reset_tier_locked()
             self._epoch += 1
             self.row_cache.clear()
             self.device.invalidate_all()
@@ -549,7 +856,7 @@ class Fragment:
                     self.wal_barrier()
                 except wal_mod.WalError:
                     pass
-                if self.storage.op_n:
+                if self.storage is not None and self.storage.op_n:
                     self._snapshot_locked()
                 self.flush_cache()
                 self._close_storage()
@@ -740,7 +1047,11 @@ class Fragment:
         (reference fragment.go:1067-1093); skipped when the bytes equal
         the last flush."""
         with self._mu:
-            if self.cache is None:
+            if self.cache is None or self.tier_state != "hot":
+                # A cold or blob fragment's count cache is an empty
+                # placeholder: the sidecar flushed at demotion stays the
+                # record (the JAX package flushes the placeholder at
+                # close, ROADMAP fault 3.16).
                 return
             blob = pb.Cache(IDs=np.asarray(self.cache.ids(),
                                            dtype=np.uint64)
@@ -775,6 +1086,7 @@ class Fragment:
         cache."""
         with self._mu:
             self._verify_on_read()
+            self._gate(row_id=row_id)
             cached = self.row_cache.fetch(row_id)
             if cached is not None:
                 return cached
@@ -795,6 +1107,7 @@ class Fragment:
         from ..ops.packed import pack_storage_row
         with self._mu:
             self._verify_on_read()
+            self._gate(row_id=row_id)
             if cached:
                 out[:] = self.device.host_row_words(self.storage, row_id)
             else:
@@ -802,6 +1115,12 @@ class Fragment:
         return out
 
     def row_count(self, row_id: int) -> int:
+        """One row's bit count. Ungated, like the helpers below that
+        read the container table (``_row_counts_of``,
+        ``_cached_total_bits``): every caller has passed the tier gate
+        first (top, the writes, the cache reload of a promotion, the
+        TopN recount after its promote), and the planner asks only hot
+        fragments."""
         return self.storage.count_range(row_id * SLICE_WIDTH,
                                         (row_id + 1) * SLICE_WIDTH)
 
@@ -820,6 +1139,7 @@ class Fragment:
             return np.empty(0, dtype=np.uint64)
         with self._mu:
             self._verify_on_read()
+            self._gate(row_ids=row_ids)
             w = np.uint64(SLICE_WIDTH)
             ids = np.unique(np.asarray(row_ids, dtype=np.uint64))
             # A row covers SLICE_WIDTH / 65536 consecutive container keys.
@@ -881,6 +1201,10 @@ class Fragment:
 
     def _mutate(self, row_id: int, column_id: int, set: bool) -> bool:
         pos = self.pos(row_id, column_id)
+        if self.tier_state != "hot":
+            # Writes promote fully: the count cache must cover every row
+            # before cache.add keeps it incrementally.
+            self._gate(full=True, write=True)
         changed = self.storage.add(pos) if set else self.storage.remove(pos)
         if not changed:
             return False
@@ -924,6 +1248,8 @@ class Fragment:
                                 set: bool) -> np.ndarray:
         row_shift = np.uint64(SLICE_WIDTH.bit_length() - 1)
         with self._mu:
+            if self.tier_state != "hot":
+                self._gate(full=True, write=True)
             changed = self.storage.apply_batch(positions, set=set,
                                                wal=True)
             if not len(changed):
@@ -986,6 +1312,8 @@ class Fragment:
         The first two end in a commit barrier."""
         positions = np.asarray(positions, dtype=np.uint64)
         with self._mu:
+            if self.tier_state != "hot":
+                self._gate(full=True, write=True)
             small = len(positions) * 16 < len(self.storage.keys)
         if small:
             self._mutate_batch_positions(positions, set=True)
@@ -1053,6 +1381,10 @@ class Fragment:
         u64 positions, the JAX package's (and the reference's
         blockHasher's) bytes. Cached per mutation epoch."""
         with self._mu:
+            # The JAX fragment hashes a cold fragment's unverified bytes
+            # and fails on a blob one (storage None); the gate promotes
+            # both first (ROADMAP fault 3.16).
+            self._gate_whole()
             hit = self._blocks
             if hit is not None and hit[0] == self._epoch:
                 return hit[1]
@@ -1075,6 +1407,7 @@ class Fragment:
         (reference fragment.go:785-795)."""
         span = HASH_BLOCK_SIZE * SLICE_WIDTH
         with self._mu:
+            self._gate_whole()
             vals = self.storage.slice_range(block_id * span,
                                             (block_id + 1) * span)
         return PairSet(vals // np.uint64(SLICE_WIDTH),
@@ -1139,6 +1472,11 @@ class Fragment:
         that many bytes are a consistent snapshot + WAL prefix."""
         import tarfile
         from ..utils.streams import CappedReader
+        with self._mu:
+            # A blob fragment has no data file and a cold one's blocks
+            # are unverified: promote before streaming (the JAX fragment
+            # streams neither, ROADMAP fault 3.16).
+            self._gate_whole()
         self.flush_cache()
         self.wal_barrier()
         tw = tarfile.open(fileobj=w, mode="w|")
@@ -1183,6 +1521,7 @@ class Fragment:
                     finally:
                         # A torn upload leaves the old file in place.
                         self._open_storage()
+                    self._reset_tier_locked()
                     self._epoch += 1
                     self.row_cache.clear()
                     self.device.invalidate_all()
@@ -1202,6 +1541,7 @@ class Fragment:
         from ..ops import packed
         with self._mu:
             self._verify_on_read()
+            self._gate(row_id=row_id)
             return packed.sparse_row_words(self.storage, row_id)
 
     def positions(self) -> np.ndarray:
@@ -1213,6 +1553,9 @@ class Fragment:
         if hit is not None and hit[0] == self._epoch:
             return hit[1]
         with self._mu:
+            # Every caller reads the whole fragment (an export, a
+            # whole-fragment TopN pass): promote.
+            self._gate_whole()
             pos = self.storage.all_positions()
             self._positions = ((self._epoch, pos)
                                if len(pos) <= _POSITIONS_CACHE_BITS
@@ -1232,7 +1575,10 @@ class Fragment:
         """Per-kind container counts/resident bytes/run intervals
         (roaring.Bitmap.container_stats), cached per mutation epoch —
         the runtime collector samples every open fragment on its
-        cadence, and the walk is O(containers)."""
+        cadence, and the walk is O(containers). Ungated: statistics of
+        the container table answer no query, so a cold fragment is not
+        promoted for them; a blob fragment raises and the collector
+        skips it."""
         hit = getattr(self, "_container_stats", None)
         if hit is not None and hit[0] == self._epoch:
             return hit[1]
@@ -1249,6 +1595,8 @@ class Fragment:
         hit = self._present_rows
         if hit is not None and hit[0] == self._epoch:
             return hit[1]
+        with self._mu:
+            self._gate_whole()
         if self._cached_total_bits() > _SRC_VECTOR_BITS:
             return None
         rows = np.unique(self.positions() >> np.uint64(
@@ -1394,6 +1742,10 @@ class Fragment:
         opt = opt or TopOptions()
         with self._mu:
             self._verify_on_read()
+            # TopN ranks through the count cache, which demotion dropped:
+            # a block-granular fault cannot rebuild it, so top() promotes
+            # fully.
+            self._gate(full=True)
             # Array fast path for the plain TopN(frame, n) shape: the
             # first n rank-cache entries with count ≥ max(threshold, 1),
             # which the heap replay below computes identically.

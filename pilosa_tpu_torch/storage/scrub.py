@@ -223,7 +223,20 @@ class Scrubber:
                 if not frag._open or frag.quarantined:
                     continue
                 try:
-                    verdict = frag.verify_on_disk()
+                    if frag.tier_state == "blob":
+                        # Blob-tier fragment: no local file — verify the
+                        # blob store's objects against the manifest crcs
+                        # and the footer digest instead
+                        # (tier.manager.scrub_blob; same verdict shape).
+                        # A cold fragment takes the normal path: its file
+                        # is local and whole, and verify_on_disk reads it
+                        # through its own fd without promoting anything.
+                        tier = getattr(self.holder, "tier", None)
+                        if tier is None:
+                            continue
+                        verdict = tier.scrub_blob(frag)
+                    else:
+                        verdict = frag.verify_on_disk()
                 except Exception as e:  # noqa: BLE001 - keep walking
                     self.logger.printf(
                         "scrub: %s unverifiable: %s", frag.path, e)

@@ -9,11 +9,9 @@ file the ``config`` verb prints. A JAX config file loads here to the
 same values with the same errors, and ``to_toml()`` writes the same
 bytes.
 
-Every section is parsed, validated and kept, also those of subsystems
-this package does not run yet (blackbox, watchdog, history, sentinel,
-``profile.continuous``, capture, tier and backup): the ``server`` verb
-refuses an explicit switch-on of one of them (``unported_switch_ons``)
-and notes once that the ones on by default wait for their slice.
+Every section is parsed, validated and kept, also that of the
+subsystem this package does not run yet (backup): the ``server`` verb
+refuses an explicit switch-on of it (``unported_switch_ons``).
 """
 
 from __future__ import annotations
@@ -1178,19 +1176,17 @@ def load(path: str = "", env: dict | None = None) -> Config:
 
 # The subsystems of the JAX package that this package does not run yet:
 # (section, switched on, the slice of ROADMAP.md's queue 1 that brings
-# it). The JAX default leaves both off.
+# it). The JAX default leaves it off.
 UNPORTED = (
-    ("tier", lambda c: c.tier.enabled or bool(c.tier.blob),
-     "item 6, the tier slice"),
     ("backup", lambda c: bool(c.backup.archive),
      "item 7, the backup slice"),
 )
 
 
 def unported_switch_ons(cfg: Config) -> list[str]:
-    """One message for each unported subsystem ``cfg`` switches on
-    (``[tier] enabled = true`` or a blob store, a ``[backup] archive``),
-    naming its slice; the server verb refuses to start on any."""
+    """One message for each unported subsystem ``cfg`` switches on (a
+    ``[backup] archive``), naming its slice; the server verb refuses to
+    start on any."""
     return [f"[{section}] is not available in this package yet"
             f" ({slice_name})"
             for section, on, slice_name in UNPORTED if on(cfg)]

@@ -279,16 +279,17 @@ def test_inspect_matches_jax(check_tree, which):
 
 
 def test_check_deep_unported_faces_exit_2(check_tree, tmp_path):
+    """``--archive`` (the backup slice) still exits 2. A blob-tier stub
+    takes the blob lane since the tier slice, as in the JAX CLI: one
+    without a prefix is an unreadable stub (rc 1, the same lines)."""
     data, d = check_tree
     so, se = io.StringIO(), io.StringIO()
     assert port_cli.main(["check", "--deep", "--archive", "dir:/x",
                           str(data)], stdout=so, stderr=se) == 2
     assert "backup slice" in se.getvalue() and not so.getvalue()
     (d / "7.blob").write_text("{}")
-    so, se = io.StringIO(), io.StringIO()
-    assert port_cli.main(["check", "--deep", str(data)], stdout=so,
-                         stderr=se) == 2
-    assert "tier slice" in se.getvalue() and not so.getvalue()
+    rc, out, _err = _both_cli(["check", "--deep", str(data)])
+    assert rc == 1 and "7.blob: CORRUPT: unreadable blob stub" in out
 
 
 # -- sort, bench, and the frame-view tar of backup and restore ---------------

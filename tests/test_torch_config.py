@@ -279,13 +279,19 @@ def test_invalid_values_fail_alike(tmp_path, case):
     assert _failure(lambda: tcfg.load(str(path), env=env)) == want
 
 
+# A backup switch-on exits 2, also beside a tier switch-on (the tier
+# slice is ported: only the backup one refuses).
 SWITCH_ONS = (
-    ("[tier]\nenabled = true\n", [], {}, "item 6, the tier slice"),
-    ("[tier]\nblob = \"dir\"\n", [], {}, "item 6, the tier slice"),
+    ("[tier]\nenabled = true\n[backup]\narchive = \"dir:/x\"\n", [], {},
+     "item 7, the backup slice"),
+    ("[tier]\nblob = \"dir\"\n", [], {"PILOSA_BACKUP_ARCHIVE": "dir:/x"},
+     "item 7, the backup slice"),
     ("[backup]\narchive = \"dir:/x\"\n", [], {}, "item 7, the backup slice"),
     ("", [], {"PILOSA_BACKUP_ARCHIVE": "dir:/x"}, "item 7, the backup slice"),
-    ("", [], {"PILOSA_TIER_BLOB": "dir"}, "item 6, the tier slice"),
-    ("", [], {"PILOSA_TIER_ENABLED": "1"}, "item 6, the tier slice"),
+    ("[backup]\narchive = \"dir:/x\"\n", [], {"PILOSA_TIER_BLOB": "dir"},
+     "item 7, the backup slice"),
+    ("", [], {"PILOSA_TIER_ENABLED": "1", "PILOSA_BACKUP_ARCHIVE": "dir:/x"},
+     "item 7, the backup slice"),
 )
 
 # Switch-ons of the operator surface, which the port now runs: the
@@ -296,6 +302,8 @@ PORTED_SWITCH_ONS = (
     ("[blackbox]\nenabled = true\n[watchdog]\nenabled = true\n"
      "[history]\nenabled = true\n[profile]\ncontinuous = true\n", []),
     ("", ["--profile.cpu", "cpu.prof", "--profile.cpu-time", "200ms"]),
+    ("[tier]\nenabled = true\nblob = \"dir\"\n", []),
+    ("[tier]\nenabled = true\n", []),
 )
 
 
@@ -312,13 +320,14 @@ def test_unported_switch_on_exits_2(tmp_path, monkeypatch, case):
                                    "127.0.0.1:0"] + flags)
     assert rc == 2 and not out
     assert f"not available in this package yet ({slice_name})" in err
+    assert "[tier]" not in err
     assert not data.exists()  # refused before the node opened anything
 
 
 def test_default_on_subsystems_are_noted_not_refused():
-    """The JAX defaults switch on nothing the port lacks: only tier and
-    backup are still unported, and both are off by default."""
-    assert [u[0] for u in tcfg.UNPORTED] == ["tier", "backup"]
+    """The JAX defaults switch on nothing the port lacks: only backup is
+    still unported, and it is off by default."""
+    assert [u[0] for u in tcfg.UNPORTED] == ["backup"]
     assert tcfg.unported_switch_ons(tcfg.Config()) == []
     cfg = tcfg.load("", env={"PILOSA_CAPTURE_MODE": "full",
                              "PILOSA_BLACKBOX_ENABLED": "true"})
@@ -328,8 +337,9 @@ def test_default_on_subsystems_are_noted_not_refused():
 @pytest.mark.parametrize("case", range(len(PORTED_SWITCH_ONS)))
 def test_operator_switch_on_starts(tmp_path, case):
     """Capture's full mode, a sentinel manifest, the default-on
-    operator sections and ``--profile.cpu`` start the ``server`` verb:
-    it serves, answers the sections' routes and exits 0 on SIGINT."""
+    operator sections, ``--profile.cpu`` and a ``[tier]`` switch-on (with
+    and without a blob store) start the ``server`` verb: it serves,
+    answers the sections' routes and exits 0 on SIGINT."""
     text, flags = PORTED_SWITCH_ONS[case]
     path = tmp_path / "on.toml"
     path.write_text(text)
@@ -346,7 +356,8 @@ def test_operator_switch_on_starts(tmp_path, case):
             line + proc.stderr.read())
         host = line.split("http://", 1)[1].split()[0]
         for route in ("/debug/capture", "/debug/sentinel",
-                      "/debug/blackbox", "/debug/metrics/history"):
+                      "/debug/blackbox", "/debug/metrics/history",
+                      "/debug/tier"):
             with urllib.request.urlopen(f"http://{host}{route}",
                                         timeout=10) as r:
                 assert r.status == 200
@@ -356,6 +367,14 @@ def test_operator_switch_on_starts(tmp_path, case):
                                     timeout=10) as r:
             assert json.loads(r.read())["mode"] == (
                 "full" if case == 0 else "sampled")
+        with urllib.request.urlopen(f"http://{host}/debug/tier?pass=1",
+                                    timeout=10) as r:
+            tier = json.loads(r.read())
+        assert tier["enabled"] is ("[tier]" in text)
+        if "[tier]" in text:
+            assert tier["store"] == ({"kind": "dir", "objects": 0,
+                                      "root": str(data / "_tier" / "blob")}
+                                     if "blob" in text else None)
     finally:
         proc.send_signal(signal.SIGINT)
         proc.communicate(timeout=60)

@@ -65,13 +65,6 @@ LEFT_OUT = {
         "pilosa_compile_cache_hits_total",
         "pilosa_compile_cache_misses_total",
         "pilosa_compile_cache_programs_live")},
-    **{name: "tier/ not ported" for name in (
-        "pilosa_tier_blob_transfers_total", "pilosa_tier_block_faults_total",
-        "pilosa_tier_bytes_resident", "pilosa_tier_demotions_total",
-        "pilosa_tier_fault_wait_seconds",
-        "pilosa_tier_fragment_touches_total",
-        "pilosa_tier_fragments_resident", "pilosa_tier_prefetch_total",
-        "pilosa_tier_promotions_total")},
 }
 
 

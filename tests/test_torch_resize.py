@@ -1378,8 +1378,9 @@ class TestCoordinatorInProcess:
 
 
 def test_route_tables_differ_by_the_five_unported_routes(tmp_path):
-    """Fault 3.4: with ``/cluster/resize`` served, the port lacks only
-    the tier, backup and pod routes of the JAX handler."""
+    """Fault 3.4: with ``/cluster/resize`` and ``/debug/tier`` served,
+    the port lacks only four routes of the JAX handler: the backup and
+    pod routes."""
     from pilosa_tpu.server.handler import Handler as JHandler
     from pilosa_tpu_torch.server.handler import Handler as THandler
     tables = []
@@ -1393,10 +1394,10 @@ def test_route_tables_differ_by_the_five_unported_routes(tmp_path):
             h.close()
     jax_routes, port_routes = tables
     assert sorted((m, p[1:-1]) for m, p in jax_routes - port_routes) == [
-        ("GET", "/backup"), ("GET", "/debug/backup"), ("GET", "/debug/tier"),
+        ("GET", "/backup"), ("GET", "/debug/backup"),
         ("POST", "/backup"), ("POST", "/pod/exec")]
-    assert {("GET", "^/cluster/resize$"),
-            ("POST", "^/cluster/resize$")} <= port_routes
+    assert {("GET", "^/cluster/resize$"), ("POST", "^/cluster/resize$"),
+            ("GET", "^/debug/tier$")} <= port_routes
 
 
 # ---------------------------------------------------------------------------

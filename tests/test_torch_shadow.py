@@ -30,6 +30,10 @@ The other direction: the port server captures the same workload itself
 (``CaptureConfig(mode="full")`` of ``pilosa_tpu_torch``), and the
 port's own ``obs.replay.shadow`` replays the port's records against the
 JAX server as the baseline and the port server as the candidate.
+
+Tiered reads: with the tier manager on in both servers, the fragments
+of the ranked and counted frames go to the blob tier after the workload,
+and the replay's reads fetch them back.
 """
 
 import shutil
@@ -528,6 +532,96 @@ def test_jax_answers_the_port_captured_workload(tmp_path):
         assert out["writes_replayed"] == len(writes)
         assert out["mismatches"] == 0, out["dumps"][:2]
         assert out["reads_compared"] == len(reads)
+    finally:
+        ps.close()
+        js.close()
+
+
+def _send(hosts, steps):
+    """The frames the workload adds, then its steps, to every host."""
+    proto = {"Content-Type": "application/x-protobuf",
+             "Accept": "application/x-protobuf"}
+    for host in hosts:
+        for path, body in (
+                ("/index/d/frame/bsi", b'{"options": {"fields": [{"name":'
+                                       b' "amt", "min": -100, "max":'
+                                       b' 5000}]}}'),
+                ("/index/d/frame/tq", b'{"options": {"timeQuantum": "YMD",'
+                                      b' "inverseEnabled": true}}')):
+            assert _post(host, path, body)[0] == 200
+    for kind, payload in steps:
+        for host in hosts:
+            if kind == "import":
+                assert _post(host, "/import", payload, proto)[0] == 200
+            elif kind == "field_import":
+                assert _post(host, "/index/d/frame/bsi/field/amt/import",
+                             payload, proto)[0] == 200
+            elif kind == "query_opts":
+                pql, suffix, headers = payload
+                assert _post(host, "/index/d/query" + suffix,
+                             pql.encode(), headers)[0] == 200
+            else:
+                assert _post(host, "/index/d/query",
+                             payload.encode())[0] == 200
+
+
+def test_port_answers_the_captured_workload_from_the_blob_tier(tmp_path):
+    """Both servers run the tier manager with a local blob store. After
+    the workload every fragment of the ranked and counted frames goes to
+    the blob tier, so the replayed reads fault them back from the blob
+    store (the replayed writes promote theirs first); the shadow
+    compares every captured read with no mismatch."""
+    from pilosa_tpu.utils.config import TierConfig
+    from pilosa_tpu_torch.utils.config import TierConfig as PortTierConfig
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    jh = JaxHolder(str(jax_dir))
+    jh.open()
+    _fill_jax(jh, np.random.default_rng(606))
+    jh.close()
+    shutil.copytree(jax_dir, port_dir)
+    tier = dict(enabled=True, idle=999.0, blob_idle=999.0, interval=999.0,
+                blob="dir", pace=0.0)
+    js = JaxServer(str(jax_dir), host="127.0.0.1:0",
+                   anti_entropy_interval=0, polling_interval=0,
+                   capture_config=CaptureConfig(mode="full"),
+                   tier_config=TierConfig(**tier))
+    js.open()
+    ps = PortServer(str(port_dir), host="127.0.0.1:0", device="cpu",
+                    tier_config=PortTierConfig(**tier))
+    try:
+        ps.open()
+
+        def to_blob():
+            """Demote and push the standard-view fragments of every
+            frame the TopN and Count reads rank and count."""
+            out = []
+            for s in (js, ps):
+                s.tier.sync()
+                for frame in TOPN_FRAMES + ("src",):
+                    for sl in range(N_SLICES):
+                        frag = s.holder.fragment("d", frame, "standard",
+                                                 sl)
+                        if frag is None:
+                            continue
+                        s.tier._demote(frag, "idle")
+                        assert s.tier.push_blob(frag)
+                out.append(s.tier.state()["tiers"])
+            assert out[0] == out[1]
+            assert out[1]["blob"]["fragments"] >= N_SLICES
+
+        steps = _workload(np.random.default_rng(607))
+        _send((js.host, ps.host), steps)
+        records = obs_replay.fetch_records(js.host, limit=100000)
+        queries = [r for r in records if r.get("kind") == "query"]
+        reads = [r for r in queries if r.get("lane") == "read"]
+        writes = [r for r in queries if r.get("lane") != "read"]
+        assert len(reads) > 100
+        to_blob()
+        out = obs_replay.shadow(records, js.host, ps.host, senders=1)
+        assert out["writes_replayed"] == len(writes)
+        assert out["mismatches"] == 0, out["dumps"][:2]
+        assert out["reads_compared"] == len(reads)
+        assert ps.tier.blob_fetches >= N_SLICES
     finally:
         ps.close()
         js.close()

@@ -14,9 +14,12 @@ package on the CPU (the cases of ``tests/test_tail_sampling.py``).
 - a port server keeps tail sampling on by default (``"tail": true``).
 """
 
+import contextlib
 import io
 import json
 import os
+import threading
+import time
 
 import pytest
 
@@ -32,6 +35,7 @@ from pilosa_tpu.obs import trace as jtrace
 from pilosa_tpu.sched import AdmissionController as JAdmission
 from pilosa_tpu.sched import QueryContext as JContext
 from pilosa_tpu.server.handler import Handler as JHandler
+from pilosa_tpu.storage import wal as jwal
 
 from pilosa_tpu_torch.errors import QueryCancelledError as TCancelled
 from pilosa_tpu_torch.errors import QueryDeadlineError as TDeadline
@@ -45,17 +49,18 @@ from pilosa_tpu_torch.obs import trace as ttrace
 from pilosa_tpu_torch.sched import AdmissionController as TAdmission
 from pilosa_tpu_torch.sched import QueryContext as TContext
 from pilosa_tpu_torch.server.handler import Handler as THandler
+from pilosa_tpu_torch.storage import wal as twal
 
 PKGS = (
     dict(name="jax", ring=jring, sampler=jsampler, metrics=jmetrics,
          trace=jtrace, fp=jfp, Context=JContext, Admission=JAdmission,
          Deadline=JDeadline, Cancelled=JCancelled, Holder=JHolder,
-         Handler=JHandler,
+         Handler=JHandler, wal=jwal,
          executor=lambda h: JExecutor(h, host="local")),
     dict(name="torch", ring=tring, sampler=tsampler, metrics=tmetrics,
          trace=ttrace, fp=tfp, Context=TContext, Admission=TAdmission,
          Deadline=TDeadline, Cancelled=TCancelled, Holder=THolder,
-         Handler=THandler,
+         Handler=THandler, wal=twal,
          executor=lambda h: TExecutor(h, device="cpu", host="local")),
 )
 
@@ -238,6 +243,44 @@ WORKLOAD = (
 )
 
 
+class _HeldFlusherClock:
+    """The WAL module's ``time`` for the block below: the background
+    flusher's window sleep waits on ``gate`` first; everything else is
+    the real clock."""
+
+    def __init__(self, gate):
+        self.gate = gate
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    def sleep(self, s):
+        if threading.current_thread().name == "wal-group-flusher":
+            self.gate.wait()
+        time.sleep(s)
+
+
+@contextlib.contextmanager
+def _request_thread_flushes(wal):
+    """Hold the WAL's background flusher off for the block, so the
+    request's own commit barrier leads the group flush that carries the
+    ``wal.append`` failpoint. A failpoint flags the query whose thread
+    hits it: when the flusher (2 ms window) leads instead — a request
+    thread descheduled for longer between its append and its barrier, as
+    on a loaded host — the hit lands on the flusher's thread and the
+    query is not kept as "failpoint", in either package. A flusher pass
+    already past its window sleep ends within the pause."""
+    gate = threading.Event()
+    wal.time = _HeldFlusherClock(gate)
+    try:
+        wal.barrier_all()
+        time.sleep(0.2)
+        yield
+    finally:
+        wal.time = time
+        gate.set()
+
+
 def _workload(pkg, tmp_path):
     holder = pkg["Holder"](str(tmp_path / "data"))
     holder.open()
@@ -246,7 +289,8 @@ def _workload(pkg, tmp_path):
         statuses, ids = [], []
         for method, path, body in WORKLOAD:
             if method == "FAILPOINT":
-                with pkg["fp"].injected("wal.append", "delay(1ms)"):
+                with _request_thread_flushes(pkg["wal"]), \
+                        pkg["fp"].injected("wal.append", "delay(1ms)"):
                     st, hs, _ = call(h, "POST", path, body)
             else:
                 st, hs, _ = call(h, method, path, body)
