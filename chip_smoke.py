@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--seed N]
                           [--phase cluster|integrity|gossip|operator|resize|
-                                   tier]
+                                   tier|backup]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs seventeen phases and prints one JSON line for each:
+checkout, then runs eighteen phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -263,19 +263,37 @@ checkout, then runs seventeen phases and prints one JSON line for each:
    ``check --deep`` over the stopped node's directory at 0 with a
    blob-tier verdict for every stub. Every answer equals the hot one
    and the host reference; wrong and failed answers are 0.
-17. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+17. ``backup``: backup and point-in-time restore of a port cluster on the
+   card (``phase_backup``, the same child mode, pinned, each node from a
+   TOML file with ``[backup] archive`` on one shared ``dir:`` archive,
+   the WAL archiver at 250 ms): configuration 4's ``smoke`` layout at 16
+   slices (cut from 256: the archive's local-dir store puts each of a
+   fragment's 258 objects with two fsyncs; 32 took 180 s) on two
+   nodes. A full backup under a writer's acked SetBits and ClearBits
+   whose coordinator is
+   SIGKILLed mid-push and restarted, its recovery committing the same
+   backup id; known writes, a cut ``T1``, more writes (into slices no
+   backup holds); an incremental; the coordinator's captured reads;
+   ``restore --to-timestamp T1`` into three fresh nodes (every Count,
+   TopN and bitmap the state as of T1; densify, the expression count
+   and the TopN block count launched there), ``restore --verify`` of the
+   latest state into one (0 mismatches), a ``restore.fetch`` corrupt
+   fetch refused, ``backup --gc --keep 1`` and ``check --deep
+   --archive`` at 0. Wrong and failed answers are 0.
+18. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Phases 1 and 17 run alone on the card. Phases 11-16 run one after
-another in a child process of this script (``--node-phases``) that
-starts after phase 1, while phases 2-10 run here: the two halves share
-the card and the host, so their host-clocked times (loads, cold and
-warm query ms, a node's start) are taken beside each other's work; the
-kernel table's times come from phase 1 alone. The child's lines are
-printed after phase 10's, and each phase line's end, in seconds from
-the script's start, goes to the standard error.
+Phases 1 and 18 run alone on the card. Phases 11-16 run one after
+another in a child process of this script (``--node-phases``), and
+phase 17 in a second one; both start after phase 1, while phases 2-10
+run here: the three lanes share the card and the host, so their
+host-clocked times (loads, cold and warm query ms, a node's start, a
+backup's seconds) are taken beside each other's work; the kernel
+table's times come from phase 1 alone. The children's lines are printed
+after phase 10's, and each phase line's end, in seconds from the
+script's start, goes to the standard error.
 
 The kernel phases (2-8, the reopen of 10, the cluster's nodes until its
 routed pass and the integrity, gossip, operator and resize phases'
@@ -286,11 +304,11 @@ nothing), as the tests pin it, so the calibrated routing cannot move
 their launches to the host. Every answer of phases 2-5 and 8 is held to
 the host roaring answer computed from the port's own fragments, every
 answer of phase 6 to numpy, of phase 7 to numpy or to words packed on
-the host, of phases 9, 11, 12, 13, 14, 15 and 16 to host roaring or numpy,
-and every count of phase 17 to the host ``popcnt_and``. The kernels' launch
-counters are set to 0 before phase 2, before phase 6, before phase 7,
+the host, of phases 9, 11, 12, 13, 14, 15, 16 and 17 to host roaring or
+numpy, and every count of phase 18 to the host ``popcnt_and``. The
+kernels' launch counters are set to 0 before phase 2, before phase 6, before phase 7,
 before phase 8, before phase 9 and before phase 10's reopen, and read
-after phases 5 to 17 (each cluster node's from its
+after phases 5 to 18 (each cluster node's from its
 own process, and every node that owns slices must have launched the
 expression count, densify and the TopN block count; the integrity
 phase's nodes the expression count and densify, the repaired node again
@@ -298,21 +316,22 @@ after its repair; each gossip node of its first life all three; the
 operator phase's card nodes all three; the resize phase's joiner the
 expression count and densify on its moved slices; the tier phase's node
 the expression count and densify on demoted and on fetched slices and
-the TopN block count after the fetch): every kernel must have
+the TopN block count after the fetch; the backup phase's restored nodes
+all three): every kernel must have
 launched on that main path,
 the TopN block count in phase 4's device top-k, the TopN block count,
 the expression count and densify in its sourced queries, the expression
 count (every device Count(Range)), its batched entry (every Sum) and
 densify in phase 6, the expression-words kernel, the batched count and
 the TopN block count in phase 7, again in the server phase by itself and
-again after phase 10's reopen, and the op count in phase 17. Then it
+again after phase 10's reopen, and the op count in phase 18. Then it
 prints the card's name and power limit, the kernel table as one JSON
 object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
 prints no result. ``--phase cluster``, ``--phase integrity``,
-``--phase gossip``, ``--phase operator``, ``--phase resize`` or
-``--phase tier`` builds
+``--phase gossip``, ``--phase operator``, ``--phase resize``,
+``--phase tier`` or ``--phase backup`` builds
 the kernels and runs
 that phase alone: its
 line and the card's name, no kernel table and no last line.
@@ -1917,7 +1936,7 @@ def phase_fields(holder, device, seed: int, n_slices: int = 256,
                 served.append((f"time_{wname}_row{r}", "tv", q, "count",
                                want))
 
-    # -- inverse view ----------------------------------------------------------
+    # -- inverse view ---------------------------------------------------------
     t0 = time.perf_counter()
     inv = tv.create_frame("inv", FrameOptions(inverse_enabled=True))
     hot = rng.integers(0, n_time_slices * SLICE_WIDTH, size=4,
@@ -2330,7 +2349,7 @@ def phase_batch(holder, device, seed: int, n_slices: int = 256) -> tuple:
         e.update(_materialize_split(ex, "b4", q, slices))
         results.append(e)
 
-    # -- multi-call bodies -----------------------------------------------------
+    # -- multi-call bodies ----------------------------------------------------
     counts16 = [f"Count(Intersect(Bitmap(rowID={r}, frame=f),"
                 f" Bitmap(rowID={r % 16 + 1}, frame=f)))"
                 for r in range(1, 17)]
@@ -6286,7 +6305,7 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
         return c1.get(name, 0) - c0.get(name, 0)
 
     try:
-        # -- 1. warm ------------------------------------------------------------
+        # -- 1. warm ----------------------------------------------------------
         t0 = time.perf_counter()
         proc[0] = spawn()
         ready_s = _node_up([host], [proc[0]], 240.0, last, index="smoke")
@@ -6301,7 +6320,7 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
                 [query(q, want, label="warm")[1] for _ in range(5)])}
         mark("warm")
 
-        # -- 2. cold --------------------------------------------------------------
+        # -- 2. cold ----------------------------------------------------------
         # A read of an empty row through every fragment stamps them all
         # now, so this pass demotes (idle 1 ms) and pushes none
         # (blob-idle).
@@ -6329,7 +6348,7 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
                   f" no densify or expression count: {cold}")
         mark("cold", cold)
 
-        # -- 3. blob --------------------------------------------------------------
+        # -- 3. blob ----------------------------------------------------------
         idle_until_pushable()
         summary, push_s, st = tier_pass()
         tiers = st["tiers"]
@@ -6373,7 +6392,7 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
             _fail(f"tier: the TopNs after the fetch: {blob}")
         mark("blob", blob)
 
-        # -- 4. restart ---------------------------------------------------------
+        # -- 4. restart -------------------------------------------------------
         idle_until_pushable()
         summary, push2_s, st = tier_pass()
         if st["tiers"]["blob"]["fragments"] != n_slices:
@@ -6398,7 +6417,7 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
             _fail(f"tier: the first Count after the restart: {restart}")
         mark("restart", restart)
 
-        # -- 5. a failed fetch --------------------------------------------------
+        # -- 5. a failed fetch ------------------------------------------------
         one = f"?slices={last}"
         failpoint("tier.fetch", "partition(fetch)")
         strict = raw("POST", f"/index/smoke/query{one}",
@@ -6431,7 +6450,7 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
                   f" the JAX server does: {blocked}")
         mark("blocked", blocked)
 
-        # -- 6. a rotten cold block ---------------------------------------------
+        # -- 6. a rotten cold block -------------------------------------------
         raw("POST", "/index/rot", b"{}")
         raw("POST", "/index/rot/frame/f", b"{}")
         rot_cols = sorted(set(int(c) for c in rng.integers(
@@ -6471,7 +6490,7 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
         raw("DELETE", "/index/rot")
         mark("corrupt", corrupt)
 
-        # -- 7. check --deep ----------------------------------------------------
+        # -- 7. check --deep --------------------------------------------------
         idle_until_pushable()
         _, _, st = tier_pass()
         if st["tiers"]["blob"]["fragments"] != n_slices:
@@ -6521,6 +6540,587 @@ def phase_tier(device, seed: int, tmp: str, n_slices: int = 32) -> dict:
            "wrong": len(wrong), "failed": len(failed),
            "launches": launches, "marks_s": marks, "card": _card(),
            "seconds": time.perf_counter() - t_phase}
+    _emit(out)
+    return out
+
+
+BACKUP_WAL_INTERVAL_S = 0.25  # the backup phase's [backup] wal-interval
+
+
+def _backup_toml(path: str, hosts: list, archive: str = "",
+                 capture: bool = False) -> None:
+    """A backup phase node's config: the placement over ``hosts`` with
+    replicas 1 and schema broadcasts over HTTP (a restore creates the
+    schema through one node), the max-slice poll at 1 s; with
+    ``archive`` the ``[backup]`` section (the WAL archiver at
+    ``BACKUP_WAL_INTERVAL_S``), with ``capture`` full workload
+    capture."""
+    hosts_toml = ", ".join(f'"{h}"' for h in hosts)
+    text = (f'[cluster]\ntype = "http"\nreplicas = 1\n'
+            f'hosts = [{hosts_toml}]\npolling-interval = "1s"\n')
+    if archive:
+        text += (f'[backup]\narchive = "dir:{archive}"\n'
+                 f'wal-interval = "{int(BACKUP_WAL_INTERVAL_S * 1000)}ms"\n')
+    if capture:
+        text += '[capture]\nmode = "full"\n'
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def phase_backup(device, seed: int, tmp: str, n_slices: int = 16) -> dict:
+    """Backup and point-in-time restore of a port cluster on the card:
+    node processes of this script's child mode (pinned), each from a
+    TOML file (``_backup_toml``), configuration 4's ``smoke`` layout at
+    ``n_slices`` slices written into the owners' directories of a
+    two-node placement, one shared ``dir:`` archive. Every answer is
+    held to a host reference of the bits and the acked writes.
+
+    1. Source: two nodes with the archive and its WAL archiver (250
+       ms), node 0 with full capture; the five restore targets of steps
+       6-8 start beside them.
+    2. Full backup under load: ``POST /backup`` on node 0 while a
+       writer thread sends acked SetBits (row 20) and ClearBits (row 9)
+       through node 1 into the slices it owns. Node 0 is SIGKILLed
+       0.4 s after its journal holds some but not all fragments (so a
+       fragment's push is in flight), and restarted from
+       its file: its recovery commits the same backup id, the pool
+       skipping the objects the first life pushed. Recorded: the
+       backup's seconds, objects pushed and skipped, MB and MB/s, the
+       restart to the commit.
+    3. Known writes (rows 20-22, a ClearBit of row 9, row 22 into slice
+       ``n_slices``, which no backup holds), the cut ``T1`` after the
+       archiver's interval, then more known writes (row 22 into slice
+       ``n_slices + 1``).
+    4. An incremental backup (objects pushed against skipped), then
+       writes into slice ``n_slices + 2`` (only in the WAL archive).
+    5. The captured read workload on node 0 (Counts, a sourced TopN, a
+       plain TopN, a Union that returns a bitmap), exported.
+    6. ``restore --archive ... --to-timestamp T1`` (the port's CLI) into
+       three fresh nodes: every Count, TopN and bitmap equals the state
+       as of T1 — each write acked before it present, each after it
+       absent. Recorded: seconds, fragments, WAL-only fragments, op
+       bytes, the first Count's ms, and these nodes' densify,
+       expression-count and TopN-block-count launches (each ≥ 1).
+    7. ``restore --archive ... --verify RECORDS`` into one fresh node:
+       compared > 0, 0 mismatches, answers equal the latest state.
+    8. Admission: ``restore.fetch`` ``corrupt*1`` armed here, a restore
+       from a copy of the archive's backups (hard links, but for the
+       first fragment's objects, which the failpoint rots) into one
+       more fresh node fails loudly naming the fragment, which that
+       node never serves.
+    9. ``backup --gc --keep 1`` (objects deleted), then ``check --deep
+       --archive`` at 0.
+    10. Wrong and failed answers 0; node 0's ``/metrics`` shows
+       ``pilosa_backup_objects_total``, ``_bytes_total`` and
+       ``_wal_segments_total`` above 0."""
+    import signal
+    import subprocess
+    import threading
+    import numpy as np
+    from pilosa_tpu_torch import SLICE_WIDTH as W
+    from pilosa_tpu_torch.backup import archive as archive_mod
+    from pilosa_tpu_torch.backup import restore as restore_mod
+    from pilosa_tpu_torch.cluster.topology import new_cluster
+    from pilosa_tpu_torch.fault import failpoints
+    from pilosa_tpu_torch.models.holder import Holder
+
+    t_phase = time.perf_counter()
+    marks: dict = {}
+
+    def mark(step, detail=None):
+        marks[step] = time.perf_counter() - t_phase
+        print(f"backup: {step} at {marks[step]:.1f} s"
+              + (f" {json.dumps(detail)}" if detail else ""),
+              file=sys.stderr, flush=True)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    btmp = os.path.join(tmp, "backup")
+    os.makedirs(btmp, exist_ok=True)
+    rng = np.random.default_rng(seed + 120)
+    archive = os.path.join(btmp, "archive")
+    src_hosts = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
+    owner = [new_cluster(src_hosts, replica_n=1).fragment_nodes(
+        "smoke", s)[0].host for s in range(n_slices + 3)]
+    node1_slices = [s for s in range(n_slices) if owner[s] == src_hosts[1]]
+    if not node1_slices:
+        _fail("backup: node 1 owns no slice")
+
+    # -- data, and the host reference ---------------------------------------
+    t0 = time.perf_counter()
+    dirs = [os.path.join(btmp, f"src{i}") for i in range(2)]
+    for d in dirs:
+        h = Holder(d)
+        h.open()
+        h.create_index("smoke").create_frame("f") \
+            .create_view_if_not_exists("standard")
+        h.close()
+    positions, cols = _smoke_rows(rng, n_slices)
+    n_bits = int(sum(len(p) for p in positions))
+    for s in range(n_slices):
+        _c5_write((positions[s], [os.path.join(
+            dirs[src_hosts.index(owner[s])], "smoke", "f", "views",
+            "standard", "fragments", str(s))]))
+    del positions
+    base = {r: np.concatenate([np.uint64(s * W) + c for s, c in
+                               enumerate(cols[r])]) for r in (1, 9)}
+    row_n = {r: int(sum(len(c) for c in cols[r])) for r in cols}
+    inter = {r: len(np.intersect1d(base[1], np.concatenate(
+        [np.uint64(s * W) + c for s, c in enumerate(cols[r])]),
+        assume_unique=True)) for r in (2, 3, 4, 5)}
+    del cols
+    log: list = []   # acked writes in order: (op, row, column)
+    log_mu = threading.Lock()
+
+    def state(n_writes: int) -> dict:
+        """{row: set of columns} of the written rows after the first
+        ``n_writes`` acked writes; row 9 as (removed, base count)."""
+        rows = {r: set() for r in (20, 21, 22, 23)}
+        removed9 = set()
+        for op, r, c in log[:n_writes]:
+            if r == 9:
+                (removed9.add if op == "ClearBit" else
+                 removed9.discard)(c)
+            else:
+                (rows[r].add if op == "SetBit" else rows[r].discard)(c)
+        rows[9] = removed9
+        return rows
+
+    def reference(n_writes: int) -> list:
+        """(query, answer) of the read workload at that state."""
+        st = state(n_writes)
+        gone9 = np.fromiter(st[9], dtype=np.uint64, count=len(st[9]))
+        row9 = np.setdiff1d(base[9], gone9, assume_unique=True)
+        out = []
+        for r in (1, 9, 20, 21, 22, 23):
+            n = (row_n[1] if r == 1 else len(row9) if r == 9
+                 else len(st[r]))
+            out.append((f"Count(Bitmap(rowID={r}, frame=f))", [n]))
+        out.append(("Count(Intersect(Bitmap(rowID=1, frame=f),"
+                    " Bitmap(rowID=9, frame=f)))",
+                    [len(np.intersect1d(base[1], row9,
+                                        assume_unique=True))]))
+        out.append(("TopN(Bitmap(rowID=1, frame=f), frame=f,"
+                    " ids=[2, 3, 4, 5])",
+                    [sorted(([r, n] for r, n in inter.items() if n),
+                            key=lambda p: (-p[1], p[0]))]))
+        counts = dict(row_n)
+        counts[9] = len(row9)
+        counts.update({r: len(st[r]) for r in (20, 21, 22, 23) if st[r]})
+        top = sorted(counts.items(), key=lambda p: (-p[1], p[0]))[:4]
+        out.append(("TopN(frame=f, n=4)", [[list(p) for p in top]]))
+        out.append(("Union(Bitmap(rowID=20, frame=f),"
+                    " Bitmap(rowID=22, frame=f))",
+                    [sorted(st[20] | st[22])]))
+        return out
+
+    data_s = time.perf_counter() - t0
+    mark("data")
+
+    # -- nodes ----------------------------------------------------------------
+    procs: dict = {}
+    lives: list = []
+    wrong: list = []
+    failed: list = []
+
+    def spawn(name, host, data, toml):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        args = [sys.executable, os.path.abspath(__file__), "--cluster-node",
+                "1", os.path.join(btmp, f"{name}.counters"), "server", "-c",
+                toml, "-d", data, "-b", host, "--cost.dir",
+                os.path.join(btmp, f"cal_{name}")]
+        if device.type == "cpu":
+            args += ["--device", "cpu"]
+            env["OMP_NUM_THREADS"] = "2"
+        log_f = open(os.path.join(btmp, f"{name}.log"), "ab")
+        procs[name] = (subprocess.Popen(args, cwd=repo, env=env,
+                                        stdout=subprocess.PIPE,
+                                        stderr=log_f), host)
+
+    def up(names, max_slice):
+        return _node_up([procs[n][1] for n in names],
+                        [procs[n][0] for n in names], 240.0, max_slice,
+                        index="smoke")
+
+    def stop(names):
+        lines = _nodes_stop([procs[n][0] for n in names],
+                            [procs[n][1] for n in names])
+        for n in names:
+            del procs[n]
+        lives.extend(line["launches"] for line in lines)
+
+    def counters(name) -> dict:
+        path = os.path.join(btmp, f"{name}.counters")
+        if os.path.exists(path):
+            os.remove(path)
+        procs[name][0].send_signal(signal.SIGUSR1)
+        t1 = time.perf_counter()
+        while not os.path.exists(path):
+            if time.perf_counter() - t1 > 10:
+                _fail(f"backup: node {name} wrote no counters")
+            time.sleep(0.02)
+        with open(path) as f:
+            return json.load(f)["launches"]
+
+    def req(host, method, path, body=b""):
+        st, _, out, ms = _request(host, method, path, body, timeout=300)
+        if st not in (200, 202):
+            _fail(f"backup: {method} {path} on {host}: HTTP {st}:"
+                  f" {out[:300]!r}")
+        return json.loads(out), ms
+
+    def write(host, op, row, col):
+        q = f"{op}(rowID={row}, frame=f, columnID={col})"
+        st, _, out, _ = _request(host, "POST", "/index/smoke/query",
+                                 q.encode(), timeout=120)
+        if st != 200:
+            failed.append(("write", q, st, out[:200]))
+            return
+        with log_mu:
+            log.append((op, row, col))
+
+    def check(host, n_writes, label, timed=False) -> float:
+        first_ms = None
+        for q, want in reference(n_writes):
+            st, _, out, ms = _request(host, "POST", "/index/smoke/query",
+                                      q.encode(), timeout=300)
+            if first_ms is None:
+                first_ms = ms
+            if st != 200:
+                failed.append((label, q[:60], st, out[:200]))
+                continue
+            res = json.loads(out)["results"]
+            if q.startswith("TopN"):
+                got = [[[p["id"], p["count"]] for p in r] for r in res]
+            elif q.startswith("Union"):
+                got = [r["bits"] for r in res]
+            else:
+                got = res
+            if got != want:
+                wrong.append((label, q[:60], str(got)[:200],
+                              str(want)[:200]))
+        return first_ms
+
+    def wait_backup(host, want_id=None, limit_s=600.0) -> dict:
+        t1 = time.perf_counter()
+        while time.perf_counter() - t1 < limit_s:
+            st, _, out, _ = _request(host, "GET", "/backup", timeout=30)
+            op = json.loads(out)["op"] if st == 200 else None
+            if op and (want_id is None or op["id"] == want_id) \
+                    and op["phase"] in ("done", "failed"):
+                if op["phase"] != "done":
+                    _fail(f"backup: backup {op['id']} failed: {op}")
+                return op
+            time.sleep(0.1)
+        _fail(f"backup: no committed backup on {host} in {limit_s} s")
+
+    def cli(*argv, check_rc=True):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        t1 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli",
+                              *argv], cwd=repo, env=env,
+                             capture_output=True, text=True, timeout=600)
+        if check_rc and out.returncode != 0:
+            _fail(f"backup: {' '.join(argv[:3])} exited {out.returncode}:"
+                  f" {out.stdout[-600:]!r} {out.stderr[-900:]!r}")
+        return out, time.perf_counter() - t1
+
+    def metric(host, family, **labels) -> float:
+        return _family_sum(_scrape(host), family, **labels)
+
+    def archive_mb(manifest) -> float:
+        store = archive_mod.open_archive(f"dir:{archive}", "")
+        return sum(len(store.get(k)) for k in
+                   archive_mod.manifest_object_keys(manifest)) / 1e6
+
+    h0, h1 = src_hosts
+    src_tomls = [os.path.join(btmp, f"src{i}.toml") for i in range(2)]
+    for i in range(2):
+        _backup_toml(src_tomls[i], src_hosts, archive, capture=i == 0)
+    t_hosts = [f"127.0.0.1:{_free_port()}" for _ in range(5)]
+    try:
+        # -- 1. the source, and the restore targets ---------------------------
+        for i in range(2):
+            spawn(f"src{i}", src_hosts[i], dirs[i], src_tomls[i])
+        for i in range(5):
+            toml = os.path.join(btmp, f"t{i}.toml")
+            _backup_toml(toml, t_hosts[:3] if i < 3 else [t_hosts[i]])
+            spawn(f"t{i}", t_hosts[i], os.path.join(btmp, f"t{i}"), toml)
+        ready_s = up(["src0", "src1"], n_slices - 1)
+        mark("ready")
+
+        # -- 2. a full backup under load, its coordinator SIGKILLed -----------
+        stop_writes = threading.Event()
+        gone = [c for c in base[9].tolist() if c // W in node1_slices]
+
+        def writer():
+            i = 0
+            while not stop_writes.is_set():
+                if i % 3 == 2 and gone:
+                    write(h1, "ClearBit", 9, gone.pop())
+                else:
+                    s = node1_slices[i % len(node1_slices)]
+                    write(h1, "SetBit", 20, s * W + int(rng.integers(W)))
+                i += 1
+                time.sleep(0.005)
+
+        t_writer = threading.Thread(target=writer)
+        t_writer.start()
+        t_backup = time.perf_counter()
+        first = req(h0, "POST", "/backup", b'{"kind": "full"}')[0]["op"]
+        bid = first["id"]
+        journal = os.path.join(dirs[0], "backup.json")
+        journaled, pushed0, bytes0 = 0, 0.0, 0.0
+        while True:
+            try:
+                with open(journal) as f:
+                    journaled = len(json.load(f).get("fragments") or {})
+            except (OSError, ValueError):
+                journaled = 0
+            samples = _scrape(h0)
+            pushed0 = _family_sum(samples, "pilosa_backup_objects_total",
+                                  outcome="pushed")
+            bytes0 = _family_sum(samples, "pilosa_backup_bytes_total",
+                                 direction="push")
+            if journaled >= max(2, n_slices // 8):
+                # Into the next fragment's push before the kill.
+                time.sleep(0.4)
+                break
+            op = req(h0, "GET", "/backup")[0]["op"]
+            if op["phase"] == "done":
+                _fail(f"backup: the full backup committed before its"
+                      f" journal held {max(2, n_slices // 8)} fragments")
+            if time.perf_counter() - t_backup > 300:
+                _fail("backup: the journal held no fragments in 300 s")
+            time.sleep(0.05)
+        procs["src0"][0].kill()
+        procs["src0"][0].communicate()
+        del procs["src0"]
+        killed_at = time.perf_counter() - t_backup
+        t_restart = time.perf_counter()
+        spawn("src0", h0, dirs[0], src_tomls[0])
+        up(["src0"], n_slices - 1)
+        full = wait_backup(h0, bid)
+        restart_to_commit_s = time.perf_counter() - t_restart
+        full_s = time.perf_counter() - t_backup
+        stop_writes.set()
+        t_writer.join(timeout=60)
+        # Node 1's breaker for node 0 opened while it was dead; wait
+        # until a read through node 1 reaches node 0's slices again.
+        t1 = time.perf_counter()
+        while _request(h1, "POST", "/index/smoke/query",
+                       b"Count(Bitmap(rowID=1000, frame=f))")[0] != 200:
+            if time.perf_counter() - t1 > 60:
+                _fail("backup: node 1 does not reach node 0 again")
+            time.sleep(0.2)
+        skipped = metric(h0, "pilosa_backup_objects_total",
+                         outcome="skipped")
+        store = archive_mod.open_archive(f"dir:{archive}", "")
+        manifest = archive_mod.read_backup(store, bid)
+        mb = archive_mb(manifest)
+        full_line = {
+            "id": bid, "same_id": full["id"] == bid, "seconds": full_s,
+            "killed_at_s": killed_at, "journaled_at_kill": journaled,
+            "fragments": len(manifest["fragments"]),
+            "objects": len(archive_mod.manifest_object_keys(manifest)),
+            "pushed_first_life": pushed0, "pushed_after_restart":
+                full["objectsPushed"], "skipped_after_restart": skipped,
+            "fragments_reused": full["fragmentsSkipped"], "mb": mb,
+            "mb_per_s": mb / full_s,
+            "restart_to_commit_s": restart_to_commit_s,
+            "live_writes": len(log)}
+        if (full["id"] != bid or full["fragmentsSkipped"] < 1
+                or len(manifest["fragments"]) != n_slices):
+            _fail(f"backup: the recovered backup: {full_line}")
+        mark("full", full_line)
+
+        # -- 3. writes, the cut T1, writes ------------------------------------
+        for i in range(24):
+            s = i % n_slices
+            write(src_hosts[i % 2], "SetBit", 21, s * W + int(rng.integers(W)))
+        write(h0, "ClearBit", 9, int(base[9][0]))
+        write(h1, "SetBit", 22, n_slices * W + 5)
+        time.sleep(2.5 * BACKUP_WAL_INTERVAL_S)
+        n_t1 = len(log)
+        cut = time.time()
+        time.sleep(0.05)
+        for i in range(24):
+            write(src_hosts[i % 2], "SetBit", 20 + i % 2,
+                  (i % n_slices) * W + int(rng.integers(W)))
+        write(h1, "ClearBit", 9, int(base[9][-1]))
+        write(h0, "SetBit", 22, (n_slices + 1) * W + 7)
+        mark("cut", {"writes_before": n_t1, "writes_after": len(log) - n_t1})
+
+        # -- 4. the incremental, then writes only the WAL archive holds -------
+        t1 = time.perf_counter()
+        s0 = metric(h0, "pilosa_backup_objects_total", outcome="skipped")
+        req(h0, "POST", "/backup", b'{"kind": "incremental"}')
+        incr = wait_backup(h0)
+        incr_line = {"id": incr["id"], "seconds": time.perf_counter() - t1,
+                     "pushed": incr["objectsPushed"],
+                     "skipped": metric(h0, "pilosa_backup_objects_total",
+                                       outcome="skipped") - s0,
+                     "fragments": incr["fragments"]}
+        if incr["id"] == bid or incr_line["pushed"] >= full_line["objects"]:
+            _fail(f"backup: the incremental: {incr_line}")
+        for i in range(6):
+            write(src_hosts[i % 2], "SetBit", 23,
+                  (n_slices + 2) * W + int(rng.integers(W)))
+        time.sleep(2.5 * BACKUP_WAL_INTERVAL_S)
+        mark("incremental", incr_line)
+
+        # -- 5. the captured read workload ------------------------------------
+        up(["src0", "src1"], n_slices + 2)
+        check(h0, len(log), "source")
+        records = req(h0, "GET", "/debug/capture/records?limit=100000")[0][
+            "records"]
+        recpath = os.path.join(btmp, "records.json")
+        with open(recpath, "w") as f:
+            json.dump({"records": records}, f)
+        n_reads = sum(1 for r in records if r.get("lane") == "read"
+                      and r.get("digest"))
+        source_metrics = {
+            "objects": metric(h0, "pilosa_backup_objects_total"),
+            "bytes": metric(h0, "pilosa_backup_bytes_total"),
+            "wal_segments": metric(h0, "pilosa_backup_wal_segments_total")}
+        if min(source_metrics.values()) <= 0:
+            _fail(f"backup: node 0's /metrics: {source_metrics}")
+        stop(["src0", "src1"])
+        for d in dirs:
+            shutil.rmtree(d)
+        mark("captured", {"reads": n_reads, "metrics": source_metrics})
+
+        # -- 6. PITR into three fresh nodes -----------------------------------
+        _node_up(t_hosts, [procs[f"t{i}"][0] for i in range(5)], 240.0, -1,
+                 index="smoke")
+        out, pitr_s = cli("restore", "--host", t_hosts[0], "--archive",
+                          f"dir:{archive}", "--to-timestamp", repr(cut))
+        summary = json.loads(out.stdout)
+        up(["t0", "t1", "t2"], n_slices)
+        c0 = {f"t{i}": counters(f"t{i}") for i in range(3)}
+        first_ms = check(t_hosts[0], n_t1, "pitr")
+        c1 = {f"t{i}": counters(f"t{i}") for i in range(3)}
+        launched = {k: sum(c1[n].get(k, 0) - c0[n].get(k, 0) for n in c0)
+                    for k in ("densify", "expr_count_rows",
+                              "topn_block_count")}
+        for h in t_hosts[1:3]:
+            check(h, n_t1, "pitr other coordinator")
+        pitr = {"seconds": pitr_s, "id": summary["id"],
+                "fragments": summary["fragments"],
+                "wal_only_fragments": summary["walOnlyFragments"],
+                "op_bytes": summary["walOpsBytes"],
+                "first_count_ms": first_ms, "launches": launched}
+        if summary["id"] != bid or summary["walOnlyFragments"] < 1:
+            _fail(f"backup: the point-in-time restore: {pitr}")
+        for k, n in launched.items():
+            if n < 1:
+                _fail(f"backup: {k}: no launch on the restored nodes")
+        mark("pitr", pitr)
+
+        # -- 7. the latest state into one node, verified ----------------------
+        out, latest_s = cli("restore", "--host", t_hosts[3], "--archive",
+                            f"dir:{archive}", "--verify", recpath)
+        summary = json.loads(out.stdout)
+        up(["t3"], n_slices + 2)
+        check(t_hosts[3], len(log), "latest")
+        latest = {"seconds": latest_s, "id": summary["id"],
+                  "fragments": summary["fragments"],
+                  "wal_only_fragments": summary["walOnlyFragments"],
+                  "op_bytes": summary["walOpsBytes"],
+                  "compared": summary["verify"]["compared"],
+                  "mismatches": summary["verify"]["mismatches"]}
+        if (summary["id"] != incr["id"] or latest["mismatches"]
+                or latest["compared"] <= 0
+                or latest["wal_only_fragments"] < 1):
+            _fail(f"backup: the verified restore: {latest}")
+        mark("latest", latest)
+
+        # -- 8. admission: a corrupt fetch ------------------------------------
+        # A copy of the archive's backups (its WAL left out, so the
+        # first object the restore fetches is a fragment's), hard links
+        # but for the objects of the first fragment the restore fetches,
+        # one of which the failpoint rots before its read.
+        copy = os.path.join(btmp, "archive_copy")
+        first = archive_mod.list_backups(store)[-1]["fragments"][0][
+            "prefix"] + "/"
+
+        def link_or_copy(src, dst):
+            if os.path.relpath(src, archive).startswith(first):
+                shutil.copy2(src, dst)
+            else:
+                os.link(src, dst)
+
+        shutil.copytree(archive, copy,
+                        ignore=lambda d, names: ["wal"] if d == archive
+                        else [], copy_function=link_or_copy)
+        failpoints.arm("restore.fetch", "corrupt*1")
+        try:
+            restore_mod.run_restore(t_hosts[4], archive_mod.open_archive(
+                f"dir:{copy}", ""))
+            err = None
+        except (restore_mod.RestoreError, OSError) as e:
+            err = str(e)
+        finally:
+            failpoints.disarm_all()
+        if err is None or "NOT admitted" not in err:
+            _fail(f"backup: a corrupt fetch was admitted: {err}")
+        bad = int(err.split("smoke/f/standard/", 1)[1].split(":", 1)[0])
+        st2, _, body2, _ = _request(
+            t_hosts[4], "POST", f"/index/smoke/query?slices={bad}",
+            b"Count(Bitmap(rowID=1, frame=f))")
+        served = json.loads(body2)["results"] if st2 == 200 else None
+        admission = {"error": err[:160], "slice": bad,
+                     "served": served}
+        if served not in (None, [0]):
+            wrong.append(("corrupt fragment served", bad, served))
+        mark("admission", admission)
+        stop([f"t{i}" for i in range(5)])
+
+        # -- 9. archive maintenance -------------------------------------------
+        out, gc_s = cli("backup", "--archive", f"dir:{archive}", "--gc",
+                        "--keep", "1")
+        gc = json.loads(out.stdout)
+        out, chk_s = cli("check", "--deep", "--archive", f"dir:{archive}",
+                         check_rc=False)
+        maintenance = {"gc_deleted": gc["deleted"], "gc_kept": gc["kept"],
+                       "gc_s": gc_s, "check_rc": out.returncode,
+                       "check_s": chk_s,
+                       "check_last": out.stdout.strip().splitlines()[-1:]}
+        if out.returncode != 0:
+            _fail(f"backup: check --deep --archive: {maintenance}"
+                  f" {out.stdout[-600:]!r}")
+        mark("maintenance", maintenance)
+    except SystemExit:
+        for name in list(procs):
+            try:
+                with open(os.path.join(btmp, f"{name}.log"), "rb") as f:
+                    tail = f.read()[-2000:].decode(errors="replace")
+                print(f"backup: {name} log tail:\n{tail}", file=sys.stderr,
+                      flush=True)
+            except OSError:
+                pass
+        raise
+    finally:
+        for proc, _host in procs.values():
+            proc.kill()
+            proc.communicate()
+
+    if wrong or failed:
+        _fail(f"backup: {len(wrong)} wrong and {len(failed)} failed"
+              f" answers: {(wrong + failed)[:3]}")
+    launches: dict = {}
+    for line in lives:
+        for k, v in line.items():
+            launches[k] = launches.get(k, 0) + v
+    out = {"phase": "backup", "config": "BASELINE configuration 4",
+           "slices": n_slices, "bits": n_bits, "data_s": data_s,
+           "ready_s": ready_s, "full": full_line, "incremental": incr_line,
+           "writes": len(log), "pitr": pitr, "latest": latest,
+           "admission": admission, "maintenance": maintenance,
+           "source_metrics": source_metrics, "wrong": len(wrong),
+           "failed": len(failed), "launches": launches, "marks_s": marks,
+           "card": _card(), "seconds": time.perf_counter() - t_phase}
     _emit(out)
     return out
 
@@ -6640,19 +7240,25 @@ def _local_phases(device, seed: int, tmp: str) -> dict:
     return launches
 
 
-# Phases 11-16 in their order: each alone with ``--phase``, all of them
-# in the ``--node-phases`` child of the whole run.
+# Phases 11-17: each alone with ``--phase``; in the whole run, each lane
+# (phases 11-16, and phase 17) one after another in a ``--node-phases``
+# child of its own, the two children beside each other and beside
+# phases 2-10.
 NODE_PHASES = {"cluster": phase_cluster, "integrity": phase_integrity,
                "gossip": phase_gossip, "operator": phase_operator,
-               "resize": phase_resize, "tier": phase_tier}
+               "resize": phase_resize, "tier": phase_tier,
+               "backup": phase_backup}
+NODE_LANES = (("cluster", "integrity", "gossip", "operator", "resize",
+               "tier"), ("backup",))
 
 
 def _node_phases(argv: list) -> None:
-    """Child mode of the whole run: phases 11-16 one after another, in
-    one temporary directory of their own; ``argv`` is the file that gets
-    their nodes' launch counters summed, the seed and the parent's start
-    (``time.time()``). A SIGTERM ends it through each phase's own
-    teardown, which stops that phase's nodes."""
+    """Child mode of the whole run: the node phases of one lane one
+    after another, in one temporary directory of their own; ``argv`` is
+    the file that gets their nodes' launch counters summed, the seed,
+    the parent's start (``time.time()``) and the lane's index in
+    ``NODE_LANES``. A SIGTERM ends it through each phase's own teardown,
+    which stops that phase's nodes."""
     import signal
     import torch
     global _T0
@@ -6662,37 +7268,41 @@ def _node_phases(argv: list) -> None:
     from pilosa_tpu_torch.device import resolve_device
     signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(1))
     out_path, seed, _T0 = argv[0], int(argv[1]), float(argv[2])
+    lane = NODE_LANES[int(argv[3])]
     device = resolve_device()
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        for phase in NODE_PHASES.values():
-            for k, n in phase(device, seed, tmp)["launches"].items():
+        for name in lane:
+            for k, n in NODE_PHASES[name](device, seed, tmp)[
+                    "launches"].items():
                 launches[k] = launches.get(k, 0) + n
     with open(out_path + ".tmp", "w") as f:
         json.dump(launches, f)
     os.replace(out_path + ".tmp", out_path)
 
 
-def _node_phases_start(tmp: str, seed: int):
-    """Starts ``--node-phases`` with its standard output in ``tmp``."""
+def _node_phases_start(tmp: str, seed: int, lane: int):
+    """Starts ``--node-phases`` of lane ``lane`` with its standard
+    output in ``tmp``."""
     import subprocess
-    with open(os.path.join(tmp, "node_phases.out"), "wb") as out:
+    with open(os.path.join(tmp, f"node_phases{lane}.out"), "wb") as out:
         return subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--node-phases",
-             os.path.join(tmp, "node_phases.json"), str(seed), repr(_T0)],
+             os.path.join(tmp, f"node_phases{lane}.json"), str(seed),
+             repr(_T0), str(lane)],
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out)
 
 
-def _node_phases_join(proc, tmp: str) -> dict:
-    """Waits for the child, prints its phase lines and returns its
-    nodes' launch counters; fails if it failed."""
+def _node_phases_join(proc, tmp: str, lane: int) -> dict:
+    """Waits for the child of lane ``lane``, prints its phase lines and
+    returns its nodes' launch counters; fails if it failed."""
     rc = proc.wait()
-    with open(os.path.join(tmp, "node_phases.out")) as f:
+    with open(os.path.join(tmp, f"node_phases{lane}.out")) as f:
         sys.stdout.write(f.read())
     sys.stdout.flush()
     if rc != 0:
-        _fail(f"the node phases exited with {rc}")
-    with open(os.path.join(tmp, "node_phases.json")) as f:
+        _fail(f"the node phases {NODE_LANES[lane]} exited with {rc}")
+    with open(os.path.join(tmp, f"node_phases{lane}.json")) as f:
         return json.load(f)
 
 
@@ -6752,13 +7362,16 @@ def main() -> None:
     table = phase_kernels(device, args.seed)
     ck.reset_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        nodes = _node_phases_start(tmp, args.seed)
+        lanes = [_node_phases_start(tmp, args.seed, k)
+                 for k in range(len(NODE_LANES))]
         try:
             launches = _local_phases(device, args.seed, tmp)
-            for name, n in _node_phases_join(nodes, tmp).items():
-                launches[name] += n
+            for k, proc in enumerate(lanes):
+                for name, n in _node_phases_join(proc, tmp, k).items():
+                    launches[name] += n
         finally:
-            _node_phases_stop(nodes)
+            for proc in lanes:
+                _node_phases_stop(proc)
     before_bench = ck.LAUNCHES["op_count_rows"]
     phase_bench(device)
     if ck.LAUNCHES["op_count_rows"] <= before_bench:

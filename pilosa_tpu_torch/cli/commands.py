@@ -17,19 +17,23 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   CPU profile written to a file) — plus ``--device`` (the
   card unless ``cpu``), ``--cost.dir`` (where the cost model's calibration is
   kept) and ``--fault.hedge`` (the hedged-read floor, which the JAX verb
-  takes from ``[fault] hedge`` and ``PILOSA_FAULT_HEDGE`` only). An
-  explicit switch-on of a subsystem this package does not run yet (a
-  ``[backup] archive``) exits 2 naming its slice. SIGTERM dumps the
+  takes from ``[fault] hedge`` and ``PILOSA_FAULT_HEDGE`` only). A
+  ``[backup] archive`` starts the node's WAL archiver and lets it
+  coordinate backups. SIGTERM dumps the
   flight recorder (when on), then closes the server as SIGINT does. ``gen-staleness`` is kept
   and has nothing to bound: every hit of the coordinator's cluster
   cache is validated by a probe;
 - ``import`` (CSV ``row,col[,timestamp]`` bits, or ``column,value``
   with ``--field``) and ``export`` (CSV of every slice), both through
   the cluster client, to every owner of each slice;
-- ``backup -o`` and ``restore -i/-f INPUT``: the frame-view tar of
-  every slice of a view (client.backup_to / restore_from). Their
-  archive faces (``--mode``, ``--list``, ``--gc``, ``--archive``) exit
-  2 naming the backup slice;
+- ``backup`` and ``restore``: the frame-view tar of every slice of a
+  view (``backup -o``, ``restore -i/-f INPUT``: client.backup_to /
+  restore_from) and the cluster archive (backup package): ``backup
+  --mode full|incremental [--wait]`` through ``POST /backup``, ``backup
+  --archive dir:PATH --list`` and ``--gc [--dry-run] [--keep N]
+  [--sweep-orphans]`` offline, ``restore --archive dir:PATH [--id]
+  [--to-timestamp T] [--verify RECORDS]`` into the cluster at
+  ``--host``;
 - ``sort`` (CSV rows in fragment bit order, ctl/sort.go), ``bench``
   (random SetBits through HTTP, ctl/bench.go) and ``config`` (the
   default configuration as TOML);
@@ -38,8 +42,9 @@ its 13 verbs, each with the JAX CLI's output byte for byte:
   storage scrub over data directories and files) and ``inspect`` (a
   fragment file's container and checksum summary). ``check --deep``
   verifies each blob-tier stub's objects against the manifest crcs and
-  the reassembled footer digest; ``--archive`` exits 2, waiting for the
-  backup slice.
+  the reassembled footer digest; with ``--archive`` it walks an offline
+  backup archive instead (every object of every committed backup, every
+  WAL segment).
 
 - ``replay`` (obs.replay: re-issue a captured workload, or
   ``--shadow BASELINE CANDIDATE`` to compare result digests) and
@@ -152,15 +157,9 @@ def cmd_server(args, stdout, stderr) -> int:
     WAL close); an acked write survives SIGKILL too, through the WAL."""
     from ..cluster.topology import Cluster, Node
     from ..server.server import Server
-    from ..utils import config as config_mod
     from ..utils import logger as logger_mod
 
     cfg = load_server_config(args)
-    refused = config_mod.unported_switch_ons(cfg)
-    if refused:
-        for msg in refused:
-            print(f"error: {msg}", file=stderr)
-        return 2
     if cfg.log_path:
         logger = logger_mod.Logger.open(os.path.expanduser(cfg.log_path))
     else:
@@ -200,7 +199,8 @@ def cmd_server(args, stdout, stderr) -> int:
                     sentinel_config=cfg.sentinel,
                     capture_config=cfg.capture, tier_config=cfg.tier,
                     resize_pace_s=cfg.cluster.resize_pace,
-                    resize_grace_s=cfg.cluster.resize_grace)
+                    resize_grace_s=cfg.cluster.resize_grace,
+                    backup_config=cfg.backup)
 
     def stop(signum, frame):
         raise KeyboardInterrupt
@@ -394,21 +394,75 @@ def cmd_export(args, stdout, stderr) -> int:
     return 0
 
 
-def _archive_face(verb: str, face: str, stderr) -> int:
-    print(f"{verb} {face}: cluster backup archives are not available in"
-          " this package yet (item 7, the backup slice)", file=stderr)
-    return 2
+def _open_cli_archive(spec: str):
+    """The archive store behind --archive for offline CLI modes (gc,
+    list, restore, check): an explicit ``dir:<path>`` — the CLI has no
+    data dir to root a bare ``dir`` under."""
+    from ..backup import archive as backup_archive
+    if spec == "dir":
+        raise PilosaError(
+            "--archive needs an explicit path (dir:/path/to/archive)")
+    store = backup_archive.open_archive(spec, "")
+    if store is None:
+        raise PilosaError("--archive required for this mode")
+    return store
 
 
 def cmd_backup(args, stdout, stderr) -> int:
-    """The frame-view tar dump (-i/-f/-o, ctl/backup.go): every slice of
-    the view, each from one of its owners, as one tar entry named by
-    the slice id. The archive faces (--mode, --list, --gc) wait for the
-    backup slice and exit 2."""
-    for face, on in (("--list", args.list), ("--gc", args.gc),
-                     ("--mode", args.mode)):
-        if on:
-            return _archive_face("backup", face, stderr)
+    """Three faces: the frame-view tar dump (-i/-f/-o, ctl/backup.go:
+    every slice of the view, each from one of its owners, as one tar
+    entry named by the slice id), the cluster-archive backup driven
+    through the coordinator (--mode [--wait]), and offline archive
+    maintenance against --archive (--list, --gc [--dry-run] [--keep N]
+    [--sweep-orphans])."""
+    import json as json_mod
+    import urllib.request
+
+    if args.list or args.gc:
+        from ..backup import archive as backup_archive
+        from ..backup import retention as retention_mod
+        store = _open_cli_archive(args.archive)
+        if args.gc:
+            plan = retention_mod.run_gc(
+                store, keep_fulls=args.keep, dry_run=args.dry_run,
+                sweep_orphans=args.sweep_orphans)
+            print(json_mod.dumps(plan, indent=1), file=stdout)
+            return 0
+        for m in backup_archive.list_backups(store):
+            print(f"{m['id']}  {m.get('kind', '?'):11s}"
+                  f"  t={m.get('t', 0.0):.3f}"
+                  f"  fragments={len(m.get('fragments', []))}"
+                  f"  parent={m.get('parent') or '-'}", file=stdout)
+        return 0
+
+    if args.mode:
+        # Cluster-archive backup: POST /backup on any member; it
+        # coordinates against its configured [backup] archive.
+        req = urllib.request.Request(
+            f"http://{args.host}/backup",
+            data=json_mod.dumps({"kind": args.mode}).encode(),
+            method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            status = json_mod.loads(r.read())
+        print(json_mod.dumps(status, indent=1), file=stdout)
+        if not args.wait:
+            return 0
+        deadline = time.time() + 1800
+        while time.time() < deadline:
+            time.sleep(0.5)
+            with urllib.request.urlopen(
+                    f"http://{args.host}/backup", timeout=10) as r:
+                op = json_mod.loads(r.read()).get("op") or {}
+            if op.get("phase") == "done":
+                print(json_mod.dumps(op, indent=1), file=stdout)
+                return 0
+            if op.get("phase") == "failed":
+                print(json_mod.dumps(op, indent=1), file=stdout)
+                return 1
+        print("backup: timed out waiting", file=stderr)
+        return 1
+
     if not (args.index and args.frame and args.output):
         print("backup: either --mode (cluster archive backup),"
               " --archive with --list/--gc, or -i/-f/-o (frame-view"
@@ -425,12 +479,36 @@ def cmd_backup(args, stdout, stderr) -> int:
 
 
 def cmd_restore(args, stdout, stderr) -> int:
-    """The frame-view tar restore (-i/-f INPUT, ctl/restore.go): each
-    slice entry of a ``backup -o`` tar to every owner of the slice. The
-    archive restore (--archive) waits for the backup slice and exits
-    2."""
+    """Two faces: the frame-view tar restore (-i/-f INPUT,
+    ctl/restore.go: each slice entry of a ``backup -o`` tar to every
+    owner of the slice), and the archive restore (--archive [--id ID]
+    [--to-timestamp T] [--verify RECORDS]) that rebuilds a cluster of
+    any size with digest-verified admission and, with --verify, a
+    replay of the captured workload's reads (exit 1 on a mismatch or
+    when nothing was compared). A restore that cannot verify every
+    byte raises, as the JAX verb's does."""
+    import json as json_mod
+
     if args.archive:
-        return _archive_face("restore", "--archive", stderr)
+        from ..backup import restore as restore_mod
+        from ..backup import verify as verify_mod
+        from ..utils import logger as logger_mod
+        store = _open_cli_archive(args.archive)
+        summary = restore_mod.run_restore(
+            args.host, store, backup_id=args.id or None,
+            to_timestamp=args.to_timestamp,
+            logger=logger_mod.Logger(stderr))
+        if args.verify:
+            from ..obs import replay as obs_replay
+            records = obs_replay.load_records(args.verify)
+            summary["verify"] = verify_mod.verify_restore(
+                args.host, records, logger=logger_mod.Logger(stderr))
+        print(json_mod.dumps(summary, indent=1), file=stdout)
+        if args.verify and (summary["verify"]["mismatches"]
+                            or not summary["verify"]["compared"]):
+            return 1
+        return 0
+
     if not (args.index and args.frame and args.input):
         print("restore: either --archive (archive restore) or"
               " -i/-f INPUT (frame-view tar)", file=stderr)
@@ -757,19 +835,59 @@ def cmd_resize(args, stdout, stderr) -> int:
     return 1
 
 
+def _check_deep_archive(args, stdout) -> int:
+    """``check --deep --archive``: the offline-archive face of the deep
+    check. Walks every committed backup manifest, re-fetches and
+    re-crcs every referenced pool object plus the reassembled body
+    digest and footer, and re-crcs every archived WAL segment — the
+    verdict-line format of the data-dir walk, nonzero exit on ANY
+    corruption."""
+    from ..backup import archive as backup_archive
+    store = _open_cli_archive(args.archive)
+    rc = 0
+    n = corrupt = 0
+    backups = backup_archive.list_backups(store)
+    if not backups:
+        print(f"{args.archive}: no committed backups found",
+              file=stdout)
+    for manifest in backups:
+        for name, v in backup_archive.verify_backup(store, manifest):
+            n += 1
+            if v.get("corrupt"):
+                corrupt += 1
+                rc = 1
+                print(f"{name}: CORRUPT: {v.get('error')}",
+                      file=stdout)
+            else:
+                print(f"{name}: ok ({v.get('coverage')} coverage,"
+                      f" {v.get('blocks', 0)} blocks,"
+                      f" {v.get('bytes', 0)} bytes)", file=stdout)
+    wal_n = 0
+    for key, v in backup_archive.verify_wal(store):
+        n += 1
+        wal_n += 1
+        if v.get("corrupt"):
+            corrupt += 1
+            rc = 1
+            print(f"{key}: CORRUPT: {v.get('error')}", file=stdout)
+        else:
+            print(f"{key}: ok ({v.get('batches', 0)} batches)",
+                  file=stdout)
+    print(f"checked {len(backups)} backups + {wal_n} wal segments"
+          f" ({n} objects): {corrupt} corrupt", file=stdout)
+    return rc
+
+
 def cmd_check(args, stdout, stderr) -> int:
     """Offline consistency check of fragment files (ctl/check.go:46-113):
     ``Bitmap.check()`` validates every container kind, the run
     invariants included. ``--deep`` runs the offline storage scrub
-    (footer + WAL checksums) and accepts whole data DIRS; ``--archive``
-    (a backup archive) waits for the backup slice and exits 2."""
+    (footer + WAL checksums) and accepts whole data DIRS; with
+    ``--archive`` it walks an offline backup archive instead."""
     from ..proto import internal as pb
     if args.deep:
         if args.archive:
-            print("check --deep --archive: backup archives are not"
-                  " available in this package yet (the backup slice)",
-                  file=stderr)
-            return 2
+            return _check_deep_archive(args, stdout)
         return _check_deep(args, stdout, stderr)
     if not args.paths:
         print("check: paths required (or --deep --archive)",
@@ -1039,8 +1157,8 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("-o", "--output", default="",
                    help="frame-view tar mode: output file")
     c.add_argument("--mode", default="", choices=["full", "incremental"],
-                   help="cluster archive backup (not available in this"
-                        " package yet)")
+                   help="take a cluster backup of this kind into the"
+                        " server's configured [backup] archive")
     c.add_argument("--wait", action="store_true",
                    help="with --mode: poll until the backup settles")
     c.add_argument("--archive", default="",
@@ -1056,7 +1174,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GC: print the plan, delete nothing")
     c.add_argument("--sweep-orphans", action="store_true",
                    help="GC: also delete pool objects no committed"
-                        " manifest references")
+                        " manifest references (NOT safe while a"
+                        " backup is in flight)")
 
     c = client_cmd("restore", "restore from the backup archive, or a"
                               " frame-view tar", cmd_restore,
@@ -1066,8 +1185,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frame-view tar mode: input file")
     c.add_argument("--archive", default="",
                    help="archive spec (dir:/path): restore the cluster"
-                        " at --host from it (not available in this"
-                        " package yet)")
+                        " at --host from it")
     c.add_argument("--id", default="",
                    help="restore this backup id (default: newest"
                         " usable)")
@@ -1078,7 +1196,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--verify", default="",
                    help="after restoring, replay this captured-"
                         "workload records file and compare result"
-                        " digests")
+                        " digests (nonzero exit on any mismatch)")
 
     c = sub.add_parser("sort", help="sort CSV by fragment position")
     c.add_argument("path")
@@ -1093,7 +1211,8 @@ def build_parser() -> argparse.ArgumentParser:
                         " nonzero exit on corruption")
     c.add_argument("--archive", default="",
                    help="with --deep: walk an offline backup archive"
-                        " (not available in this package yet)")
+                        " (dir:/path) instead — re-crc every object"
+                        " of every committed backup + WAL segment")
     c.set_defaults(fn=cmd_check)
 
     c = sub.add_parser("inspect", help="dump container stats of a file")

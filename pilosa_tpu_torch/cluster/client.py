@@ -470,6 +470,12 @@ class Client:
                                f"/debug/queries/{query_id}", host=host)
         return json.loads(self._ok(status, raw, "cancel query"))
 
+    def queries(self, host: Optional[str] = None) -> dict:
+        """GET /debug/queries: this node's in-flight queries + slow
+        log (sched.registry)."""
+        status, raw = self._do("GET", "/debug/queries", host=host)
+        return json.loads(self._ok(status, raw, "debug queries"))
+
     def generations(self, index: str,
                     slices: Optional[list[int]] = None,
                     host: Optional[str] = None,
@@ -956,21 +962,26 @@ class Client:
 
     # -- backup / restore (client.go:463-695) --------------------------------
 
-    def backup_slice(self, index: str, frame: str, view: str, slice: int):
+    def backup_slice(self, index: str, frame: str, view: str, slice: int,
+                     snapshot: bool = False):
         """One slice's fragment tar as a seekable bounded spool (the
         caller closes it); None if the slice doesn't exist yet
         (client.go:541-580). The body downloads inside the per-owner
-        loop so a node dying mid-transfer fails over to a replica."""
+        loop so a node dying mid-transfer fails over to a replica.
+        ``snapshot=True`` asks the owner to fold its WAL into a fresh
+        footered snapshot first (the backup coordinator's barrier)."""
         import shutil
         import tempfile
         nodes = self.fragment_nodes(index, slice)
         random.shuffle(nodes)
+        snap = "&snapshot=1" if snapshot else ""
         last_err: Optional[Exception] = None
         for node in nodes:
             try:
                 rd = self._do_stream(
                     f"/fragment/data?index={index}&frame={frame}"
-                    f"&view={view}&slice={slice}", host=node["host"])
+                    f"&view={view}&slice={slice}{snap}",
+                    host=node["host"])
             except ClientError as e:
                 last_err = e
                 continue

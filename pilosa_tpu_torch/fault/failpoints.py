@@ -43,6 +43,16 @@ The port arms the sites its own modules carry:
                     error, delay and corrupt make a failed cold fetch and
                     a torn promotion injectable; partition mode scopes by
                     direction (``push`` / ``fetch``)
+``backup.push``     backup/archive object puts (fragment blocks, WAL
+                    segments, manifests) — fires AFTER the store write,
+                    so error mode models a crash with the object durable
+                    (resume must skip it), torn mode replaces the object
+                    with a prefix, corrupt flips real bits of the stored
+                    object; partition mode scopes by object key
+``restore.fetch``   backup/archive object gets during restore and verify
+                    — error makes a fetch fail, corrupt flips stored bits
+                    BEFORE the read so digest-verified admission must
+                    reject them; partition scopes by key
 ==================  =========================================================
 
 Arming an unknown site raises: a site without an injection point would
@@ -101,7 +111,8 @@ ACTIVE: Optional["Failpoints"] = None
 
 SITES = ("rpc.send", "rpc.recv", "wal.append", "snapshot.write",
          "gossip.deliver", "mesh.dispatch", "ring.write",
-         "resize.stream", "storage.read", "tier.fault", "tier.fetch")
+         "resize.stream", "storage.read", "tier.fault", "tier.fetch",
+         "backup.push", "restore.fetch")
 
 
 def env_key(site: str) -> str:

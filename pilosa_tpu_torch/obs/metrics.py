@@ -9,8 +9,8 @@ sites (utils/stats.py) into the ``pilosa_stats_*`` namespace.
 
 Every family the port emits is declared here at import, with the JAX
 package's name, type, labels and help text. The JAX families that no
-event of the port raises (tiering, backup, the XLA compile-cache
-counters and the build-info gauge, whose labels name jax) are left out;
+event of the port raises (the XLA compile-cache counters and the
+build-info gauge, whose labels name jax) are left out;
 ``tests/test_torch_obs.py`` lists each by name with its reason.
 Naming convention (enforced at registration):
 ``pilosa_<subsystem>_<noun>_<unit>`` — lowercase snake case, at least
@@ -885,6 +885,39 @@ CAPTURE_BYTES = _DEFAULT.counter(
     "pilosa_capture_bytes_total",
     "Framed record bytes appended to the capture ring, by kind",
     labels=("kind",))
+
+
+# -- disaster recovery (backup) ----------------------------------------------
+BACKUP_STATE = _DEFAULT.gauge(
+    "pilosa_backup_state_info",
+    "One-hot backup coordinator phase (idle / scan / push / manifest /"
+    " done / aborted / failed) on the coordinating node",
+    labels=("phase",))
+BACKUP_OBJECTS = _DEFAULT.counter(
+    "pilosa_backup_objects_total",
+    "Archive objects handled by backups, by outcome (pushed = written,"
+    " skipped = block-diff dedupe hit an existing object)",
+    labels=("outcome",))
+BACKUP_BYTES = _DEFAULT.counter(
+    "pilosa_backup_bytes_total",
+    "Archive bytes moved, by direction (push = backup, fetch ="
+    " restore/verify)",
+    labels=("direction",))
+BACKUP_FRAGMENTS = _DEFAULT.counter(
+    "pilosa_backup_fragments_total",
+    "Fragments processed by backup/restore, by outcome (backed_up /"
+    " restored / corrupt / error)",
+    labels=("outcome",))
+BACKUP_WAL_RECORDS = _DEFAULT.counter(
+    "pilosa_backup_wal_records_total",
+    "Committed WAL op records handed to the continuous archiver")
+BACKUP_WAL_SEGMENTS = _DEFAULT.counter(
+    "pilosa_backup_wal_segments_total",
+    "WAL segments flushed to the archive store")
+BACKUP_ERRORS = _DEFAULT.counter(
+    "pilosa_backup_errors_total",
+    "Backup-plane failures, by site (push / wal / restore / gc)",
+    labels=("site",))
 
 
 # -- legacy StatsClient bridge ------------------------------------------------

@@ -26,9 +26,9 @@ The keep-reason catalogue:
 a quarantined fragment — storage integrity subsystem), ``shed``,
 ``breaker``, ``failpoint``, ``head``, ``requested`` (the explicit
 [trace] enabled / ?trace=1 / coordinator-asked paths), ``watchdog``
-(in-flight traces force-kept on a stall trip), and ``anomaly``
-(force-kept by a regression-sentinel finding). The port has no
-watchdog, sentinel or backup yet, so their force-keeps never fire.
+(in-flight traces force-kept on a stall trip), ``anomaly``
+(force-kept by a regression-sentinel finding) and ``backup`` (in-flight
+traces force-kept when a backup this node coordinates fails).
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ Four stall detectors, each cheap enough to run every second:
   ``tier_stall_s``: a wedged snapshot barrier or a hung blob
   transfer — the window where watermark pressure keeps building
   and cold reads stop promoting.
-- **backup_stall** — the backup plane (the backup slice) has work in
+- **backup_stall** — the backup plane (backup.coordinator) has work in
   flight — a coordinated backup pushing fragments, or the continuous
   WAL archiver with pending segments — but has completed nothing for
   ``backup_stall_s``: a hung archive store or a wedged source fetch,
@@ -238,7 +238,7 @@ class Watchdog:
                     "tier_stall",
                     f"tier work pending, no transition completed for"
                     f" {age:.1f}s"))
-        # Stalled backup plane (None until the backup slice).
+        # Stalled backup plane (the coordinator this node runs).
         if (self.backup_progress_fn is not None
                 and self.backup_stall_s > 0):
             try:

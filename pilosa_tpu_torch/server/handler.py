@@ -102,8 +102,20 @@ in-flight resize or, after a finalize, for the grace window.
 Tiered storage (the JAX handler's, handler.py:1491-1506): ``GET
 /debug/tier`` shows the tier manager's state (``{"enabled": false}``
 without one), ``?pass=1`` runs one pass inline and ``?entries=1`` lists
-the ledger (``&tier=cold`` filters it). The archive backup and pod
-routes wait for the slices that port them.
+the ledger (``&tier=cold`` filters it).
+
+Disaster recovery (the JAX handler's, handler.py:2495-2560): ``GET
+/backup`` shows whether an archive is configured and this node's
+coordinator op; ``POST /backup`` starts a cluster backup with this node
+as coordinator (``{"kind": "full"|"incremental"}``; 202) or aborts it
+(``{"abort": true}``; 409 when none is in flight), and answers 503 on a
+node without a coordinator; ``GET /debug/backup`` lists the archive's
+committed backups, its WAL segments a node and this node's archiver.
+``GET /fragment/data?snapshot=1`` folds the fragment's WAL into a fresh
+footered snapshot before streaming it (the coordinator's per-fragment
+barrier; a clean fragment skips the rewrite), after the tier gate has
+brought a cold or blob fragment back. The pod route waits for the slice
+that ports it.
 """
 
 from __future__ import annotations
@@ -411,6 +423,10 @@ class Handler:
         r("PATCH", "/index/{index}/time-quantum",
           self._handle_patch_index_time_quantum, lane=LANE_ADMIN)
         r("GET", "/cluster/resize", self._handle_get_cluster_resize)
+        r("GET", "/backup", self._handle_get_backup)
+        r("POST", "/backup", self._handle_post_backup,
+          lane=LANE_ADMIN)
+        r("GET", "/debug/backup", self._handle_debug_backup)
         r("POST", "/cluster/resize", self._handle_post_cluster_resize,
           lane=LANE_ADMIN)
         r("GET", "/debug/topology", self._handle_debug_topology)
@@ -1978,6 +1994,27 @@ class Handler:
         if frag is None:
             raise HTTPError(404, "fragment not found")
         self._refuse_quarantined(frag)
+        if req.query.get("snapshot") == "1":
+            # The backup coordinator's per-fragment barrier: fold the
+            # WAL into a fresh footered snapshot so the streamed body
+            # verifies standalone and carries no op tail. A CLEAN
+            # fragment (empty op tail, footered file) skips the
+            # rewrite and its fsync. A cold or blob fragment comes back
+            # through the tier gate first, as on every other read.
+            try:
+                frag.promote("read")
+                clean = False
+                try:
+                    frag.wal_barrier()
+                    clean = (frag.storage.op_n == 0
+                             and getattr(frag.storage, "footer",
+                                         None) is not None)
+                except storage_wal.WalError:
+                    clean = False  # torn pending tail: fold it
+                if not clean:
+                    frag.snapshot(sync=True)
+            except OSError as e:
+                raise HTTPError(500, f"snapshot failed: {e}")
         spool = tempfile.SpooledTemporaryFile(max_size=8 << 20)
         frag.write_to(spool)
         spool.seek(0)
@@ -2064,6 +2101,76 @@ class Handler:
             raise HTTPError(400, f"invalid message: {e}")
         self.status_handler.receive_message(msg)
         return Response.json({})
+
+    # -- backup control surface (backup.coordinator) --------------------------
+
+    def _backup_server(self):
+        """The Server behind the backup control surface; bare test
+        handlers (no status_handler / no start_backup) answer 503."""
+        s = self.status_handler
+        if s is None or not hasattr(s, "start_backup"):
+            raise HTTPError(503, "no backup coordinator on this node")
+        return s
+
+    def _handle_get_backup(self, req: Request) -> Response:
+        """The in-flight (or last finished) backup this node
+        coordinates, plus whether an archive is configured."""
+        s = self.status_handler
+        op = getattr(s, "backup_op", None)
+        return Response.json({
+            "configured": getattr(s, "backup_store", None) is not None,
+            "op": op.status() if op is not None else None})
+
+    def _handle_post_backup(self, req: Request) -> Response:
+        """Start (or abort) a cluster backup with THIS node as
+        coordinator. Body: {"kind": "full"|"incremental"} |
+        {"abort": true}."""
+        server = self._backup_server()
+        body = req.json()
+        if body.get("abort"):
+            status = server.abort_backup()
+            if status is None:
+                raise HTTPError(409, "no backup in flight")
+            return Response.json({"op": status})
+        kind = str(body.get("kind", "full"))
+        if kind not in ("full", "incremental"):
+            raise HTTPError(400, f"unknown backup kind {kind!r}")
+        try:
+            coord = server.start_backup(kind)
+        except PilosaError as e:
+            raise HTTPError(409, str(e))
+        return Response.json({"op": coord.status()}, status=202)
+
+    def _handle_debug_backup(self, req: Request) -> Response:
+        """Archive introspection: committed backups (lineage, sizes),
+        WAL-archive coverage per node, this node's archiver state, and
+        the in-flight op."""
+        s = self.status_handler
+        store = getattr(s, "backup_store", None)
+        out: dict = {"configured": store is not None}
+        op = getattr(s, "backup_op", None)
+        out["op"] = op.status() if op is not None else None
+        archiver = getattr(s, "wal_archiver", None)
+        out["walArchiver"] = (archiver.state()
+                              if archiver is not None else None)
+        if store is not None:
+            from ..backup import archive as backup_archive
+            out["backups"] = [
+                {"id": m["id"], "kind": m.get("kind"),
+                 "parent": m.get("parent"), "t": m.get("t"),
+                 "coordinator": m.get("coordinator"),
+                 "epoch": m.get("epoch"),
+                 "fragments": len(m.get("fragments", []))}
+                for m in backup_archive.list_backups(store)]
+            wal: dict = {}
+            for _key, node, seq in backup_archive.list_wal_segments(
+                    store):
+                ent = wal.setdefault(node,
+                                     {"segments": 0, "maxSeq": -1})
+                ent["segments"] += 1
+                ent["maxSeq"] = max(ent["maxSeq"], seq)
+            out["walSegments"] = wal
+        return Response.json(out)
 
     # -- elastic resize (cluster.resize; docs/CLUSTER_RESIZE.md) -------------
 

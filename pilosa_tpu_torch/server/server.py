@@ -88,14 +88,13 @@ collector's tick), the flight recorder under ``<data>/blackbox``
 (``blackbox_config``; its SIGTERM and thread-excepthook dump triggers
 are installed once per process), the stall watchdog
 (``watchdog_config``; its resize input is ``_resize_progress``, its tier
-input the tier manager's ``stall_age``, its backup input None, as in a
-JAX server that runs no backup),
+input the tier manager's ``stall_age``, its backup input
+``_backup_progress``),
 the regression sentinel
 (``sentinel_config``; a manifest only from ``[sentinel] manifest``),
 workload capture under ``<data>/capture`` (``capture_config``) and the
 fair dispatch queue below admission (parallel.mesh, installed at open
-with the tenants' effective weights). Backup waits for the slice that
-ports it.
+with the tenants' effective weights).
 
 Tiered storage (the JAX server's wiring, server.py:452-479): with
 ``tier_config.enabled`` open() builds the TierManager (tier.manager)
@@ -120,6 +119,20 @@ resize aborts, a post-flip one rolls forward. After a finalize the old
 owners keep accepting writes for ``resize_grace_s``. The gossip
 push/pull carries ``resize_wire_state`` so a node that missed a control
 send converges.
+
+Disaster recovery (the JAX server's wiring, server.py:230-241,
+:480-494, :644-692, :1005-1080): with ``backup_config.archive`` set,
+open() opens the archive store (backup.archive.open_archive; ``dir``
+roots it at ``<data>/_archive``) and starts this node's continuous WAL
+archiver (backup.walarchive: a sink on the group-commit WAL, segments
+named by this node's host, renamed with it on a ``:0`` bind) before any
+traffic; an in-flight ``<data>/backup.json`` journal resumes on a
+thread under the same backup id. ``start_backup`` makes this node the
+coordinator of a cluster backup (backup.coordinator on a thread, one
+at a time), ``abort_backup`` stops it cooperatively (its journal stays
+in flight, so the next open resumes it). close() cancels the backup
+and flushes the archiver before the holder closes, so an orderly
+shutdown loses no point-in-time coverage.
 """
 
 from __future__ import annotations
@@ -128,10 +141,14 @@ import errno
 import json
 import os
 import threading
+import time
 
 from typing import Optional
 
 from .. import SLICE_WIDTH
+from ..backup import archive as backup_archive
+from ..backup import coordinator as backup_coord
+from ..backup.walarchive import WalArchiver
 from ..cluster import resize as resize_mod
 from ..cluster.broadcast import (NOP_BROADCASTER, CancelQueryMessage,
                                  HTTPBroadcaster, ResizeMessage)
@@ -177,7 +194,8 @@ from ..tier.manager import TierManager
 from ..utils import logger as logger_mod
 from ..proto import internal as pb
 from ..utils.config import (DEFAULT_ANTI_ENTROPY_INTERVAL,
-                            DEFAULT_POLLING_INTERVAL, BlackboxConfig,
+                            DEFAULT_POLLING_INTERVAL, BackupConfig,
+                            BlackboxConfig,
                             CaptureConfig, FaultConfig, HistoryConfig,
                             MetricsConfig, ProfileConfig, QueryConfig,
                             ScrubConfig, SentinelConfig, SLOConfig,
@@ -220,7 +238,8 @@ class Server:
                  capture_config: Optional[CaptureConfig] = None,
                  tier_config: Optional[TierConfig] = None,
                  resize_pace_s: float = 0.0,
-                 resize_grace_s: float = 30.0):
+                 resize_grace_s: float = 30.0,
+                 backup_config: Optional[BackupConfig] = None):
         self.data_dir = data_dir
         self.host = host
         # Placement: the static cluster, or (None) this node alone,
@@ -251,6 +270,15 @@ class Server:
         self.resize_op = None
         self._resize_mu = threading.Lock()
         self._last_resize: Optional[dict] = None
+        # Disaster recovery (backup): the archive store, this node's
+        # continuous WAL-segment archiver, and the backup this node
+        # coordinates (None unless THIS node drives one) — built in
+        # open() when [backup] names an archive.
+        self.backup_config = backup_config or BackupConfig()
+        self.backup_store = None
+        self.wal_archiver = None
+        self.backup_op = None
+        self._backup_mu = threading.Lock()
         self.device = device
         self.wal_fsync = wal_fsync
         self.logger = logger
@@ -414,6 +442,7 @@ class Server:
                     segment_bytes=hc.segment_bytes,
                     max_segments=hc.segments)
             self._open_tier()
+            self._open_backup()
             if self.metrics_config.enabled:
                 self.runtime = RuntimeCollector(
                     holder=self.holder, executor=self.executor,
@@ -448,6 +477,9 @@ class Server:
                                      query_batcher=self._query_batcher)
         except BaseException:
             self._close_operator_surface()
+            if self.wal_archiver is not None:
+                self.wal_archiver.close()
+                self.wal_archiver = None
             self.holder.tier = self.tier = None
             self.holder.close()  # a port in use, an unreadable index
             self.holder = None
@@ -479,6 +511,11 @@ class Server:
             self.capture.node = self.host
             if self.blackbox is not None:
                 self.blackbox.node = self.host
+            if self.wal_archiver is not None:
+                # WAL segments are keyed by the serving identity; the
+                # seq counter is lazy, so no segment has been written
+                # under the provisional name yet.
+                self.wal_archiver.node = self.host
         if self.cluster_type == "http":
             self.broadcaster = HTTPBroadcaster(self)
         elif self.cluster_type == "gossip":
@@ -501,6 +538,14 @@ class Server:
         _rj = resize_mod.ResizeJournal.for_data_dir(self.holder.path)
         if _rj.load() and _rj.in_flight():
             self._spawn(self._recover_resize, "resize-recover")
+        # Backup journal recovery: an in-flight backup whose coordinator
+        # (us) was killed resumes under the same id — journaled
+        # fragments and pool-resident objects are skipped, so recovery
+        # converges instead of re-shipping.
+        if self.backup_store is not None:
+            _bj = backup_coord.BackupJournal.for_data_dir(self.holder.path)
+            if _bj.load() and _bj.in_flight():
+                self._spawn(self._recover_backup, "backup-recover")
         if self.warmup is not None:
             self.warmup.start()
         if self.runtime is not None:
@@ -571,6 +616,21 @@ class Server:
         # opens are picked up by the next pass's sync.
         self.tier.sync()
 
+    def _open_backup(self) -> None:
+        """The archive store and this node's continuous WAL archiver.
+        The archiver's sink hooks the group-commit WAL before any
+        traffic arrives, so the point-in-time record starts at boot,
+        not at the first backup."""
+        if not self.backup_config.archive:
+            return
+        self.backup_store = backup_archive.open_archive(
+            self.backup_config.archive, self.holder.path)
+        self.wal_archiver = WalArchiver(
+            self.backup_store, self.holder.path, self.host,
+            interval_s=self.backup_config.wal_interval,
+            logger=self.logger)
+        self.wal_archiver.start()
+
     def _open_operator_surface(self) -> None:
         """The flight recorder, the watchdog, the sentinel and the
         capture store, in the JAX server's order (its history and the
@@ -591,7 +651,7 @@ class Server:
                 tracer=self.tracer, sampler=self.sampler,
                 blackbox=self.blackbox, gossip_age_fn=self._gossip_age,
                 resize_progress_fn=self._resize_progress,
-                backup_progress_fn=None,
+                backup_progress_fn=self._backup_progress,
                 scrub_progress_fn=(self.scrubber.stall_age
                                    if self.scrubber is not None
                                    else None),
@@ -660,8 +720,8 @@ class Server:
         """One whole-system snapshot for the flight recorder: queues,
         breakers, generation knowledge, the WAL dirty set and flusher
         heartbeat, the runtime sample, recent slow queries, the
-        integrity state, the resize block, the tier state and a thread
-        dump (the JAX server's blocks; backup has none)."""
+        integrity state, the resize block, the tier state, the backup
+        block and a thread dump (the JAX server's blocks)."""
         out: dict = {"host": self.host,
                      "admission": self.admission.snapshot(),
                      "wal": storage_wal.flusher_health()}
@@ -704,6 +764,16 @@ class Server:
         # fetches — where the working set lived when it happened.
         if self.tier is not None:
             out["tier"] = self.tier.state()
+        # Disaster recovery: the in-flight backup op and this node's
+        # WAL-archiver lag — was a backup running, and how much
+        # point-in-time coverage was buffered.
+        if self.backup_store is not None:
+            backup_block: dict = {"configured": True}
+            if self.backup_op is not None:
+                backup_block["op"] = self.backup_op.status()
+            if self.wal_archiver is not None:
+                backup_block["walArchiver"] = self.wal_archiver.state()
+            out["backup"] = backup_block
         try:
             out["threads"] = thread_dump()[:20000]
         except Exception:  # noqa: BLE001 - interpreter-internal API
@@ -716,6 +786,15 @@ class Server:
             # Cooperative stop; an in-flight journal is recovered (or
             # aborted) on the next open.
             self.resize_op.cancel()
+        if self.backup_op is not None:
+            # Cooperative stop; the journal stays in flight so the next
+            # open resumes the backup under the same id.
+            self.backup_op.cancel()
+        if self.wal_archiver is not None:
+            # Before the holder closes: the final flush ships every
+            # buffered batch, so an orderly shutdown loses no
+            # point-in-time coverage.
+            self.wal_archiver.close()
         mesh_mod.uninstall_fair_dispatch()
         if self.warmup is not None:
             self.warmup.stop()
@@ -1031,6 +1110,73 @@ class Server:
             return None
         import time as time_mod
         return op.phase, time_mod.monotonic() - op.last_progress
+
+    # -- cluster backup (backup.coordinator) ---------------------------------
+
+    def start_backup(self, kind: str = "full"):
+        """Begin a cluster backup into the configured archive with THIS
+        node as coordinator; returns the BackupCoordinator (already
+        running on a background thread). One at a time per node — the
+        journal is single-writer."""
+        if self.backup_store is None:
+            raise PilosaError("no backup archive configured"
+                              " ([backup] archive)")
+        with self._backup_mu:
+            op = self.backup_op
+            if op is not None and not (
+                    op.phase in (backup_coord.PHASE_DONE,
+                                 backup_coord.PHASE_FAILED)
+                    or op.finished_at):
+                raise PilosaError(f"backup {op.id} already in flight"
+                                  f" (phase {op.phase})")
+            # An in-flight journal belongs to a backup still being
+            # recovered (recovery registers itself as backup_op only
+            # once it runs): refuse rather than interleave two
+            # coordinators into one journal.
+            _bj = backup_coord.BackupJournal.for_data_dir(self.holder.path)
+            if _bj.load() and _bj.in_flight() and (
+                    op is None or _bj.state.get("id") != op.id):
+                raise PilosaError(
+                    f"backup {_bj.state.get('id')} still recovering"
+                    f" (journal phase {_bj.state.get('phase')})")
+            coord = backup_coord.BackupCoordinator(
+                self, self.backup_store, kind=kind, logger=self.logger)
+            self.backup_op = coord
+        self._spawn(coord.run, f"backup-{coord.id}")
+        return coord
+
+    def abort_backup(self) -> Optional[dict]:
+        """Operator abort: cooperatively stop the backup this node
+        coordinates. The journal stays in flight, so the next open (or
+        a later POST) resumes it instead of discarding the objects
+        already pushed."""
+        op = self.backup_op
+        if op is None or op.phase in (backup_coord.PHASE_DONE,
+                                      backup_coord.PHASE_FAILED) \
+                or op.finished_at:
+            return None
+        op.cancel()
+        return op.status()
+
+    def _recover_backup(self) -> None:
+        try:
+            status = backup_coord.recover(self, logger=self.logger)
+            if status is not None:
+                self.logger.printf("backup recovery finished: %s",
+                                   status.get("phase"))
+        except Exception as e:  # noqa: BLE001 - recovery best-effort
+            self.logger.printf("backup recovery failed: %s", e)
+
+    def _backup_progress(self):
+        """Watchdog hook (obs.watchdog cause ``backup_stall``): seconds
+        without progress while this node coordinates an active backup,
+        else None."""
+        op = self.backup_op
+        if op is None or op.phase in (backup_coord.PHASE_IDLE,
+                                      backup_coord.PHASE_DONE,
+                                      backup_coord.PHASE_FAILED):
+            return None
+        return time.monotonic() - op.last_progress
 
     def _epoch_path(self) -> str:
         return os.path.join(self.holder.path, "epoch.json")

@@ -45,8 +45,10 @@ fails with ENOSPC flips the node write-unready (fault.diskfull) while a
 successful one clears it. Each leader flush feeds the JAX package's
 three WAL families (``pilosa_wal_group_commit_batch_size``,
 ``pilosa_wal_group_commit_flush_seconds``, ``pilosa_wal_fsync_calls_total``).
-Left out of the copy: the WAL archive sink (backup), which changes
-nothing of what is durable or when.
+A successful leader flush also hands its batch to the archive sink
+registered for the file's data directory (``register_archive_sink``: the
+backup package's continuous WAL archiver), still as the leader, so the
+per-WAL sink order is commit order; a sink error never fails a commit.
 """
 
 from __future__ import annotations
@@ -232,6 +234,10 @@ class GroupCommitWal:
                 # A durable write succeeded: the cheapest recovery
                 # signal when the node was write-unready.
                 _diskfull.note_write_ok()
+                if _archive_sinks:
+                    # Still the leader here, so per-WAL sink order is
+                    # commit order (the point-in-time replay contract).
+                    _archive_notify(file, batch)
         el = time.perf_counter() - ft0
         with self._mu:
             self._leader = False
@@ -324,6 +330,47 @@ _flusher: Optional[threading.Thread] = None
 _flusher_wake = threading.Event()
 # Flusher heartbeat: stamped at the top of every flusher pass.
 _flusher_beat = 0.0
+
+
+# -- archive sinks (the backup package's WAL-segment archiving) ---------------
+# A server with continuous WAL archiving registers a sink keyed by its
+# data-dir root; every committed batch whose file lives under that root
+# is handed to the sink (file path, batch bytes) while the committing
+# leader still leads. Process-global because the WAL layer is: several
+# servers in one process (the tests) each claim only their own subtree.
+
+_archive_mu = threading.Lock()
+_archive_sinks: dict = {}
+
+
+def register_archive_sink(root: str, fn) -> None:
+    """Route committed batches of WALs under ``root`` (a data dir) to
+    ``fn(file_path, batch_bytes)``. Errors of ``fn`` are swallowed:
+    archiving is asynchronous durability, never a write-ack
+    dependency."""
+    with _archive_mu:
+        _archive_sinks[os.path.abspath(root)] = fn
+
+
+def deregister_archive_sink(root: str) -> None:
+    with _archive_mu:
+        _archive_sinks.pop(os.path.abspath(root), None)
+
+
+def _archive_notify(file, batch: bytes) -> None:
+    name = getattr(file, "name", None)
+    if not isinstance(name, str):
+        return
+    name = os.path.abspath(name)
+    with _archive_mu:
+        sinks = list(_archive_sinks.items())
+    for root, fn in sinks:
+        if name.startswith(root + os.sep):
+            try:
+                fn(name, batch)
+            except Exception:  # noqa: BLE001 - archiving never fails a commit
+                pass
+            return
 
 
 def _register_dirty(wal: GroupCommitWal) -> None:

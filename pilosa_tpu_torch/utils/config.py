@@ -8,10 +8,6 @@ the CLI overlays explicit flags last; ``Config.to_toml()`` writes the
 file the ``config`` verb prints. A JAX config file loads here to the
 same values with the same errors, and ``to_toml()`` writes the same
 bytes.
-
-Every section is parsed, validated and kept, also that of the
-subsystem this package does not run yet (backup): the ``server`` verb
-refuses an explicit switch-on of it (``unported_switch_ons``).
 """
 
 from __future__ import annotations
@@ -1173,20 +1169,3 @@ def load(path: str = "", env: dict | None = None) -> Config:
             cfg.fault.failpoints[site] = env[_fp_env_key(site)]
     return cfg
 
-
-# The subsystems of the JAX package that this package does not run yet:
-# (section, switched on, the slice of ROADMAP.md's queue 1 that brings
-# it). The JAX default leaves it off.
-UNPORTED = (
-    ("backup", lambda c: bool(c.backup.archive),
-     "item 7, the backup slice"),
-)
-
-
-def unported_switch_ons(cfg: Config) -> list[str]:
-    """One message for each unported subsystem ``cfg`` switches on (a
-    ``[backup] archive``), naming its slice; the server verb refuses to
-    start on any."""
-    return [f"[{section}] is not available in this package yet"
-            f" ({slice_name})"
-            for section, on, slice_name in UNPORTED if on(cfg)]

@@ -279,14 +279,17 @@ def test_inspect_matches_jax(check_tree, which):
 
 
 def test_check_deep_unported_faces_exit_2(check_tree, tmp_path):
-    """``--archive`` (the backup slice) still exits 2. A blob-tier stub
-    takes the blob lane since the tier slice, as in the JAX CLI: one
+    """``--archive`` walks a backup archive as the JAX CLI does (an
+    empty one: rc 0, the same lines; a bare ``dir``: rc 1, the same
+    error). A blob-tier stub takes the blob lane, as in the JAX CLI: one
     without a prefix is an unreadable stub (rc 1, the same lines)."""
     data, d = check_tree
-    so, se = io.StringIO(), io.StringIO()
-    assert port_cli.main(["check", "--deep", "--archive", "dir:/x",
-                          str(data)], stdout=so, stderr=se) == 2
-    assert "backup slice" in se.getvalue() and not so.getvalue()
+    (tmp_path / "arch").mkdir()
+    rc, out, _err = _both_cli(["check", "--deep", "--archive",
+                               f"dir:{tmp_path / 'arch'}", str(data)])
+    assert rc == 0 and "no committed backups found" in out
+    rc, out, err = _both_cli(["check", "--deep", "--archive", "dir"])
+    assert rc == 1 and "explicit path" in err and not out
     (d / "7.blob").write_text("{}")
     rc, out, _err = _both_cli(["check", "--deep", str(data)])
     assert rc == 1 and "7.blob: CORRUPT: unreadable blob stub" in out
@@ -403,11 +406,22 @@ def test_backup_restore_usage_and_archive_faces(servers, tmp_path):
         got = _run(port_cli, [verb, "--host", hosts[0]])
         assert got == _run(jax_cli, [verb, "--host", jax_host])
         assert got[0] == 1
+    # The archive faces answer as the JAX verbs do: a node without a
+    # [backup] archive refuses the backup (409), --list and --gc need
+    # --archive, and an empty archive holds no backup to restore.
+    empty = tmp_path / "empty_archive"
+    empty.mkdir()
     for argv in (["backup", "--mode", "full"], ["backup", "--list"],
-                 ["backup", "--gc"], ["restore", "--archive", "dir:/x"]):
-        rc, out, err = _run(port_cli, argv + ["--host", hosts[0]])
-        assert rc == 2 and not out
-        assert "(item 7, the backup slice)" in err
+                 ["backup", "--gc"],
+                 ["restore", "--archive", f"dir:{empty}"]):
+        got = []
+        for cli, host in ((jax_cli, jax_host), (port_cli, hosts[0])):
+            try:
+                got.append(_run(cli, argv + ["--host", host]))
+            except Exception as e:  # noqa: BLE001 - compared across CLIs
+                got.append((type(e).__name__, str(e)))
+        assert got[0] == got[1], argv
+        assert got[1][0] != 0
 
 
 def test_restore_route_pulls_from_jax_and_port_hosts(servers, tmp_path):

@@ -6,9 +6,8 @@
   to the same values and the same ``to_toml()`` bytes in both packages,
   and the written TOML loads back to itself.
 - Invalid values fail with the same exception and message.
-- An explicit switch-on of a subsystem the port does not run yet exits
-  2 before the server starts, naming the slice that brings it; the
-  subsystems on by default are only noted.
+- Every section's switch-on starts the ``server`` verb, which serves the
+  section's routes; the defaults of every section are the JAX ones.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import os
 import signal
 import subprocess
 import sys
+import time
 import urllib.request
 
 import numpy as np
@@ -279,72 +279,55 @@ def test_invalid_values_fail_alike(tmp_path, case):
     assert _failure(lambda: tcfg.load(str(path), env=env)) == want
 
 
-# A backup switch-on exits 2, also beside a tier switch-on (the tier
-# slice is ported: only the backup one refuses).
-SWITCH_ONS = (
-    ("[tier]\nenabled = true\n[backup]\narchive = \"dir:/x\"\n", [], {},
-     "item 7, the backup slice"),
-    ("[tier]\nblob = \"dir\"\n", [], {"PILOSA_BACKUP_ARCHIVE": "dir:/x"},
-     "item 7, the backup slice"),
-    ("[backup]\narchive = \"dir:/x\"\n", [], {}, "item 7, the backup slice"),
-    ("", [], {"PILOSA_BACKUP_ARCHIVE": "dir:/x"}, "item 7, the backup slice"),
-    ("[backup]\narchive = \"dir:/x\"\n", [], {"PILOSA_TIER_BLOB": "dir"},
-     "item 7, the backup slice"),
-    ("", [], {"PILOSA_TIER_ENABLED": "1", "PILOSA_BACKUP_ARCHIVE": "dir:/x"},
-     "item 7, the backup slice"),
-)
-
-# Switch-ons of the operator surface, which the port now runs: the
-# server starts (it exited 2 before the operator slice).
+# Switch-ons of the operator surface, of tiering and of the backup
+# archive (alone, beside a tier switch-on, from the file or the
+# environment), which the port runs: the server starts and serves the
+# sections' routes. ``dir:arch`` roots the archive in the verb's working
+# directory.
 PORTED_SWITCH_ONS = (
-    ("[capture]\nmode = \"full\"\n", []),
-    ("", ["--sentinel.manifest", "m.json"]),
+    ("[capture]\nmode = \"full\"\n", [], {}),
+    ("", ["--sentinel.manifest", "m.json"], {}),
     ("[blackbox]\nenabled = true\n[watchdog]\nenabled = true\n"
-     "[history]\nenabled = true\n[profile]\ncontinuous = true\n", []),
-    ("", ["--profile.cpu", "cpu.prof", "--profile.cpu-time", "200ms"]),
-    ("[tier]\nenabled = true\nblob = \"dir\"\n", []),
-    ("[tier]\nenabled = true\n", []),
+     "[history]\nenabled = true\n[profile]\ncontinuous = true\n", [], {}),
+    ("", ["--profile.cpu", "cpu.prof", "--profile.cpu-time", "200ms"], {}),
+    ("[tier]\nenabled = true\nblob = \"dir\"\n", [], {}),
+    ("[tier]\nenabled = true\n", [], {}),
+    ("[tier]\nenabled = true\n[backup]\narchive = \"dir:arch\"\n", [], {}),
+    ("[tier]\nblob = \"dir\"\n", [], {"PILOSA_BACKUP_ARCHIVE": "dir:arch"}),
+    ("[backup]\narchive = \"dir:arch\"\n", [], {}),
+    ("", [], {"PILOSA_BACKUP_ARCHIVE": "dir:arch"}),
+    ("[backup]\narchive = \"dir:arch\"\n", [], {"PILOSA_TIER_BLOB": "dir"}),
+    ("", [], {"PILOSA_TIER_ENABLED": "1",
+              "PILOSA_BACKUP_ARCHIVE": "dir:arch"}),
 )
-
-
-@pytest.mark.parametrize("case", range(len(SWITCH_ONS)))
-def test_unported_switch_on_exits_2(tmp_path, monkeypatch, case):
-    text, flags, env, slice_name = SWITCH_ONS[case]
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    path = tmp_path / "on.toml"
-    path.write_text(text)
-    data = tmp_path / "data"
-    rc, out, err = _run(port_cli, ["server", "-c", str(path), "--device",
-                                   "cpu", "-d", str(data), "-b",
-                                   "127.0.0.1:0"] + flags)
-    assert rc == 2 and not out
-    assert f"not available in this package yet ({slice_name})" in err
-    assert "[tier]" not in err
-    assert not data.exists()  # refused before the node opened anything
 
 
 def test_default_on_subsystems_are_noted_not_refused():
-    """The JAX defaults switch on nothing the port lacks: only backup is
-    still unported, and it is off by default."""
-    assert [u[0] for u in tcfg.UNPORTED] == ["backup"]
-    assert tcfg.unported_switch_ons(tcfg.Config()) == []
-    cfg = tcfg.load("", env={"PILOSA_CAPTURE_MODE": "full",
-                             "PILOSA_BLACKBOX_ENABLED": "true"})
-    assert tcfg.unported_switch_ons(cfg) == []
+    """The JAX defaults switch on nothing the port lacks: every
+    section's defaults are the JAX ones, the backup archive off."""
+    assert dataclasses.asdict(tcfg.Config()) == dataclasses.asdict(
+        jcfg.Config())
+    assert tcfg.Config().backup.archive == ""
+    env = {"PILOSA_CAPTURE_MODE": "full", "PILOSA_BLACKBOX_ENABLED": "true",
+           "PILOSA_BACKUP_ARCHIVE": "dir:/a"}
+    assert dataclasses.asdict(tcfg.load("", env=env)) == dataclasses.asdict(
+        jcfg.load("", env=env))
 
 
 @pytest.mark.parametrize("case", range(len(PORTED_SWITCH_ONS)))
 def test_operator_switch_on_starts(tmp_path, case):
     """Capture's full mode, a sentinel manifest, the default-on
-    operator sections, ``--profile.cpu`` and a ``[tier]`` switch-on (with
-    and without a blob store) start the ``server`` verb: it serves,
-    answers the sections' routes and exits 0 on SIGINT."""
-    text, flags = PORTED_SWITCH_ONS[case]
+    operator sections, ``--profile.cpu``, a ``[tier]`` switch-on (with
+    and without a blob store) and a ``[backup] archive`` (also beside
+    the tier's, from the file or the environment) start the ``server``
+    verb: it serves, answers the sections' routes and exits 0 on
+    SIGINT."""
+    text, flags, extra_env = PORTED_SWITCH_ONS[case]
     path = tmp_path / "on.toml"
     path.write_text(text)
     data = tmp_path / "data"
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **extra_env)
+    want = tcfg.load(str(path), env=env)
     proc = subprocess.Popen(
         [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-c",
          str(path), "--device", "cpu", "-d", str(data), "-b",
@@ -370,11 +353,39 @@ def test_operator_switch_on_starts(tmp_path, case):
         with urllib.request.urlopen(f"http://{host}/debug/tier?pass=1",
                                     timeout=10) as r:
             tier = json.loads(r.read())
-        assert tier["enabled"] is ("[tier]" in text)
-        if "[tier]" in text:
+        assert tier["enabled"] is want.tier.enabled
+        if want.tier.enabled:
             assert tier["store"] == ({"kind": "dir", "objects": 0,
                                       "root": str(data / "_tier" / "blob")}
-                                     if "blob" in text else None)
+                                     if want.tier.blob else None)
+        with urllib.request.urlopen(f"http://{host}/backup",
+                                    timeout=10) as r:
+            assert json.loads(r.read()) == {
+                "configured": bool(want.backup.archive), "op": None}
+        if want.backup.archive:
+            # The archive serves: a full backup of the empty node
+            # commits, and /debug/backup lists it.
+            req = urllib.request.Request(
+                f"http://{host}/backup", data=b'{"kind": "full"}',
+                method="POST")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                assert r.status == 202
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                with urllib.request.urlopen(f"http://{host}/backup",
+                                            timeout=10) as r:
+                    op = json.loads(r.read())["op"]
+                if op["phase"] in ("done", "failed"):
+                    break
+                time.sleep(0.05)
+            assert op["phase"] == "done", op
+            with urllib.request.urlopen(f"http://{host}/debug/backup",
+                                        timeout=10) as r:
+                dbg = json.loads(r.read())
+            assert [b["id"] for b in dbg["backups"]] == [op["id"]]
+            assert dbg["walArchiver"]["node"] == host
+            assert (tmp_path / "arch" / "backups" / op["id"]
+                    / "manifest.json").is_file()
     finally:
         proc.send_signal(signal.SIGINT)
         proc.communicate(timeout=60)

@@ -103,7 +103,7 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.cluster",
             "pilosa_tpu_torch.cluster.generations"} | set(
                 LIFECYCLE) | set(CLUSTER) | set(INTEGRITY) | set(
-                    OPERATOR) | set(SURFACE) <= set(MODULES)
+                    OPERATOR) | set(SURFACE) | set(BACKUP) <= set(MODULES)
 
 
 # The query lifecycle's modules, each at the path of its JAX
@@ -195,3 +195,22 @@ def test_surface_module_mirrors_the_jax_path(module):
     rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
         ".", os.sep)
     assert os.path.exists(os.path.join(REPO, rel + ".py"))
+
+
+# Disaster recovery (the archive, the WAL archiver, the journaled
+# coordinator, restore, verify and retention), each at the path of its
+# JAX counterpart.
+BACKUP = ("pilosa_tpu_torch.backup", "pilosa_tpu_torch.backup.archive",
+          "pilosa_tpu_torch.backup.walarchive",
+          "pilosa_tpu_torch.backup.coordinator",
+          "pilosa_tpu_torch.backup.restore",
+          "pilosa_tpu_torch.backup.verify",
+          "pilosa_tpu_torch.backup.retention")
+
+
+@pytest.mark.parametrize("module", BACKUP)
+def test_backup_module_mirrors_the_jax_path(module):
+    rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
+        ".", os.sep)
+    assert (os.path.exists(os.path.join(REPO, rel + ".py"))
+            or os.path.exists(os.path.join(REPO, rel, "__init__.py")))

@@ -51,13 +51,8 @@ from pilosa_tpu_torch.server.handler import Handler
 from pilosa_tpu_torch.utils import stats
 
 # JAX families the port does not declare: no event of the port raises
-# them (their subsystems wait for later slices, or have no counterpart).
+# them (their subsystems have no counterpart).
 LEFT_OUT = {
-    **{name: "backup/ not ported" for name in (
-        "pilosa_backup_bytes_total", "pilosa_backup_errors_total",
-        "pilosa_backup_fragments_total", "pilosa_backup_objects_total",
-        "pilosa_backup_state_info", "pilosa_backup_wal_records_total",
-        "pilosa_backup_wal_segments_total")},
     "pilosa_build_info": "its labels name jax, which the port lacks",
     **{name: "no XLA programs: the kernel build is charged per query as"
              " compileMs in the cost ledger" for name in (

@@ -34,9 +34,15 @@ JAX server as the baseline and the port server as the candidate.
 Tiered reads: with the tier manager on in both servers, the fragments
 of the ranked and counted frames go to the blob tier after the workload,
 and the replay's reads fetch them back.
+
+A restore: a port server rebuilt from a JAX server's backup archive
+(its full backup and its archived WAL) answers the JAX server's
+captured workload.
 """
 
+import json
 import shutil
+import time
 import urllib.error
 import urllib.request
 
@@ -624,4 +630,120 @@ def test_port_answers_the_captured_workload_from_the_blob_tier(tmp_path):
         assert ps.tier.blob_fetches >= N_SLICES
     finally:
         ps.close()
+        js.close()
+
+
+def _backup_workload(rng, n_cols):
+    """Writes (SetBit, ClearBit, protobuf ``/import``) on the frames
+    ``f`` and ``src``, then reads of them: Count trees, plain, sourced,
+    listed and thresholded TopNs, Bitmap and Union. No attribute and no
+    frame option: what a backup archive carries."""
+    def bm(r, frame):
+        return f'Bitmap(rowID={r}, frame="{frame}")'
+
+    def tree(depth):
+        if depth == 0 or rng.random() < 0.35:
+            return bm(int(rng.integers(12)), rng.choice(["f", "src"]))
+        op = rng.choice(["Intersect", "Union", "Difference"])
+        return f"{op}({tree(depth - 1)}, {tree(depth - 1)})"
+
+    steps = []
+    for i in range(40):
+        frame = ("f", "src")[i % 2]
+        op = "ClearBit" if i % 4 == 3 else "SetBit"
+        steps.append(("query", f'{op}(frame="{frame}",'
+                               f' rowID={int(rng.integers(12))},'
+                               f' columnID={int(rng.integers(n_cols))})'))
+        if i % 10 == 0:
+            cols = rng.integers(SLICE_WIDTH, size=200)
+            steps.append(("import", jax_pb.ImportRequest(
+                Index="d", Frame=frame, Slice=i % 3,
+                RowIDs=rng.integers(12, size=200).tolist(),
+                ColumnIDs=((i % 3) * SLICE_WIDTH + cols).tolist()
+                ).SerializeToString()))
+    for _ in range(25):
+        steps.append(("query", f"Count({tree(3)})"))
+    for q in ('TopN(frame="f", n=5)', 'TopN(frame="src", n=3)',
+              f'TopN({bm(1, "src")}, frame="f", n=5)',
+              f'TopN({bm(2, "src")}, frame="f", ids=[1, 2, 3, 4, 5])',
+              'TopN(frame="f", n=8, threshold=60)', bm(3, "f"),
+              f"Union({bm(1, 'f')}, {bm(2, 'src')})",
+              f"Difference({bm(4, 'f')}, {bm(5, 'f')})"):
+        steps.append(("query", q))
+    return steps
+
+
+def test_port_restored_from_a_jax_archive_answers_the_captured_workload(
+        tmp_path):
+    """A JAX server with workload capture and a ``[backup] archive``
+    takes a full backup of its seeded index, then serves a workload whose
+    writes reach the archive only through its WAL archiver. A fresh port
+    server restored from that archive (the port's restore, latest state)
+    answers the JAX server's captured workload: ``shadow`` replays the
+    writes into both (idempotent) and compares every captured read, with
+    no mismatch."""
+    from pilosa_tpu.cluster.client import Client as JaxClient
+    from pilosa_tpu.utils.config import BackupConfig
+    from pilosa_tpu_torch.backup import archive as port_archive
+    from pilosa_tpu_torch.backup import restore as port_restore
+
+    arch = tmp_path / "archive"
+    js = JaxServer(str(tmp_path / "jax"), host="127.0.0.1:0",
+                   anti_entropy_interval=0, polling_interval=0,
+                   capture_config=CaptureConfig(mode="full"),
+                   backup_config=BackupConfig(archive=f"dir:{arch}",
+                                              wal_interval=60.0))
+    js.open()
+    ps = None
+    try:
+        for path in ("/index/d", "/index/d/frame/f", "/index/d/frame/src"):
+            assert _post(js.host, path, b"{}")[0] == 200
+        rng = np.random.default_rng(818)
+        n_cols = 3 * SLICE_WIDTH
+        for frame in ("f", "src"):
+            JaxClient(js.host).import_arrays(
+                "d", frame, rng.integers(12, size=3000).astype(np.uint64),
+                rng.choice(n_cols, size=3000,
+                           replace=False).astype(np.uint64))
+        assert _post(js.host, "/backup", b'{"kind": "full"}')[0] == 202
+        deadline = time.monotonic() + 60
+        while True:
+            with urllib.request.urlopen(f"http://{js.host}/backup",
+                                        timeout=10) as r:
+                op = json.loads(r.read())["op"]
+            if op["phase"] in ("done", "failed"):
+                break
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert op["phase"] == "done", op
+        steps = _backup_workload(rng, n_cols)
+        proto = {"Content-Type": "application/x-protobuf",
+                 "Accept": "application/x-protobuf"}
+        for kind, payload in steps:
+            if kind == "import":
+                assert _post(js.host, "/import", payload, proto)[0] == 200
+            else:
+                assert _post(js.host, "/index/d/query",
+                             payload.encode())[0] == 200, payload
+        js.wal_archiver.flush()
+        records = obs_replay.fetch_records(js.host, limit=100000)
+        queries = [r for r in records if r.get("kind") == "query"]
+        reads = [r for r in queries if r.get("lane") == "read"]
+        writes = [r for r in queries if r.get("lane") != "read"]
+        assert len(reads) == 33 and len(writes) == 40
+
+        ps = PortServer(str(tmp_path / "port"), host="127.0.0.1:0",
+                        device="cpu", warmup=False)
+        ps.open()
+        summary = port_restore.run_restore(
+            ps.host, port_archive.open_archive(f"dir:{arch}", ""))
+        assert summary["id"] == op["id"] and summary["walOpsBytes"] > 0
+        ps.holder.index("d").set_remote_max_slice(2)
+        out = obs_replay.shadow(records, js.host, ps.host, senders=1)
+        assert out["writes_replayed"] == len(writes)
+        assert out["mismatches"] == 0, out["dumps"][:2]
+        assert out["reads_compared"] == len(reads)
+    finally:
+        if ps is not None:
+            ps.close()
         js.close()
