@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--seed N]
                           [--phase cluster|integrity|gossip|operator|resize|
-                                   tier|backup]
+                                   tier|backup|pod]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) from the sources in this
-checkout, then runs eighteen phases and prints one JSON line for each:
+checkout, then runs nineteen phases and prints one JSON line for each:
 
 1. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, exact (integer results), at the serving shapes,
@@ -280,14 +280,34 @@ checkout, then runs eighteen phases and prints one JSON line for each:
    latest state into one (0 mismatches), a ``restore.fetch`` corrupt
    fetch refused, ``backup --gc --keep 1`` and ``check --deep
    --archive`` at 0. Wrong and failed answers are 0.
-18. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
+18. ``pod``: BASELINE configuration 5 served by a pod (``phase_pod``):
+   node B a pod of two port processes of this script's child mode
+   (the ``server`` verb under the pod environment contract,
+   ``PILOSA_TPU_DIST_BACKEND=gloo`` because one card holds one NCCL
+   rank of a communicator; their kernels on the card), node A a plain
+   port node, A and B one static cluster with replicas 1; ``c5`` at 64
+   slices, each slice's fragments in the directory of the process that
+   owns it. Counts from A and from B (the eight-pair body over B's
+   slices as ONE ``count_exprs`` pod dispatch, a single Count as one
+   ``count_expr``), four TopN forms cold and warm (p50 of 5), a Bitmap
+   through podLocal legs, 200 SetBits into the worker's slices read
+   back from the worker, a SetRowAttrs the worker serves, a frame that
+   reaches the worker through the pod broadcaster, a protobuf
+   ``/import`` split between the processes, the worker SIGKILLed (the
+   next Count answers 400 within ``PILOSA_TPU_POD_TIMEOUT`` = 10 s plus
+   5 s, the coordinator's own slices stay exact), and the pod layer in
+   an NCCL group of one rank against the single-process mesh (two NCCL
+   ranks on the one card: their answer printed, not judged). Every
+   answer held to the host reference; each step's ms, the collective's
+   share of a leg and both pod processes' launches are on the line.
+19. ``bench``: the benchmark of record, ``pilosa_tpu_torch.bench``, in
    this process at its default width and rows (16 pairs of 2^30-bit
    rows), with fewer chained dispatches (BENCH_ITERS); its line is the
    phase's line.
 
-Phases 1 and 18 run alone on the card. Phases 11-16 run one after
+Phases 1 and 19 run alone on the card. Phases 11-16 run one after
 another in a child process of this script (``--node-phases``), and
-phase 17 in a second one; both start after phase 1, while phases 2-10
+phases 17-18 in a second one; both start after phase 1, while phases 2-10
 run here: the three lanes share the card and the host, so their
 host-clocked times (loads, cold and warm query ms, a node's start, a
 backup's seconds) are taken beside each other's work; the kernel
@@ -304,11 +324,11 @@ nothing), as the tests pin it, so the calibrated routing cannot move
 their launches to the host. Every answer of phases 2-5 and 8 is held to
 the host roaring answer computed from the port's own fragments, every
 answer of phase 6 to numpy, of phase 7 to numpy or to words packed on
-the host, of phases 9, 11, 12, 13, 14, 15, 16 and 17 to host roaring or
-numpy, and every count of phase 18 to the host ``popcnt_and``. The
+the host, of phases 9, 11, 12, 13, 14, 15, 16, 17 and 18 to host roaring
+or numpy, and every count of phase 19 to the host ``popcnt_and``. The
 kernels' launch counters are set to 0 before phase 2, before phase 6, before phase 7,
 before phase 8, before phase 9 and before phase 10's reopen, and read
-after phases 5 to 18 (each cluster node's from its
+after phases 5 to 19 (each cluster node's from its
 own process, and every node that owns slices must have launched the
 expression count, densify and the TopN block count; the integrity
 phase's nodes the expression count and densify, the repaired node again
@@ -317,21 +337,23 @@ operator phase's card nodes all three; the resize phase's joiner the
 expression count and densify on its moved slices; the tier phase's node
 the expression count and densify on demoted and on fetched slices and
 the TopN block count after the fetch; the backup phase's restored nodes
-all three): every kernel must have
+all three; each pod process the expression count, its batched entry
+and the TopN block count, which the kernel table also lists by pod
+process under ``pod``): every kernel must have
 launched on that main path,
 the TopN block count in phase 4's device top-k, the TopN block count,
 the expression count and densify in its sourced queries, the expression
 count (every device Count(Range)), its batched entry (every Sum) and
 densify in phase 6, the expression-words kernel, the batched count and
 the TopN block count in phase 7, again in the server phase by itself and
-again after phase 10's reopen, and the op count in phase 18. Then it
+again after phase 10's reopen, and the op count in phase 19. Then it
 prints the card's name and power limit, the kernel table as one JSON
 object, and as its last line
 ``{"ok": true, "device": {...}}``. Any mismatch or
 error exits non-zero before that line. Without a card it exits 1 and
 prints no result. ``--phase cluster``, ``--phase integrity``,
 ``--phase gossip``, ``--phase operator``, ``--phase resize``,
-``--phase tier`` or ``--phase backup`` builds
+``--phase tier``, ``--phase backup`` or ``--phase pod`` builds
 the kernels and runs
 that phase alone: its
 line and the card's name, no kernel table and no last line.
@@ -7125,6 +7147,556 @@ def phase_backup(device, seed: int, tmp: str, n_slices: int = 16) -> dict:
     return out
 
 
+POD_TIMEOUT_S = 10.0  # the pod phase's PILOSA_TPU_POD_TIMEOUT
+
+
+def _pod_proc(repo, tmp, name, host, data_dir, cluster_hosts, device,
+              env_extra=None):
+    """One process of the pod phase: this script's ``--cluster-node``
+    child mode (the ``server`` verb's code, pinned, no warmup), with
+    ``cluster_hosts`` as its static cluster (none: the node alone, a pod
+    worker) and the pod's environment contract in ``env_extra``."""
+    import subprocess
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    env.update(env_extra or {})
+    args = [sys.executable, os.path.abspath(__file__), "--cluster-node",
+            "1", os.path.join(tmp, f"node{name}.counters"), "server",
+            "-d", data_dir, "-b", host, "--cost.dir",
+            os.path.join(tmp, f"cal{name}")]
+    if cluster_hosts:
+        args += ["--cluster.hosts", ",".join(cluster_hosts),
+                 "--cluster.replicas", "1", "--cluster.type", "http",
+                 "--cluster.poll-interval", "1s"]
+    if device.type == "cpu":
+        args += ["--device", "cpu"]
+    log = open(os.path.join(tmp, f"node{name}.log"), "ab")
+    return subprocess.Popen(args, cwd=repo, env=env,
+                            stdout=subprocess.PIPE, stderr=log)
+
+
+def phase_pod(device, seed: int, tmp: str, n_slices: int = 64,
+              n_rows: int = 1_000_000, total_bits: int = 1 << 24,
+              n_writes: int = 200, warm_runs: int = 5) -> dict:
+    """BASELINE configuration 5 served by a pod: node B is a pod of two
+    port processes (the ``server`` verb under the pod environment
+    contract, ``PILOSA_TPU_DIST_BACKEND=gloo``: one card cannot hold two
+    NCCL ranks; every kernel on the card), node A a plain port node, A
+    and B one static cluster with replicas 1 (tests/test_pod_cluster.py's
+    shape). Index ``c5`` as ``phase_cluster`` builds it, cut from 954
+    slices to ``n_slices``; each slice's fragments written straight into
+    the directory of the process that owns it (A, or within B the
+    process ``slice % 2``). Every answer is held to the host reference
+    from the written positions.
+
+    Steps: the eight Count(Intersect) pairs of rows 1-16 of ``c`` in one
+    body from A and from B's coordinator, and over B's slices as a
+    coordinator's leg to B (ONE ``count_exprs`` pod dispatch), and a
+    single Count (one ``count_expr`` dispatch); ``TopN(frame=f,
+    n=1000)``, the segment-sourced ``n=50`` TopN, the same with
+    ``threshold=3`` and a Tanimoto form, each cold and warm (p50 of
+    ``warm_runs``) from B's coordinator and once from A; a Bitmap whose
+    bits come back through podLocal legs; ``n_writes`` SetBits through
+    B's coordinator into the worker's slices, each read back by a
+    podLocal query to the worker; a SetRowAttrs the worker then serves;
+    a frame created on the coordinator reaching the worker (the pod
+    broadcaster); a protobuf ``/import`` split between the processes;
+    the worker SIGKILLed with no item in flight (``PILOSA_TPU_POD_TIMEOUT``
+    = 10 s): a Count that needs its slices answers 400 within the
+    timeout plus 5 s, a read of the coordinator's own slices stays
+    exact, the coordinator stays up; and a child process in an NCCL
+    group of one rank on the card whose ``multihost`` counts equal the
+    single-process mesh's, then two NCCL ranks on the one card, whose
+    answer is printed (not judged). Each pod process must have launched
+    the expression count, its batched entry and the TopN block count."""
+    import signal
+    import subprocess
+    import numpy as np
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.cluster.topology import new_cluster
+    from pilosa_tpu_torch.proto import internal as pb
+    from pilosa_tpu_torch.server import codec
+
+    t_phase = time.perf_counter()
+    marks: dict = {}
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t_phase
+        print(f"pod: {step} at {marks[step]:.1f}", file=sys.stderr,
+              flush=True)
+
+    W = 1 << _ROW_SHIFT
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(seed + 90)
+    host_a = f"127.0.0.1:{_free_port()}"
+    peers = [f"127.0.0.1:{_free_port()}", f"127.0.0.1:{_free_port()}"]
+    cl = new_cluster([host_a, peers[0]], replica_n=1)
+    on_b = [cl.fragment_nodes("c5", s)[0].host == peers[0]
+            for s in range(n_slices)]
+    where = ["a" if not on_b[s] else f"b{s % 2}" for s in range(n_slices)]
+    b_slices = [s for s in range(n_slices) if on_b[s]]
+    own = {r: [s for s in range(n_slices) if where[s] == r]
+           for r in ("a", "b0", "b1")}
+    if not own["b0"] or not own["b1"] or not own["a"]:
+        _fail(f"pod: a degenerate placement: {where}")
+    dirs = {r: os.path.join(tmp, f"pod_{r}") for r in ("a", "b0", "b1")}
+    t0 = time.perf_counter()
+    data = _c5_data(rng, n_slices, n_rows, total_bits, device)
+    for d in dirs.values():
+        h = Holder(d)
+        h.open()
+        idx = h.create_index("c5")
+        for fname in ("f", "c", "w"):
+            idx.create_frame(fname).create_view_if_not_exists("standard")
+        h.close()
+    import multiprocessing
+    tasks = [(data[fname][s],
+              [os.path.join(dirs[where[s]], "c5", fname, "views",
+                            "standard", "fragments", str(s))])
+             for s in range(n_slices) for fname in ("f", "c")]
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        pool.map(_c5_write, tasks, chunksize=4)
+    del tasks
+    data_s = time.perf_counter() - t0
+    mark("data")
+
+    pod_env = {"PILOSA_TPU_DIST_COORDINATOR": f"127.0.0.1:{_free_port()}",
+               "PILOSA_TPU_DIST_NUM_PROCS": "2",
+               "PILOSA_TPU_DIST_BACKEND": "gloo",
+               "PILOSA_TPU_POD_PEERS": ",".join(peers),
+               "PILOSA_TPU_POD_TIMEOUT": str(POD_TIMEOUT_S)}
+    wrong = failed = 0
+
+    def query(host, body, qs="", headers=None, raw=False, timeout=300.0):
+        status, hdrs, out, ms = _request(
+            host, "POST", f"/index/c5/query{qs}",
+            body if isinstance(body, bytes) else body.encode(),
+            headers, timeout=timeout)
+        if raw:
+            return status, out, ms
+        if status != 200:
+            _fail(f"pod: {host} {str(body)[:60]}: HTTP {status}:"
+                  f" {out[:300]!r}")
+        return json.loads(out)["results"], ms
+
+    def leg_query(host, pql, slices, qs=""):
+        """A coordinator's leg (protobuf, Remote, explicit slices)."""
+        body = codec.encode_query_request(pql, slices, remote=True)
+        status, _, out, ms = _request(host, "POST", f"/index/c5/query{qs}",
+                                      body, {"Content-Type": _PB,
+                                             "Accept": _PB})
+        if status != 200:
+            _fail(f"pod: leg {pql[:60]} to {host}: HTTP {status}:"
+                  f" {out[:300]!r}")
+        return pb.QueryResponse.FromString(out), ms
+
+    def expect(name, got, want):
+        nonlocal wrong
+        if got != want:
+            wrong += 1
+            _fail(f"pod: {name} differs from the host reference:"
+                  f" {str(got)[:200]} != {str(want)[:200]}")
+
+    procs: dict = {}
+    order = ("b0", "b1", "a")
+    hosts = {"a": host_a, "b0": peers[0], "b1": peers[1]}
+    pod_counters: dict = {}
+    try:
+        t0 = time.perf_counter()
+        for pid, r in enumerate(("b0", "b1")):
+            procs[r] = _pod_proc(repo, tmp, f"_pod_{r}", hosts[r], dirs[r],
+                                 [host_a, peers[0]] if r == "b0" else None,
+                                 device, dict(pod_env,
+                                              PILOSA_TPU_DIST_PROC_ID=str(pid)))
+        procs["a"] = _pod_proc(repo, tmp, "_pod_a", host_a, dirs["a"],
+                               [host_a, peers[0]], device)
+        # References while the processes open.
+        pairs = [(2 * k + 1, 2 * k + 2) for k in range(8)]
+        count_body = " ".join(
+            f"Count(Intersect(Bitmap(rowID={a}, frame=c),"
+            f" Bitmap(rowID={b}, frame=c)))" for a, b in pairs)
+
+        def pair_counts(slices):
+            return [int(sum(len(np.intersect1d(
+                data["c_cols"][a][s], data["c_cols"][b][s],
+                assume_unique=True)) for s in slices)) for a, b in pairs]
+
+        want_counts = pair_counts(range(n_slices))
+        want_counts_b = pair_counts(b_slices)
+        want_one = int(sum(len(data["c_cols"][1][s])
+                           for s in range(n_slices)))
+        want_one_b0 = int(sum(len(data["c_cols"][1][s])
+                              for s in own["b0"]))
+        fs = _FragSet(dict(enumerate(data["f"])))
+        mask = np.uint64(W - 1)
+        want_src = _ref_topn(fs, "c5", "f", n_slices, 50,
+                             src_cols=data["seg"])[0]
+        ids10 = sorted(r for r, _ in want_src[:10])
+        # Row 0 (the Zipf head, in every slice) as a Tanimoto source:
+        # the rows it overlaps enough, itself first.
+        row0 = [data["f"][s][(data["f"][s] >> np.uint64(_ROW_SHIFT))
+                             == np.uint64(0)] & mask
+                for s in range(n_slices)]
+        topns = {
+            "topn1000": ("TopN(frame=f, n=1000)",
+                         _ref_topn(fs, "c5", "f", n_slices, 1000)[0]),
+            "topn_ids": (f"TopN(Bitmap(rowID={_C5_SEG}, frame=f), frame=f,"
+                         f" ids={json.dumps(ids10).replace(' ', '')})",
+                         want_src[:10]),
+            "topn_src": (f"TopN(Bitmap(rowID={_C5_SEG}, frame=f), frame=f,"
+                         f" n=50)", want_src),
+            "topn_thr": (f"TopN(Bitmap(rowID={_C5_SEG}, frame=f), frame=f,"
+                         f" n=50, threshold=3)",
+                         _ref_topn(fs, "c5", "f", n_slices, 50,
+                                   src_cols=data["seg"], threshold=3)[0]),
+            "topn_tan": ("TopN(Bitmap(rowID=0, frame=f), frame=f, n=50,"
+                         " tanimotoThreshold=50)",
+                         _ref_topn(fs, "c5", "f", n_slices, 50,
+                                   src_cols=row0, tanimoto=50)[0]),
+        }
+        if not all(want for _, want in topns.values()):
+            _fail("pod: a TopN reference is empty")
+        # A row of f whose bits span slices of every process: the
+        # Bitmap's answer comes back through podLocal legs.
+        row_slices: dict = {}
+        for s in range(n_slices):
+            rows_here = np.unique(data["f"][s] >> np.uint64(_ROW_SHIFT))
+            for r in rows_here[:4000].tolist():
+                row_slices.setdefault(r, set()).add(s)
+        bm_row = next(r for r in sorted(row_slices)
+                      if r != _C5_SEG
+                      and {where[s] for s in row_slices[r]}
+                      >= {"a", "b0", "b1"})
+        want_bits = sorted(
+            int(s * W + p) for s in range(n_slices)
+            for p in (data["f"][s][(data["f"][s] >> np.uint64(_ROW_SHIFT))
+                                   == np.uint64(bm_row)] & mask).tolist())
+        del data, fs
+        # Up: the pod joins its group and opens; B's coordinator learns
+        # the worker's highest slice from a forwarded write (the pod
+        # knows its workers' slices from the writes it forwards, as the
+        # JAX pod does), and A learns B's from its 1 s poll.
+        up = {}
+        for r in ("b0", "b1", "a"):
+            up[r] = _wait_up(hosts[r], procs[r], 240)
+        top_b1 = max(own["b1"])
+        query(peers[0], f"SetBit(frame=w, rowID=9, columnID={top_b1 * W})")
+        up_s = _node_up([host_a, peers[0]], [procs["a"], procs["b0"]], 120,
+                        n_slices - 1)
+        mark("up")
+
+        # -- Counts ------------------------------------------------------
+        counts_ms = {}
+        for label, host in (("a", host_a), ("b", peers[0])):
+            res, ms = query(host, count_body)
+            expect(f"counts from {label}", res, want_counts)
+            counts_ms[f"{label}_cold"] = ms
+            warm = []
+            for _ in range(warm_runs):
+                res, ms = query(host, count_body)
+                expect(f"counts from {label} warm", res, want_counts)
+                warm.append(ms)
+            counts_ms[f"{label}_warm_p50"] = _median(warm)
+        before = _node_counters(procs["b0"], tmp, "_pod_b0")["pod"]
+        resp, leg_ms = leg_query(peers[0], count_body, b_slices)
+        expect("counts over B's slices (a leg)",
+               [int(r.N) for r in resp.Results], want_counts_b)
+        after = _node_counters(procs["b0"], tmp, "_pod_b0")["pod"]
+        d_exprs = (after["dispatch_counts"].get("count_exprs", 0)
+                   - before["dispatch_counts"].get("count_exprs", 0))
+        if d_exprs != 1:
+            _fail(f"pod: the eight-pair body took {d_exprs} count_exprs"
+                  f" dispatches, not 1 ({after['dispatch_counts']})")
+        res, one_ms = query(peers[0], "Count(Bitmap(rowID=1, frame=c))")
+        expect("single Count", res, [want_one])
+        after1 = _node_counters(procs["b0"], tmp, "_pod_b0")["pod"]
+        if (after1["dispatch_counts"].get("count_expr", 0)
+                <= after["dispatch_counts"].get("count_expr", 0)):
+            _fail("pod: the single Count took no count_expr dispatch")
+        mark("counts")
+
+        # -- TopN ------------------------------------------------------
+        topn_ms = {}
+        for name, (body, want) in topns.items():
+            want = [tuple(p) for p in want]
+            res, cold = query(peers[0], body)
+            expect(f"{name} from b cold", _pairs_json(res[0]), want)
+            warm = []
+            for _ in range(warm_runs):
+                res, ms = query(peers[0], body)
+                expect(f"{name} from b warm", _pairs_json(res[0]), want)
+                warm.append(ms)
+            res, a_ms = query(host_a, body)
+            expect(f"{name} from a", _pairs_json(res[0]), want)
+            topn_ms[name] = {"cold_ms": cold, "warm_p50_ms": _median(warm),
+                             "from_a_ms": a_ms}
+        snap_t = _node_counters(procs["b0"], tmp, "_pod_b0")["pod"]
+        if not snap_t["dispatch_counts"].get("topn_exact", 0):
+            _fail(f"pod: no TopN took the pod collective"
+                  f" ({snap_t['dispatch_counts']})")
+        mark("topn")
+
+        # -- a Bitmap through podLocal legs ------------------------------
+        res, bitmap_ms = query(peers[0], f"Bitmap(rowID={bm_row}, frame=f)")
+        expect("bitmap", res[0]["bits"], want_bits)
+        res, _ = query(host_a, f"Bitmap(rowID={bm_row}, frame=f)")
+        expect("bitmap from a", res[0]["bits"], want_bits)
+        mark("bitmap")
+
+        # -- writes and schema -------------------------------------------
+        t0 = time.perf_counter()
+        wcols = sorted({int(s) * W + int(c) for s, c in zip(
+            rng.choice(own["b1"], size=n_writes),
+            rng.integers(0, W, size=n_writes))})
+        for c in wcols:
+            res, _ = query(peers[0], f"SetBit(frame=w, rowID=7,"
+                                     f" columnID={c})")
+            expect(f"SetBit {c}", res, [True])
+        lost = 0
+        for s in sorted({c // W for c in wcols}):
+            resp, _ = leg_query(peers[1], "Bitmap(rowID=7, frame=w)", [s],
+                                "?podLocal=true")
+            bm = codec.decode_query_results(resp, ["Bitmap"])[0]
+            want = {c for c in wcols if c // W == s}
+            lost += len(want - set(bm.bits().tolist()))
+        if lost:
+            _fail(f"pod: {lost} acked SetBits missing on the worker")
+        writes_s = time.perf_counter() - t0
+        query(peers[0], f'SetRowAttrs(frame=f, rowID={bm_row}, tag="pod")')
+        res, _ = query(peers[1], f"Bitmap(rowID={bm_row}, frame=f)",
+                       "?podLocal=true")
+        expect("row attributes on the worker", res[0]["attrs"],
+               {"tag": "pod"})
+        st, _, out, _ = _request(peers[0], "POST", "/index/c5/frame/pz",
+                                 b"{}")
+        if st != 200:
+            _fail(f"pod: frame create: {st} {out[:200]!r}")
+        st, _, out, _ = _request(peers[1], "GET", "/schema")
+        frames = [f["name"] for i in json.loads(out)["indexes"]
+                  if i["name"] == "c5" for f in i.get("frames", [])]
+        if "pz" not in frames:
+            _fail(f"pod: the new frame did not reach the worker: {frames}")
+        st, _, out, _ = _request(peers[0], "POST", "/index/c5/frame/imp",
+                                 b'{"options": {"inverseEnabled": true}}')
+        if st != 200:
+            _fail(f"pod: frame imp: {st} {out[:200]!r}")
+        col_slice = own["b0"][0]
+        row_slices_imp = own["b0"][:2] + own["b1"][:2]
+        rows_i = [s * W + 3 for s in row_slices_imp]
+        cols_i = [col_slice * W + 9] * len(rows_i)
+        body = pb.ImportRequest(Index="c5", Frame="imp", Slice=col_slice,
+                                RowIDs=rows_i, ColumnIDs=cols_i,
+                                Timestamps=[0] * len(rows_i)
+                                ).SerializeToString()
+        st, _, out, import_ms = _request(peers[0], "POST", "/import", body,
+                                         {"Content-Type": _PB,
+                                          "Accept": _PB})
+        if st != 200:
+            _fail(f"pod: /import: {st} {out[:200]!r}")
+        for r in rows_i:
+            res, _ = query(peers[0], f"Count(Bitmap(rowID={r}, frame=imp))")
+            expect(f"imported row {r}", res, [1])
+        for s, r in zip(row_slices_imp, rows_i):
+            holder_r = hosts[where[s]]
+            resp, _ = leg_query(holder_r, f"Bitmap(columnID={cols_i[0]},"
+                                          f" frame=imp)", [s],
+                                "?podLocal=true")
+            bm = codec.decode_query_results(resp, ["Bitmap"])[0]
+            expect(f"inverse slice {s} on its owner process",
+                   bm.bits().tolist(), [r])
+        mark("writes")
+
+        # -- the worker's death ------------------------------------------
+        pod_counters["b1"] = _node_counters(procs["b1"], tmp, "_pod_b1")
+        procs["b1"].send_signal(signal.SIGKILL)
+        procs["b1"].wait()
+        status, out, death_ms = query(peers[0],
+                                      "Count(Bitmap(rowID=1, frame=c))",
+                                      raw=True)
+        if status != 400 or death_ms > (POD_TIMEOUT_S + 5) * 1e3:
+            _fail(f"pod: the Count after the worker's death answered"
+                  f" {status} in {death_ms:.0f} ms: {out[:200]!r}")
+        own_b0 = own["b0"]
+        resp, own_ms = leg_query(peers[0], "Count(Bitmap(rowID=1, frame=c))",
+                                 own_b0)
+        expect("Count over the coordinator's own slices after the death",
+               [int(r.N) for r in resp.Results], [want_one_b0])
+        st, _, _, _ = _request(peers[0], "GET", "/version")
+        if st != 200 or procs["b0"].poll() is not None:
+            _fail("pod: the coordinator did not stay up")
+        death = {"status": status, "ms": death_ms,
+                 "error": out[:160].decode(errors="replace"),
+                 "own_slices_ms": own_ms}
+        mark("death")
+        lines = _nodes_stop([procs["b0"], procs["a"]], [peers[0], host_a])
+        pod_counters["b0"], pod_counters["a"] = lines
+        procs = {}
+        mark("stopped")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    nccl = _pod_nccl_runs(repo, tmp, seed)
+    mark("nccl")
+    for r in ("b0", "b1"):
+        for k in ("expr_count_rows", "expr_count_batch", "topn_block_count"):
+            if pod_counters[r]["launches"].get(k, 0) <= 0:
+                _fail(f"pod: {k} did not launch in pod process {r}")
+    launches: dict = {}
+    for r in ("a", "b0", "b1"):
+        for k, n in pod_counters[r]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    st = {r: pod_counters[r]["pod"]["stats"] for r in ("b0", "b1")}
+    collective = {r: {
+        "reduces": s["reduces"], "legs": s["legs"],
+        "reduce_ms_per": s["reduce_s"] * 1e3 / max(s["reduces"], 1),
+        "leg_ms_per": s["leg_s"] * 1e3 / max(s["legs"], 1),
+        "reduce_share": s["reduce_s"] / max(s["reduce_s"] + s["leg_s"],
+                                            1e-12)} for r, s in st.items()}
+    out = {"phase": "pod", "card": _card(), "index": "c5",
+           "slices": n_slices, "reduced": "954 slices cut to"
+           f" {n_slices} for the script's time; 2^24 bits",
+           "placement": {r: len(v) for r, v in own.items()},
+           "backend": "gloo", "pod_timeout_s": POD_TIMEOUT_S,
+           "data_s": data_s, "up_s": up, "known_s": up_s,
+           "counts_ms": counts_ms, "count_exprs_leg_ms": leg_ms,
+           "count_expr_ms": one_ms, "topn": topn_ms,
+           "bitmap_ms": bitmap_ms, "bitmap_bits": len(want_bits),
+           "writes": len(wcols), "writes_s": writes_s,
+           "import_ms": import_ms, "death": death,
+           "dispatch_counts": pod_counters["b0"]["pod"]["dispatch_counts"],
+           "collective": collective,
+           "launches_by_process": {r: pod_counters[r]["launches"]
+                                   for r in ("a", "b0", "b1")},
+           "nccl": nccl, "wrong": wrong, "failed": failed,
+           "marks_s": marks, "seconds": time.perf_counter() - t_phase}
+    _emit(out)
+    return {"launches": launches,
+            "pod": {r: pod_counters[r]["launches"] for r in ("b0", "b1")}}
+
+
+def _pod_nccl_runs(repo: str, tmp: str, seed: int) -> dict:
+    """The pod layer under NCCL on the card: one child process in an
+    NCCL group of one rank (its ``multihost`` counts against the
+    single-process mesh's; a mismatch fails the phase), then two child
+    processes as two NCCL ranks on the one card, whose answer is
+    recorded and not judged."""
+    import subprocess
+    out: dict = {}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    path = os.path.join(tmp, "nccl_one.json")
+    env1 = dict(env, PILOSA_TPU_DIST_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                PILOSA_TPU_DIST_NUM_PROCS="1", PILOSA_TPU_DIST_PROC_ID="0")
+    env1.pop("PILOSA_TPU_DIST_BACKEND", None)
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--pod-nccl", "one", path, str(seed)], env=env1,
+                       cwd=repo, capture_output=True, text=True,
+                       timeout=180)
+    if p.returncode != 0 or not os.path.exists(path):
+        _fail(f"pod: the one-rank NCCL child failed ({p.returncode}):"
+              f" {p.stderr[-1500:]}")
+    with open(path) as f:
+        out["one_rank"] = json.load(f)
+    if not out["one_rank"]["equal"]:
+        _fail(f"pod: NCCL multihost counts differ from the mesh's:"
+              f" {out['one_rank']}")
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env2 = dict(env, PILOSA_TPU_DIST_COORDINATOR=f"127.0.0.1:{port}",
+                    PILOSA_TPU_DIST_NUM_PROCS="2",
+                    PILOSA_TPU_DIST_PROC_ID=str(rank),
+                    PILOSA_TPU_POD_TIMEOUT="30")
+        env2.pop("PILOSA_TPU_DIST_BACKEND", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pod-nccl", "two",
+             os.path.join(tmp, f"nccl_two{rank}.json"), str(seed)],
+            env=env2, cwd=repo, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    two = []
+    for rank, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=max(5.0, 75 - (
+                time.perf_counter() - t0)))
+            path = os.path.join(tmp, f"nccl_two{rank}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    two.append(json.load(f))
+            else:
+                two.append({"rc": p.returncode, "stderr": err[-400:]})
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            two.append({"rc": None, "answer": "no answer in 75 s; killed"})
+    out["two_ranks_one_card"] = two
+    return out
+
+
+def _pod_nccl(argv: list) -> None:
+    """Child mode of ``_pod_nccl_runs``: ``one OUT SEED`` joins an NCCL
+    group of one rank on cuda:0 (the environment contract, no backend
+    key) and holds multihost.count_exprs, count_expr and topn_exact
+    (plain, threshold, Tanimoto) against mesh.count_exprs_sharded and
+    mesh.topn_exact on the same blocks; ``two OUT SEED`` is one of two
+    ranks on the one card and records what an all_reduce answers."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pilosa_tpu_torch.parallel import mesh, multihost
+    mode, out_path, seed = argv[0], argv[1], int(argv[2])
+    dev = torch.device("cuda:0")
+    res: dict = {}
+    if mode == "two":
+        t0 = time.perf_counter()
+        try:
+            multihost.initialize_from_env(dev)
+            t = torch.ones(4, dtype=torch.int64, device=dev)
+            torch.distributed.all_reduce(t)
+            torch.cuda.synchronize()
+            res["answer"] = f"all_reduce returned {t.tolist()}"
+        except Exception as e:  # recorded, not judged
+            res["answer"] = f"{type(e).__name__}: {str(e)[:400]}"
+        res["s"] = time.perf_counter() - t0
+        res["backend"] = multihost.backend()
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+        os._exit(0)
+    assert multihost.initialize_from_env(dev) is True
+    res["backend"] = multihost.backend()
+    rng = np.random.default_rng(seed + 91)
+    s_, r_, w_ = 16, 50, 1 << 15
+    leaves = rng.integers(0, 2**32, size=(3, s_, w_), dtype=np.uint32)
+    rows = rng.integers(0, 2**32, size=(s_, r_, w_), dtype=np.uint32)
+    rows[:, ::2] &= rng.integers(0, 2**32, size=(s_, r_ // 2, w_),
+                                 dtype=np.uint32)
+    exprs = (("and", ("leaf", 0), ("leaf", 1)),
+             ("or", ("leaf", 1), ("leaf", 2)),
+             ("andnot", ("leaf", 0), ("leaf", 2)))
+    arrs = list(mesh._to_device(dev, leaves))
+    t0 = time.perf_counter()
+    got = multihost.count_exprs(dev, exprs, leaves)
+    res["count_exprs_ms"] = (time.perf_counter() - t0) * 1e3
+    equal = got == mesh.count_exprs_sharded(exprs, arrs)
+    equal &= (multihost.count_expr(dev, exprs[0], leaves)
+              == mesh.count_exprs_sharded(exprs[:1], arrs)[0])
+    for thr, tan in ((1, 0), (3, 0), (1, 40)):
+        t0 = time.perf_counter()
+        got = multihost.topn_exact(dev, ("leaf", 0), rows, leaves[:1],
+                                   threshold=thr, tanimoto=tan)
+        res[f"topn_ms_t{thr}_k{tan}"] = (time.perf_counter() - t0) * 1e3
+        equal &= got == mesh.topn_exact(dev, ("leaf", 0), rows, leaves[:1],
+                                        threshold=thr, tanimoto=tan)
+    res["equal"] = bool(equal)
+    res["stats"] = multihost.stats()
+    multihost.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
 def _cluster_node(argv: list) -> None:
     """Child mode of ``phase_cluster``: one node, the ``server`` verb's
     code (pilosa_tpu_torch/cli/commands.py) with ``argv[0]`` "1" adding
@@ -7140,13 +7712,29 @@ def _cluster_node(argv: list) -> None:
     from pilosa_tpu_torch.cli import commands
     from pilosa_tpu_torch.ops import cuda_kernels as ck
     from pilosa_tpu_torch.server import server as server_mod
+    from pilosa_tpu_torch.parallel import multihost
     pinned, counters_path = argv[0] == "1", argv[1]
     init = server_mod.Server.__init__
+    pods: list = []  # the pod this process joined, if any
+    maybe_pod = server_mod.pod_mod.maybe_pod
+
+    def keep_pod(*a, **kw):
+        pod = maybe_pod(*a, **kw)
+        if pod is not None:
+            pods.append(pod)
+        return pod
+
+    server_mod.pod_mod.maybe_pod = keep_pod
 
     def counters() -> dict:
-        return {"launches": dict(ck.LAUNCHES),
-                "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
-                             if torch.cuda.is_available() else 0.0)}
+        out = {"launches": dict(ck.LAUNCHES),
+               "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
+                            if torch.cuda.is_available() else 0.0)}
+        if pods:
+            out["pod"] = {"dispatch_counts": dict(pods[0].dispatch_counts),
+                          "poisoned": pods[0].poisoned,
+                          "stats": multihost.stats()}
+        return out
 
     def snapshot(signum, frame):
         with open(counters_path + ".tmp", "w") as f:
@@ -7240,16 +7828,16 @@ def _local_phases(device, seed: int, tmp: str) -> dict:
     return launches
 
 
-# Phases 11-17: each alone with ``--phase``; in the whole run, each lane
-# (phases 11-16, and phase 17) one after another in a ``--node-phases``
+# Phases 11-18: each alone with ``--phase``; in the whole run, each lane
+# (phases 11-16, and phases 17-18) one after another in a ``--node-phases``
 # child of its own, the two children beside each other and beside
 # phases 2-10.
 NODE_PHASES = {"cluster": phase_cluster, "integrity": phase_integrity,
                "gossip": phase_gossip, "operator": phase_operator,
                "resize": phase_resize, "tier": phase_tier,
-               "backup": phase_backup}
+               "backup": phase_backup, "pod": phase_pod}
 NODE_LANES = (("cluster", "integrity", "gossip", "operator", "resize",
-               "tier"), ("backup",))
+               "tier"), ("backup", "pod"))
 
 
 def _node_phases(argv: list) -> None:
@@ -7271,13 +7859,15 @@ def _node_phases(argv: list) -> None:
     lane = NODE_LANES[int(argv[3])]
     device = resolve_device()
     launches: dict = {}
+    pod = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for name in lane:
-            for k, n in NODE_PHASES[name](device, seed, tmp)[
-                    "launches"].items():
+            result = NODE_PHASES[name](device, seed, tmp)
+            for k, n in result["launches"].items():
                 launches[k] = launches.get(k, 0) + n
+            pod = result.get("pod", pod)
     with open(out_path + ".tmp", "w") as f:
-        json.dump(launches, f)
+        json.dump({"launches": launches, "pod": pod}, f)
     os.replace(out_path + ".tmp", out_path)
 
 
@@ -7295,7 +7885,9 @@ def _node_phases_start(tmp: str, seed: int, lane: int):
 
 def _node_phases_join(proc, tmp: str, lane: int) -> dict:
     """Waits for the child of lane ``lane``, prints its phase lines and
-    returns its nodes' launch counters; fails if it failed."""
+    returns its nodes' launch counters (``launches``) and the pod
+    processes' own (``pod``, None outside the pod phase's lane); fails
+    if it failed."""
     rc = proc.wait()
     with open(os.path.join(tmp, f"node_phases{lane}.out")) as f:
         sys.stdout.write(f.read())
@@ -7326,6 +7918,9 @@ def main() -> None:
         return
     if len(sys.argv) > 1 and sys.argv[1] == "--node-phases":
         _node_phases(sys.argv[2:])
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--pod-nccl":
+        _pod_nccl(sys.argv[2:])
         return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7364,11 +7959,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         lanes = [_node_phases_start(tmp, args.seed, k)
                  for k in range(len(NODE_LANES))]
+        pod = None
         try:
             launches = _local_phases(device, args.seed, tmp)
             for k, proc in enumerate(lanes):
-                for name, n in _node_phases_join(proc, tmp, k).items():
+                joined = _node_phases_join(proc, tmp, k)
+                for name, n in joined["launches"].items():
                     launches[name] += n
+                pod = joined["pod"] or pod
         finally:
             for proc in lanes:
                 _node_phases_stop(proc)
@@ -7381,6 +7979,13 @@ def main() -> None:
         if n <= 0:
             _fail(f"{name}: no launch on the main path")
         table[name]["launches"] = n
+    if pod is None:
+        _fail("the pod phase reported no launch counters")
+    for name in table:
+        # The pod phase's two processes' own launches (in ``launches``
+        # too): the coordinator's and the worker's.
+        table[name]["pod"] = {"coordinator": pod["b0"].get(name, 0),
+                              "worker": pod["b1"].get(name, 0)}
 
     print(f"nvidia-smi: {_card()}", flush=True)
     _emit({"kernels": list(table.values())})

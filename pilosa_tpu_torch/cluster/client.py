@@ -390,6 +390,7 @@ class Client:
                       slices: Optional[list[int]] = None,
                       remote: bool = True,
                       column_attrs: bool = False,
+                      pod_local: bool = False,
                       deadline_s: Optional[float] = None,
                       query_id: Optional[str] = None,
                       gens_out: Optional[list] = None) -> list:
@@ -408,6 +409,8 @@ class Client:
                                           column_attrs=column_attrs,
                                           remote=remote)
         path = f"/index/{index}/query"
+        if pod_local:  # a pod-internal leg (parallel.pod)
+            path += "?podLocal=true"
         headers = {"Content-Type": _PROTOBUF, "Accept": _PROTOBUF}
         if deadline_s is not None:
             headers["X-Pilosa-Deadline"] = f"{deadline_s:.6f}"

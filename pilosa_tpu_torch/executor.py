@@ -122,8 +122,26 @@ which skips this node for it (a one-node server answers 503, or with
 ``?partial=1`` names the slice), as in the JAX package. A TopN's
 rank-array pass promotes a cold or blob fragment first. The JAX
 package's environment gates are class constants here (their defaults),
-which tests override through the constructor; the pod waits for a later
-slice.
+which tests override through the constructor.
+
+**The pod** (``pod=``, parallel.pod; the JAX executor's pod branches): a
+pod of processes is one cluster node whose slices are spread over its
+processes (``owner_pid(slice) = slice % n_procs``). On the pod
+coordinator a read's node leg is pod-wide (``_node_read``): a Count, a
+run of consecutive Counts and the ids-with-source TopN exact phase
+become ONE work item that every process counts on its own device and
+reduces with one collective (``pod.count_expr``/``count_exprs``/
+``topn_exact``); every other read, and any of those the pod declines or
+fails (a poisoned pod, a stalled worker), fans out inside the pod as
+``podLocal`` legs to the owning processes (``_pod_host_mapper``), this
+process's own share as the same leg in process. Writes go to the
+owning process as podLocal legs (a bit's standard and inverse views
+may live on different processes); attribute writes replicate to every
+process. The one-node fast paths that read local fragments as the whole
+node's (the single-pass TopN, the device top-k, the bitmap-result and
+cluster result caches, the TopN pushdown, the planner's proofs) are off
+on a pod coordinator. Workers and podLocal legs (``ExecOptions.
+pod_local``) run the plain local path.
 
 During an elastic resize (cluster.resize) writes fan to the union of
 the old and new owners of a moving slice (``Cluster.fragment_nodes``),
@@ -205,8 +223,12 @@ class ExecOptions:
     ``partial`` (the ``?partial=1`` degraded-read contract): slices with
     NO reachable replica are skipped instead of failing the whole
     query; their ids accumulate in ``missing_slices`` (the handler
-    reports them as the ``X-Pilosa-Partial`` response header)."""
+    reports them as the ``X-Pilosa-Partial`` response header).
+
+    ``pod_local`` marks a pod-internal leg (parallel.pod): run the plain
+    local path over the given slices — no pod dispatch, no pod fan-out."""
     remote: bool = False
+    pod_local: bool = False
     ctx: Optional[object] = None
     partial: bool = False
     missing_slices: Optional[list] = None
@@ -329,7 +351,7 @@ class Executor:
                  result_cache_bits: Optional[int] = None,
                  mesh_min_slices: Optional[int] = None,
                  cost_model: Optional[costmodel.CostModel] = None,
-                 cal_dir: Optional[str] = None):
+                 cal_dir: Optional[str] = None, pod=None):
         self.holder = holder
         self.device = resolve_device(device)
         # Placement: this node's host and the cluster's (one node when
@@ -341,6 +363,11 @@ class Executor:
         self.client = client
         self.fault = fault
         self.gens = gens
+        # Pod membership (parallel.pod.Pod), None outside a pod; pod
+        # dispatches that failed over to the pod's host fan-out.
+        self.pod = pod
+        self.pod_fallbacks = 0
+        self._pod_fallback_warned = False
         self._pools: dict[str, ThreadPoolExecutor] = {}
         self._pool_mu = threading.Lock()
         # Cost-based planner (plan.planner), consulted once per read
@@ -413,6 +440,9 @@ class Executor:
             pool = self._pools.get(tier)
             if pool is None:
                 size = self._MAX_WORKERS * (2 if tier == "hedge" else 1)
+                if tier == "pod" and self.pod is not None:
+                    # One leg a pod process, never fewer slots.
+                    size = max(size, len(self.pod.peers))
                 pool = self._pools[tier] = ThreadPoolExecutor(
                     max_workers=size, thread_name_prefix=f"pilosa-{tier}")
             return pool
@@ -556,8 +586,10 @@ class Executor:
         if not self.planner_enabled or query.write_calls():
             return query, None
         # The planner's proofs read local fragments: exact only when
-        # this node holds every slice.
-        all_local = self._owns_all_slices(index, slices)
+        # this node holds every slice — and on a pod coordinator, whose
+        # fragments are one process's share, never.
+        all_local = (self._owns_all_slices(index, slices)
+                     and not self._pod_wide(opt))
         try:
             planned, rec = self.planner.plan_query_cached(
                 index, query.calls, slices, all_local=all_local,
@@ -607,7 +639,8 @@ class Executor:
             slices = list(range(idx.max_slice() + 1))
         return self.planner.explain(
             index, query.calls, slices,
-            all_local=self._owns_all_slices(index, slices))
+            all_local=(self._owns_all_slices(index, slices)
+                       and not self._pod_wide(None)))
 
     def _execute_call(self, index: str, c: Call, slices: list[int],
                       opt: ExecOptions):
@@ -621,6 +654,7 @@ class Executor:
         if c.name == "SetRowAttrs":
             _, frame, row_id, attrs = self._row_attrs_of(index, c)
             frame.row_attr_store.set_attrs(row_id, attrs)
+            self._pod_forward_attrs(index, [c], opt)
             self._broadcast_call(index, [c], opt)
             return None
         if c.name == "SetColumnAttrs":
@@ -644,9 +678,10 @@ class Executor:
         if _short_circuit(c):
             obs_metrics.PLANNER_DECISIONS.labels("short_circuit_hit").inc()
             return Bitmap()
-        if not self._fans_out(index, slices, opt):
+        if not self._fans_out(index, slices, opt) \
+                and not self._pod_wide(opt):
             return self._bitmap_local(index, c, slices)
-        bm = self._map_reduce(
+        bm = self._node_read(
             index, slices, c, opt,
             lambda group: self._bitmap_local(index, c, group),
             _merge_bitmaps) or Bitmap()
@@ -743,6 +778,9 @@ class Executor:
             return None
         if compiled_out is not None:
             compiled_out.append((expr, leaves))
+        if self.pod is not None:
+            # A pod process's fragments are one share of the node's.
+            return None
         if self.cluster.resize is not None:
             # In-flight resize: moving slices' serving peers are in
             # flux (double reads, mid-flip ownership) — uncached until
@@ -1170,22 +1208,19 @@ class Executor:
             raise PilosaError(
                 f"{name}() only accepts a single bitmap input")
         child = c.children[0] if c.children else None
-        if self._fans_out(index, slices, opt):
-            want_min = name == "Min"
+        want_min = name == "Min"
 
-            def reduce_fn(prev, v):
-                if prev is None:
-                    return v
-                if name == "Sum":
-                    return bsi.combine_sum(prev, v)
-                return bsi.combine_min_max(prev, v, want_min=want_min)
-            return self._map_reduce(
-                index, slices, c, opt,
-                lambda group: self._field_aggregate_local(
-                    index, name, frame_name, field, child, group),
-                reduce_fn) or bsi.ValCount(0, 0)
-        return self._field_aggregate_local(index, name, frame_name, field,
-                                           child, slices)
+        def reduce_fn(prev, v):
+            if prev is None:
+                return v
+            if name == "Sum":
+                return bsi.combine_sum(prev, v)
+            return bsi.combine_min_max(prev, v, want_min=want_min)
+        return self._node_read(
+            index, slices, c, opt,
+            lambda group: self._field_aggregate_local(
+                index, name, frame_name, field, child, group),
+            reduce_fn) or bsi.ValCount(0, 0)
 
     def _field_aggregate_local(self, index: str, name: str,
                                frame_name: str, field,
@@ -1290,6 +1325,14 @@ class Executor:
         ret = False
         for node in self.cluster.fragment_nodes(index, slice):
             if node.host == self.host:
+                if (self._pod_wide(opt)
+                        and self.pod.owner_pid(slice) != self.pod.pid):
+                    # The field's views follow the column slice, like
+                    # the standard view: its owner process writes it.
+                    if self._pod_forward_write(index, c, slice):
+                        ret = True
+                    idx.set_remote_max_slice(slice)
+                    continue
                 if frame.set_field_value(field_name, col_id, value):
                     ret = True
                 continue
@@ -1303,7 +1346,8 @@ class Executor:
 
     # -- device expressions --------------------------------------------------
 
-    def _compile_device_expr(self, index: str, c: Call, leaves: list):
+    def _compile_device_expr(self, index: str, c: Call, leaves: list,
+                             wire: bool = False):
         """Compile a pure bitmap call tree into a mesh expression tree.
 
         Supported: Bitmap leaves (standard or inverse) and Range (an
@@ -1313,11 +1357,15 @@ class Executor:
         anything else (malformed args, missing frames or fields, empty
         folds, an empty time cover, a provably empty comparison) — the
         host path owns their errors and semantics. Recursion follows
-        the PQL nesting depth, not the fold width.
+        the PQL nesting depth, not the fold width. ``wire`` gives a pod
+        work item's form, the JAX package's: a BSI comparison as the JAX
+        circuit (storage.bsi.compare_expr) instead of the port's fold —
+        both are and/or/xor/andnot trees the kernels take.
         """
         if c.name == "Range":
             if c.condition_arg() is not None:
-                return self._compile_field_range_expr(index, c, leaves)
+                return self._compile_field_range_expr(index, c, leaves,
+                                                      wire)
             parsed = self._range_views(index, c, strict=False)
             if parsed is None or not parsed[2]:
                 return None
@@ -1348,7 +1396,7 @@ class Executor:
         op = self._DEVICE_FOLD_OPS.get(c.name)
         if op is None or not c.children:
             return None
-        parts = [self._compile_device_expr(index, ch, leaves)
+        parts = [self._compile_device_expr(index, ch, leaves, wire)
                  for ch in c.children]
         if any(p is None for p in parts):
             return None
@@ -1358,7 +1406,7 @@ class Executor:
         return expr
 
     def _compile_field_range_expr(self, index: str, c: Call,
-                                  leaves: list):
+                                  leaves: list, wire: bool = False):
         """Range(field OP value) as the comparison fold over the field's
         bit-plane leaves (storage.bsi.compare_fold_expr: depth+1
         instructions, ``><`` two chains and one spill slot). A clamp to
@@ -1383,7 +1431,8 @@ class Executor:
         if clamped == "all":
             return leaf(bsi.EXISTS_PLANE)
         cop, upred = clamped
-        return bsi.compare_fold_expr(cop, upred, field.bit_depth, leaf)
+        compile_fn = bsi.compare_expr if wire else bsi.compare_fold_expr
+        return compile_fn(cop, upred, field.bit_depth, leaf)
 
     def _fragment_gens(self, index: str, frame: str, view: str,
                        slices: tuple[int, ...]) -> tuple[list, tuple]:
@@ -1437,12 +1486,40 @@ class Executor:
             # The planner proved the tree empty: no launch.
             obs_metrics.PLANNER_DECISIONS.labels("short_circuit_hit").inc()
             return 0
-        if not self._fans_out(index, slices, opt):
-            return self._count_local(index, c, slices)
-        return self._map_reduce(
+        return self._node_read(
             index, slices, c, opt,
-            lambda group: self._count_local(index, c, group),
-            lambda prev, v: (prev or 0) + v) or 0
+            lambda group: self._count_local(index, c, group), _add,
+            pod_fn=self._count_pod_fn(index, c, opt)) or 0
+
+    def _count_pod_fn(self, index: str, c: Call, opt: ExecOptions):
+        """The pod-wide Count (one work item, one collective) as a
+        ``pod_fn`` of ``_node_read``, or None when this is no pod
+        coordinator's leg or the tree does not compile. The function
+        gives NotImplemented (the pod's host fan-out) below
+        ``mesh_min_slices`` slices, past the host block bound of one
+        process's shard, or when the dispatch fails."""
+        if not self._pod_wide(opt):
+            return None
+        leaves: list[tuple] = []
+        expr = self._compile_device_expr(index, c.children[0], leaves,
+                                         wire=True)
+        if expr is None:
+            return None
+
+        def pod_fn(slices: list[int]):
+            shard = self.pod.max_shard_slices(slices)
+            if (len(slices) < self.mesh_min_slices
+                    or self._leaf_block_bytes(len(leaves), shard)
+                    > self._TOPN_HOST_BLOCK_BYTES):
+                return NotImplemented
+            try:
+                return self.pod.count_expr(index, expr, leaves, slices)
+            except (QueryDeadlineError, QueryCancelledError):
+                raise
+            except Exception as e:  # noqa: BLE001 - the pod's fan-out
+                self._note_pod_fallback("pod.count_expr", e)
+                return NotImplemented
+        return pod_fn
 
     def _count_local(self, index: str, c: Call, slices: list[int]) -> int:
         """A Count over this node's ``slices``: the expression count on
@@ -1619,7 +1696,14 @@ class Executor:
                 or calls[start + 1].name not in ("Count", "TopN")
                 or not self._owns_all_slices(index, slices)):
             return None
-        budget = self.materialize_device_bytes
+        # On a pod coordinator the run is one pod work item of Counts
+        # alone (each process packs its shard up to the host block
+        # bound): the TopN fusion reads local candidate rows.
+        pod = self._pod_wide(opt)
+        budget = (self._TOPN_HOST_BLOCK_BYTES if pod
+                  else self.materialize_device_bytes)
+        shard = (self.pod.max_shard_slices(slices) if pod
+                 else len(slices))
         leaves: list[tuple] = []
         leaf_ids: dict[tuple, int] = {}
         plan: list[tuple] = []        # ("count"|"zero"|"topn", value)
@@ -1650,18 +1734,18 @@ class Executor:
                     continue
                 call_leaves: list[tuple] = []
                 expr = self._compile_device_expr(index, c.children[0],
-                                                 call_leaves)
+                                                 call_leaves, wire=pod)
                 if expr is None:
                     break
                 new = sum(1 for leaf in call_leaves if leaf not in leaf_ids)
-                if (self._leaf_block_bytes(len(leaves) + new, len(slices))
+                if (self._leaf_block_bytes(len(leaves) + new, shard)
                         + rows_bytes > budget):
                     break  # the prefix that fits runs fused
                 plan.append(("count", absorb(call_leaves, expr)))
                 host_rows += len(call_leaves)
                 j += 1
                 continue
-            if c.name == "TopN":
+            if c.name == "TopN" and not pod:
                 item = self._topn_fusable(index, c, slices,
                                           budget - rows_bytes, leaves,
                                           leaf_ids)
@@ -1680,6 +1764,18 @@ class Executor:
             break
         if j - start < 2:
             return None
+        if pod:
+            count_exprs = tuple(e for kind, e in plan if kind == "count")
+            try:
+                counts = iter(self.pod.count_exprs(
+                    index, list(count_exprs), leaves, slices))
+            except (QueryDeadlineError, QueryCancelledError):
+                raise
+            except Exception as e:  # noqa: BLE001 - the calls one by one
+                self._note_pod_fallback("pod.count_exprs", e)
+                return None
+            return ([next(counts) if kind == "count" else 0
+                     for kind, _ in plan], j - start)
         # One launch + fetch serves the whole tree; the host alternative
         # re-walks each call's leaves and candidate rows (host_rows). A
         # vetoed run falls to the per-call gates.
@@ -1822,8 +1918,9 @@ class Executor:
         row_ids, _ = c.uint_slice_arg("ids")
         n, _ = c.uint_arg("n")
         if opt.remote and not row_ids and c.args.get("pushdown"):
-            return self._topn_exact_partial(index, c, slices)
-        local = self._owns_all_slices(index, slices)
+            return self._topn_exact_partial(index, c, slices, opt)
+        local = (self._owns_all_slices(index, slices)
+                 and not self._pod_wide(opt))
         fast = (self._topn_host_single_pass(index, c, slices)
                 if local and not opt.remote else None)
         if fast is not None:
@@ -1849,14 +1946,61 @@ class Executor:
     def _top_n_phase(self, index: str, c: Call, slices: list[int],
                      opt: ExecOptions) -> list[Pair]:
         """One TopN phase over ``slices``: this node's legs where it
-        owns them all, else the fan-out, per-node pairs summed by id."""
-        if not self._fans_out(index, slices, opt):
-            return self._top_n_slices(index, c, slices)
-        merged = self._map_reduce(
+        owns them all, else the fan-out, per-node pairs summed by id (on
+        a pod coordinator this node's leg is pod-wide)."""
+        merged = self._node_read(
             index, slices, c, opt,
             lambda group: self._top_n_slices(index, c, group),
-            _topn_merge_reduce)
+            _topn_merge_reduce, pod_fn=self._topn_pod_fn(index, c, opt))
+        if isinstance(merged, list):
+            return merged  # one leg's pairs, already sorted
         return pairs_sort(Pair(i, cnt) for i, cnt in (merged or {}).items())
+
+    def _topn_pod_fn(self, index: str, c: Call, opt: ExecOptions):
+        """The pod-wide TopN exact phase (one work item, one collective)
+        as a ``pod_fn`` of ``_node_read``: the ids-with-source forms the
+        device leg takes (``_topn_local_device_fn``), thresholds and
+        Tanimoto included; None for any other form. The function gives
+        NotImplemented (the pod's host fan-out) when the frame is
+        missing, below ``mesh_min_slices`` slices, past the host block
+        bound of one process's candidate block, or when the dispatch
+        fails."""
+        if not self._pod_wide(opt):
+            return None
+        (frame_name, _n, field, row_ids, min_threshold, filters,
+         tanimoto) = self._topn_args(c)
+        if not row_ids or tanimoto > 100 or len(c.children) != 1:
+            return None
+        leaves: list[tuple] = []
+        expr = self._compile_device_expr(index, c.children[0], leaves,
+                                         wire=True)
+        if expr is None:
+            return None
+        threshold = max(min_threshold, MIN_THRESHOLD)
+
+        def pod_fn(slices: list[int]):
+            ids = self._attr_filtered_ids(index, frame_name, row_ids,
+                                          field, filters)
+            if ids is None:
+                return NotImplemented
+            if not ids:
+                return []
+            if (len(slices) < self.mesh_min_slices
+                    or self.pod.max_shard_slices(slices) * len(ids)
+                    * WORDS_PER_SLICE * 4 > self._TOPN_HOST_BLOCK_BYTES):
+                return NotImplemented
+            try:
+                counts = self.pod.topn_exact(
+                    index, frame_name, expr, leaves, ids, slices,
+                    threshold=threshold, tanimoto=tanimoto)
+            except (QueryDeadlineError, QueryCancelledError):
+                raise
+            except Exception as e:  # noqa: BLE001 - the pod's fan-out
+                self._note_pod_fallback("pod.topn_exact", e)
+                return NotImplemented
+            return pairs_sort(Pair(rid, cnt)
+                              for rid, cnt in zip(ids, counts) if cnt > 0)
+        return pod_fn
 
     def _topn_host_single_pass(self, index: str, c: Call,
                                slices: list[int], trim: bool = True
@@ -2316,6 +2460,17 @@ class Executor:
         forwarded = False
         for node in self.cluster.fragment_nodes(index, slice):
             if node.host == self.host:
+                if (self._pod_wide(opt)
+                        and self.pod.owner_pid(slice) != self.pod.pid):
+                    # This pod owns the slice, another process of it
+                    # holds it: the one view's write goes there (a
+                    # bit's two views may live on different processes).
+                    if self._pod_forward_write(index, Call(
+                            c.name, dict(c.args, view=view), c.children),
+                            slice):
+                        ret = True
+                    forwarded = True
+                    continue
                 if op(view, row_id, col_id, timestamp):
                     ret = True
                 continue
@@ -2397,9 +2552,13 @@ class Executor:
                 vops.append((k, fname, VIEW_INVERSE, col_id, row_id))
         results = [False] * count
         groups: dict[tuple, list] = {}
+        pod = self._pod_wide(opt)
         for vop in vops:
             owners = self.cluster.fragment_nodes(index,
                                                  vop[4] // SLICE_WIDTH)
+            if pod and (self.pod.owner_pid(vop[4] // SLICE_WIDTH)
+                        != self.pod.pid):
+                return None  # another pod process's write: per op
             if all(n.host != self.host for n in owners):
                 if not opt.remote:
                     return None
@@ -2448,6 +2607,7 @@ class Executor:
             rows.setdefault(row_id, {}).update(attrs)
         for frame, rows in by_frame.values():
             frame.row_attr_store.set_bulk_attrs(rows)
+        self._pod_forward_attrs(index, calls, opt)
         self._broadcast_call(index, calls, opt)
         return [None] * len(calls)
 
@@ -2466,6 +2626,7 @@ class Executor:
         attrs = dict(c.args)
         attrs.pop(col_name, None)
         idx.column_attr_store.set_attrs(id, attrs)
+        self._pod_forward_attrs(index, [c], opt)
         self._broadcast_call(index, [c], opt)
 
     def _broadcast_call(self, index: str, calls: list[Call],
@@ -2491,8 +2652,8 @@ class Executor:
 
     # -- TopN over a distributed index (executor.go:273-334) -----------------
 
-    def _topn_exact_partial(self, index: str, c: Call,
-                            slices: list[int]) -> list[Pair]:
+    def _topn_exact_partial(self, index: str, c: Call, slices: list[int],
+                            opt: ExecOptions) -> list[Pair]:
         """A pushdown leg: EXACT node-local TopN partials over
         ``slices``, untrimmed — the single pass when its gates hold,
         else the local two phases (candidates, then their refetch). Every
@@ -2502,24 +2663,33 @@ class Executor:
         coordinator's candidate ids when it dispatched) come back
         exact-counted in the same answer: a hinted row the local trims
         missed is refetched here, so a warm TopN is one round trip. A
-        hinted row with no ≥ floor count here is left out (it adds 0)."""
+        hinted row with no ≥ floor count here is left out (it adds 0). On
+        a pod coordinator both phases are pod-wide."""
         base = Call(c.name, {k: v for k, v in c.args.items()
                              if k not in ("pushdown", "hints")}, c.children)
-        pairs = self._topn_host_single_pass(index, base, slices, trim=False)
+        if self._pod_wide(opt):
+            pairs = None
+
+            def phase(call):
+                return self._top_n_phase(index, call, slices, opt)
+        else:
+            pairs = self._topn_host_single_pass(index, base, slices,
+                                                trim=False)
+
+            def phase(call):
+                return self._top_n_slices(index, call, slices)
         if pairs is None:
-            pairs = self._top_n_slices(index, base, slices)
+            pairs = phase(base)
             if pairs:
-                pairs = self._top_n_slices(
-                    index, Call(c.name, dict(base.args, ids=sorted(
-                        {p.id for p in pairs})), c.children), slices)
+                pairs = phase(Call(c.name, dict(base.args, ids=sorted(
+                    {p.id for p in pairs})), c.children))
         hints, _ = c.uint_slice_arg("hints")
         if hints:
             have = {p.id for p in pairs}
             missing = sorted(i for i in set(hints) if i not in have)
             if missing:
-                pairs = list(pairs) + self._top_n_slices(
-                    index, Call(c.name, dict(base.args, ids=missing),
-                                c.children), slices)
+                pairs = list(pairs) + phase(
+                    Call(c.name, dict(base.args, ids=missing), c.children))
         return pairs
 
     def _topn_distributed(self, index: str, c: Call, slices: list[int],
@@ -2535,6 +2705,7 @@ class Executor:
         path (None): reads are idempotent, so a spent pushdown is only
         spent work, never a wrong answer."""
         if (not self.TOPN_PUSHDOWN or opt.partial or self.client is None
+                or self.pod is not None
                 or not slices or len(self.cluster.nodes) < 2
                 or not getattr(self.client, "generation_aware", False)):
             return None
@@ -2606,7 +2777,7 @@ class Executor:
             submit(nodes, remote_slices)
             for node, group in local_groups:
                 legs.append((node, group, _topn_to_dict(
-                    self._topn_exact_partial(index, c, group)),
+                    self._topn_exact_partial(index, c, group, opt)),
                     frozenset()))
             while processed < len(remote_slices):
                 done = self._wait_legs(futures, ctx)
@@ -2655,13 +2826,13 @@ class Executor:
                 opt.ctx.check()
             if node.host == self.host:
                 return _topn_to_dict(
-                    self._topn_exact_partial(index, c_pd, group))
+                    self._topn_exact_partial(index, c_pd, group, opt))
             hedge_s = (self.fault.hedge_delay_s(node.host)
                        if self.fault is not None else None)
             if hedge_s:
                 return _topn_to_dict(self._exec_remote_hedged(
                     node, index, c_pd, group, opt,
-                    lambda sl: self._topn_exact_partial(index, c_pd, sl),
+                    lambda sl: self._topn_exact_partial(index, c_pd, sl, opt),
                     _topn_merge_reduce, hedge_s))
             rs = self._exec_remote(node, index, Query([c_pd]), group, opt)
             return _topn_to_dict(rs[0] if rs else None)
@@ -3036,6 +3207,122 @@ class Executor:
         else:
             wait(pending)
 
+    # -- the pod (parallel.pod) ----------------------------------------------
+
+    def _pod_wide(self, opt: Optional[ExecOptions]) -> bool:
+        """Is this node leg pod-wide: this process the pod coordinator
+        and the query not a podLocal leg?"""
+        return (self.pod is not None and self.pod.is_coordinator
+                and not (opt is not None and opt.pod_local))
+
+    def _node_read(self, index: str, slices: list[int], c: Call,
+                   opt: ExecOptions, local_fn: Callable,
+                   reduce_fn: Callable,
+                   pod_fn: Optional[Callable] = None):
+        """A read call over ``slices``: the map-reduce where it fans
+        out, else this node's leg alone. This node's leg is ``local_fn``
+        outside a pod; on a pod coordinator it is ``pod_fn`` (the
+        collective) where that takes the group, else the pod's host
+        fan-out."""
+        def pod_leg(group: list[int]):
+            if pod_fn is not None:
+                r = pod_fn(group)
+                if r is not NotImplemented:
+                    return r
+            return self._pod_host_mapper(index, c, group, opt, reduce_fn)
+
+        leg = pod_leg if self._pod_wide(opt) else local_fn
+        if self._fans_out(index, slices, opt):
+            return self._map_reduce(index, slices, c, opt, leg, reduce_fn)
+        return leg(slices)
+
+    def _note_pod_fallback(self, where: str, exc: Exception) -> None:
+        """A pod dispatch failed: the call answers through the pod's
+        host fan-out (counted; the first one logged)."""
+        self.pod_fallbacks += 1
+        if not self._pod_fallback_warned:
+            self._pod_fallback_warned = True
+            import logging
+            logging.getLogger("pilosa_tpu_torch.executor").warning(
+                "pod dispatch failed in %s (%s: %s); answering through the"
+                " pod's host fan-out — further fallbacks are counted but"
+                " not logged", where, type(exc).__name__, exc)
+
+    def _pod_host_mapper(self, index: str, c: Call, slices: list[int],
+                         opt: ExecOptions, reduce_fn: Callable):
+        """The pod-internal fan-out: this node's slices are spread over
+        the pod's processes, so they group by owner process, each group
+        one podLocal leg — this process's in process, the others over
+        HTTP to their owner — folded by ``reduce_fn``. Every leg runs the
+        plain local path over its owner's share, planned there (a
+        planner proof reads that share only)."""
+        by_pid: dict[int, list[int]] = {}
+        for s in slices:
+            by_pid.setdefault(self.pod.owner_pid(s), []).append(s)
+        pool = self._pool("pod")
+        ctx = opt.ctx
+        futs = [pool.submit(self._exec_pod_self if pid == self.pod.pid
+                            else self._exec_pod_remote, pid, index, c,
+                            group, ctx)
+                for pid, group in by_pid.items()]
+        result = None
+        try:
+            for fut in futs:
+                result = reduce_fn(result, fut.result())
+        finally:
+            # A failed leg must not abandon its siblings mid-flight: the
+            # caller may re-map these slices, and an abandoned leg would
+            # run them twice.
+            pending = [f for f in futs if not f.cancel()]
+            if pending:
+                wait(pending)
+        return result
+
+    def _exec_pod_self(self, pid: int, index: str, c: Call,
+                       slices: list[int], ctx=None):
+        """This process's podLocal leg, in process: ``c`` re-parsed (the
+        coordinator's plan covered the whole pod) over ``slices``."""
+        results = self.execute(index, parse_pql(str(Query([c]))), slices,
+                               ExecOptions(remote=True, pod_local=True,
+                                           ctx=ctx))
+        return results[0] if results else None
+
+    def _exec_pod_remote(self, pid: int, index: str, c: Call,
+                         slices: Optional[list[int]], ctx=None):
+        """One podLocal leg: ``c`` over ``slices`` on pod process
+        ``pid``, which runs its plain local path."""
+        if self.client is None:
+            raise SliceUnavailableError(
+                f"no client to reach pod process {pid}")
+        kwargs = {}
+        if ctx is not None and getattr(self.client, "deadline_aware",
+                                       False):
+            ctx.check()
+            kwargs = {"deadline_s": ctx.remaining(), "query_id": ctx.id}
+        with sched_context.use(ctx):
+            results = self.client.execute_query(
+                Node(self.pod.peers[pid]), index, str(Query([c])), slices,
+                remote=True, pod_local=True, **kwargs)
+        return results[0] if results else None
+
+    def _pod_forward_write(self, index: str, c: Call, slice: int) -> bool:
+        """A write of ``slice`` to its owner process as a podLocal leg;
+        True when it changed a bit."""
+        return bool(self._exec_pod_remote(self.pod.owner_pid(slice), index,
+                                          c, None))
+
+    def _pod_forward_attrs(self, index: str, calls: list[Call],
+                           opt: ExecOptions) -> None:
+        """Attribute writes replicate to every pod process (a worker
+        reads its own attribute stores for TopN filters), on cluster
+        legs too — only podLocal legs stop the fan-out."""
+        if not self._pod_wide(opt) or self.client is None:
+            return
+        q = str(Query(list(calls)))
+        for pid in range(1, self.pod.n_procs):
+            self.client.execute_query(Node(self.pod.peers[pid]), index,
+                                      q, None, remote=True, pod_local=True)
+
     def _map_reduce(self, index: str, slices: list[int], c: Call,
                     opt: ExecOptions, local_fn: Callable,
                     reduce_fn: Callable):
@@ -3325,7 +3612,7 @@ class Executor:
         writes bump no generation, so a cached copy could serve stale
         attributes)."""
         if (self.CLUSTER_CACHE_ENTRIES <= 0 or self.gens is None
-                or self.client is None
+                or self.client is None or self.pod is not None
                 or not hasattr(self.client, "generations")
                 or opt.remote or opt.partial or not slices
                 or len(self.cluster.nodes) < 2
@@ -3454,6 +3741,10 @@ def _topn_to_dict(res) -> dict:
     if isinstance(res, dict):
         return dict(res)
     return {p.id: p.count for p in res}
+
+
+def _add(prev, v):
+    return (prev or 0) + (v or 0)
 
 
 def _topn_merge_reduce(prev, v):

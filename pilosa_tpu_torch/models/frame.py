@@ -380,9 +380,20 @@ class Frame:
 
     # -- bulk import (frame.go:530-606) --------------------------------------
 
-    def import_bits(self, row_ids, column_ids, timestamps=None) -> None:
+    def import_bits(self, row_ids, column_ids, timestamps=None,
+                    views: Optional[str] = None) -> None:
         """Group bits by (view, slice), the time views and the inverse
-        transpose included, then bulk-import each fragment."""
+        transpose included, then bulk-import each fragment.
+
+        ``views`` filters the fan-out: None = all, "standard" = the
+        standard and time views only, "inverse" = the inverse views
+        only. Pod-internal import legs use it because a bit's standard
+        and inverse views live on different pod processes (column-slice
+        against row-slice placement, parallel.pod)."""
+        if views not in (None, VIEW_STANDARD, VIEW_INVERSE):
+            raise ValueError(f"invalid views filter: {views!r}")
+        do_standard = views in (None, VIEW_STANDARD)
+        do_inverse = self.inverse_enabled and views in (None, VIEW_INVERSE)
         rows = np.asarray(row_ids, dtype=np.uint64)
         cols = np.asarray(column_ids, dtype=np.uint64)
         if len(rows) != len(cols):
@@ -422,8 +433,9 @@ class Frame:
         plain = (np.ones(len(rows), dtype=bool) if timestamps is None
                  else np.array([t is None for t in timestamps], dtype=bool))
         if plain.any():
-            put([VIEW_STANDARD], rows[plain], cols[plain])
-            if self.inverse_enabled:
+            if do_standard:
+                put([VIEW_STANDARD], rows[plain], cols[plain])
+            if do_inverse:
                 put([VIEW_INVERSE], cols[plain], rows[plain])
         if not plain.all():
             # A time view's name depends only on the timestamp's local
@@ -437,9 +449,10 @@ class Frame:
             for ts, ii in by_ts.items():
                 idx = np.asarray(ii)
                 r_ts, c_ts = rows[idx], cols[idx]
-                put(tq.views_by_time(VIEW_STANDARD, ts, q)
-                    + [VIEW_STANDARD], r_ts, c_ts)
-                if self.inverse_enabled:
+                if do_standard:
+                    put(tq.views_by_time(VIEW_STANDARD, ts, q)
+                        + [VIEW_STANDARD], r_ts, c_ts)
+                if do_inverse:
                     put(tq.views_by_time(VIEW_INVERSE, ts, q)
                         + [VIEW_INVERSE], c_ts, r_ts)
         for (view_name, slice), chunks in sorted(data.items()):

@@ -114,8 +114,16 @@ committed backups, its WAL segments a node and this node's archiver.
 ``GET /fragment/data?snapshot=1`` folds the fragment's WAL into a fresh
 footered snapshot before streaming it (the coordinator's per-fragment
 barrier; a clean fragment skips the rewrite), after the tier gate has
-brought a cold or blob fragment back. The pod route waits for the slice
-that ports it.
+brought a cold or blob fragment back.
+
+The pod (the JAX handler's, handler.py:429, :2143-2282, :2698-2701):
+``POST /pod/exec`` runs a work item on a pod process (parallel.pod; 404
+"not a pod process" elsewhere); ``?podLocal=true`` on the query route
+marks a pod-internal leg (``ExecOptions.pod_local``: the plain local
+path); ``/import?podView=standard|inverse`` imports only those views
+(a pod-internal leg), and an import to a pod coordinator without it is
+split by owner process — the standard and time views to the owner of
+the column slice, the inverse views to the owners of the row slices.
 """
 
 from __future__ import annotations
@@ -168,6 +176,7 @@ from ..storage.bitmap import Bitmap
 from ..utils import logger as logger_mod
 from ..utils import profiling
 from ..utils import timequantum as tq
+from ..utils.arrays import group_by_key
 from ..utils.config import parse_duration
 from ..utils.streams import CappedReader
 from . import codec, webui
@@ -310,11 +319,13 @@ class Handler:
                  repairer=None, client_factory=None, runtime=None,
                  federator=None, profiler=None, blackbox=None,
                  watchdog=None, history=None, sentinel=None,
-                 tenant_slo=None, capture=None, tier=None):
+                 tenant_slo=None, capture=None, tier=None, pod=None):
         self.logger = logger
         self.holder = holder
         self.executor = executor
         self.host = host
+        # parallel.pod.Pod when serving as a pod process.
+        self.pod = pod
         # The cluster's placement (None: a bare one-node handler), the
         # schema broadcaster, and the server that applies received
         # broadcasts and reports the cluster's status.
@@ -484,6 +495,7 @@ class Handler:
         r("GET", "/status", self._handle_get_status)
         r("GET", "/version", self._handle_get_version)
         r("POST", "/messages", self._handle_post_message)
+        r("POST", "/pod/exec", self._handle_pod_exec)
 
     def __call__(self, environ, start_response):
         method = environ.get("REQUEST_METHOD", "GET")
@@ -796,12 +808,41 @@ class Handler:
             raise HTTPError(404, "frame not found")
         if frame.field(field_name) is None:
             raise HTTPError(404, "field not found")
+        if self.pod is not None and self.pod.is_coordinator:
+            cols, vals = self._pod_field_import(
+                index_name, frame_name, field_name, cols, vals)
         frame.import_field_values(field_name, cols, vals)
         storage_wal.barrier_all()  # commit before the 200
         obs_metrics.IMPORT_BITS.labels("field_values").inc(len(cols))
         if req.content_type == _PROTOBUF:
             return Response.proto(pb.ImportResponse())
         return Response.json({})
+
+    def _pod_field_import(self, index_name: str, frame_name: str,
+                          field_name: str, cols, vals):
+        """On a pod coordinator: forward each other process's share of a
+        field import to it (the field's views follow the column slice,
+        parallel.pod placement); returns this process's share. (The JAX
+        handler applies the whole import on the coordinator, where the
+        pod never reads a worker's slices: ROADMAP fault 3.22.)"""
+        pod = self.pod
+        pids = (cols // np.uint64(SLICE_WIDTH)) % np.uint64(pod.n_procs)
+        idx = self.holder.index(index_name)
+        for pid in range(pod.n_procs):
+            if pid == pod.pid:
+                continue
+            mine = pids == np.uint64(pid)
+            if not mine.any():
+                continue
+            body = json.dumps({"columns": cols[mine].tolist(),
+                               "values": vals[mine].tolist()}).encode()
+            pod.forward_raw(pid, "POST", f"/index/{index_name}/frame/"
+                            f"{frame_name}/field/{field_name}/import",
+                            body, "application/json")
+            idx.set_remote_max_slice(
+                int(cols[mine].max()) // SLICE_WIDTH)
+        keep = pids == np.uint64(pod.pid)
+        return cols[keep], vals[keep]
 
     # -- query lifecycle (sched) ---------------------------------------------
 
@@ -995,7 +1036,8 @@ class Handler:
         # failing the whole query. Coordinator-only: a forwarded leg
         # answers strictly so its coordinator decides the degradation.
         exec_opt = ExecOptions(
-            remote=remote, ctx=ctx,
+            remote=remote, pod_local=req.query.get("podLocal") == "true",
+            ctx=ctx,
             partial=req.query.get("partial") == "1" and not remote,
             missing_slices=[])
         self.registry.register(ctx)
@@ -1852,9 +1894,17 @@ class Handler:
                 dt.datetime.fromtimestamp(ts / 1e9, dt.timezone.utc)
                 .replace(tzinfo=None) if ts else None
                 for ts in np.asarray(ts_ns).tolist()]
-        if positions is not None and frame.inverse_enabled:
+        pod_view = req.query.get("podView")
+        if pod_view is not None and pod_view not in ("standard", "inverse"):
+            raise HTTPError(400, f"invalid podView: {pod_view}")
+        pod_split = (self.pod is not None and self.pod.is_coordinator
+                     and pod_view is None)
+        if positions is not None and (frame.inverse_enabled
+                                      or pod_view == "inverse"
+                                      or pod_split):
             # The positions form is the standard view's lane; the
-            # inverse transpose needs (row, column) pairs.
+            # inverse transpose and the pod's split by row slice need
+            # (row, column) pairs.
             w = np.uint64(SLICE_WIDTH)
             rows = positions // w
             cols = np.uint64(slice) * w + positions % w
@@ -1871,8 +1921,13 @@ class Handler:
                     # the request body.
                     frame.import_slice_positions(slice,
                                                  np.array(positions))
+                elif pod_split:
+                    self._pod_import(index_name, frame_name, slice,
+                                     rows, cols, ts_ns, idx, frame,
+                                     timestamps)
                 else:
-                    frame.import_bits(rows, cols, timestamps)
+                    frame.import_bits(rows, cols, timestamps,
+                                      views=pod_view)
         finally:
             obs_metrics.IMPORT_PIPELINE_DEPTH.inc(-1)
         apply_s = time.perf_counter() - apply_t0
@@ -1907,6 +1962,64 @@ class Handler:
             hs.append(gh)
         return Response.proto(pb.ImportResponse(), headers=hs)
 
+    def _pod_import(self, index_name, frame_name, slice, rows, cols,
+                    ts_ns, idx, frame, timestamps) -> None:
+        """Split an import within the pod (parallel.pod placement): the
+        standard and time views live on the owner of the column slice;
+        the inverse views group by row slice, one leg per owning
+        process (the JAX handler's ``_pod_import``)."""
+        pod = self.pod
+        rows = np.asarray(rows, dtype=np.uint64)
+        cols = np.asarray(cols, dtype=np.uint64)
+        n = len(rows)
+        ts_ns = (np.zeros(n, dtype=np.int64) if ts_ns is None
+                 else np.asarray(ts_ns, dtype=np.int64))
+        owner = pod.owner_pid(slice)
+        if owner == pod.pid:
+            frame.import_bits(rows, cols, timestamps, views="standard")
+        else:
+            self._pod_forward_import(owner, index_name, frame_name, slice,
+                                     rows, cols, ts_ns, "standard")
+            idx.set_remote_max_slice(slice)
+        if not frame.inverse_enabled or not n:
+            return
+        rslice = rows // np.uint64(SLICE_WIDTH)
+        uniq_slices = np.unique(rslice)
+        pid_arr = np.fromiter(
+            (pod.owner_pid(int(s)) for s in uniq_slices.tolist()),
+            np.int64, len(uniq_slices))
+        pids = pid_arr[np.searchsorted(uniq_slices, rslice)]
+        for pid, rs, cs, ii, sl in group_by_key(
+                pids, rows, cols, np.arange(n), rslice):
+            if pid == pod.pid:
+                sub_ts = ([timestamps[i] for i in ii.tolist()]
+                          if timestamps else None)
+                frame.import_bits(rs, cs, sub_ts, views="inverse")
+            else:
+                self._pod_forward_import(pid, index_name, frame_name,
+                                         slice, rs, cs, ts_ns[ii],
+                                         "inverse")
+                idx.set_remote_max_inverse_slice(int(sl.max()))
+
+    def _pod_forward_import(self, pid: int, index: str, frame: str,
+                            slice: int, rows, cols, ts_ns,
+                            view: str) -> None:
+        # Pod-internal legs are always process to process: raw arrays.
+        ts = np.asarray(ts_ns)
+        body = rawimport.encode(index, frame, slice,
+                                np.asarray(rows, dtype=np.uint64),
+                                np.asarray(cols, dtype=np.uint64),
+                                ts if ts.any() else None)
+        self.pod.forward_raw(pid, "POST", f"/import?podView={view}",
+                             body, rawimport.CONTENT_TYPE)
+
+    # -- pod work items (parallel.pod) ---------------------------------------
+
+    def _handle_pod_exec(self, req: Request) -> Response:
+        if self.pod is None:
+            raise HTTPError(404, "not a pod process")
+        return Response.json(self.pod.run_item(req.json()))
+
     # -- cluster: ownership, fragment sync, generations, messages ------------
 
     def _check_owner(self, index: str, slice: int) -> None:
@@ -1926,11 +2039,23 @@ class Handler:
             return None
         if not slices:
             slices = self._owned_slices(index_name)
+        slices = self._pod_own(slices)
         if not slices:
             return None
         tokens = gens_mod.local_tokens(self.holder, index_name, slices)
         return (gens_mod.GENERATIONS_HEADER,
                 gens_mod.encode_wire(index_name, tokens))
+
+    def _pod_own(self, slices) -> list[int]:
+        """The slices whose tokens this process can vouch for: on a pod
+        coordinator only its own share — another process's slices have
+        no local fragments here, and a token for them would validate a
+        peer's cached result across that process's writes (consumers
+        read an absent slice as unknown, never as empty)."""
+        pod = self.pod
+        if pod is None or not pod.is_coordinator:
+            return list(slices)
+        return [s for s in slices if pod.owner_pid(int(s)) == pod.pid]
 
     def _owned_slices(self, index_name: str) -> list[int]:
         idx = self.holder.index(index_name)
@@ -2086,7 +2211,8 @@ class Handler:
             raise HTTPError(400, "invalid slices argument")
         if not slices:
             slices = self._owned_slices(index_name)
-        tokens = gens_mod.local_tokens(self.holder, index_name, slices)
+        tokens = gens_mod.local_tokens(self.holder, index_name,
+                                       self._pod_own(slices))
         return Response.json({
             "index": index_name, "host": self.host,
             "tokens": {str(s): {k: [v[0], v[1]] for k, v in m.items()}

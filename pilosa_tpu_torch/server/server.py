@@ -133,6 +133,20 @@ at a time), ``abort_backup`` stops it cooperatively (its journal stays
 in flight, so the next open resumes it). close() cancels the backup
 and flushes the archiver before the holder closes, so an orderly
 shutdown loses no point-in-time coverage.
+
+The pod (the JAX server's wiring, server.py:318-348, :364, :566): with
+the ``PILOSA_TPU_DIST_*`` and ``PILOSA_TPU_POD_PEERS`` environment
+contract, open() joins the pod's torch.distributed process group before
+any device use (parallel.multihost; gloo on the CPU, NCCL on a card
+unless ``PILOSA_TPU_DIST_BACKEND=gloo``), and after the holder and the
+placement epoch opens the ``Pod`` (parallel.pod.maybe_pod), which goes
+to the executor and the handler; on the coordinator a ``PodBroadcaster``
+wraps the broadcaster, so schema messages reach the workers. close()
+closes the pod's connections and then destroys the process group. The
+JAX children had to ``os._exit``, because ``jax.distributed``'s exit
+hook hangs on a dead peer; a port process exits normally: the group's
+timeout is the pod timeout, and a poisoned pod (a collective perhaps
+parked on a dead peer) keeps its group until the process ends.
 """
 
 from __future__ import annotations
@@ -182,6 +196,8 @@ from ..obs.slo import SLOTracker, TenantSLOTracker
 from ..obs.trace import Tracer
 from ..obs.watchdog import Watchdog
 from ..parallel import mesh as mesh_mod
+from ..parallel import multihost
+from ..parallel import pod as pod_mod
 from ..pql import parser as pql
 from ..pql.ast import Query
 from ..sched import (LANE_READ, LANE_WRITE, AdmissionController,
@@ -279,6 +295,8 @@ class Server:
         self.wal_archiver = None
         self.backup_op = None
         self._backup_mu = threading.Lock()
+        # parallel.pod.Pod once open() joins a pod (the env contract).
+        self.pod = None
         self.device = device
         self.wal_fsync = wal_fsync
         self.logger = logger
@@ -373,6 +391,9 @@ class Server:
         # The device first: without a card (and no "cpu" asked for) the
         # server does not start, before it touches the data directory.
         device = resolve_device(self.device)
+        # Pod membership joins before any device use (a no-op unless
+        # the PILOSA_TPU_DIST_* env contract is set; parallel.multihost).
+        multihost.initialize_from_env(device)
         own_cluster = self.cluster is None
         if own_cluster:
             self.cluster = new_cluster([self.host])
@@ -401,12 +422,17 @@ class Server:
             # persisted (epoch, hosts) pair before anything consults
             # placement.
             self._load_epoch()
+            # The pod-internal query broadcast (parallel.pod): the
+            # coordinator posts device-batched Counts and TopNs to every
+            # pod process as one collective and replicates schema
+            # messages to its workers.
+            self.pod = pod_mod.maybe_pod(self.holder, device)
             qc = self.query_config
             self.executor = Executor(
                 self.holder, device=device, cal_dir=self.cal_dir,
                 host=self.host, cluster=self.cluster,
                 client=_RoutingClient(self), fault=self.fault,
-                gens=self.gens,
+                gens=self.gens, pod=self.pod,
                 **{"result_cache_entries": qc.result_cache_entries,
                    "result_cache_bits": qc.result_cache_bits,
                    **self.executor_options})
@@ -471,7 +497,7 @@ class Server:
                 profiler=self.profiler, blackbox=self.blackbox,
                 watchdog=self.watchdog, history=self.history,
                 sentinel=self.sentinel, tenant_slo=self.tenant_slo,
-                capture=self.capture, tier=self.tier)
+                capture=self.capture, tier=self.tier, pod=self.pod)
             self._httpd = HTTPServer(self.handler, bind_host, port,
                                      logger=self.logger,
                                      query_batcher=self._query_batcher)
@@ -520,6 +546,9 @@ class Server:
             self.broadcaster = HTTPBroadcaster(self)
         elif self.cluster_type == "gossip":
             self.broadcaster = ns
+        if self.pod is not None and self.pod.is_coordinator:
+            self.broadcaster = pod_mod.PodBroadcaster(self.broadcaster,
+                                                      self.pod)
         self.handler.broadcaster = self.broadcaster
         self.holder.on_create_slice = self._on_create_slice
         if ns is not None:
@@ -834,6 +863,15 @@ class Server:
             storage_wal.barrier_all()
             self.holder.close()
             self.holder = None
+        if self.pod is not None:
+            self.pod.close()
+            # Leave the process group — unless a dispatch poisoned the
+            # pod: a collective may still be parked on a dead peer (it
+            # raises at the group's timeout), and the group then goes
+            # with the process.
+            if not self.pod.poisoned:
+                multihost.shutdown()
+            self.pod = None
 
     # -- cluster (server.go:182-440) -----------------------------------------
 
@@ -1631,10 +1669,12 @@ class _RoutingClient:
         self.server = server
 
     def execute_query(self, node, index, query, slices, remote,
-                      deadline_s=None, query_id=None, gens_out=None):
+                      pod_local=False, deadline_s=None, query_id=None,
+                      gens_out=None):
         return self.server.client_for(node.host).execute_query(
             node, index, query, slices, remote=remote,
-            deadline_s=deadline_s, query_id=query_id, gens_out=gens_out)
+            pod_local=pod_local, deadline_s=deadline_s,
+            query_id=query_id, gens_out=gens_out)
 
     def generations(self, index, slices=None, host=None,
                     deadline_s=None):

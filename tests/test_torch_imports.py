@@ -103,7 +103,8 @@ def test_module_list_is_complete():
             "pilosa_tpu_torch.cluster",
             "pilosa_tpu_torch.cluster.generations"} | set(
                 LIFECYCLE) | set(CLUSTER) | set(INTEGRITY) | set(
-                    OPERATOR) | set(SURFACE) | set(BACKUP) <= set(MODULES)
+                    OPERATOR) | set(SURFACE) | set(BACKUP) | set(
+                        POD) <= set(MODULES)
 
 
 # The query lifecycle's modules, each at the path of its JAX
@@ -214,3 +215,18 @@ def test_backup_module_mirrors_the_jax_path(module):
         ".", os.sep)
     assert (os.path.exists(os.path.join(REPO, rel + ".py"))
             or os.path.exists(os.path.join(REPO, rel, "__init__.py")))
+
+
+# The multi-host pod (the torch.distributed layer and the work-item
+# broadcast), each at the path of its JAX counterpart; both import with
+# jax and pilosa_tpu blocked (test_every_module_imports_without_jax).
+POD = ("pilosa_tpu_torch.parallel.multihost",
+       "pilosa_tpu_torch.parallel.pod")
+
+
+@pytest.mark.parametrize("module", POD)
+def test_pod_module_mirrors_the_jax_path(module):
+    rel = module.replace("pilosa_tpu_torch", "pilosa_tpu", 1).replace(
+        ".", os.sep)
+    assert os.path.exists(os.path.join(REPO, rel + ".py"))
+    assert module in MODULES

@@ -1377,10 +1377,10 @@ class TestCoordinatorInProcess:
         assert out[0] == out[1] and out[0][0] == 1
 
 
-def test_route_tables_differ_by_the_pod_route_alone(tmp_path):
-    """Fault 3.4: with ``/cluster/resize``, ``/debug/tier`` and the
-    backup routes served, the port lacks one route of the JAX handler:
-    the pod's."""
+def test_route_tables_are_equal(tmp_path):
+    """Fault 3.4 is closed: with ``/cluster/resize``, ``/debug/tier``,
+    the backup routes and ``/pod/exec`` served, the port's route table
+    is the JAX handler's."""
     from pilosa_tpu.server.handler import Handler as JHandler
     from pilosa_tpu_torch.server.handler import Handler as THandler
     tables = []
@@ -1393,13 +1393,11 @@ def test_route_tables_differ_by_the_pod_route_alone(tmp_path):
         finally:
             h.close()
     jax_routes, port_routes = tables
-    assert sorted((m, p[1:-1]) for m, p in jax_routes - port_routes) == [
-        ("POST", "/pod/exec")]
-    assert port_routes - jax_routes == set()
+    assert jax_routes == port_routes
     assert {("GET", "^/cluster/resize$"), ("POST", "^/cluster/resize$"),
             ("GET", "^/debug/tier$"), ("GET", "^/backup$"),
-            ("POST", "^/backup$"), ("GET", "^/debug/backup$")} \
-        <= port_routes
+            ("POST", "^/backup$"), ("GET", "^/debug/backup$"),
+            ("POST", "^/pod/exec$")} <= port_routes
 
 
 # ---------------------------------------------------------------------------

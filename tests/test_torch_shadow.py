@@ -43,6 +43,7 @@ captured workload.
 import json
 import shutil
 import time
+from pathlib import Path
 import urllib.error
 import urllib.request
 
@@ -325,6 +326,93 @@ def test_port_answers_the_captured_workload(tmp_path):
         assert out["reads_compared"] == len(reads)
     finally:
         ps.close()
+        js.close()
+
+
+def test_port_pod_answers_the_captured_workload(tmp_path):
+    """The same captured workload at the coordinator of a port pod of
+    two CPU processes (tests/torch_pod_child.py ``serve``, one gloo
+    group), each process on a copy of the seeded directory (a slice is
+    read only on its owner process, ``slice % 2``): Counts and TopN
+    exact phases as pod collectives, the rest as podLocal legs, writes,
+    imports and field imports forwarded to the owner process, schema
+    through the pod broadcaster. Zero mismatches against the JAX server,
+    every captured read compared."""
+    import sys
+
+    from podenv import ChildSet, free_port, pod_env
+
+    t_end = time.monotonic() + 115  # the test's budget
+    jax_dir = tmp_path / "jax"
+    jh = JaxHolder(str(jax_dir))
+    jh.open()
+    _fill_jax(jh, np.random.default_rng(606))
+    jh.close()
+    port = free_port()
+    peers = [f"127.0.0.1:{free_port()}" for _ in range(2)]
+    children = ChildSet(tmp_path)
+    js = JaxServer(str(jax_dir), host="127.0.0.1:0",
+                   anti_entropy_interval=0, polling_interval=0,
+                   capture_config=CaptureConfig(mode="full"))
+    proto = {"Content-Type": "application/x-protobuf",
+             "Accept": "application/x-protobuf"}
+    try:
+        for pid in range(2):
+            shutil.copytree(jax_dir, tmp_path / f"pod{pid}")
+            env = pod_env(pid, port, peers)
+            env["OMP_NUM_THREADS"] = "2"
+            children.spawn(f"pod{pid}", [
+                sys.executable, str(Path(__file__).parent
+                                    / "torch_pod_child.py"),
+                "serve", str(pid), str(tmp_path / f"pod{pid}")], env)
+        js.open()
+        coord = peers[0]
+        for h in peers:
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://{h}/version",
+                                                timeout=5):
+                        break
+                except OSError:
+                    pass
+                assert time.monotonic() < t_end, children.logs_tail()
+                time.sleep(0.2)
+        for host in (js.host, coord):
+            for path, body in (
+                    ("/index/d/frame/bsi", b'{"options": {"fields": [{"name":'
+                                           b' "amt", "min": -100, "max":'
+                                           b' 5000}]}}'),
+                    ("/index/d/frame/tq", b'{"options": {"timeQuantum": "YMD",'
+                                          b' "inverseEnabled": true}}')):
+                assert _post(host, path, body)[0] == 200
+        steps = _workload(np.random.default_rng(607))
+        for kind, payload in steps:
+            assert time.monotonic() < t_end, "the test's budget ran out"
+            for host in (js.host, coord):
+                if kind == "import":
+                    assert _post(host, "/import", payload, proto)[0] == 200
+                elif kind == "field_import":
+                    assert _post(host, "/index/d/frame/bsi/field/amt/import",
+                                 payload, proto)[0] == 200
+                elif kind == "query_opts":
+                    pql, suffix, headers = payload
+                    status, _ = _post(host, "/index/d/query" + suffix,
+                                      pql.encode(), headers)
+                    assert status == 200, (host, payload)
+                else:
+                    status, body = _post(host, "/index/d/query",
+                                         payload.encode())
+                    assert status == 200, (host, payload, body[:300])
+        records = obs_replay.fetch_records(js.host, limit=100000)
+        queries = [r for r in records if r.get("kind") == "query"]
+        reads = [r for r in queries if r.get("lane") == "read"]
+        writes = [r for r in queries if r.get("lane") != "read"]
+        out = obs_replay.shadow(records, js.host, coord, senders=1)
+        assert out["writes_replayed"] == len(writes)
+        assert out["mismatches"] == 0, out["dumps"][:2]
+        assert out["reads_compared"] == len(reads) > 100
+    finally:
+        children.cleanup()
         js.close()
 
 

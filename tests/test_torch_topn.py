@@ -388,7 +388,9 @@ def test_executor_module_has_no_device_fallback():
     failed owner leaves its side to the next owner and its failed old
     side to the flipped target (the old side's error surfaces when both
     fail) — none of them computes on the host in place of the
-    device."""
+    device. A pod coordinator's failed pod dispatch (a poisoned pod, a
+    dead worker) answers through the pod's host fan-out, the JAX pod's
+    semantics: there each process still runs its own legs."""
     import inspect
     allowed = {
         "execute_partial": ("return results, e",),
@@ -401,6 +403,9 @@ def test_executor_module_has_no_device_fallback():
         "_exec_remote_hedged": ("raise primary_err",),
         "_double_read_side": ("last = e",),
         "_exec_double_read": ("raise old_err",),
+        "_count_pod_fn": ("_note_pod_fallback", "return NotImplemented"),
+        "_topn_pod_fn": ("_note_pod_fallback", "return NotImplemented"),
+        "_device_batch_run": ("_note_pod_fallback", "return None"),
     }
     for name, fn in inspect.getmembers(TorchExecutor, inspect.isfunction):
         src = inspect.getsource(fn)
